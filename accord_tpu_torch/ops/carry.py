@@ -1,0 +1,49 @@
+"""State carry-over: a JAX arena's lanes, as numpy arrays, into the port's
+device lanes.
+
+The reference arena (`_StoreArena.device_arrays()`) holds bucket bitmaps
+as f32 [cap, K] 0/1 values; the port packs them to int32 [cap, K/32] words
+(bucket 32j + i in bit i of word j), which is what its deps kernel tests
+overlap against. The other lanes keep their types. The kid table
+(`_StoreArena.kid_arrays()`, u32 [KC, cap/32]) becomes the same words as
+int32 bit patterns. The tests use this to feed one arena to both
+implementations.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def pack_bitmaps(bitmaps: np.ndarray) -> np.ndarray:
+    """f32 [cap, K] (a bucket is set where > 0.5) -> int32 [cap, K/32]."""
+    cap, k = bitmaps.shape
+    if k % 32:
+        raise ValueError(f"bucket count {k} is not a multiple of 32")
+    bits = (np.asarray(bitmaps) > 0.5).reshape(cap, k // 32, 32)
+    words = np.packbits(bits, axis=-1, bitorder="little")
+    return np.ascontiguousarray(words).view("<u4").reshape(cap, k // 32) \
+        .view(np.int32)
+
+
+def words_to_i32(words: np.ndarray) -> np.ndarray:
+    """u32 words -> the int32 array with the same bits."""
+    return np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+
+
+def arena_lanes(lanes: Sequence[np.ndarray], device="cpu") \
+        -> Tuple[torch.Tensor, ...]:
+    """(bitmaps f32[cap,K], ts i32[cap,3], exec_ts i32[cap,3],
+    kinds i32[cap], valid bool[cap]) -> the port's five device lanes."""
+    bm, ts, ex, kinds, valid = (np.asarray(a) for a in lanes)
+    out = (pack_bitmaps(bm), ts.astype(np.int32), ex.astype(np.int32),
+           kinds.astype(np.int32), valid.astype(bool))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in out)
+
+
+def kid_table(kid_rows: np.ndarray, device="cpu") -> torch.Tensor:
+    """u32 [KC, cap/32] -> int32 [KC, cap/32] bit patterns on `device`."""
+    return torch.from_numpy(words_to_i32(kid_rows)).to(device)

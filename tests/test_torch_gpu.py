@@ -1,0 +1,190 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Each test builds its inputs from a numpy seed, runs the plain version on
+the CPU and the kernel on the card, and requires bit-equal outputs (every
+output is an integer or a bit word). The card is looked for inside a
+fixture, so every worker collects the same tests; without one they skip.
+This file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from accord_tpu_torch.ops import kernels as tk
+from accord_tpu_torch.ops.encoding import WITNESS_TABLE
+
+pytestmark = pytest.mark.gpu
+I32_MIN = np.iinfo(np.int32).min
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _eq(plain, kernel):
+    if isinstance(plain, (tuple, list)):
+        assert len(plain) == len(kernel)
+        for p, k in zip(plain, kernel):
+            _eq(p, k)
+        return
+    assert plain.dtype == kernel.dtype and plain.shape == kernel.shape
+    assert torch.equal(plain, kernel.cpu())
+
+
+def _words(rng, shape):
+    return rng.integers(0, 1 << 32, shape, dtype=np.uint64) \
+        .astype(np.uint32).view(np.int32)
+
+
+def _arena(rng, cap, k):
+    bm = _words(rng, (cap, k // 32)) & _words(rng, (cap, k // 32)) \
+        & _words(rng, (cap, k // 32)) & _words(rng, (cap, k // 32))
+    ts = rng.integers(-50, 50, (cap, 3)).astype(np.int32)
+    ts[rng.random(cap) < 0.1, 0] = I32_MIN
+    ex = np.full((cap, 3), I32_MIN, np.int32)
+    kinds = rng.integers(0, 6, cap).astype(np.int32)
+    valid = rng.random(cap) < 0.8
+    return [_t(a) for a in (bm, ts, ex, kinds, valid)]
+
+
+def _subjects(rng, b, k, nnz):
+    n = nnz * 3 // 4
+    subj_of = np.full(nnz, b, np.int32)
+    subj_of[:n] = np.sort(rng.integers(0, b, n))
+    subj_keys = np.zeros(nnz, np.int32)
+    subj_keys[:n] = rng.integers(0, k, n)
+    sb = rng.integers(-50, 50, (b, 3)).astype(np.int32)
+    sknd = rng.integers(0, 6, b).astype(np.int32)
+    return [_t(a) for a in (subj_of, subj_keys, sb, sknd)]
+
+
+def _cu(ts, dev):
+    return [t.to(dev) for t in ts]
+
+
+@pytest.mark.parametrize("b,cap,k", [(8, 64, 128), (256, 2048, 1024),
+                                     (100, 544, 160)])
+def test_deps_resolve_kernel(cuda, b, cap, k):
+    rng = np.random.default_rng(b + cap)
+    arena = _arena(rng, cap, k)
+    subj = _subjects(rng, b, k, 4 * b)
+    table = _t(WITNESS_TABLE)
+    plain = tk.deps_resolve(*subj, arena[0], arena[1], arena[3], arena[4],
+                            table)
+    a, s = _cu(arena, cuda), _cu(subj, cuda)
+    n0 = tk.LAUNCHES["deps_resolve"]
+    got = tk.deps_resolve(*s, a[0], a[1], a[3], a[4], table.to(cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["deps_resolve"] == n0 + 1
+    _eq(plain, got)
+    assert plain.any()
+
+
+def test_fused_deps_resolve_kernel(cuda):
+    rng = np.random.default_rng(7)
+    b, k = 128, 256
+    arenas = [_arena(rng, 1024, k), _arena(rng, 512, k),
+              _arena(rng, 1024, k)]
+    subj = _subjects(rng, b, k, 512)
+    store = _t(rng.integers(0, 3, b).astype(np.int32))
+    slots = _t(np.array([0, 1, -1], np.int32))
+    table = _t(WITNESS_TABLE)
+    blocks = [(a[0], a[1], a[3], a[4]) for a in arenas]
+    plain = tk.fused_deps_resolve(subj[0], subj[1], store, subj[2], subj[3],
+                                  slots, blocks, table)
+    cblocks = [tuple(t.to(cuda) for t in blk) for blk in blocks]
+    s = _cu(subj, cuda)
+    got = tk.fused_deps_resolve(s[0], s[1], store.to(cuda), s[2], s[3],
+                                slots.to(cuda), cblocks, table.to(cuda))
+    _eq(plain, got)
+
+
+@pytest.mark.parametrize("out_cap", [256, 1 << 17])
+def test_finalize_csr_kernel(cuda, out_cap):
+    rng = np.random.default_rng(out_cap)
+    b, cap, kc, s = 128, 2048, 256, 512
+    w = cap // 32
+    packed = _t(_words(rng, (b, 2 * w)))
+    kid_rows = _t(_words(rng, (kc, w)) & _words(rng, (kc, w))
+                  & _words(rng, (kc, w)))
+    slot_subj = np.full(s, b, np.int32)
+    slot_subj[:s - 9] = np.sort(rng.integers(0, b, s - 9))
+    slot_kid = np.full(s, kc, np.int32)
+    slot_kid[:s - 9] = rng.integers(0, kc, s - 9)
+    subj_row = _t(rng.integers(-1, cap, b).astype(np.int32))
+    act_ts = _t(rng.integers(I32_MIN, 1 << 30, (cap, 3)).astype(np.int32))
+    args = [packed, None, kid_rows, _t(slot_subj), _t(slot_kid), subj_row,
+            act_ts]
+    for off in (0, w, 5 * w):       # 5w clamps to the last span, like JAX
+        args[1] = off
+        plain = tk.finalize_csr(*args, out_cap=out_cap)
+        got = tk.finalize_csr(*[a.to(cuda) if torch.is_tensor(a) else a
+                                for a in args], out_cap=out_cap)
+        _eq(plain, got)
+        assert (int(plain[0][-1]) > out_cap) == (out_cap == 256)
+
+
+def test_arena_scatter_kernels(cuda):
+    rng = np.random.default_rng(3)
+    cap, k = 2048, 1024
+    arena = _arena(rng, cap, k)
+    m, z = 64, 512
+    chunk = np.sort(rng.choice(cap, 40, replace=False)).astype(np.int32)
+    rows = np.full(m, chunk[0], np.int32)
+    rows[:40] = chunk
+    key_rows = np.full(z, cap, np.int32)
+    key_rows[:400] = np.repeat(chunk, 10)
+    key_mods = np.zeros(z, np.int32)
+    key_mods[:400] = rng.integers(0, k, 400)
+    lane_rows = [arena[1][rows], arena[2][rows], arena[3][rows],
+                 arena[4][rows]]
+    ups = [_t(rows), _t(key_rows), _t(key_mods)] + lane_rows
+    plain = tk.arena_scatter(*arena, *ups)
+    got = tk.arena_scatter(*_cu(arena, cuda), *_cu(ups, cuda))
+    _eq(plain, got)
+    plain_k = tk.arena_scatter_keys(arena[0], *ups[:3])
+    got_k = tk.arena_scatter_keys(arena[0].to(cuda), *_cu(ups[:3], cuda))
+    _eq(plain_k, got_k)
+
+
+def test_row_scatter_kernels(cuda):
+    rng = np.random.default_rng(4)
+    cap, kc = 2048, 512
+    arena = _arena(rng, cap, 1024)
+    idx = np.full(64, cap, np.int32)
+    idx[:50] = rng.choice(cap, 50, replace=False)
+    for lane in (arena[1], arena[2], arena[4]):
+        data = lane[rng.integers(0, cap, 64)]
+        plain = tk.scatter_rows(lane, _t(idx), data)
+        got = tk.scatter_rows(lane.to(cuda), _t(idx).to(cuda),
+                              data.to(cuda))
+        _eq(plain, got)
+    kid_rows = _t(_words(rng, (kc, cap // 32)))
+    kid_idx = np.full(512, kc, np.int32)
+    kid_idx[:300] = rng.integers(0, kc, 300)
+    word_idx = rng.integers(0, cap // 32, 512).astype(np.int32)
+    coords = kid_idx[:300].astype(np.int64) * 64 + word_idx[:300]
+    _, first = np.unique(coords, return_index=True)   # dedupe like the host
+    keep = np.full(512, False)
+    keep[first] = True
+    keep[300:] = True
+    words = _t(_words(rng, 512)[keep])
+    ki, wi = _t(kid_idx[keep]), _t(word_idx[keep])
+    plain = tk.kid_word_scatter(kid_rows, ki, wi, words)
+    got = tk.kid_word_scatter(kid_rows.to(cuda), ki.to(cuda), wi.to(cuda),
+                              words.to(cuda))
+    _eq(plain, got)
+    plain_g = tk.arena_grow(*arena, new_cap=2 * cap)
+    got_g = tk.arena_grow(*_cu(arena, cuda), new_cap=2 * cap)
+    _eq(plain_g, got_g)
