@@ -3,7 +3,10 @@
 //
 // Replaces accord_tpu/ops/kernels.py `scatter_rows` (:242, the dirty-row
 // lane delta behind ops/deltas.flush_lane), `kid_word_scatter` (:250, the
-// per-key packed row-mask table) and `arena_grow` (:864).
+// per-key packed row-mask table), `arena_grow` (:864) and `range_scatter`
+// (:852, the range arena's five lanes -- start, end, ts[3], kind, valid --
+// copied by one launch and scattered by one launch, one thread per
+// (dirty row, lane)).
 //
 // Functional, like the JAX kernels: each call writes a freshly allocated
 // output, so the first launch copies the source lane and the second
@@ -92,5 +95,74 @@ extern "C" int grow_u8(void* dst, long long n_dst, const void* src,
       (unsigned char*)dst, n_dst, (const unsigned char*)src, n_src,
       (unsigned char)fill);
   ACCORD_CHECK();
+  return 0;
+}
+
+// the five range-arena lanes, in order: start, end (i32), ts (3 x i32),
+// kind (i32), valid (u8); elements per row and element bytes of each
+struct RangeLanes {
+  unsigned char* dst[5];
+  const unsigned char* src[5];
+  const unsigned char* rows[5];
+};
+__constant__ int kRangeElem[5] = {4, 4, 12, 4, 1};
+
+// one launch copying all five lanes (byte-wise grid stride; rcap rows)
+__global__ void range_copy_kernel(RangeLanes l, int rcap) {
+  long long total = 25LL * rcap;  // 4 + 4 + 12 + 4 + 1 bytes per row
+  long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += stride) {
+    long long rest = i;
+    int lane = 0;
+    while (rest >= (long long)kRangeElem[lane] * rcap) {
+      rest -= (long long)kRangeElem[lane] * rcap;
+      ++lane;
+    }
+    l.dst[lane][rest] = l.src[lane][rest];
+  }
+}
+
+// one thread per (dirty row i, lane): dst[lane][rows[i]] = src_rows[lane][i]
+__global__ void range_scatter_kernel(RangeLanes l, int rcap,
+                                     const int* __restrict__ idx, int m) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= m * 5) return;
+  int i = t / 5, lane = t - i * 5;
+  int r = norm_index(idx[i], rcap);
+  if (r < 0) return;
+  int eb = kRangeElem[lane];
+  for (int c = 0; c < eb; ++c)
+    l.dst[lane][(long long)r * eb + c] = l.rows[lane][(long long)i * eb + c];
+}
+
+// fresh copies of the range lanes with rows idx[i] set from the row data
+extern "C" int range_scatter(void* d_start, void* d_end, void* d_ts,
+                             void* d_kind, void* d_valid, const void* s_start,
+                             const void* s_end, const void* s_ts,
+                             const void* s_kind, const void* s_valid,
+                             int rcap, const void* idx, int m,
+                             const void* r_start, const void* r_end,
+                             const void* r_ts, const void* r_kind,
+                             const void* r_valid, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  RangeLanes l{{(unsigned char*)d_start, (unsigned char*)d_end,
+                (unsigned char*)d_ts, (unsigned char*)d_kind,
+                (unsigned char*)d_valid},
+               {(const unsigned char*)s_start, (const unsigned char*)s_end,
+                (const unsigned char*)s_ts, (const unsigned char*)s_kind,
+                (const unsigned char*)s_valid},
+               {(const unsigned char*)r_start, (const unsigned char*)r_end,
+                (const unsigned char*)r_ts, (const unsigned char*)r_kind,
+                (const unsigned char*)r_valid}};
+  if (rcap > 0) {
+    range_copy_kernel<<<grid_for(25LL * rcap, 256), 256, 0, st>>>(l, rcap);
+    ACCORD_CHECK();
+  }
+  if (m > 0) {
+    range_scatter_kernel<<<(m * 5 + 255) / 256, 256, 0, st>>>(
+        l, rcap, (const int*)idx, m);
+    ACCORD_CHECK();
+  }
   return 0;
 }

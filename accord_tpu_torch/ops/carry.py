@@ -6,8 +6,11 @@ as f32 [cap, K] 0/1 values; the port packs them to int32 [cap, K/32] words
 (bucket 32j + i in bit i of word j), which is what its deps kernel tests
 overlap against. The other lanes keep their types. The kid table
 (`_StoreArena.kid_arrays()`, u32 [KC, cap/32]) becomes the same words as
-int32 bit patterns. The tests use this to feed one arena to both
-implementations.
+int32 bit patterns. The range arena (`_RangeArena.device_arrays()`) keeps
+its five lanes as they are; the reference's other 0/1 matrices -- the f32
+subject bitmaps of `max_conflict`, the bf16 `covered_buckets` matrix, the
+dense i32 hits of `_segment_compact` -- pack the same way as the arena
+bitmaps. The tests use this to feed one state to both implementations.
 """
 from __future__ import annotations
 
@@ -18,11 +21,13 @@ import torch
 
 
 def pack_bitmaps(bitmaps: np.ndarray) -> np.ndarray:
-    """f32 [cap, K] (a bucket is set where > 0.5) -> int32 [cap, K/32]."""
+    """[cap, K] 0/1 matrix (f32, bf16 or int; set where > 0.5) -> int32
+    [cap, K/32]."""
     cap, k = bitmaps.shape
     if k % 32:
         raise ValueError(f"bucket count {k} is not a multiple of 32")
-    bits = (np.asarray(bitmaps) > 0.5).reshape(cap, k // 32, 32)
+    bits = (np.asarray(bitmaps).astype(np.float32) > 0.5) \
+        .reshape(cap, k // 32, 32)
     words = np.packbits(bits, axis=-1, bitorder="little")
     return np.ascontiguousarray(words).view("<u4").reshape(cap, k // 32) \
         .view(np.int32)
@@ -47,3 +52,18 @@ def arena_lanes(lanes: Sequence[np.ndarray], device="cpu") \
 def kid_table(kid_rows: np.ndarray, device="cpu") -> torch.Tensor:
     """u32 [KC, cap/32] -> int32 [KC, cap/32] bit patterns on `device`."""
     return torch.from_numpy(words_to_i32(kid_rows)).to(device)
+
+
+def range_lanes(lanes: Sequence[np.ndarray], device="cpu") \
+        -> Tuple[torch.Tensor, ...]:
+    """(starts i32[rcap], ends i32[rcap], ts i32[rcap, 3], kinds i32[rcap],
+    valid bool[rcap]) -> the port's five range lanes on `device`."""
+    dtypes = (np.int32, np.int32, np.int32, np.int32, bool)
+    return tuple(torch.from_numpy(np.ascontiguousarray(
+        np.asarray(a).astype(t))).to(device) for a, t in zip(lanes, dtypes))
+
+
+def packed(matrix: np.ndarray, device="cpu") -> torch.Tensor:
+    """A [n, K] 0/1 matrix -> its packed int32 [n, K/32] words on
+    `device` (max_conflict's subject bitmaps, covered buckets, hits)."""
+    return torch.from_numpy(pack_bitmaps(matrix)).to(device)

@@ -1,4 +1,4 @@
-"""The key path's device kernels: CUDA wrappers and their plain versions.
+"""The resolver's device kernels: CUDA wrappers and their plain versions.
 
 Each public function here is the counterpart of one function of the JAX
 package's `ops/kernels.py` and returns bit for bit what it returns, with
@@ -24,6 +24,13 @@ PyTorch version beside it. There is no fallback from one to the other.
   row_scatter    csrc/row_scatter.cu     scatter_rows :242,
                                          kid_word_scatter :250,
                                          arena_grow :864
+  range_scatter  csrc/row_scatter.cu     range_scatter :852
+  range_resolve  csrc/range_resolve.cu   range_deps_resolve :415,
+                                         fused_range_deps_resolve :367,
+                                         covered_buckets :344
+  range_finalize csrc/range_finalize.cu  range_finalize_csr :766 (body
+                                         :799), _segment_compact :473
+  max_conflict   csrc/max_conflict.cu    max_conflict :65
 
 Scatter indices follow jnp's `.at[]` rules: a negative index counts from
 the end, and one still out of range is dropped (the padding sentinels B,
@@ -43,7 +50,9 @@ _M32 = 0xFFFFFFFF
 
 # launches per kernel (one per wrapper call that reached the card)
 LAUNCHES: Dict[str, int] = {"deps_resolve": 0, "finalize_csr": 0,
-                            "arena_scatter": 0, "row_scatter": 0}
+                            "arena_scatter": 0, "row_scatter": 0,
+                            "range_scatter": 0, "range_resolve": 0,
+                            "range_finalize": 0, "max_conflict": 0}
 
 
 def reset_launches() -> None:
@@ -342,6 +351,18 @@ def finalize_csr_plain(packed, word_off, kid_rows, slot_subj, slot_kid,
             csr_checksum(indptr, dep_rows, dep_ts))
 
 
+def _compact_scratch(nblocks: int, dev):
+    """Device scratch of the shared compaction (csrc/common.cuh launch_csr):
+    (the buffer, and pointers to its block totals and block offsets,
+    nblocks ints each, and to the checksum's three partial-sum words).
+    The caller keeps the buffer until the launches are queued; the caching
+    allocator orders its reuse after them on the stream."""
+    ext = _ext()
+    buf = torch.empty(2 * nblocks + 3, dtype=torch.int32, device=dev)
+    return buf, (ext.ptr(buf), ext.ptr(buf[nblocks:]),
+                 ext.ptr(buf[2 * nblocks:]))
+
+
 def _finalize_cuda(packed, word_off, kid_rows, slot_subj, slot_kid,
                    subj_row, act_ts, out_cap: int):
     ext = _ext()
@@ -358,13 +379,12 @@ def _finalize_cuda(packed, word_off, kid_rows, slot_subj, slot_kid,
     dep_ts = torch.empty(out_cap, 3, dtype=torch.int32, device=dev)
     bound = torch.empty((), dtype=torch.int32, device=dev)
     csum = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = torch.empty(2, nblocks, dtype=torch.int32, device=dev)
+    _buf, scratch = _compact_scratch(nblocks, dev)
     ext.call("finalize_csr", "finalize_csr", ext.ptr(packed), b, wt, off,
              ext.ptr(kid_rows), kc, w, ext.ptr(slot_subj),
              ext.ptr(slot_kid), s, ext.ptr(subj_row), ext.ptr(act_ts),
              out_cap, ext.ptr(indptr), ext.ptr(dep_rows), ext.ptr(dep_ts),
-             ext.ptr(bound), ext.ptr(csum), ext.ptr(scratch[0]),
-             ext.ptr(scratch[1]), ext.stream())
+             ext.ptr(bound), ext.ptr(csum), *scratch, ext.stream())
     LAUNCHES["finalize_csr"] += 1
     return indptr, dep_rows, dep_ts, bound, csum
 
@@ -556,6 +576,412 @@ def arena_grow(bitmaps, ts, exec_ts, kinds, valid, new_cap: int):
         out.append(dst)
     LAUNCHES["row_scatter"] += 1
     return tuple(out)
+
+
+# -- K4 (range entry): range_scatter -----------------------------------------
+def range_scatter_plain(starts, ends, ts, kinds, valid, rows, start_rows,
+                        end_rows, ts_rows, kind_rows, valid_rows):
+    return tuple(_scatter_lane_plain(dst, rows, src) for dst, src in (
+        (starts, start_rows), (ends, end_rows), (ts, ts_rows),
+        (kinds, kind_rows), (valid, valid_rows)))
+
+
+def range_scatter(starts, ends, ts, kinds, valid, rows, start_rows,
+                  end_rows, ts_rows, kind_rows, valid_rows):
+    """Dirty rows into fresh copies of the five range-arena lanes
+    (starts/ends/kinds i32[rcap], ts i32[rcap, 3], valid bool[rcap]):
+    lane[rows[i]] = src[i], out of range dropped; padding duplicates
+    row[0] with identical data."""
+    lanes = (starts, ends, ts, kinds, valid)
+    srcs = (start_rows, end_rows, ts_rows, kind_rows, valid_rows)
+    if not starts.is_cuda:
+        return range_scatter_plain(*lanes, rows, *srcs)
+    ext = _ext()
+    _check_cuda(*lanes, rows, *srcs)
+    rcap = starts.shape[0]
+    if (valid.dtype != torch.bool or tuple(ts.shape) != (rcap, 3)
+            or any(t.dtype != torch.int32 for t in (starts, ends, ts, kinds))):
+        raise ValueError("range_scatter: lanes must be i32[rcap] x2, "
+                         "i32[rcap, 3], i32[rcap], bool[rcap]")
+    outs = tuple(torch.empty_like(t) for t in lanes)
+    ext.call("row_scatter", "range_scatter",
+             *(ext.ptr(t) for t in outs), *(ext.ptr(t) for t in lanes),
+             rcap, ext.ptr(rows), rows.shape[0],
+             *(ext.ptr(t) for t in srcs), ext.stream())
+    LAUNCHES["range_scatter"] += 1
+    return outs
+
+
+# -- K5: covered_buckets / range_deps_resolve / fused_range_deps_resolve -----
+def _wrap_i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int64 value of its low 32 bits read as int32 (the
+    reference's wrapping int32 arithmetic)."""
+    return ((v + (1 << 31)) & _M32) - (1 << 31)
+
+
+def covered_buckets_plain(iv_of, iv_start, iv_end, b: int,
+                          k: int) -> torch.Tensor:
+    """Packed covered-bucket words i32[b, k/32] (bucket 32j + i in bit i of
+    word j, the key arena's layout): bucket j is covered by [s, e) iff
+    (j - s) mod k < e - s in wrapping int32; widths <= 0 or >= k cover
+    every bucket. k must be a power of two (so mod k commutes with the
+    int32 wrap); entries with iv_of out of range (padding b) are dropped,
+    a negative iv_of counts from the end."""
+    if k & (k - 1) or k % 32:
+        raise ValueError(f"covered_buckets: k={k} must be a power of two "
+                         ">= 32")
+    s = iv_start.to(torch.int64)
+    width = _wrap_i32(iv_end.to(torch.int64) - s)
+    wide = (width <= 0) | (width >= k)
+    j = torch.arange(k, dtype=torch.int64, device=iv_start.device)
+    cov = wide[:, None] | (((j[None, :] - s[:, None]) & (k - 1))
+                           < width[:, None])
+    o, ok = _norm_index(iv_of, b)
+    out = torch.zeros(b, k, dtype=torch.int32, device=iv_start.device)
+    out.index_add_(0, o[ok], cov[ok].to(torch.int32))
+    return _pack_bits(out > 0)
+
+
+def _range_any_plain(iv_of, iv_start, iv_end, b: int, r_start, r_end):
+    """bool[b, rcap]: some interval of the subject overlaps the row."""
+    hit = (iv_start[:, None] < r_end[None, :]) \
+        & (r_start[None, :] < iv_end[:, None])
+    o, ok = _norm_index(iv_of, b)
+    acc = torch.zeros(b, r_start.shape[0], dtype=torch.int32,
+                      device=r_start.device)
+    acc.index_add_(0, o[ok], hit[ok].to(torch.int32))
+    return acc > 0
+
+
+def _range_block_plain(any_r, subj_before, subj_kinds, mine, r_ts, r_kinds,
+                       r_valid, witness_table) -> torch.Tensor:
+    nk = witness_table.shape[0]
+    witness = witness_table[_gather_index(subj_kinds, nk)[:, None],
+                            _gather_index(r_kinds, nk)[None, :]] == 1
+    before = _lex_before(r_ts[None, :, :], subj_before[:, None, :])
+    m = any_r & witness & before & r_valid[None, :]
+    if mine is not None:
+        m &= mine[:, None]
+    return _pack_bits(m)
+
+
+def range_deps_resolve_plain(iv_of, iv_start, iv_end, subj_before,
+                             subj_kinds, subj_is_range, r_start, r_end,
+                             r_ts, r_kinds, r_valid, k_bm, k_ts, k_kinds,
+                             k_valid, witness_table):
+    b = subj_before.shape[0]
+    any_r = _range_any_plain(iv_of, iv_start, iv_end, b, r_start, r_end)
+    rp = _range_block_plain(any_r, subj_before, subj_kinds, None, r_ts,
+                            r_kinds, r_valid, witness_table)
+    cov = covered_buckets_plain(iv_of, iv_start, iv_end, b,
+                                k_bm.shape[1] * 32)
+    kp = _resolve_block_plain(cov, subj_before, subj_kinds, subj_is_range,
+                              k_bm, k_ts, k_kinds, k_valid, witness_table)
+    return rp, kp
+
+
+def fused_range_deps_resolve_plain(iv_of, iv_start, iv_end, subj_store,
+                                   subj_before, subj_kinds, subj_is_range,
+                                   r_slots, rarenas, k_slots, karenas,
+                                   witness_table):
+    b = subj_before.shape[0]
+    dev = subj_before.device
+    routs = []
+    for s, (r_start, r_end, r_ts, r_kinds, r_valid) in enumerate(rarenas):
+        any_r = _range_any_plain(iv_of, iv_start, iv_end, b, r_start, r_end)
+        routs.append(_range_block_plain(
+            any_r, subj_before, subj_kinds, subj_store == r_slots[s], r_ts,
+            r_kinds, r_valid, witness_table))
+    kouts = []
+    if karenas:
+        cov = covered_buckets_plain(iv_of, iv_start, iv_end, b,
+                                    karenas[0][0].shape[1] * 32)
+    for s, (k_bm, k_ts, k_kinds, k_valid) in enumerate(karenas):
+        mine = (subj_store == k_slots[s]) & subj_is_range
+        kouts.append(_resolve_block_plain(cov, subj_before, subj_kinds, mine,
+                                          k_bm, k_ts, k_kinds, k_valid,
+                                          witness_table))
+    empty = torch.zeros(b, 0, dtype=torch.int32, device=dev)
+    return (torch.cat(routs, dim=1) if routs else empty,
+            torch.cat(kouts, dim=1) if kouts else empty)
+
+
+def _covered_cuda(ext, iv_of, iv_start, iv_end, b: int, k: int, st):
+    cov = torch.empty(b, k // 32, dtype=torch.int32, device=iv_of.device)
+    ext.call("range_resolve", "range_covered", ext.ptr(iv_of),
+             ext.ptr(iv_start), ext.ptr(iv_end), iv_of.shape[0], b, k,
+             ext.ptr(cov), st)
+    return cov
+
+
+def _range_resolve_cuda(iv_of, iv_start, iv_end, subj_store, subj_before,
+                        subj_kinds, subj_is_range, r_slots, rarenas,
+                        k_slots, karenas, witness_table):
+    ext = _ext()
+    _check_cuda(iv_of, iv_start, iv_end, subj_before, subj_kinds,
+                subj_is_range, witness_table,
+                *[t for a in rarenas for t in a],
+                *[t for a in karenas for t in a],
+                *((subj_store,) if subj_store is not None else ()),
+                *((r_slots,) if rarenas and r_slots is not None else ()),
+                *((k_slots,) if karenas and k_slots is not None else ()))
+    dev = subj_before.device
+    b = subj_before.shape[0]
+    nv = iv_of.shape[0]
+    st = ext.stream()
+    null = ext.ctypes_null()
+    rtot = sum(a[0].shape[0] // 32 for a in rarenas)
+    ktot = sum(a[0].shape[0] // 32 for a in karenas)
+    rp = torch.empty(b, rtot, dtype=torch.int32, device=dev)
+    kp = torch.empty(b, ktot, dtype=torch.int32, device=dev)
+    if rtot:
+        # bit-packed "some interval overlaps the row", OR-ed by atomics
+        anyr = torch.empty(b, rtot, dtype=torch.int32, device=dev)
+        off = 0
+        for s, (r_start, r_end, r_ts, r_kinds, r_valid) in enumerate(rarenas):
+            rcap = r_start.shape[0]
+            if rcap % 32:
+                raise ValueError(f"range arena rcap {rcap} % 32 != 0")
+            ext.call("range_resolve", "range_block",
+                     ext.ptr(iv_of), ext.ptr(iv_start), ext.ptr(iv_end), nv,
+                     ext.ptr(subj_before), ext.ptr(subj_kinds),
+                     ext.ptr(subj_store) if subj_store is not None else null,
+                     ext.ptr(r_slots[s:s + 1]) if subj_store is not None
+                     else null, b,
+                     ext.ptr(r_start), ext.ptr(r_end), ext.ptr(r_ts),
+                     ext.ptr(r_kinds), ext.ptr(r_valid), rcap,
+                     ext.ptr(witness_table), witness_table.shape[0],
+                     ext.ptr(anyr), ext.ptr(rp), rtot, off, st)
+            off += rcap // 32
+    if ktot:
+        nw = karenas[0][0].shape[1]
+        if nw > 32:
+            raise ValueError(f"range_deps_resolve kernel takes K <= 1024 "
+                             f"buckets (got {nw * 32})")
+        cov = _covered_cuda(ext, iv_of, iv_start, iv_end, b, nw * 32, st)
+        off = 0
+        for s, (k_bm, k_ts, k_kinds, k_valid) in enumerate(karenas):
+            cap = k_bm.shape[0]
+            if k_bm.shape[1] != nw:
+                raise ValueError("arena blocks differ in bucket count")
+            ext.call("range_resolve", "range_key_block", ext.ptr(cov),
+                     ext.ptr(subj_before), ext.ptr(subj_kinds),
+                     ext.ptr(subj_is_range),
+                     ext.ptr(subj_store) if subj_store is not None else null,
+                     ext.ptr(k_slots[s:s + 1]) if subj_store is not None
+                     else null, b,
+                     ext.ptr(k_bm), ext.ptr(k_ts), ext.ptr(k_kinds),
+                     ext.ptr(k_valid), cap, nw, ext.ptr(witness_table),
+                     witness_table.shape[0], ext.ptr(kp), ktot, off, st)
+            off += cap // 32
+    if rtot or ktot:
+        LAUNCHES["range_resolve"] += 1
+    return rp, kp
+
+
+def covered_buckets(iv_of, iv_start, iv_end, b: int, k: int) -> torch.Tensor:
+    """The covered-bucket words i32[b, k/32] of a subject interval CSR (see
+    covered_buckets_plain); on the card, K5's covered pass alone."""
+    if not iv_of.is_cuda:
+        return covered_buckets_plain(iv_of, iv_start, iv_end, b, k)
+    if k & (k - 1) or k % 32 or k > 1024:
+        raise ValueError(f"covered_buckets: k={k} must be a power of two "
+                         "in [32, 1024]")
+    ext = _ext()
+    _check_cuda(iv_of, iv_start, iv_end)
+    cov = _covered_cuda(ext, iv_of, iv_start, iv_end, b, k, ext.stream())
+    LAUNCHES["range_resolve"] += 1
+    return cov
+
+
+def range_deps_resolve(iv_of, iv_start, iv_end, subj_before, subj_kinds,
+                       subj_is_range, r_start, r_end, r_ts, r_kinds,
+                       r_valid, k_bm, k_ts, k_kinds, k_valid, witness_table):
+    """The range-overlap query, one store: (rpacked i32[B, rcap/32],
+    kpacked i32[B, cap/32]). Range side: some interval of the subject
+    (iv_of CSR, padding B dropped) overlaps the row (iv_start < r_end &
+    r_start < iv_end), AND witness, before and valid. Key side, range
+    subjects only: the subject's covered buckets meet the row's packed
+    bucket words, AND witness, before and valid."""
+    if not r_start.is_cuda:
+        return range_deps_resolve_plain(
+            iv_of, iv_start, iv_end, subj_before, subj_kinds, subj_is_range,
+            r_start, r_end, r_ts, r_kinds, r_valid, k_bm, k_ts, k_kinds,
+            k_valid, witness_table)
+    return _range_resolve_cuda(
+        iv_of, iv_start, iv_end, None, subj_before, subj_kinds,
+        subj_is_range, None, ((r_start, r_end, r_ts, r_kinds, r_valid),),
+        None, ((k_bm, k_ts, k_kinds, k_valid),), witness_table)
+
+
+def fused_range_deps_resolve(iv_of, iv_start, iv_end, subj_store,
+                             subj_before, subj_kinds, subj_is_range,
+                             r_slots, rarenas, k_slots, karenas,
+                             witness_table):
+    """range_deps_resolve over tuples of store blocks: range block s (and
+    key block s) answers only subjects with subj_store == its slot; blocks
+    concatenate on the word axis in tuple order; an empty tuple gives a
+    zero-width output."""
+    first = rarenas[0][0] if rarenas else (karenas[0][0] if karenas
+                                           else subj_before)
+    if not first.is_cuda:
+        return fused_range_deps_resolve_plain(
+            iv_of, iv_start, iv_end, subj_store, subj_before, subj_kinds,
+            subj_is_range, r_slots, rarenas, k_slots, karenas,
+            witness_table)
+    return _range_resolve_cuda(iv_of, iv_start, iv_end, subj_store,
+                               subj_before, subj_kinds, subj_is_range,
+                               r_slots, rarenas, k_slots, karenas,
+                               witness_table)
+
+
+# -- K6: segment_compact / range_finalize_csr --------------------------------
+def segment_compact_plain(m: torch.Tensor, out_cap: int):
+    """Dense segment compaction over PACKED rows: m i32[S, N/32] ->
+    (indptr i32[S+1], dep_rows i32[out_cap]); dep_rows holds the set
+    columns in (segment, column) order, the first out_cap of them, 0
+    beyond; indptr[S] > out_cap signals overflow."""
+    return _packed_segment_compact(m, out_cap)
+
+
+def segment_compact(m: torch.Tensor, out_cap: int):
+    """The reference's `_segment_compact` (dense 0/1 hits [S, N]) on the
+    packed form of the same hits; on the card, K6's compaction passes."""
+    if not m.is_cuda:
+        return segment_compact_plain(m, out_cap)
+    ext = _ext()
+    _check_cuda(m)
+    s, w = m.shape
+    dev = m.device
+    nblocks = max(1, int(ext.lib("range_finalize").compact_blocks(
+        ext.ctypes.c_longlong(s * w))))
+    indptr = torch.empty(s + 1, dtype=torch.int32, device=dev)
+    dep_rows = torch.empty(out_cap, dtype=torch.int32, device=dev)
+    _buf, scratch = _compact_scratch(nblocks, dev)
+    ext.call("range_finalize", "segment_compact", ext.ptr(m), s, w, out_cap,
+             ext.ptr(indptr), ext.ptr(dep_rows), *scratch[:2], ext.stream())
+    LAUNCHES["range_finalize"] += 1
+    return indptr, dep_rows
+
+
+def range_stab_words_plain(iv_of, iv_start, iv_end, ent_ok, subj_before,
+                           subj_kinds, r_start, r_end, r_ts, r_kinds,
+                           r_valid, witness_table):
+    """range_finalize_csr's first stage: (packed words i32[NV, rcap/32] of
+    stab & witness & before, the stab count)."""
+    b = subj_before.shape[0]
+    nk = witness_table.shape[0]
+    o = iv_of.to(torch.int64).clamp(0, b - 1)
+    inb = (iv_of >= 0) & (iv_of < b) & ent_ok
+    hit = (iv_start[:, None] < r_end[None, :]) \
+        & (r_start[None, :] < iv_end[:, None])
+    stab = hit & r_valid[None, :] & inb[:, None]
+    witness = witness_table[_gather_index(subj_kinds[o], nk)[:, None],
+                            _gather_index(r_kinds, nk)[None, :]] == 1
+    before = _lex_before(r_ts[None, :, :], subj_before[o][:, None, :])
+    return _pack_bits(stab & witness & before), stab.sum(dtype=torch.int64)
+
+
+def range_finalize_csr_plain(iv_of, iv_start, iv_end, ent_ok, subj_before,
+                             subj_kinds, r_start, r_end, r_ts, r_kinds,
+                             r_valid, witness_table, out_cap: int):
+    m, bound = range_stab_words_plain(
+        iv_of, iv_start, iv_end, ent_ok, subj_before, subj_kinds, r_start,
+        r_end, r_ts, r_kinds, r_valid, witness_table)
+    indptr, dep_rows = _packed_segment_compact(m, out_cap)
+    dep_ts = r_ts[dep_rows.to(torch.int64)]
+    return (indptr, dep_rows, dep_ts, _to_i32(bound),
+            csr_checksum(indptr, dep_rows, dep_ts))
+
+
+def range_finalize_csr(iv_of, iv_start, iv_end, ent_ok, subj_before,
+                       subj_kinds, r_start, r_end, r_ts, r_kinds, r_valid,
+                       witness_table, out_cap: int):
+    """Exact range-arena deps per interval entry: stab = the entry overlaps
+    the row & row valid & 0 <= iv_of < B & ent_ok; kept rows further pass
+    witness and before (gathered through clip(iv_of)); -> (indptr
+    i32[NV+1], dep_rows i32[out_cap], dep_ts i32[out_cap, 3], bound i32 =
+    the stab count, csum i32 bit pattern), padded and checksummed like
+    finalize_csr (see csrc/range_finalize.cu)."""
+    if not r_start.is_cuda:
+        return range_finalize_csr_plain(
+            iv_of, iv_start, iv_end, ent_ok, subj_before, subj_kinds,
+            r_start, r_end, r_ts, r_kinds, r_valid, witness_table, out_cap)
+    ext = _ext()
+    _check_cuda(iv_of, iv_start, iv_end, ent_ok, subj_before, subj_kinds,
+                r_start, r_end, r_ts, r_kinds, r_valid, witness_table)
+    dev = r_start.device
+    nv = iv_of.shape[0]
+    rcap = r_start.shape[0]
+    if rcap % 32:
+        raise ValueError(f"range arena rcap {rcap} % 32 != 0")
+    w = rcap // 32
+    nblocks = max(1, int(ext.lib("range_finalize").compact_blocks(
+        ext.ctypes.c_longlong(nv * w))))
+    words = torch.empty(nv, w, dtype=torch.int32, device=dev)
+    _buf, scratch = _compact_scratch(nblocks, dev)
+    indptr = torch.empty(nv + 1, dtype=torch.int32, device=dev)
+    dep_rows = torch.empty(out_cap, dtype=torch.int32, device=dev)
+    dep_ts = torch.empty(out_cap, 3, dtype=torch.int32, device=dev)
+    bound = torch.empty((), dtype=torch.int32, device=dev)
+    csum = torch.empty((), dtype=torch.int32, device=dev)
+    ext.call("range_finalize", "range_finalize_csr", ext.ptr(iv_of),
+             ext.ptr(iv_start), ext.ptr(iv_end), ext.ptr(ent_ok), nv,
+             ext.ptr(subj_before), ext.ptr(subj_kinds),
+             subj_before.shape[0], ext.ptr(r_start), ext.ptr(r_end),
+             ext.ptr(r_ts), ext.ptr(r_kinds), ext.ptr(r_valid), rcap,
+             ext.ptr(witness_table), witness_table.shape[0], out_cap,
+             ext.ptr(words), ext.ptr(indptr), ext.ptr(dep_rows),
+             ext.ptr(dep_ts), ext.ptr(bound), ext.ptr(csum),
+             *scratch, ext.stream())
+    LAUNCHES["range_finalize"] += 1
+    return indptr, dep_rows, dep_ts, bound, csum
+
+
+# -- K7: max_conflict --------------------------------------------------------
+def max_conflict_plain(subj_words, act_bm, act_exec_ts, act_valid):
+    b = subj_words.shape[0]
+    cap = act_bm.shape[0]
+    overlap = torch.zeros(b, cap, dtype=torch.bool, device=act_bm.device)
+    step = max(1, (1 << 26) // max(1, cap * act_bm.shape[1]))
+    for lo in range(0, b, step):
+        sw = subj_words[lo:lo + step]
+        overlap[lo:lo + step] = ((sw[:, None, :] & act_bm[None, :, :]) != 0) \
+            .any(-1)
+    mask = overlap & act_valid[None, :]
+    neg = torch.tensor(INT32_MIN, dtype=torch.int32, device=act_bm.device)
+    lanes, tie = [], mask
+    for ln in range(3):
+        col = act_exec_ts[None, :, ln].expand(b, cap)
+        m = torch.where(tie, col, neg).max(dim=1).values
+        tie = tie & (col == m[:, None])
+        lanes.append(m)
+    row = torch.where(tie.any(dim=1), tie.to(torch.int8).argmax(dim=1),
+                      torch.full((b,), -1, device=act_bm.device))
+    return torch.stack(lanes, dim=1), row.to(torch.int32)
+
+
+def max_conflict(subj_words, act_bm, act_exec_ts, act_valid):
+    """Per subject (packed bucket words i32[B, K/32]): the lexicographic
+    3-lane max of exec_ts over the valid rows whose bucket words meet the
+    subject's -> (i32[B, 3], INT32_MIN lanes where none; i32[B], the first
+    winning row among exact ties, -1 where none)."""
+    if not act_bm.is_cuda:
+        return max_conflict_plain(subj_words, act_bm, act_exec_ts, act_valid)
+    ext = _ext()
+    _check_cuda(subj_words, act_bm, act_exec_ts, act_valid)
+    b, nw = subj_words.shape
+    if act_bm.shape[1] != nw:
+        raise ValueError("max_conflict: subject and arena bucket counts "
+                         "differ")
+    dev = act_bm.device
+    lanes = torch.empty(b, 3, dtype=torch.int32, device=dev)
+    row = torch.empty(b, dtype=torch.int32, device=dev)
+    ext.call("max_conflict", "max_conflict", ext.ptr(subj_words), b, nw,
+             ext.ptr(act_bm), ext.ptr(act_exec_ts), ext.ptr(act_valid),
+             act_bm.shape[0], ext.ptr(lanes), ext.ptr(row), ext.stream())
+    LAUNCHES["max_conflict"] += 1
+    return lanes, row
 
 
 # -- padded-size ladders (the JAX package's tiers, kept for bit-equal

@@ -5,24 +5,40 @@
     python3 chip_smoke.py --rehearse   # the same phases on the CPU, small
                                        # (exercises the script; no result)
 
-Phases, each of which fails the run (exit 1, no result line) on any error:
+Phases, each of which fails the run (exit 1, no result line) on any error.
+Each burn below is a path: every kernel's launch count is zeroed just
+before it and read just after, and the kernels of that path must have
+launched.
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every CUDA kernel from accord_tpu_torch/csrc (nvcc, in parallel);
-  3. burn, the main path: a 5-node cluster commits rw-register txns
-     (4 keys, Zipf 0.99 over 16 hot keys) through the port's
-     BatchDepsResolver on the card; every kernel's launch count is zeroed
-     just before and read just after, and each kernel must have launched;
-     then the same seed with the resolver on the CPU must commit the
-     identical history, with zero host, finalize and checksum fallbacks;
-  4. the PreAccept batch: 10,000 in-flight writes over 1,000 keys, 4,096
+  3. key burn: a 5-node cluster commits rw-register txns (4 keys, Zipf
+     0.99 over 16 hot keys) through the port's BatchDepsResolver on the
+     card (K1-K4 must launch); the same seed with the resolver on the CPU
+     must commit the identical history, with zero host, finalize and
+     checksum fallbacks;
+  4. range-mix burn, this slice's path at the JAX package's range-mix
+     configuration (bench.py's bench_range_mix): 5 nodes, rf 3, 10% range
+     reads, 10% range writes, durability rounds every 1000 ms (range sync
+     points); card vs CPU identical history, lost 0, zero host, range and
+     checksum fallbacks, the finalize and legacy-decode counts equal to
+     the CPU leg's (at this seed both packages trip the same few sequence
+     guards: registrations that widen a row or free range rows while a
+     call is in flight, which the mutation fence does not cover), range
+     subjects decoded on the device, and K4's range entry, K5 and K6
+     launched;
+  5. inline leg: no batch window (the JAX package's inline range-read
+     differential), card vs CPU identical, the max_conflict kernel (K7)
+     launched;
+  6. the PreAccept batch: 10,000 in-flight writes over 1,000 keys, 4,096
      subjects through the async pipeline, every answer equal to the host
-     scan;
-  5. kernels: each kernel's wrapper is called again on the card on the
-     exact inputs the burn (and the PreAccept batch) gave it, and held
+     scan; then the same with 1,024 in-flight range writes added and 20%
+     range subjects (the shape at which K5 and K6 do real work);
+  7. kernels: each kernel's wrapper is called again on the card on the
+     exact inputs its path (and a PreAccept batch) gave it, and held
      bit-equal against its plain PyTorch version on the same inputs;
      kernel, plain and (where one exists) single-library-call times come
-     from CUDA events, and each kernel's bound from the bytes it must move
-     (3.35 TB/s) or the operations it must do.
+     from CUDA events, and each call's bound from the bytes it must move
+     (3.35 TB/s) or the operations it must do (67 T 32-bit op/s).
 The last three lines are the card line, one JSON line of kernels, and the
 result line {"ok": true, "device": {...}}.
 """
@@ -46,13 +62,31 @@ KERNELS = (
      "accord_tpu/ops/kernels.py:822"),
     ("row_scatter", "accord_tpu_torch/csrc/row_scatter.cu",
      "accord_tpu/ops/kernels.py:242"),
+    ("range_scatter", "accord_tpu_torch/csrc/row_scatter.cu",
+     "accord_tpu/ops/kernels.py:852"),
+    ("range_resolve", "accord_tpu_torch/csrc/range_resolve.cu",
+     "accord_tpu/ops/kernels.py:415"),
+    ("range_finalize", "accord_tpu_torch/csrc/range_finalize.cu",
+     "accord_tpu/ops/kernels.py:766"),
+    ("max_conflict", "accord_tpu_torch/csrc/max_conflict.cu",
+     "accord_tpu/ops/kernels.py:65"),
 )
-# kernel-module functions recorded during the burn, by kernel
+# kernel-module functions recorded on the paths, by kernel
 RECORDED = {"deps_resolve": ("deps_resolve", "fused_deps_resolve"),
             "finalize_csr": ("finalize_csr",),
             "arena_scatter": ("arena_scatter", "arena_scatter_keys"),
             "row_scatter": ("scatter_rows", "kid_word_scatter",
-                            "arena_grow")}
+                            "arena_grow"),
+            "range_scatter": ("range_scatter",),
+            "range_resolve": ("range_deps_resolve",
+                              "fused_range_deps_resolve", "covered_buckets"),
+            "range_finalize": ("range_finalize_csr", "segment_compact"),
+            "max_conflict": ("max_conflict",)}
+# the path whose launches each kernel's entry reports
+PATH_OF = {"deps_resolve": "key_burn", "finalize_csr": "key_burn",
+           "arena_scatter": "key_burn", "row_scatter": "key_burn",
+           "range_scatter": "range_burn", "range_resolve": "range_burn",
+           "range_finalize": "range_burn", "max_conflict": "inline"}
 
 
 class SmokeFailure(Exception):
@@ -164,9 +198,12 @@ def nbytes(*ts) -> int:
 def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
     """Replay each recorded call of `name`'s wrappers on the card: kernel
     vs plain (bit-equal), each timed. The call with the largest inputs is
-    the kernel's headline. arena_grow, which a burn whose arenas never
-    outgrow their capacity does not call, replays on the arena lanes the
-    recorded arena_scatter call was given, doubled."""
+    the kernel's headline; every call's row is kept. Three wrappers the
+    path does not call on their own replay on inputs derived from a
+    recorded call: arena_grow on the recorded arena_scatter's lanes,
+    doubled; arena_scatter_keys on its bitmap and CSR; covered_buckets on the recorded range query's interval CSR
+    (K5 runs the same pass inside); segment_compact on the stab words of
+    the recorded range_finalize_csr call (K6 runs the same passes)."""
     plain_of = {
         "deps_resolve": tk.deps_resolve_plain,
         "fused_deps_resolve": tk.fused_deps_resolve_plain,
@@ -176,15 +213,19 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
         "scatter_rows": tk._scatter_lane_plain,
         "kid_word_scatter": tk.kid_word_scatter_plain,
         "arena_grow": tk.arena_grow_plain,
+        "range_scatter": tk.range_scatter_plain,
+        "range_deps_resolve": tk.range_deps_resolve_plain,
+        "fused_range_deps_resolve": tk.fused_range_deps_resolve_plain,
+        "covered_buckets": tk.covered_buckets_plain,
+        "range_finalize_csr": tk.range_finalize_csr_plain,
+        "segment_compact": tk.segment_compact_plain,
+        "max_conflict": tk.max_conflict_plain,
     }
     calls = []
     for fn_name in RECORDED[name]:
         got = rec.get(fn_name)
-        if got is None and fn_name == "arena_grow":
-            lanes = rec.get("arena_scatter")
-            if lanes is not None:
-                arena = lanes[0][:5]
-                got = (arena, {"new_cap": 2 * arena[0].shape[0]})
+        if got is None:
+            got = derived_call(tk, fn_name, rec)
         if got is not None:
             calls.append((fn_name, *got))
     check(calls, f"{name}: no recorded call to replay")
@@ -199,9 +240,11 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
                            cuda)
         bytes_, ops, library = bound_inputs(tk, fn_name, args, kw, out)
         t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
         row = {"call": fn_name, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "share": bound_ms / ms if ms > 0 else None,
                "bytes": bytes_, "ops": ops,
                "library_ms": (time_ms(library, iters, cuda)
                               if library is not None else None),
@@ -209,7 +252,43 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
         log(f"  {json.dumps(row)}")
         rows.append(row)
     head = max(rows, key=lambda r: r["input_mb"])
-    return dict(head, max_abs_err=max(r["max_abs_err"] for r in rows))
+    return dict(head, max_abs_err=max(r["max_abs_err"] for r in rows),
+                calls=rows)
+
+
+def derived_call(tk, fn_name, rec):
+    """(args, kwargs) for a wrapper the path does not call on its own,
+    from the recorded call that runs the same passes (see kernel_report),
+    or None."""
+    if fn_name in ("arena_grow", "arena_scatter_keys"):
+        lanes = rec.get("arena_scatter")
+        if lanes is not None:
+            args = lanes[0]
+            if fn_name == "arena_scatter_keys":
+                return (args[0], args[5], args[6], args[7]), {}
+            return args[:5], {"new_cap": 2 * args[0].shape[0]}
+    if fn_name == "covered_buckets":
+        for src in ("range_deps_resolve", "fused_range_deps_resolve"):
+            got = rec.get(src)
+            if got is None:
+                continue
+            args = got[0]
+            if src == "range_deps_resolve":
+                k_bm, sb = args[11], args[3]
+            else:
+                karenas, sb = args[10], args[4]
+                if not karenas:
+                    continue
+                k_bm = karenas[0][0]
+            return (args[0], args[1], args[2], sb.shape[0],
+                    k_bm.shape[1] * 32), {}
+    if fn_name == "segment_compact":
+        got = rec.get("range_finalize_csr")
+        if got is not None:
+            args, kw = got
+            m, _ = tk.range_stab_words_plain(*args)
+            return (m, kw["out_cap"]), {}
+    return None
 
 
 def bound_inputs(tk, fn_name, args, kw, out):
@@ -249,6 +328,56 @@ def bound_inputs(tk, fn_name, args, kw, out):
                   + nbytes(out))
         ops = 3 * slot_subj.numel() * w
         return bytes_, ops, None
+    if fn_name in ("range_deps_resolve", "fused_range_deps_resolve"):
+        if fn_name == "range_deps_resolve":
+            (iv_of, iv_s, iv_e, sb, sknd, srng, r_start, r_end, r_ts,
+             r_kinds, r_valid, k_bm, k_ts, k_kinds, k_valid, table) = args
+            rblocks = [(r_start, r_end, r_ts, r_kinds, r_valid)]
+            kblocks = [(k_bm, k_ts, k_kinds, k_valid)]
+            kmines = [srng]
+        else:
+            (iv_of, iv_s, iv_e, store, sb, sknd, srng, r_slots, rblocks,
+             k_slots, kblocks, table) = args
+            kmines = [(store == k_slots[s]) & srng
+                      for s in range(len(kblocks))]
+        nv = iv_of.shape[0]
+        ops = 4 * nv * sum(r[0].shape[0] for r in rblocks)
+        nk = table.shape[0]
+        pairs = 0
+        for (bm, ts, kinds, valid), mine in zip(kblocks, kmines):
+            w = table[tk._gather_index(sknd, nk)[:, None],
+                      tk._gather_index(kinds, nk)[None, :]] == 1
+            m = w & tk._lex_before(ts[None], sb[:, None]) & valid[None] \
+                & mine[:, None]
+            pairs += int(m.sum())
+        if kblocks:
+            ops += 2 * pairs * kblocks[0][0].shape[1]
+        return nbytes(args) + nbytes(out), ops, None
+    if fn_name == "covered_buckets":
+        iv_of, iv_s, iv_e, b, k = args
+        return (nbytes(iv_of, iv_s, iv_e) + nbytes(out),
+                2 * iv_of.shape[0] * k, None)
+    if fn_name == "range_finalize_csr":
+        iv_of, iv_s, iv_e, ent_ok = args[:4]
+        r_start = args[6]
+        nv, rcap = iv_of.shape[0], r_start.shape[0]
+        # the stab matrix read once (as bits), the lanes, the outputs
+        bytes_ = nv * rcap // 8 + nbytes(args) + nbytes(out)
+        return bytes_, 4 * nv * rcap, None
+    if fn_name == "segment_compact":
+        return nbytes(args) + nbytes(out), 0, None
+    if fn_name == "max_conflict":
+        subj, bm, ex, valid = args
+        # the word ANDs the data needs (a row stops at its first meeting
+        # word) over valid rows, then 3 lane compares per overlapping row
+        meet = (subj[:, None, :] & bm[None, :, :]) != 0
+        first = torch.where(meet.any(-1),
+                            meet.to(torch.int8).argmax(-1) + 1,
+                            torch.full(meet.shape[:2], bm.shape[1],
+                                       device=bm.device))
+        ands = int((first * valid[None, :]).sum())
+        overlaps = int((meet.any(-1) & valid[None, :]).sum())
+        return nbytes(args) + nbytes(out), ands + 3 * overlaps, None
     if fn_name == "scatter_rows":
         dst, idx, rows = args
         lib = None
@@ -275,10 +404,8 @@ def card_line(cuda: bool) -> str:
 def build_phase() -> float:
     from accord_tpu_torch.ops import _ext
     t0 = time.perf_counter()
-    _ext.build()
-    for name in ("deps_resolve", "finalize_csr", "arena_scatter",
-                 "row_scatter"):
-        _ext.lib(name)
+    for stem in sorted(_ext.build()):
+        _ext.lib(stem)
     for stem, text in sorted(_ext.ptxas_log.items()):
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(m) for m in
@@ -310,20 +437,75 @@ def burn(device: str, ops: int, resolvers: list, seed: int = 9):
     return rep, time.perf_counter() - t0
 
 
+def range_mix_burn(device: str, ops: int, resolvers: list, seed: int = 21):
+    """bench.py's bench_range_mix leg, unchanged: 5 nodes, rf 3, two
+    stores per node, Zipf 0.99 over 16 hot keys, 10% range reads and 10%
+    range writes, durability rounds every 1000 ms."""
+    from accord_tpu_torch.ops.resolver import BatchDepsResolver
+    from accord_tpu_torch.sim.burn import run_burn
+    from accord_tpu_torch.sim.cluster import ClusterConfig
+
+    def factory():
+        r = BatchDepsResolver(num_buckets=1024, initial_cap=2048,
+                              max_dispatch=256, device=device)
+        resolvers.append(r)
+        return r
+
+    cfg = ClusterConfig(num_nodes=5, rf=3, deps_resolver_factory=factory,
+                        deps_batch_window_ms=2.0, device_latency_ms=8.0,
+                        device_poll_ms=1.0, durability=True,
+                        durability_interval_ms=1000.0, timeout_ms=8000.0,
+                        preaccept_timeout_ms=8000.0,
+                        progress_stall_ms=5000.0)
+    t0 = time.perf_counter()
+    rep = run_burn(seed, ops=ops, key_count=16, zipf_theta=0.99,
+                   write_ratio=0.6, range_read_ratio=0.1,
+                   range_write_ratio=0.1, collect_log=True, config=cfg)
+    return rep, time.perf_counter() - t0
+
+
+def inline_burn(device: str, resolvers: list):
+    """tests/test_ranges.py's inline range-read differential: no batch
+    window, so deps resolve synchronously and max_conflict runs on the
+    device."""
+    from accord_tpu_torch.ops.resolver import BatchDepsResolver
+    from accord_tpu_torch.sim.burn import run_burn
+    from accord_tpu_torch.sim.cluster import ClusterConfig
+
+    def factory():
+        r = BatchDepsResolver(num_buckets=128, device=device)
+        resolvers.append(r)
+        return r
+
+    t0 = time.perf_counter()
+    rep = run_burn(11, ops=80, range_read_ratio=0.25, collect_log=True,
+                   config=ClusterConfig(deps_resolver_factory=factory,
+                                        deps_batch_window_ms=None))
+    return rep, time.perf_counter() - t0
+
+
+COUNTERS = ("host_fallbacks", "range_fallbacks", "finalize_fallbacks",
+            "legacy_decodes", "checksum_mismatches", "dispatches",
+            "subjects", "finalized_decodes", "range_subject_device_decodes")
+
+
 def clean(resolvers) -> dict:
-    keys = ("host_fallbacks", "finalize_fallbacks", "checksum_mismatches",
-            "dispatches", "subjects", "finalized_decodes", "legacy_decodes")
-    return {k: sum(int(getattr(r, k)) for r in resolvers) for k in keys}
+    return {k: sum(int(getattr(r, k)) for r in resolvers) for k in COUNTERS}
 
 
-def preaccept_batch(device: str, active: int, subjects_n: int) -> dict:
+def preaccept_batch(device: str, active: int, subjects_n: int,
+                    ranges: int = 0, range_share: float = 0.0) -> dict:
     """bench.py's "Synthetic PreAccept batch" on the port: 10k in-flight
     writes over 1k keys (4 each) in one store, 4,096 fresh subjects through
-    the async pipeline, each answer checked against the host scan."""
+    the async pipeline, each answer checked against the host scan. With
+    `ranges`, that many in-flight range writes of 1-2 pieces (widths
+    1-2048 over the 2^16 key domain, the burn's max_range_width) join the
+    arena, and `range_share` of the subjects are range subjects of the
+    same shape."""
     import torch
     from accord_tpu_torch.local.cfk import CfkStatus
     from accord_tpu_torch.ops.resolver import BatchDepsResolver
-    from accord_tpu_torch.primitives.keyspace import Keys
+    from accord_tpu_torch.primitives.keyspace import Keys, Range, Ranges
     from accord_tpu_torch.primitives.timestamp import Domain, TxnId, TxnKind
     from accord_tpu_torch.sim.cluster import Cluster, ClusterConfig
     from accord_tpu_torch.utils.rng import RandomSource
@@ -342,13 +524,31 @@ def preaccept_batch(device: str, active: int, subjects_n: int) -> dict:
                            Domain.KEY)
         store.register(tid, Keys(rng.next_int(1000) for _ in range(4)),
                        CfkStatus.WITNESSED, ts)
-    subjects = []
-    for _ in range(subjects_n):
+
+    def pieces():
+        out = []
+        for _ in range(1 + rng.next_int(2)):
+            s = rng.next_int((1 << 16) - 2048)
+            out.append(Range(s, s + 1 + rng.next_int(2048)))
+        return Ranges(out)
+
+    for _ in range(ranges):
         ts = node.unique_now()
         tid = TxnId.create(ts.epoch, ts.hlc, ts.node, TxnKind.WRITE,
-                           Domain.KEY)
-        keys = store.owned(Keys(rng.next_int(1000) for _ in range(4)))
-        subjects.append((tid, keys, ts))
+                           Domain.RANGE)
+        store.register(tid, pieces(), CfkStatus.WITNESSED, ts)
+    subjects = []
+    for i in range(subjects_n):
+        ts = node.unique_now()
+        if range_share and i % round(1 / range_share) == 0:
+            tid = TxnId.create(ts.epoch, ts.hlc, ts.node, TxnKind.WRITE,
+                               Domain.RANGE)
+            owned = store.owned(pieces())
+        else:
+            tid = TxnId.create(ts.epoch, ts.hlc, ts.node, TxnKind.WRITE,
+                               Domain.KEY)
+            owned = store.owned(Keys(rng.next_int(1000) for _ in range(4)))
+        subjects.append((tid, owned, ts))
     store.batch_window_ms = 2.0
     node.device_latency_ms = 80.0
     node.device_poll_ms = 1.0
@@ -367,16 +567,24 @@ def preaccept_batch(device: str, active: int, subjects_n: int) -> dict:
     check(bad == 0, f"PreAccept batch: {bad}/{subjects_n} subjects differ "
           "from the host scan")
     deps = sum(len(o.value().key_deps.all_txn_ids()) for o in outs)
+    rdeps = sum(len(o.value().range_deps.all_txn_ids()) for o in outs)
     check(deps > 0, "PreAccept batch: vacuous (no deps at all)")
-    return {"subjects": subjects_n, "active": active, "wall_s": wall,
+    check(not ranges or rdeps > 0,
+          "PreAccept batch: vacuous (no range deps at all)")
+    return {"subjects": subjects_n, "active": active,
+            "active_ranges": ranges, "range_share": range_share,
+            "wall_s": wall,
             "subjects_per_s": subjects_n / wall,
             "device_block_us_per_subject":
                 (resolver.harvest_stall_s + resolver.decode_s)
                 / subjects_n * 1e6,
             "dispatches": int(resolver.dispatches),
             "mean_deps_per_subject": deps / subjects_n,
+            "mean_range_deps_per_subject": rdeps / subjects_n,
             **{k: v for k, v in clean([resolver]).items()
-               if k.endswith("fallbacks") or k == "checksum_mismatches"}}
+               if k.endswith("fallbacks") or k in (
+                   "checksum_mismatches", "legacy_decodes",
+                   "range_subject_device_decodes")}}
 
 
 def run(rehearse: bool) -> dict:
@@ -396,25 +604,28 @@ def run(rehearse: bool) -> dict:
         log(f"build: {build_s:.2f} s (all csrc/*.cu, nvcc in parallel)")
 
     ops = 800 if not rehearse else 120
-    # 3. the main path: the burn on the card, launches counted
-    main_rec = Recorder(tk)
+    launches = {}
+    # 3. key burn: the PR-1 path, launches counted
+    key_rec = Recorder(tk)
     dev_res = []
     tk.reset_launches()
-    with main_rec:
+    with key_rec:
         rep, wall = burn(device, ops, dev_res)
     if cuda:
         torch.cuda.synchronize()
-    launches = dict(tk.LAUNCHES)
+    launches["key_burn"] = dict(tk.LAUNCHES)
     log(f"burn[{device}]: acked {rep.acked} failed {rep.failed} lost "
         f"{rep.lost} in {wall:.2f} s -> {rep.acked / wall:.1f} acked txn/s; "
-        f"launches {launches}; {clean(dev_res)}")
+        f"launches {launches['key_burn']}; {clean(dev_res)}")
     check(rep.lost == 0 and rep.acked > 0, "burn: lost or no acked txns")
     stats = clean(dev_res)
     for k in ("host_fallbacks", "finalize_fallbacks", "checksum_mismatches"):
         check(stats[k] == 0, f"burn: {k} = {stats[k]}")
     if cuda:
-        for name, *_ in KERNELS:
-            check(launches[name] > 0, f"burn: kernel {name} never launched")
+        for name in ("deps_resolve", "finalize_csr", "arena_scatter",
+                     "row_scatter"):
+            check(launches["key_burn"][name] > 0,
+                  f"burn: kernel {name} never launched")
     cpu_res = []
     rep_cpu, wall_cpu = burn("cpu", ops, cpu_res)
     log(f"burn[cpu]: acked {rep_cpu.acked} in {wall_cpu:.2f} s; "
@@ -423,38 +634,132 @@ def run(rehearse: bool) -> dict:
           "burn: the card's history differs from the CPU's")
     log(f"burn: {len(rep.log)} log lines identical on {device} and cpu")
 
-    # 4. the PreAccept batch (its own kernel inputs recorded too)
+    # 4. range-mix burn: this slice's path, launches counted
+    range_ops = 400 if not rehearse else 60
+    range_rec = Recorder(tk)
+    rdev = []
+    tk.reset_launches()
+    with range_rec:
+        rrep, rwall = range_mix_burn(device, range_ops, rdev)
+    if cuda:
+        torch.cuda.synchronize()
+    launches["range_burn"] = dict(tk.LAUNCHES)
+    rstats = clean(rdev)
+    log(f"range_burn[{device}]: acked {rrep.acked} failed {rrep.failed} "
+        f"lost {rrep.lost} in {rwall:.2f} s -> {rrep.acked / rwall:.1f} "
+        f"acked txn/s; launches {launches['range_burn']}; {rstats}")
+    check(rrep.lost == 0 and rrep.acked > 0,
+          "range burn: lost or no acked txns")
+    for k in ("host_fallbacks", "range_fallbacks", "checksum_mismatches"):
+        check(rstats[k] == 0, f"range burn: {k} = {rstats[k]}")
+    check(rstats["range_subject_device_decodes"] > 0,
+          "range burn: no range subject decoded on the device")
+    if cuda:
+        for name in ("range_scatter", "range_resolve", "range_finalize"):
+            check(launches["range_burn"][name] > 0,
+                  f"range burn: kernel {name} never launched")
+    rcpu = []
+    rrep_cpu, rwall_cpu = range_mix_burn("cpu", range_ops, rcpu)
+    log(f"range_burn[cpu]: acked {rrep_cpu.acked} in {rwall_cpu:.2f} s; "
+        f"{clean(rcpu)}")
+    check(rrep_cpu.log == rrep.log,
+          "range burn: the card's history differs from the CPU's")
+    check(clean(rcpu) == rstats,
+          f"range burn: the card's resolver counters {rstats} differ from "
+          f"the CPU's {clean(rcpu)}")
+    log(f"range_burn: {len(rrep.log)} log lines identical on {device} and "
+        "cpu")
+
+    # 5. inline leg: max_conflict on the device, launches counted
+    inline_rec = Recorder(tk)
+    ires = []
+    tk.reset_launches()
+    with inline_rec:
+        irep, iwall = inline_burn(device, ires)
+    if cuda:
+        torch.cuda.synchronize()
+    launches["inline"] = dict(tk.LAUNCHES)
+    log(f"inline[{device}]: acked {irep.acked} lost {irep.lost} in "
+        f"{iwall:.2f} s; launches {launches['inline']}; {clean(ires)}")
+    check(irep.lost == 0 and irep.acked == 80, "inline: lost or not acked")
+    check(clean(ires)["host_fallbacks"] == 0, "inline: host fallbacks")
+    if cuda:
+        check(launches["inline"]["max_conflict"] > 0,
+              "inline: kernel max_conflict never launched")
+    irep_cpu, _ = inline_burn("cpu", [])
+    check(irep_cpu.log == irep.log,
+          "inline: the card's history differs from the CPU's")
+    log(f"inline: {len(irep.log)} log lines identical on {device} and cpu")
+
+    # 6. the PreAccept batches (their own kernel inputs recorded too)
     pa_rec = Recorder(tk)
     with pa_rec:
         pa = preaccept_batch(device, 10_000 if not rehearse else 1_000,
                              4_096 if not rehearse else 256)
     log(f"preaccept_batch[{device}]: {json.dumps(pa)}")
-    for k in ("host_fallbacks", "finalize_fallbacks", "checksum_mismatches"):
-        check(pa[k] == 0, f"PreAccept batch: {k} = {pa[k]}")
+    pr_rec = Recorder(tk)
+    with pr_rec:
+        par = preaccept_batch(device, 10_000 if not rehearse else 1_000,
+                              4_096 if not rehearse else 256,
+                              ranges=1_024 if not rehearse else 128,
+                              range_share=0.2)
+    log(f"preaccept_batch_ranges[{device}]: {json.dumps(par)}")
+    for batch in (pa, par):
+        for k in ("host_fallbacks", "range_fallbacks", "finalize_fallbacks",
+                  "checksum_mismatches"):
+            check(batch[k] == 0, f"PreAccept batch: {k} = {batch[k]}")
+    check(par["range_subject_device_decodes"] > 0,
+          "PreAccept batch: no range subject decoded on the device")
 
-    # 5. kernels: replay the recorded inputs, kernel vs plain, timed
+    # 7. kernels: replay the recorded inputs, kernel vs plain, timed
     iters = 50 if cuda else 2
+    path_rec = {"key_burn": key_rec, "range_burn": range_rec,
+                "inline": inline_rec}
+    batch_rec = {"key_burn": pa_rec, "range_burn": pr_rec}
     entries = []
     for name, source, replaces in KERNELS:
-        log(f"kernel {name}, burn inputs:")
-        burn_k = kernel_report(tk, name, main_rec, cuda, iters)
-        log(f"kernel {name}, PreAccept-batch inputs:")
-        base_k = kernel_report(tk, name, pa_rec, cuda, iters)
-        for k in (burn_k, base_k):
+        path = PATH_OF[name]
+        log(f"kernel {name}, {path} inputs:")
+        head = kernel_report(tk, name, path_rec[path], cuda, iters)
+        reports = [head]
+        base = other = None
+        if path in batch_rec:
+            log(f"kernel {name}, PreAccept-batch inputs:")
+            base = kernel_report(tk, name, batch_rec[path], cuda, iters)
+            reports.append(base)
+        if path == "key_burn":
+            # the range burn is a path of K1-K4 too (durability's
+            # truncations call arena_scatter_keys there)
+            log(f"kernel {name}, range_burn inputs:")
+            other = kernel_report(tk, name, range_rec, cuda, iters)
+            reports.append(other)
+        for k in reports:
             check(k["max_abs_err"] == 0,
                   f"kernel {name} disagrees with its plain version")
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(burn_k["max_abs_err"], base_k["max_abs_err"]),
-            "ms": burn_k["ms"], "plain_ms": burn_k["plain_ms"],
-            "bound_ms": burn_k["bound_ms"], "bound_by": burn_k["bound_by"],
-            "library_ms": burn_k["library_ms"], "call": burn_k["call"],
-            "preaccept_batch": {k: base_k[k] for k in (
-                "call", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}})
+            "replaces": replaces, "launches": launches[path][name],
+            "path": path,
+            "max_abs_err": max(k["max_abs_err"] for k in reports),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "call": head["call"],
+            "calls": [_brief(r) for r in head["calls"]],
+            "launches_by_path": {p: launches[p][name] for p in launches}}
+        if base is not None:
+            entry["preaccept_batch"] = dict(
+                _brief(base), calls=[_brief(r) for r in base["calls"]])
+        if other is not None:
+            entry["range_burn"] = dict(
+                _brief(other), calls=[_brief(r) for r in other["calls"]])
+        entries.append(entry)
     return {"card": card, "entries": entries, "cuda": cuda,
             "acked_per_s": rep.acked / wall}
+
+
+def _brief(row: dict) -> dict:
+    return {k: row[k] for k in ("call", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "share", "library_ms")}
 
 
 def main(argv=None) -> int:

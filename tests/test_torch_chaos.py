@@ -7,7 +7,8 @@ The fault handling (bounded retries, the harvest watchdog, the checksum
 lane, the health ladder and its probation canaries, the overflow bump)
 must stay invisible to simulated state: the chaos burn commits the same
 history as the JAX package's chaos burn of the same seed and as the
-port's own fault-free burn, with the same per-kind ledgers.
+port's own fault-free burn, with the same per-kind ledgers -- also with
+range traffic, where faults land on the range lanes' finalize results.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ LEDGER = ("device_faults_injected", "checksum_mismatches",
           "finalize_fallbacks", "host_fallbacks")
 
 
-def _leg(burn, config, make, chaos):
+def _leg(burn, config, make, chaos, **traffic):
     resolvers = []
 
     def factory():
@@ -44,7 +45,7 @@ def _leg(burn, config, make, chaos):
     rep = burn.run_burn(31, ops=120, key_count=8, concurrency=8,
                         write_ratio=0.7, device_chaos=chaos,
                         device_fault_rates=CHAOS_RATES if chaos else None,
-                        collect_log=True, config=cfg)
+                        collect_log=True, config=cfg, **traffic)
     ledger = {k: sum(int(getattr(r, k)) for r in resolvers) for k in LEDGER}
     return rep, ledger
 
@@ -75,3 +76,26 @@ def test_chaos_burn_matches_jax_and_fault_free():
     assert port_ledger["device_canaries"] > 0
     assert clean_ledger["device_faults_injected"] == 0
     assert clean_ledger["host_fallbacks"] == 0
+
+
+def test_chaos_burn_with_range_traffic_matches_jax_and_fault_free():
+    ranges = dict(range_read_ratio=0.1, range_write_ratio=0.1)
+    port, port_ledger = _leg(
+        port_burn, PortConfig,
+        lambda: PortResolver(num_buckets=128, device="cpu"), True, **ranges)
+    ref, ref_ledger = _leg(jax_burn, JaxConfig,
+                           lambda: JaxResolver(num_buckets=128), True,
+                           **ranges)
+    clean, clean_ledger = _leg(
+        port_burn, PortConfig,
+        lambda: PortResolver(num_buckets=128, device="cpu"), False,
+        **ranges)
+    assert port.lost == 0
+    assert port.log == ref.log
+    assert port.log == clean.log, "chaos changed the committed history"
+    assert port.device_faults == ref.device_faults
+    assert port_ledger == ref_ledger
+    assert port_ledger["checksum_mismatches"] == port.device_faults["corrupt"]
+    assert clean_ledger["device_faults_injected"] == 0
+    assert clean_ledger["host_fallbacks"] == 0
+    assert clean_ledger["finalize_fallbacks"] == 0

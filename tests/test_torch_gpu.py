@@ -188,3 +188,167 @@ def test_row_scatter_kernels(cuda):
     plain_g = tk.arena_grow(*arena, new_cap=2 * cap)
     got_g = tk.arena_grow(*_cu(arena, cuda), new_cap=2 * cap)
     _eq(plain_g, got_g)
+
+
+# -- range-domain and max-conflict kernels (K4 range entry, K5, K6, K7) ------
+I32_MAX = np.iinfo(np.int32).max
+
+
+def _range_arena(rng, rcap, domain=1 << 16):
+    starts = rng.integers(0, domain, rcap).astype(np.int32)
+    ends = (starts + rng.integers(1, 2048, rcap)).astype(np.int32)
+    ts = rng.integers(-50, 50, (rcap, 3)).astype(np.int32)
+    ts[rng.random(rcap) < 0.1, 0] = I32_MIN
+    kinds = rng.integers(0, 6, rcap).astype(np.int32)
+    valid = rng.random(rcap) < 0.8
+    return [_t(a) for a in (starts, ends, ts, kinds, valid)]
+
+
+def _intervals(rng, b, nv, domain=1 << 16):
+    """An interval CSR with padding (iv_of == b), a negative iv_of, widths
+    0, < 0, >= 1024, and endpoints whose difference wraps int32."""
+    n = nv - nv // 8
+    iv_of = np.full(nv, b, np.int32)
+    iv_of[:n] = np.sort(rng.integers(0, b, n))
+    iv_of[n - 1] = -1
+    iv_s = rng.integers(0, domain, nv).astype(np.int32)
+    width = np.where(rng.random(nv) < 0.6, 1, rng.integers(1, 2048, nv))
+    iv_e = (iv_s + width).astype(np.int32)
+    iv_e[3], iv_e[5] = iv_s[3], iv_s[5] - 7
+    iv_e[7] = iv_s[7] + 5000
+    iv_s[9], iv_e[9] = I32_MAX - 2, I32_MIN + 3
+    iv_s[11], iv_e[11] = I32_MIN + 1, I32_MAX
+    sb = rng.integers(-50, 50, (b, 3)).astype(np.int32)
+    sb[: b // 2] = (I32_MAX, 0, 0)
+    sknd = rng.integers(0, 6, b).astype(np.int32)
+    srng = rng.random(b) < 0.5
+    return [_t(a) for a in (iv_of, iv_s, iv_e, sb, sknd, srng)]
+
+
+def _on(ts, dev):
+    return [t.to(dev) if torch.is_tensor(t) else
+            tuple(_on(t, dev)) if isinstance(t, (tuple, list)) else t
+            for t in ts]
+
+
+@pytest.mark.parametrize("rcap,m", [(64, 8), (2048, 64)])
+def test_range_scatter_kernel(cuda, rcap, m):
+    rng = np.random.default_rng(rcap + m)
+    lanes = _range_arena(rng, rcap)
+    chunk = np.sort(rng.choice(rcap, min(m, 40), replace=False))
+    rows = np.full(m, chunk[0], np.int32)
+    rows[:len(chunk)] = chunk
+    rows[len(chunk) - 1] -= rcap                 # negative: wraps once
+    src = [t[_t(rng.integers(0, rcap, m))] for t in _range_arena(rng, rcap)]
+    for t in src:
+        t[_t(rows == chunk[0])] = t[0].clone()
+    args = [*lanes, _t(rows), *src]
+    plain = tk.range_scatter(*args)
+    n0 = tk.LAUNCHES["range_scatter"]
+    got = tk.range_scatter(*_on(args, cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["range_scatter"] == n0 + 1
+    _eq(plain, got)
+
+
+@pytest.mark.parametrize("b,nv,k", [(8, 32, 128), (256, 2048, 1024)])
+def test_covered_buckets_kernel(cuda, b, nv, k):
+    rng = np.random.default_rng(b + nv)
+    iv_of, iv_s, iv_e = _intervals(rng, b, nv)[:3]
+    plain = tk.covered_buckets(iv_of, iv_s, iv_e, b, k)
+    got = tk.covered_buckets(*_on([iv_of, iv_s, iv_e], cuda), b, k)
+    _eq(plain, got)
+
+
+@pytest.mark.parametrize("b,nv,rcap,cap,k", [(8, 32, 64, 64, 128),
+                                             (256, 2048, 2048, 4096, 1024)])
+def test_range_deps_resolve_kernel(cuda, b, nv, rcap, cap, k):
+    rng = np.random.default_rng(rcap + cap)
+    iv = _intervals(rng, b, nv)
+    r = _range_arena(rng, rcap)
+    ka = _arena(rng, cap, k)
+    args = [*iv, *r, ka[0], ka[1], ka[3], ka[4], _t(WITNESS_TABLE)]
+    plain = tk.range_deps_resolve(*args)
+    n0 = tk.LAUNCHES["range_resolve"]
+    got = tk.range_deps_resolve(*_on(args, cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["range_resolve"] == n0 + 1
+    _eq(plain, got)
+    assert plain[0].any() and plain[1].any()
+
+
+@pytest.mark.parametrize("nr,nk", [(1, 1), (2, 2), (3, 1), (0, 2), (2, 0),
+                                   (0, 0)])
+def test_fused_range_deps_resolve_kernel(cuda, nr, nk):
+    rng = np.random.default_rng(10 * nr + nk)
+    b, k = 128, 256
+    iv_of, iv_s, iv_e, sb, sknd, srng = _intervals(rng, b, 1024)
+    nblk = max(nr, nk, 1)
+    store = _t(rng.integers(0, nblk + 1, b).astype(np.int32))
+    rblocks = [tuple(_range_arena(rng, 64 * (1 + i))) for i in range(nr)]
+    kblocks = [tuple(a[j] for j in (0, 1, 3, 4))
+               for a in (_arena(rng, 512 * (1 + i % 2), k)
+                         for i in range(nk))]
+    r_slots = _t(np.arange(nr, dtype=np.int32)[::-1].copy())
+    k_slots = _t(np.arange(nk, dtype=np.int32))
+    args = [iv_of, iv_s, iv_e, store, sb, sknd, srng, r_slots,
+            tuple(rblocks), k_slots, tuple(kblocks), _t(WITNESS_TABLE)]
+    plain = tk.fused_range_deps_resolve(*args)
+    n0 = tk.LAUNCHES["range_resolve"]
+    got = tk.fused_range_deps_resolve(*_on(args, cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["range_resolve"] == n0 + (1 if nr or nk else 0)
+    _eq(plain, got)
+
+
+@pytest.mark.parametrize("out_cap", [64, 1 << 17])
+def test_range_finalize_kernel(cuda, out_cap):
+    rng = np.random.default_rng(out_cap)
+    b, nv, rcap = 256, 2048, 2048
+    iv_of, iv_s, iv_e, sb, sknd, _ = _intervals(rng, b, nv)
+    ent_ok = _t(rng.random(nv) < 0.8)
+    r = _range_arena(rng, rcap)
+    r[1][:] = r[0] + 4096                        # wide rows: many stabs
+    args = [iv_of, iv_s, iv_e, ent_ok, sb, sknd, *r, _t(WITNESS_TABLE)]
+    plain = tk.range_finalize_csr(*args, out_cap=out_cap)
+    n0 = tk.LAUNCHES["range_finalize"]
+    got = tk.range_finalize_csr(*_on(args, cuda), out_cap=out_cap)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["range_finalize"] == n0 + 1
+    _eq(plain, got)
+    assert (int(plain[0][-1]) > out_cap) == (out_cap == 64)
+    m, _ = tk.range_stab_words_plain(*args)
+    _eq(tk.segment_compact(m, out_cap), tk.segment_compact(m.to(cuda),
+                                                           out_cap))
+
+
+@pytest.mark.parametrize("b,cap,k", [(8, 4096, 128), (64, 16384, 1024)])
+def test_max_conflict_kernel(cuda, b, cap, k):
+    rng = np.random.default_rng(b + cap)
+    bm = _words(rng, (cap, k // 32)) & _words(rng, (cap, k // 32)) \
+        & _words(rng, (cap, k // 32)) & _words(rng, (cap, k // 32)) \
+        & _words(rng, (cap, k // 32))
+    ex = rng.integers(-2, 2, (cap, 3)).astype(np.int32)   # exact ties
+    ex[rng.random(cap) < 0.2, 0] = I32_MIN
+    ex[rng.random(cap) < 0.1] = I32_MIN
+    valid = rng.random(cap) < 0.9
+    subj = np.zeros((b, k // 32), np.int32)
+    for i in range(2, b):
+        for bucket in rng.integers(0, k, 2):
+            subj[i, bucket >> 5] |= np.int32(np.uint32(1 << (bucket & 31))
+                                             .view(np.int32))
+    only = cap - 5                               # subject 1 meets one row,
+    bm[:, 0] &= ~np.int32(1)                     # whose lanes are all MIN
+    bm[only, 0] |= 1
+    valid[only] = True
+    ex[only] = I32_MIN
+    subj[1, 0] = 1
+    args = [_t(subj), _t(bm), _t(ex), _t(valid)]
+    plain = tk.max_conflict(*args)
+    n0 = tk.LAUNCHES["max_conflict"]
+    got = tk.max_conflict(*_on(args, cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["max_conflict"] == n0 + 1
+    _eq(plain, got)
+    assert int(plain[1][0]) == -1 and int(plain[1][1]) == only
+    assert (plain[1][2:] >= 0).all()

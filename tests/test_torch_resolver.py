@@ -270,6 +270,9 @@ def test_finalize_overflow_bumps_tier_and_falls_back_exactly():
 
 
 def test_range_subject_raises_not_implemented():
+    """A range registration lands in the store's interval arena and a range
+    subject resolves on the device path exactly like the host scan --
+    nothing raises NotImplementedError any more."""
     P = PORT
     _, node, (store,) = _node(P)
     res = _resolver(P)
@@ -278,26 +281,35 @@ def test_range_subject_raises_not_implemented():
     tid = P.TxnId.create(ts.epoch, ts.hlc, ts.node, P.TxnKind.WRITE,
                          P.Domain.RANGE)
     rngs = importlib.import_module("accord_tpu_torch.primitives.keyspace")
-    with pytest.raises(NotImplementedError, match="range deps"):
-        store.register(tid, rngs.Ranges([rngs.Range(0, 10)]),
-                       P.CfkStatus.WITNESSED, ts)
+    store.register(tid, rngs.Ranges([rngs.Range(0, 10)]),
+                   P.CfkStatus.WITNESSED, ts)
+    assert res._arenas[id(store)].ranges.rows_of[tid]
+    subj = node.next_txn_id(P.TxnKind.WRITE, P.Domain.RANGE)
+    owned = store.owned(rngs.Ranges([rngs.Range(5, 20)]))
+    far = _far(P, node)
+    got = res.resolve_one(store, subj, owned, far)
+    assert got == store.host_calculate_deps(subj, owned, far)
+    assert tid in got.range_deps.all_txn_ids()
+    assert res.range_subject_device_decodes == 1
+    assert res.host_fallbacks == res.range_fallbacks == 0
 
 
 def test_inline_max_conflict_raises_and_batched_declines():
     """Batched mode declines the device max-conflict, exactly like the
-    reference; inline mode (no batch window) would need the unported
-    max_conflict kernel and says so."""
+    reference; inline mode (no batch window) answers it through the
+    max_conflict kernel's plain version here, without raising."""
     P = PORT
     _, node, (store,) = _node(P)
     res = _resolver(P)
     store.deps_resolver = res
-    _register_keys(P, store, node, [[1, 2], [2, 3]])
+    tids = _register_keys(P, store, node, [[1, 2], [2, 3]])
     tid = node.next_txn_id(P.TxnKind.WRITE, P.Domain.KEY)
     store.batch_window_ms = 2.0
     assert res.max_conflict(store, tid, P.Keys([2])) == (False, None)
     store.batch_window_ms = None
-    with pytest.raises(NotImplementedError, match="max_conflict"):
-        res.max_conflict(store, tid, P.Keys([2]))
+    handled, ts = res.max_conflict(store, tid, P.Keys([2]))
+    assert handled and ts.hlc == max(t.hlc for t in tids)
+    assert res.max_conflict(store, tid, P.Keys([50])) == (True, None)
 
 
 def test_warmup_runs_every_kernel_at_small_tiers():
