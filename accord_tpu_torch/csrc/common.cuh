@@ -134,7 +134,8 @@ __device__ __forceinline__ int block_excl_scan(int x, int* total) {
 
 template <class Src>
 __global__ void __launch_bounds__(CT)
-csr_count_kernel(Src src, long long n, int* __restrict__ block_sums,
+csr_count_kernel(const __grid_constant__ Src src, long long n,
+                 int* __restrict__ block_sums,
                  int* __restrict__ bound) {
   long long base = (long long)blockIdx.x * CW;
   int cnt = 0, kb = 0;
@@ -175,7 +176,8 @@ csr_scan_kernel(const int* __restrict__ block_sums, int nblocks,
 // ts == nullptr: no dep_ts lane (segment_compact)
 template <class Src>
 __global__ void __launch_bounds__(CT)
-csr_expand_kernel(Src src, long long n, const int* __restrict__ block_off,
+csr_expand_kernel(const __grid_constant__ Src src, long long n,
+                  const int* __restrict__ block_off,
                   const int* __restrict__ ts, int out_cap,
                   int* __restrict__ indptr, int* __restrict__ dep_rows,
                   int* __restrict__ dep_ts) {
@@ -231,15 +233,23 @@ __device__ __forceinline__ unsigned block_sum_u32(unsigned x) {
   return t;  // valid in thread 0
 }
 
+// the odd offsets of the checksum's position multipliers, per lane:
+// indptr, dep_rows, dep_ts (finalize: 1 / 5 / 9; frontier: 13 / 17 / -)
+struct FoldSeeds {
+  unsigned i, r, t;
+};
+
 // pad dep_rows (and dep_ts) past the total -- row 0, ts[0] -- and fold the
 // checksum grid-wide: each thread folds the value it reads (below the
 // total) or writes (the padding), and each block adds its partial sums into
-// acc[0..2] (wrapping u32 adds: the order cannot change the sum). ts ==
-// nullptr pads dep_rows only and folds nothing (acc unused).
+// acc[0..2] (wrapping u32 adds: the order cannot change the sum). acc ==
+// nullptr pads and folds nothing more (no checksum); ts == nullptr has no
+// dep_ts lane to pad or fold.
 __global__ void __launch_bounds__(CT)
 csr_pad_fold_kernel(int s, const int* __restrict__ ts, int out_cap,
                     const int* __restrict__ indptr, int* __restrict__ dep_rows,
-                    int* __restrict__ dep_ts, unsigned* __restrict__ acc) {
+                    int* __restrict__ dep_ts, unsigned* __restrict__ acc,
+                    FoldSeeds seeds) {
   const int total = indptr[s];
   const int start = total < out_cap ? (total < 0 ? 0 : total) : out_cap;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -251,23 +261,25 @@ csr_pad_fold_kernel(int s, const int* __restrict__ ts, int out_cap,
       v = dep_rows[p];
     else
       dep_rows[p] = 0;
-    s5 += fold_term(v, (unsigned)p, 5u);
+    s5 += fold_term(v, (unsigned)p, seeds.r);
   }
-  if (ts == nullptr) return;  // uniform across the grid: no barrier skipped
-  const int pad[3] = {ts[0], ts[1], ts[2]};
-  for (long long i = t; i < 3LL * out_cap; i += stride) {
-    const int lane = (int)(i % 3);
-    int v;
-    if (i / 3 < start) {
-      v = dep_ts[i];
-    } else {
-      v = pad[lane];
-      dep_ts[i] = v;
+  if (acc == nullptr) return;  // uniform across the grid: no barrier skipped
+  if (ts != nullptr) {
+    const int pad[3] = {ts[0], ts[1], ts[2]};
+    for (long long i = t; i < 3LL * out_cap; i += stride) {
+      const int lane = (int)(i % 3);
+      int v;
+      if (i / 3 < start) {
+        v = dep_ts[i];
+      } else {
+        v = pad[lane];
+        dep_ts[i] = v;
+      }
+      s9 += fold_term(v, (unsigned)i, seeds.t);
     }
-    s9 += fold_term(v, (unsigned)i, 9u);
   }
   for (long long i = t; i <= s; i += stride)
-    s1 += fold_term(indptr[i], (unsigned)i, 1u);
+    s1 += fold_term(indptr[i], (unsigned)i, seeds.i);
   s1 = block_sum_u32(s1);
   s5 = block_sum_u32(s5);
   s9 = block_sum_u32(s9);
@@ -284,14 +296,15 @@ __global__ void csr_csum_kernel(const unsigned* __restrict__ acc,
 }
 
 // the compaction stages after the source words exist; *bound is zeroed by
-// the caller when the source counts it; acc is 3 u32 of scratch (nullptr
-// with ts == nullptr: no checksum). Returns cudaGetLastError.
+// the caller when the source counts it; acc is 3 u32 of scratch, nullptr
+// for no checksum (then csum is unused). Returns cudaGetLastError.
 template <class Src>
 static inline int launch_csr(const Src& src, int s, const int* ts,
                              int out_cap, int* indptr, int* dep_rows,
                              int* dep_ts, int* bound, unsigned* csum,
                              int* block_sums, int* block_off, unsigned* acc,
-                             cudaStream_t st) {
+                             cudaStream_t st,
+                             FoldSeeds seeds = FoldSeeds{1u, 5u, 9u}) {
   long long n = (long long)s * src.w;
   int nblocks = compact_blocks_for(n);
   if (n > 0) {
@@ -306,7 +319,7 @@ static inline int launch_csr(const Src& src, int s, const int* ts,
         src, n, block_off, ts, out_cap, indptr, dep_rows, dep_ts);
     ACCORD_CHECK();
   }
-  if (ts != nullptr) {
+  if (acc != nullptr) {
     cudaMemsetAsync(acc, 0, 3 * sizeof(unsigned), st);
     ACCORD_CHECK();
   }
@@ -314,9 +327,9 @@ static inline int launch_csr(const Src& src, int s, const int* ts,
   int g = grid_for(work, CT);
   if (g > 1024) g = 1024;
   csr_pad_fold_kernel<<<g, CT, 0, st>>>(s, ts, out_cap, indptr, dep_rows,
-                                        dep_ts, acc);
+                                        dep_ts, acc, seeds);
   ACCORD_CHECK();
-  if (ts == nullptr) return 0;
+  if (acc == nullptr) return 0;
   csr_csum_kernel<<<1, 1, 0, st>>>(acc, csum);
   ACCORD_CHECK();
   return 0;

@@ -117,13 +117,14 @@ def stream() -> ctypes.c_void_p:
 
 def call(name: str, entry: str, *args) -> None:
     """Run one C entry point of `csrc/<name>.cu` and raise on its
-    cudaGetLastError() result. Ints pass as c_int unless already ctypes."""
+    cudaGetLastError() result. Ints pass as c_int unless already ctypes;
+    a ctypes array passes as a pointer to its first element."""
     handle = lib(name)
     fn = getattr(handle, entry)
     fn.restype = ctypes.c_int
     cargs = [a if isinstance(a, (ctypes.c_void_p, ctypes.c_int,
-                                 ctypes.c_longlong)) else ctypes.c_int(a)
-             for a in args]
+                                 ctypes.c_longlong, ctypes.Array))
+             else ctypes.c_int(a) for a in args]
     rc = fn(*cargs)
     if rc != 0:
         err = handle.accord_error_string

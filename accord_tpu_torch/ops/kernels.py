@@ -31,6 +31,14 @@ PyTorch version beside it. There is no fallback from one to the other.
   range_finalize csrc/range_finalize.cu  range_finalize_csr :766 (body
                                          :799), _segment_compact :473
   max_conflict   csrc/max_conflict.cu    max_conflict :65
+  exec_scatter   csrc/exec_scatter.cu    exec_scatter :224
+  execution_frontier, fused_execution_frontier, frontier_compact
+                 csrc/exec_frontier.cu   execution_frontier :143,
+                                         fused_execution_frontier :174,
+                                         frontier_compact :651 (body :619)
+
+The exec plane's adjacency is PACKED too, int32 [cap, cap/32] (dep d in
+bit d & 31 of word d >> 5), where the reference keeps bool [cap, cap].
 
 Scatter indices follow jnp's `.at[]` rules: a negative index counts from
 the end, and one still out of range is dropped (the padding sentinels B,
@@ -52,7 +60,10 @@ _M32 = 0xFFFFFFFF
 LAUNCHES: Dict[str, int] = {"deps_resolve": 0, "finalize_csr": 0,
                             "arena_scatter": 0, "row_scatter": 0,
                             "range_scatter": 0, "range_resolve": 0,
-                            "range_finalize": 0, "max_conflict": 0}
+                            "range_finalize": 0, "max_conflict": 0,
+                            "exec_scatter": 0, "execution_frontier": 0,
+                            "fused_execution_frontier": 0,
+                            "frontier_compact": 0}
 
 
 def reset_launches() -> None:
@@ -982,6 +993,199 @@ def max_conflict(subj_words, act_bm, act_exec_ts, act_valid):
              act_bm.shape[0], ext.ptr(lanes), ext.ptr(row), ext.stream())
     LAUNCHES["max_conflict"] += 1
     return lanes, row
+
+
+# -- K8: exec_scatter -------------------------------------------------------
+def _check_exec_lanes(adj, exec_ts, applied, pending, awaits_all) -> None:
+    cap = adj.shape[0]
+    if (cap % 32 or tuple(adj.shape) != (cap, cap // 32)
+            or adj.dtype != torch.int32 or exec_ts.dtype != torch.int32
+            or tuple(exec_ts.shape) != (cap, 3)
+            or any(t.dtype != torch.bool or tuple(t.shape) != (cap,)
+                   for t in (applied, pending, awaits_all))):
+        raise ValueError("exec lanes must be i32[cap, cap/32] (cap % 32 == "
+                         "0), i32[cap, 3] and three bool[cap]")
+
+
+def exec_scatter_plain(adj, exec_ts, applied, pending, awaits_all, rows,
+                       adj_rows, ts_rows, applied_rows, pending_rows,
+                       awaits_rows):
+    return tuple(_scatter_lane_plain(dst, rows, src) for dst, src in (
+        (adj, adj_rows), (exec_ts, ts_rows), (applied, applied_rows),
+        (pending, pending_rows), (awaits_all, awaits_rows)))
+
+
+def exec_scatter(adj, exec_ts, applied, pending, awaits_all, rows, adj_rows,
+                 ts_rows, applied_rows, pending_rows, awaits_rows):
+    """Dirty rows into fresh copies of the exec arena's five lanes (packed
+    adjacency i32[cap, cap/32], exec_ts i32[cap, 3], applied / pending /
+    awaits_all bool[cap]): lane[rows[i]] = src[i], out of range dropped;
+    padding duplicates rows[0] with identical data."""
+    lanes = (adj, exec_ts, applied, pending, awaits_all)
+    srcs = (adj_rows, ts_rows, applied_rows, pending_rows, awaits_rows)
+    if not adj.is_cuda:
+        return exec_scatter_plain(*lanes, rows, *srcs)
+    ext = _ext()
+    _check_cuda(*lanes, rows, *srcs)
+    _check_exec_lanes(*lanes)
+    cap, w = adj.shape
+    m = rows.shape[0]
+    if (tuple(adj_rows.shape) != (m, w) or tuple(ts_rows.shape) != (m, 3)
+            or any(t.dtype != d.dtype or t.shape[0] != m
+                   for t, d in zip(srcs, lanes))):
+        raise ValueError("exec_scatter: row data must match the lanes' row "
+                         "shapes and dtypes")
+    outs = tuple(torch.empty_like(t) for t in lanes)
+    ext.call("exec_scatter", "exec_scatter", *(ext.ptr(t) for t in outs),
+             *(ext.ptr(t) for t in lanes), cap, w, ext.ptr(rows), m,
+             *(ext.ptr(t) for t in srcs), ext.stream())
+    LAUNCHES["exec_scatter"] += 1
+    return outs
+
+
+# -- K9: execution_frontier / fused_execution_frontier / frontier_compact ----
+FRONTIER_OUT_TIERS = (32, 256, 2048)
+_FRONTIER_MAX_PLANES = 32    # csrc/exec_frontier.cu FMAXP
+
+
+def _lex_le(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a <= b lexicographically over 3 int32 lanes (broadcasting)."""
+    return ~_lex_before(b, a)
+
+
+def _frontier_ready(adj, exec_ts, applied, pending, awaits_all):
+    """bool[cap]: pending rows whose gates are all clear. A gate is a wait
+    edge adj[w, d] on a dep that is not applied and either executes no
+    later than w (exec_ts[d] <=lex exec_ts[w]) or w awaits all its deps.
+    Walks only the set bits of the packed adjacency."""
+    cap = adj.shape[0]
+    wi, ji = torch.nonzero(adj, as_tuple=True)
+    bits = (_u32(adj[wi, ji])[:, None]
+            >> torch.arange(32, device=adj.device)) & 1
+    k, b = torch.nonzero(bits, as_tuple=True)
+    w = wi[k]
+    d = ji[k] * 32 + b
+    gate = ~applied[d] & (awaits_all[w] | _lex_le(exec_ts[d], exec_ts[w]))
+    gated = torch.zeros(cap, dtype=torch.bool, device=adj.device)
+    gated[w[gate]] = True
+    return pending & ~gated
+
+
+def execution_frontier_plain(adj, exec_ts, applied, pending, awaits_all):
+    ready = _frontier_ready(adj, exec_ts, applied, pending, awaits_all)
+    return _pack_bits(ready.reshape(1, -1))[0]
+
+
+def fused_execution_frontier_plain(planes):
+    return torch.cat([execution_frontier_plain(*p) for p in planes])
+
+
+def _plane_table(ext, planes):
+    """The C entry's per-plane arrays: five pointer arrays and the caps."""
+    n = len(planes)
+    if not 1 <= n <= _FRONTIER_MAX_PLANES:
+        raise ValueError(f"frontier kernels take 1-{_FRONTIER_MAX_PLANES} "
+                         f"planes (got {n})")
+    for p in planes:
+        _check_cuda(*p, *planes[0])
+        _check_exec_lanes(*p)
+    ptrs = [(ext.ctypes.c_void_p * n)(*(p[k].data_ptr() for p in planes))
+            for k in range(5)]
+    caps = (ext.ctypes.c_int * n)(*(p[0].shape[0] for p in planes))
+    return (*ptrs, caps), sum(p[0].shape[0] // 32 for p in planes)
+
+
+def _frontier_cuda(planes) -> torch.Tensor:
+    ext = _ext()
+    table, w_tot = _plane_table(ext, planes)
+    out = torch.empty(w_tot, dtype=torch.int32, device=planes[0][0].device)
+    ext.call("exec_frontier", "exec_frontier", len(planes), *table,
+             ext.ptr(out), ext.stream())
+    return out
+
+
+def execution_frontier(adj, exec_ts, applied, pending, awaits_all):
+    """The exec plane's release test -> packed i32[cap/32]: pending rows
+    with no wait edge on a dep that is not applied and (exec_ts[d] <=lex
+    exec_ts[w] or w awaits all). INT32_MIN lanes mark an undecided
+    executeAt, which always gates."""
+    if not adj.is_cuda:
+        return execution_frontier_plain(adj, exec_ts, applied, pending,
+                                        awaits_all)
+    out = _frontier_cuda(((adj, exec_ts, applied, pending, awaits_all),))
+    LAUNCHES["execution_frontier"] += 1
+    return out
+
+
+def fused_execution_frontier(planes):
+    """execution_frontier over a tuple of store planes (caps may differ),
+    the packed words concatenated in tuple order -> i32[sum(cap_s)/32]."""
+    if not planes[0][0].is_cuda:
+        return fused_execution_frontier_plain(planes)
+    out = _frontier_cuda(tuple(planes))
+    LAUNCHES["fused_execution_frontier"] += 1
+    return out
+
+
+def frontier_checksum(indptr, rows) -> torch.Tensor:
+    """The compacted frontier's integrity word, as an int32 bit pattern
+    (0-d): the finalize fold with seeds 13 (indptr) and 17 (rows)."""
+    word = _csum_fold(indptr, 13) ^ _csum_fold(rows, 17)
+    return _to_i32(torch.tensor(word, dtype=torch.int64,
+                                device=indptr.device))
+
+
+def frontier_checksum_host(indptr, rows) -> int:
+    """numpy twin of frontier_checksum, over fetched host copies (u32
+    value)."""
+    def fold(x, seed):
+        v = np.ascontiguousarray(x).view(np.uint32).reshape(-1)
+        v = v ^ (v >> np.uint32(16))
+        idx = np.arange(v.shape[0], dtype=np.uint32)
+        return (v * (np.uint32(2) * idx + np.uint32(seed))).sum(
+            dtype=np.uint32)
+    return int(fold(indptr, 13) ^ fold(rows, 17))
+
+
+def frontier_compact_plain(planes, out_cap: int):
+    packs = [execution_frontier_plain(*p) for p in planes]
+    w_tot = sum(p.shape[0] for p in packs)
+    m = torch.zeros(len(packs), w_tot, dtype=torch.int32,
+                    device=packs[0].device)
+    off = 0
+    for s, p in enumerate(packs):
+        m[s, off:off + p.shape[0]] = p
+        off += p.shape[0]
+    indptr, rows = _packed_segment_compact(m, out_cap)
+    return indptr, rows, frontier_checksum(indptr, rows), torch.cat(packs)
+
+
+def frontier_compact(planes, out_cap: int):
+    """The fused frontier of a tuple of store planes, compacted: (indptr
+    i32[S+1], rows i32[out_cap], csum i32 bit pattern, packed
+    i32[sum(W_s)]). Store s is segment s; its rows are GLOBAL bit indices
+    (32 * its first word + arena row), ascending; indptr is exact even past
+    out_cap (rows beyond it are dropped, 0-padded); csum folds indptr and
+    all out_cap rows; packed is the fused frontier, kept for the fallback
+    decode."""
+    if not planes[0][0].is_cuda:
+        return frontier_compact_plain(planes, out_cap)
+    ext = _ext()
+    table, w_tot = _plane_table(ext, planes)
+    n = len(planes)
+    dev = planes[0][0].device
+    nblocks = max(1, int(ext.lib("exec_frontier").compact_blocks(
+        ext.ctypes.c_longlong(n * w_tot))))
+    packed = torch.empty(w_tot, dtype=torch.int32, device=dev)
+    indptr = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    rows = torch.empty(out_cap, dtype=torch.int32, device=dev)
+    csum = torch.empty((), dtype=torch.int32, device=dev)
+    _buf, scratch = _compact_scratch(nblocks, dev)
+    ext.call("exec_frontier", "frontier_compact", n, *table, out_cap,
+             ext.ptr(packed), ext.ptr(indptr), ext.ptr(rows), ext.ptr(csum),
+             *scratch, ext.stream())
+    LAUNCHES["frontier_compact"] += 1
+    return indptr, rows, csum, packed
 
 
 # -- padded-size ladders (the JAX package's tiers, kept for bit-equal

@@ -73,12 +73,13 @@ _EMPTY_I64 = np.empty(0, dtype=np.int64)
 _RSUB = object()
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, owner: str = "BatchDepsResolver") \
+        -> torch.device:
     """None means the card; asking for it without one raises (a run that
     wants the card must never move to the CPU on its own)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("BatchDepsResolver: no CUDA device is available "
+        raise RuntimeError(f"{owner}: no CUDA device is available "
                            "(pass device='cpu' for the plain versions)")
     return dev
 

@@ -37,7 +37,7 @@ class ClusterConfig:
                  preaccept_timeout_ms: float = 1000.0,
                  exec_plane: bool = False, exec_tick_ms: float = 2.0,
                  exec_fuse: bool = True, exec_compact: bool = False,
-                 recovery_scan=None,
+                 exec_device=None, recovery_scan=None,
                  cmd_plane: bool = False, cmd_plane_cap: int = 1024,
                  cmd_plane_key_cap: int = 1024,
                  cmd_plane_authoritative: bool = False,
@@ -89,6 +89,9 @@ class ClusterConfig:
         # released-row index list + checksum instead of the full bitmask;
         # checksum mismatch falls back to the legacy decode, counted
         self.exec_compact = exec_compact
+        # the exec planes' device: None is the card (raises without one),
+        # "cpu" runs the frontier kernels' plain versions
+        self.exec_device = exec_device
         # recovery candidate selection mode for ProgressEngine sweeps:
         # None = per-entry host walk (the reference path), "host" = the
         # scan predicate evaluated on the cmd-arena host shadows, "device"
@@ -355,8 +358,24 @@ class Cluster:
                 and self.config.stores_per_node > 1:
             resolver.pad_store_tiers = self.config.stores_per_node
         if self.config.exec_plane:
-            raise NotImplementedError(
-                "exec plane: ROADMAP queue 1 item 5 (not ported yet)")
+            from accord_tpu_torch.ops.exec_plane import (ExecCoordinator,
+                                                         ExecPlane)
+            coordinator = None
+            if self.config.exec_fuse and self.config.stores_per_node > 1:
+                coordinator = ExecCoordinator(
+                    node, tick_ms=self.config.exec_tick_ms,
+                    device_latency_ms=self.config.device_latency_ms,
+                    compact=self.config.exec_compact,
+                    device=self.config.exec_device)
+                self.exec_coordinators[node_id] = coordinator
+            for store in node.command_stores.all():
+                store.exec_plane = ExecPlane(
+                    store, tick_ms=self.config.exec_tick_ms,
+                    device_latency_ms=self.config.device_latency_ms,
+                    compact=self.config.exec_compact,
+                    device=self.config.exec_device)
+                if coordinator is not None:
+                    coordinator.register(store.exec_plane)
         if self.config.cmd_plane:
             raise NotImplementedError(
                 "cmd plane: ROADMAP queue 1 item 6 (not ported yet)")

@@ -69,7 +69,10 @@ EDITED: Dict[str, Tuple[Tuple[int, int, str], ...]] = {
         (93, 96, "drop the guard's call in the append funnel"),
     ),
     "sim/cluster.py": (
-        (357, 379, "exec_plane / cmd_plane raise: ROADMAP queue 1 items 5-6"),
+        (40, 40, "ClusterConfig(exec_device=): the exec planes' device"),
+        (92, 92, "ClusterConfig.exec_device"),
+        (357, 379, "exec planes built on exec_device; cmd_plane raises: "
+                   "ROADMAP queue 1 item 6"),
     ),
     "sim/network.py": (
         (364, 364, "device_messages raises: ROADMAP queue 1 item 8"),

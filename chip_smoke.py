@@ -33,12 +33,34 @@ launched.
      subjects through the async pipeline, every answer equal to the host
      scan; then the same with 1,024 in-flight range writes added and 20%
      range subjects (the shape at which K5 and K6 do real work);
-  7. kernels: each kernel's wrapper is called again on the card on the
-     exact inputs its path (and a PreAccept batch) gave it, and held
-     bit-equal against its plain PyTorch version on the same inputs;
-     kernel, plain and (where one exists) single-library-call times come
-     from CUDA events, and each call's bound from the bytes it must move
-     (3.35 TB/s) or the operations it must do (67 T 32-bit op/s).
+  7. exec burn, fused: bench.py's bench_exec_plane leg (seed 31, Zipf 0.99
+     over 16 hot keys, durability every 1000 ms, two stores per node, host
+     deps) with the port's exec planes PRIMARY on the card (releases only
+     from harvested frontiers; the host WaitingOn asserts each one): card
+     vs CPU identical history, lost 0, every exec plane and coordinator
+     counter equal, granular ts/flags uploads > 0 and the upload bytes
+     below the whole-row baseline; exec_scatter (K8) and the fused
+     frontier (K9) launched;
+  8. exec burn, compacted: the same with frontier_compact harvests and the
+     port's BatchDepsResolver on the card too (deps and execution both on
+     the device): card vs CPU identical, zero compact fallbacks, overflows
+     and every counter equal to the CPU leg's; frontier_compact launched;
+  9. exec solo leg: one store per node, so each plane runs the plain
+     execution_frontier; card vs CPU identical;
+ 10. exec frontier batch, the kernels at their largest: (a) bench.py's
+     10k-in-flight compact harvest (5 planes x 2048 rows, all pending, 40
+     released per plane) through frontier_compact and
+     fused_execution_frontier, every released set the expected one; (b)
+     one 16384-row plane with ~10,000 pending rows waiting on up to 8
+     earlier rows each, signed exec_ts with ~10% undecided, ~5% awaits_all
+     and half the rest applied: a 64-row exec_scatter, then
+     execution_frontier and frontier_compact, equal to the plain versions;
+ 11. kernels: each kernel's wrapper is called again on the card on the
+     exact inputs its path (and a batch) gave it, and held bit-equal
+     against its plain PyTorch version on the same inputs; kernel, plain
+     and (where one exists) single-library-call times come from CUDA
+     events, and each call's bound from the bytes it must move (3.35 TB/s)
+     or the operations it must do (67 T 32-bit op/s).
 The last three lines are the card line, one JSON line of kernels, and the
 result line {"ok": true, "device": {...}}.
 """
@@ -70,7 +92,17 @@ KERNELS = (
      "accord_tpu/ops/kernels.py:766"),
     ("max_conflict", "accord_tpu_torch/csrc/max_conflict.cu",
      "accord_tpu/ops/kernels.py:65"),
+    ("exec_scatter", "accord_tpu_torch/csrc/exec_scatter.cu",
+     "accord_tpu/ops/kernels.py:224"),
+    ("execution_frontier", "accord_tpu_torch/csrc/exec_frontier.cu",
+     "accord_tpu/ops/kernels.py:143"),
+    ("fused_execution_frontier", "accord_tpu_torch/csrc/exec_frontier.cu",
+     "accord_tpu/ops/kernels.py:174"),
+    ("frontier_compact", "accord_tpu_torch/csrc/exec_frontier.cu",
+     "accord_tpu/ops/kernels.py:651"),
 )
+EXEC_KERNELS = ("exec_scatter", "execution_frontier",
+                "fused_execution_frontier", "frontier_compact")
 # kernel-module functions recorded on the paths, by kernel
 RECORDED = {"deps_resolve": ("deps_resolve", "fused_deps_resolve"),
             "finalize_csr": ("finalize_csr",),
@@ -81,12 +113,16 @@ RECORDED = {"deps_resolve": ("deps_resolve", "fused_deps_resolve"),
             "range_resolve": ("range_deps_resolve",
                               "fused_range_deps_resolve", "covered_buckets"),
             "range_finalize": ("range_finalize_csr", "segment_compact"),
-            "max_conflict": ("max_conflict",)}
+            "max_conflict": ("max_conflict",),
+            **{k: (k,) for k in EXEC_KERNELS}}
 # the path whose launches each kernel's entry reports
 PATH_OF = {"deps_resolve": "key_burn", "finalize_csr": "key_burn",
            "arena_scatter": "key_burn", "row_scatter": "key_burn",
            "range_scatter": "range_burn", "range_resolve": "range_burn",
-           "range_finalize": "range_burn", "max_conflict": "inline"}
+           "range_finalize": "range_burn", "max_conflict": "inline",
+           "exec_scatter": "exec_burn", "execution_frontier": "exec_solo",
+           "fused_execution_frontier": "exec_burn",
+           "frontier_compact": "exec_compact"}
 
 
 class SmokeFailure(Exception):
@@ -220,6 +256,10 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
         "range_finalize_csr": tk.range_finalize_csr_plain,
         "segment_compact": tk.segment_compact_plain,
         "max_conflict": tk.max_conflict_plain,
+        "exec_scatter": tk.exec_scatter_plain,
+        "execution_frontier": tk.execution_frontier_plain,
+        "fused_execution_frontier": tk.fused_execution_frontier_plain,
+        "frontier_compact": tk.frontier_compact_plain,
     }
     calls = []
     for fn_name in RECORDED[name]:
@@ -378,6 +418,19 @@ def bound_inputs(tk, fn_name, args, kw, out):
         ands = int((first * valid[None, :]).sum())
         overlaps = int((meet.any(-1) & valid[None, :]).sum())
         return nbytes(args) + nbytes(out), ands + 3 * overlaps, None
+    if fn_name in ("execution_frontier", "fused_execution_frontier",
+                   "frontier_compact"):
+        planes = ((args,) if fn_name == "execution_frontier" else args[0])
+        # the pending rows' adjacency read once (the kernel skips the
+        # others), 15 bytes of lanes per row, the outputs written; one
+        # and-not per pending row word
+        bytes_, ops = nbytes(out), 0
+        for adj, _ts, _app, pending, _aw in planes:
+            cap, w = adj.shape
+            npend = int(pending.sum())
+            bytes_ += npend * w * 4 + 15 * cap
+            ops += npend * w
+        return bytes_, ops, None
     if fn_name == "scatter_rows":
         dst, idx, rows = args
         lib = None
@@ -482,6 +535,145 @@ def inline_burn(device: str, resolvers: list):
                    config=ClusterConfig(deps_resolver_factory=factory,
                                         deps_batch_window_ms=None))
     return rep, time.perf_counter() - t0
+
+
+def exec_burn(device: str, ops: int, stores: int = 2, compact: bool = False,
+              resolvers=None):
+    """bench.py's bench_exec_plane leg, unchanged: seed 31, Zipf 0.99 over
+    16 hot keys, durability rounds every 1000 ms, the exec planes primary
+    on `device` (two stores per node: the ExecCoordinator fuses their
+    frontiers), host deps. `compact` harvests through frontier_compact;
+    `resolvers` (a list) puts the port's BatchDepsResolver on the same
+    device."""
+    from accord_tpu_torch.ops.resolver import BatchDepsResolver
+    from accord_tpu_torch.sim.burn import run_burn
+    from accord_tpu_torch.sim.cluster import ClusterConfig
+
+    cfg = dict(exec_plane=True, exec_device=device, exec_compact=compact,
+               stores_per_node=stores, durability=True,
+               durability_interval_ms=1000.0)
+    if resolvers is not None:
+        def factory():
+            r = BatchDepsResolver(num_buckets=1024, initial_cap=2048,
+                                  max_dispatch=256, device=device)
+            resolvers.append(r)
+            return r
+        cfg.update(deps_resolver_factory=factory, deps_batch_window_ms=2.0)
+    t0 = time.perf_counter()
+    rep = run_burn(31, ops=ops, key_count=16, zipf_theta=0.99,
+                   collect_log=True, config=ClusterConfig(**cfg))
+    return rep, time.perf_counter() - t0
+
+
+def exec_counters(rep) -> dict:
+    """Every exec plane and coordinator counter of a burn, summed over
+    planes and coordinators (the wall-clock harvest stall left out)."""
+    return {k: v for k, v in rep.counters.items()
+            if k.startswith(("exec.", "exec_coord."))
+            and not k.endswith("harvest_stall_s")}
+
+
+def frontier_batch(device: str, rehearse: bool, recs, seed: int = 31) -> dict:
+    """The frontier kernels at their largest. (a) bench.py's compacted
+    harvest at 10k in flight: 5 planes x 2048 rows, every row pending, rows
+    0/1 gate each other, every other row but 40 per plane waits on row 0
+    (undecided executeAt); the compacted and the fused frontier must
+    release exactly the 40. (b) one 16384-row plane: ~10,000 pending rows
+    each waiting on up to 8 earlier rows (the wait sets of 4-key txns at
+    10k in flight over 1k keys), signed exec_ts with ~10% undecided, ~5%
+    awaits_all, half of the other rows applied; 64 dirty rows re-shipped
+    through exec_scatter, then execution_frontier and frontier_compact,
+    each equal to its plain version. recs: the Recorders of (a) and (b)."""
+    import numpy as np
+    import torch
+    from accord_tpu_torch.ops import kernels as tk
+    from accord_tpu_torch.ops.tiers import OutCapTiers
+
+    rng = np.random.default_rng(seed)
+    neg = np.iinfo(np.int32).min
+    up = (lambda a: tk.upload(np.ascontiguousarray(a), device))
+    ecap, nplanes, per_plane = (256 if rehearse else 2048), 5, 40
+    words = ecap // 32
+    planes, expected = [], []
+    for _ in range(nplanes):
+        rel = np.sort(rng.choice(np.arange(2, ecap), per_plane,
+                                 replace=False))
+        adj = np.zeros((ecap, words), np.uint32)
+        adj[0, 0] |= np.uint32(1 << 1)
+        adj[1, 0] |= np.uint32(1)
+        gated = np.ones(ecap, bool)
+        gated[rel] = False
+        gated[:2] = False
+        adj[gated, 0] |= np.uint32(1)
+        planes.append((up(adj.view(np.int32)),
+                       up(np.full((ecap, 3), neg, np.int32)),
+                       up(np.zeros(ecap, bool)), up(np.ones(ecap, bool)),
+                       up(np.zeros(ecap, bool))))
+        expected.append(rel.tolist())
+    tiers = OutCapTiers(tk.FRONTIER_OUT_TIERS, tk.FRONTIER_OUT_TIERS[-1] * 2)
+    out_cap = tiers.pick(nplanes * per_plane)
+    with recs[0]:
+        res = tk.frontier_compact(tuple(planes), out_cap=out_cap)
+        fused = tk.fused_execution_frontier(tuple(planes)).cpu().numpy()
+    indptr, rows, csum, _ = (t.cpu().numpy() for t in res)
+    check(int(indptr[-1]) == nplanes * per_plane,
+          f"frontier batch (a): bound {int(indptr[-1])} != "
+          f"{nplanes * per_plane}")
+    check(tk.frontier_checksum_host(indptr, rows) == int(csum) & 0xFFFFFFFF,
+          "frontier batch (a): checksum mismatch")
+    for s, exp in enumerate(expected):
+        seg = rows[indptr[s]:indptr[s + 1]] - 32 * s * words
+        check(seg.tolist() == exp,
+              f"frontier batch (a): plane {s} compacted release set wrong")
+        bits = np.unpackbits(fused[s * words:(s + 1) * words].view(np.uint8),
+                             bitorder="little")
+        check(np.nonzero(bits)[0].tolist() == exp,
+              f"frontier batch (a): plane {s} fused release set wrong")
+
+    cap = 1024 if rehearse else 16384
+    npend = 600 if rehearse else 10_000
+    pending = np.zeros(cap, bool)
+    pending[rng.choice(cap, npend, replace=False)] = True
+    adj = np.zeros((cap, cap // 32), np.uint32)
+    w = np.repeat(np.nonzero(pending)[0], 8)
+    k = rng.integers(0, 9, npend).repeat(8)     # 0-8 deps per waiter
+    w = w[(np.tile(np.arange(8), npend) < k) & (w > 0)]
+    d = (rng.random(w.size) * w).astype(np.int64)
+    np.bitwise_or.at(adj, (w, d >> 5), np.uint32(1) << (d & 31)
+                     .astype(np.uint32))
+    ts = np.empty((cap, 3), np.int32)
+    ts[:, 0] = rng.integers(-(1 << 20), 1 << 20, cap)
+    ts[:, 1:] = rng.integers(neg, np.iinfo(np.int32).max, (cap, 2),
+                             dtype=np.int64)
+    ts[rng.random(cap) < 0.1] = neg
+    applied = ~pending & (rng.random(cap) < 0.5)
+    awaits = rng.random(cap) < 0.05
+    base = (up(adj.view(np.int32)), up(ts), up(applied), up(pending),
+            up(awaits))
+    dirty = np.sort(rng.choice(np.nonzero(pending)[0], 64,
+                               replace=False)).astype(np.int32)
+    uploads = (up(dirty), up(adj[dirty].view(np.int32)), up(ts[dirty]),
+               up(applied[dirty]), up(pending[dirty]), up(awaits[dirty]))
+    with recs[1]:
+        lanes = tk.exec_scatter(*base, *uploads)
+        out = tk.execution_frontier(*lanes)
+        res = tk.frontier_compact((lanes,), out_cap=tiers.pick(npend))
+    check(max_abs_err(lanes, tk.exec_scatter_plain(*base, *uploads)) == 0,
+          "frontier batch (b): exec_scatter != its plain version")
+    plain = tk.execution_frontier_plain(*lanes)
+    check(torch.equal(out, plain),
+          "frontier batch (b): execution_frontier != its plain version")
+    released = int(tk._popcount_u32(out).sum())
+    ref = tk.frontier_compact_plain((lanes,), out_cap=tiers.pick(npend))
+    check(max_abs_err(res, ref) == 0,
+          "frontier batch (b): frontier_compact != its plain version")
+    check(int(res[0][-1]) == released and released > 0,
+          f"frontier batch (b): bound {int(res[0][-1])} vs {released} "
+          "released")
+    return {"a": {"planes": nplanes, "cap": ecap, "released": per_plane,
+                  "out_cap": out_cap},
+            "b": {"cap": cap, "pending": npend, "edges": int(w.size),
+                  "released": released}}
 
 
 COUNTERS = ("host_fallbacks", "range_fallbacks", "finalize_fallbacks",
@@ -711,28 +903,103 @@ def run(rehearse: bool) -> dict:
     check(par["range_subject_device_decodes"] > 0,
           "PreAccept batch: no range subject decoded on the device")
 
-    # 7. kernels: replay the recorded inputs, kernel vs plain, timed
+    # 7-9. the exec plane: fused, compacted (+ resolver), solo
+    exec_ops = 400 if not rehearse else 60
+    exec_recs = {}
+    for path, ops_, kw in (
+            ("exec_burn", exec_ops, {}),
+            ("exec_compact", exec_ops, {"compact": True}),
+            ("exec_solo", 120 if not rehearse else 40, {"stores": 1})):
+        rec = exec_recs[path] = Recorder(tk)
+        with_res = path == "exec_compact"
+        eres = [] if with_res else None
+        tk.reset_launches()
+        with rec:
+            erep, ewall = exec_burn(device, ops_, resolvers=eres, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        launches[path] = dict(tk.LAUNCHES)
+        ecnt = exec_counters(erep)
+        log(f"{path}[{device}]: acked {erep.acked} failed {erep.failed} lost "
+            f"{erep.lost} in {ewall:.2f} s -> {erep.acked / ewall:.1f} acked "
+            f"txn/s; launches {launches[path]}; {json.dumps(ecnt)}"
+            + (f"; resolver {clean(eres)}" if with_res else ""))
+        check(erep.lost == 0 and erep.acked == ops_,
+              f"{path}: lost or unacked txns")
+        check(ecnt.get("exec.releases", 0) > 0, f"{path}: no releases")
+        cres = [] if with_res else None
+        crep, cwall = exec_burn("cpu", ops_, resolvers=cres, **kw)
+        log(f"{path}[cpu]: acked {crep.acked} in {cwall:.2f} s")
+        check(crep.log == erep.log,
+              f"{path}: the card's history differs from the CPU's")
+        check(exec_counters(crep) == ecnt,
+              f"{path}: the card's exec counters {ecnt} differ from the "
+              f"CPU's {exec_counters(crep)}")
+        if with_res:
+            check(clean(cres) == clean(eres),
+                  f"{path}: the card's resolver counters differ from the "
+                  "CPU's")
+            for k in ("host_fallbacks", "checksum_mismatches"):
+                check(clean(eres)[k] == 0, f"{path}: {k} = {clean(eres)[k]}")
+            check(ecnt.get("exec_coord.compact_fallbacks", 0) == 0,
+                  f"{path}: compact fallbacks")
+        log(f"{path}: {len(erep.log)} log lines identical on {device} and "
+            "cpu")
+        if path == "exec_burn":
+            ts_flags = (ecnt.get("exec.upload_bytes.ts", 0)
+                        + ecnt.get("exec.upload_bytes.flags", 0))
+            check(ts_flags > 0, "exec burn: no granular ts/flags uploads")
+            check(ecnt["exec.upload_bytes"]
+                  < ecnt["exec.upload_bytes_full_equiv"],
+                  "exec burn: granular uploads not below the whole-row "
+                  "baseline")
+            check(ecnt.get("exec_coord.fused_dispatches", 0) > 0,
+                  "exec burn: no fused dispatch")
+        if cuda:
+            must = {"exec_scatter", *(n for n in EXEC_KERNELS
+                                      if PATH_OF[n] == path)}
+            if with_res:
+                must |= {"deps_resolve", "finalize_csr"}
+            for name in sorted(must):
+                check(launches[path][name] > 0,
+                      f"{path}: kernel {name} never launched")
+
+    # 10. the frontier kernels at their largest
+    fa_rec, fb_rec = Recorder(tk), Recorder(tk)
+    fb = frontier_batch(device, rehearse, (fa_rec, fb_rec))
+    log(f"frontier_batch[{device}]: {json.dumps(fb)}")
+
+    # 11. kernels: replay the recorded inputs, kernel vs plain, timed
     iters = 50 if cuda else 2
     path_rec = {"key_burn": key_rec, "range_burn": range_rec,
-                "inline": inline_rec}
-    batch_rec = {"key_burn": pa_rec, "range_burn": pr_rec}
+                "inline": inline_rec, **exec_recs}
+    # further inputs each kernel is replayed on, by label (the first
+    # two keep their PR-1/PR-2 names in the kernels line)
+    extra_rec = {"key_burn": [("preaccept_batch", pa_rec),
+                              ("range_burn", range_rec)],
+                 "range_burn": [("preaccept_batch", pr_rec)],
+                 "inline": []}
+    exec_extra = [("exec_burn", exec_recs["exec_burn"]),
+                  ("exec_compact", exec_recs["exec_compact"]),
+                  ("frontier_batch_a", fa_rec),
+                  ("frontier_batch_b", fb_rec)]
     entries = []
     for name, source, replaces in KERNELS:
         path = PATH_OF[name]
         log(f"kernel {name}, {path} inputs:")
         head = kernel_report(tk, name, path_rec[path], cuda, iters)
         reports = [head]
-        base = other = None
-        if path in batch_rec:
-            log(f"kernel {name}, PreAccept-batch inputs:")
-            base = kernel_report(tk, name, batch_rec[path], cuda, iters)
-            reports.append(base)
-        if path == "key_burn":
-            # the range burn is a path of K1-K4 too (durability's
-            # truncations call arena_scatter_keys there)
-            log(f"kernel {name}, range_burn inputs:")
-            other = kernel_report(tk, name, range_rec, cuda, iters)
-            reports.append(other)
+        if name in EXEC_KERNELS:
+            extra = [(lab, r) for lab, r in exec_extra
+                     if lab != path and r.get(name) is not None]
+        else:
+            extra = extra_rec[path]
+        labelled = []
+        for label, rec in extra:
+            log(f"kernel {name}, {label} inputs:")
+            labelled.append((label, kernel_report(tk, name, rec, cuda,
+                                                  iters)))
+            reports.append(labelled[-1][1])
         for k in reports:
             check(k["max_abs_err"] == 0,
                   f"kernel {name} disagrees with its plain version")
@@ -746,12 +1013,9 @@ def run(rehearse: bool) -> dict:
             "library_ms": head["library_ms"], "call": head["call"],
             "calls": [_brief(r) for r in head["calls"]],
             "launches_by_path": {p: launches[p][name] for p in launches}}
-        if base is not None:
-            entry["preaccept_batch"] = dict(
-                _brief(base), calls=[_brief(r) for r in base["calls"]])
-        if other is not None:
-            entry["range_burn"] = dict(
-                _brief(other), calls=[_brief(r) for r in other["calls"]])
+        for label, r in labelled:
+            entry[label] = dict(_brief(r),
+                                calls=[_brief(c) for c in r["calls"]])
         entries.append(entry)
     return {"card": card, "entries": entries, "cuda": cuda,
             "acked_per_s": rep.acked / wall}

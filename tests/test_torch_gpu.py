@@ -352,3 +352,136 @@ def test_max_conflict_kernel(cuda, b, cap, k):
     _eq(plain, got)
     assert int(plain[1][0]) == -1 and int(plain[1][1]) == only
     assert (plain[1][2:] >= 0).all()
+
+
+def _exec_plane(rng, cap, pending=0.6):
+    """An exec arena with the compare's hazards: signed exec_ts with
+    undecided (INT32_MIN), INT32_MAX and equal triples, set diagonal
+    bits, awaits_all rows; up to 8 wait edges per row, packed straight
+    into int32 [cap, cap/32] words."""
+    deps = rng.integers(0, cap, (cap, 8))
+    deps[rng.random((cap, 8)) < 0.3] = -1
+    diag = rng.random(cap) < 0.05
+    deps[diag, 0] = np.nonzero(diag)[0]
+    w, k = np.nonzero(deps >= 0)
+    d = deps[w, k]
+    words = np.zeros((cap, cap // 32), np.uint32)
+    np.bitwise_or.at(words, (w, d >> 5), np.uint32(1) << (d & 31)
+                     .astype(np.uint32))
+    ts = rng.integers(-4, 4, (cap, 3)).astype(np.int32)
+    ts[rng.random(cap) < 0.1] = I32_MIN
+    ts[rng.random(cap) < 0.05] = np.iinfo(np.int32).max
+    eq = rng.choice(cap, cap // 8, replace=False)
+    ts[eq] = ts[eq[0]]
+    return [_t(words.view(np.int32)), _t(ts), _t(rng.random(cap) < 0.4),
+            _t(rng.random(cap) < pending), _t(rng.random(cap) < 0.05)]
+
+
+@pytest.mark.parametrize("cap,m", [(64, 8), (2048, 64), (16384, 64)])
+def test_exec_scatter_kernel(cuda, cap, m):
+    rng = np.random.default_rng(cap + m)
+    lanes = _exec_plane(rng, cap)
+    n = m // 2
+    targets = rng.choice(cap, n, replace=False).astype(np.int32)
+    pick = np.concatenate([np.arange(n), rng.integers(0, n, m - n)])
+    rows = targets[pick]
+    rows[n] -= cap                     # negative: wraps once
+    rows[-1] = cap                     # dropped
+    adj_rows = _words(rng, (n, cap // 32))[pick]
+    ts_rows = rng.integers(-3, 3, (n, 3)).astype(np.int32)[pick]
+    flags = [(rng.random(n) < 0.5)[pick] for _ in range(3)]
+    args = [*lanes, _t(rows), _t(adj_rows), _t(ts_rows),
+            *(_t(f) for f in flags)]
+    plain = tk.exec_scatter(*args)
+    n0 = tk.LAUNCHES["exec_scatter"]
+    got = tk.exec_scatter(*_on(args, cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["exec_scatter"] == n0 + 1
+    _eq(plain, got)
+
+
+@pytest.mark.parametrize("cap,pending", [(64, 0.6), (2048, 1.0),
+                                         (16384, 0.6)])
+def test_execution_frontier_kernel(cuda, cap, pending):
+    rng = np.random.default_rng(cap)
+    lanes = _exec_plane(rng, cap, pending)
+    plain = tk.execution_frontier(*lanes)
+    n0 = tk.LAUNCHES["execution_frontier"]
+    got = tk.execution_frontier(*_on(lanes, cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["execution_frontier"] == n0 + 1
+    _eq(plain, got)
+    assert int(tk._popcount_u32(plain).sum()) > 0
+
+
+@pytest.mark.parametrize("caps", [(64, 128), (2048, 1024, 64), (96,)])
+def test_fused_execution_frontier_kernel(cuda, caps):
+    rng = np.random.default_rng(sum(caps))
+    planes = [_exec_plane(rng, c) for c in caps]
+    plain = tk.fused_execution_frontier(planes)
+    n0 = tk.LAUNCHES["fused_execution_frontier"]
+    got = tk.fused_execution_frontier([_on(p, cuda) for p in planes])
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["fused_execution_frontier"] == n0 + 1
+    _eq(plain, got)
+
+
+@pytest.mark.parametrize("caps,out_cap", [((64,), 4), ((128, 64, 96), 32),
+                                          ((2048,) * 5, 256),
+                                          ((16384,), 2048),
+                                          ((16384,), 1 << 14)])
+def test_frontier_compact_kernel(cuda, caps, out_cap):
+    rng = np.random.default_rng(len(caps) * 7 + out_cap)
+    planes = [_exec_plane(rng, c) for c in caps]
+    plain = tk.frontier_compact(planes, out_cap=out_cap)
+    n0 = tk.LAUNCHES["frontier_compact"]
+    got = tk.frontier_compact([_on(p, cuda) for p in planes],
+                              out_cap=out_cap)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["frontier_compact"] == n0 + 1
+    _eq(plain, got)
+    indptr, rows, csum, _ = (t.cpu().numpy() for t in got)
+    assert tk.frontier_checksum_host(indptr, rows) \
+        == int(csum) & 0xFFFFFFFF
+
+
+def test_exec_plane_burn_small_cap_matches_cpu(cuda):
+    """Exec planes on the card from 32 rows, so they compact and grow (a
+    rebuild re-uploads every row at the new packed width): the burn's
+    history and exec counters equal the same burn's on the CPU."""
+    from accord_tpu_torch.ops.exec_plane import ExecPlane
+    from accord_tpu_torch.sim.burn import run_burn
+    from accord_tpu_torch.sim.cluster import ClusterConfig
+
+    orig = ExecPlane.__init__
+    planes = []
+
+    def init(self, store, **kw):
+        kw["initial_cap"] = 32
+        orig(self, store, **kw)
+        planes.append(self)
+
+    def leg(device):
+        cfg = ClusterConfig(exec_plane=True, exec_device=device,
+                            durability=True, durability_interval_ms=300.0)
+        r = run_burn(21, ops=120, concurrency=32, collect_log=True,
+                     config=cfg)
+        return r, {k: v for k, v in r.counters.items()
+                   if k.startswith(("exec.", "exec_coord."))
+                   and not k.endswith("harvest_stall_s")}
+
+    ExecPlane.__init__ = init
+    try:
+        n0 = tk.LAUNCHES["exec_scatter"]
+        card, card_counters = leg("cuda")
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["exec_scatter"] > n0
+        card_planes, planes[:] = list(planes), []
+        cpu, cpu_counters = leg("cpu")
+    finally:
+        ExecPlane.__init__ = orig
+    assert card.log == cpu.log and card.lost == 0
+    assert card_counters == cpu_counters
+    assert max(p._gen for p in card_planes) > 0, "no plane compacted"
+    assert max(p.cap for p in card_planes) > 32, "no plane grew"
+    assert [p.cap for p in card_planes] == [p.cap for p in planes]
