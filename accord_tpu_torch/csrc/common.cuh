@@ -334,3 +334,41 @@ static inline int launch_csr(const Src& src, int s, const int* ts,
   ACCORD_CHECK();
   return 0;
 }
+
+// ---------------------------------------------------------------------------
+// One launch copying up to COPY_SEGS whole tensors into fresh outputs (the
+// functional kernels' column copies): segment k moves bytes[k] bytes from
+// src[k] to dst[k], in 16-byte vectors where both pointers are 16-byte
+// aligned, the tail (or a misaligned segment) byte by byte.
+#define COPY_SEGS 8
+
+struct CopyTable {
+  const unsigned char* src[COPY_SEGS];
+  unsigned char* dst[COPY_SEGS];
+  long long bytes[COPY_SEGS];
+  int n;
+};
+
+__global__ void multi_copy_kernel(const __grid_constant__ CopyTable t) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int k = 0; k < t.n; ++k) {
+    const unsigned char* s = t.src[k];
+    unsigned char* d = t.dst[k];
+    const long long b = t.bytes[k];
+    long long nv = 0;
+    if ((((uintptr_t)s | (uintptr_t)d) & 15u) == 0) nv = b >> 4;
+    for (long long i = tid; i < nv; i += stride)
+      ((uint4*)d)[i] = ((const uint4*)s)[i];
+    for (long long i = (nv << 4) + tid; i < b; i += stride) d[i] = s[i];
+  }
+}
+
+static inline int launch_multi_copy(const CopyTable& t, cudaStream_t st) {
+  long long most = 1;
+  for (int k = 0; k < t.n; ++k)
+    if (t.bytes[k] / 16 + 16 > most) most = t.bytes[k] / 16 + 16;
+  multi_copy_kernel<<<grid_for(most, 256), 256, 0, st>>>(t);
+  ACCORD_CHECK();
+  return 0;
+}

@@ -7,9 +7,9 @@
 // matrix), exec_ts i32 [cap, 3], and the applied / pending / awaits_all
 // bool [cap] flags. Functional like K3/K4: the outputs are fresh lanes,
 // because an in-flight frontier still reads the snapshot it was launched
-// on. One launch copies all five lanes (16-byte vectors: with cap % 32 == 0
-// every lane is a multiple of 16 bytes), then one thread per (dirty row,
-// column) writes the row's adjacency words, exec_ts lanes and flags.
+// on. One launch copies all five lanes (common.cuh's multi_copy, 16-byte
+// vectors), then one thread per (dirty row, column) writes the row's
+// adjacency words, exec_ts lanes and flags.
 // Indices follow jnp's `.at[].set` (norm_index): a negative index wraps
 // once and one still out of range is dropped. Padding repeats the chunk's
 // first row, so duplicate indices carry identical data.
@@ -19,26 +19,6 @@
 // are noise beside it. An in-place update with copy-on-write is a later
 // change.
 #include "common.cuh"
-
-struct ExecLanes {
-  uint4* dst[5];
-  const uint4* src[5];
-  long long n[5];  // 16-byte vectors per lane
-};
-
-__global__ void exec_copy_kernel(ExecLanes l, long long total) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    long long r = i;
-    int k = 0;
-    while (k < 4 && r >= l.n[k]) {
-      r -= l.n[k];
-      ++k;
-    }
-    l.dst[k][r] = l.src[k][r];
-  }
-}
 
 // one thread per (dirty row i, column c): c < words is an adjacency word,
 // then the three exec_ts lanes, then applied, pending, awaits_all
@@ -74,10 +54,6 @@ __global__ void exec_scatter_kernel(
   }
 }
 
-static inline bool aligned16(const void* p) {
-  return ((uintptr_t)p & 15u) == 0;
-}
-
 // fresh lanes (d_*) = the arena (s_*) with rows idx[i] set from the row data
 extern "C" int exec_scatter(void* d_adj, void* d_ts, void* d_app,
                             void* d_pend, void* d_aw, const void* s_adj,
@@ -92,29 +68,15 @@ extern "C" int exec_scatter(void* d_adj, void* d_ts, void* d_app,
   const void* src[5] = {s_adj, s_ts, s_app, s_pend, s_aw};
   const long long bytes[5] = {(long long)cap * words * 4, 12LL * cap, cap,
                               cap, cap};
-  bool vec = true;
-  for (int k = 0; k < 5; ++k)
-    vec = vec && aligned16(dst[k]) && aligned16(src[k]) && bytes[k] % 16 == 0;
-  if (vec) {
-    ExecLanes l;
-    long long total = 0;
-    for (int k = 0; k < 5; ++k) {
-      l.dst[k] = (uint4*)dst[k];
-      l.src[k] = (const uint4*)src[k];
-      l.n[k] = bytes[k] / 16;
-      total += l.n[k];
-    }
-    if (total > 0) {
-      exec_copy_kernel<<<grid_for(total, 256), 256, 0, st>>>(l, total);
-      ACCORD_CHECK();
-    }
-  } else {
-    for (int k = 0; k < 5; ++k) {
-      launch_copy<unsigned char>((unsigned char*)dst[k],
-                                 (const unsigned char*)src[k], bytes[k], st);
-      ACCORD_CHECK();
-    }
+  CopyTable t;
+  for (int k = 0; k < 5; ++k) {
+    t.src[k] = (const unsigned char*)src[k];
+    t.dst[k] = (unsigned char*)dst[k];
+    t.bytes[k] = bytes[k];
   }
+  t.n = 5;
+  int rc = launch_multi_copy(t, st);
+  if (rc != 0) return rc;
   const long long n = (long long)m * (words + 6);
   if (n > 0) {
     exec_scatter_kernel<<<grid_for(n, 256), 256, 0, st>>>(

@@ -106,22 +106,7 @@ struct RangeLanes {
   const unsigned char* rows[5];
 };
 __constant__ int kRangeElem[5] = {4, 4, 12, 4, 1};
-
-// one launch copying all five lanes (byte-wise grid stride; rcap rows)
-__global__ void range_copy_kernel(RangeLanes l, int rcap) {
-  long long total = 25LL * rcap;  // 4 + 4 + 12 + 4 + 1 bytes per row
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    long long rest = i;
-    int lane = 0;
-    while (rest >= (long long)kRangeElem[lane] * rcap) {
-      rest -= (long long)kRangeElem[lane] * rcap;
-      ++lane;
-    }
-    l.dst[lane][rest] = l.src[lane][rest];
-  }
-}
+static const int kRangeBytes[5] = {4, 4, 12, 4, 1};
 
 // one thread per (dirty row i, lane): dst[lane][rows[i]] = src_rows[lane][i]
 __global__ void range_scatter_kernel(RangeLanes l, int rcap,
@@ -155,9 +140,16 @@ extern "C" int range_scatter(void* d_start, void* d_end, void* d_ts,
                {(const unsigned char*)r_start, (const unsigned char*)r_end,
                 (const unsigned char*)r_ts, (const unsigned char*)r_kind,
                 (const unsigned char*)r_valid}};
+  CopyTable t;
+  for (int k = 0; k < 5; ++k) {
+    t.src[k] = l.src[k];
+    t.dst[k] = l.dst[k];
+    t.bytes[k] = (long long)kRangeBytes[k] * rcap;
+  }
+  t.n = 5;
   if (rcap > 0) {
-    range_copy_kernel<<<grid_for(25LL * rcap, 256), 256, 0, st>>>(l, rcap);
-    ACCORD_CHECK();
+    int rc = launch_multi_copy(t, st);
+    if (rc != 0) return rc;
   }
   if (m > 0) {
     range_scatter_kernel<<<(m * 5 + 255) / 256, 256, 0, st>>>(

@@ -807,8 +807,10 @@ class CommandStore:
     def _preaccept_now(self, txn_id, partial_txn, route, ballot):
         from accord_tpu_torch.local.commands import AcceptOutcome
         if self.cmd_plane is not None:
-            raise NotImplementedError(
-                "cmd plane: ROADMAP queue 1 item 6 (not ported yet)")
+            from accord_tpu_torch.ops.cmd_plane import CmdOp
+            outcome = self.cmd_plane.eval_batch(
+                [CmdOp.preaccept(txn_id, partial_txn, route,
+                                 ballot)])[0].outcome
         else:
             from accord_tpu_torch.local import commands
             outcome = commands.preaccept(self, txn_id, partial_txn, route,
@@ -826,23 +828,29 @@ class CommandStore:
     # one store (the resolver drain, the bench) call eval_batch directly.
     def accept_op(self, txn_id, ballot, route, keys, execute_at, deps=None):
         if self.cmd_plane is not None:
-            raise NotImplementedError(
-                "cmd plane: ROADMAP queue 1 item 6 (not ported yet)")
+            from accord_tpu_torch.ops.cmd_plane import CmdOp
+            return self.cmd_plane.eval_batch(
+                [CmdOp.accept(txn_id, ballot, route, keys, execute_at,
+                              deps)])[0].outcome
         from accord_tpu_torch.local import commands
         return commands.accept(self, txn_id, ballot, route, keys,
                                execute_at, deps)
 
     def commit_op(self, txn_id, route, txn, execute_at, deps):
         if self.cmd_plane is not None:
-            raise NotImplementedError(
-                "cmd plane: ROADMAP queue 1 item 6 (not ported yet)")
+            from accord_tpu_torch.ops.cmd_plane import CmdOp
+            return self.cmd_plane.eval_batch(
+                [CmdOp.commit(txn_id, route, txn, execute_at,
+                              deps)])[0].outcome
         from accord_tpu_torch.local import commands
         return commands.commit(self, txn_id, route, txn, execute_at, deps)
 
     def apply_op(self, txn_id, route, txn, execute_at, deps, writes, result):
         if self.cmd_plane is not None:
-            raise NotImplementedError(
-                "cmd plane: ROADMAP queue 1 item 6 (not ported yet)")
+            from accord_tpu_torch.ops.cmd_plane import CmdOp
+            return self.cmd_plane.eval_batch(
+                [CmdOp.apply(txn_id, route, txn, execute_at, deps, writes,
+                             result)])[0].outcome
         from accord_tpu_torch.local import commands
         return commands.apply(self, txn_id, route, txn, execute_at, deps,
                               writes, result)

@@ -36,6 +36,9 @@ PyTorch version beside it. There is no fallback from one to the other.
                  csrc/exec_frontier.cu   execution_frontier :143,
                                          fused_execution_frontier :174,
                                          frontier_compact :651 (body :619)
+  cmd_tick       csrc/cmd_tick.cu        cmd_tick :1032 (body :1101)
+  recovery_scan  csrc/recovery_scan.cu   recovery_scan :682 (body :667)
+  cmd_repair     csrc/cmd_repair.cu      _cmd_repair_body :1347
 
 The exec plane's adjacency is PACKED too, int32 [cap, cap/32] (dep d in
 bit d & 31 of word d >> 5), where the reference keeps bool [cap, cap].
@@ -63,7 +66,8 @@ LAUNCHES: Dict[str, int] = {"deps_resolve": 0, "finalize_csr": 0,
                             "range_finalize": 0, "max_conflict": 0,
                             "exec_scatter": 0, "execution_frontier": 0,
                             "fused_execution_frontier": 0,
-                            "frontier_compact": 0}
+                            "frontier_compact": 0, "cmd_tick": 0,
+                            "recovery_scan": 0, "cmd_repair": 0}
 
 
 def reset_launches() -> None:
@@ -1186,6 +1190,508 @@ def frontier_compact(planes, out_cap: int):
              *scratch, ext.stream())
     LAUNCHES["frontier_compact"] += 1
     return indptr, rows, csum, packed
+
+
+# -- the device command plane (ops/cmd_plane.py): K10-K12 --------------------
+# Status ladder constants mirrored from local.status.Status; ops/cmd_plane.py
+# asserts them against the enum at import, so the mirrors cannot drift.
+CMD_ST_PRE_ACCEPTED = 1
+CMD_ST_ACCEPTED = 3
+CMD_ST_COMMITTED = 5
+CMD_ST_STABLE = 6
+CMD_ST_READY = 7
+CMD_ST_PRE_APPLIED = 8
+CMD_ST_APPLIED = 9
+CMD_ST_INVALIDATED = 10
+CMD_ST_TRUNCATED = 11
+
+# outcome codes in the low 3 bits of out_code; the high bits carry facts the
+# host residuals need
+CMD_OUT_SUCCESS = 0
+CMD_OUT_REDUNDANT = 1
+CMD_OUT_REJECTED_BALLOT = 2
+CMD_OUT_TRUNCATED = 3
+CMD_OUT_INSUFFICIENT = 4
+CMD_OUT_INCONSISTENT_BIT = 8    # redundant commit/apply with executeAt drift
+CMD_OUT_WAS_STABLE_BIT = 16     # apply arrived on an already-stable command
+
+# op kinds in op_kind
+CMD_OP_PREACCEPT = 0
+CMD_OP_ACCEPT = 1
+CMD_OP_COMMIT = 2
+CMD_OP_APPLY = 3
+
+# op_flags bits (host admission encodes these per op)
+CMD_F_PERMIT_FAST = 1    # ballot == Ballot.ZERO
+CMD_F_EPOCH_OK = 2       # txn_id.epoch >= node.epoch at encode time
+CMD_F_EXPIRED = 4        # preaccept expiry fired (decided by the host)
+CMD_F_MSG_HAS_TXN = 8    # the commit/apply message carries a txn body
+CMD_F_VALID = 16         # real op (padding slots leave this clear)
+CMD_F_DEPS_EMPTY = 32    # commit/apply deps empty (promote-eligible)
+
+# batched-op padding ladder for cmd_tick dispatches
+CMD_OP_TIERS = (8, 64, 512)
+# row values per op in cmd_tick's chain output: status, flags, promised[3],
+# accepted[3], execute_at[3], durability; then (kmax[3], kvalid) per kid slot
+CMD_ROW_LANES = 12
+_CMD_KPAD_MAX = 8    # csrc/cmd_tick.cu KMAX
+
+RECOVERY_OUT_TIERS = (32, 256, 2048)
+
+
+def cmd_op_tier(n: int) -> int:
+    """Padded op count for a cmd_tick dispatch carrying n ops."""
+    return snap(n, CMD_OP_TIERS, 4096)
+
+
+def _w32(x: int) -> int:
+    """A Python int wrapped to int32, as XLA's int32 arithmetic wraps."""
+    return ((x + (1 << 31)) & _M32) - (1 << 31)
+
+
+def _lex_max_masked(rows, valid):
+    """Lexicographic max over the 3-lane tuples rows[i] where valid[i] ->
+    (max lanes, any valid); INT32_MIN lanes when nothing is valid."""
+    best = None
+    for r, v in zip(rows, valid):
+        if v and (best is None or tuple(r) > best):
+            best = tuple(r)
+    if best is None:
+        return (INT32_MIN, INT32_MIN, INT32_MIN), False
+    return best, True
+
+
+def cmd_checksum(out_code, out_status, out_ts, clock) -> torch.Tensor:
+    """cmd_tick's integrity word, as an int32 bit pattern (0-d): the
+    position-weighted fold with seeds 3 (codes), 7 (statuses), 11 (the
+    witnessed timestamps) and 13 (the clock)."""
+    word = (_csum_fold(out_code, 3) ^ _csum_fold(out_status, 7)
+            ^ _csum_fold(out_ts, 11) ^ _csum_fold(clock.reshape(1), 13))
+    return _to_i32(torch.tensor(word, dtype=torch.int64,
+                                device=out_code.device))
+
+
+def cmd_checksum_host(out_code, out_status, out_ts, clock) -> int:
+    """numpy twin of cmd_checksum, over fetched host copies (u32 value)."""
+    def fold(x, seed):
+        v = np.ascontiguousarray(x, dtype=np.int32).view(np.uint32) \
+            .reshape(-1)
+        v = v ^ (v >> np.uint32(16))
+        idx = np.arange(v.shape[0], dtype=np.uint32)
+        return (v * (np.uint32(2) * idx + np.uint32(seed))).sum(
+            dtype=np.uint32)
+    return int(fold(out_code, 3) ^ fold(out_status, 7) ^ fold(out_ts, 11)
+               ^ fold(np.asarray([clock], dtype=np.int32), 13))
+
+
+def cmd_tick_block(n: int, kpad: int, device):
+    """The result block of one cmd_tick dispatch: ONE int32 buffer, so the
+    host reads it back with one copy (`cmd_tick_readback`), and its views
+    (out_code i32[n], out_status i32[n], out_ts i32[n, 3], chains i32[n,
+    CMD_ROW_LANES + 4 * kpad], clock i32 0-d, csum i32 0-d)."""
+    c = CMD_ROW_LANES + 4 * kpad
+    e = n * (5 + c)
+    blk = torch.empty(e + 2, dtype=torch.int32, device=device)
+    return (blk, blk[:n], blk[n:2 * n], blk[2 * n:5 * n].view(n, 3),
+            blk[5 * n:e].view(n, c), blk[e], blk[e + 1])
+
+
+def cmd_tick_readback(out) -> np.ndarray:
+    """cmd_tick's result block (out_code .. csum, one buffer: see
+    cmd_tick_block) on the host, with one blocking copy into pinned
+    memory from a card."""
+    code = out[9]
+    total = code.shape[0] * (5 + out[13].shape[1]) + 2
+    blk = torch.as_strided(code, (total,), (1,), code.storage_offset())
+    if blk.data_ptr() + 4 * (total - 1) != out[12].data_ptr():
+        raise ValueError("cmd_tick_readback: not one cmd_tick_block")
+    if not blk.is_cuda:
+        return blk.numpy().copy()
+    host = torch.empty(total, dtype=torch.int32, pin_memory=True)
+    host.copy_(blk)
+    return host.numpy()
+
+
+def _cmd_walk(rv, kmv, kvv, clock, kind_l, flags_l, txn_l, bal_l, exec_l,
+              keys_l, now_l, prev_l, kprev_l, node_epoch, lane2_clean,
+              lane2_rej, dur_local, promote):
+    """cmd_tick's sequential walk over Python ints, op by op (the JAX
+    body's fori_loop): rv[i] is op i's 12-lane row view, kmv[i][s] /
+    kvv[i][s] its kid slot views; each op reads its previous writer's
+    chain value through op_prev / op_kprev, and overwrites its own slot
+    with its post-values. -> (clock, out_code, out_ts, out_status)."""
+    n = len(kind_l)
+    kpad = len(keys_l[0]) if n else 0
+    neg = INT32_MIN
+    out_code, out_ts, out_status = [], [], []
+    for i in range(n):
+        kind = kind_l[i]
+        f = flags_l[i]
+        valid = (f & CMD_F_VALID) != 0
+        prev = prev_l[i]
+        src = rv[min(prev, n - 1)] if prev >= 0 else rv[i]
+        st, fl = src[0], src[1]
+        pr, ab, ea, du = tuple(src[2:5]), tuple(src[5:8]), \
+            tuple(src[8:11]), src[11]
+        txn, bal, oex = tuple(txn_l[i]), tuple(bal_l[i]), tuple(exec_l[i])
+        kids = keys_l[i]
+        permit_fast = (f & CMD_F_PERMIT_FAST) != 0
+        epoch_ok = (f & CMD_F_EPOCH_OK) != 0
+        expired = (f & CMD_F_EXPIRED) != 0
+        msg_has_txn = (f & CMD_F_MSG_HAS_TXN) != 0
+        deps_empty = (f & CMD_F_DEPS_EMPTY) != 0
+        now = now_l[i]
+
+        has_txn = (fl & 1) != 0
+        ea_set = ea[0] != neg
+        terminal = st in (CMD_ST_INVALIDATED, CMD_ST_TRUNCATED)
+        pr_gt_bal = bal < pr
+        pr_max_bal = bal if pr < bal else pr
+        term_code = (CMD_OUT_REJECTED_BALLOT if st == CMD_ST_INVALIDATED
+                     else CMD_OUT_TRUNCATED)
+
+        # kid chain: each slot reads its previous in-batch writer's
+        # post-value (link p * kpad + s), else the pre-batch gather
+        kv_raw, km = [], []
+        for s in range(kpad):
+            link = kprev_l[i][s]
+            if link >= 0:
+                lp, ls = min(link // kpad, n - 1), link % kpad
+                kv_raw.append(kvv[lp][ls])
+                km.append(tuple(kmv[lp][ls]))
+            else:
+                kv_raw.append(kvv[i][s])
+                km.append(tuple(kmv[i][s]))
+        kv = [bool(v) and k >= 0 for v, k in zip(kv_raw, kids)]
+        mc, mc_any = _lex_max_masked(km, kv)
+
+        def unow(al_ep, al_hlc, lane2):
+            h = max(now, _w32(clock + 1))
+            if al_hlc >= h:
+                h = _w32(al_hlc + 1)
+            return (max(node_epoch, al_ep), h, lane2), h
+
+        # PreAccept (commands.preaccept)
+        rej_w, rej_h = unow(txn[0], txn[1], lane2_rej)
+        al = mc if mc_any else txn
+        slow_w, slow_h = unow(al[0], al[1], lane2_clean)
+        fast = permit_fast and (not mc_any or not txn < mc) and epoch_ok
+        witness = rej_w if expired else (txn if fast else slow_w)
+        wit_clock = rej_h if expired else (clock if fast else slow_h)
+        pa_blocked = terminal or pr_gt_bal
+        pa_code = (term_code if terminal
+                   else CMD_OUT_REJECTED_BALLOT if pr_gt_bal
+                   else CMD_OUT_REDUNDANT if has_txn and permit_fast
+                   else CMD_OUT_SUCCESS)
+        pa_wit = not pa_blocked and not has_txn and not ea_set
+        if pa_blocked or has_txn:
+            pa_st = st
+        else:
+            pa_st = max(st, CMD_ST_PRE_ACCEPTED) if ea_set \
+                else CMD_ST_PRE_ACCEPTED
+        pa_fl = fl if pa_blocked else fl | 1
+        pa_pr = pr if pa_blocked else pr_max_bal
+        pa_ea = witness if pa_wit else ea
+
+        # Accept (commands.accept)
+        committed = st >= CMD_ST_COMMITTED
+        if terminal:
+            ac_code = term_code
+        elif pr_gt_bal or committed:
+            ac_code = CMD_OUT_REDUNDANT if committed \
+                else CMD_OUT_REJECTED_BALLOT
+        else:
+            ac_code = CMD_OUT_SUCCESS
+        ac_ok = not terminal and not pr_gt_bal and not committed
+        ac_st = CMD_ST_ACCEPTED if ac_ok else st
+        ac_pr = bal if ac_ok else pr
+        ac_ab = bal if ac_ok else ab
+        ac_ea = oex if ac_ok else ea
+
+        # Commit -> STABLE (commands.commit)
+        ea_eq = ea == oex
+        stable = st >= CMD_ST_STABLE
+        cm_incons = stable and not terminal and not ea_eq
+        cm_insuf = not stable and not has_txn and not msg_has_txn
+        cm_ok = not stable and not cm_insuf
+        if stable:
+            cm_code = CMD_OUT_REDUNDANT + (CMD_OUT_INCONSISTENT_BIT
+                                           if cm_incons else 0)
+        else:
+            cm_code = CMD_OUT_INSUFFICIENT if cm_insuf else CMD_OUT_SUCCESS
+        cm_new_st = CMD_ST_STABLE
+        if promote and deps_empty:
+            cm_new_st = CMD_ST_READY
+        cm_st = cm_new_st if cm_ok else st
+        cm_fl = fl | 1 if cm_ok and msg_has_txn else fl
+        cm_ea = oex if cm_ok else ea
+        cm_regval = txn if oex < txn else oex
+
+        # Apply -> PRE_APPLIED (commands.apply)
+        preapplied = st >= CMD_ST_PRE_APPLIED
+        was_stable = st >= CMD_ST_STABLE
+        ap_incons = preapplied and not terminal and not ea_eq
+        ap_insuf = not preapplied and not has_txn and not msg_has_txn
+        ap_ok = not preapplied and not ap_insuf
+        if preapplied:
+            ap_code = CMD_OUT_REDUNDANT + (CMD_OUT_INCONSISTENT_BIT
+                                           if ap_incons else 0)
+        elif ap_insuf:
+            ap_code = CMD_OUT_INSUFFICIENT
+        else:
+            ap_code = CMD_OUT_SUCCESS + (CMD_OUT_WAS_STABLE_BIT
+                                         if was_stable else 0)
+        ap_new_st = CMD_ST_PRE_APPLIED
+        ap_du = du
+        if promote:
+            if deps_empty:
+                ap_new_st = CMD_ST_APPLIED
+            if ap_ok and deps_empty:
+                ap_du = max(du, dur_local)
+        ap_st = ap_new_st if ap_ok else st
+        ap_fl = fl | 1 if ap_ok and msg_has_txn else fl
+        ap_ea = oex if ap_ok else ea
+
+        # select per kind (any kind past COMMIT is an apply), gate on valid
+        sel = (0 if kind == CMD_OP_PREACCEPT else 1 if kind == CMD_OP_ACCEPT
+               else 2 if kind == CMD_OP_COMMIT else 3)
+        if valid:
+            new_st = (pa_st, ac_st, cm_st, ap_st)[sel]
+            new_fl = (pa_fl, fl, cm_fl, ap_fl)[sel]
+            new_pr = (pa_pr, ac_pr, pr, pr)[sel]
+            new_ab = (ab, ac_ab, ab, ab)[sel]
+            new_ea = (pa_ea, ac_ea, cm_ea, ap_ea)[sel]
+            new_du = (du, du, du, ap_du)[sel]
+        else:
+            new_st, new_fl, new_pr, new_ab, new_ea, new_du = \
+                st, fl, pr, ab, ea, du
+        code = (pa_code, ac_code, cm_code, ap_code)[sel]
+        ts_out = (pa_ea, ac_ea, cm_ea, ap_ea)[sel]
+        do_reg = valid and (pa_wit, ac_ok, cm_ok, ap_ok)[sel]
+        regval = (witness, oex, cm_regval, cm_regval)[sel]
+
+        rv[i] = [new_st, new_fl, *new_pr, *new_ab, *new_ea, new_du]
+        for s in range(kpad):
+            better = not kv[s] or km[s] < regval
+            take = do_reg and better and kids[s] >= 0
+            kmv[i][s] = list(regval if take else km[s])
+            kvv[i][s] = bool(kv_raw[s]) or do_reg
+        if valid and sel == 0 and pa_wit:
+            clock = wit_clock
+        out_code.append(code if valid else -1)
+        out_ts.append(list(ts_out))
+        out_status.append(new_st)
+    return clock, out_code, out_ts, out_status
+
+
+def cmd_tick_plain(status, flags, promised, accepted, execute_at, durability,
+                   kmax, kmax_valid, clock, op_kind, op_row, op_txn,
+                   op_ballot, op_exec, op_keys, op_flags, op_now, op_prev,
+                   op_rlast, op_kprev, op_klast, node_epoch, lane2_clean,
+                   lane2_rej, dur_local, promote: bool = False):
+    cap, kcap = status.shape[0], kmax.shape[0]
+    n, kpad = op_keys.shape
+    dev = status.device
+    rowc = op_row.to(torch.int64).clamp(0, cap - 1)
+    kidc = op_keys.to(torch.int64).clamp(0, kcap - 1)
+    rv = torch.cat([status[rowc, None], flags[rowc, None], promised[rowc],
+                    accepted[rowc], execute_at[rowc],
+                    durability[rowc, None]], 1).tolist()
+    kmv = kmax[kidc].tolist()
+    kvv = kmax_valid[kidc].tolist()
+    clk, code, ts, st = _cmd_walk(
+        rv, kmv, kvv, int(clock), op_kind.tolist(), op_flags.tolist(),
+        op_txn.tolist(), op_ballot.tolist(), op_exec.tolist(),
+        op_keys.tolist(), op_now.tolist(), op_prev.tolist(),
+        op_kprev.tolist(), int(node_epoch), int(lane2_clean),
+        int(lane2_rej), int(dur_local), bool(promote))
+    _blk, out_code, out_status, out_ts, chains, out_clock, csum = \
+        cmd_tick_block(n, kpad, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    out_code.copy_(torch.tensor(code, **i32))
+    out_status.copy_(torch.tensor(st, **i32))
+    out_ts.copy_(torch.tensor(ts, **i32).reshape(n, 3))
+    r_ch = torch.tensor(rv, **i32)
+    k_km = torch.tensor(kmv, **i32).reshape(n, kpad, 3)
+    k_kv = torch.tensor(kvv, dtype=torch.bool, device=dev)
+    chains.copy_(torch.cat([r_ch, torch.cat(
+        [k_km, k_kv.to(torch.int32)[..., None]], 2).reshape(n, 4 * kpad)],
+        1))
+    out_clock.fill_(clk)
+    # one writeback: each row's / kid's last in-batch writer carries the
+    # chain's final value (padding and earlier writers drop)
+    wrow = torch.where(op_rlast, op_row, torch.full_like(op_row, cap))
+    cols = (status, flags, promised, accepted, execute_at, durability)
+    lanes = (r_ch[:, 0], r_ch[:, 1], r_ch[:, 2:5], r_ch[:, 5:8],
+             r_ch[:, 8:11], r_ch[:, 11])
+    new = tuple(_scatter_lane_plain(c, wrow, v) for c, v in zip(cols, lanes))
+    wkid = torch.where(op_klast, op_keys,
+                       torch.full_like(op_keys, kcap)).reshape(-1)
+    n_kmax = _scatter_lane_plain(kmax, wkid, k_km.reshape(-1, 3))
+    n_kvalid = _scatter_lane_plain(kmax_valid, wkid, k_kv.reshape(-1))
+    csum.copy_(cmd_checksum(out_code, out_status, out_ts, out_clock))
+    return (*new, n_kmax, n_kvalid, out_clock, out_code, out_ts, out_status,
+            csum, chains)
+
+
+def _check_cmd_cols(status, flags, promised, accepted, execute_at,
+                    durability, kmax, kvalid) -> None:
+    cap, kcap = status.shape[0], kmax.shape[0]
+    i32 = (status, flags, promised, accepted, execute_at, durability, kmax)
+    if (any(t.dtype != torch.int32 for t in i32)
+            or kvalid.dtype != torch.bool
+            or any(tuple(t.shape) != (cap,) for t in (flags, durability))
+            or any(tuple(t.shape) != (cap, 3)
+                   for t in (promised, accepted, execute_at))
+            or tuple(status.shape) != (cap,)
+            or tuple(kmax.shape) != (kcap, 3)
+            or tuple(kvalid.shape) != (kcap,)):
+        raise ValueError("cmd columns must be i32[cap] x2, i32[cap, 3] x3, "
+                         "i32[cap], i32[kcap, 3] and bool[kcap]")
+
+
+def cmd_tick(status, flags, promised, accepted, execute_at, durability,
+             kmax, kmax_valid, clock, op_kind, op_row, op_txn, op_ballot,
+             op_exec, op_keys, op_flags, op_now, op_prev, op_rlast, op_kprev,
+             op_klast, node_epoch, lane2_clean, lane2_rej, dur_local,
+             promote: bool = False):
+    """One dispatch evaluating a batch of protocol transitions IN ORDER over
+    the command arena's columns (the reference's cmd_tick, see
+    csrc/cmd_tick.cu for the contract): PreAccept witness, Accept ballot
+    checks, Commit/Apply promotions; `promote` also runs the empty-deps
+    maybe_execute promotion. -> (the eight columns, fresh; clock i32 0-d,
+    out_code i32[n], out_ts i32[n, 3], out_status i32[n], csum i32 bit
+    pattern, chains i32[n, CMD_ROW_LANES + 4 * kpad]). `chains` is not in
+    the reference: op i's post-values of its row and kid slots, so the
+    last writer of a row or kid holds that row's or kid's new column
+    values; the outputs from out_code on are one cmd_tick_block."""
+    cols = (status, flags, promised, accepted, execute_at, durability, kmax,
+            kmax_valid)
+    ops = (op_kind, op_row, op_txn, op_ballot, op_exec, op_keys, op_flags,
+           op_now, op_prev, op_rlast, op_kprev, op_klast)
+    scalars = (clock, node_epoch, lane2_clean, lane2_rej, dur_local)
+    if not status.is_cuda:
+        return cmd_tick_plain(*cols, clock, *ops, node_epoch, lane2_clean,
+                              lane2_rej, dur_local, promote=promote)
+    ext = _ext()
+    _check_cuda(*cols, *ops)
+    _check_cmd_cols(*cols)
+    n, kpad = op_keys.shape
+    if (not 1 <= kpad <= _CMD_KPAD_MAX
+            or any(t.dtype != torch.int32 for t in ops
+                   if t is not op_rlast and t is not op_klast)
+            or op_rlast.dtype != torch.bool or op_klast.dtype != torch.bool
+            or any(tuple(t.shape) != (n,) for t in (
+                op_kind, op_row, op_flags, op_now, op_prev, op_rlast))
+            or any(tuple(t.shape) != (n, 3)
+                   for t in (op_txn, op_ballot, op_exec))
+            or any(tuple(t.shape) != (n, kpad) for t in (op_kprev,
+                                                           op_klast))):
+        raise ValueError(f"cmd_tick: op lanes must be i32/bool[n] and "
+                         f"[n, 3] / [n, kpad] with 1 <= kpad <= "
+                         f"{_CMD_KPAD_MAX}")
+    outs = tuple(torch.empty_like(t) for t in cols)
+    _blk, code, ost, ots, chains, oclock, csum = cmd_tick_block(
+        n, kpad, status.device)
+    ext.call("cmd_tick", "cmd_tick", *(ext.ptr(t) for t in cols),
+             *(ext.ptr(t) for t in outs), status.shape[0], kmax.shape[0],
+             *(ext.ptr(t) for t in ops), n, kpad,
+             *(int(s) for s in scalars), int(bool(promote)),
+             ext.ptr(code), ext.ptr(ost), ext.ptr(ots), ext.ptr(chains),
+             ext.ptr(oclock), ext.ptr(csum), ext.stream())
+    LAUNCHES["cmd_tick"] += 1
+    return (*outs, oclock, code, ots, ost, csum, chains)
+
+
+def recovery_scan_plain(status, touched_ms, now_ms, stall_ms, out_cap: int):
+    st = status
+    live = (st >= CMD_ST_PRE_ACCEPTED) & (st < CMD_ST_APPLIED)
+    age = _wrap_i32(_w32(int(now_ms)) - touched_ms.to(torch.int64))
+    stalled = live & (age >= _w32(int(stall_ms)))
+    indptr, rows = _packed_segment_compact(
+        _pack_bits(stalled.reshape(1, -1)), out_cap)
+    return indptr, rows, frontier_checksum(indptr, rows)
+
+
+def recovery_scan(status, touched_ms, now_ms, stall_ms, out_cap: int):
+    """Recovery candidates of a command arena, compacted: rows whose status
+    is in the live band (PRE_ACCEPTED <= status < APPLIED, so the
+    INVALIDATED/TRUNCATED terminals above it are out) and whose last touch
+    is at least stall_ms old ((now_ms - touched_ms) in wrapping int32).
+    status/touched_ms: i32[cap] (cap % 32 == 0); now_ms/stall_ms: ints.
+    -> (indptr i32[2], rows i32[out_cap], csum i32 bit pattern): the
+    frontier_compact contract (indptr exact past out_cap, checksum seeds
+    13/17 over indptr and all out_cap rows)."""
+    cap = status.shape[0]
+    if cap % 32 or touched_ms.shape != status.shape \
+            or status.dtype != torch.int32 \
+            or touched_ms.dtype != torch.int32:
+        raise ValueError("recovery_scan: status/touched_ms must be "
+                         "i32[cap] with cap % 32 == 0")
+    if not status.is_cuda:
+        return recovery_scan_plain(status, touched_ms, now_ms, stall_ms,
+                                   out_cap)
+    ext = _ext()
+    _check_cuda(status, touched_ms)
+    dev = status.device
+    words = cap // 32
+    nblocks = max(1, int(ext.lib("recovery_scan").compact_blocks(
+        ext.ctypes.c_longlong(words))))
+    packed = torch.empty(words, dtype=torch.int32, device=dev)
+    indptr = torch.empty(2, dtype=torch.int32, device=dev)
+    rows = torch.empty(out_cap, dtype=torch.int32, device=dev)
+    csum = torch.empty((), dtype=torch.int32, device=dev)
+    _buf, scratch = _compact_scratch(nblocks, dev)
+    ext.call("recovery_scan", "recovery_scan", ext.ptr(status),
+             ext.ptr(touched_ms), cap, _w32(int(now_ms)),
+             _w32(int(stall_ms)), out_cap, ext.ptr(packed), ext.ptr(indptr),
+             ext.ptr(rows), ext.ptr(csum), *scratch, ext.stream())
+    LAUNCHES["recovery_scan"] += 1
+    return indptr, rows, csum
+
+
+def cmd_repair_plain(status, flags, promised, accepted, execute_at,
+                     durability, kmax, kvalid, rows_idx, st_v, fl_v, pr_v,
+                     ab_v, ea_v, du_v, kid_idx, km_v, kv_v):
+    rows = (st_v, fl_v, pr_v, ab_v, ea_v, du_v)
+    cols = (status, flags, promised, accepted, execute_at, durability)
+    return (*(_scatter_lane_plain(c, rows_idx, v)
+              for c, v in zip(cols, rows)),
+            _scatter_lane_plain(kmax, kid_idx, km_v),
+            _scatter_lane_plain(kvalid, kid_idx, kv_v))
+
+
+def cmd_repair(status, flags, promised, accepted, execute_at, durability,
+               kmax, kvalid, rows_idx, st_v, fl_v, pr_v, ab_v, ea_v, du_v,
+               kid_idx, km_v, kv_v):
+    """The command plane's shadow repair (the reference's _cmd_repair_body):
+    fresh copies of the eight columns with the host shadows' values
+    scattered over the dirty rows (rows_idx, values st_v..du_v) and kids
+    (kid_idx, km_v, kv_v). Indices follow the `.at[]` rules: the padding
+    sentinels cap / kcap drop."""
+    cols = (status, flags, promised, accepted, execute_at, durability, kmax,
+            kvalid)
+    vals = (rows_idx, st_v, fl_v, pr_v, ab_v, ea_v, du_v, kid_idx, km_v,
+            kv_v)
+    if not status.is_cuda:
+        return cmd_repair_plain(*cols, *vals)
+    ext = _ext()
+    _check_cuda(*cols, *vals)
+    _check_cmd_cols(*cols)
+    m, k = rows_idx.shape[0], kid_idx.shape[0]
+    shapes = ((m,), (m,), (m,), (m, 3), (m, 3), (m, 3), (m,), (k,), (k, 3),
+              (k,))
+    if (any(tuple(t.shape) != s for t, s in zip(vals, shapes))
+            or any(t.dtype != torch.int32 for t in vals[:-1])
+            or kv_v.dtype != torch.bool):
+        raise ValueError("cmd_repair: index and value lanes must match the "
+                         "columns' row shapes and dtypes")
+    outs = tuple(torch.empty_like(t) for t in cols)
+    ext.call("cmd_repair", "cmd_repair", *(ext.ptr(t) for t in cols),
+             *(ext.ptr(t) for t in outs), status.shape[0], kmax.shape[0],
+             *(ext.ptr(t) for t in vals), m, k, ext.stream())
+    LAUNCHES["cmd_repair"] += 1
+    return outs
 
 
 # -- padded-size ladders (the JAX package's tiers, kept for bit-equal

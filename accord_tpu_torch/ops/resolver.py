@@ -1990,6 +1990,7 @@ class BatchDepsResolver(DepsResolver):
         import time as _time
         from accord_tpu_torch.local import commands
         from accord_tpu_torch.local.commands import AcceptOutcome
+        from accord_tpu_torch.ops.cmd_plane import CmdOp
         pa = self._pa_queues.pop(id(node), [])
         dq = self._deps_queues.pop(id(node), [])
         items: List[_Item] = []
@@ -2011,14 +2012,34 @@ class BatchDepsResolver(DepsResolver):
                 return
             _finish(store, t, p, out, outcome)
 
-        # the reference routes stores with a device command arena through
-        # one cmd_tick dispatch here; the port has no cmd plane yet (the
-        # cluster refuses cmd_plane=True), so every store takes the host loop
-        for entry in pa:
-            if getattr(entry[0], "cmd_plane", None) is not None:
-                raise NotImplementedError(
-                    "cmd plane: ROADMAP queue 1 item 6 (not ported yet)")
-            _host_one(*entry)
+        # contiguous same-store spans route through the device command
+        # arena as ONE cmd_tick dispatch (synchronous within the drain, so
+        # timing -- and thus histories -- stay bit-identical to the host
+        # loop); stores without a plane keep the inline path. An error
+        # from the plane propagates: the reference answers such a span on
+        # the host, which would hide a failed kernel and could preaccept
+        # txns of an already adopted span twice. The reference's
+        # megakernel branch (the cluster tick engine deferring the span to
+        # CmdPlane.defer_batch) waits for that engine, ROADMAP queue 1
+        # item 7.
+        i = 0
+        while i < len(pa):
+            store = pa[i][0]
+            plane = getattr(store, "cmd_plane", None)
+            if plane is None:
+                _host_one(*pa[i])
+                i += 1
+                continue
+            j = i
+            while j < len(pa) and pa[j][0] is store:
+                j += 1
+            batch = pa[i:j]
+            cmd_ops = [CmdOp.preaccept(t, p, route, ballot)
+                       for (_s, t, p, route, ballot, _o) in batch]
+            res = plane.eval_batch(cmd_ops)
+            for (st_, t, p, _route, _ballot, out), r in zip(batch, res):
+                _finish(st_, t, p, out, r.outcome)
+            i = j
         dt = _time.perf_counter() - t0
         self.preaccept_s += dt
         if REC.enabled:

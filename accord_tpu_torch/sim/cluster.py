@@ -40,7 +40,7 @@ class ClusterConfig:
                  exec_device=None, recovery_scan=None,
                  cmd_plane: bool = False, cmd_plane_cap: int = 1024,
                  cmd_plane_key_cap: int = 1024,
-                 cmd_plane_authoritative: bool = False,
+                 cmd_plane_authoritative: bool = False, cmd_device=None,
                  store_delays: bool = False, store_delay_max_us: int = 2000,
                  clock_drift: bool = False, clock_offset_max_us: int = 100_000,
                  clock_drift_max_ppm: int = 10_000,
@@ -109,6 +109,9 @@ class ClusterConfig:
         # Python handlers are consulted only for ops the device cannot
         # decide (see CmdPlane.authoritative)
         self.cmd_plane_authoritative = cmd_plane_authoritative
+        # the cmd planes' device: None is the card (raises without one),
+        # "cpu" runs the kernels' plain versions
+        self.cmd_device = cmd_device
         # adversarial simulator knobs (reference: DelayedCommandStores async
         # loads + per-node clock drift, burn/BurnTest.java:330-340)
         self.store_delays = store_delays
@@ -377,8 +380,13 @@ class Cluster:
                 if coordinator is not None:
                     coordinator.register(store.exec_plane)
         if self.config.cmd_plane:
-            raise NotImplementedError(
-                "cmd plane: ROADMAP queue 1 item 6 (not ported yet)")
+            from accord_tpu_torch.ops.cmd_plane import CmdPlane
+            for store in node.command_stores.all():
+                store.cmd_plane = CmdPlane(
+                    store, initial_cap=self.config.cmd_plane_cap,
+                    key_cap=self.config.cmd_plane_key_cap,
+                    authoritative=self.config.cmd_plane_authoritative,
+                    device=self.config.cmd_device)
         if self.config.store_delays:
             # async store-op delays (reference: DelayedCommandStores): each
             # store defers every op by a deterministic random delay,

@@ -3,8 +3,9 @@
 The host layers (protocol, local engine, messages, simulator, observability)
 are plain Python with no device code. The port keeps its own copy of each
 one, file for file, with the package prefix renamed and nothing else
-changed, except at the few places where the reference reaches JAX or a
-device plane this port does not have yet. Those places are listed in
+changed, except at the few places where the reference reaches JAX, a
+device the port names explicitly, or a device plane this port does not
+have yet. Those places are listed in
 EDITED, by their line span in the reference file.
 
     python -m accord_tpu_torch.tools.copy_host --write   # (re)copy unedited files
@@ -70,18 +71,14 @@ EDITED: Dict[str, Tuple[Tuple[int, int, str], ...]] = {
     ),
     "sim/cluster.py": (
         (40, 40, "ClusterConfig(exec_device=): the exec planes' device"),
+        (43, 43, "ClusterConfig(cmd_device=): the cmd planes' device"),
         (92, 92, "ClusterConfig.exec_device"),
-        (357, 379, "exec planes built on exec_device; cmd_plane raises: "
-                   "ROADMAP queue 1 item 6"),
+        (109, 109, "ClusterConfig.cmd_device"),
+        (357, 379, "exec and cmd planes built on exec_device / "
+                   "cmd_device"),
     ),
     "sim/network.py": (
         (364, 364, "device_messages raises: ROADMAP queue 1 item 8"),
-    ),
-    "local/store.py": (
-        (810, 813, "cmd-plane CmdOp builders raise: queue 1 item 6"),
-        (831, 834, "cmd-plane CmdOp builders raise: queue 1 item 6"),
-        (841, 844, "cmd-plane CmdOp builders raise: queue 1 item 6"),
-        (850, 853, "cmd-plane CmdOp builders raise: queue 1 item 6"),
     ),
 }
 

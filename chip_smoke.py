@@ -55,12 +55,44 @@ launched.
      earlier rows each, signed exec_ts with ~10% undecided, ~5% awaits_all
      and half the rest applied: a 64-row exec_scatter, then
      execution_frontier and frontier_compact, equal to the plain versions;
- 11. kernels: each kernel's wrapper is called again on the card on the
+ 11. cmd burn: the key burn's cluster (5 nodes, rf 3, Zipf 0.99 over 16
+     hot keys, 4-key txns: owned keys fill KPAD = 4) with the resolver AND
+     the command planes on the card (every replica's PreAccept witness,
+     Accept ballot checks, Commit/Apply promotions through cmd_tick, K10),
+     400 ops: card vs CPU identical history, every cmd_plane_* counter
+     equal, zero checksum mismatches, cmd_tick launched exactly once per
+     cmd_plane dispatch;
+ 12. authoritative + recovery leg: bench.py's bench_recovery_storm storm
+     config through run_burn (seed 17, 48 ops, 4 nodes, rf 3, 2 stores per
+     node, 24 keys, concurrency 8, crash-restart; no megakernel), planes
+     authoritative (cmd_tick with promote), recovery candidates by ONE
+     recovery_scan query per progress sweep (K11), 5% drops and a 300 ms
+     stall so the scan finds candidates: card vs CPU identical, equal to
+     the host-scan run, candidates > 0, zero scan fallbacks and overflows
+     (no scan answered by the host), every counter equal to the CPU leg's;
+ 13. repair leg: tests/test_megakernel.py's defer_batch script on a card
+     plane (fresh PreAccepts; redundant re-delivery with ballot
+     contention; a commit mid-batch), then collect_repair -> cmd_repair
+     (K12) -> adopt_repair: the columns equal a twin plane's after a plain
+     flush, and a following eval_batch answers identically;
+ 14. cmd batch at 10k in flight (bench.py's bench_cmd_plane streams:
+     10,000 txns of 1-3 keys over 256, arena cap 16384, 512-op dispatches,
+     arena-only with promote): the PreAccept -> Commit -> Apply decision
+     history on the card equals the Python handlers', every row APPLIED at
+     the handlers' executeAt, zero fallbacks; committed txn/s of both;
+ 15. recovery batch (bench_recovery_storm's scan leg): 10,240 rows, the
+     last third APPLIED, stall ages from default_rng(29), stall 1000 ms;
+     after one warm sweep every scan at now0 + 0/20/40/60 equals
+     recovery_scan_host and a python walk, one dispatch per scan, zero
+     fallbacks and overflows;
+ 16. kernels: each kernel's wrapper is called again on the card on the
      exact inputs its path (and a batch) gave it, and held bit-equal
      against its plain PyTorch version on the same inputs; kernel, plain
      and (where one exists) single-library-call times come from CUDA
      events, and each call's bound from the bytes it must move (3.35 TB/s)
-     or the operations it must do (67 T 32-bit op/s).
+     or the operations it must do (67 T 32-bit op/s). cmd_tick is replayed
+     on a tier-8 dispatch of the cmd burn and a tier-512 dispatch of the
+     cmd batch, with its time per op (the walk is serial).
 The last three lines are the card line, one JSON line of kernels, and the
 result line {"ok": true, "device": {...}}.
 """
@@ -100,6 +132,12 @@ KERNELS = (
      "accord_tpu/ops/kernels.py:174"),
     ("frontier_compact", "accord_tpu_torch/csrc/exec_frontier.cu",
      "accord_tpu/ops/kernels.py:651"),
+    ("cmd_tick", "accord_tpu_torch/csrc/cmd_tick.cu",
+     "accord_tpu/ops/kernels.py:1032"),
+    ("recovery_scan", "accord_tpu_torch/csrc/recovery_scan.cu",
+     "accord_tpu/ops/kernels.py:682"),
+    ("cmd_repair", "accord_tpu_torch/csrc/cmd_repair.cu",
+     "accord_tpu/ops/kernels.py:1347"),
 )
 EXEC_KERNELS = ("exec_scatter", "execution_frontier",
                 "fused_execution_frontier", "frontier_compact")
@@ -114,7 +152,9 @@ RECORDED = {"deps_resolve": ("deps_resolve", "fused_deps_resolve"),
                               "fused_range_deps_resolve", "covered_buckets"),
             "range_finalize": ("range_finalize_csr", "segment_compact"),
             "max_conflict": ("max_conflict",),
-            **{k: (k,) for k in EXEC_KERNELS}}
+            **{k: (k,) for k in EXEC_KERNELS},
+            "cmd_tick": ("cmd_tick",), "recovery_scan": ("recovery_scan",),
+            "cmd_repair": ("cmd_repair",)}
 # the path whose launches each kernel's entry reports
 PATH_OF = {"deps_resolve": "key_burn", "finalize_csr": "key_burn",
            "arena_scatter": "key_burn", "row_scatter": "key_burn",
@@ -122,7 +162,8 @@ PATH_OF = {"deps_resolve": "key_burn", "finalize_csr": "key_burn",
            "range_finalize": "range_burn", "max_conflict": "inline",
            "exec_scatter": "exec_burn", "execution_frontier": "exec_solo",
            "fused_execution_frontier": "exec_burn",
-           "frontier_compact": "exec_compact"}
+           "frontier_compact": "exec_compact", "cmd_tick": "cmd_burn",
+           "recovery_scan": "recovery_burn", "cmd_repair": "repair"}
 
 
 class SmokeFailure(Exception):
@@ -143,12 +184,16 @@ class Recorder:
     """Wraps the kernel module's public functions (the resolver imports
     them at call time) and keeps, per function, the arguments of its
     largest call, so the kernel phase replays exactly what the path gave
-    each kernel. Recording launches nothing itself."""
+    each kernel. `cmd_tier` keeps cmd_tick's first call at that op tier
+    instead. `promoted` counts cmd_tick's calls with promote on. Recording
+    launches nothing itself."""
 
-    def __init__(self, tk):
+    def __init__(self, tk, cmd_tier=None):
         self.tk = tk
         self.calls = {}
         self.orig = {}
+        self.cmd_tier = cmd_tier
+        self.promoted = 0
 
     def __enter__(self):
         import torch
@@ -161,6 +206,13 @@ class Recorder:
                     size = sum(a.numel() for a in _flat(args)
                                if torch.is_tensor(a))
                     best = self.calls.get(_name)
+                    if _name == "cmd_tick":
+                        self.promoted += bool(kw.get("promote"))
+                        if self.cmd_tier is not None:
+                            if best is None \
+                                    and args[9].shape[0] == self.cmd_tier:
+                                self.calls[_name] = (size, args, kw)
+                            return _fn(*args, **kw)
                     if best is None or size > best[0]:
                         self.calls[_name] = (size, args, kw)
                     return _fn(*args, **kw)
@@ -260,6 +312,9 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
         "execution_frontier": tk.execution_frontier_plain,
         "fused_execution_frontier": tk.fused_execution_frontier_plain,
         "frontier_compact": tk.frontier_compact_plain,
+        "cmd_tick": tk.cmd_tick_plain,
+        "recovery_scan": tk.recovery_scan_plain,
+        "cmd_repair": tk.cmd_repair_plain,
     }
     calls = []
     for fn_name in RECORDED[name]:
@@ -289,6 +344,11 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
                "library_ms": (time_ms(library, iters, cuda)
                               if library is not None else None),
                "input_mb": nbytes(args) / 1e6}
+        if fn_name == "cmd_tick":
+            # the walk is serial: its time per op, beside the bytes bound
+            row["op_tier"] = int(args[9].shape[0])
+            row["ms_per_op"] = ms / row["op_tier"]
+            row["promote"] = bool(kw.get("promote"))
         log(f"  {json.dumps(row)}")
         rows.append(row)
     head = max(rows, key=lambda r: r["input_mb"])
@@ -431,6 +491,21 @@ def bound_inputs(tk, fn_name, args, kw, out):
             bytes_ += npend * w * 4 + 15 * cap
             ops += npend * w
         return bytes_, ops, None
+    if fn_name == "cmd_repair":
+        # the eight drop-mode scatters as eight index_copy calls on the
+        # in-range indices (filtered here, outside the timed call)
+        cols, (ridx, *rvals), (kidx, km_v, kv_v) = \
+            args[:8], args[8:15], args[15:]
+        rok = tk._norm_index(ridx, cols[0].shape[0])[1]
+        kok = tk._norm_index(kidx, cols[6].shape[0])[1]
+        r64, k64 = ridx[rok].to(torch.int64), kidx[kok].to(torch.int64)
+        vals = [v[rok] for v in rvals] + [km_v[kok], kv_v[kok]]
+        idxs = [r64] * 6 + [k64] * 2
+
+        def lib():
+            return [torch.index_copy(c, 0, i, v)
+                    for c, i, v in zip(cols, idxs, vals)]
+        return nbytes(args) + nbytes(out), 0, lib
     if fn_name == "scatter_rows":
         dst, idx, rows = args
         lib = None
@@ -468,7 +543,9 @@ def build_phase() -> float:
     return time.perf_counter() - t0
 
 
-def burn(device: str, ops: int, resolvers: list, seed: int = 9):
+def burn(device: str, ops: int, resolvers: list, seed: int = 9, **extra):
+    """The key burn; `extra` adds ClusterConfig options (the cmd burn's
+    command planes)."""
     from accord_tpu_torch.ops.resolver import BatchDepsResolver
     from accord_tpu_torch.sim.burn import run_burn
     from accord_tpu_torch.sim.cluster import ClusterConfig
@@ -482,7 +559,7 @@ def burn(device: str, ops: int, resolvers: list, seed: int = 9):
     cfg = ClusterConfig(num_nodes=5, rf=3, deps_resolver_factory=factory,
                         deps_batch_window_ms=16.0, device_latency_ms=80.0,
                         timeout_ms=8000.0, preaccept_timeout_ms=8000.0,
-                        progress_stall_ms=5000.0)
+                        progress_stall_ms=5000.0, **extra)
     t0 = time.perf_counter()
     rep = run_burn(seed, ops=ops, key_count=16, zipf_theta=0.99,
                    max_keys_per_txn=4, concurrency=1024, write_ratio=0.7,
@@ -563,6 +640,338 @@ def exec_burn(device: str, ops: int, stores: int = 2, compact: bool = False,
     rep = run_burn(31, ops=ops, key_count=16, zipf_theta=0.99,
                    collect_log=True, config=ClusterConfig(**cfg))
     return rep, time.perf_counter() - t0
+
+
+def cmd_counters(rep) -> dict:
+    """Every command-plane and recovery-scan counter of a burn, summed over
+    planes (the wall-clock timers left out)."""
+    return {k: v for k, v in rep.counters.items()
+            if k.startswith(("cmd_", "recovery_scan_"))
+            and not k.endswith("_s")}
+
+
+def recovery_burn(device: str, scan: str):
+    """bench.py's bench_recovery_storm storm config through run_burn, no
+    megakernel: seed 17, 48 ops, 4 nodes, rf 3, two stores per node, 24
+    keys, concurrency 8, crash-restart, the command planes authoritative
+    on `device`; 5% message drops and a 300 ms progress stall, so the
+    recovery scan (`scan`: "host" or "device") returns candidates."""
+    from accord_tpu_torch.sim.burn import run_burn
+    from accord_tpu_torch.sim.cluster import ClusterConfig
+
+    cfg = ClusterConfig(num_nodes=4, rf=3, stores_per_node=2,
+                        cmd_plane=True, cmd_device=device,
+                        cmd_plane_authoritative=True, recovery_scan=scan,
+                        progress_stall_ms=300.0)
+    t0 = time.perf_counter()
+    rep = run_burn(17, ops=48, key_count=24, concurrency=8,
+                   crash_restart=True, chaos_drop=0.05, collect_log=True,
+                   config=cfg)
+    return rep, time.perf_counter() - t0
+
+
+def _one_store(device=None):
+    """A one-node, one-store cluster (no progress engine); with `device`,
+    its store carries a command plane there."""
+    from accord_tpu_torch.sim.cluster import Cluster, ClusterConfig
+    extra = {} if device is None else dict(cmd_plane=True, cmd_device=device)
+    cluster = Cluster(1, ClusterConfig(num_nodes=1, rf=1, num_shards=1,
+                                       stores_per_node=1, progress=False,
+                                       **extra))
+    node = cluster.nodes[1]
+    return cluster, node, node.command_stores.stores[0]
+
+
+def _write_txn(keys, value):
+    from accord_tpu_torch.primitives.keyspace import Keys
+    from accord_tpu_torch.primitives.timestamp import TxnKind
+    from accord_tpu_torch.primitives.txn import Txn
+    from accord_tpu_torch.sim.list_store import (ListQuery, ListRead,
+                                                 ListUpdate)
+    k = Keys(sorted(keys))
+    return Txn(TxnKind.WRITE, k, read=ListRead(k),
+               update=ListUpdate(k, value), query=ListQuery())
+
+
+def _twin_spans(device: str, defer: bool, after=None):
+    """tests/test_megakernel.py's defer_batch script on a plane on
+    `device`: fresh PreAccepts; redundant re-delivery with ballot
+    contention; a commit mid-batch. With `after`, the device columns are
+    built first and `after(plane)` runs after each of the three spans.
+    -> (results, plane)."""
+    from accord_tpu_torch.ops.cmd_plane import CmdOp
+    from accord_tpu_torch.primitives.deps import Deps
+    from accord_tpu_torch.primitives.timestamp import Ballot
+    _cluster, node, store = _one_store(device)
+    plane = store.cmd_plane
+    txns = []
+    for i in range(6):
+        txn = _write_txn([1 + (i % 4), 5], i + 1)
+        tid = node.next_txn_id(txn.kind, txn.domain)
+        txns.append((tid, txn, node.compute_route(txn)))
+
+    def part(t):
+        return t.slice(store.ranges, include_query=False)
+
+    if after is not None:
+        plane._flush()    # the device columns live before the first span
+    ev = ((lambda b: plane.defer_batch(b, sink=lambda *_: None)) if defer
+          else plane.eval_batch)
+    out = []
+    for batch in (
+            [CmdOp.preaccept(t, part(x), r) for t, x, r in txns[:4]],
+            [CmdOp.preaccept(txns[0][0], part(txns[0][1]), txns[0][2]),
+             CmdOp.preaccept(txns[1][0], part(txns[1][1]), txns[1][2],
+                             Ballot(1, 5, 0, 1)),
+             CmdOp.preaccept(txns[4][0], part(txns[4][1]), txns[4][2])],
+            None):
+        if batch is None:
+            ea = store.command_if_present(txns[2][0]).execute_at
+            batch = [
+                CmdOp.preaccept(txns[5][0], part(txns[5][1]), txns[5][2]),
+                CmdOp.commit(txns[2][0], txns[2][2], part(txns[2][1]), ea,
+                             Deps.NONE),
+                CmdOp.preaccept(txns[3][0], part(txns[3][1]), txns[3][2],
+                                Ballot(1, 2, 0, 1))]
+        out.append([(r.outcome, r.status, r.execute_at) for r in ev(batch)])
+        if after is not None:
+            after(plane)
+    return out, plane
+
+
+def repair_leg(device: str) -> dict:
+    """The defer_batch script twice on `device`; after each span one plane
+    retires its flush debt through collect_repair -> kernels.cmd_repair
+    -> adopt_repair, the twin through a plain _flush(): equal columns
+    after every span, and a following eval_batch answers identically on
+    both. The answers equal eval_batch's on a third plane."""
+    import torch
+    from accord_tpu_torch.ops import kernels as tk
+    from accord_tpu_torch.ops.cmd_plane import CmdOp
+    repaired, flushed, sizes = [], [], []
+
+    def snapshot(plane):
+        return {k: v.cpu() for k, v in plane._device.items()}
+
+    def repair(plane):
+        got = plane.collect_repair()
+        check(got not in (None, "clean"),
+              f"repair leg: nothing to repair ({got})")
+        block, meta = got
+        plane.adopt_repair(tk.cmd_repair(*block), meta, spans=1)
+        check(plane.collect_repair() == "clean",
+              "repair leg: rows still dirty after adopt_repair")
+        sizes.append((len(meta[0]), len(meta[1])))
+        repaired.append(snapshot(plane))
+
+    def flush(plane):
+        plane._flush()
+        flushed.append(snapshot(plane))
+
+    out_r, plane_r = _twin_spans(device, defer=True, after=repair)
+    out_t, plane_t = _twin_spans(device, defer=True, after=flush)
+    out_e, _plane_e = _twin_spans(device, defer=False)
+    check(out_r == out_t == out_e, "repair leg: defer_batch answered "
+          "differently from eval_batch")
+    for span, (a, b) in enumerate(zip(repaired, flushed)):
+        for name in a:
+            check(torch.equal(a[name], b[name]),
+                  f"repair leg: column {name} after span {span} differs "
+                  "from the flushed twin's")
+    check(any(k for _r, k in sizes), "repair leg: no kid was repaired")
+
+    def follow(plane):
+        store = plane.store
+        node = store.node
+        txn = _write_txn([1, 5], 99)
+        tid = node.next_txn_id(txn.kind, txn.domain)
+        part = txn.slice(store.ranges, include_query=False)
+        res = plane.eval_batch([CmdOp.preaccept(tid, part,
+                                                node.compute_route(txn))])
+        return [(r.outcome, r.status, r.execute_at) for r in res]
+
+    check(follow(plane_r) == follow(plane_t),
+          "repair leg: the following eval_batch answered differently")
+    return {"repairs": sizes, "deferred_spans": int(plane_r.deferred_spans),
+            "retired": int(plane_r.defer_retired),
+            "dispatches": int(plane_r.dispatches)}
+
+
+def _cmd_stream(node, store, n: int, seed: int):
+    """n write txns of 1-3 keys over 256 (bench.py's streams), ids minted
+    up front: (txn id, route, the store's slice)."""
+    import random
+    rng = random.Random(seed)
+    out = []
+    for v in range(n):
+        txn = _write_txn(rng.sample(range(1, 257), rng.randint(1, 3)), v)
+        tid = node.next_txn_id(txn.kind, txn.domain)
+        out.append((tid, node.compute_route(txn),
+                    txn.slice(store.ranges, include_query=False)))
+    return out
+
+
+def cmd_batch(device: str, n: int) -> dict:
+    """bench.py's bench_cmd_plane at n in flight: the Python handlers (the
+    store entry points) vs an arena-only plane on `device` (cmd_tick with
+    promote, 512-op dispatches, arena cap 16384): PreAccept -> Commit ->
+    Apply decision histories equal, every row APPLIED at the handlers'
+    final executeAt, zero fallbacks."""
+    import torch
+    from accord_tpu_torch.ops import cmd_plane as cp
+    from accord_tpu_torch.ops.cmd_plane import CmdOp, CmdPlane
+    from accord_tpu_torch.ops.kernels import CMD_ST_APPLIED
+    from accord_tpu_torch.primitives.deps import Deps
+    chunk, arena_cap = 512, 16_384
+    _hc, hnode, hstore = _one_store()
+    htxns = _cmd_stream(hnode, hstore, n, 11)
+    hist_host, eas = [], {}
+    t0 = time.perf_counter()
+    for tid, route, part in htxns:
+        got = {}
+        hstore.submit_preaccept(tid, part, route) \
+            .on_success(lambda v, g=got: g.update(v=v))
+        ea = hstore.command(tid).execute_at
+        eas[tid] = ea
+        hist_host.append(("pa", got["v"][0], ea))
+    for tid, route, part in htxns:
+        out = hstore.commit_op(tid, route, part, eas[tid], Deps.NONE)
+        hist_host.append(("cm", out, hstore.command(tid).execute_at))
+    host_committed_s = time.perf_counter() - t0
+    for tid, route, part in htxns:
+        out = hstore.apply_op(tid, route, part, eas[tid], Deps.NONE, None,
+                              None)
+        hist_host.append(("ap", out, hstore.command(tid).execute_at))
+    host_final = {tid: hstore.command(tid).execute_at for tid, *_ in htxns}
+
+    _dc, dnode, dstore = _one_store()
+    dtxns = _cmd_stream(dnode, dstore, n, 11)
+    check([t[0] for t in dtxns] == [t[0] for t in htxns],
+          "cmd batch: the legs minted different txn ids")
+    plane = CmdPlane(dstore, initial_cap=arena_cap, key_cap=1024, kpad=4,
+                     apply_to_store=False, device=device)
+    hist_dev, deas = [], {}
+    span_s = {}
+
+    def phase(tag, mk_op):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, n, chunk):
+            span = dtxns[i:i + chunk]
+            res = plane.eval_batch([mk_op(*t) for t in span])
+            for (tid, *_), r in zip(span, res):
+                if tag == "pa":
+                    deas[tid] = r.execute_at
+                hist_dev.append((tag, r.outcome, r.execute_at))
+        span_s[tag] = time.perf_counter() - t0
+
+    phase("pa", lambda tid, route, part: CmdOp.preaccept(tid, part, route))
+    phase("cm", lambda tid, route, part: CmdOp.commit(tid, route, part,
+                                                      deas[tid], Deps.NONE))
+    phase("ap", lambda tid, route, part: CmdOp.apply(tid, route, part,
+                                                     deas[tid], Deps.NONE))
+    check(int(plane.fallbacks) == 0,
+          f"cmd batch: {int(plane.fallbacks)} ops fell back to the host")
+    if hist_dev != hist_host:
+        i = next(i for i, (a, b) in enumerate(zip(hist_host, hist_dev))
+                 if a != b)
+        raise SmokeFailure(f"cmd batch: decision histories diverge at op "
+                           f"{i}: host {hist_host[i]} card {hist_dev[i]}")
+    for tid, row in plane.row_of.items():
+        check(int(plane.status_h[row]) == CMD_ST_APPLIED,
+              f"cmd batch: {tid} did not reach APPLIED in the arena")
+        check(cp._dec(*(int(x) for x in plane.ea_h[row]))
+              == host_final[tid],
+              f"cmd batch: final executeAt differs for {tid}")
+    dev_committed_s = span_s["pa"] + span_s["cm"]
+    return {"inflight": n, "chunk": chunk, "arena_cap": arena_cap,
+            "dispatches": int(plane.dispatches),
+            "fallbacks": int(plane.fallbacks),
+            "checksum_mismatches": int(plane.checksum_mismatches),
+            "handlers_committed_txn_per_s": n / host_committed_s,
+            "device_committed_txn_per_s": n / dev_committed_s,
+            "device_phase_s": span_s}
+
+
+def recovery_batch(device: str, n: int) -> dict:
+    """bench_recovery_storm's scan leg: n rows parked in one arena-only
+    plane on `device` through real PreAccept/Commit/Apply dispatches (the
+    last third driven to APPLIED: the scan must skip them), stall ages
+    from default_rng(29), stall 1000 ms; one warm sweep, then every scan
+    at now0 + 0/20/40/60 equal to recovery_scan_host and to a python walk,
+    one dispatch per scan, zero fallbacks and overflows."""
+    import numpy as np
+    from accord_tpu_torch.ops.cmd_plane import CmdOp, CmdPlane
+    from accord_tpu_torch.ops.kernels import (CMD_ST_APPLIED,
+                                              CMD_ST_PRE_ACCEPTED)
+    from accord_tpu_torch.primitives.deps import Deps
+    chunk, arena_cap, stall_ms, ks = 512, 16_384, 1_000, (0, 20, 40, 60)
+    _c, node, store = _one_store()
+    txns = _cmd_stream(node, store, n, 7)
+    plane = CmdPlane(store, initial_cap=arena_cap, key_cap=1024, kpad=4,
+                     apply_to_store=False, device=device)
+    eas = {}
+    for i in range(0, n, chunk):
+        span = txns[i:i + chunk]
+        res = plane.eval_batch([CmdOp.preaccept(t, p, r)
+                                for t, r, p in span])
+        for (tid, *_), r in zip(span, res):
+            eas[tid] = r.execute_at
+    tail = txns[n - n // 3:]
+    for i in range(0, len(tail), chunk):
+        span = tail[i:i + chunk]
+        plane.eval_batch([CmdOp.commit(t, r, p, eas[t], Deps.NONE)
+                          for t, r, p in span])
+        plane.eval_batch([CmdOp.apply(t, r, p, eas[t], Deps.NONE)
+                          for t, r, p in span])
+    arng = np.random.default_rng(29)
+    now0 = int(node.now_millis()) + 100_000
+    plane.touched_h[:plane.n_rows] = \
+        now0 - arng.integers(0, 1_100, plane.n_rows, dtype=np.int32)
+    plane._touched_stale = True
+
+    def py_walk(now):
+        out = []
+        for tid, row in plane.row_of.items():
+            st = int(plane.status_h[row])
+            if CMD_ST_PRE_ACCEPTED <= st < CMD_ST_APPLIED \
+                    and now - int(plane.touched_h[row]) >= stall_ms:
+                out.append(tid)
+        return out
+
+    for k in ks:
+        plane.recovery_scan_device(now0 + k, stall_ms)
+    warm = {"fallbacks": int(plane.recovery_scan_fallbacks),
+            "overflows": int(plane.recovery_scan_overflows)}
+    d0 = int(plane.recovery_scan_dispatches)
+    sizes, wall = [], {"device": 0.0, "host": 0.0, "walk": 0.0}
+    for k in ks:
+        t0 = time.perf_counter()
+        dev = plane.recovery_scan_device(now0 + k, stall_ms)
+        t1 = time.perf_counter()
+        host = plane.recovery_scan_host(now0 + k, stall_ms)
+        t2 = time.perf_counter()
+        walk = py_walk(now0 + k)
+        t3 = time.perf_counter()
+        wall["device"] += t1 - t0
+        wall["host"] += t2 - t1
+        wall["walk"] += t3 - t2
+        check(dev == host == walk,
+              f"recovery batch: scan at now0+{k} differs from the host's")
+        sizes.append(len(dev))
+    check(int(plane.recovery_scan_dispatches) - d0 == len(ks),
+          "recovery batch: not one dispatch per scan")
+    check(int(plane.recovery_scan_fallbacks) == 0
+          and int(plane.recovery_scan_overflows) == 0,
+          "recovery batch: scan fallbacks or overflows")
+    check(min(sizes) > 0, "recovery batch: vacuous (no candidates)")
+    live = int(((plane.status_h >= CMD_ST_PRE_ACCEPTED)
+                & (plane.status_h < CMD_ST_APPLIED)).sum())
+    return {"rows": int(plane.n_rows), "live": live, "candidates": sizes,
+            "warm_sweep": warm,
+            "ms_per_scan": {k: v * 1e3 / len(ks) for k, v in wall.items()},
+            "scan_dispatches": int(plane.recovery_scan_dispatches)}
 
 
 def exec_counters(rep) -> dict:
@@ -969,16 +1378,141 @@ def run(rehearse: bool) -> dict:
     fb = frontier_batch(device, rehearse, (fa_rec, fb_rec))
     log(f"frontier_batch[{device}]: {json.dumps(fb)}")
 
-    # 11. kernels: replay the recorded inputs, kernel vs plain, timed
+    # 11. cmd burn: the key burn's cluster with the command planes on the
+    #     card too, launches counted
+    cmd_ops = 400 if not rehearse else 60
+    cmd_rec = Recorder(tk, cmd_tier=8)
+    cdev = []
+    tk.reset_launches()
+    with cmd_rec:
+        crep, cwall = burn(device, cmd_ops, cdev, cmd_plane=True,
+                           cmd_device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    launches["cmd_burn"] = dict(tk.LAUNCHES)
+    ccnt = cmd_counters(crep)
+    log(f"cmd_burn[{device}]: acked {crep.acked} failed {crep.failed} lost "
+        f"{crep.lost} in {cwall:.2f} s -> {crep.acked / cwall:.1f} acked "
+        f"txn/s; launches {launches['cmd_burn']}; {json.dumps(ccnt)}; "
+        f"resolver {clean(cdev)}")
+    check(crep.lost == 0 and crep.acked > 0, "cmd burn: lost or no acked")
+    check(ccnt.get("cmd_plane_dispatches", 0) > 0, "cmd burn: no dispatch")
+    check(ccnt.get("cmd_plane_checksum_mismatches", 0) == 0,
+          "cmd burn: checksum mismatches")
+    for k in ("host_fallbacks", "finalize_fallbacks", "checksum_mismatches"):
+        check(clean(cdev)[k] == 0, f"cmd burn: resolver {k}")
+    if cuda:
+        check(launches["cmd_burn"]["cmd_tick"]
+              == ccnt["cmd_plane_dispatches"],
+              f"cmd burn: cmd_tick launched "
+              f"{launches['cmd_burn']['cmd_tick']} times for "
+              f"{ccnt['cmd_plane_dispatches']} dispatches")
+        for name in ("deps_resolve", "finalize_csr", "row_scatter"):
+            check(launches["cmd_burn"][name] > 0,
+                  f"cmd burn: kernel {name} never launched")
+    ccpu = []
+    crep_cpu, cwall_cpu = burn("cpu", cmd_ops, ccpu, cmd_plane=True,
+                               cmd_device="cpu")
+    log(f"cmd_burn[cpu]: acked {crep_cpu.acked} in {cwall_cpu:.2f} s")
+    check(crep_cpu.log == crep.log,
+          "cmd burn: the card's history differs from the CPU's")
+    check(cmd_counters(crep_cpu) == ccnt,
+          f"cmd burn: the card's cmd counters {ccnt} differ from the CPU's "
+          f"{cmd_counters(crep_cpu)}")
+    check(clean(ccpu) == clean(cdev),
+          "cmd burn: the card's resolver counters differ from the CPU's")
+    log(f"cmd_burn: {len(crep.log)} log lines identical on {device} and cpu")
+
+    # 12. authoritative + recovery leg, launches counted
+    rec_rec = Recorder(tk)
+    tk.reset_launches()
+    with rec_rec:
+        rrep_d, rwall_d = recovery_burn(device, "device")
+    if cuda:
+        torch.cuda.synchronize()
+    launches["recovery_burn"] = dict(tk.LAUNCHES)
+    rcnt = cmd_counters(rrep_d)
+    log(f"recovery_burn[{device}]: acked {rrep_d.acked} lost {rrep_d.lost} "
+        f"in {rwall_d:.2f} s; launches {launches['recovery_burn']}; "
+        f"promote calls {rec_rec.promoted}; {json.dumps(rcnt)}")
+    check(rrep_d.lost == 0 and rrep_d.acked == 48,
+          "recovery burn: lost or unacked txns")
+    check(rcnt.get("recovery_scan_candidates", 0) > 0,
+          "recovery burn: the scan found no candidate")
+    # an out_cap overflow is answered by the host scan (the reference's
+    # degradation, counted); held at 0 so every scan here is the kernel's
+    log(f"recovery_burn[{device}]: scan fallbacks "
+        f"{rcnt.get('recovery_scan_fallbacks', 0)} overflows "
+        f"{rcnt.get('recovery_scan_overflows', 0)} checksum mismatches "
+        f"{rcnt.get('cmd_plane_checksum_mismatches', 0)}")
+    check(rcnt.get("recovery_scan_fallbacks", 0) == 0,
+          "recovery burn: scan fallbacks")
+    check(rcnt.get("recovery_scan_overflows", 0) == 0,
+          "recovery burn: scan overflows answered by the host scan")
+    check(rcnt.get("cmd_plane_checksum_mismatches", 0) == 0,
+          "recovery burn: checksum mismatches")
+    check(rec_rec.promoted > 0
+          and rec_rec.promoted == rcnt["cmd_plane_dispatches"],
+          "recovery burn: cmd_tick did not run with promote")
+    if cuda:
+        check(launches["recovery_burn"]["recovery_scan"]
+              == rcnt["recovery_scan_dispatches"] > 0,
+              "recovery burn: recovery_scan launches != scan dispatches")
+        check(launches["recovery_burn"]["cmd_tick"]
+              == rcnt["cmd_plane_dispatches"] > 0,
+              "recovery burn: cmd_tick launches != dispatches")
+    rrep_c, rwall_c = recovery_burn("cpu", "device")
+    rrep_h, rwall_h = recovery_burn(device, "host")
+    log(f"recovery_burn[cpu]: {rwall_c:.2f} s; host scan on {device}: "
+        f"{rwall_h:.2f} s")
+    check(rrep_c.log == rrep_d.log,
+          "recovery burn: the card's history differs from the CPU's")
+    check(rrep_h.log == rrep_d.log,
+          "recovery burn: the device scan's history differs from the host "
+          "scan's")
+    check(cmd_counters(rrep_c) == rcnt,
+          f"recovery burn: the card's counters {rcnt} differ from the "
+          f"CPU's {cmd_counters(rrep_c)}")
+    log(f"recovery_burn: {len(rrep_d.log)} log lines identical on {device}, "
+        "cpu and with the host scan")
+
+    # 13. repair leg, launches counted
+    rep_rec = Recorder(tk)
+    tk.reset_launches()
+    with rep_rec:
+        rleg = repair_leg(device)
+    if cuda:
+        torch.cuda.synchronize()
+    launches["repair"] = dict(tk.LAUNCHES)
+    log(f"repair[{device}]: {json.dumps(rleg)}; launches "
+        f"{launches['repair']}")
+    if cuda:
+        check(launches["repair"]["cmd_repair"] > 0,
+              "repair leg: cmd_repair never launched")
+
+    # 14-15. the command plane at 10k in flight
+    cb_rec = Recorder(tk)
+    with cb_rec:
+        cb = cmd_batch(device, 10_000 if not rehearse else 600)
+    log(f"cmd_batch[{device}]: {json.dumps(cb)}")
+    rb_rec = Recorder(tk)
+    with rb_rec:
+        rb = recovery_batch(device, 10_240 if not rehearse else 600)
+    log(f"recovery_batch[{device}]: {json.dumps(rb)}")
+
+    # 16. kernels: replay the recorded inputs, kernel vs plain, timed
     iters = 50 if cuda else 2
     path_rec = {"key_burn": key_rec, "range_burn": range_rec,
-                "inline": inline_rec, **exec_recs}
+                "inline": inline_rec, **exec_recs, "cmd_burn": cmd_rec,
+                "recovery_burn": rec_rec, "repair": rep_rec}
     # further inputs each kernel is replayed on, by label (the first
     # two keep their PR-1/PR-2 names in the kernels line)
     extra_rec = {"key_burn": [("preaccept_batch", pa_rec),
                               ("range_burn", range_rec)],
                  "range_burn": [("preaccept_batch", pr_rec)],
-                 "inline": []}
+                 "inline": [], "cmd_burn": [("cmd_batch", cb_rec)],
+                 "recovery_burn": [("recovery_batch", rb_rec)],
+                 "repair": []}
     exec_extra = [("exec_burn", exec_recs["exec_burn"]),
                   ("exec_compact", exec_recs["exec_compact"]),
                   ("frontier_batch_a", fa_rec),
@@ -1012,6 +1546,7 @@ def run(rehearse: bool) -> dict:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "call": head["call"],
             "calls": [_brief(r) for r in head["calls"]],
+            **{k: head[k] for k in ("op_tier", "ms_per_op") if k in head},
             "launches_by_path": {p: launches[p][name] for p in launches}}
         for label, r in labelled:
             entry[label] = dict(_brief(r),
@@ -1023,7 +1558,8 @@ def run(rehearse: bool) -> dict:
 
 def _brief(row: dict) -> dict:
     return {k: row[k] for k in ("call", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "share", "library_ms")}
+                                "bound_by", "share", "library_ms",
+                                "op_tier", "ms_per_op") if k in row}
 
 
 def main(argv=None) -> int:

@@ -485,3 +485,185 @@ def test_exec_plane_burn_small_cap_matches_cpu(cuda):
     assert max(p._gen for p in card_planes) > 0, "no plane compacted"
     assert max(p.cap for p in card_planes) > 32, "no plane grew"
     assert [p.cap for p in card_planes] == [p.cap for p in planes]
+
+
+# -- the command plane: K10 cmd_tick, K11 recovery_scan, K12 cmd_repair ------
+BAL0 = (0, 0, I32_MIN)
+
+
+def _cmd_lanes(rng, n):
+    a = np.empty((n, 3), np.int32)
+    a[:, 0] = rng.integers(0, 3, n)
+    a[:, 1] = rng.integers(7, 18, n)
+    a[:, 2] = I32_MIN + rng.integers(0, 6, n)
+    return a
+
+
+def _cmd_columns(rng, cap, kcap):
+    status = rng.choice([0, 1, 3, 5, 6, 7, 8, 9, 10, 11], cap).astype(
+        np.int32)
+    flags = rng.integers(0, 2, cap).astype(np.int32)
+    pr, ab, ea = (_cmd_lanes(rng, cap) for _ in range(3))
+    pr[rng.random(cap) < 0.4] = BAL0
+    ab[rng.random(cap) < 0.5] = BAL0
+    ea[rng.random(cap) < 0.4] = I32_MIN
+    dur = rng.integers(0, 5, cap).astype(np.int32)
+    kmax = _cmd_lanes(rng, kcap)
+    kmax[rng.random(kcap) < 0.2] = I32_MIN
+    return [status, flags, pr, ab, ea, dur, kmax, rng.random(kcap) < 0.6]
+
+
+def _cmd_ops(rng, n_real, tier, rows, kids, now, kpad=4):
+    """An op batch as CmdPlane._run_device builds it: chains through
+    op_prev / op_kprev, last writers flagged, padding slots after n_real."""
+    kind = np.zeros(tier, np.int32)
+    row = np.zeros(tier, np.int32)
+    txn = np.zeros((tier, 3), np.int32)
+    bal = np.zeros((tier, 3), np.int32)
+    exe = np.full((tier, 3), I32_MIN, np.int32)
+    keys = np.full((tier, kpad), -1, np.int32)
+    flags = np.zeros(tier, np.int32)
+    op_now = np.full(tier, now, np.int32)
+    prev = np.full(tier, -1, np.int32)
+    rlast = np.zeros(tier, bool)
+    kprev = np.full((tier, kpad), -1, np.int32)
+    klast = np.zeros((tier, kpad), bool)
+    last_row, last_kid = {}, {}
+    for j in range(n_real):
+        kind[j] = rng.integers(0, 4)
+        r = int(rng.choice(rows))
+        row[j] = r
+        txn[j] = _cmd_lanes(rng, 1)[0]
+        bal[j] = BAL0 if rng.random() < 0.6 else _cmd_lanes(rng, 1)[0]
+        if rng.random() < 0.7:
+            exe[j] = _cmd_lanes(rng, 1)[0]
+        ks = rng.choice(kids, rng.integers(0, min(kpad, len(kids)) + 1),
+                        replace=False)
+        keys[j, :len(ks)] = ks
+        f = tk.CMD_F_VALID
+        for bit, p in ((tk.CMD_F_PERMIT_FAST, 0.6), (tk.CMD_F_EPOCH_OK, 0.8),
+                       (tk.CMD_F_EXPIRED, 0.15), (tk.CMD_F_MSG_HAS_TXN, 0.6),
+                       (tk.CMD_F_DEPS_EMPTY, 0.6)):
+            if rng.random() < p:
+                f |= bit
+        flags[j] = f
+        prev[j] = last_row.get(r, -1)
+        last_row[r] = j
+        for s, kid in enumerate(ks):
+            if kid in last_kid:
+                p, ps = last_kid[kid]
+                kprev[j, s] = p * kpad + ps
+            last_kid[kid] = (j, s)
+    for j in last_row.values():
+        rlast[j] = True
+    for j, s in last_kid.values():
+        klast[j, s] = True
+    return [kind, row, txn, bal, exe, keys, flags, op_now, prev, rlast,
+            kprev, klast]
+
+
+@pytest.mark.parametrize("tier,n_real,cap,kcap,nrows,promote,clock", [
+    (8, 8, 64, 32, 6, False, 15), (8, 3, 64, 32, 6, True, 15),
+    (64, 60, 1024, 256, 24, True, 14),
+    (512, 512, 16384, 1024, 300, False, 20),
+    (512, 400, 16384, 1024, 300, True, I32_MIN + 5),
+    (4096, 3000, 16384, 1024, 2000, True, 2 ** 31 - 1)])
+def test_cmd_tick_kernel(cuda, tier, n_real, cap, kcap, nrows, promote,
+                         clock):
+    """K10 against cmd_tick_plain: every output, the chains included,
+    both promote modes, tiers 8 / 64 / 512 (shared memory) and 4096 (the
+    chains in global memory), padding slots, the int32 clock edge."""
+    rng = np.random.default_rng(tier + n_real)
+    cols = [_t(a) for a in _cmd_columns(rng, cap, kcap)]
+    ops = [_t(a) for a in _cmd_ops(
+        rng, n_real, tier, rows=rng.choice(cap, nrows, replace=False),
+        kids=rng.choice(kcap, max(4, nrows // 3), replace=False), now=16)]
+    scal = (1, I32_MIN + 1, ((0x8000 << 16) | 1) - (1 << 31), 3)
+    plain = tk.cmd_tick_plain(*cols, clock, *ops, *scal, promote=promote)
+    n0 = tk.LAUNCHES["cmd_tick"]
+    got = tk.cmd_tick(*(c.to(cuda) for c in cols), clock,
+                      *(o.to(cuda) for o in ops), *scal, promote=promote)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["cmd_tick"] == n0 + 1
+    _eq(plain, got)
+    blk = tk.cmd_tick_readback(got)
+    assert tk.cmd_checksum_host(blk[:tier], blk[tier:2 * tier],
+                                blk[2 * tier:5 * tier], int(blk[-2])) \
+        == int(blk[-1]) & 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("cap,out_cap,now,stall", [
+    (64, 4, 1000, 300), (1024, 2048, 1000, 0), (16384, 2048, 1000, 300),
+    (16384, 256, I32_MIN, 1)])
+def test_recovery_scan_kernel(cuda, cap, out_cap, now, stall):
+    """K11 against recovery_scan_plain: band edges, touched past now,
+    wrapping ages, out_cap below and above the count."""
+    rng = np.random.default_rng(cap + out_cap)
+    status = rng.integers(0, 12, cap).astype(np.int32)
+    touched = rng.integers(0, 2000, cap).astype(np.int32)
+    status[:6] = [0, 1, 8, 9, 10, 11]
+    touched[6:12] = [1000, 1001, 700, 5000, 2 ** 31 - 1, I32_MIN]
+    plain = tk.recovery_scan_plain(_t(status), _t(touched), now, stall,
+                                   out_cap)
+    n0 = tk.LAUNCHES["recovery_scan"]
+    got = tk.recovery_scan(_t(status).to(cuda), _t(touched).to(cuda), now,
+                           stall, out_cap)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["recovery_scan"] == n0 + 1
+    _eq(plain, got)
+
+
+@pytest.mark.parametrize("cap,kcap,m,k", [(64, 32, 8, 8),
+                                          (16384, 1024, 64, 64)])
+def test_cmd_repair_kernel(cuda, cap, kcap, m, k):
+    """K12 against cmd_repair_plain; padding indices cap / kcap drop."""
+    rng = np.random.default_rng(cap + m)
+    cols = [_t(a) for a in _cmd_columns(rng, cap, kcap)]
+    nr, nk = m - 3, k - 2
+    rows_idx = np.full(m, cap, np.int32)
+    rows_idx[:nr] = np.sort(rng.choice(cap, nr, replace=False))
+    kid_idx = np.full(k, kcap, np.int32)
+    kid_idx[:nk] = np.sort(rng.choice(kcap, nk, replace=False))
+    vals = [_t(a) for a in (
+        rows_idx, rng.integers(0, 12, m).astype(np.int32),
+        rng.integers(0, 2, m).astype(np.int32), _cmd_lanes(rng, m),
+        _cmd_lanes(rng, m), _cmd_lanes(rng, m),
+        rng.integers(0, 5, m).astype(np.int32), kid_idx,
+        _cmd_lanes(rng, k), rng.random(k) < 0.5)]
+    plain = tk.cmd_repair_plain(*cols, *vals)
+    n0 = tk.LAUNCHES["cmd_repair"]
+    got = tk.cmd_repair(*(c.to(cuda) for c in cols),
+                        *(v.to(cuda) for v in vals))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["cmd_repair"] == n0 + 1
+    _eq(plain, got)
+
+
+def test_cmd_plane_burn_matches_cpu(cuda):
+    """A contended burn with the cmd planes on the card (authoritative, a
+    device recovery scan): history and every plane counter equal to the
+    same burn's with the planes on the CPU; cmd_tick launched once per
+    dispatch."""
+    from accord_tpu_torch.sim.burn import run_burn
+    from accord_tpu_torch.sim.cluster import ClusterConfig
+
+    def leg(device):
+        cfg = ClusterConfig(cmd_plane=True, cmd_device=device,
+                            cmd_plane_authoritative=True, durability=True,
+                            recovery_scan="device", progress_stall_ms=300.0)
+        r = run_burn(23, ops=60, write_ratio=0.95, key_count=3,
+                     chaos_drop=0.05, collect_log=True, config=cfg)
+        return r, {k: v for k, v in r.counters.items()
+                   if k.startswith(("cmd_", "recovery_scan_"))
+                   and not k.endswith("_s")}
+
+    n0 = tk.LAUNCHES["cmd_tick"]
+    card, card_counters = leg("cuda")
+    torch.cuda.synchronize()
+    cpu, cpu_counters = leg("cpu")
+    assert card.log == cpu.log and card.lost == 0
+    assert card_counters == cpu_counters
+    assert card_counters["cmd_plane_dispatches"] > 0
+    assert card_counters.get("cmd_plane_checksum_mismatches", 0) == 0
+    assert tk.LAUNCHES["cmd_tick"] - n0 == \
+        card_counters["cmd_plane_dispatches"]
