@@ -399,9 +399,19 @@ __device__ void walk(int* ch, int c, int n, int kpad_rt, const int* o_kind,
 template <int KPC>
 __global__ void __launch_bounds__(WT)
 cmd_tick_kernel(const TickCols in, const TickOuts out, int cap, int kcap,
-                const TickOps ops, int n, int kpad_rt, const TickScalars sc,
-                const TickResult res, int use_smem) {
+                const TickOps ops, int n, int kpad_rt, const TickScalars sc_in,
+                const int* __restrict__ sc_dev, const TickResult res,
+                int use_smem) {
   extern __shared__ int smem[];
+  // sc_dev (the megakernel's graph): the five scalars from device memory
+  TickScalars sc = sc_in;
+  if (sc_dev != nullptr) {
+    sc.clock = sc_dev[0];
+    sc.node_epoch = sc_dev[1];
+    sc.lane2_clean = sc_dev[2];
+    sc.lane2_rej = sc_dev[3];
+    sc.dur_local = sc_dev[4];
+  }
   const int kpad = KPC > 0 ? KPC : kpad_rt;
   const int c = RL + 4 * kpad;
   int* ch = use_smem ? smem : res.chains;
@@ -520,8 +530,8 @@ cmd_tick_kernel(const TickCols in, const TickOuts out, int cap, int kcap,
 template <int KPC>
 static int launch_tick(const TickCols& in, const TickOuts& out, int cap,
                        int kcap, const TickOps& ops, int n, int kpad,
-                       const TickScalars& sc, const TickResult& res,
-                       cudaStream_t st) {
+                       const TickScalars& sc, const int* sc_dev,
+                       const TickResult& res, cudaStream_t st) {
   const size_t c = RL + 4 * (size_t)kpad;
   const size_t lanes = 13 + 2 * (size_t)kpad;
   const size_t smem = (size_t)n * (c + lanes) * sizeof(int);
@@ -534,7 +544,7 @@ static int launch_tick(const TickCols& in, const TickOuts& out, int cap,
     ACCORD_CHECK();
   }
   cmd_tick_kernel<KPC><<<1, WT, dyn, st>>>(in, out, cap, kcap, ops, n, kpad,
-                                           sc, res, use_smem);
+                                           sc, sc_dev, res, use_smem);
   ACCORD_CHECK();
   return 0;
 }
@@ -544,7 +554,7 @@ static int launch_tick(const TickCols& in, const TickOuts& out, int cap,
 // kpad]; flags, now, prev i32[n]; rlast bool[n]; kprev i32[n, kpad];
 // klast bool[n, kpad]), n, kpad (1..KMAX); the scalars; the result views
 // (code[n], status[n], ts[n, 3], chains[n, 12 + 4 kpad], clock, csum)
-extern "C" int cmd_tick(
+static int cmd_tick_impl(
     const void* st, const void* fl, const void* pr, const void* ab,
     const void* ea, const void* du, const void* km, const void* kv,
     void* o_st, void* o_fl, void* o_pr, void* o_ab, void* o_ea, void* o_du,
@@ -553,8 +563,8 @@ extern "C" int cmd_tick(
     const void* keys, const void* flags, const void* now, const void* prev,
     const void* rlast, const void* kprev, const void* klast, int n, int kpad,
     int clock, int node_epoch, int lane2_clean, int lane2_rej, int dur_local,
-    int promote, void* code, void* status, void* ts, void* chains,
-    void* out_clock, void* csum, void* stream) {
+    const int* sc_dev, int promote, void* code, void* status, void* ts,
+    void* chains, void* out_clock, void* csum, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0 || kpad < 1 || kpad > KMAX || cap <= 0 || kcap <= 0)
     return (int)cudaErrorInvalidValue;
@@ -588,6 +598,47 @@ extern "C" int cmd_tick(
   TickResult res{(int*)code,   (int*)status,    (int*)ts,
                  (int*)chains, (int*)out_clock, (unsigned*)csum};
   if (CMD_TICK_KPAD4 && kpad == 4)
-    return launch_tick<4>(in, out, cap, kcap, ops, n, kpad, sc, res, s);
-  return launch_tick<0>(in, out, cap, kcap, ops, n, kpad, sc, res, s);
+    return launch_tick<4>(in, out, cap, kcap, ops, n, kpad, sc, sc_dev, res,
+                          s);
+  return launch_tick<0>(in, out, cap, kcap, ops, n, kpad, sc, sc_dev, res, s);
+}
+
+extern "C" int cmd_tick(
+    const void* st, const void* fl, const void* pr, const void* ab,
+    const void* ea, const void* du, const void* km, const void* kv,
+    void* o_st, void* o_fl, void* o_pr, void* o_ab, void* o_ea, void* o_du,
+    void* o_km, void* o_kv, int cap, int kcap, const void* kind,
+    const void* row, const void* txn, const void* bal, const void* exec,
+    const void* keys, const void* flags, const void* now, const void* prev,
+    const void* rlast, const void* kprev, const void* klast, int n, int kpad,
+    int clock, int node_epoch, int lane2_clean, int lane2_rej, int dur_local,
+    int promote, void* code, void* status, void* ts, void* chains,
+    void* out_clock, void* csum, void* stream) {
+  return cmd_tick_impl(st, fl, pr, ab, ea, du, km, kv, o_st, o_fl, o_pr,
+                       o_ab, o_ea, o_du, o_km, o_kv, cap, kcap, kind, row,
+                       txn, bal, exec, keys, flags, now, prev, rlast, kprev,
+                       klast, n, kpad, clock, node_epoch, lane2_clean,
+                       lane2_rej, dur_local, nullptr, promote, code, status,
+                       ts, chains, out_clock, csum, stream);
+}
+
+// cmd_tick with the five scalars (clock, node_epoch, lane2_clean,
+// lane2_rej, dur_local) read from device memory at `sc_dev` when the
+// kernel runs: the protocol megakernel's graph replays it every tick
+extern "C" int cmd_tick_dsc(
+    const void* st, const void* fl, const void* pr, const void* ab,
+    const void* ea, const void* du, const void* km, const void* kv,
+    void* o_st, void* o_fl, void* o_pr, void* o_ab, void* o_ea, void* o_du,
+    void* o_km, void* o_kv, int cap, int kcap, const void* kind,
+    const void* row, const void* txn, const void* bal, const void* exec,
+    const void* keys, const void* flags, const void* now, const void* prev,
+    const void* rlast, const void* kprev, const void* klast, int n, int kpad,
+    const void* sc_dev, int promote, void* code, void* status, void* ts,
+    void* chains, void* out_clock, void* csum, void* stream) {
+  return cmd_tick_impl(st, fl, pr, ab, ea, du, km, kv, o_st, o_fl, o_pr,
+                       o_ab, o_ea, o_du, o_km, o_kv, cap, kcap, kind, row,
+                       txn, bal, exec, keys, flags, now, prev, rlast, kprev,
+                       klast, n, kpad, 0, 0, 0, 0, 0, (const int*)sc_dev,
+                       promote, code, status, ts, chains, out_clock, csum,
+                       stream);
 }

@@ -1,5 +1,6 @@
-// K1's block kernel, shared with K5's key side (range_resolve.cu): one
-// packed dependency word per (subject, 32 arena rows) of one store block.
+// K1's block kernel, shared with K5's key side (range_resolve.cu) and
+// K13/K14 (node_resolve.cu, through resolve_body): one packed dependency
+// word per (subject, 32 arena rows) of one store block.
 // One warp per 32-row word keeps its rows' bucket words in registers (lane
 // i holds row 32w + i), walks a tile of subjects whose words sit in shared
 // memory (a broadcast read), tests the cheap row masks first (valid, store
@@ -13,19 +14,20 @@
 #define SUBJ_TILE 64   // subjects per block (shared-memory tile)
 #define WARPS 4        // 32-row words per block
 
-__global__ void __launch_bounds__(WARPS * 32)
-resolve_kernel(const unsigned* __restrict__ subj_words,
-               const int* __restrict__ subj_before,
-               const int* __restrict__ subj_kinds,
-               const int* __restrict__ subj_store,
-               const int* __restrict__ slot_ptr,
-               const unsigned char* __restrict__ subj_gate, int b,
-               const unsigned* __restrict__ act_bm,
-               const int* __restrict__ act_ts,
-               const int* __restrict__ act_kinds,
-               const unsigned char* __restrict__ act_valid, int cap, int nw,
-               const int* __restrict__ witness, int nk,
-               unsigned* __restrict__ out, int out_stride, int out_off) {
+// The block body: blockIdx.x is the group of WARPS row words, blockIdx.y
+// the subject tile. subj_store == nullptr: no slot mask (single store);
+// else subject s is this block's when subj_store[s] == slot. A tile none
+// of whose subjects is this block's writes its zero words and stops.
+__device__ __forceinline__ void resolve_body(
+    const unsigned* __restrict__ subj_words,
+    const int* __restrict__ subj_before, const int* __restrict__ subj_kinds,
+    const int* __restrict__ subj_store, int slot,
+    const unsigned char* __restrict__ subj_gate, int b,
+    const unsigned* __restrict__ act_bm, const int* __restrict__ act_ts,
+    const int* __restrict__ act_kinds,
+    const unsigned char* __restrict__ act_valid, int cap, int nw,
+    const int* __restrict__ witness, int nk, unsigned* __restrict__ out,
+    int out_stride, int out_off) {
   __shared__ unsigned s_subj[SUBJ_TILE * MAX_NW];
   __shared__ int s_before[SUBJ_TILE * 3];
   __shared__ int s_kind[SUBJ_TILE];
@@ -40,20 +42,26 @@ resolve_kernel(const unsigned* __restrict__ subj_words,
   }
   for (int i = tid; i < ns * 3; i += blockDim.x)
     s_before[i] = subj_before[(long long)s0 * 3 + i];
-  const int slot = slot_ptr == nullptr ? 0 : *slot_ptr;
+  int mine_any = 0;
   for (int i = tid; i < ns; i += blockDim.x) {
     int kd = subj_kinds[s0 + i];
     if (kd < 0) kd += nk;                 // a jnp gather: wrap, then clamp
     s_kind[i] = min(max(kd, 0), nk - 1);
     s_mine[i] = (subj_store == nullptr ? 1 : (subj_store[s0 + i] == slot)) &&
                 (subj_gate == nullptr || subj_gate[s0 + i] != 0);
+    mine_any |= s_mine[i];
   }
   for (int i = tid; i < nk * nk; i += blockDim.x) s_wit[i] = witness[i];
-  __syncthreads();
+  mine_any = __syncthreads_or(mine_any);
 
   const int lane = tid & 31;
   const int w = blockIdx.x * WARPS + (tid >> 5);
   if (w >= (cap >> 5)) return;  // no barrier below this point
+  if (!mine_any) {
+    for (int s = lane; s < ns; s += 32)
+      out[out_off + w + (long long)(s0 + s) * out_stride] = 0u;
+    return;
+  }
   const int row = (w << 5) + lane;
   unsigned rw[MAX_NW];
 #pragma unroll
@@ -83,3 +91,21 @@ resolve_kernel(const unsigned* __restrict__ subj_words,
   }
 }
 
+__global__ void __launch_bounds__(WARPS * 32)
+resolve_kernel(const unsigned* __restrict__ subj_words,
+               const int* __restrict__ subj_before,
+               const int* __restrict__ subj_kinds,
+               const int* __restrict__ subj_store,
+               const int* __restrict__ slot_ptr,
+               const unsigned char* __restrict__ subj_gate, int b,
+               const unsigned* __restrict__ act_bm,
+               const int* __restrict__ act_ts,
+               const int* __restrict__ act_kinds,
+               const unsigned char* __restrict__ act_valid, int cap, int nw,
+               const int* __restrict__ witness, int nk,
+               unsigned* __restrict__ out, int out_stride, int out_off) {
+  resolve_body(subj_words, subj_before, subj_kinds, subj_store,
+               slot_ptr == nullptr ? 0 : *slot_ptr, subj_gate, b, act_bm,
+               act_ts, act_kinds, act_valid, cap, nw, witness, nk, out,
+               out_stride, out_off);
+}

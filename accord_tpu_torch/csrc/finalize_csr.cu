@@ -57,6 +57,32 @@ struct FinIn {
   }
 };
 
+// FinIn read from device memory: the protocol megakernel's graph keeps
+// one FinIn per finalize spec in its parameter block, so a replay runs
+// the spec against the tick's own packed result, kid table and lanes.
+struct FinRef {
+  const FinIn* in;
+  int w;
+
+  __device__ __forceinline__ unsigned word(long long f, unsigned* kw) const {
+    return in->word(f, kw);
+  }
+};
+
+extern "C" int fin_in_bytes() { return (int)sizeof(FinIn); }
+
+// write the FinIn of these operands (device pointers) to host memory `dst`
+extern "C" int fin_in_pack(void* dst, const void* packed, int b, int wt,
+                           int off, const void* kid_rows, int kc, int w,
+                           const void* slot_subj, const void* slot_kid, int s,
+                           const void* subj_row) {
+  FinIn in{(const unsigned*)packed, b, wt, off, (const unsigned*)kid_rows,
+           kc, w, (const int*)slot_subj, (const int*)slot_kid, s,
+           (const int*)subj_row};
+  *(FinIn*)dst = in;
+  return 0;
+}
+
 // block_sums / block_off: scratch of finalize_blocks(s * w) ints each;
 // acc: 3 more
 extern "C" int finalize_blocks(long long n) {
@@ -75,6 +101,23 @@ extern "C" int finalize_csr(const void* packed, int b, int wt, int off,
   FinIn in{(const unsigned*)packed, b, wt, off, (const unsigned*)kid_rows,
            kc, w, (const int*)slot_subj, (const int*)slot_kid, s,
            (const int*)subj_row};
+  cudaMemsetAsync(bound, 0, sizeof(int), st);
+  ACCORD_CHECK();
+  return launch_csr(in, s, (const int*)act_ts, out_cap, (int*)indptr,
+                    (int*)dep_rows, (int*)dep_ts, (int*)bound,
+                    (unsigned*)csum, (int*)block_sums, (int*)block_off,
+                    (unsigned*)acc, st);
+}
+
+// finalize_csr over a FinIn in device memory (`fin`, of w words per slot
+// and s slots); act_ts and every output as in finalize_csr
+extern "C" int finalize_csr_ref(const void* fin, int w, int s,
+                                const void* act_ts, int out_cap, void* indptr,
+                                void* dep_rows, void* dep_ts, void* bound,
+                                void* csum, void* block_sums, void* block_off,
+                                void* acc, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  FinRef in{(const FinIn*)fin, w};
   cudaMemsetAsync(bound, 0, sizeof(int), st);
   ACCORD_CHECK();
   return launch_csr(in, s, (const int*)act_ts, out_cap, (int*)indptr,

@@ -14,6 +14,7 @@
 // copy: bytes, the lane read once and written once (a [cap, 3] i32 lane is
 // 192 KB at cap 16384, the kid table KC * cap/32 words is 2 MB at KC 1024).
 // Duplicate indices carry identical data, so concurrent writes agree.
+// K15 (lane_slice, the merged tick's per-plan window) is at the end.
 #include "common.cuh"
 
 __global__ void row_scatter_kernel(unsigned char* __restrict__ dst,
@@ -156,5 +157,48 @@ extern "C" int range_scatter(void* d_start, void* d_end, void* d_ts,
         l, rcap, (const int*)idx, m);
     ACCORD_CHECK();
   }
+  return 0;
+}
+
+// K15: lane_slice, one plan's [rows x words] window of the merged packed
+// result (accord_tpu/ops/node_lane.py `lane_slice` :190, a
+// jax.lax.dynamic_slice). The offsets come from device memory when `offs`
+// is set (offs[0] = row, offs[1] = word), so a captured launch replays
+// with new offsets; else from r0 / w0. Like dynamic_slice, a negative
+// start counts from the end, and each is clamped so the window stays
+// inside [R, W]. What bounds it: bytes, the
+// window read once and written once.
+__global__ void lane_slice_kernel(const unsigned* __restrict__ src, int nr,
+                                  int nw, const int* __restrict__ offs,
+                                  int r0, int w0, int rows, int words,
+                                  unsigned* __restrict__ out) {
+  if (offs != nullptr) {
+    r0 = offs[0];
+    w0 = offs[1];
+  }
+  if (r0 < 0) r0 += nr;             // dynamic_slice: negative from the end
+  if (w0 < 0) w0 += nw;
+  r0 = min(max(r0, 0), nr - rows);
+  w0 = min(max(w0, 0), nw - words);
+  const long long n = (long long)rows * words;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const long long r = i / words;
+    out[i] = src[(r0 + r) * nw + w0 + (i - r * words)];
+  }
+}
+
+extern "C" int lane_slice(const void* src, int nr, int nw, const void* offs,
+                          int r0, int w0, int rows, int words, void* out,
+                          void* stream) {
+  if (rows < 0 || words < 0 || rows > nr || words > nw)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0 || words == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  lane_slice_kernel<<<grid_for((long long)rows * words, 256), 256, 0, st>>>(
+      (const unsigned*)src, nr, nw, (const int*)offs, r0, w0, rows, words,
+      (unsigned*)out);
+  ACCORD_CHECK();
   return 0;
 }

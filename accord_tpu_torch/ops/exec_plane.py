@@ -30,9 +30,9 @@ own bit order, so the dirty-row upload is a plain row scatter (K8,
 csrc/exec_scatter.cu) and the frontier reads cap^2/8 bytes (K9,
 csrc/exec_frontier.cu). A launch's readback is a `_DevBuf`: a CUDA event
 after the launch and non_blocking copies into pinned host memory; on the
-CPU the value is ready at once. There is no cluster-tick engine yet, so
-`ExecCoordinator._engine()` is None and every compact block launches
-standalone.
+CPU the value is ready at once. Under a megakernel cluster tick with
+exec fusion (sim/mesh_burn.py), a compact block stages into the engine's
+next protocol_tick instead of launching standalone.
 """
 from __future__ import annotations
 
@@ -776,10 +776,12 @@ class ExecCoordinator:
         with exec fusion enabled: the compact block then STAGES into the
         engine's next protocol_tick instead of launching standalone, so
         exec traffic shares the cluster tick's single device call. Resolved
-        lazily per tick -- the engine adopts resolvers after node wiring.
-        The port has no cluster tick engine yet (ROADMAP queue 1 item 7):
-        None, so every compact block launches standalone."""
-        return None
+        lazily per tick -- the engine adopts resolvers after node wiring."""
+        if not self.compact:
+            return None
+        res = getattr(self.node, "_deps_resolver", None)
+        eng = getattr(res, "tick_driver", None) if res is not None else None
+        return eng if getattr(eng, "exec_in_megakernel", False) else None
 
     def _observe_bound(self, total: int) -> None:
         if self._out_tiers is not None:
@@ -910,6 +912,7 @@ class ExecCoordinator:
             plane._apply_frontier(packed[lo:hi], gen)
 
     def _engine_flush(self) -> None:
-        eng = self._engine()
+        res = getattr(self.node, "_deps_resolver", None)
+        eng = getattr(res, "tick_driver", None) if res is not None else None
         if eng is not None:
             eng.flush_exec()

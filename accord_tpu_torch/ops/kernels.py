@@ -39,6 +39,13 @@ PyTorch version beside it. There is no fallback from one to the other.
   cmd_tick       csrc/cmd_tick.cu        cmd_tick :1032 (body :1101)
   recovery_scan  csrc/recovery_scan.cu   recovery_scan :682 (body :667)
   cmd_repair     csrc/cmd_repair.cu      _cmd_repair_body :1347
+  quorum_count   csrc/quorum.cu          protocol_tick's quorum stage
+                                         :1410-1418
+  protocol_tick  ops/tick_graph.py       protocol_tick :1434 (builder
+                                         :1368): one CUDA graph per static
+                                         signature, replayed once per call
+The node-lane kernels (K13-K15) live in ops/node_lane.py and count here
+too.
 
 The exec plane's adjacency is PACKED too, int32 [cap, cap/32] (dep d in
 bit d & 31 of word d >> 5), where the reference keeps bool [cap, cap].
@@ -49,6 +56,7 @@ cap and KC), where torch's own indexing would raise.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import numpy as np
@@ -67,12 +75,23 @@ LAUNCHES: Dict[str, int] = {"deps_resolve": 0, "finalize_csr": 0,
                             "exec_scatter": 0, "execution_frontier": 0,
                             "fused_execution_frontier": 0,
                             "frontier_compact": 0, "cmd_tick": 0,
-                            "recovery_scan": 0, "cmd_repair": 0}
+                            "recovery_scan": 0, "cmd_repair": 0,
+                            "node_deps_resolve": 0, "node_range_resolve": 0,
+                            "lane_slice": 0, "quorum_count": 0,
+                            "protocol_tick": 0}
+
+# CUDA graphs captured by protocol_tick (one per new static signature):
+# after a warm pass, a run over the same traffic must capture none; and
+# graphs dropped from its bounded cache (ops/tick_graph.py MAX_GRAPHS,
+# MAX_GRAPH_BYTES)
+CAPTURES: Dict[str, int] = {"protocol_tick": 0, "evictions": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in CAPTURES:
+        CAPTURES[k] = 0
 
 
 def _ext():
@@ -88,6 +107,23 @@ def upload(a: np.ndarray, device) -> torch.Tensor:
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.clone()
+
+
+def _addr(x) -> ctypes.c_void_p:
+    """A launch operand's device address: a tensor's data pointer, a
+    ctypes pointer as it is, None as null. The wrappers pass this as the
+    `A` of the shared launch functions; ops/tick_graph.py passes its own,
+    over the graph's memory regions."""
+    if x is None:
+        return ctypes.c_void_p(None)
+    if isinstance(x, ctypes.c_void_p):
+        return x
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _dtype_name(x) -> str:
+    """'int32', 'bool', ... for a tensor or a numpy array alike."""
+    return str(x.dtype).replace("torch.", "")
 
 
 def _check_cuda(*ts: torch.Tensor) -> None:
@@ -177,14 +213,22 @@ def _resolve_block_plain(subj_words, subj_before, subj_kinds, mine,
                          witness_table) -> torch.Tensor:
     b = subj_words.shape[0]
     cap = act_bm.shape[0]
+    if mine is not None:
+        # only the block's own subjects can have a bit: compute those rows
+        rows = torch.nonzero(mine).flatten()
+        out = torch.zeros(b, cap // 32, dtype=torch.int32,
+                          device=act_bm.device)
+        if rows.numel():
+            out[rows] = _resolve_block_plain(
+                subj_words[rows], subj_before[rows], subj_kinds[rows], None,
+                act_bm, act_ts, act_kinds, act_valid, witness_table)
+        return out
     nk = witness_table.shape[0]
     sk = _gather_index(subj_kinds, nk)
     ak = _gather_index(act_kinds, nk)
     witness = witness_table[sk[:, None], ak[None, :]] == 1
     before = _lex_before(act_ts[None, :, :], subj_before[:, None, :])
     mask = witness & before & act_valid[None, :]
-    if mine is not None:
-        mask &= mine[:, None]
     overlap = torch.zeros(b, cap, dtype=torch.bool, device=act_bm.device)
     # bound the [chunk, cap, K/32] AND temporary to ~64M words
     step = max(1, (1 << 26) // max(1, cap * act_bm.shape[1]))
@@ -923,34 +967,53 @@ def range_finalize_csr(iv_of, iv_start, iv_end, ent_ok, subj_before,
             iv_of, iv_start, iv_end, ent_ok, subj_before, subj_kinds,
             r_start, r_end, r_ts, r_kinds, r_valid, witness_table, out_cap)
     ext = _ext()
-    _check_cuda(iv_of, iv_start, iv_end, ent_ok, subj_before, subj_kinds,
-                r_start, r_end, r_ts, r_kinds, r_valid, witness_table)
+    lanes = (iv_of, iv_start, iv_end, ent_ok, subj_before, subj_kinds,
+             r_start, r_end, r_ts, r_kinds, r_valid, witness_table)
+    _check_cuda(*lanes)
     dev = r_start.device
     nv = iv_of.shape[0]
     rcap = r_start.shape[0]
+    w = range_words(rcap)
+    words = torch.empty(nv, w, dtype=torch.int32, device=dev)
+    _buf, scratch = _compact_scratch(
+        compact_blocks("range_finalize", "compact_blocks", nv * w), dev)
+    outs = (torch.empty(nv + 1, dtype=torch.int32, device=dev),
+            torch.empty(out_cap, dtype=torch.int32, device=dev),
+            torch.empty(out_cap, 3, dtype=torch.int32, device=dev),
+            torch.empty((), dtype=torch.int32, device=dev),
+            torch.empty((), dtype=torch.int32, device=dev))
+    launch_range_finalize(ext, _addr, lanes, nv, subj_before.shape[0], rcap,
+                          witness_table.shape[0], out_cap, words, outs,
+                          scratch)
+    LAUNCHES["range_finalize"] += 1
+    return outs
+
+
+def range_words(rcap: int) -> int:
+    """The packed words of a range arena's rows (its cap a multiple of
+    32)."""
     if rcap % 32:
         raise ValueError(f"range arena rcap {rcap} % 32 != 0")
-    w = rcap // 32
-    nblocks = max(1, int(ext.lib("range_finalize").compact_blocks(
-        ext.ctypes.c_longlong(nv * w))))
-    words = torch.empty(nv, w, dtype=torch.int32, device=dev)
-    _buf, scratch = _compact_scratch(nblocks, dev)
-    indptr = torch.empty(nv + 1, dtype=torch.int32, device=dev)
-    dep_rows = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    dep_ts = torch.empty(out_cap, 3, dtype=torch.int32, device=dev)
-    bound = torch.empty((), dtype=torch.int32, device=dev)
-    csum = torch.empty((), dtype=torch.int32, device=dev)
-    ext.call("range_finalize", "range_finalize_csr", ext.ptr(iv_of),
-             ext.ptr(iv_start), ext.ptr(iv_end), ext.ptr(ent_ok), nv,
-             ext.ptr(subj_before), ext.ptr(subj_kinds),
-             subj_before.shape[0], ext.ptr(r_start), ext.ptr(r_end),
-             ext.ptr(r_ts), ext.ptr(r_kinds), ext.ptr(r_valid), rcap,
-             ext.ptr(witness_table), witness_table.shape[0], out_cap,
-             ext.ptr(words), ext.ptr(indptr), ext.ptr(dep_rows),
-             ext.ptr(dep_ts), ext.ptr(bound), ext.ptr(csum),
-             *scratch, ext.stream())
-    LAUNCHES["range_finalize"] += 1
-    return indptr, dep_rows, dep_ts, bound, csum
+    return rcap // 32
+
+
+def compact_blocks(lib: str, entry: str, n: int) -> int:
+    """Blocks of the shared compaction (csrc/common.cuh launch_csr) over
+    n words, as the library's entry sizes it."""
+    return max(1, int(getattr(_ext().lib(lib), entry)(ctypes.c_longlong(n))))
+
+
+def launch_range_finalize(ext, A, lanes, nv: int, b: int, rcap: int,
+                          nk: int, out_cap: int, words, outs, scratch):
+    """K6's launch on device addresses (`A(x)`, see _addr): lanes are
+    range_finalize_csr's twelve inputs in order, `words` the stab-word
+    scratch i32[nv, rcap/32], outs its five outputs, scratch the
+    compaction's three pointers. range_finalize_csr and the protocol
+    megakernel's graph both launch K6 here."""
+    of, ivs, ive, ok, sb, sk, r0, r1, r2, r3, r4, wt = (A(x) for x in lanes)
+    ext.call("range_finalize", "range_finalize_csr", of, ivs, ive, ok, nv,
+             sb, sk, b, r0, r1, r2, r3, r4, rcap, wt, nk, out_cap, A(words),
+             *(A(o) for o in outs), *(A(x) for x in scratch), ext.stream())
 
 
 # -- K7: max_conflict --------------------------------------------------------
@@ -1084,19 +1147,47 @@ def fused_execution_frontier_plain(planes):
     return torch.cat([execution_frontier_plain(*p) for p in planes])
 
 
-def _plane_table(ext, planes):
-    """The C entry's per-plane arrays: five pointer arrays and the caps."""
+def check_planes(planes) -> int:
+    """The frontier kernels' plane count and lanes; -> the planes' packed
+    words in all."""
     n = len(planes)
     if not 1 <= n <= _FRONTIER_MAX_PLANES:
         raise ValueError(f"frontier kernels take 1-{_FRONTIER_MAX_PLANES} "
                          f"planes (got {n})")
     for p in planes:
-        _check_cuda(*p, *planes[0])
         _check_exec_lanes(*p)
-    ptrs = [(ext.ctypes.c_void_p * n)(*(p[k].data_ptr() for p in planes))
+    return sum(p[0].shape[0] // 32 for p in planes)
+
+
+def _plane_arrays(A, lanes, caps) -> tuple:
+    """The C entries' per-plane arrays: five pointer arrays (the planes'
+    operands through `A`) and the caps."""
+    n = len(lanes)
+    ptrs = [(ctypes.c_void_p * n)(*(A(p[k]).value for p in lanes))
             for k in range(5)]
-    caps = (ext.ctypes.c_int * n)(*(p[0].shape[0] for p in planes))
-    return (*ptrs, caps), sum(p[0].shape[0] // 32 for p in planes)
+    return (*ptrs, (ctypes.c_int * n)(*caps))
+
+
+def _plane_table(ext, planes):
+    """The checked planes' C arrays and their packed words in all."""
+    w_tot = check_planes(planes)
+    for p in planes:
+        _check_cuda(*p, *planes[0])
+    return (_plane_arrays(_addr, planes, [p[0].shape[0] for p in planes]),
+            w_tot)
+
+
+def launch_frontier_compact(ext, A, lanes, caps, out_cap: int, outs,
+                            scratch) -> None:
+    """K9's compact entry on device addresses (`A(x)`, see _addr): lanes
+    are the planes' five operands each, caps their row counts, outs
+    (packed, indptr, rows, csum), scratch the compaction's three
+    pointers. frontier_compact and the protocol megakernel's graph both
+    launch it here."""
+    packed, indptr, rows, csum = (A(o) for o in outs)
+    ext.call("exec_frontier", "frontier_compact", len(lanes),
+             *_plane_arrays(A, lanes, caps), out_cap, packed, indptr, rows,
+             csum, *(A(x) for x in scratch), ext.stream())
 
 
 def _frontier_cuda(planes) -> torch.Tensor:
@@ -1175,19 +1266,19 @@ def frontier_compact(planes, out_cap: int):
     if not planes[0][0].is_cuda:
         return frontier_compact_plain(planes, out_cap)
     ext = _ext()
-    table, w_tot = _plane_table(ext, planes)
+    w_tot = check_planes(planes)
+    _check_cuda(*(t for p in planes for t in p))
     n = len(planes)
     dev = planes[0][0].device
-    nblocks = max(1, int(ext.lib("exec_frontier").compact_blocks(
-        ext.ctypes.c_longlong(n * w_tot))))
     packed = torch.empty(w_tot, dtype=torch.int32, device=dev)
     indptr = torch.empty(n + 1, dtype=torch.int32, device=dev)
     rows = torch.empty(out_cap, dtype=torch.int32, device=dev)
     csum = torch.empty((), dtype=torch.int32, device=dev)
-    _buf, scratch = _compact_scratch(nblocks, dev)
-    ext.call("exec_frontier", "frontier_compact", n, *table, out_cap,
-             ext.ptr(packed), ext.ptr(indptr), ext.ptr(rows), ext.ptr(csum),
-             *scratch, ext.stream())
+    _buf, scratch = _compact_scratch(
+        compact_blocks("exec_frontier", "compact_blocks", n * w_tot), dev)
+    launch_frontier_compact(ext, _addr, planes,
+                            [p[0].shape[0] for p in planes], out_cap,
+                            (packed, indptr, rows, csum), scratch)
     LAUNCHES["frontier_compact"] += 1
     return indptr, rows, csum, packed
 
@@ -1538,8 +1629,8 @@ def _check_cmd_cols(status, flags, promised, accepted, execute_at,
                     durability, kmax, kvalid) -> None:
     cap, kcap = status.shape[0], kmax.shape[0]
     i32 = (status, flags, promised, accepted, execute_at, durability, kmax)
-    if (any(t.dtype != torch.int32 for t in i32)
-            or kvalid.dtype != torch.bool
+    if (any(_dtype_name(t) != "int32" for t in i32)
+            or _dtype_name(kvalid) != "bool"
             or any(tuple(t.shape) != (cap,) for t in (flags, durability))
             or any(tuple(t.shape) != (cap, 3)
                    for t in (promised, accepted, execute_at))
@@ -1677,21 +1768,248 @@ def cmd_repair(status, flags, promised, accepted, execute_at, durability,
         return cmd_repair_plain(*cols, *vals)
     ext = _ext()
     _check_cuda(*cols, *vals)
+    check_repair_lanes(cols, vals)
+    outs = tuple(torch.empty_like(t) for t in cols)
+    launch_cmd_repair(ext, _addr, cols, outs, vals,
+                      repair_dims(cols, vals))
+    LAUNCHES["cmd_repair"] += 1
+    return outs
+
+
+def repair_dims(cols, vals) -> tuple:
+    """(cap, kcap, rows m, kids k) of a cmd_repair block."""
+    return (cols[0].shape[0], cols[6].shape[0], vals[0].shape[0],
+            vals[7].shape[0])
+
+
+def check_repair_lanes(cols, vals) -> None:
+    """cmd_repair's eight columns and ten index/value lanes."""
     _check_cmd_cols(*cols)
-    m, k = rows_idx.shape[0], kid_idx.shape[0]
+    m, k = vals[0].shape[0], vals[7].shape[0]
     shapes = ((m,), (m,), (m,), (m, 3), (m, 3), (m, 3), (m,), (k,), (k, 3),
               (k,))
     if (any(tuple(t.shape) != s for t, s in zip(vals, shapes))
-            or any(t.dtype != torch.int32 for t in vals[:-1])
-            or kv_v.dtype != torch.bool):
+            or any(_dtype_name(t) != "int32" for t in vals[:-1])
+            or _dtype_name(vals[-1]) != "bool"):
         raise ValueError("cmd_repair: index and value lanes must match the "
                          "columns' row shapes and dtypes")
-    outs = tuple(torch.empty_like(t) for t in cols)
-    ext.call("cmd_repair", "cmd_repair", *(ext.ptr(t) for t in cols),
-             *(ext.ptr(t) for t in outs), status.shape[0], kmax.shape[0],
-             *(ext.ptr(t) for t in vals), m, k, ext.stream())
-    LAUNCHES["cmd_repair"] += 1
+
+
+def launch_cmd_repair(ext, A, cols, outs, vals, dims) -> None:
+    """K12's launch on device addresses (`A(x)`, see _addr): the eight
+    columns, their eight fresh outputs, the ten index/value lanes; dims
+    (cap, kcap, rows m, kids k). cmd_repair and the protocol megakernel's
+    graph both launch it here."""
+    cap, kcap, m, k = dims
+    ext.call("cmd_repair", "cmd_repair", *(A(t) for t in cols),
+             *(A(t) for t in outs), cap, kcap, *(A(t) for t in vals), m, k,
+             ext.stream())
+
+
+# -- K16: the fast-path quorum count; the protocol megakernel ---------------
+def quorum_count_plain(txn, ts, code, valid, qsize: int):
+    fast = valid & ((code & 7) == CMD_OUT_SUCCESS) & (ts == txn).all(1)
+    same = (txn[:, None, :] == txn[None, :, :]).all(2)
+    votes = (same & fast[None, :]).sum(1, dtype=torch.int32)
+    return fast, votes, fast & (votes >= qsize)
+
+
+def quorum_count(txn, ts, code, valid, qsize: int):
+    """The fast-path electorate count over a tick's PreAccept transition
+    lanes (txn, ts i32[t, 3], code i32[t], valid bool[t]): a lane is a
+    fast-path witness iff valid, its code SUCCEEDED and it echoed its txn
+    id unchanged; votes[i] counts the fast lanes of the same txn; met =
+    fast & votes >= qsize. -> (fast bool[t], votes i32[t], met bool[t])."""
+    if not txn.is_cuda:
+        return quorum_count_plain(txn, ts, code, valid, qsize)
+    ext = _ext()
+    lanes = (txn, ts, code, valid)
+    _check_cuda(*lanes)
+    t = check_quorum_lanes(lanes)
+    dev = txn.device
+    outs = (torch.empty(t, dtype=torch.bool, device=dev),
+            torch.empty(t, dtype=torch.int32, device=dev),
+            torch.empty(t, dtype=torch.bool, device=dev))
+    launch_quorum(ext, _addr, lanes, t, qsize, outs)
+    LAUNCHES["quorum_count"] += 1
     return outs
+
+
+def check_quorum_lanes(lanes) -> int:
+    """K16's lanes (tensors or numpy arrays); -> the lane count t."""
+    txn, ts, code, valid = lanes
+    t = txn.shape[0]
+    if (tuple(txn.shape) != (t, 3) or tuple(ts.shape) != (t, 3)
+            or tuple(code.shape) != (t,) or tuple(valid.shape) != (t,)
+            or _dtype_name(valid) != "bool"
+            or any(_dtype_name(x) != "int32" for x in (txn, ts, code))):
+        raise ValueError("quorum_count: lanes must be i32[t, 3] x2, i32[t] "
+                         "and bool[t]")
+    return t
+
+
+def launch_quorum(ext, A, lanes, t: int, qsize: int, outs) -> None:
+    """K16's launch on device addresses (`A(x)`, see _addr): lanes (txn,
+    ts, code, valid) of t lanes, outs (fast, votes, met). quorum_count
+    and the protocol megakernel's graph both launch it here."""
+    ext.call("quorum", "quorum_count", *(A(x) for x in lanes), t,
+             int(qsize), *(A(o) for o in outs), ext.stream())
+
+
+def _fin_split(fins):
+    """Split finalize specs into (static signature, traced args) and
+    stable-sort them by static signature, so a tick's program depends on
+    its signature MULTISET, not on the order its plans arrived in (on the
+    card: one captured graph per multiset). Returns (fin_statics,
+    fin_traced, order); _fin_unsort(outs, order) undoes the sort."""
+    fin_statics, fin_traced = [], []
+    for f in fins:
+        if f[0] == "range":
+            fin_statics.append(("range", f[8]))
+            fin_traced.append(tuple(f[1:8]))
+        else:
+            fin_statics.append((f[0], f[3], f[4], f[11]))
+            fin_traced.append((f[1], f[2]) + tuple(f[5:11]))
+    order = sorted(range(len(fin_statics)), key=lambda i: fin_statics[i])
+    return ([fin_statics[i] for i in order],
+            [fin_traced[i] for i in order], order)
+
+
+def _fin_unsort(fin_outs, order):
+    """Undo _fin_split's canonical sort: callers demux fin_outs
+    positionally against the fins they passed in."""
+    if order == list(range(len(order))):
+        return tuple(fin_outs)
+    back = [0] * len(order)
+    for pos, i in enumerate(order):
+        back[i] = pos
+    return tuple(fin_outs[back[i]] for i in range(len(order)))
+
+
+def _window(src, r0, w_lo, rows: int, words: int):
+    """jax.lax.dynamic_slice of [rows, words] at (r0, w_lo)."""
+    from accord_tpu_torch.ops.node_lane import dyn_start
+    r = dyn_start(r0, src.shape[0], rows)
+    w = dyn_start(w_lo, src.shape[1], words)
+    return src[r:r + rows, w:w + words]
+
+
+def _host_lane(x, dev):
+    """A numpy lane as a tensor on `dev` (the plain path)."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return x
+
+
+def _protocol_tick_plain(witness_table, key_in, rng_in, fin_statics,
+                         fin_traced, cmds, quorum, quorum_size, cmd_repairs,
+                         execs):
+    """The reference's program, stage by stage, with the plain versions."""
+    from accord_tpu_torch.ops import node_lane as nl
+    dev = witness_table.device
+    packed = ()
+    rng_out = ()
+    if key_in is not None:
+        packed = nl.node_fused_deps_resolve_plain(*key_in, witness_table)
+    if rng_in is not None:
+        rng_out = nl.node_fused_range_deps_resolve_plain(*rng_in,
+                                                         witness_table)
+    fin_outs = []
+    for spec, args in zip(fin_statics, fin_traced):
+        if spec[0] == "range":
+            iv_of, iv_s, iv_e, ent_ok, f_sb, f_sknd, rsnap = args
+            fin_outs.append(range_finalize_csr_plain(
+                *(_host_lane(x, dev) for x in (iv_of, iv_s, iv_e, ent_ok,
+                                               f_sb, f_sknd)),
+                *rsnap, witness_table, spec[1]))
+            continue
+        kind, rows, words, out_cap = spec
+        (r0, w_lo, word_off, kid_rows, slot_subj, slot_kid, subj_row,
+         act_ts) = args
+        src = packed if kind == "key" else rng_out[1]
+        fin_outs.append(finalize_csr_plain(
+            _window(src, r0, w_lo, rows, words), int(word_off), kid_rows,
+            *(_host_lane(x, dev) for x in (slot_subj, slot_kid, subj_row)),
+            act_ts, out_cap))
+    cmd_outs = tuple(cmd_tick_plain(*(_host_lane(x, dev) for x in c[:-1]),
+                                    promote=bool(c[-1])) for c in cmds)
+    q_out = ()
+    if quorum is not None:
+        q_out = quorum_count_plain(*(_host_lane(x, dev) for x in quorum),
+                                   int(quorum_size))
+    rep_outs = tuple(cmd_repair_plain(*(_host_lane(x, dev) for x in r))
+                     for r in cmd_repairs)
+    exec_outs = tuple(frontier_compact_plain(pl, int(oc))
+                      for pl, oc in execs)
+    return (packed, rng_out, tuple(fin_outs), cmd_outs, q_out, (),
+            rep_outs, exec_outs)
+
+
+def protocol_tick(witness_table, key_in=None, rng_in=None, fins=(),
+                  cmds=(), quorum=None, quorum_size=1, mailbox=None,
+                  cmd_repairs=(), execs=()):
+    """The protocol megakernel: ONE device program per cluster tick
+    covering the node-lane resolves (K13, K14), every plan's finalize
+    compaction read in place at its merge span (K2, K6), cmd_tick blocks
+    (K10), the fast-path quorum count (K16), cmd-plane repair scatters
+    (K12) and exec frontier compactions (K9). On the card the program is a
+    CUDA graph per static signature (ops/tick_graph.py), replayed once per
+    call and counted in LAUNCHES["protocol_tick"] (captures in CAPTURES);
+    on the CPU the plain versions run in order.
+
+    key_in:  node_fused_deps_resolve's args minus witness_table, or None
+    rng_in:  node_fused_range_deps_resolve's args minus witness_table
+    fins:    finalize specs, one per (plan, group), in harvest order:
+               ("key",  row_off, w_lo, rows, words, word_off, kid_rows,
+                slot_subj, slot_kid, subj_row, act_ts, out_cap)
+               ("rkey", ... the same, on the range stage's key-side output)
+               ("range", iv_of, iv_s, iv_e, ent_ok, sb, sknd, rsnap 5-tuple,
+                out_cap)
+             key/rkey specs read their plan's [rows x words] window of the
+             merged result (dynamic_slice rules) and finalize it at the
+             group's word offset.
+    cmds:    cmd_tick argument tuples (every positional arg, promote last)
+    quorum:  (txn i32[t, 3], ts i32[t, 3], code i32[t], valid bool[t])
+             padded to a MEGA_LANE_TIERS tier; quorum_size the electorate
+             majority
+    mailbox: the device message plane's routing stage -- not ported yet
+             (ROADMAP queue 1 item 8): raises NotImplementedError
+    cmd_repairs: CmdPlane.collect_repair blocks (cmd_repair's 18 args)
+    execs:   ((planes, out_cap), ...) frontier_compact blocks
+    Lanes may be numpy arrays. -> (packed, (rpacked, kpacked), fin_outs,
+    cmd_outs, (fast, votes, met), mail_out, rep_outs, exec_outs); absent
+    stages return (); cmd_outs and exec_outs follow cmd_tick's and
+    frontier_compact's output tuples."""
+    if witness_table.is_cuda:
+        from accord_tpu_torch.ops.tick_graph import run_protocol_tick
+        runner = run_protocol_tick
+    else:
+        runner = _protocol_tick_plain
+    return _protocol_tick(runner, witness_table, key_in, rng_in, fins, cmds,
+                          quorum, quorum_size, mailbox, cmd_repairs, execs)
+
+
+def protocol_tick_plain(witness_table, key_in=None, rng_in=None, fins=(),
+                        cmds=(), quorum=None, quorum_size=1, mailbox=None,
+                        cmd_repairs=(), execs=()):
+    """protocol_tick's plain version on any device: the stages' plain
+    versions in order."""
+    return _protocol_tick(_protocol_tick_plain, witness_table, key_in,
+                          rng_in, fins, cmds, quorum, quorum_size, mailbox,
+                          cmd_repairs, execs)
+
+
+def _protocol_tick(runner, witness_table, key_in, rng_in, fins, cmds,
+                   quorum, quorum_size, mailbox, cmd_repairs, execs):
+    if mailbox is not None:
+        raise NotImplementedError(
+            "protocol_tick: the mailbox stage (the device message plane) is "
+            "not ported yet -- ROADMAP queue 1 item 8")
+    fin_statics, fin_traced, order = _fin_split(fins)
+    out = runner(witness_table, key_in, rng_in, fin_statics, fin_traced,
+                 tuple(cmds), quorum, quorum_size, tuple(cmd_repairs),
+                 tuple(execs))
+    return out[:2] + (_fin_unsort(out[2], order),) + out[3:]
 
 
 # -- padded-size ladders (the JAX package's tiers, kept for bit-equal

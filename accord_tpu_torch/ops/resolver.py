@@ -37,8 +37,11 @@ What differs from the reference:
   * the kernels are functional, like the JAX ones: every scatter returns a
     fresh tensor, so a staged plan's snapshot never sees a later
     registration (in-place updates with copy-on-write are a later change);
-  * the exec and cmd planes, the cluster-tick megakernel, the sharded
-    resolver and `pad_store_tiers` are not ported yet (ROADMAP queue 1).
+  * the sharded resolver and `pad_store_tiers` are not ported (a plan's
+    recorded `pad_tier` is None, the reference's default);
+  * a plan's deferred calls may also return a device-value object of the
+    cluster tick engine (node_lane.MergedView): _run_plan wraps only
+    tensors in _DevBuf.
 """
 from __future__ import annotations
 
@@ -1348,6 +1351,15 @@ class _DevBuf:
         return arrs if isinstance(self.dev, tuple) else arrs[0]
 
 
+def _dev_value(v):
+    """A launch's result as a device value: tensors (or finalize's tuple)
+    wrap in a _DevBuf; the cluster tick engine's MergedView already
+    speaks the protocol (ready / copy_async / read)."""
+    if isinstance(v, (torch.Tensor, tuple)):
+        return _DevBuf(v)
+    return v
+
+
 def _dev_ready(dev: _DevBuf) -> bool:
     return dev.ready()
 
@@ -1453,7 +1465,9 @@ class _Plan:
     harvest."""
 
     __slots__ = ("items", "groups", "key_call", "range_call", "empty",
-                 "fin_calls", "rfin_calls", "kfin_calls", "want")
+                 "fin_calls", "rfin_calls", "kfin_calls", "want",
+                 "key_args", "range_args",
+                 "fin_args", "rfin_args", "kfin_args")
 
     def __init__(self, items: List[_Item], groups: List[_Group],
                  empty: bool = False):
@@ -1462,6 +1476,13 @@ class _Plan:
         self.key_call = None        # () -> packed, or None
         self.range_call = None      # () -> (rpacked, kpacked), or None
         self.empty = empty
+        # node-lane merge inputs (ops/node_lane.py): the EXACT arrays the
+        # deferred calls above would feed their kernels, recorded only when
+        # a cluster tick_driver is attached -- the cluster tick engine
+        # stacks them across nodes and swaps key_call/range_call for demux
+        # slices of the merged result
+        self.key_args = None
+        self.range_args = None
         # finalize_on_device: deferred finalize kernel launches per group --
         # the key call consumes the packed result, the range call closes
         # over its group's interval-arena snapshot
@@ -1469,6 +1490,13 @@ class _Plan:
         self.rfin_calls: List[tuple] = []   # [(group, () -> result)]
         # range-subject key-arena stab lane: consumes the kpacked result
         self.kfin_calls: List[tuple] = []   # [(group, kpacked -> result)]
+        # raw finalize lanes per deferred call above (index-aligned with
+        # fin_calls/rfin_calls/kfin_calls), recorded only under a cluster
+        # tick_driver: the megakernel folds them into the fused
+        # protocol_tick program and swaps the closures for its outputs
+        self.fin_args: List[tuple] = []
+        self.rfin_args: List[tuple] = []
+        self.kfin_args: List[tuple] = []
         # which raw candidate buffers (packed, rpacked, kpacked) the
         # harvest should read back
         self.want = (True, True, True)
@@ -1550,6 +1578,7 @@ class BatchDepsResolver(DepsResolver):
                  watchdog_probes: int = 3,
                  watchdog_wall_s: Optional[float] = None,
                  health_config: Optional[dict] = None,
+                 pad_node_tiers=None,
                  device=None):
         # the registry backing every bench counter below (the class-level
         # RegCounter/RegTimer descriptors write through to it), BEFORE any
@@ -1633,6 +1662,17 @@ class BatchDepsResolver(DepsResolver):
         self.watchdog_wall_s = watchdog_wall_s
         self.health_config = health_config
         self._health: Dict[int, "DeviceHealth"] = {}
+        # the cluster tick (sim/mesh_burn.py): when a ClusterTickEngine
+        # attaches itself here, tick scheduling routes through it (one
+        # cluster-wide tick event instead of per-node once() arms) and
+        # _encode_plan records each plan's kernel inputs for the node-lane
+        # merge; pad_node_tiers is the block-count ladder the merge pads to
+        # (None -> node_lane.NODE_BLOCK_TIERS), and the pad-block pool
+        # holds the all-invalid blocks it pads with, keyed by cap
+        self.tick_driver = None
+        self.pad_node_tiers = pad_node_tiers
+        self._pad_key: Dict[int, tuple] = {}
+        self._pad_range: Dict[int, tuple] = {}
 
     @property
     def host_hidden_pct(self) -> float:
@@ -1897,6 +1937,13 @@ class BatchDepsResolver(DepsResolver):
     def _schedule_tick(self, store) -> None:
         node = store.node
         self._windows[id(node)] = store.batch_window_ms
+        if self.tick_driver is not None:
+            # the cluster tick: the engine owns tick scheduling (one
+            # cluster-wide event fires every pending node's tick in node-id
+            # order -- see sim/mesh_burn.ClusterTickEngine)
+            self.tick_driver.note_work(
+                self, node, self._window(node, store.batch_window_ms))
+            return
         if id(node) in self._ticking:
             return
         self._ticking.add(id(node))
@@ -1906,6 +1953,11 @@ class BatchDepsResolver(DepsResolver):
     def _arm_tick(self, node) -> None:
         """Self-arm the next tick so staged plans launch even when no new
         enqueue arrives to schedule one."""
+        if self.tick_driver is not None:
+            self.tick_driver.note_work(
+                self, node,
+                self._window(node, self._windows.get(id(node)) or 0.0))
+            return
         if id(node) in self._ticking:
             return
         self._ticking.add(id(node))
@@ -2018,10 +2070,11 @@ class BatchDepsResolver(DepsResolver):
         # loop); stores without a plane keep the inline path. An error
         # from the plane propagates: the reference answers such a span on
         # the host, which would hide a failed kernel and could preaccept
-        # txns of an already adopted span twice. The reference's
-        # megakernel branch (the cluster tick engine deferring the span to
-        # CmdPlane.defer_batch) waits for that engine, ROADMAP queue 1
-        # item 7.
+        # txns of an already adopted span twice. Under a megakernel
+        # cluster tick the span decides on the plane's host integer twin
+        # (defer_batch) and its transition lanes ride the tick's single
+        # fused dispatch (the quorum stage); a synchronous span's
+        # dispatches count toward the tick's launches.
         i = 0
         while i < len(pa):
             store = pa[i][0]
@@ -2036,7 +2089,17 @@ class BatchDepsResolver(DepsResolver):
             batch = pa[i:j]
             cmd_ops = [CmdOp.preaccept(t, p, route, ballot)
                        for (_s, t, p, route, ballot, _o) in batch]
-            res = plane.eval_batch(cmd_ops)
+            td = self.tick_driver
+            if td is not None and getattr(td, "cmd_defer", False):
+                fuse = (getattr(td, "note_cmd_defer", None)
+                        if getattr(td, "device_messages", False) else None)
+                res = plane.defer_batch(cmd_ops, sink=td.note_cmd_lanes,
+                                        fuse=fuse)
+            else:
+                d0 = int(plane.dispatches)
+                res = plane.eval_batch(cmd_ops)
+                if td is not None:
+                    td.note_cmd_dispatches(int(plane.dispatches) - d0)
             for (st_, t, p, _route, _ballot, out), r in zip(batch, res):
                 _finish(st_, t, p, out, r.outcome)
             i = j
@@ -2079,13 +2142,13 @@ class BatchDepsResolver(DepsResolver):
             rpacked, kpacked = plan.range_call()
         if packed is not None:
             for g, fn in plan.fin_calls:
-                g.fin_dev = _DevBuf(fn(packed))
+                g.fin_dev = _dev_value(fn(packed))
         for g, fn in plan.rfin_calls:
-            g.rfin_dev = _DevBuf(fn())
+            g.rfin_dev = _dev_value(fn())
         if kpacked is not None:
             for g, fn in plan.kfin_calls:
-                g.rkfin_dev = _DevBuf(fn(kpacked))
-        return tuple(None if t is None else _DevBuf(t)
+                g.rkfin_dev = _dev_value(fn(kpacked))
+        return tuple(None if t is None else _dev_value(t)
                      for t in (packed, rpacked, kpacked))
 
     def _encode_plan(self, groups: List[_Group], items: List[_Item],
@@ -2213,6 +2276,12 @@ class BatchDepsResolver(DepsResolver):
                     lambda ksnap=ksnap, j_of=j_of, j_keys=j_keys,
                     j_sb=j_sb, j_sknd=j_sknd:
                     self._run_kernel(ksnap, j_of, j_keys, j_sb, j_sknd))
+                if self.tick_driver is not None:
+                    plan.key_args = dict(
+                        sb=sb, sknd=sknd, subj_store=subj_store,
+                        subj_of=subj_of, subj_keys=subj_keys,
+                        ngroups=len(groups), slots=[0], ksnaps=[ksnap],
+                        fused=False)
             else:
                 slots = np.fromiter((gi for gi, _ in k_parts), np.int64,
                                     len(k_parts)).astype(np.int32)
@@ -2230,6 +2299,13 @@ class BatchDepsResolver(DepsResolver):
                     j_keys=j_keys, j_store=j_store, j_sb=j_sb, j_sknd=j_sknd:
                     self._run_fused_kernel(ksnaps, j_slots, j_of, j_keys,
                                            j_store, j_sb, j_sknd))
+                if self.tick_driver is not None:
+                    plan.key_args = dict(
+                        sb=sb, sknd=sknd, subj_store=subj_store,
+                        subj_of=subj_of, subj_keys=subj_keys,
+                        ngroups=len(groups),
+                        slots=[gi for gi, _ in k_parts], ksnaps=list(ksnaps),
+                        fused=True, pad_tier=None)
         if self.finalize_on_device and k_parts:
             # per-store finalize_csr plan: consumes the packed result at
             # launch time, so it rides the same deferred-call pipeline
@@ -2265,6 +2341,13 @@ class BatchDepsResolver(DepsResolver):
                     j_sknd=j_sknd, j_srng=j_srng:
                     self._run_range_kernel(rsnap, ksnap, j_iv[0], j_iv[1],
                                            j_iv[2], j_sb, j_sknd, j_srng))
+                if self.tick_driver is not None:
+                    plan.range_args = dict(
+                        iv_of=iv_of, iv_s=iv_s, iv_e=iv_e, sb=sb, sknd=sknd,
+                        srng=srng, subj_store=subj_store,
+                        ngroups=len(groups), r_slots=[0], rsnaps=[rsnap],
+                        k_slots=[0], ksnaps=[ksnap], has_r=True, has_k=True,
+                        fused=False)
             else:
                 r_slots = np.fromiter((gi for gi, _ in r_parts), np.int64,
                                       len(r_parts)).astype(np.int32)
@@ -2298,6 +2381,16 @@ class BatchDepsResolver(DepsResolver):
                     return (rp if has_r else None, kp if has_k else None)
 
                 plan.range_call = range_call
+                if self.tick_driver is not None:
+                    plan.range_args = dict(
+                        iv_of=iv_of, iv_s=iv_s, iv_e=iv_e, sb=sb, sknd=sknd,
+                        srng=srng, subj_store=subj_store,
+                        ngroups=len(groups),
+                        r_slots=[gi for gi, _ in r_parts],
+                        rsnaps=list(rsnaps),
+                        k_slots=[gi for gi, _ in h_parts],
+                        ksnaps=list(ksnaps), has_r=has_r, has_k=has_k,
+                        fused=True, pad_tier=None)
             if self.finalize_on_device:
                 self._plan_range_finalize(plan, groups, grents, givs, nv,
                                           j_iv, j_sb, j_sknd)
@@ -2399,6 +2492,14 @@ class BatchDepsResolver(DepsResolver):
                                self._run_finalize_kernel(
                                    packed, off, kid_rows, j_subj, j_kid,
                                    j_srow, act_ts, out_cap=oc)))
+        if self.tick_driver is not None:
+            # megakernel lane (index-aligned with the closure above):
+            # slot_subj is plan-local and g.pk the plan-local word offset,
+            # so the recorded lanes run unchanged against protocol_tick's
+            # in-place read of this plan's merge span
+            plan.fin_args.append((g, ("key", kid_rows, j_subj, j_kid,
+                                      j_srow, act_ts, int(g.pk[0]),
+                                      out_cap)))
 
     def _plan_range_finalize(self, plan: _Plan, groups: List[_Group],
                              grents, givs, nv: int, j_iv, j_sb,
@@ -2445,6 +2546,9 @@ class BatchDepsResolver(DepsResolver):
                                     self._run_range_finalize_kernel(
                                         j_iv, j_ok, j_sb, j_sknd, rsnap,
                                         out_cap=oc)))
+            if self.tick_driver is not None:
+                plan.rfin_args.append((g, (j_iv[0], j_iv[1], j_iv[2], j_ok,
+                                           j_sb, j_sknd, rsnap, out_cap)))
 
     def _plan_rkey_finalize(self, plan: _Plan, g: _Group, rsubs,
                             b: int) -> None:
@@ -2510,6 +2614,42 @@ class BatchDepsResolver(DepsResolver):
                                 self._run_finalize_kernel(
                                     kpacked, off, kid_rows, j_subj, j_kid,
                                     j_srow, act_ts, out_cap=oc)))
+        if self.tick_driver is not None:
+            plan.kfin_args.append((g, ("rkey", kid_rows, j_subj, j_kid,
+                                       j_srow, act_ts, int(g.kp[0]),
+                                       out_cap)))
+
+    # -- the node-lane pad-block pool --------------------------------------
+    def _pad_key_block(self, cap: Optional[int] = None):
+        """Cached all-invalid key-arena block on the resolver's device,
+        shaped like an arena at `cap` rows (packed bitmaps), for the
+        node-lane merge's padding: invalid rows contribute nothing and the
+        pad words sit outside every group's span, so decode never sees
+        them. Cached per capacity, so a grown arena gets a matching pad."""
+        cap = cap or self.initial_cap
+        blk = self._pad_key.get(cap)
+        if blk is None:
+            dev = self.device
+            blk = self._pad_key[cap] = (
+                torch.zeros((cap, self.num_buckets // 32), dtype=torch.int32,
+                            device=dev),
+                torch.zeros((cap, 3), dtype=torch.int32, device=dev),
+                torch.zeros(cap, dtype=torch.int32, device=dev),
+                torch.zeros(cap, dtype=torch.bool, device=dev))
+        return blk
+
+    def _pad_range_block(self, cap: Optional[int] = None):
+        cap = cap or self.range_cap
+        blk = self._pad_range.get(cap)
+        if blk is None:
+            dev = self.device
+            blk = self._pad_range[cap] = (
+                torch.zeros(cap, dtype=torch.int32, device=dev),
+                torch.zeros(cap, dtype=torch.int32, device=dev),
+                torch.zeros((cap, 3), dtype=torch.int32, device=dev),
+                torch.zeros(cap, dtype=torch.int32, device=dev),
+                torch.zeros(cap, dtype=torch.bool, device=dev))
+        return blk
 
     def _run_kernel(self, ksnap, subj_of, subj_keys, sb, sknd):
         """The single-store kernel call against a plan-time arena snapshot

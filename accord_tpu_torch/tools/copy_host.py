@@ -50,7 +50,7 @@ HOST_MODULES = (
     "primitives/syncpoint.py", "primitives/timestamp.py",
     "primitives/txn.py", "primitives/writes.py",
     "sim/__init__.py", "sim/burn.py", "sim/cluster.py",
-    "sim/list_store.py", "sim/network.py", "sim/queue.py",
+    "sim/list_store.py", "sim/mesh_burn.py", "sim/network.py", "sim/queue.py",
     "sim/scheduler.py", "sim/topology_randomizer.py", "sim/verifier.py",
     "sim/wire.py",
     "topology/__init__.py", "topology/manager.py", "topology/shard.py",
@@ -76,6 +76,20 @@ EDITED: Dict[str, Tuple[Tuple[int, int, str], ...]] = {
         (109, 109, "ClusterConfig.cmd_device"),
         (357, 379, "exec and cmd planes built on exec_device / "
                    "cmd_device"),
+    ),
+    "sim/mesh_burn.py": (
+        (202, 205, "an exec ticket holds the port's (_DevBuf, packed)"),
+        (218, 224, "exec-only flush through the port's protocol_tick; no "
+                   "sharded mesh (ROADMAP queue 1 item 9)"),
+        (274, 274, "the quorum `met` lane reads back from a torch tensor"),
+        (416, 424, "no sharded node tick (item 9)"),
+        (515, 538, "megakernel staging hands protocol_tick numpy lanes"),
+        (583, 584, "quorum lanes as numpy"),
+        (684, 684, "run_mesh_burn(device=): the kernels' device"),
+        (707, 727, "sharded=True raises (item 9); the resolvers and the "
+                   "exec and cmd planes on `device`"),
+        (781, 781, "--device"),
+        (803, 803, "--device"),
     ),
     "sim/network.py": (
         (364, 364, "device_messages raises: ROADMAP queue 1 item 8"),

@@ -85,14 +85,44 @@ launched.
      after one warm sweep every scan at now0 + 0/20/40/60 equals
      recovery_scan_host and a python walk, one dispatch per scan, zero
      fallbacks and overflows;
- 16. kernels: each kernel's wrapper is called again on the card on the
+ 16. megakernel sweep (bench.py's bench_megakernel sizes, seed 6: 64
+     nodes x 120 ops, 256 x 50, 1024 x 24) through run_mesh_burn on the
+     card in megakernel and merged modes, plus the per-node loop at 64
+     nodes: a warm pass, then a timed pass whose every mode is a path.
+     Histories identical across modes, the 64-node megakernel history
+     equal to the CPU's, launches_per_tick 1.0 and one protocol_tick
+     replay per fused dispatch, no graph captured or evicted and no
+     mesh_tick fallback in the timed pass; committed txn/s, ticks, nodes
+     per dispatch and host ms per tick per mode; per size, the warm
+     pass's captures and the graph cache's graphs, pinned and device
+     bytes after it;
+ 17. the key+range leg (seed 9, 40 ops, 4 nodes, 20% range reads, 10%
+     range writes): fused = merged = loop on the card = the CPU, K14 in
+     the graph; the cmd-plane leg (3 nodes, authoritative, 32 ops):
+     card = CPU = unfused, fast-path quorum txns > 0 and equal to the
+     CPU's, cmd counters (deferred spans) equal, K16 in the graph; the
+     exec leg (bench.py's exec-in-megakernel config: seed 13, 40 ops, 4
+     nodes, rf 3, 2 stores, 24 keys, concurrency 8, exec_compact): the
+     standalone compact coordinator's history, exec blocks > 0,
+     launches_per_tick 1.0;
+ 18. merged tick at 10k in flight: 128 (plan, store) blocks of cap 2048
+     and 1,024 buckets, 30,000 live rows, 4,096 subjects in 128 plans of
+     32, one key finalize each, 4,096 quorum lanes: the replay bit-equal
+     to the plain protocol_tick, every plan's deps equal to the host
+     scan; the replay, K13, K2 and K16 alone, and the stages launched one
+     by one, timed;
+ 19. kernels: each kernel's wrapper is called again on the card on the
      exact inputs its path (and a batch) gave it, and held bit-equal
      against its plain PyTorch version on the same inputs; kernel, plain
      and (where one exists) single-library-call times come from CUDA
      events, and each call's bound from the bytes it must move (3.35 TB/s)
      or the operations it must do (67 T 32-bit op/s). cmd_tick is replayed
      on a tier-8 dispatch of the cmd burn and a tier-512 dispatch of the
-     cmd batch, with its time per op (the walk is serial).
+     cmd batch, with its time per op (the walk is serial). K13 replays
+     the sweep's largest tick and the 10k tick, K14 the key+range leg's,
+     K15 a recorded demux, K16 the cmd leg's lanes and the 10k tick's
+     4,096; protocol_tick its graph (ms: the replay alone; call_ms: with
+     the host's per-tick program build).
 The last three lines are the card line, one JSON line of kernels, and the
 result line {"ok": true, "device": {...}}.
 """
@@ -138,6 +168,16 @@ KERNELS = (
      "accord_tpu/ops/kernels.py:682"),
     ("cmd_repair", "accord_tpu_torch/csrc/cmd_repair.cu",
      "accord_tpu/ops/kernels.py:1347"),
+    ("node_deps_resolve", "accord_tpu_torch/csrc/node_resolve.cu",
+     "accord_tpu/ops/node_lane.py:89"),
+    ("node_range_resolve", "accord_tpu_torch/csrc/node_resolve.cu",
+     "accord_tpu/ops/node_lane.py:133"),
+    ("lane_slice", "accord_tpu_torch/csrc/row_scatter.cu",
+     "accord_tpu/ops/node_lane.py:190"),
+    ("quorum_count", "accord_tpu_torch/csrc/quorum.cu",
+     "accord_tpu/ops/kernels.py:1410"),
+    ("protocol_tick", "accord_tpu_torch/csrc/tick_graph.cu",
+     "accord_tpu/ops/kernels.py:1434"),
 )
 EXEC_KERNELS = ("exec_scatter", "execution_frontier",
                 "fused_execution_frontier", "frontier_compact")
@@ -154,7 +194,11 @@ RECORDED = {"deps_resolve": ("deps_resolve", "fused_deps_resolve"),
             "max_conflict": ("max_conflict",),
             **{k: (k,) for k in EXEC_KERNELS},
             "cmd_tick": ("cmd_tick",), "recovery_scan": ("recovery_scan",),
-            "cmd_repair": ("cmd_repair",)}
+            "cmd_repair": ("cmd_repair",),
+            "node_deps_resolve": ("node_fused_deps_resolve",),
+            "node_range_resolve": ("node_fused_range_deps_resolve",),
+            "lane_slice": ("lane_slice",), "quorum_count": ("quorum_count",),
+            "protocol_tick": ("protocol_tick",)}
 # the path whose launches each kernel's entry reports
 PATH_OF = {"deps_resolve": "key_burn", "finalize_csr": "key_burn",
            "arena_scatter": "key_burn", "row_scatter": "key_burn",
@@ -163,11 +207,24 @@ PATH_OF = {"deps_resolve": "key_burn", "finalize_csr": "key_burn",
            "exec_scatter": "exec_burn", "execution_frontier": "exec_solo",
            "fused_execution_frontier": "exec_burn",
            "frontier_compact": "exec_compact", "cmd_tick": "cmd_burn",
-           "recovery_scan": "recovery_burn", "cmd_repair": "repair"}
+           "recovery_scan": "recovery_burn", "cmd_repair": "repair",
+           "node_deps_resolve": "mega_sweep", "node_range_resolve":
+           "mega_range", "lane_slice": "merged_sweep",
+           "quorum_count": "mega_cmd", "protocol_tick": "mega_sweep"}
 
 
 class SmokeFailure(Exception):
     pass
+
+
+class FixedCalls:
+    """A Recorder's get() over calls built by a phase itself."""
+
+    def __init__(self, **calls):
+        self.calls = calls
+
+    def get(self, name):
+        return self.calls.get(name)
 
 
 def log(*a) -> None:
@@ -197,13 +254,15 @@ class Recorder:
 
     def __enter__(self):
         import torch
+        from accord_tpu_torch.ops import node_lane
         for names in RECORDED.values():
             for name in names:
-                fn = getattr(self.tk, name)
-                self.orig[name] = fn
+                mod = self.tk if hasattr(self.tk, name) else node_lane
+                fn = getattr(mod, name)
+                self.orig[name] = (mod, fn)
 
                 def wrapped(*args, _fn=fn, _name=name, **kw):
-                    size = sum(a.numel() for a in _flat(args)
+                    size = sum(a.numel() for a in _flat((args, kw))
                                if torch.is_tensor(a))
                     best = self.calls.get(_name)
                     if _name == "cmd_tick":
@@ -217,12 +276,12 @@ class Recorder:
                         self.calls[_name] = (size, args, kw)
                     return _fn(*args, **kw)
 
-                setattr(self.tk, name, wrapped)
+                setattr(mod, name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        for name, fn in self.orig.items():
-            setattr(self.tk, name, fn)
+        for name, (mod, fn) in self.orig.items():
+            setattr(mod, name, fn)
 
     def get(self, name):
         c = self.calls.get(name)
@@ -233,8 +292,23 @@ def _flat(xs):
     for x in xs:
         if isinstance(x, (tuple, list)):
             yield from _flat(x)
+        elif isinstance(x, dict):
+            yield from _flat(tuple(x.values()))
         else:
             yield x
+
+
+def _on(x, dev):
+    """numpy arrays (host lanes) as tensors on `dev`, through containers."""
+    import numpy as np
+    import torch
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_on(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: _on(v, dev) for k, v in x.items()}
+    return x
 
 
 # -- timing and comparison ---------------------------------------------------
@@ -256,6 +330,15 @@ def time_ms(fn, iters: int, cuda: bool) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def last_graph_replay():
+    """The replay of the last protocol_tick call's CUDA graph as it stands
+    (its parameter block unchanged): one tick's device work alone. The
+    graph cache keeps the most recently replayed graph last; the last
+    call's inputs and outputs must still be alive."""
+    from accord_tpu_torch.ops import tick_graph
+    return next(reversed(tick_graph._GRAPHS.values())).graph.replay
 
 
 def max_abs_err(a, b) -> int:
@@ -291,7 +374,14 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
     recorded call: arena_grow on the recorded arena_scatter's lanes,
     doubled; arena_scatter_keys on its bitmap and CSR; covered_buckets on the recorded range query's interval CSR
     (K5 runs the same pass inside); segment_compact on the stab words of
-    the recorded range_finalize_csr call (K6 runs the same passes)."""
+    the recorded range_finalize_csr call (K6 runs the same passes); the
+    node-lane resolves and the quorum count on a recorded protocol_tick's
+    stages (inside the megakernel's graph they run by no wrapper). Host
+    lanes (numpy) go to the card before the replay. protocol_tick's `ms`
+    is its graph's replay alone; `call_ms` adds the host's per-tick
+    program build."""
+    from accord_tpu_torch.ops import node_lane as nl
+    dev = "cuda" if cuda else "cpu"
     plain_of = {
         "deps_resolve": tk.deps_resolve_plain,
         "fused_deps_resolve": tk.fused_deps_resolve_plain,
@@ -315,6 +405,12 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
         "cmd_tick": tk.cmd_tick_plain,
         "recovery_scan": tk.recovery_scan_plain,
         "cmd_repair": tk.cmd_repair_plain,
+        "node_fused_deps_resolve": nl.node_fused_deps_resolve_plain,
+        "node_fused_range_deps_resolve":
+            nl.node_fused_range_deps_resolve_plain,
+        "lane_slice": nl.lane_slice_plain,
+        "quorum_count": tk.quorum_count_plain,
+        "protocol_tick": tk.protocol_tick_plain,
     }
     calls = []
     for fn_name in RECORDED[name]:
@@ -326,11 +422,17 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
     check(calls, f"{name}: no recorded call to replay")
     rows = []
     for fn_name, args, kw in calls:
-        kern = getattr(tk, fn_name)
+        args, kw = _on(args, dev), _on(kw, dev)
+        kern = getattr(tk, fn_name, None) or getattr(nl, fn_name)
         plain = plain_of[fn_name]
         out = kern(*args, **kw)
         err = max_abs_err(out, plain(*args, **kw))
         ms = time_ms(lambda: kern(*args, **kw), iters, cuda)
+        extra = {}
+        if fn_name == "protocol_tick" and cuda:
+            out = kern(*args, **kw)      # the last call: its graph replays
+            extra["call_ms"] = ms
+            ms = time_ms(last_graph_replay(), iters, cuda)
         plain_ms = time_ms(lambda: plain(*args, **kw), max(1, iters // 10),
                            cuda)
         bytes_, ops, library = bound_inputs(tk, fn_name, args, kw, out)
@@ -343,7 +445,7 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
                "bytes": bytes_, "ops": ops,
                "library_ms": (time_ms(library, iters, cuda)
                               if library is not None else None),
-               "input_mb": nbytes(args) / 1e6}
+               "input_mb": nbytes(args, kw) / 1e6, **extra}
         if fn_name == "cmd_tick":
             # the walk is serial: its time per op, beside the bytes bound
             row["op_tier"] = int(args[9].shape[0])
@@ -388,7 +490,73 @@ def derived_call(tk, fn_name, rec):
             args, kw = got
             m, _ = tk.range_stab_words_plain(*args)
             return (m, kw["out_cap"]), {}
+    tick = rec.get("protocol_tick")
+    if tick is not None:
+        (wt, *_), kw = tick
+        if fn_name == "node_fused_deps_resolve" and kw.get("key_in"):
+            return (*kw["key_in"], wt), {}
+        if fn_name == "node_fused_range_deps_resolve" and kw.get("rng_in"):
+            return (*kw["rng_in"], wt), {}
+        if fn_name == "quorum_count" and kw.get("quorum") is not None:
+            return (*kw["quorum"], kw["quorum_size"]), {}
     return None
+
+
+def tick_bound(tk, args, kw, out):
+    """protocol_tick's (bytes, operations, None), from its stages' own
+    rules. Bytes: each input read once -- a tensor that several stages
+    read (the witness table, a block's ts that is also a finalize's
+    act_ts) once, of a kid table only the rows its slots name (K2's rule),
+    of an exec plane's adjacency only its pending rows (K9's) -- and each
+    output written once. The merged results that the finalizes read back
+    in place are the tick's outputs, not inputs again, and no stage's
+    scratch counts. Operations: the resolve stages' (K13's and K14's
+    rules), 3 per slot word of a key finalize, 4 per interval x range row
+    of a range finalize, 4 per pair of quorum lanes."""
+    import torch
+    wt = args[0]
+    reads = {}
+
+    def take(*xs, key="all"):
+        for t in _flat(xs):
+            if torch.is_tensor(t) and t.numel():
+                reads[(t.data_ptr(), key)] = nbytes(t)
+
+    take(wt)
+    ops = 0
+    if kw.get("key_in"):
+        take(kw["key_in"])
+        ops += bound_inputs(tk, "node_fused_deps_resolve",
+                            (*kw["key_in"], wt), {}, ())[1]
+    if kw.get("rng_in"):
+        take(kw["rng_in"])
+        ops += bound_inputs(tk, "node_fused_range_deps_resolve",
+                            (*kw["rng_in"], wt), {}, ())[1]
+    for f in kw.get("fins", ()):
+        if f[0] == "range":
+            take(f[1:-1])
+            ops += 4 * f[1].numel() * f[7][0].numel()
+            continue
+        kid_rows, slot_subj, slot_kid, subj_row, act_ts = f[6:11]
+        take(slot_subj, slot_kid, subj_row, act_ts)
+        kc, w = kid_rows.shape
+        for r in torch.unique(slot_kid[(slot_kid >= 0) & (slot_kid < kc)]
+                              ).tolist():
+            reads[(kid_rows.data_ptr(), ("kid", r))] = w * 4
+        ops += 3 * slot_subj.numel() * w
+    for c in kw.get("cmds", ()):
+        take(c[:-1])
+    if kw.get("quorum") is not None:
+        take(kw["quorum"])
+        ops += 4 * kw["quorum"][0].shape[0] ** 2
+    for r in kw.get("cmd_repairs", ()):
+        take(r)
+    for planes, _cap in kw.get("execs", ()):
+        for adj, *lanes in planes:
+            take(lanes)
+            npend = int(lanes[2].sum())
+            reads[(adj.data_ptr(), "pending")] = npend * adj.shape[1] * 4
+    return sum(reads.values()) + nbytes(out), ops, None
 
 
 def bound_inputs(tk, fn_name, args, kw, out):
@@ -396,7 +564,20 @@ def bound_inputs(tk, fn_name, args, kw, out):
     library call computing the same function or None) for this call's
     inputs: each input read once, each output written once."""
     import torch
-    if fn_name in ("deps_resolve", "fused_deps_resolve"):
+    if fn_name == "protocol_tick":
+        return tick_bound(tk, args, kw, out)
+    if fn_name == "lane_slice":
+        packed, r0, w0, rows, words = args
+        from accord_tpu_torch.ops.node_lane import dyn_start
+        r = dyn_start(r0, packed.shape[0], rows)
+        w = dyn_start(w0, packed.shape[1], words)
+        return (2 * rows * words * packed.element_size(), 0,
+                lambda: packed[r:r + rows, w:w + words].clone())
+    if fn_name == "quorum_count":
+        t = args[0].shape[0]
+        return nbytes(args) + nbytes(out), 4 * t * t, None
+    if fn_name in ("deps_resolve", "fused_deps_resolve",
+                   "node_fused_deps_resolve"):
         if fn_name == "deps_resolve":
             subj_of, subj_keys, sb, sknd, bm, ts, kinds, valid, table = args
             blocks, mines = [(bm, ts, kinds, valid)], [None]
@@ -428,7 +609,8 @@ def bound_inputs(tk, fn_name, args, kw, out):
                   + nbytes(out))
         ops = 3 * slot_subj.numel() * w
         return bytes_, ops, None
-    if fn_name in ("range_deps_resolve", "fused_range_deps_resolve"):
+    if fn_name in ("range_deps_resolve", "fused_range_deps_resolve",
+                   "node_fused_range_deps_resolve"):
         if fn_name == "range_deps_resolve":
             (iv_of, iv_s, iv_e, sb, sknd, srng, r_start, r_end, r_ts,
              r_kinds, r_valid, k_bm, k_ts, k_kinds, k_valid, table) = args
@@ -1500,11 +1682,21 @@ def run(rehearse: bool) -> dict:
         rb = recovery_batch(device, 10_240 if not rehearse else 600)
     log(f"recovery_batch[{device}]: {json.dumps(rb)}")
 
-    # 16. kernels: replay the recorded inputs, kernel vs plain, timed
+    # 16-19. the cluster tick: the megakernel sweep, the key+range, cmd and
+    #        exec legs, the merged tick at 10k in flight
+    sweep_recs = {"mega_sweep": Recorder(tk), "merged_sweep": Recorder(tk)}
+    megakernel_sweep(device, cuda, rehearse, tk, launches, sweep_recs)
+    leg_recs = {"mega_range": Recorder(tk), "mega_cmd": Recorder(tk)}
+    cluster_legs(device, cuda, tk, launches, leg_recs)
+    tick10k = FixedCalls(
+        protocol_tick=merged_tick(device, cuda, rehearse, tk)["args"])
+
+    # 20. kernels: replay the recorded inputs, kernel vs plain, timed
     iters = 50 if cuda else 2
     path_rec = {"key_burn": key_rec, "range_burn": range_rec,
                 "inline": inline_rec, **exec_recs, "cmd_burn": cmd_rec,
-                "recovery_burn": rec_rec, "repair": rep_rec}
+                "recovery_burn": rec_rec, "repair": rep_rec, **sweep_recs,
+                **leg_recs}
     # further inputs each kernel is replayed on, by label (the first
     # two keep their PR-1/PR-2 names in the kernels line)
     extra_rec = {"key_burn": [("preaccept_batch", pa_rec),
@@ -1512,7 +1704,9 @@ def run(rehearse: bool) -> dict:
                  "range_burn": [("preaccept_batch", pr_rec)],
                  "inline": [], "cmd_burn": [("cmd_batch", cb_rec)],
                  "recovery_burn": [("recovery_batch", rb_rec)],
-                 "repair": []}
+                 "repair": [], "mega_sweep": [("merged_tick_10k", tick10k)],
+                 "merged_sweep": [], "mega_range": [],
+                 "mega_cmd": [("merged_tick_10k", tick10k)]}
     exec_extra = [("exec_burn", exec_recs["exec_burn"]),
                   ("exec_compact", exec_recs["exec_compact"]),
                   ("frontier_batch_a", fa_rec),
@@ -1554,6 +1748,384 @@ def run(rehearse: bool) -> dict:
         entries.append(entry)
     return {"card": card, "entries": entries, "cuda": cuda,
             "acked_per_s": rep.acked / wall}
+
+
+# -- the cluster tick (mesh burn) and the protocol megakernel ----------------
+def mesh_leg(device: str, seed: int, ops: int, mode: str, **kw):
+    """One run_mesh_burn: mode "mega" (one protocol_tick graph replay per
+    cluster tick), "merged" (the node-lane dispatch, K13/K14 + lane_slice
+    demux + per-plan finalizes) or "loop" (the per-node launch loop)."""
+    from accord_tpu_torch.sim.mesh_burn import run_mesh_burn
+    t0 = time.perf_counter()
+    rep, eng = run_mesh_burn(seed, ops, device=device, collect_log=True,
+                             mesh_tick=mode != "loop",
+                             megakernel=mode == "mega", **kw)
+    return rep, eng.snapshot(), time.perf_counter() - t0
+
+
+def megakernel_sweep(device: str, cuda: bool, rehearse: bool, tk, launches,
+                     recs) -> dict:
+    """bench.py's bench_megakernel sizes (seed 6: 64 nodes x 120 ops, 256 x
+    50, 1024 x 24) in megakernel and merged modes, plus the per-node loop
+    at 64 nodes: a warm pass, then a timed pass whose every mode is one
+    path (counts zeroed before, read after). Histories identical across
+    modes; launches_per_tick 1.0 and one protocol_tick replay per fused
+    dispatch; no graph captured or evicted and no mesh_tick fallback in
+    the timed pass; the 64-node megakernel history equal to the CPU's.
+    The warm pass logs each size's captures and the graph cache after it.
+    After the timed pass, each size's largest tick is replayed alone for
+    its device ms."""
+    import torch
+    sizes = ((64, 120), (256, 50), (1024, 24)) if not rehearse \
+        else ((16, 40), (32, 16))
+    plan = [(n, o, m) for n, o in sizes for m in ("mega", "merged")] \
+        + [(sizes[0][0], sizes[0][1], "loop")]
+    warm = {}
+    for n, o, m in plan:                       # warm: captures happen here
+        c0 = dict(tk.CAPTURES)
+        mesh_leg(device, 6, o, m, nodes=n)
+        if m == "mega":
+            warm[n] = {"captures": tk.CAPTURES["protocol_tick"]
+                       - c0["protocol_tick"],
+                       "evictions": tk.CAPTURES["evictions"]
+                       - c0["evictions"]}
+            if cuda:
+                from accord_tpu_torch.ops import tick_graph
+                # the whole cache after this size's warm run
+                warm[n]["cache_after"] = tick_graph.cache_stats()
+            log(f"sweep warm {n} nodes: {json.dumps(warm[n])}")
+    if cuda:
+        torch.cuda.synchronize()
+    rows, logs, size_recs = {}, {}, {}
+    for path, mode in (("mega_sweep", "mega"), ("merged_sweep", "merged"),
+                       ("loop_sweep", "loop")):
+        tk.reset_launches()
+        fused = 0
+        with recs.get(path) or Recorder(tk):
+            for n, o, m in plan:
+                if m != mode:
+                    continue
+                with Recorder(tk) as size_recs[(n, m)]:
+                    rep, snap, wall = mesh_leg(device, 6, o, m, nodes=n)
+                if cuda:
+                    torch.cuda.synchronize()
+                check(rep.lost == 0 and rep.acked == o,
+                      f"sweep {m} {n} nodes: lost or unacked")
+                check(snap["mesh_tick_fallbacks"] == 0,
+                      f"sweep {m} {n} nodes: mesh_tick fallbacks")
+                if m == "mega":
+                    check(snap["launches_per_tick"] == 1.0,
+                          f"sweep {n} nodes: launches_per_tick "
+                          f"{snap['launches_per_tick']}")
+                    fused += snap["megakernel_dispatches"]
+                logs[(n, m)] = rep.log
+                row = {"nodes": n, "ops": o, "mode": m, "wall_s": wall,
+                       "committed_txn_per_s": rep.acked / wall,
+                       "cluster_ticks": snap["cluster_ticks"],
+                       "nodes_per_dispatch": snap["nodes_per_dispatch"],
+                       "launches_per_tick": snap["launches_per_tick"],
+                       "host_ms_per_tick":
+                           wall * 1e3 / max(1, snap["cluster_ticks"])}
+                rows[f"{m}_{n}"] = row
+                log(f"sweep[{device}]: {json.dumps(row)}")
+        launches[path] = dict(tk.LAUNCHES)
+        captures = tk.CAPTURES["protocol_tick"]
+        log(f"sweep {path}: launches {launches[path]}; graph captures "
+            f"{captures}, evictions {tk.CAPTURES['evictions']}")
+        check(captures == 0 and tk.CAPTURES["evictions"] == 0,
+              f"sweep {path}: {captures} graphs captured, "
+              f"{tk.CAPTURES['evictions']} evicted after the warm pass")
+        if cuda and mode == "mega":
+            check(launches[path]["protocol_tick"] == fused > 0,
+                  f"sweep: {launches[path]['protocol_tick']} protocol_tick "
+                  f"replays for {fused} fused dispatches")
+            check(launches[path]["node_deps_resolve"] > 0,
+                  "sweep: K13 never ran in the graph")
+        if cuda and mode == "merged":
+            for name in ("node_deps_resolve", "lane_slice", "finalize_csr"):
+                check(launches[path][name] > 0,
+                      f"sweep merged: kernel {name} never launched")
+    for n, _o in sizes:
+        check(logs[(n, "mega")] == logs[(n, "merged")],
+              f"sweep {n} nodes: megakernel history != merged")
+    n0, o0 = sizes[0]
+    check(logs[(n0, "loop")] == logs[(n0, "mega")],
+          f"sweep {n0} nodes: the per-node loop's history differs")
+    cpu, _snap, cwall = mesh_leg("cpu", 6, o0, "mega", nodes=n0)
+    check(cpu.log == logs[(n0, "mega")],
+          f"sweep {n0} nodes: the card's megakernel history != the CPU's")
+    log(f"sweep: {n0}-node megakernel history equal on {device} and cpu "
+        f"({cwall:.2f} s on the cpu)")
+    if cuda:
+        for n, _o in sizes:
+            args, kw = size_recs[(n, "mega")].get("protocol_tick")
+            out = tk.protocol_tick(*args, **kw)   # noqa: F841 (kept alive)
+            ms = time_ms(last_graph_replay(), 20, cuda)
+            rows[f"mega_{n}"]["ms_per_replay_largest_tick"] = ms
+            rows[f"mega_{n}"]["warm"] = warm[n]
+            log(f"sweep: {n} nodes, the largest tick's replay {ms:.4f} ms")
+    return rows
+
+
+def cluster_legs(device: str, cuda: bool, tk, launches, recs) -> dict:
+    """tests/test_megakernel.py's key+range and cmd-plane legs and
+    bench.py's exec-in-megakernel leg, on the card, each against the CPU
+    (and the unfused modes), each megakernel run one path."""
+    import torch
+    out = {}
+    # key + range: seed 9, 40 ops, 4 nodes, 20% range reads, 10% writes
+    kw = dict(nodes=4, range_read_ratio=0.2, range_write_ratio=0.1)
+    tk.reset_launches()
+    with recs["mega_range"]:
+        mega, snap, wall = mesh_leg(device, 9, 40, "mega", **kw)
+    if cuda:
+        torch.cuda.synchronize()
+    launches["mega_range"] = dict(tk.LAUNCHES)
+    merged = mesh_leg(device, 9, 40, "merged", **kw)[0]
+    loop = mesh_leg(device, 9, 40, "loop", **kw)[0]
+    cpu = mesh_leg("cpu", 9, 40, "mega", **kw)[0]
+    check(mega.log == merged.log == loop.log,
+          "key+range leg: fused, merged and loop histories differ")
+    check(mega.log == cpu.log, "key+range leg: card != cpu")
+    check(snap["launches_per_tick"] == 1.0, "key+range leg: launches/tick")
+    if cuda:
+        check(launches["mega_range"]["node_range_resolve"] > 0,
+              "key+range leg: K14 never ran")
+        check(launches["mega_range"]["protocol_tick"]
+              == snap["megakernel_dispatches"] > 0,
+              "key+range leg: replays != fused dispatches")
+    out["key_range"] = {"acked": mega.acked, "wall_s": wall, **snap}
+    log(f"key_range[{device}]: {json.dumps(out['key_range'])}; launches "
+        f"{launches['mega_range']}")
+    # cmd plane, authoritative: 3 nodes, 32 ops, seed 13
+    kw = dict(nodes=3, cmd_plane=True, cmd_plane_authoritative=True)
+    tk.reset_launches()
+    with recs["mega_cmd"]:
+        mega, snap, wall = mesh_leg(device, 13, 32, "mega", **kw)
+    if cuda:
+        torch.cuda.synchronize()
+    launches["mega_cmd"] = dict(tk.LAUNCHES)
+    cpu, csnap, _ = mesh_leg("cpu", 13, 32, "mega", **kw)
+    unfused = mesh_leg(device, 13, 32, "merged", **kw)[0]
+    check(mega.log == cpu.log == unfused.log,
+          "cmd leg: card, cpu and unfused histories differ")
+    check(snap["fastpath_quorum_txns"] > 0
+          and snap["fastpath_quorum_txns"] == csnap["fastpath_quorum_txns"],
+          f"cmd leg: fast-path quorum txns {snap['fastpath_quorum_txns']} "
+          f"vs cpu {csnap['fastpath_quorum_txns']}")
+    check(cmd_counters(mega) == cmd_counters(cpu),
+          "cmd leg: the card's cmd counters differ from the CPU's")
+    check(cmd_counters(mega).get("cmd_deferred_spans", 0) > 0,
+          "cmd leg: no deferred span")
+    check(snap["launches_per_tick"] == 1.0, "cmd leg: launches/tick")
+    if cuda:
+        check(launches["mega_cmd"]["quorum_count"] > 0,
+              "cmd leg: K16 never ran")
+    out["cmd"] = {"acked": mega.acked, "wall_s": wall, **snap,
+                  **{k: v for k, v in cmd_counters(mega).items()
+                     if "deferred" in k}}
+    log(f"cmd_leg[{device}]: {json.dumps(out['cmd'])}; launches "
+        f"{launches['mega_cmd']}")
+    # exec in the megakernel: seed 13, 40 ops, 4 nodes, rf 3, 2 stores
+    base = dict(nodes=4, rf=3, stores_per_node=2, key_count=24,
+                concurrency=8, exec_plane=True, exec_compact=True)
+    solo = mesh_leg(device, 13, 40, "mega", **base)[0]
+    tk.reset_launches()
+    fused, snap, wall = mesh_leg(device, 13, 40, "mega",
+                                 exec_in_megakernel=True, **base)
+    if cuda:
+        torch.cuda.synchronize()
+    launches["mega_exec"] = dict(tk.LAUNCHES)
+    cpu = mesh_leg("cpu", 13, 40, "mega", exec_in_megakernel=True,
+                   **base)[0]
+    check(fused.log == solo.log == cpu.log,
+          "exec leg: exec-in-megakernel history != the standalone "
+          "coordinator's / the CPU's")
+    check(snap["exec_scan_blocks"] > 0, "exec leg: no exec block staged")
+    check(snap["launches_per_tick"] == 1.0, "exec leg: launches/tick")
+    check(fused.counters.get("exec_coord.compact_fallbacks", 0) == 0,
+          "exec leg: compact fallbacks")
+    if cuda:
+        check(launches["mega_exec"]["frontier_compact"] > 0
+              and launches["mega_exec"]["protocol_tick"]
+              == snap["megakernel_dispatches"],
+              "exec leg: the exec stage never ran in a replay")
+    out["exec"] = {"acked": fused.acked, "wall_s": wall, **snap}
+    log(f"exec_leg[{device}]: {json.dumps(out['exec'])}")
+    return out
+
+
+def merged_tick(device: str, cuda: bool, rehearse: bool, tk) -> dict:
+    """One merged cluster tick at 10k in flight: 128 (plan, store) blocks
+    (64 nodes x 2 stores), arenas of cap 2048 with 1,024 buckets holding
+    30,000 live rows (10,000 writes of 4 keys over 1,000 keys, rf 3, as
+    the synthetic PreAccept batch), 4,096 subject rows in 128 plans of 32
+    (1-4 keys each, one key finalize each) and 4,096 quorum lanes. The
+    replay equals the plain protocol_tick bit for bit, and every plan's
+    decoded deps equal the host scan. Timed: the replay; K13, K2 (all 128)
+    and K16 alone; the same stages launched one by one."""
+    import numpy as np
+    import torch
+    from accord_tpu_torch.ops import carry
+    from accord_tpu_torch.ops import node_lane as nl
+    from accord_tpu_torch.ops.encoding import WITNESS_TABLE
+    nodes, stores, cap, k = (64, 2, 2048, 1024) if not rehearse \
+        else (8, 2, 256, 128)
+    writes, nkeys, per_plan = (10_000, 1_000, 32) if not rehearse \
+        else (500, 100, 32)
+    rng = np.random.default_rng(10_000)
+    nblk = nodes * stores
+    table = np.asarray(WITNESS_TABLE, np.int32)
+    # rows: each write lands on rf=3 nodes, in the store of its first key
+    wkeys = rng.integers(0, nkeys, (writes, 4))
+    blk_rows = [[] for _ in range(nblk)]
+    for w in range(writes):
+        st = int(wkeys[w, 0]) % stores
+        for nd in rng.choice(nodes, 3, replace=False):
+            blk_rows[nd * stores + st].append(w)
+    hlc0 = 1000
+    blocks, kid_tabs, host_rows = [], [], []
+    for rows in blk_rows:
+        n = len(rows)
+        check(n <= cap, "merged tick: a block overflows its cap")
+        bits = np.zeros((cap, k), bool)
+        ts = np.zeros((cap, 3), np.int32)
+        kinds = np.zeros(cap, np.int32)
+        valid = np.zeros(cap, bool)
+        kid = np.zeros((nkeys, cap // 32), np.uint32)
+        for r, w in enumerate(rows):
+            bits[r, wkeys[w] % k] = True
+            ts[r] = (1, hlc0 + w, w % 7)
+            kinds[r] = 1 + (w % 2)
+            valid[r] = True
+            for key in set(int(x) for x in wkeys[w]):
+                kid[key, r >> 5] |= np.uint32(1) << np.uint32(r & 31)
+        packed = carry.pack_bitmaps(bits.astype(np.float32))
+        blocks.append(tuple(torch.from_numpy(np.ascontiguousarray(a))
+                            .to(device) for a in (
+                                packed.view(np.int32), ts, kinds, valid)))
+        kid_tabs.append(torch.from_numpy(kid.view(np.int32)).to(device))
+        host_rows.append((rows, ts, kinds, valid))
+    # plans: one per block, 32 subjects of 1-4 keys
+    entries, fins, subj = [], [], []
+    for p in range(nblk):
+        sk = [sorted(set(int(x) for x in rng.integers(
+            0, nkeys, 1 + rng.integers(0, 4)))) for _ in range(per_plan)]
+        sb = np.zeros((per_plan, 3), np.int32)
+        sb[:, 0] = 1
+        sb[:, 1] = hlc0 + rng.integers(0, writes, per_plan)
+        sknd = rng.integers(1, 3, per_plan).astype(np.int32)
+        of = np.concatenate([[i] * len(x) for i, x in enumerate(sk)])
+        keys = np.concatenate(sk) % k
+        z = tk.nnz_tier(len(of))
+        subj_of = np.full(z, per_plan, np.int32)
+        subj_of[:len(of)] = of
+        subj_keys = np.zeros(z, np.int32)
+        subj_keys[:len(keys)] = keys
+        entries.append((p, dict(
+            sb=sb, sknd=sknd, subj_store=np.zeros(per_plan, np.int32),
+            subj_of=subj_of, subj_keys=subj_keys, ngroups=1, slots=[0],
+            ksnaps=[(blocks[p][0], blocks[p][1], None, blocks[p][2],
+                     blocks[p][3])], fused=False)))
+        subj.append((sk, sb, sknd))
+    km = nl.build_key_merge(
+        entries, lambda c: tuple(torch.zeros_like(t[:c]) if t.dim() == 1
+                                 else torch.zeros(c, t.shape[1],
+                                                  dtype=t.dtype,
+                                                  device=t.device)
+                                 for t in blocks[0]))
+    for p, (r0, b, w0, w) in enumerate(km.spans):
+        sk = subj[p][0]
+        slot_subj = np.concatenate([[i] * len(x) for i, x in enumerate(sk)])
+        slot_kid = np.concatenate(sk)
+        s = tk.nnz_tier(len(slot_subj))
+        a_subj = np.full(s, b, np.int32)
+        a_subj[:len(slot_subj)] = slot_subj
+        a_kid = np.full(s, nkeys, np.int32)
+        a_kid[:len(slot_kid)] = slot_kid
+        kid = kid_tabs[p].cpu().numpy().view(np.uint32)
+        bound = sum(int(np.unpackbits(kid[x].view(np.uint8)).sum())
+                    for x in slot_kid)
+        fins.append(("key", r0, w0, b, w, 0, kid_tabs[p],
+                     torch.from_numpy(a_subj).to(device),
+                     torch.from_numpy(a_kid).to(device),
+                     torch.full((b,), -1, dtype=torch.int32, device=device),
+                     blocks[p][1], tk.out_tier(max(1, bound))))
+    lanes = 4096 if not rehearse else 256
+    q_txn = rng.integers(0, 50, (lanes, 3)).astype(np.int32)
+    q_ts = np.where(rng.random((lanes, 1)) < 0.7, q_txn,
+                    q_txn + 1).astype(np.int32)
+    quorum = (q_txn, q_ts, rng.choice([0, 0, 0, 1, 2], lanes)
+              .astype(np.int32), np.ones(lanes, bool))
+    wt = torch.from_numpy(table).to(device)
+    key_in = (km.subj_of, km.subj_keys, km.subj_node, km.sb, km.sknd,
+              km.slots, km.blocks)
+    kw = dict(key_in=key_in, fins=tuple(fins), quorum=quorum,
+              quorum_size=2)
+    plain = tk.protocol_tick_plain(wt, **_on(kw, device))
+    c0 = tk.CAPTURES["protocol_tick"]
+    got = tk.protocol_tick(wt, **kw)
+    if cuda:
+        torch.cuda.synchronize()
+    err = max_abs_err(got, plain)
+    check(err == 0, f"merged tick: replay differs from the plain version "
+          f"(max abs err {err})")
+    # decode every plan's finalized deps and hold them to the host scan
+    bad = 0
+    for p, (fin, out) in enumerate(zip(fins, got[2])):
+        indptr, dep_rows = (t.cpu().numpy() for t in out[:2])
+        check(int(indptr[-1]) <= fin[-1], "merged tick: out_cap overflow")
+        sk, sb, sknd = subj[p]
+        rows, ts, kinds, valid = host_rows[p]
+        slot = 0
+        for i, keys in enumerate(sk):
+            got_rows = set()
+            for _key in keys:
+                got_rows |= set(dep_rows[indptr[slot]:indptr[slot + 1]]
+                                .tolist())
+                slot += 1
+            want = {r for r, w in enumerate(rows)
+                    if set(keys) & set(int(x) for x in wkeys[w])
+                    and table[sknd[i], kinds[r]] == 1
+                    and tuple(ts[r]) < tuple(sb[i])}
+            bad += got_rows != want
+    check(bad == 0, f"merged tick: {bad} subjects' deps differ from the "
+          "host scan")
+    check(sum(int(o[0][-1]) for o in got[2]) > 0,
+          "merged tick: vacuous (no deps at all)")
+    out = {"blocks": len(km.blocks), "live_rows": sum(map(len, blk_rows)),
+           "subjects": km.rows_used, "quorum_lanes": lanes,
+           "captures": tk.CAPTURES["protocol_tick"] - c0,
+           "deps": int(sum(int(o[0][-1]) for o in got[2])),
+           "merged_mb": got[0].numel() * 4 / 1e6}
+    if cuda:
+        iters = 20
+        out["replay_ms"] = time_ms(last_graph_replay(), iters, cuda)
+        out["call_ms"] = time_ms(lambda: tk.protocol_tick(wt, **kw),
+                                 iters, cuda)
+        dkey = _on(key_in, device)
+        out["k13_ms"] = time_ms(lambda: nl.node_fused_deps_resolve(
+            *dkey, wt), iters, cuda)
+        packed = nl.node_fused_deps_resolve(*dkey, wt)
+
+        def k2_all():
+            for f in fins:
+                tk.finalize_csr(packed[f[1]:f[1] + f[3]], f[2] + f[5],
+                                *f[6:11], out_cap=f[11])
+        out["k2_all_ms"] = time_ms(k2_all, iters, cuda)
+        dq = _on(quorum, device)
+        out["k16_ms"] = time_ms(lambda: tk.quorum_count(*dq, 2), iters, cuda)
+
+        def one_by_one():
+            pk = nl.node_fused_deps_resolve(*dkey, wt)
+            for f in fins:
+                tk.finalize_csr(pk[f[1]:f[1] + f[3]], f[2] + f[5],
+                                *f[6:11], out_cap=f[11])
+            tk.quorum_count(*dq, 2)
+        out["one_by_one_ms"] = time_ms(one_by_one, iters, cuda)
+    log(f"merged_tick[{device}]: {json.dumps(out)}")
+    return {"out": out, "args": ((wt,), kw)}
+
 
 
 def _brief(row: dict) -> dict:

@@ -667,3 +667,298 @@ def test_cmd_plane_burn_matches_cpu(cuda):
     assert card_counters.get("cmd_plane_checksum_mismatches", 0) == 0
     assert tk.LAUNCHES["cmd_tick"] - n0 == \
         card_counters["cmd_plane_dispatches"]
+
+
+# -- the cluster tick: K13-K16 and the protocol megakernel's graph ----------
+def _deep(x, dev):
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_deep(v, dev) for v in x)
+    return x
+
+
+def _key_plan(rng, b, caps, k, fused):
+    ng = len(caps)
+    n = b - 2
+    store = np.full(b, ng, np.int32)
+    store[:n] = rng.integers(0, ng, n)
+    nnz = 4 * b
+    subj_of = np.full(nnz, b, np.int32)
+    subj_of[:3 * b] = np.sort(rng.integers(0, n, 3 * b))
+    subj_keys = rng.integers(0, k, nnz).astype(np.int32)
+    args = dict(sb=rng.integers(-50, 50, (b, 3)).astype(np.int32),
+                sknd=rng.integers(0, 6, b).astype(np.int32),
+                subj_store=store, subj_of=subj_of, subj_keys=subj_keys,
+                ngroups=ng, slots=list(range(ng)), fused=fused,
+                ksnaps=[_arena(rng, c, k) for c in caps])
+    if fused:
+        args["pad_tier"] = None
+    return args
+
+
+def _range_plan(rng, b, rcaps, kcaps, k, has_r=True, has_k=True):
+    ng = max(len(rcaps), len(kcaps), 1)
+    iv_of, iv_s, iv_e, sb, sknd, srng = (
+        t.numpy() for t in _intervals(rng, b, 4 * b))
+    store = np.full(b, ng, np.int32)
+    store[:b - 2] = rng.integers(0, ng, b - 2)
+    return dict(iv_of=iv_of, iv_s=iv_s, iv_e=iv_e, sb=sb, sknd=sknd,
+                srng=srng, subj_store=store, ngroups=ng,
+                r_slots=list(range(len(rcaps))),
+                rsnaps=[_range_arena(rng, c) for c in rcaps],
+                k_slots=list(range(len(kcaps))),
+                ksnaps=[_arena(rng, c, k) for c in kcaps],
+                has_r=has_r, has_k=has_k, fused=True, pad_tier=None)
+
+
+def _pads(k):
+    def key(cap):
+        return (torch.zeros((cap, k // 32), dtype=torch.int32),
+                torch.zeros((cap, 3), dtype=torch.int32),
+                torch.zeros(cap, dtype=torch.int32),
+                torch.zeros(cap, dtype=torch.bool))
+
+    def rng_(cap):
+        return (torch.zeros(cap, dtype=torch.int32),
+                torch.zeros(cap, dtype=torch.int32),
+                torch.zeros((cap, 3), dtype=torch.int32),
+                torch.zeros(cap, dtype=torch.int32),
+                torch.zeros(cap, dtype=torch.bool))
+    return key, rng_
+
+
+def _merges(seed, k=128):
+    from accord_tpu_torch.ops import node_lane as nl
+    rng = np.random.default_rng(seed)
+    pad_key, pad_rng = _pads(k)
+    kplans = [_key_plan(rng, 8, (64,), k, False),
+              _key_plan(rng, 64, (128, 128), k, True),
+              _key_plan(rng, 8, (64, 128), k, True),
+              _key_plan(rng, 64, (64, 64, 64), k, True)]
+    rplans = [_range_plan(rng, 8, (64,), (64,), k),
+              _range_plan(rng, 64, (64, 96), (128, 128), k),
+              _range_plan(rng, 8, (32,), (64,), k, has_k=False)]
+    km = nl.build_key_merge(list(enumerate(kplans)), pad_key)
+    rm = nl.build_range_merge(list(enumerate(rplans)), pad_key, pad_rng)
+    return km, rm
+
+
+def _key_in(km):
+    return (km.subj_of, km.subj_keys, km.subj_node, km.sb, km.sknd,
+            km.slots, km.blocks)
+
+
+def _rng_in(rm):
+    return (rm.iv_of, rm.iv_s, rm.iv_e, rm.subj_node, rm.sb, rm.sknd,
+            rm.srng, rm.r_slots, rm.r_blocks, rm.k_slots, rm.k_blocks)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_node_lane_kernels(cuda, seed):
+    """K13 and K14 (both sides, and each side alone) against their plain
+    versions on merges with pad blocks, multi-block and mixed-cap spans;
+    one launch each."""
+    from accord_tpu_torch.ops import node_lane as nl
+    km, rm = _merges(seed)
+    wt = _t(WITNESS_TABLE)
+    plain = nl.node_fused_deps_resolve(*_key_in(km), wt)
+    n0 = tk.LAUNCHES["node_deps_resolve"]
+    got = nl.node_fused_deps_resolve(*_deep(_key_in(km), cuda), wt.to(cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["node_deps_resolve"] == n0 + 1
+    _eq(plain, got)
+    assert plain.any()
+    args = _rng_in(rm)
+    for r_on, k_on in ((True, True), (True, False), (False, True)):
+        a = list(args)
+        if not r_on:
+            a[8] = ()
+        if not k_on:
+            a[10] = ()
+        plain = nl.node_fused_range_deps_resolve(*a, wt)
+        got = nl.node_fused_range_deps_resolve(*_deep(a, cuda), wt.to(cuda))
+        _eq(plain, got)
+
+
+@pytest.mark.parametrize("r0,w0,rows,words", [(0, 0, 64, 8), (7, 3, 8, 4),
+                                              (300, 100, 64, 64),
+                                              (-5, -2, 8, 4)])
+def test_lane_slice_kernel(cuda, r0, w0, rows, words):
+    """K15 against its plain version, offsets by value and from device
+    memory, clamped and negative starts included."""
+    from accord_tpu_torch.ops import node_lane as nl
+    rng = np.random.default_rng(rows + words)
+    src = _t(_words(rng, (256, 96)))
+    plain = nl.lane_slice(src, r0, w0, rows, words)
+    got = nl.lane_slice(src.to(cuda), r0, w0, rows, words)
+    _eq(plain, got)
+    offs = torch.tensor([r0, w0], dtype=torch.int32, device=cuda)
+    _eq(plain, nl.lane_slice(src.to(cuda), offs, None, rows, words))
+
+
+def _quorum(rng, t):
+    n = t - t // 5
+    pool = rng.integers(-5, 5, (max(2, n // 3), 3)).astype(np.int32)
+    txn = np.zeros((t, 3), np.int32)
+    txn[:n] = pool[rng.integers(0, len(pool), n)]
+    ts = np.full((t, 3), I32_MIN, np.int32)
+    ts[:n] = np.where(rng.random((n, 1)) < 0.7, txn[:n],
+                      rng.integers(-5, 5, (n, 3)))
+    code = np.zeros(t, np.int32)
+    code[:n] = rng.choice([0, 0, 0, 1, 2, 8, 9, -1], n)
+    valid = np.zeros(t, bool)
+    valid[:n] = True
+    return txn, ts, code, valid
+
+
+@pytest.mark.parametrize("t", [64, 256, 1024, 4096])
+def test_quorum_count_kernel(cuda, t):
+    """K16 against its plain version at each lane tier."""
+    lanes = [_t(a) for a in _quorum(np.random.default_rng(t), t)]
+    plain = tk.quorum_count(*lanes, 2)
+    n0 = tk.LAUNCHES["quorum_count"]
+    got = tk.quorum_count(*(x.to(cuda) for x in lanes), 2)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["quorum_count"] == n0 + 1
+    _eq(plain, got)
+
+
+def _fin_key(rng, kind, span, k_w, out_cap, kc=40):
+    r0, b, w0, words = span
+    kid_rows = _words(rng, (kc, k_w))
+    s = 32
+    slot_subj = np.full(s, b, np.int32)
+    slot_subj[:s - 4] = rng.integers(0, b, s - 4)
+    slot_kid = np.full(s, kc, np.int32)
+    slot_kid[:s - 4] = rng.integers(0, kc, s - 4)
+    subj_row = rng.integers(-1, 32 * k_w, b).astype(np.int32)
+    act_ts = rng.integers(-40, 40, (32 * k_w, 3)).astype(np.int32)
+    return (kind, r0, w0, b, words, int(rng.integers(0, words - k_w + 1)),
+            _t(kid_rows), _t(slot_subj), _t(slot_kid), _t(subj_row),
+            _t(act_ts), out_cap)
+
+
+def _fin_range(rng, b, rcap, out_cap):
+    iv_of, iv_s, iv_e, sb, sknd, _srng = _intervals(rng, b, 32)
+    return ("range", iv_of, iv_s, iv_e, _t(rng.random(32) < 0.8), sb, sknd,
+            tuple(_range_arena(rng, rcap)), out_cap)
+
+
+def _tick(seed):
+    """One cluster tick with every stage protocol_tick has on the card:
+    key and range resolves, key / rkey / range finalizes given out of
+    signature order, a cmd_tick block, a repair block, an exec block and
+    the quorum lanes. Shapes depend only on the structure, so two seeds
+    share one static signature."""
+    rng = np.random.default_rng(seed)
+    km, rm = _merges(seed)
+    fins = (_fin_range(rng, 16, 64, 256),
+            _fin_key(rng, "key", km.spans[1], 4, 2048),
+            _fin_key(rng, "key", km.spans[0], 2, 256),
+            _fin_range(rng, 8, 32, 2048),
+            _fin_key(rng, "rkey", rm.spans[1][:2] + rm.spans[1][4:], 4, 256))
+    cap, kcap = 64, 32
+    cols = [_t(a) for a in _cmd_columns(rng, cap, kcap)]
+    ops = [_t(a) for a in _cmd_ops(rng, 6, 8, rows=np.arange(cap),
+                                   kids=np.arange(kcap), now=500)]
+    cmd = (*cols, 40, *ops, 1, I32_MIN + 1, -200, 2, True)
+    rcols = [_t(a) for a in _cmd_columns(rng, cap, kcap)]
+    rows_idx = np.full(8, cap, np.int32)
+    rows_idx[:5] = np.sort(rng.choice(cap, 5, replace=False))
+    kid_idx = np.full(8, kcap, np.int32)
+    kid_idx[:6] = np.sort(rng.choice(kcap, 6, replace=False))
+    rep = (*rcols, *(_t(a) for a in (
+        rows_idx, rng.integers(0, 12, 8).astype(np.int32),
+        rng.integers(0, 2, 8).astype(np.int32), _cmd_lanes(rng, 8),
+        _cmd_lanes(rng, 8), _cmd_lanes(rng, 8),
+        rng.integers(0, 5, 8).astype(np.int32), kid_idx, _cmd_lanes(rng, 8),
+        rng.random(8) < 0.5)))
+    planes = (tuple(_exec_plane(rng, 64)), tuple(_exec_plane(rng, 96)))
+    return dict(key_in=_key_in(km), rng_in=_rng_in(rm), fins=fins,
+                cmds=(cmd,), quorum=_quorum(rng, 64), quorum_size=2,
+                cmd_repairs=(rep,), execs=((planes, 256),))
+
+
+def test_protocol_tick_graph_matches_plain(cuda):
+    """The graph program against the plain protocol_tick: every output
+    bit-equal, one replay, each stage kernel counted once."""
+    wt = _t(WITNESS_TABLE)
+    kw = _tick(5)
+    plain = tk.protocol_tick(wt, **kw)
+    l0 = dict(tk.LAUNCHES)
+    got = tk.protocol_tick(wt.to(cuda), **_deep(kw, cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["protocol_tick"] == l0["protocol_tick"] + 1
+    for name, n in (("node_deps_resolve", 1), ("node_range_resolve", 1),
+                    ("finalize_csr", 3), ("range_finalize", 2),
+                    ("cmd_tick", 1), ("quorum_count", 1), ("cmd_repair", 1),
+                    ("frontier_compact", 1)):
+        assert tk.LAUNCHES[name] == l0[name] + n, name
+    _eq(plain, got)
+    for fin in plain[2]:
+        assert int(fin[0][-1]) > 0
+
+
+def test_protocol_tick_graph_replays_new_snapshots(cuda):
+    """Two ticks of one signature with new arena tensors and values: the
+    second replays the first's graph (no capture), and the first tick's
+    outputs are still intact after the second ran."""
+    wt = _t(WITNESS_TABLE)
+    a, b = _tick(6), _tick(7)
+    pa, pb = tk.protocol_tick(wt, **a), tk.protocol_tick(wt, **b)
+    c0 = tk.CAPTURES["protocol_tick"]
+    ga = tk.protocol_tick(wt.to(cuda), **_deep(a, cuda))
+    c1 = tk.CAPTURES["protocol_tick"]
+    gb = tk.protocol_tick(wt.to(cuda), **_deep(b, cuda))
+    torch.cuda.synchronize()
+    assert tk.CAPTURES["protocol_tick"] == c1 <= c0 + 1
+    _eq(pb, gb)
+    _eq(pa, ga)
+
+
+def test_protocol_tick_graph_cache_evicts_oldest(cuda, monkeypatch):
+    """With room for one graph, a second signature evicts the first
+    (counted); the evicted graph's outputs stay intact, and the first
+    signature's next call captures again and still matches the plain
+    version."""
+    from collections import OrderedDict
+    from accord_tpu_torch.ops import tick_graph
+    monkeypatch.setattr(tick_graph, "_GRAPHS", OrderedDict())
+    monkeypatch.setattr(tick_graph, "MAX_GRAPHS", 1)
+    wt = _t(WITNESS_TABLE)
+    a = _tick(8)
+    b = dict(a, execs=())                  # another signature
+    pa, pb = tk.protocol_tick(wt, **a), tk.protocol_tick(wt, **b)
+    c0, e0 = tk.CAPTURES["protocol_tick"], tk.CAPTURES["evictions"]
+    ga = tk.protocol_tick(wt.to(cuda), **_deep(a, cuda))
+    gb = tk.protocol_tick(wt.to(cuda), **_deep(b, cuda))
+    ga2 = tk.protocol_tick(wt.to(cuda), **_deep(a, cuda))
+    torch.cuda.synchronize()
+    assert tk.CAPTURES["protocol_tick"] == c0 + 3
+    assert tk.CAPTURES["evictions"] == e0 + 2
+    assert tick_graph.cache_stats()["graphs"] == 1
+    _eq(pa, ga)
+    _eq(pb, gb)
+    _eq(pa, ga2)
+
+
+def test_megakernel_burn_card_matches_cpu_no_capture_after_warmup(cuda):
+    """The crash-restart megakernel burn (a node's lane pads out and back
+    under pad_node_tiers): the card's history is the CPU's, one replay per
+    dispatching tick, and a second run of the same traffic captures no
+    graph."""
+    from accord_tpu_torch.sim.mesh_burn import run_mesh_burn
+    kw = dict(nodes=4, crash_restart=True, crash_down_ms=400.0,
+              pad_node_tiers=8, megakernel=True, collect_log=True)
+    cpu, _ = run_mesh_burn(29, 70, device="cpu", **kw)
+    run_mesh_burn(29, 70, device=cuda, **kw)
+    c0 = tk.CAPTURES["protocol_tick"]
+    p0 = tk.LAUNCHES["protocol_tick"]
+    card, eng = run_mesh_burn(29, 70, device=cuda, **kw)
+    snap = eng.snapshot()
+    assert tk.CAPTURES["protocol_tick"] == c0
+    assert card.log == cpu.log
+    assert snap["launches_per_tick"] == 1.0
+    assert tk.LAUNCHES["protocol_tick"] - p0 == \
+        snap["megakernel_dispatches"] > 0
