@@ -10,7 +10,10 @@ int32 bit patterns. The range arena (`_RangeArena.device_arrays()`) keeps
 its five lanes as they are; the reference's other 0/1 matrices -- the f32
 subject bitmaps of `max_conflict`, the bf16 `covered_buckets` matrix, the
 dense i32 hits of `_segment_compact` -- pack the same way as the arena
-bitmaps. The tests use this to feed one state to both implementations.
+bitmaps, and so does a dense bool DAG adjacency (`packed_adjacency`,
+dag_wavefronts_packed's layout). A JAX MailboxPlane's arena, meta arena
+and partition mask become the port plane's tensors (`mailbox_state`).
+The tests use this to feed one state to both implementations.
 """
 from __future__ import annotations
 
@@ -67,3 +70,24 @@ def packed(matrix: np.ndarray, device="cpu") -> torch.Tensor:
     """A [n, K] 0/1 matrix -> its packed int32 [n, K/32] words on
     `device` (max_conflict's subject bitmaps, covered buckets, hits)."""
     return torch.from_numpy(pack_bitmaps(matrix)).to(device)
+
+
+def mailbox_state(arena: np.ndarray, meta: np.ndarray, part: np.ndarray,
+                  device="cpu") -> Tuple[torch.Tensor, ...]:
+    """A JAX MailboxPlane's arena i32[(n+1)*depth, W], meta arena
+    i32[rows, 3] and partition mask bool[n+1, n+1] (as numpy) -> the
+    port's three tensors on `device` (MailboxPlane.arena, .meta, .part)."""
+    dtypes = (np.int32, np.int32, bool)
+    return tuple(torch.from_numpy(np.array(a, dtype=t)).to(device)
+                 for a, t in zip((arena, meta, part), dtypes))
+
+
+def packed_adjacency(adj: np.ndarray, device="cpu") -> torch.Tensor:
+    """A dense bool adjacency [N, N] (row w depends on column d) -> int32
+    [N, ceil(N/32)] words, column d in bit d & 31 of word d >> 5, the
+    columns past N zero (dag_wavefronts_packed's layout)."""
+    adj = np.asarray(adj, bool)
+    n, m = adj.shape
+    pad = np.zeros((n, -(-m // 32) * 32), bool)
+    pad[:, :m] = adj
+    return packed(pad, device)

@@ -44,6 +44,15 @@ PyTorch version beside it. There is no fallback from one to the other.
   protocol_tick  ops/tick_graph.py       protocol_tick :1434 (builder
                                          :1368): one CUDA graph per static
                                          signature, replayed once per call
+  mailbox_route  csrc/mailbox_route.cu   ops/mailbox.py _mailbox_route_body
+                 (wrapper in ops/mailbox.py) :75, protocol_tick's mailbox
+                                         stage :1377, :1420-1421
+  deps_matrix, transitive_closure, execution_wavefronts,
+  dag_wavefronts_packed
+                 csrc/dense_dag.cu       deps_matrix :36,
+                                         transitive_closure :97,
+                                         execution_wavefronts :113,
+                                         dag_wavefronts_packed :197
 The node-lane kernels (K13-K15) live in ops/node_lane.py and count here
 too.
 
@@ -78,7 +87,10 @@ LAUNCHES: Dict[str, int] = {"deps_resolve": 0, "finalize_csr": 0,
                             "recovery_scan": 0, "cmd_repair": 0,
                             "node_deps_resolve": 0, "node_range_resolve": 0,
                             "lane_slice": 0, "quorum_count": 0,
-                            "protocol_tick": 0}
+                            "protocol_tick": 0, "mailbox_route": 0,
+                            "deps_matrix": 0, "transitive_closure": 0,
+                            "execution_wavefronts": 0,
+                            "dag_wavefronts_packed": 0}
 
 # CUDA graphs captured by protocol_tick (one per new static signature):
 # after a warm pass, a run over the same traffic must capture none; and
@@ -1902,8 +1914,8 @@ def _host_lane(x, dev):
 
 
 def _protocol_tick_plain(witness_table, key_in, rng_in, fin_statics,
-                         fin_traced, cmds, quorum, quorum_size, cmd_repairs,
-                         execs):
+                         fin_traced, cmds, quorum, quorum_size, mailbox,
+                         cmd_repairs, execs):
     """The reference's program, stage by stage, with the plain versions."""
     from accord_tpu_torch.ops import node_lane as nl
     dev = witness_table.device
@@ -1937,11 +1949,16 @@ def _protocol_tick_plain(witness_table, key_in, rng_in, fin_statics,
     if quorum is not None:
         q_out = quorum_count_plain(*(_host_lane(x, dev) for x in quorum),
                                    int(quorum_size))
+    mail_out = ()
+    if mailbox is not None:
+        from accord_tpu_torch.ops.mailbox import mailbox_route_plain
+        mail_out = mailbox_route_plain(*(_host_lane(x, dev)
+                                         for x in mailbox))
     rep_outs = tuple(cmd_repair_plain(*(_host_lane(x, dev) for x in r))
                      for r in cmd_repairs)
     exec_outs = tuple(frontier_compact_plain(pl, int(oc))
                       for pl, oc in execs)
-    return (packed, rng_out, tuple(fin_outs), cmd_outs, q_out, (),
+    return (packed, rng_out, tuple(fin_outs), cmd_outs, q_out, mail_out,
             rep_outs, exec_outs)
 
 
@@ -1951,8 +1968,9 @@ def protocol_tick(witness_table, key_in=None, rng_in=None, fins=(),
     """The protocol megakernel: ONE device program per cluster tick
     covering the node-lane resolves (K13, K14), every plan's finalize
     compaction read in place at its merge span (K2, K6), cmd_tick blocks
-    (K10), the fast-path quorum count (K16), cmd-plane repair scatters
-    (K12) and exec frontier compactions (K9). On the card the program is a
+    (K10), the fast-path quorum count (K16), the device message plane's
+    mailbox routing (K17), cmd-plane repair scatters (K12) and exec
+    frontier compactions (K9). On the card the program is a
     CUDA graph per static signature (ops/tick_graph.py), replayed once per
     call and counted in LAUNCHES["protocol_tick"] (captures in CAPTURES);
     on the CPU the plain versions run in order.
@@ -1972,8 +1990,10 @@ def protocol_tick(witness_table, key_in=None, rng_in=None, fins=(),
     quorum:  (txn i32[t, 3], ts i32[t, 3], code i32[t], valid bool[t])
              padded to a MEGA_LANE_TIERS tier; quorum_size the electorate
              majority
-    mailbox: the device message plane's routing stage -- not ported yet
-             (ROADMAP queue 1 item 8): raises NotImplementedError
+    mailbox: ops/mailbox.MailboxPlane.stage_batch's block (arena, meta,
+             e_src, e_dst, e_slot, e_keep, e_kind, e_seq, e_words, part):
+             the arena and meta update in place, and mail_out is
+             (arena, meta, landed_words, landed_meta, land)
     cmd_repairs: CmdPlane.collect_repair blocks (cmd_repair's 18 args)
     execs:   ((planes, out_cap), ...) frontier_compact blocks
     Lanes may be numpy arrays. -> (packed, (rpacked, kpacked), fin_outs,
@@ -2002,14 +2022,180 @@ def protocol_tick_plain(witness_table, key_in=None, rng_in=None, fins=(),
 def _protocol_tick(runner, witness_table, key_in, rng_in, fins, cmds,
                    quorum, quorum_size, mailbox, cmd_repairs, execs):
     if mailbox is not None:
-        raise NotImplementedError(
-            "protocol_tick: the mailbox stage (the device message plane) is "
-            "not ported yet -- ROADMAP queue 1 item 8")
+        from accord_tpu_torch.ops.mailbox import check_mail_lanes
+        check_mail_lanes(mailbox)
+        mailbox = tuple(mailbox)
     fin_statics, fin_traced, order = _fin_split(fins)
     out = runner(witness_table, key_in, rng_in, fin_statics, fin_traced,
-                 tuple(cmds), quorum, quorum_size, tuple(cmd_repairs),
-                 tuple(execs))
+                 tuple(cmds), quorum, quorum_size, mailbox,
+                 tuple(cmd_repairs), tuple(execs))
     return out[:2] + (_fin_unsort(out[2], order),) + out[3:]
+
+
+# -- K18-K21: the execute-DAG kernels (csrc/dense_dag.cu) ---------------------
+def deps_matrix_plain(subj_words, subj_before, subj_kinds, act_words, act_ts,
+                      act_kinds, act_valid, witness_table):
+    """The reference's deps_matrix on packed bitmaps: the overlap is the
+    0/1 matmul > 0.5, as there (exact: the addends are 0 or 1)."""
+    s = _unpack_bits(subj_words).to(torch.float32)
+    a = _unpack_bits(act_words).to(torch.float32)
+    overlap = (s @ a.T) > 0.5
+    n0, n1 = witness_table.shape
+    witness = witness_table[_gather_index(subj_kinds, n0)[:, None],
+                            _gather_index(act_kinds, n1)[None, :]] == 1
+    before = _lex_before(act_ts[None, :, :], subj_before[:, None, :])
+    return overlap & witness & before & act_valid[None, :]
+
+
+def deps_matrix(subj_words, subj_before, subj_kinds, act_words, act_ts,
+                act_kinds, act_valid, witness_table):
+    """K18, the pairwise dependency matrix (the reference's deps_matrix):
+    dep[b, a] iff subject b's and active a's bucket bitmaps share a bucket,
+    subject b's kind witnesses a's (witness_table[kind_b, kind_a] == 1,
+    gather rules), act_ts[a] is lex-before subj_before[b] and act_valid[a].
+    Bitmaps are packed, i32[B, K/32] and i32[A, K/32] (carry.pack_bitmaps),
+    for any K a multiple of 32. -> bool[B, A]."""
+    if not subj_words.is_cuda:
+        return deps_matrix_plain(subj_words, subj_before, subj_kinds,
+                                 act_words, act_ts, act_kinds, act_valid,
+                                 witness_table)
+    lanes = (subj_words, subj_before, subj_kinds, act_words, act_ts,
+             act_kinds, act_valid, witness_table)
+    b, kw = subj_words.shape
+    a = act_words.shape[0]
+    if (tuple(act_words.shape) != (a, kw)
+            or tuple(subj_before.shape) != (b, 3)
+            or tuple(subj_kinds.shape) != (b,)
+            or tuple(act_ts.shape) != (a, 3) or tuple(act_kinds.shape) != (a,)
+            or tuple(act_valid.shape) != (a,) or witness_table.dim() != 2
+            or act_valid.dtype != torch.bool
+            or any(x.dtype != torch.int32 for x in lanes
+                   if x is not act_valid)):
+        raise ValueError("deps_matrix: packed words i32[B, K/32] and "
+                         "i32[A, K/32], ts i32[., 3], kinds i32[.], valid "
+                         "bool[A], witness_table i32[k0, k1]")
+    ext = _ext()
+    _check_cuda(*lanes)
+    out = torch.empty(b, a, dtype=torch.bool, device=subj_words.device)
+    n0, n1 = witness_table.shape
+    ext.call("dense_dag", "deps_matrix", *(_addr(x) for x in lanes), n0, n1,
+             b, a, kw, _addr(out), ext.stream())
+    LAUNCHES["deps_matrix"] += 1
+    return out
+
+
+def transitive_closure_step_plain(r):
+    """One squaring of the reference's closure: R | (R @ R > 0.5)."""
+    rf = r.to(torch.float32)
+    return r | ((rf @ rf) > 0.5)
+
+
+def transitive_closure_plain(adj, iterations: int):
+    r = adj.clone()
+    for _ in range(int(iterations)):
+        r = transitive_closure_step_plain(r)
+    return r
+
+
+def _check_square_bool(adj, who: str) -> int:
+    n = adj.shape[0]
+    if adj.dim() != 2 or adj.shape[1] != n or adj.dtype != torch.bool:
+        raise ValueError(f"{who}: adjacency must be bool[N, N]")
+    return n
+
+
+def transitive_closure(adj, iterations: int):
+    """K19: reachability by repeated squaring, R |= (R @ R > 0.5), exactly
+    `iterations` times, each from the previous R (the reference's
+    transitive_closure). bool[N, N] -> bool[N, N]."""
+    if not adj.is_cuda:
+        return transitive_closure_plain(adj, iterations)
+    ext = _ext()
+    n = _check_square_bool(adj, "transitive_closure")
+    _check_cuda(adj)
+    nw = (n + 31) // 32
+    most = int(ext.lib("dense_dag").closure_max_words())
+    if nw > most:
+        raise ValueError("transitive_closure: N above the kernel's limit "
+                         f"({32 * most})")
+    pa = torch.empty(n, nw, dtype=torch.int32, device=adj.device)
+    pb = torch.empty_like(pa)
+    out = torch.empty_like(adj)
+    ext.call("dense_dag", "transitive_closure", _addr(adj), n,
+             int(iterations), _addr(pa), _addr(pb), _addr(out), ext.stream())
+    LAUNCHES["transitive_closure"] += 1
+    return out
+
+
+def execution_wavefronts_plain(adj, max_levels: int):
+    n = adj.shape[0]
+    level = torch.zeros(n, dtype=torch.int32, device=adj.device)
+    zero = torch.zeros((), dtype=torch.int32, device=adj.device)
+    for _ in range(int(max_levels)):
+        dep = torch.where(adj, level[None, :] + 1, zero)
+        level = torch.maximum(level, dep.max(dim=1).values)
+    return level
+
+
+def execution_wavefronts(adj, max_levels: int):
+    """K20: topological execution levels, level'[i] = max(level[i],
+    max_j adj[i, j] * (level[j] + 1)) from zeros for `max_levels` rounds,
+    each from the previous round's levels (the reference's
+    execution_wavefronts; under a cycle the levels climb with the rounds).
+    bool[N, N] -> i32[N]."""
+    if not adj.is_cuda:
+        return execution_wavefronts_plain(adj, max_levels)
+    ext = _ext()
+    n = _check_square_bool(adj, "execution_wavefronts")
+    _check_cuda(adj)
+    nw = (n + 31) // 32
+    packed = torch.empty(n, nw, dtype=torch.int32, device=adj.device)
+    out = torch.empty(n, dtype=torch.int32, device=adj.device)
+    lb = torch.empty_like(out)
+    ext.call("dense_dag", "execution_wavefronts", _addr(adj), n,
+             int(max_levels), _addr(packed), _addr(out), _addr(lb),
+             ext.stream())
+    LAUNCHES["execution_wavefronts"] += 1
+    return out
+
+
+def dag_wavefronts_packed_plain(adj_packed, max_levels: int):
+    n, words = adj_packed.shape
+    dev = adj_packed.device
+    applied = torch.zeros(words, dtype=torch.int32, device=dev)
+    level = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    for i in range(int(max_levels)):
+        blocked = ((adj_packed & ~applied[None, :]) != 0).any(1)
+        ready = ~blocked & (level < 0)
+        level = torch.where(ready, torch.full_like(level, i), level)
+        applied = applied | _pack_bits(ready.reshape(1, n))[0]
+    return level
+
+
+def dag_wavefronts_packed(adj_packed, max_levels: int):
+    """K21: release rounds over a packed DAG (the reference's
+    dag_wavefronts_packed): adj_packed i32[N, N/32], bit d of row w set
+    iff w depends on d. Round i: rows with no dependency outside the
+    previous rounds' applied set, and no level yet, get level i and join
+    the applied set. -> i32[N], -1 where never settled."""
+    n, words = adj_packed.shape
+    if n != 32 * words or adj_packed.dtype != torch.int32:
+        raise ValueError("dag_wavefronts_packed: adjacency must be "
+                         "i32[N, N/32]")
+    if not adj_packed.is_cuda:
+        return dag_wavefronts_packed_plain(adj_packed, max_levels)
+    ext = _ext()
+    _check_cuda(adj_packed)
+    dev = adj_packed.device
+    level = torch.empty(n, dtype=torch.int32, device=dev)
+    app_a = torch.empty(words, dtype=torch.int32, device=dev)
+    app_b = torch.empty_like(app_a)
+    resume = torch.empty_like(level)
+    ext.call("dense_dag", "dag_wavefronts_packed", _addr(adj_packed), n,
+             words, int(max_levels), _addr(level), _addr(app_a),
+             _addr(app_b), _addr(resume), ext.stream())
+    LAUNCHES["dag_wavefronts_packed"] += 1
+    return level
 
 
 # -- padded-size ladders (the JAX package's tiers, kept for bit-equal

@@ -11,9 +11,11 @@ byte regions:
   param  host-written each tick into a pinned buffer that belongs to the
          graph; the graph's first node copies it to fixed device memory.
          It holds the host lanes (the merge's subject lanes, the quorum
-         lanes), the node-lane block tables (arena pointers, output
-         pointer), one FinIn per key finalize (its packed window, kid
-         table and lanes), and the copy tables below.
+         lanes, the mailbox emit lanes), the node-lane block tables (arena
+         pointers, output pointer), the mailbox table (the plane's arena,
+         meta and partition-mask pointers: the arena is updated in place),
+         one FinIn per key finalize (its packed window, kid table and
+         lanes), and the copy tables below.
   fixed  device memory that belongs to the graph: the tick's device inputs
          that a stage reads by argument (gathered by the graph's second
          node, csrc/tick_graph.cu table_copy), scratch, and every stage
@@ -379,6 +381,32 @@ def _stage_exec(P, ext, planes, out_cap: int):
     return tuple(o[1] for o in outs)
 
 
+def _stage_mail(P, ext, mailbox):
+    """K17: the arena, meta and partition-mask pointers go through a
+    param-block table (the arena is updated in place, never gathered into
+    fixed memory); the emit lanes go in the param block; the landed
+    gather-back is scattered into the tick's buffer."""
+    from accord_tpu_torch.ops import mailbox as mb
+    dims = mb.check_mail_lanes(mailbox)
+    arena, meta, *lanes, part = mailbox
+    if not all(isinstance(t, torch.Tensor) and t.is_cuda
+               for t in (arena, meta, part)):
+        raise ValueError("protocol_tick: the mailbox arena, meta and "
+                         "partition mask must be card tensors")
+    L, W = dims[0], dims[1]
+    P.sig.append(("mail",))
+    tab = P.table([P.ptr(arena), P.ptr(meta), P.ptr(part)])
+    refs = [P.inp(x) for x in lanes]
+    outs = [P.out(sh, dt) for sh, dt in (((L, W), torch.int32),
+                                         ((L, 3), torch.int32),
+                                         ((L,), torch.bool))]
+    o_refs = [o[0] for o in outs]
+    P.launches.append(lambda B: mb.launch_mailbox_route(
+        ext, _addrs(B), tab, None, refs, o_refs, dims))
+    P.count("mailbox_route")
+    return (arena, meta) + tuple(o[1] for o in outs)
+
+
 def _copy_launch(P, ext, tab, ents) -> None:
     n = len(ents)
     most = max(e[2] for e in ents)
@@ -391,7 +419,7 @@ def _copy_launch(P, ext, tab, ents) -> None:
 
 
 def _build(ext, dev, witness_table, key_in, rng_in, fin_statics, fin_traced,
-           cmds, quorum, quorum_size, cmd_repairs, execs) -> tuple:
+           cmds, quorum, quorum_size, mailbox, cmd_repairs, execs) -> tuple:
     P = _Prog(dev)
     nk = witness_table.shape[0]
     wt_ref = P.inp(witness_table)
@@ -413,6 +441,7 @@ def _build(ext, dev, witness_table, key_in, rng_in, fin_statics, fin_traced,
     cmd_outs = [_stage_cmd(P, ext, c) for c in cmds]
     q_out = _stage_quorum(P, ext, quorum, quorum_size) \
         if quorum is not None else ()
+    mail = _stage_mail(P, ext, mailbox) if mailbox is not None else ()
     reps = [_stage_repair(P, ext, r) for r in cmd_repairs]
     exs = [_stage_exec(P, ext, pl, int(oc)) for pl, oc in execs]
     # the copy tables close the layout: the gather runs first, the scatter
@@ -431,7 +460,7 @@ def _build(ext, dev, witness_table, key_in, rng_in, fin_statics, fin_traced,
         stab = None
     P.launches = pre + P.launches + post
     P.sig.append(tuple(sorted(P.size.items())))
-    layout = (views, fins, cmd_outs, q_out, reps, exs)
+    layout = (views, fins, cmd_outs, q_out, mail, reps, exs)
     return P, layout, gtab, stab
 
 
@@ -515,18 +544,20 @@ def _view(out, spec):
 
 
 def run_protocol_tick(witness_table, key_in, rng_in, fin_statics,
-                      fin_traced, cmds, quorum, quorum_size, cmd_repairs,
-                      execs):
+                      fin_traced, cmds, quorum, quorum_size, mailbox,
+                      cmd_repairs, execs):
     ext = K._ext()
     dev = witness_table.device
     if not _CHECKED:
         nl.table_sizes_ok()
         if int(ext.lib("tick_graph").copy_ent_bytes()) != 24:
             raise RuntimeError("tick_graph CopyEnt layout differs")
+        if int(ext.lib("mailbox_route").mailbox_tab_bytes()) != 24:
+            raise RuntimeError("mailbox_route MailTab layout differs")
         _CHECKED.append(True)
     P, layout, gtab, stab = _build(ext, dev, witness_table, key_in, rng_in,
                                    fin_statics, fin_traced, cmds, quorum,
-                                   quorum_size, cmd_repairs, execs)
+                                   quorum_size, mailbox, cmd_repairs, execs)
     sig = tuple(P.sig)
     g = _GRAPHS.get(sig)
     out = torch.empty(max(P.size["o"], _ALIGN), dtype=torch.uint8,
@@ -553,7 +584,7 @@ def run_protocol_tick(witness_table, key_in, rng_in, fin_statics,
     K.LAUNCHES["protocol_tick"] += 1
     for name, n in P.counts.items():
         K.LAUNCHES[name] += n
-    views, fins, cmd_outs, q_out, reps, exs = layout
+    views, fins, cmd_outs, q_out, mail, reps, exs = layout
 
     def vs(specs):
         return tuple(_view(out, s) for s in specs)
@@ -561,7 +592,8 @@ def run_protocol_tick(witness_table, key_in, rng_in, fin_statics,
     rng = tuple(_view(out, s) for s in views["rng"])
     return (packed, rng, tuple(vs(f) for f in fins),
             tuple(vs(c) for c in cmd_outs), vs(q_out) if q_out else (),
-            (), tuple(vs(r) for r in reps), tuple(vs(e) for e in exs))
+            mail[:2] + vs(mail[2:]) if mail else (),
+            tuple(vs(r) for r in reps), tuple(vs(e) for e in exs))
 
 
 def _evict() -> None:

@@ -361,13 +361,13 @@ class DeviceMessageNetwork(SimNetwork):
         the sharded megakernel's all_to_all routing stage can carry it."""
         if self._engine is engine:
             return
-        raise NotImplementedError(
-            "device message plane: ROADMAP queue 1 item 8 (not ported yet)")
+        from accord_tpu_torch.ops.mailbox import MailboxPlane, nodes_device
         self._engine = engine
         self._plane = MailboxPlane(max(self.nodes, default=0),
                                    depth=self.mailbox_depth,
                                    words=self.mailbox_words,
-                                   shards=shards)
+                                   shards=shards,
+                                   device=nodes_device(self.nodes))
 
     def message_kind(self, name: str) -> int:
         k = self._kinds.get(name)

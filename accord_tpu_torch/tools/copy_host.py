@@ -92,7 +92,9 @@ EDITED: Dict[str, Tuple[Tuple[int, int, str], ...]] = {
         (803, 803, "--device"),
     ),
     "sim/network.py": (
-        (364, 364, "device_messages raises: ROADMAP queue 1 item 8"),
+        (364, 364, "the port's MailboxPlane and its device helper"),
+        (369, 369, "the plane on the device of the resolvers the tick "
+                   "engine adopted (a CPU burn stays on the CPU)"),
     ),
 }
 

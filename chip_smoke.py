@@ -111,7 +111,28 @@ launched.
      to the plain protocol_tick, every plan's deps equal to the host
      scan; the replay, K13, K2 and K16 alone, and the stages launched one
      by one, timed;
- 19. kernels: each kernel's wrapper is called again on the card on the
+ 19. message plane (bench.py's bench_message_plane config: seed 6, rf 5,
+     concurrency 24, megakernel; 64 nodes x 60 ops, 256 x 30, 1024 x 12):
+     replica payloads ride the mailbox stage (K17) of the one replay a
+     tick, device_messages=True against the host network, after a warm
+     pass of both: one history per size, and the 64-node one equal to the
+     CPU's; launches_per_tick 1.0, zero overflow spills and verify
+     fallbacks, no graph captured after the warm pass, K17 launched;
+     messages per host callback, host ms per tick, the largest tick's
+     replay ms;
+ 20. the graft entry (accord_tpu_torch/graft_entry.py, the twin of
+     __graft_entry__.entry): deps_matrix -> transitive_closure(7) ->
+     execution_wavefronts(7) on example_batch(n=128, k=256) on the card,
+     (deps, levels) bit-equal to the plain versions on the CPU (K18-K20
+     must launch);
+ 21. the execute-DAG kernels at a real size: K18 at BASELINE's PreAccept
+     shape (4,096 subjects x 16,384 arena rows, 1,024 buckets, 10,000
+     live rows of 4 keys over 1,000); K19 (13 iterations) and K20 (64
+     levels) at N 8,192 on a bench_dag-style DAG; K21 at bench_dag's
+     100,000 nodes and 192 levels (the packed adjacency, 1.25 GB, made on
+     the card from a torch.Generator seeded 5 with bench_dag's density
+     rule), settled, its depth reported;
+ 22. kernels: each kernel's wrapper is called again on the card on the
      exact inputs its path (and a batch) gave it, and held bit-equal
      against its plain PyTorch version on the same inputs; kernel, plain
      and (where one exists) single-library-call times come from CUDA
@@ -178,7 +199,25 @@ KERNELS = (
      "accord_tpu/ops/kernels.py:1410"),
     ("protocol_tick", "accord_tpu_torch/csrc/tick_graph.cu",
      "accord_tpu/ops/kernels.py:1434"),
+    ("mailbox_route", "accord_tpu_torch/csrc/mailbox_route.cu",
+     "accord_tpu/ops/mailbox.py:75"),
+    ("deps_matrix", "accord_tpu_torch/csrc/dense_dag.cu",
+     "accord_tpu/ops/kernels.py:36"),
+    ("transitive_closure", "accord_tpu_torch/csrc/dense_dag.cu",
+     "accord_tpu/ops/kernels.py:97"),
+    ("execution_wavefronts", "accord_tpu_torch/csrc/dense_dag.cu",
+     "accord_tpu/ops/kernels.py:113"),
+    ("dag_wavefronts_packed", "accord_tpu_torch/csrc/dense_dag.cu",
+     "accord_tpu/ops/kernels.py:197"),
 )
+# the yardstick PyTorch call behind a kernel's library_ms where it computes
+# one stage of the kernel's function (timed only; never on the path)
+LIBRARY_CALL = {
+    "deps_matrix": "torch.matmul of the unpacked bf16 bitmaps: the overlap "
+                   "stage only",
+    "transitive_closure": "torch.matmul of R in bf16: one squaring"}
+DENSE_KERNELS = ("deps_matrix", "transitive_closure", "execution_wavefronts",
+                 "dag_wavefronts_packed")
 EXEC_KERNELS = ("exec_scatter", "execution_frontier",
                 "fused_execution_frontier", "frontier_compact")
 # kernel-module functions recorded on the paths, by kernel
@@ -198,7 +237,9 @@ RECORDED = {"deps_resolve": ("deps_resolve", "fused_deps_resolve"),
             "node_deps_resolve": ("node_fused_deps_resolve",),
             "node_range_resolve": ("node_fused_range_deps_resolve",),
             "lane_slice": ("lane_slice",), "quorum_count": ("quorum_count",),
-            "protocol_tick": ("protocol_tick",)}
+            "protocol_tick": ("protocol_tick",),
+            "mailbox_route": ("mailbox_route",),
+            **{k: (k,) for k in DENSE_KERNELS}}
 # the path whose launches each kernel's entry reports
 PATH_OF = {"deps_resolve": "key_burn", "finalize_csr": "key_burn",
            "arena_scatter": "key_burn", "row_scatter": "key_burn",
@@ -210,7 +251,11 @@ PATH_OF = {"deps_resolve": "key_burn", "finalize_csr": "key_burn",
            "recovery_scan": "recovery_burn", "cmd_repair": "repair",
            "node_deps_resolve": "mega_sweep", "node_range_resolve":
            "mega_range", "lane_slice": "merged_sweep",
-           "quorum_count": "mega_cmd", "protocol_tick": "mega_sweep"}
+           "quorum_count": "mega_cmd", "protocol_tick": "mega_sweep",
+           "mailbox_route": "message_plane", "deps_matrix": "graft_entry",
+           "transitive_closure": "graft_entry",
+           "execution_wavefronts": "graft_entry",
+           "dag_wavefronts_packed": "dag_100k"}
 
 
 class SmokeFailure(Exception):
@@ -257,6 +302,8 @@ class Recorder:
         from accord_tpu_torch.ops import node_lane
         for names in RECORDED.values():
             for name in names:
+                if name == "mailbox_route":
+                    continue   # a graph stage: kept from protocol_tick's
                 mod = self.tk if hasattr(self.tk, name) else node_lane
                 fn = getattr(mod, name)
                 self.orig[name] = (mod, fn)
@@ -272,6 +319,13 @@ class Recorder:
                                     and args[9].shape[0] == self.cmd_tier:
                                 self.calls[_name] = (size, args, kw)
                             return _fn(*args, **kw)
+                    mail = kw.get("mailbox") \
+                        if _name == "protocol_tick" else None
+                    if mail is not None:
+                        m = self.calls.get("mailbox_route")
+                        if m is None or mail[2].shape[0] > m[0]:
+                            self.calls["mailbox_route"] = (
+                                mail[2].shape[0], tuple(mail), {})
                     if best is None or size > best[0]:
                         self.calls[_name] = (size, args, kw)
                     return _fn(*args, **kw)
@@ -380,6 +434,7 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
     lanes (numpy) go to the card before the replay. protocol_tick's `ms`
     is its graph's replay alone; `call_ms` adds the host's per-tick
     program build."""
+    from accord_tpu_torch.ops import mailbox as mb
     from accord_tpu_torch.ops import node_lane as nl
     dev = "cuda" if cuda else "cpu"
     plain_of = {
@@ -411,6 +466,8 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
         "lane_slice": nl.lane_slice_plain,
         "quorum_count": tk.quorum_count_plain,
         "protocol_tick": tk.protocol_tick_plain,
+        "mailbox_route": mb.mailbox_route_plain,
+        **{k: getattr(tk, k + "_plain") for k in DENSE_KERNELS},
     }
     calls = []
     for fn_name in RECORDED[name]:
@@ -423,10 +480,16 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
     rows = []
     for fn_name, args, kw in calls:
         args, kw = _on(args, dev), _on(kw, dev)
-        kern = getattr(tk, fn_name, None) or getattr(nl, fn_name)
+        kern = getattr(tk, fn_name, None) or getattr(nl, fn_name, None) \
+            or getattr(mb, fn_name)
         plain = plain_of[fn_name]
-        out = kern(*args, **kw)
-        err = max_abs_err(out, plain(*args, **kw))
+        if fn_name == "mailbox_route":
+            # in place: each side routes into its own copy of the arena
+            out = kern(*_fresh(args))
+            err = max_abs_err(out, plain(*_fresh(args)))
+        else:
+            out = kern(*args, **kw)
+            err = max_abs_err(out, plain(*args, **kw))
         ms = time_ms(lambda: kern(*args, **kw), iters, cuda)
         extra = {}
         if fn_name == "protocol_tick" and cuda:
@@ -456,6 +519,12 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
     head = max(rows, key=lambda r: r["input_mb"])
     return dict(head, max_abs_err=max(r["max_abs_err"] for r in rows),
                 calls=rows)
+
+
+def _fresh(args):
+    """A mailbox block with its arena and meta cloned (K17 updates them in
+    place)."""
+    return (args[0].clone(), args[1].clone()) + tuple(args[2:])
 
 
 def derived_call(tk, fn_name, rec):
@@ -566,6 +635,40 @@ def bound_inputs(tk, fn_name, args, kw, out):
     import torch
     if fn_name == "protocol_tick":
         return tick_bound(tk, args, kw, out)
+    if fn_name == "mailbox_route":
+        # every lane's small fields and its part entry read once; a landed
+        # lane's words read once and written to its arena row once (+ its
+        # meta); the gather-back's outputs written once
+        arena, meta, src, dst, slot, keep, kind, seq, words, part = args
+        lanes, w = words.shape
+        landed = int(out[4].sum())
+        small = nbytes(src, dst, slot, keep, kind, seq) + lanes
+        return (small + 2 * landed * (w * 4 + 12) + nbytes(out[2:]), 0,
+                None)
+    if fn_name == "deps_matrix":
+        sw, aw = args[0], args[3]
+        b, kw_ = sw.shape
+        a = aw.shape[0]
+        s_bf = tk._unpack_bits(sw).to(torch.bfloat16)
+        a_bf = tk._unpack_bits(aw).to(torch.bfloat16).T.contiguous()
+        return (nbytes(args) + nbytes(out), b * a * kw_,
+                lambda: torch.matmul(s_bf, a_bf))
+    if fn_name == "transitive_closure":
+        adj, iters = args
+        nw = (adj.shape[0] + 31) // 32
+        ops, r = 0, adj
+        for _ in range(int(iters)):
+            ops += int(r.sum()) * nw
+            r = tk.transitive_closure_step_plain(r)
+        rf = adj.to(torch.bfloat16)
+        return (nbytes(adj) + nbytes(out), ops,
+                lambda: torch.matmul(rf, rf))
+    if fn_name == "execution_wavefronts":
+        adj, levels = args
+        return nbytes(adj) + nbytes(out), int(levels) * int(adj.sum()), None
+    if fn_name == "dag_wavefronts_packed":
+        adj = args[0]
+        return nbytes(adj) + nbytes(out), adj.numel(), None
     if fn_name == "lane_slice":
         packed, r0, w0, rows, words = args
         from accord_tpu_torch.ops.node_lane import dyn_start
@@ -1691,12 +1794,20 @@ def run(rehearse: bool) -> dict:
     tick10k = FixedCalls(
         protocol_tick=merged_tick(device, cuda, rehearse, tk)["args"])
 
-    # 20. kernels: replay the recorded inputs, kernel vs plain, timed
+    # 19-21. the message plane, the graft entry, the execute-DAG kernels
+    mail_recs = {"message_plane": Recorder(tk)}
+    mail_big = message_plane(device, cuda, rehearse, tk, launches,
+                             mail_recs)["largest_leg"]
+    graft_rec = graft_leg(device, cuda, tk, launches)
+    dense_batch, dag_rec = dense_legs(device, cuda, rehearse, tk, launches)
+
+    # 22. kernels: replay the recorded inputs, kernel vs plain, timed
     iters = 50 if cuda else 2
     path_rec = {"key_burn": key_rec, "range_burn": range_rec,
                 "inline": inline_rec, **exec_recs, "cmd_burn": cmd_rec,
                 "recovery_burn": rec_rec, "repair": rep_rec, **sweep_recs,
-                **leg_recs}
+                **leg_recs, **mail_recs, "graft_entry": graft_rec,
+                "dag_100k": dag_rec}
     # further inputs each kernel is replayed on, by label (the first
     # two keep their PR-1/PR-2 names in the kernels line)
     extra_rec = {"key_burn": [("preaccept_batch", pa_rec),
@@ -1706,7 +1817,11 @@ def run(rehearse: bool) -> dict:
                  "recovery_burn": [("recovery_batch", rb_rec)],
                  "repair": [], "mega_sweep": [("merged_tick_10k", tick10k)],
                  "merged_sweep": [], "mega_range": [],
-                 "mega_cmd": [("merged_tick_10k", tick10k)]}
+                 "mega_cmd": [("merged_tick_10k", tick10k)],
+                 "message_plane": [("largest_leg", mail_big)],
+                 "graft_entry": [("real_size",
+                                                       dense_batch)],
+                 "dag_100k": []}
     exec_extra = [("exec_burn", exec_recs["exec_burn"]),
                   ("exec_compact", exec_recs["exec_compact"]),
                   ("frontier_batch_a", fa_rec),
@@ -1734,7 +1849,8 @@ def run(rehearse: bool) -> dict:
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[path][name],
-            "path": path,
+            "path": path, **({"library_call": LIBRARY_CALL[name]}
+                             if name in LIBRARY_CALL else {}),
             "max_abs_err": max(k["max_abs_err"] for k in reports),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2126,6 +2242,229 @@ def merged_tick(device: str, cuda: bool, rehearse: bool, tk) -> dict:
     log(f"merged_tick[{device}]: {json.dumps(out)}")
     return {"out": out, "args": ((wt,), kw)}
 
+
+
+# -- the message plane, the graft entry, the execute-DAG kernels -------------
+def message_plane(device: str, cuda: bool, rehearse: bool, tk, launches,
+                  recs) -> dict:
+    """bench.py's bench_message_plane sizes (seed 6, rf 5, concurrency 24,
+    megakernel; 64 nodes x 60 ops, 256 x 30, 1024 x 12): a warm pass of
+    device_messages=True and the host network at every size, then a timed
+    pass whose device-messages runs are one path (counts zeroed before,
+    read after). One history per size, the 64-node one equal to the CPU's
+    device-messages run; launches_per_tick 1.0, zero overflow spills and
+    verify fallbacks, no graph captured or evicted after the warm pass,
+    K17 launched in the replays. -> the rows by size, and under
+    "largest_leg" the largest mailbox block the largest size recorded."""
+    import torch
+    from accord_tpu_torch.sim.mesh_burn import run_mesh_burn
+    sizes = ((64, 60), (256, 30), (1024, 12)) if not rehearse \
+        else ((16, 20), (32, 12))
+    base = dict(rf=5, concurrency=24, megakernel=True, collect_log=True)
+
+    def leg(dev, n, o, mail):
+        t0 = time.perf_counter()
+        rep, eng = run_mesh_burn(6, o, nodes=n, device=dev,
+                                 device_messages=mail, **base)
+        return rep, eng.snapshot(), time.perf_counter() - t0
+
+    for n, o in sizes:                      # warm: captures happen here
+        c0 = tk.CAPTURES["protocol_tick"]
+        leg(device, n, o, True)
+        leg(device, n, o, False)
+        log(f"message_plane warm {n} nodes: "
+            f"{tk.CAPTURES['protocol_tick'] - c0} graphs captured")
+    if cuda:
+        torch.cuda.synchronize()
+    rows, recs_by_size = {}, {}
+    tk.reset_launches()
+    with recs["message_plane"]:
+        for n, o in sizes:
+            with Recorder(tk) as recs_by_size[n]:
+                dev, snap, wall = leg(device, n, o, True)
+            if cuda:
+                torch.cuda.synchronize()
+            c = dev.counters
+            check(dev.lost == 0 and dev.acked == o,
+                  f"message plane {n} nodes: lost or unacked")
+            check(c["launches_per_tick"] == 1.0,
+                  f"message plane {n} nodes: launches_per_tick "
+                  f"{c['launches_per_tick']}")
+            for k in ("mailbox_overflow_spills", "mailbox_verify_fallbacks"):
+                check(c[k] == 0, f"message plane {n} nodes: {k} = {c[k]}")
+            check(c["device_messages_delivered"] > 0,
+                  f"message plane {n} nodes: nothing delivered from the "
+                  "device")
+            rows[n] = {"nodes": n, "ops": o, "wall_s": wall,
+                       "committed_txn_per_s": dev.acked / wall,
+                       "cluster_ticks": snap["cluster_ticks"],
+                       "host_ms_per_tick":
+                           wall * 1e3 / max(1, snap["cluster_ticks"]),
+                       **{k: c[k] for k in (
+                           "messages_per_host_callback",
+                           "device_messages_delivered",
+                           "mailbox_early_deliveries",
+                           "mailbox_depth_high_water",
+                           "mailbox_bytes_staged", "launches_per_tick")},
+                       "log": dev.log}
+    launches["message_plane"] = dict(tk.LAUNCHES)
+    check(tk.CAPTURES["protocol_tick"] == 0
+          and tk.CAPTURES["evictions"] == 0,
+          f"message plane: {tk.CAPTURES['protocol_tick']} graphs captured, "
+          f"{tk.CAPTURES['evictions']} evicted after the warm pass")
+    if cuda:
+        check(launches["message_plane"]["mailbox_route"] > 0,
+              "message plane: K17 never ran in a replay")
+    for n, o in sizes:
+        host, hsnap, hwall = leg(device, n, o, False)
+        check(host.log == rows[n]["log"],
+              f"message plane {n} nodes: device-messages history != the "
+              "host network's")
+        rows[n]["host_network_wall_s"] = hwall
+    n0, o0 = sizes[0]
+    cpu, _snap, cwall = leg("cpu", n0, o0, True)
+    check(cpu.log == rows[n0]["log"],
+          f"message plane {n0} nodes: the card's history != the CPU's")
+    log(f"message_plane: {n0}-node history equal on {device} and cpu "
+        f"({cwall:.2f} s on the cpu)")
+    for n, _o in sizes:
+        rows[n].pop("log")
+        if cuda:
+            args, kw = recs_by_size[n].get("protocol_tick")
+            kw = dict(kw, mailbox=_fresh(kw["mailbox"]))
+            out = tk.protocol_tick(*args, **kw)   # noqa: F841 (kept alive)
+            rows[n]["ms_per_replay_largest_tick"] = time_ms(
+                last_graph_replay(), 20, cuda)
+        log(f"message_plane[{device}]: {json.dumps(rows[n])}")
+    log(f"message_plane: launches {launches['message_plane']}")
+    big = recs_by_size[sizes[-1][0]].get("mailbox_route")
+    check(big is not None, "message plane: the largest leg routed nothing")
+    return dict(rows, largest_leg=FixedCalls(mailbox_route=big))
+
+
+def graft_leg(device: str, cuda: bool, tk, launches):
+    """The graft entry's step on `device` (one path), (deps, levels)
+    bit-equal to entry("cpu")'s; -> a Recorder holding its kernel calls."""
+    import torch
+    from accord_tpu_torch import graft_entry
+    rec = Recorder(tk)
+    step, args = graft_entry.entry(device)
+    tk.reset_launches()
+    with rec:
+        deps, levels = step(*args)
+    if cuda:
+        torch.cuda.synchronize()
+    launches["graft_entry"] = dict(tk.LAUNCHES)
+    pstep, pargs = graft_entry.entry("cpu")
+    pdeps, plevels = pstep(*pargs)
+    check(torch.equal(deps.cpu(), pdeps) and torch.equal(levels.cpu(),
+                                                         plevels),
+          "graft entry: the card's (deps, levels) differ from the plain "
+          "versions'")
+    check(bool(pdeps.any()) and int(plevels.max()) > 0,
+          "graft entry: vacuous")
+    if cuda:
+        for name in ("deps_matrix", "transitive_closure",
+                     "execution_wavefronts"):
+            check(launches["graft_entry"][name] == 1,
+                  f"graft entry: kernel {name} did not launch once")
+    log(f"graft_entry[{device}]: deps {int(pdeps.sum())} of "
+        f"{pdeps.numel()}, depth {int(plevels.max())}; launches "
+        f"{ {k: launches['graft_entry'][k] for k in DENSE_KERNELS} }")
+    return rec
+
+
+def _dag_words(n: int, device: str, seed: int):
+    """bench.py's bench_dag adjacency, made on `device` from a
+    torch.Generator: the AND of thin = round(log2(n/2/12)) random 32-bit
+    draws (~12 deps a node), under the lower-triangular mask (node w
+    depends only on d < w). i32[n, n/32]."""
+    import numpy as np
+    import torch
+    from accord_tpu_torch.ops import kernels as tk
+    words = n // 32
+    thin = max(4, round(np.log2(n / 2 / 12)))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    adj = torch.full((n, words), -1, dtype=torch.int32, device=device)
+    for _ in range(thin):
+        adj &= torch.randint(-(1 << 31), 1 << 31, (n, words),
+                             dtype=torch.int32, device=device,
+                             generator=gen)
+    w_idx = torch.arange(n, device=device)[:, None]
+    j_idx = torch.arange(words, device=device)[None, :]
+    full = (j_idx + 1) * 32 <= w_idx
+    low = (torch.ones((), dtype=torch.int64, device=device)
+           << (w_idx % 32)) - 1
+    partial = torch.where(j_idx == w_idx // 32, tk._to_i32(low),
+                          torch.zeros((), dtype=torch.int32, device=device))
+    mask = torch.where(full, torch.full((), -1, dtype=torch.int32,
+                                        device=device), partial)
+    return adj & mask
+
+
+def dense_legs(device: str, cuda: bool, rehearse: bool, tk, launches):
+    """K18-K20 at a real size (FixedCalls, the graft path's batch) and the
+    100k-node DAG (K21, its own path: counts zeroed before, read after),
+    settled, bit-equal to the plain version on the card."""
+    import numpy as np
+    import torch
+    from accord_tpu_torch.ops import carry
+    from accord_tpu_torch.ops.encoding import WITNESS_TABLE
+    rng = np.random.default_rng(18)
+    b, cap, k, live, nkeys = (4_096, 16_384, 1_024, 10_000, 1_000) \
+        if not rehearse else (256, 1_024, 256, 600, 100)
+    def bitmaps(rows, lo, hi):
+        m = np.zeros((rows, k), np.float32)
+        for r in range(rows):
+            m[r, rng.integers(0, nkeys, rng.integers(lo, hi + 1)) % k] = 1
+        return m
+    sw = carry.packed(bitmaps(b, 1, 4), device)
+    aw = carry.packed(bitmaps(cap, 4, 4), device)
+    sb = np.stack([np.ones(b), rng.integers(0, live, b),
+                   rng.integers(0, 7, b)], 1).astype(np.int32)
+    ts = np.stack([np.ones(cap), np.arange(cap), np.arange(cap) % 7],
+                  1).astype(np.int32)
+    dm_args = (sw, torch.from_numpy(sb).to(device),
+               torch.from_numpy(rng.integers(1, 3, b).astype(np.int32))
+               .to(device), aw, torch.from_numpy(ts).to(device),
+               torch.from_numpy(rng.integers(1, 3, cap).astype(np.int32))
+               .to(device), torch.arange(cap, device=device) < live,
+               torch.from_numpy(WITNESS_TABLE).to(device))
+    n_mid = 8_192 if not rehearse else 512
+    mid = tk._unpack_bits(_dag_words(n_mid, device, 5))
+    batch = FixedCalls(deps_matrix=(dm_args, {}),
+                       transitive_closure=((mid, 13), {}),
+                       execution_wavefronts=((mid, 64), {}))
+    out = tk.deps_matrix(*dm_args)
+    check(bool(out.any()), "deps_matrix batch: vacuous")
+    log(f"dense batch: deps_matrix {tuple(out.shape)} with "
+        f"{int(out.sum())} deps; DAG N {n_mid} with {int(mid.sum())} edges")
+    # the 100k DAG: K21 on its own path
+    n = 100_000 if not rehearse else 4_096
+    levels = 192
+    adj = _dag_words(n, device, 5)
+    edges = int(tk._popcount_u32(adj).sum())
+    rec = FixedCalls(dag_wavefronts_packed=((adj, levels), {}))
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    lv = tk.dag_wavefronts_packed(adj, levels)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["dag_100k"] = dict(tk.LAUNCHES)
+    plain = tk.dag_wavefronts_packed_plain(adj, levels)
+    check(torch.equal(lv, plain),
+          "DAG: K21 differs from its plain version")
+    depth, settled = int(lv.max()), bool((lv >= 0).all())
+    check(settled, "DAG: not every node settled within 192 levels")
+    if cuda:
+        check(launches["dag_100k"]["dag_wavefronts_packed"] == 1,
+              "DAG: K21 did not launch once")
+    log(f"dag[{device}]: N {n} ({adj.numel() * 4 / 1e9:.3f} GB packed), "
+        f"levels {levels}, depth {depth}, settled {settled}, edges "
+        f"{edges}, first call {wall * 1e3:.3f} ms")
+    return batch, rec
 
 
 def _brief(row: dict) -> dict:

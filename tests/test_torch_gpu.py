@@ -962,3 +962,159 @@ def test_megakernel_burn_card_matches_cpu_no_capture_after_warmup(cuda):
     assert snap["launches_per_tick"] == 1.0
     assert tk.LAUNCHES["protocol_tick"] - p0 == \
         snap["megakernel_dispatches"] > 0
+
+
+# -- K17: the mailbox routing stage; K18-K21: the execute-DAG kernels -------
+@pytest.mark.parametrize("n,depth,words,lanes,n_emit", [
+    (4, 4, 8, 8, 5), (16, 8, 384, 64, 64), (63, 64, 384, 1024, 700)])
+def test_mailbox_route_kernel(cuda, n, depth, words, lanes, n_emit):
+    """K17 on the card = its plain version on the CPU: arena and meta
+    updated in place, the landed gather-back, land; with a cut link, pads,
+    and a landed emit at node n, slot depth-1 (where every non-landing
+    emit gathers back, after the scatter)."""
+    from accord_tpu_torch.ops.mailbox import mailbox_route, \
+        mailbox_route_plain
+    rng = np.random.default_rng(lanes + n)
+    rows = (n + 1) * depth
+    arena = rng.integers(-50, 50, (rows, words)).astype(np.int32)
+    meta = rng.integers(-5, 5, (rows, 3)).astype(np.int32)
+    pick = rng.choice(n * depth, n_emit, replace=False)
+    dst = np.zeros(lanes, np.int32)
+    slot = np.zeros(lanes, np.int32)
+    dst[:n_emit], slot[:n_emit] = 1 + pick // depth, pick % depth
+    src = np.zeros(lanes, np.int32)
+    src[:n_emit] = rng.integers(1, n + 1, n_emit)
+    keep = np.zeros(lanes, bool)
+    keep[:n_emit] = True
+    hit = np.nonzero((dst == n) & (slot == depth - 1))[0]
+    if hit.size == 0:
+        dst[0], slot[0] = n, depth - 1
+        keep[np.nonzero((dst == n) & (slot == depth - 1))[0][1:]] = False
+    src[0] = dst[0]
+    part = np.zeros((n + 1, n + 1), bool)
+    part[1, 2] = part[2, 1] = True
+    src[1], dst[1], keep[1] = 1, 2, True
+    kind = rng.integers(1, 20, lanes).astype(np.int32)
+    seq = rng.integers(0, 1 << 31, lanes).astype(np.int32)
+    w = rng.integers(-(1 << 31), 1 << 31, (lanes, words)).astype(np.int32)
+    lanes_ = [_t(x) for x in (src, dst, slot, keep, kind, seq, w)]
+    plain = mailbox_route_plain(_t(arena).clone(), _t(meta).clone(),
+                                *lanes_, _t(part))
+    a, m = _t(arena).to(cuda), _t(meta).to(cuda)
+    got = mailbox_route(a, m, *(x.to(cuda) for x in lanes_),
+                        _t(part).to(cuda))
+    torch.cuda.synchronize()
+    assert got[0] is a and got[1] is m
+    _eq(plain, got)
+
+
+@pytest.mark.parametrize("b,a,k", [(37, 70, 96), (256, 1000, 1024),
+                                   (64, 130, 32)])
+def test_deps_matrix_kernel(cuda, b, a, k):
+    rng = np.random.default_rng(b + a)
+    sw = _words(rng, (b, k // 32)) & _words(rng, (b, k // 32)) \
+        & _words(rng, (b, k // 32))
+    aw = _words(rng, (a, k // 32)) & _words(rng, (a, k // 32)) \
+        & _words(rng, (a, k // 32))
+    sb = rng.integers(-3, 3, (b, 3)).astype(np.int32)
+    ts = rng.integers(-3, 3, (a, 3)).astype(np.int32)
+    ts[::5, 0] = I32_MIN
+    ts[1] = sb[0]
+    sk = rng.integers(-2, 8, b).astype(np.int32)
+    ak = rng.integers(-8, 8, a).astype(np.int32)
+    valid = rng.random(a) < 0.8
+    args = [_t(x) for x in (sw, sb, sk, aw, ts, ak, valid, WITNESS_TABLE)]
+    plain = tk.deps_matrix(*args)
+    got = tk.deps_matrix(*(x.to(cuda) for x in args))
+    torch.cuda.synchronize()
+    _eq(plain, got)
+    assert plain.any()
+
+
+@pytest.mark.parametrize("n,p,dag", [(50, 0.04, False), (300, 0.01, True),
+                                     (1024, 0.004, True)])
+def test_closure_and_wavefront_kernels(cuda, n, p, dag):
+    """K19 and K20 = their plain versions, iterations/levels below and
+    above the depth, with a cycle where dag is False."""
+    rng = np.random.default_rng(n)
+    adj = rng.random((n, n)) < p
+    if dag:
+        adj = np.tril(adj, -1)
+    t = _t(adj)
+    for it in (0, 2, 11):
+        _eq(tk.transitive_closure(t, it),
+            tk.transitive_closure(t.to(cuda), it))
+    for lv in (0, 3, 40):
+        _eq(tk.execution_wavefronts(t, lv),
+            tk.execution_wavefronts(t.to(cuda), lv))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n,p,levels", [(256, 0.03, 5), (4096, 0.002, 192)])
+def test_dag_wavefronts_packed_kernel(cuda, n, p, levels):
+    """K21 = its plain version: rounds cut below the depth, a cycle that
+    never settles (-1)."""
+    from accord_tpu_torch.ops import carry
+    rng = np.random.default_rng(n + levels)
+    adj = np.tril(rng.random((n, n)) < p, -1)
+    adj[10, 11] = adj[11, 10] = True
+    words = carry.packed_adjacency(adj)
+    plain = tk.dag_wavefronts_packed(words, levels)
+    got = tk.dag_wavefronts_packed(words.to(cuda), levels)
+    torch.cuda.synchronize()
+    _eq(plain, got)
+    assert int(plain[10]) == -1
+
+
+def test_message_plane_burn_card_matches_cpu(cuda):
+    """bench_message_plane's config at 64 nodes, cut to 20 ops: the
+    device-messages megakernel burn on the card commits the CPU's history
+    with its mailbox counters, one replay a tick, K17 in the graph."""
+    from accord_tpu_torch.sim.mesh_burn import run_mesh_burn
+    kw = dict(nodes=64, rf=5, concurrency=24, megakernel=True,
+              device_messages=True, collect_log=True)
+    cpu, _ = run_mesh_burn(6, 20, device="cpu", **kw)
+    k0 = tk.LAUNCHES["mailbox_route"]
+    card, eng = run_mesh_burn(6, 20, device=cuda, **kw)
+    c = card.counters
+    assert card.log == cpu.log
+    assert {k: v for k, v in c.items() if "mailbox" in k} == \
+        {k: v for k, v in cpu.counters.items() if "mailbox" in k}
+    assert c["launches_per_tick"] == 1.0
+    assert c["mailbox_verify_fallbacks"] == 0
+    assert c["device_messages_delivered"] > 0
+    assert tk.LAUNCHES["mailbox_route"] > k0
+    assert eng._net._plane.arena.is_cuda
+
+
+def test_protocol_tick_mailbox_stage_matches_plain(cuda):
+    """The mailbox stage inside the tick's graph (arena through the param
+    table, updated in place) = the plain protocol_tick, on two ticks of
+    one signature (the second replays with new lanes)."""
+    from accord_tpu_torch.ops.mailbox import MailboxPlane
+    rng = np.random.default_rng(31)
+    planes = (MailboxPlane(6, depth=4, words=16, device="cpu"),
+              MailboxPlane(6, depth=4, words=16, device=cuda))
+
+    class E:
+        def __init__(self, i):
+            self.src, self.dst = (int(x) for x in rng.choice(
+                np.arange(1, 7), 2, replace=False))
+            self.kind, self.ticket = 1 + i % 5, 1000 + i
+            self.payload = rng.bytes(int(rng.integers(0, 60)))
+
+    c0 = tk.CAPTURES["protocol_tick"]
+    for tick in range(2):
+        ents = [E(10 * tick + i) for i in range(7)]
+        outs = []
+        for plane in planes:
+            plane.set_partitions({frozenset((1, 2))}, version=tick)
+            block = plane.stage_batch(ents)
+            wt = _t(WITNESS_TABLE).to(plane.device)
+            out = tk.protocol_tick(wt, mailbox=block)[5]
+            plane.adopt(out)
+            outs.append(out)
+        torch.cuda.synchronize()
+        _eq(outs[0], outs[1])
+        assert outs[1][0] is planes[1].arena
+    assert tk.CAPTURES["protocol_tick"] - c0 == 1

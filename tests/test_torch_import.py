@@ -44,6 +44,34 @@ print(json.dumps({"cuda": torch.cuda.is_available(), "raised": raised}))
 """
 
 
+_SLICE6 = r"""
+import json, sys, torch
+from accord_tpu_torch import graft_entry
+from accord_tpu_torch.ops import mailbox
+from accord_tpu_torch.parallel import mesh
+from accord_tpu_torch.sim.mesh_burn import run_mesh_burn
+rep, _ = run_mesh_burn(3, 12, nodes=3, megakernel=True, device_messages=True,
+                       device="cpu")
+step, args = graft_entry.entry("cpu")
+deps, levels = step(*args)
+raised = {}
+for name, fn in (("plane", lambda: mailbox.MailboxPlane(4)),
+                 ("entry", graft_entry.entry)):
+    try:
+        fn()
+        raised[name] = None
+    except RuntimeError as e:
+        raised[name] = str(e)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "triton", "accord_tpu")
+             or m.startswith(("jax.", "jaxlib.", "triton.", "accord_tpu.")))
+print(json.dumps({"acked": rep.acked, "cuda": torch.cuda.is_available(),
+                  "delivered": rep.counters["device_messages_delivered"],
+                  "deps": int(deps.sum()), "raised": raised, "bad": bad,
+                  "example": len(mesh.example_resolve_batch())}))
+"""
+
+
 def _run(code: str) -> dict:
     env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT),
            "JAX_PLATFORMS": "cpu"}
@@ -79,3 +107,18 @@ def test_sources_import_no_jax_and_no_reference_module():
             offenders.append(str(p.relative_to(ROOT)))
     assert len(files) > 70
     assert offenders == []
+
+
+def test_message_plane_and_graft_entry_load_no_jax():
+    """The mailbox module, the graft entry and the parallel example inputs
+    import no JAX or JAX-package module, even while a device-messages
+    megakernel burn and the entry run; without a card, MailboxPlane and
+    entry() raise instead of moving to the CPU."""
+    res = _run(_SLICE6)
+    assert res["acked"] > 0 and res["delivered"] > 0 and res["deps"] > 0
+    assert res["bad"] == []
+    assert res["example"] == 9
+    if not res["cuda"]:
+        for name in ("plane", "entry"):
+            assert res["raised"][name] and "no CUDA device" in \
+                res["raised"][name]

@@ -440,5 +440,7 @@ def test_protocol_tick_plain_matches_jax():
 
 
 def test_protocol_tick_mailbox_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """The mailbox stage is ported (tests/test_torch_message_plane.py); a
+    malformed mailbox block raises before any stage runs."""
+    with pytest.raises(ValueError, match="mailbox"):
         tk.protocol_tick(_t(WITNESS_TABLE), mailbox=(1,))

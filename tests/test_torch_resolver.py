@@ -269,7 +269,7 @@ def test_finalize_overflow_bumps_tier_and_falls_back_exactly():
     assert res.host_fallbacks == 0
 
 
-def test_range_subject_raises_not_implemented():
+def test_range_subject_resolves_on_device_like_host_scan():
     """A range registration lands in the store's interval arena and a range
     subject resolves on the device path exactly like the host scan --
     nothing raises NotImplementedError any more."""
@@ -294,7 +294,7 @@ def test_range_subject_raises_not_implemented():
     assert res.host_fallbacks == res.range_fallbacks == 0
 
 
-def test_inline_max_conflict_raises_and_batched_declines():
+def test_inline_max_conflict_answers_and_batched_declines():
     """Batched mode declines the device max-conflict, exactly like the
     reference; inline mode (no batch window) answers it through the
     max_conflict kernel's plain version here, without raising."""
