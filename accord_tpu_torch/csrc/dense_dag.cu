@@ -37,6 +37,18 @@
 //   there. Settled rows are skipped. So the adjacency (1.25 GB at N =
 //   100,000) is read about once in all, not once a round. Bound: bytes,
 //   the adjacency read once (~0.37 ms at 3.35 TB/s).
+//
+// A mesh shard's entries (accord_tpu_torch/parallel/mesh.py
+// `sharded_deps_step`, replacing the JAX package's parallel/mesh.py
+// `sharded_deps_step` :89): `deps_matrix_strided` runs K18 on a 'data' row
+// block of subjects and a 'model' word slice of both bitmaps, read in
+// place through row strides (the 'model' partials merge by OR in
+// csrc/mesh_combine.cu); `pack_rows` packs a bool row block; `closure_rows`
+// squares a row block against the gathered full matrix (one Jacobi round
+// of K19) and `wavefront_rows` runs one K20 round over a row block against
+// the gathered levels. One launch per shard per round. Bound: K18's, K19's
+// and K20's, each on its block's share of the work; the gathered matrix is
+// read from the shard's device, so a round adds no bytes on one card.
 #include "common.cuh"
 
 // ---------------------------------------------------------------- K18
@@ -50,7 +62,7 @@ deps_matrix_kernel(const unsigned* __restrict__ sw, const int* __restrict__ sb,
                    const int* __restrict__ at, const int* __restrict__ ak,
                    const unsigned char* __restrict__ av,
                    const int* __restrict__ wt, int nk0, int nk1, int B, int A,
-                   int kw, unsigned char* __restrict__ out) {
+                   int kw, int sws, int aws, unsigned char* __restrict__ out) {
   // [word][row], padded so a row of the tile spreads over the banks
   __shared__ unsigned s_s[DKW][DT + 1];
   __shared__ unsigned s_a[DKW][DT + 1];
@@ -68,8 +80,8 @@ deps_matrix_kernel(const unsigned* __restrict__ sw, const int* __restrict__ sb,
       const int r = e / DKW, w = e % DKW;
       unsigned vs = 0, va = 0;
       if (w < kn) {
-        if (b0 + r < B) vs = sw[(long long)(b0 + r) * kw + k0 + w];
-        if (a0 + r < A) va = aw[(long long)(a0 + r) * kw + k0 + w];
+        if (b0 + r < B) vs = sw[(long long)(b0 + r) * sws + k0 + w];
+        if (a0 + r < A) va = aw[(long long)(a0 + r) * aws + k0 + w];
       }
       s_s[w][r] = vs;
       s_a[w][r] = va;
@@ -135,28 +147,42 @@ deps_matrix_kernel(const unsigned* __restrict__ sw, const int* __restrict__ sb,
   }
 }
 
-extern "C" int deps_matrix(const void* sw, const void* sb, const void* sk,
-                           const void* aw, const void* at, const void* ak,
-                           const void* av, const void* wt, int nk0, int nk1,
-                           int B, int A, int kw, void* out, void* stream) {
+// sw's and aw's rows start sws and aws words apart (kw of them used)
+extern "C" int deps_matrix_strided(const void* sw, int sws, const void* sb,
+                                   const void* sk, const void* aw, int aws,
+                                   const void* at, const void* ak,
+                                   const void* av, const void* wt, int nk0,
+                                   int nk1, int B, int A, int kw, void* out,
+                                   void* stream) {
   if (B <= 0 || A <= 0) return 0;
-  if (nk0 <= 0 || nk1 <= 0) return (int)cudaErrorInvalidValue;
+  if (nk0 <= 0 || nk1 <= 0 || sws < kw || aws < kw)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   dim3 grid((A + DT - 1) / DT, (B + DT - 1) / DT);
   deps_matrix_kernel<<<grid, DTH, 0, st>>>(
       (const unsigned*)sw, (const int*)sb, (const int*)sk,
       (const unsigned*)aw, (const int*)at, (const int*)ak,
-      (const unsigned char*)av, (const int*)wt, nk0, nk1, B, A, kw,
+      (const unsigned char*)av, (const int*)wt, nk0, nk1, B, A, kw, sws, aws,
       (unsigned char*)out);
   ACCORD_CHECK();
   return 0;
 }
 
+extern "C" int deps_matrix(const void* sw, const void* sb, const void* sk,
+                           const void* aw, const void* at, const void* ak,
+                           const void* av, const void* wt, int nk0, int nk1,
+                           int B, int A, int kw, void* out, void* stream) {
+  return deps_matrix_strided(sw, kw, sb, sk, aw, kw, at, ak, av, wt, nk0, nk1,
+                             B, A, kw, out, stream);
+}
+
 // ------------------------------------------------- packing (K19, K20)
-// bool[n, n] -> packed [n, nw]: a warp packs 32 columns of a row (ballot)
-__global__ void pack_rows_kernel(const unsigned char* __restrict__ m, int n,
-                                 int nw, unsigned* __restrict__ p) {
-  const long long total = (long long)n * nw;
+// bool[rows, n] -> packed [rows, nw]: a warp packs 32 columns of a row
+// (ballot)
+__global__ void pack_rows_kernel(const unsigned char* __restrict__ m,
+                                 int rows, int n, int nw,
+                                 unsigned* __restrict__ p) {
+  const long long total = (long long)rows * nw;
   const int lane = threadIdx.x & 31;
   const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
   for (long long f = (long long)blockIdx.x * (blockDim.x >> 5) +
@@ -189,24 +215,38 @@ static inline int grid_cap(long long units, int per_block) {
   return (int)g;
 }
 
-static inline void launch_pack(const unsigned char* m, int n, int nw,
-                               unsigned* p, cudaStream_t st) {
-  pack_rows_kernel<<<grid_cap((long long)n * nw, 8), 256, 0, st>>>(m, n, nw,
-                                                                   p);
+static inline void launch_pack(const unsigned char* m, int rows, int n,
+                               int nw, unsigned* p, cudaStream_t st) {
+  pack_rows_kernel<<<grid_cap((long long)rows * nw, 8), 256, 0, st>>>(
+      m, rows, n, nw, p);
+}
+
+// bool[rows, n] -> packed [rows, ceil(n/32)]
+extern "C" int pack_rows(const void* m, int rows, int n, void* p,
+                         void* stream) {
+  if (rows <= 0 || n <= 0) return 0;
+  launch_pack((const unsigned char*)m, rows, n, (n + 31) / 32, (unsigned*)p,
+              (cudaStream_t)stream);
+  ACCORD_CHECK();
+  return 0;
 }
 
 // ---------------------------------------------------------------- K19
 #define CRB 8      // rows a block squares at once
 #define CTH 256
 
+// rows [row0, row0 + nrows) of one squaring of the full packed r [n, nw],
+// written to rn[(i - row0) * nw ...]
 __global__ void __launch_bounds__(CTH)
 closure_square_kernel(const unsigned* __restrict__ r,
-                      unsigned* __restrict__ rn, int n, int nw) {
+                      unsigned* __restrict__ rn, int n, int nw, int row0,
+                      int nrows) {
   extern __shared__ unsigned s_rows[];  // CRB x nw
-  const int i0 = blockIdx.x * CRB;
+  const int i0 = row0 + blockIdx.x * CRB;
+  const int iend = row0 + nrows;
   for (int e = threadIdx.x; e < CRB * nw; e += CTH) {
     const int q = e / nw, w = e % nw;
-    s_rows[e] = i0 + q < n ? r[(long long)(i0 + q) * nw + w] : 0u;
+    s_rows[e] = i0 + q < iend ? r[(long long)(i0 + q) * nw + w] : 0u;
   }
   __syncthreads();
   for (int w0 = 0; w0 < nw; w0 += CTH) {
@@ -235,8 +275,8 @@ closure_square_kernel(const unsigned* __restrict__ r,
     if (w < nw)
 #pragma unroll
       for (int q = 0; q < CRB; ++q)
-        if (i0 + q < n)
-          rn[(long long)(i0 + q) * nw + w] = s_rows[q * nw + w] | acc[q];
+        if (i0 + q < iend)
+          rn[(long long)(i0 + q - row0) * nw + w] = s_rows[q * nw + w] | acc[q];
   }
 }
 
@@ -253,12 +293,12 @@ extern "C" int transitive_closure(const void* adj, int n, int iterations,
   cudaStream_t st = (cudaStream_t)stream;
   unsigned* cur = (unsigned*)pa;
   unsigned* nxt = (unsigned*)pb;
-  launch_pack((const unsigned char*)adj, n, nw, cur, st);
+  launch_pack((const unsigned char*)adj, n, n, nw, cur, st);
   ACCORD_CHECK();
   const size_t smem = sizeof(unsigned) * CRB * nw;
   for (int it = 0; it < iterations; ++it) {
     closure_square_kernel<<<(n + CRB - 1) / CRB, CTH, smem, st>>>(cur, nxt, n,
-                                                                  nw);
+                                                                  nw, 0, n);
     ACCORD_CHECK();
     unsigned* t = cur;
     cur = nxt;
@@ -270,15 +310,33 @@ extern "C" int transitive_closure(const void* adj, int n, int iterations,
   return 0;
 }
 
+// rows [row0, row0 + nrows) of one closure squaring: full r [n, nw] on the
+// device, the block's rows written to rn [nrows, nw]
+extern "C" int closure_rows(const void* r, int n, int row0, int nrows,
+                            void* rn, void* stream) {
+  if (n <= 0 || nrows <= 0) return 0;
+  const int nw = (n + 31) / 32;
+  if (nw > closure_max_words() || row0 < 0 || row0 + nrows > n)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(unsigned) * CRB * nw;
+  closure_square_kernel<<<(nrows + CRB - 1) / CRB, CTH, smem,
+                          (cudaStream_t)stream>>>(
+      (const unsigned*)r, (unsigned*)rn, n, nw, row0, nrows);
+  ACCORD_CHECK();
+  return 0;
+}
+
 // ---------------------------------------------------------------- K20
+// one round over rows [row0, row0 + nrows): p holds those rows packed
+// ([nrows, nw]), lvl all n levels; lvl_out[r] for the block's row r
 __global__ void wavefront_round_kernel(const unsigned* __restrict__ p,
                                        const int* __restrict__ lvl,
                                        int* __restrict__ lvl_out, int n,
-                                       int nw) {
+                                       int nw, int row0, int nrows) {
   const int lane = threadIdx.x & 31;
   const int warps = gridDim.x * (blockDim.x >> 5);
-  for (int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); i < n;
-       i += warps) {
+  for (int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       i < nrows; i += warps) {
     int m = 0;
     for (int w = lane; w < nw; w += 32) {
       unsigned u = p[(long long)i * nw + w];
@@ -291,8 +349,23 @@ __global__ void wavefront_round_kernel(const unsigned* __restrict__ p,
 #pragma unroll
     for (int d = 16; d > 0; d >>= 1)
       m = max(m, __shfl_xor_sync(0xffffffffu, m, d));
-    if (lane == 0) lvl_out[i] = max(lvl[i], m);
+    if (lane == 0) lvl_out[i] = max(lvl[row0 + i], m);
   }
+}
+
+// one round over a packed row block p [nrows, ceil(n/32)] against all n
+// levels lvl; the block's new levels to lvl_out [nrows]
+extern "C" int wavefront_rows(const void* p, const void* lvl, int n,
+                              int row0, int nrows, void* lvl_out,
+                              void* stream) {
+  if (n <= 0 || nrows <= 0) return 0;
+  if (row0 < 0 || row0 + nrows > n) return (int)cudaErrorInvalidValue;
+  wavefront_round_kernel<<<grid_cap(nrows, 8), 256, 0,
+                           (cudaStream_t)stream>>>(
+      (const unsigned*)p, (const int*)lvl, (int*)lvl_out, n, (n + 31) / 32,
+      row0, nrows);
+  ACCORD_CHECK();
+  return 0;
 }
 
 // adj bool[n, n] -> out i32[n]; packed scratch [n, nw]; lb scratch i32[n]
@@ -303,7 +376,7 @@ extern "C" int execution_wavefronts(const void* adj, int n, int max_levels,
   if (max_levels < 0) return (int)cudaErrorInvalidValue;
   const int nw = (n + 31) / 32;
   cudaStream_t st = (cudaStream_t)stream;
-  launch_pack((const unsigned char*)adj, n, nw, (unsigned*)packed, st);
+  launch_pack((const unsigned char*)adj, n, n, nw, (unsigned*)packed, st);
   ACCORD_CHECK();
   int* cur = (int*)out;
   int* nxt = (int*)lb;
@@ -311,7 +384,7 @@ extern "C" int execution_wavefronts(const void* adj, int n, int max_levels,
   const int grid = grid_cap(n, 8);
   for (int r = 0; r < max_levels; ++r) {
     wavefront_round_kernel<<<grid, 256, 0, st>>>((const unsigned*)packed,
-                                                 cur, nxt, n, nw);
+                                                 cur, nxt, n, nw, 0, n);
     ACCORD_CHECK();
     int* t = cur;
     cur = nxt;

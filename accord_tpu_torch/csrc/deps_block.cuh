@@ -15,7 +15,9 @@
 #define WARPS 4        // 32-row words per block
 
 // The block body: blockIdx.x is the group of WARPS row words, blockIdx.y
-// the subject tile. subj_store == nullptr: no slot mask (single store);
+// the subject tile. Row r's nw bucket words start at act_bm + r * bm_stride
+// (bm_stride == nw for a whole arena; a mesh shard reads its 'model' word
+// slice of a wider arena in place). subj_store == nullptr: no slot mask (single store);
 // else subject s is this block's when subj_store[s] == slot. A tile none
 // of whose subjects is this block's writes its zero words and stops.
 __device__ __forceinline__ void resolve_body(
@@ -23,8 +25,8 @@ __device__ __forceinline__ void resolve_body(
     const int* __restrict__ subj_before, const int* __restrict__ subj_kinds,
     const int* __restrict__ subj_store, int slot,
     const unsigned char* __restrict__ subj_gate, int b,
-    const unsigned* __restrict__ act_bm, const int* __restrict__ act_ts,
-    const int* __restrict__ act_kinds,
+    const unsigned* __restrict__ act_bm, int bm_stride,
+    const int* __restrict__ act_ts, const int* __restrict__ act_kinds,
     const unsigned char* __restrict__ act_valid, int cap, int nw,
     const int* __restrict__ witness, int nk, unsigned* __restrict__ out,
     int out_stride, int out_off) {
@@ -66,7 +68,7 @@ __device__ __forceinline__ void resolve_body(
   unsigned rw[MAX_NW];
 #pragma unroll
   for (int j = 0; j < MAX_NW; ++j)
-    rw[j] = j < nw ? act_bm[(long long)row * nw + j] : 0u;
+    rw[j] = j < nw ? act_bm[(long long)row * bm_stride + j] : 0u;
   const int t0 = act_ts[row * 3], t1 = act_ts[row * 3 + 1],
             t2 = act_ts[row * 3 + 2];
   int ak = act_kinds[row];
@@ -98,7 +100,7 @@ resolve_kernel(const unsigned* __restrict__ subj_words,
                const int* __restrict__ subj_store,
                const int* __restrict__ slot_ptr,
                const unsigned char* __restrict__ subj_gate, int b,
-               const unsigned* __restrict__ act_bm,
+               const unsigned* __restrict__ act_bm, int bm_stride,
                const int* __restrict__ act_ts,
                const int* __restrict__ act_kinds,
                const unsigned char* __restrict__ act_valid, int cap, int nw,
@@ -106,6 +108,6 @@ resolve_kernel(const unsigned* __restrict__ subj_words,
                unsigned* __restrict__ out, int out_stride, int out_off) {
   resolve_body(subj_words, subj_before, subj_kinds, subj_store,
                slot_ptr == nullptr ? 0 : *slot_ptr, subj_gate, b, act_bm,
-               act_ts, act_kinds, act_valid, cap, nw, witness, nk, out,
-               out_stride, out_off);
+               bm_stride, act_ts, act_kinds, act_valid, cap, nw, witness, nk,
+               out, out_stride, out_off);
 }

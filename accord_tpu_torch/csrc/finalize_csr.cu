@@ -125,3 +125,137 @@ extern "C" int finalize_csr_ref(const void* fin, int w, int s,
                     (unsigned*)csum, (int*)block_sums, (int*)block_off,
                     (unsigned*)acc, st);
 }
+
+// ---------------------------------------------------------------------------
+// A mesh shard's part of the finalize (accord_tpu_torch/parallel/mesh.py
+// `sharded_finalize_csr`, replacing the JAX package's parallel/mesh.py
+// `sharded_finalize_csr` :663, body `_sharded_finalize_body` :524). The
+// shard holds 'data' word columns [base_w, base_w + wl) of the span: blk
+// (the packed result's columns, row stride blk_stride) and kid (the kid
+// table's, row stride kid_stride), read in place. One block per slot:
+//   fin_shard_count   popcount of the slot's masked words -> counts[slot]
+//                     (counts may be NULL: a 'model' replica that only
+//                     bounds), and the kid-word popcount of the slots in
+//                     [bound_lo, bound_hi) added into *bound (the 'model'
+//                     slot-block split of the out-cap bound; exact ints);
+//   fin_shard_compact the slot's set bits at seg_base[slot] + their rank
+//                     in the slot's words, rows (base_w + w) * 32 + bit,
+//                     into this shard's fragment; positions >= out_cap
+//                     drop, and the fragment is zeroed first, because the
+//                     fragments merge by a sum (csrc/mesh_combine.cu).
+// The self-bit test uses the shard-global word index. Bound: bytes, the
+// shard's S x wl words of blk and kid read twice (count, compact); a
+// block walks a slot's words CT at a time, so slots wider than CT loop.
+struct ShardFin {
+  const unsigned* blk;
+  int blk_stride, b;
+  const unsigned* kid;
+  int kid_stride, kc, wl, base_w;
+  const int* slot_subj;
+  const int* slot_kid;
+  const int* subj_row;
+
+  // masked word wd of slot sl; *kw = the slot's kid word (0 when the slot
+  // is out of range)
+  __device__ __forceinline__ unsigned word(int sl, int wd,
+                                           unsigned* kw) const {
+    int subj = slot_subj[sl], kd = slot_kid[sl];
+    if (subj < 0 || subj >= b || kd < 0 || kd >= kc) {
+      *kw = 0u;
+      return 0u;
+    }
+    unsigned km = kid[(long long)kd * kid_stride + wd];
+    *kw = km;
+    unsigned v = blk[(long long)subj * blk_stride + wd] & km;
+    int r = subj_row[subj];
+    if (r >= 0 && (r >> 5) == base_w + wd) v &= ~(1u << (r & 31));
+    return v;
+  }
+};
+
+__global__ void __launch_bounds__(CT)
+fin_shard_count_kernel(const ShardFin f, int s, int* __restrict__ counts,
+                       int* __restrict__ bound, int bound_lo, int bound_hi) {
+  for (int sl = blockIdx.x; sl < s; sl += gridDim.x) {
+    const bool bounds = bound != nullptr && sl >= bound_lo && sl < bound_hi;
+    int cnt = 0, kb = 0;
+    for (int wd = threadIdx.x; wd < f.wl; wd += CT) {
+      unsigned kw;
+      cnt += __popc(f.word(sl, wd, &kw));
+      kb += __popc(kw);
+    }
+    int tot_c, tot_k;
+    block_excl_scan(cnt, &tot_c);
+    block_excl_scan(kb, &tot_k);
+    if (threadIdx.x == 0) {
+      if (counts != nullptr) counts[sl] = tot_c;
+      if (bounds) atomicAdd(bound, tot_k);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(CT)
+fin_shard_compact_kernel(const ShardFin f, int s,
+                         const int* __restrict__ seg_base, int out_cap,
+                         int* __restrict__ frag) {
+  for (int sl = blockIdx.x; sl < s; sl += gridDim.x) {
+    int carry = seg_base[sl];
+    for (int w0 = 0; w0 < f.wl; w0 += CT) {
+      const int wd = w0 + threadIdx.x;
+      unsigned v = 0u, kw;
+      if (wd < f.wl) v = f.word(sl, wd, &kw);
+      int tot;
+      int pos = carry + block_excl_scan(__popc(v), &tot);
+      carry += tot;
+      while (v) {
+        const int bit = __ffs(v) - 1;
+        if (pos >= 0 && pos < out_cap)
+          frag[pos] = ((f.base_w + wd) << 5) + bit;
+        v &= v - 1u;
+        ++pos;
+      }
+    }
+  }
+}
+
+static inline int shard_grid(int s) {
+  return s < 1 ? 1 : (s > 65535 ? 65535 : s);
+}
+
+extern "C" int fin_shard_count(const void* blk, int blk_stride, int b,
+                               const void* kid, int kid_stride, int kc,
+                               int wl, int base_w, const void* slot_subj,
+                               const void* slot_kid, int s,
+                               const void* subj_row, void* counts,
+                               void* bound, int bound_lo, int bound_hi,
+                               void* stream) {
+  if (s <= 0 || wl <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  ShardFin f{(const unsigned*)blk, blk_stride, b, (const unsigned*)kid,
+             kid_stride, kc, wl, base_w, (const int*)slot_subj,
+             (const int*)slot_kid, (const int*)subj_row};
+  fin_shard_count_kernel<<<shard_grid(s), CT, 0, st>>>(
+      f, s, (int*)counts, (int*)bound, bound_lo, bound_hi);
+  ACCORD_CHECK();
+  return 0;
+}
+
+extern "C" int fin_shard_compact(const void* blk, int blk_stride, int b,
+                                 const void* kid, int kid_stride, int kc,
+                                 int wl, int base_w, const void* slot_subj,
+                                 const void* slot_kid, int s,
+                                 const void* subj_row, const void* seg_base,
+                                 int out_cap, void* frag, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaMemsetAsync(frag, 0, sizeof(int) * (size_t)(out_cap > 0 ? out_cap : 0),
+                  st);
+  ACCORD_CHECK();
+  if (s <= 0 || wl <= 0 || out_cap <= 0) return 0;
+  ShardFin f{(const unsigned*)blk, blk_stride, b, (const unsigned*)kid,
+             kid_stride, kc, wl, base_w, (const int*)slot_subj,
+             (const int*)slot_kid, (const int*)subj_row};
+  fin_shard_compact_kernel<<<shard_grid(s), CT, 0, st>>>(
+      f, s, (const int*)seg_base, out_cap, (int*)frag);
+  ACCORD_CHECK();
+  return 0;
+}

@@ -71,8 +71,9 @@ node_key_kernel(const unsigned char* __restrict__ tab,
   const KeyBlk bk = ((const KeyBlk*)(tab + sizeof(TabHdr)))[blockIdx.z];
   if ((int)blockIdx.x * WARPS >= (bk.cap >> 5)) return;  // whole block
   resolve_body(subj_words, subj_before, subj_kinds, subj_node,
-               slots[blockIdx.z], gate, b, bk.bm, bk.ts, bk.kinds, bk.valid,
-               bk.cap, nw, witness, nk, h->out, out_stride, bk.out_off);
+               slots[blockIdx.z], gate, b, bk.bm, nw, bk.ts, bk.kinds,
+               bk.valid, bk.cap, nw, witness, nk, h->out, out_stride,
+               bk.out_off);
 }
 
 // K13 (and K14's key side, gate = subj_is_range, subj_words = the covered

@@ -5,13 +5,16 @@
 
 #include "deps_block.cuh"
 
-// one warp per (interval e, 32-bucket word wd): covered bits OR-ed into
-// cov[o, wd] (cov zeroed by the caller)
+// one warp per (interval e, 32-bucket word wd) of the bucket slice [base,
+// base + k_local) of k_total buckets: covered bits OR-ed into cov[o, wd]
+// (cov [b, k_local/32], zeroed by the caller; one device: base 0, k_local
+// == k_total)
 __global__ void covered_kernel(const int* __restrict__ iv_of,
                                const int* __restrict__ iv_s,
                                const int* __restrict__ iv_e, int nv, int b,
-                               int k, unsigned* __restrict__ cov) {
-  const int nw = k >> 5;
+                               int base, int k_local, int k,
+                               unsigned* __restrict__ cov) {
+  const int nw = k_local >> 5;
   const long long g = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (g >= (long long)nv * nw) return;  // uniform per warp
@@ -22,7 +25,7 @@ __global__ void covered_kernel(const int* __restrict__ iv_of,
   const unsigned s = (unsigned)iv_s[e];
   const int width = (int)((unsigned)iv_e[e] - s);  // wrapping int32
   const bool wide = width <= 0 || width >= k;
-  const unsigned j = (unsigned)((wd << 5) + lane);
+  const unsigned j = (unsigned)base + (unsigned)((wd << 5) + lane);
   const bool covered = wide || ((j - s) & (unsigned)(k - 1)) < (unsigned)width;
   const unsigned word = __ballot_sync(0xffffffffu, covered);
   if (lane == 0 && word) atomicOr(&cov[(long long)o * nw + wd], word);

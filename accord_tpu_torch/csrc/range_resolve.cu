@@ -31,25 +31,48 @@
 // What bounds it on an H100: operations -- 4 compares per (interval, row)
 // plus the masked word ANDs of the key side; the lanes are small and sit
 // in L2.
+//
+// A mesh shard (accord_tpu_torch/parallel/mesh.py, replacing the JAX
+// package's parallel/mesh.py `sharded_range_deps_resolve` :256 with its
+// `_covered_buckets` :239 and the per-store body `_fused_range_resolve_
+// blocks` :360) runs `range_block` on its 'data' rows of the range arena
+// (the pointers at the block's first row, the output span at its lane
+// offset), and on the key side `range_covered_slice` over its 'model'
+// bucket slice (base, k_local of k_total, the same modular test) and
+// `range_key_block` over its rows' word slice of the key arena, read in
+// place through the row stride; the 'model' partials merge by OR
+// (csrc/mesh_combine.cu). Bound: K5's, on the shard's rows and bucket
+// words; a shard is launch-bound at the burns' sizes.
 #include "range_block.cuh"
 
-// Covered-bucket words cov[b, k/32] of the interval CSR (zeroed first).
-extern "C" int range_covered(const void* iv_of, const void* iv_s,
-                             const void* iv_e, int nv, int b, int k,
-                             void* cov, void* stream) {
-  if (k <= 0 || (k & (k - 1)) || (k & 31)) return (int)cudaErrorInvalidValue;
+// Covered-bucket words cov[b, k_local/32] of the bucket slice [base, base +
+// k_local) of k_total buckets, from the interval CSR (zeroed first).
+extern "C" int range_covered_slice(const void* iv_of, const void* iv_s,
+                                   const void* iv_e, int nv, int b, int base,
+                                   int k_local, int k_total, void* cov,
+                                   void* stream) {
+  if (k_total <= 0 || (k_total & (k_total - 1)) || (k_total & 31) ||
+      k_local <= 0 || (k_local & 31) || base < 0 || base + k_local > k_total)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nw = k >> 5;
+  const int nw = k_local >> 5;
   cudaMemsetAsync(cov, 0, (size_t)b * nw * sizeof(unsigned), st);
   ACCORD_CHECK();
   const long long threads = (long long)nv * nw * 32;
   if (threads > 0 && b > 0) {
     covered_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
-        (const int*)iv_of, (const int*)iv_s, (const int*)iv_e, nv, b, k,
-        (unsigned*)cov);
+        (const int*)iv_of, (const int*)iv_s, (const int*)iv_e, nv, b, base,
+        k_local, k_total, (unsigned*)cov);
     ACCORD_CHECK();
   }
   return 0;
+}
+
+// Covered-bucket words cov[b, k/32] of the interval CSR (zeroed first).
+extern "C" int range_covered(const void* iv_of, const void* iv_s,
+                             const void* iv_e, int nv, int b, int k,
+                             void* cov, void* stream) {
+  return range_covered_slice(iv_of, iv_s, iv_e, nv, b, 0, k, k, cov, stream);
 }
 
 // One range block: its span [off, off + rcap/32) of anyr (scratch) and of
@@ -89,16 +112,18 @@ extern "C" int range_block(const void* iv_of, const void* iv_s,
 }
 
 // One key block of a range query: K1's block kernel over the covered words,
-// gated by subj_is_range (and, fused, by the block's store slot).
+// gated by subj_is_range (and, fused, by the block's store slot); row r's
+// nw bucket words are act_bm[r * bm_stride ...].
 extern "C" int range_key_block(const void* cov, const void* subj_before,
                                const void* subj_kinds,
                                const void* subj_is_range,
                                const void* subj_store, const void* slot,
-                               int b, const void* act_bm, const void* act_ts,
-                               const void* act_kinds, const void* act_valid,
-                               int cap, int nw, const void* witness, int nk,
-                               void* out, int stride, int off, void* stream) {
-  if (nw > MAX_NW || nk * nk > 64 || (cap & 31))
+                               int b, const void* act_bm, int bm_stride,
+                               const void* act_ts, const void* act_kinds,
+                               const void* act_valid, int cap, int nw,
+                               const void* witness, int nk, void* out,
+                               int stride, int off, void* stream) {
+  if (nw > MAX_NW || nk * nk > 64 || (cap & 31) || bm_stride < nw)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int words = cap >> 5;
@@ -108,7 +133,7 @@ extern "C" int range_key_block(const void* cov, const void* subj_before,
       (const unsigned*)cov, (const int*)subj_before, (const int*)subj_kinds,
       (const int*)subj_store, (const int*)slot,
       (const unsigned char*)subj_is_range, b, (const unsigned*)act_bm,
-      (const int*)act_ts, (const int*)act_kinds,
+      bm_stride, (const int*)act_ts, (const int*)act_kinds,
       (const unsigned char*)act_valid, cap, nw, (const int*)witness, nk,
       (unsigned*)out, stride, off);
   ACCORD_CHECK();

@@ -54,7 +54,10 @@ PyTorch version beside it. There is no fallback from one to the other.
                                          execution_wavefronts :113,
                                          dag_wavefronts_packed :197
 The node-lane kernels (K13-K15) live in ops/node_lane.py and count here
-too.
+too. The mesh shards' entries (the last section below) run K1, K5, K2 and
+K18-K20 on one shard of a sharded call of parallel/mesh.py, whose
+combining steps (K22, csrc/mesh_combine.cu) and sharded entry points count
+here as well.
 
 The exec plane's adjacency is PACKED too, int32 [cap, cap/32] (dep d in
 bit d & 31 of word d >> 5), where the reference keeps bool [cap, cap].
@@ -90,7 +93,24 @@ LAUNCHES: Dict[str, int] = {"deps_resolve": 0, "finalize_csr": 0,
                             "protocol_tick": 0, "mailbox_route": 0,
                             "deps_matrix": 0, "transitive_closure": 0,
                             "execution_wavefronts": 0,
-                            "dag_wavefronts_packed": 0}
+                            "dag_wavefronts_packed": 0,
+                            # a mesh shard's launches (parallel/mesh.py)
+                            "deps_resolve_shard": 0,
+                            "range_resolve_shard": 0, "finalize_shard": 0,
+                            "deps_matrix_shard": 0, "pack_rows": 0,
+                            "closure_rows": 0, "wavefront_rows": 0,
+                            # K22, the mesh's combining steps
+                            "or_fold": 0, "lane_concat": 0,
+                            "counts_scan": 0, "fragment_merge": 0}
+
+# the launches above made inside each sharded entry point (parallel/mesh.py
+# launches nothing itself: its shards and combining steps do)
+ENTRY_LAUNCHES: Dict[str, int] = {"sharded_deps_resolve": 0,
+                                  "sharded_range_deps_resolve": 0,
+                                  "sharded_fused_deps_resolve": 0,
+                                  "sharded_fused_range_deps_resolve": 0,
+                                  "sharded_finalize_csr": 0,
+                                  "sharded_deps_step": 0}
 
 # CUDA graphs captured by protocol_tick (one per new static signature):
 # after a warm pass, a run over the same traffic must capture none; and
@@ -102,6 +122,8 @@ CAPTURES: Dict[str, int] = {"protocol_tick": 0, "evictions": 0}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in ENTRY_LAUNCHES:
+        ENTRY_LAUNCHES[k] = 0
     for k in CAPTURES:
         CAPTURES[k] = 0
 
@@ -209,14 +231,19 @@ def _lex_before(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # -- K1: deps_resolve / fused_deps_resolve -----------------------------------
-def _subject_words(subj_of, subj_keys, b: int, k: int) -> torch.Tensor:
-    """Packed subject bitmaps i32[B, K/32] from the subject CSR; entries
-    out of range (pad subj_of == B) are dropped."""
+def _subject_words(subj_of, subj_keys, b: int, k: int, base: int = 0,
+                   k_local=None) -> torch.Tensor:
+    """Packed subject bitmaps i32[B, k_local/32] of the bucket slice [base,
+    base + k_local) of k buckets (one device: the whole of k) from the
+    subject CSR; entries out of range (pad subj_of == B) are dropped, and
+    a key is normalised over k before the slice test."""
+    k_local = k if k_local is None else k_local
     s, s_ok = _norm_index(subj_of, b)
     key, k_ok = _norm_index(subj_keys, k)
-    ok = s_ok & k_ok
-    bm = torch.zeros(b, k, dtype=torch.bool, device=subj_of.device)
-    bm[s[ok], key[ok]] = True
+    col = key - base
+    ok = s_ok & k_ok & (col >= 0) & (col < k_local)
+    bm = torch.zeros(b, k_local, dtype=torch.bool, device=subj_of.device)
+    bm[s[ok], col[ok]] = True
     return _pack_bits(bm)
 
 
@@ -307,9 +334,9 @@ def _resolve_cuda(subj_of, subj_keys, subj_store, subj_before, subj_kinds,
                  else ext.ctypes_null(),
                  ext.ptr(slots[s:s + 1]) if slots is not None
                  else ext.ctypes_null(), b,
-                 ext.ptr(bm), ext.ptr(ts), ext.ptr(kinds), ext.ptr(valid),
-                 cap, nw, ext.ptr(witness_table), witness_table.shape[0],
-                 ext.ptr(out), wtot, off, st)
+                 ext.ptr(bm), nw, ext.ptr(ts), ext.ptr(kinds),
+                 ext.ptr(valid), cap, nw, ext.ptr(witness_table),
+                 witness_table.shape[0], ext.ptr(out), wtot, off, st)
         off += cap // 32
     LAUNCHES["deps_resolve"] += 1
     return out
@@ -690,22 +717,24 @@ def _wrap_i32(v: torch.Tensor) -> torch.Tensor:
     return ((v + (1 << 31)) & _M32) - (1 << 31)
 
 
-def covered_buckets_plain(iv_of, iv_start, iv_end, b: int,
-                          k: int) -> torch.Tensor:
+def covered_buckets_plain(iv_of, iv_start, iv_end, b: int, k: int,
+                          base: int = 0, k_total=None) -> torch.Tensor:
     """Packed covered-bucket words i32[b, k/32] (bucket 32j + i in bit i of
-    word j, the key arena's layout): bucket j is covered by [s, e) iff
-    (j - s) mod k < e - s in wrapping int32; widths <= 0 or >= k cover
-    every bucket. k must be a power of two (so mod k commutes with the
-    int32 wrap); entries with iv_of out of range (padding b) are dropped,
-    a negative iv_of counts from the end."""
-    if k & (k - 1) or k % 32:
-        raise ValueError(f"covered_buckets: k={k} must be a power of two "
-                         ">= 32")
+    word j, the key arena's layout) of the bucket slice [base, base + k) of
+    k_total buckets (one device: base 0, k_total = k): bucket j is covered
+    by [s, e) iff (j - s) mod k_total < e - s in wrapping int32; widths
+    <= 0 or >= k_total cover every bucket. k_total must be a power of two
+    (so the mod commutes with the int32 wrap); entries with iv_of out of
+    range (padding b) are dropped, a negative iv_of counts from the end."""
+    k_total = k if k_total is None else k_total
+    if k_total & (k_total - 1) or k_total % 32 or k % 32:
+        raise ValueError(f"covered_buckets: k_total={k_total} must be a "
+                         "power of two >= 32")
     s = iv_start.to(torch.int64)
     width = _wrap_i32(iv_end.to(torch.int64) - s)
-    wide = (width <= 0) | (width >= k)
-    j = torch.arange(k, dtype=torch.int64, device=iv_start.device)
-    cov = wide[:, None] | (((j[None, :] - s[:, None]) & (k - 1))
+    wide = (width <= 0) | (width >= k_total)
+    j = base + torch.arange(k, dtype=torch.int64, device=iv_start.device)
+    cov = wide[:, None] | (((j[None, :] - s[:, None]) & (k_total - 1))
                            < width[:, None])
     o, ok = _norm_index(iv_of, b)
     out = torch.zeros(b, k, dtype=torch.int32, device=iv_start.device)
@@ -841,7 +870,7 @@ def _range_resolve_cuda(iv_of, iv_start, iv_end, subj_store, subj_before,
                      ext.ptr(subj_store) if subj_store is not None else null,
                      ext.ptr(k_slots[s:s + 1]) if subj_store is not None
                      else null, b,
-                     ext.ptr(k_bm), ext.ptr(k_ts), ext.ptr(k_kinds),
+                     ext.ptr(k_bm), nw, ext.ptr(k_ts), ext.ptr(k_kinds),
                      ext.ptr(k_valid), cap, nw, ext.ptr(witness_table),
                      witness_table.shape[0], ext.ptr(kp), ktot, off, st)
             off += cap // 32
@@ -2200,6 +2229,408 @@ def dag_wavefronts_packed(adj_packed, max_levels: int):
 
 # -- padded-size ladders (the JAX package's tiers, kept for bit-equal
 #    shapes: the same dispatches pad to the same sizes) ----------------------
+# -- mesh shards: K1, K5, K2 and K18-K20 at shard-local offsets -------------
+# A sharded call of parallel/mesh.py runs each shard's part through one of
+# these wrappers on the shard's device, on views of the consumer's arrays
+# (a 'data' row block; a 'model' word slice, read in place through its row
+# stride) or on copies of them. Each writes its packed words into `out`
+# (a contiguous [B, W] tensor on the shard's device) at column `col` and
+# returns `out`; the plain versions compute the same block on the CPU.
+def _rows_view(t: torch.Tensor, who: str) -> int:
+    """The row stride of a 2-D operand read in place (its rows must be
+    contiguous)."""
+    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
+        raise ValueError(f"{who}: a 2-D operand with contiguous rows")
+    return t.stride(0)
+
+
+def _check_out(out: torch.Tensor, col: int, width: int, dev, who: str):
+    if (out.dim() != 2 or not out.is_contiguous() or out.device != dev
+            or col < 0 or col + width > out.shape[1]
+            or out.dtype != torch.int32):
+        raise ValueError(f"{who}: out must be a contiguous int32 [B, W] on "
+                         f"{dev} with room for {width} words at {col}")
+
+
+def deps_resolve_shard_plain(subj_of, subj_keys, subj_store, slot,
+                             subj_before, subj_kinds, bm, ts, kinds, valid,
+                             witness_table, k_total: int, base: int):
+    b = subj_before.shape[0]
+    words = _subject_words(subj_of, subj_keys, b, k_total, base,
+                           bm.shape[1] * 32)
+    mine = None if subj_store is None else subj_store == slot
+    return _resolve_block_plain(words, subj_before, subj_kinds, mine, bm, ts,
+                                kinds, valid, witness_table)
+
+
+def deps_resolve_shard(subj_of, subj_keys, subj_store, slot, subj_before,
+                       subj_kinds, bm, ts, kinds, valid, witness_table,
+                       k_total: int, base: int, out, col: int = 0):
+    """K1 on one mesh shard: the subjects' keys in the bucket slice [base,
+    base + K_l) of k_total (K_l = bm.shape[1] * 32; bm is the shard's rows
+    of the arena's word slice) against the shard's arena rows -> the
+    block's packed words [B, cap_l/32] at out[:, col]. subj_store/slot
+    (slot a one-entry tensor) mask a fused store block; None for one
+    store."""
+    cap, nwl = bm.shape
+    if not bm.is_cuda:
+        out[:, col:col + cap // 32] = deps_resolve_shard_plain(
+            subj_of, subj_keys, subj_store, slot, subj_before, subj_kinds,
+            bm, ts, kinds, valid, witness_table, k_total, base)
+        return out
+    if nwl > 32 or cap % 32:
+        raise ValueError("deps_resolve_shard: K_l <= 1024 buckets and a "
+                         "cap that is a multiple of 32")
+    ext = _ext()
+    stride = _rows_view(bm, "deps_resolve_shard")
+    fused = subj_store is not None
+    _check_cuda(subj_of, subj_keys, subj_before, subj_kinds, ts, kinds,
+                valid, witness_table, *((subj_store, slot) if fused else ()))
+    dev = subj_before.device
+    _check_out(out, col, cap // 32, dev, "deps_resolve_shard")
+    b = subj_before.shape[0]
+    words = torch.empty(b, nwl, dtype=torch.int32, device=dev)
+    st = ext.stream()
+    null = ext.ctypes_null()
+    ext.call("deps_resolve", "deps_subjects_slice", ext.ptr(subj_of),
+             ext.ptr(subj_keys), subj_of.shape[0], b, k_total, base,
+             nwl * 32, ext.ptr(words), st)
+    ext.call("deps_resolve", "deps_block", ext.ptr(words),
+             ext.ptr(subj_before), ext.ptr(subj_kinds),
+             ext.ptr(subj_store) if fused else null,
+             ext.ptr(slot) if fused else null, b, ext.ptr(bm), stride,
+             ext.ptr(ts), ext.ptr(kinds), ext.ptr(valid), cap, nwl,
+             ext.ptr(witness_table), witness_table.shape[0], ext.ptr(out),
+             out.shape[1], col, st)
+    LAUNCHES["deps_resolve_shard"] += 1
+    return out
+
+
+def range_block_shard_plain(iv_of, iv_start, iv_end, subj_store, slot,
+                            subj_before, subj_kinds, r_start, r_end, r_ts,
+                            r_kinds, r_valid, witness_table):
+    b = subj_before.shape[0]
+    any_r = _range_any_plain(iv_of, iv_start, iv_end, b, r_start, r_end)
+    mine = None if subj_store is None else subj_store == slot
+    return _range_block_plain(any_r, subj_before, subj_kinds, mine, r_ts,
+                              r_kinds, r_valid, witness_table)
+
+
+def range_block_shard(iv_of, iv_start, iv_end, subj_store, slot,
+                      subj_before, subj_kinds, r_start, r_end, r_ts, r_kinds,
+                      r_valid, witness_table, out, col: int = 0):
+    """K5's range side on one mesh shard: the interval stab over the
+    shard's 'data' rows of a range arena -> [B, rcap_l/32] at
+    out[:, col]."""
+    rcap = r_start.shape[0]
+    if not r_start.is_cuda:
+        out[:, col:col + rcap // 32] = range_block_shard_plain(
+            iv_of, iv_start, iv_end, subj_store, slot, subj_before,
+            subj_kinds, r_start, r_end, r_ts, r_kinds, r_valid,
+            witness_table)
+        return out
+    if rcap % 32:
+        raise ValueError(f"range_block_shard: rcap {rcap} % 32 != 0")
+    ext = _ext()
+    fused = subj_store is not None
+    _check_cuda(iv_of, iv_start, iv_end, subj_before, subj_kinds, r_start,
+                r_end, r_ts, r_kinds, r_valid, witness_table,
+                *((subj_store, slot) if fused else ()))
+    dev = subj_before.device
+    _check_out(out, col, rcap // 32, dev, "range_block_shard")
+    null = ext.ctypes_null()
+    anyr = torch.empty_like(out)
+    ext.call("range_resolve", "range_block", ext.ptr(iv_of),
+             ext.ptr(iv_start), ext.ptr(iv_end), iv_of.shape[0],
+             ext.ptr(subj_before), ext.ptr(subj_kinds),
+             ext.ptr(subj_store) if fused else null,
+             ext.ptr(slot) if fused else null, subj_before.shape[0],
+             ext.ptr(r_start), ext.ptr(r_end), ext.ptr(r_ts),
+             ext.ptr(r_kinds), ext.ptr(r_valid), rcap,
+             ext.ptr(witness_table), witness_table.shape[0], ext.ptr(anyr),
+             ext.ptr(out), out.shape[1], col, ext.stream())
+    LAUNCHES["range_resolve_shard"] += 1
+    return out
+
+
+def range_key_shard_plain(iv_of, iv_start, iv_end, subj_store, slot,
+                          subj_before, subj_kinds, subj_is_range, bm, ts,
+                          kinds, valid, witness_table, k_total: int,
+                          base: int):
+    b = subj_before.shape[0]
+    cov = covered_buckets_plain(iv_of, iv_start, iv_end, b,
+                                bm.shape[1] * 32, base, k_total)
+    mine = subj_is_range if subj_store is None \
+        else (subj_store == slot) & subj_is_range
+    return _resolve_block_plain(cov, subj_before, subj_kinds, mine, bm, ts,
+                                kinds, valid, witness_table)
+
+
+def range_key_shard(iv_of, iv_start, iv_end, subj_store, slot, subj_before,
+                    subj_kinds, subj_is_range, bm, ts, kinds, valid,
+                    witness_table, k_total: int, base: int, out,
+                    col: int = 0):
+    """K5's key side on one mesh shard: the range subjects' covered
+    buckets in the slice [base, base + K_l) of k_total against the shard's
+    rows of the key arena's word slice -> [B, cap_l/32] at out[:, col]."""
+    cap, nwl = bm.shape
+    if not bm.is_cuda:
+        out[:, col:col + cap // 32] = range_key_shard_plain(
+            iv_of, iv_start, iv_end, subj_store, slot, subj_before,
+            subj_kinds, subj_is_range, bm, ts, kinds, valid, witness_table,
+            k_total, base)
+        return out
+    if nwl > 32 or cap % 32:
+        raise ValueError("range_key_shard: K_l <= 1024 buckets and a cap "
+                         "that is a multiple of 32")
+    ext = _ext()
+    stride = _rows_view(bm, "range_key_shard")
+    fused = subj_store is not None
+    _check_cuda(iv_of, iv_start, iv_end, subj_before, subj_kinds,
+                subj_is_range, ts, kinds, valid, witness_table,
+                *((subj_store, slot) if fused else ()))
+    dev = subj_before.device
+    _check_out(out, col, cap // 32, dev, "range_key_shard")
+    b = subj_before.shape[0]
+    null = ext.ctypes_null()
+    st = ext.stream()
+    cov = torch.empty(b, nwl, dtype=torch.int32, device=dev)
+    ext.call("range_resolve", "range_covered_slice", ext.ptr(iv_of),
+             ext.ptr(iv_start), ext.ptr(iv_end), iv_of.shape[0], b, base,
+             nwl * 32, k_total, ext.ptr(cov), st)
+    ext.call("range_resolve", "range_key_block", ext.ptr(cov),
+             ext.ptr(subj_before), ext.ptr(subj_kinds),
+             ext.ptr(subj_is_range),
+             ext.ptr(subj_store) if fused else null,
+             ext.ptr(slot) if fused else null, b, ext.ptr(bm), stride,
+             ext.ptr(ts), ext.ptr(kinds), ext.ptr(valid), cap, nwl,
+             ext.ptr(witness_table), witness_table.shape[0], ext.ptr(out),
+             out.shape[1], col, st)
+    LAUNCHES["range_resolve_shard"] += 1
+    return out
+
+
+def _shard_masked(blk, kid, slot_subj, slot_kid, subj_row, base_w: int):
+    """(masked words i32[S, wl], kid words i32[S, wl], in-range slots) of
+    one 'data' shard's word columns [base_w, base_w + wl) of a finalize
+    span: finalize_csr_plain's masking with shard-global word indices."""
+    b = blk.shape[0]
+    kc, wl = kid.shape
+    ok = (slot_subj >= 0) & (slot_subj < b) & (slot_kid >= 0) \
+        & (slot_kid < kc)
+    kid_m = kid[slot_kid.to(torch.int64).clamp(0, kc - 1)]
+    so = slot_subj.to(torch.int64).clamp(0, b - 1)
+    m = torch.where(ok[:, None], blk[so] & kid_m, torch.zeros_like(kid_m))
+    r = subj_row[so].to(torch.int64)
+    widx = base_w + torch.arange(wl, device=blk.device)
+    self_word = (r >= 0)[:, None] & (widx[None, :] == (r >> 5)[:, None])
+    selfbit = torch.where(self_word, _to_i32(1 << (r & 31))[:, None],
+                          torch.zeros((), dtype=torch.int32,
+                                      device=blk.device))
+    return m & ~selfbit, kid_m, ok
+
+
+def finalize_shard_count_plain(blk, kid, slot_subj, slot_kid, subj_row,
+                               base_w: int, bound_lo: int, bound_hi: int):
+    m, kid_m, ok = _shard_masked(blk, kid, slot_subj, slot_kid, subj_row,
+                                 base_w)
+    counts = _popcount_u32(m).sum(1, dtype=torch.int64)
+    kb = torch.where(ok, _popcount_u32(kid_m).sum(1, dtype=torch.int64),
+                     torch.zeros_like(ok, dtype=torch.int64))
+    return _to_i32(counts), _to_i32(kb[bound_lo:bound_hi].sum())
+
+
+def finalize_shard_count(blk, kid, slot_subj, slot_kid, subj_row,
+                         base_w: int, bound_lo: int, bound_hi: int, counts,
+                         bound):
+    """K2's count pass on one mesh shard, whose word columns [base_w,
+    base_w + wl) of the finalize span are blk (the packed result's) and
+    kid (the kid table's): each slot's popcount of its masked words into
+    counts i32[S] (None: a 'model' replica that only bounds), and the kid
+    words' popcount of the slots in [bound_lo, bound_hi) into the 0-d
+    bound (the out-cap bound's 'model' slot-block split). Writes and
+    returns (counts, bound)."""
+    if not blk.is_cuda:
+        c, bd = finalize_shard_count_plain(blk, kid, slot_subj, slot_kid,
+                                           subj_row, base_w, bound_lo,
+                                           bound_hi)
+        if counts is not None:
+            counts.copy_(c)
+        bound.copy_(bd)
+        return counts, bound
+    ext = _ext()
+    _check_cuda(slot_subj, slot_kid, subj_row, bound,
+                *((counts,) if counts is not None else ()))
+    bound.zero_()
+    ext.call("finalize_csr", "fin_shard_count", ext.ptr(blk),
+             _rows_view(blk, "finalize_shard_count"), blk.shape[0],
+             ext.ptr(kid), _rows_view(kid, "finalize_shard_count"),
+             kid.shape[0], kid.shape[1], base_w, ext.ptr(slot_subj),
+             ext.ptr(slot_kid), slot_subj.shape[0], ext.ptr(subj_row),
+             ext.ptr(counts) if counts is not None else ext.ctypes_null(),
+             ext.ptr(bound), bound_lo, bound_hi, ext.stream())
+    LAUNCHES["finalize_shard"] += 1
+    return counts, bound
+
+
+def finalize_shard_compact_plain(blk, kid, slot_subj, slot_kid, subj_row,
+                                 base_w: int, seg_base, out_cap: int):
+    m, _, _ = _shard_masked(blk, kid, slot_subj, slot_kid, subj_row, base_w)
+    bits = _unpack_bits(m)                                 # [S, wl * 32]
+    rank = torch.cumsum(bits.to(torch.int64), 1) - bits.to(torch.int64)
+    pos = seg_base.to(torch.int64)[:, None] + rank
+    rows = base_w * 32 + torch.arange(bits.shape[1], device=m.device)
+    keep = bits & (pos >= 0) & (pos < out_cap)
+    frag = torch.zeros(out_cap, dtype=torch.int32, device=m.device)
+    frag[pos[keep]] = rows.expand_as(pos)[keep].to(torch.int32)
+    return frag
+
+
+def finalize_shard_compact(blk, kid, slot_subj, slot_kid, subj_row,
+                           base_w: int, seg_base, out_cap: int, frag=None):
+    """K2's compaction on one mesh shard: every set bit of a slot's masked
+    words, as row (base_w + word) * 32 + bit, at seg_base[slot] + its rank
+    in the slot's words, into the shard's fragment i32[out_cap] (zero
+    elsewhere: positions >= out_cap drop, and the fragments merge by a
+    sum)."""
+    dev = blk.device
+    if frag is None:
+        frag = torch.empty(out_cap, dtype=torch.int32, device=dev)
+    if not blk.is_cuda:
+        frag.copy_(finalize_shard_compact_plain(
+            blk, kid, slot_subj, slot_kid, subj_row, base_w, seg_base,
+            out_cap))
+        return frag
+    ext = _ext()
+    _check_cuda(slot_subj, slot_kid, subj_row, seg_base, frag)
+    ext.call("finalize_csr", "fin_shard_compact", ext.ptr(blk),
+             _rows_view(blk, "finalize_shard_compact"), blk.shape[0],
+             ext.ptr(kid), _rows_view(kid, "finalize_shard_compact"),
+             kid.shape[0], kid.shape[1], base_w, ext.ptr(slot_subj),
+             ext.ptr(slot_kid), slot_subj.shape[0], ext.ptr(subj_row),
+             ext.ptr(seg_base), out_cap, ext.ptr(frag), ext.stream())
+    LAUNCHES["finalize_shard"] += 1
+    return frag
+
+
+def deps_matrix_shard(subj_words, subj_before, subj_kinds, act_words,
+                      act_ts, act_kinds, act_valid, witness_table, out):
+    """K18 on one mesh shard: a row block of subjects against every active
+    row, on one 'model' word slice of both bitmaps (read in place through
+    their row strides) -> bool [B_l, A] written to `out`."""
+    if not subj_words.is_cuda:
+        out.copy_(deps_matrix_plain(subj_words, subj_before, subj_kinds,
+                                    act_words, act_ts, act_kinds, act_valid,
+                                    witness_table))
+        return out
+    b, kw = subj_words.shape
+    a = act_words.shape[0]
+    sws = _rows_view(subj_words, "deps_matrix_shard")
+    aws = _rows_view(act_words, "deps_matrix_shard")
+    if (act_words.shape[1] != kw or tuple(out.shape) != (b, a)
+            or out.dtype != torch.bool or act_valid.dtype != torch.bool):
+        raise ValueError("deps_matrix_shard: word slices of one width, "
+                         "valid bool[A], out bool[B_l, A]")
+    ext = _ext()
+    _check_cuda(subj_before, subj_kinds, act_ts, act_kinds, act_valid,
+                witness_table, out)
+    n0, n1 = witness_table.shape
+    ext.call("dense_dag", "deps_matrix_strided", _addr(subj_words), sws,
+             _addr(subj_before), _addr(subj_kinds), _addr(act_words), aws,
+             _addr(act_ts), _addr(act_kinds), _addr(act_valid),
+             _addr(witness_table), n0, n1, b, a, kw, _addr(out),
+             ext.stream())
+    LAUNCHES["deps_matrix_shard"] += 1
+    return out
+
+
+def pack_rows_plain(m: torch.Tensor) -> torch.Tensor:
+    rows, n = m.shape
+    nw = (n + 31) // 32
+    pad = torch.zeros(rows, nw * 32, dtype=torch.bool, device=m.device)
+    pad[:, :n] = m
+    return _pack_bits(pad)
+
+
+def pack_rows(m: torch.Tensor, out) -> torch.Tensor:
+    """bool [rows, N] -> packed i32 [rows, ceil(N/32)] into `out` (a
+    closure's row block as K19 reads it)."""
+    if not m.is_cuda:
+        out.copy_(pack_rows_plain(m))
+        return out
+    rows, n = m.shape
+    if (m.dtype != torch.bool or out.dtype != torch.int32
+            or tuple(out.shape) != (rows, (n + 31) // 32)):
+        raise ValueError("pack_rows: bool [rows, N] into i32 "
+                         "[rows, ceil(N/32)]")
+    ext = _ext()
+    _check_cuda(m, out)
+    ext.call("dense_dag", "pack_rows", _addr(m), rows, n, _addr(out),
+             ext.stream())
+    LAUNCHES["pack_rows"] += 1
+    return out
+
+
+def closure_rows_plain(full: torch.Tensor, n: int, row0: int, nrows: int):
+    r = _unpack_bits(full)[:, :n]
+    rows = r[row0:row0 + nrows]
+    sq = (rows.to(torch.float32) @ r.to(torch.float32)) > 0.5
+    return pack_rows_plain(rows | sq)
+
+
+def closure_rows(full, n: int, row0: int, nrows: int, out):
+    """One Jacobi round of K19 on a row block: rows [row0, row0 + nrows)
+    of R | (R @ R > 0.5), R the gathered packed matrix full i32[N, N/32]
+    -> packed i32 [nrows, N/32] in `out`."""
+    if not full.is_cuda:
+        out.copy_(closure_rows_plain(full, n, row0, nrows))
+        return out
+    ext = _ext()
+    nw = (n + 31) // 32
+    if (tuple(full.shape) != (n, nw) or tuple(out.shape) != (nrows, nw)
+            or full.dtype != torch.int32 or out.dtype != torch.int32):
+        raise ValueError("closure_rows: packed full i32[N, ceil(N/32)], "
+                         "out i32[nrows, ceil(N/32)]")
+    if nw > int(ext.lib("dense_dag").closure_max_words()):
+        raise ValueError("closure_rows: N above the kernel's limit")
+    _check_cuda(full, out)
+    ext.call("dense_dag", "closure_rows", _addr(full), n, row0, nrows,
+             _addr(out), ext.stream())
+    LAUNCHES["closure_rows"] += 1
+    return out
+
+
+def wavefront_rows_plain(p_rows, levels, row0: int):
+    n = levels.shape[0]
+    adj = _unpack_bits(p_rows)[:, :n]
+    zero = torch.zeros((), dtype=torch.int32, device=levels.device)
+    dep = torch.where(adj, levels[None, :] + 1, zero)
+    return torch.maximum(levels[row0:row0 + p_rows.shape[0]],
+                         dep.max(dim=1).values)
+
+
+def wavefront_rows(p_rows, levels, row0: int, out):
+    """One round of K20 on a row block: level'[i] = max(level[i],
+    max_j adj[i, j] * (level[j] + 1)) for the block's packed rows p_rows
+    i32[nrows, N/32] (rows row0..), against the gathered levels i32[N]
+    -> i32[nrows] in `out`."""
+    if not p_rows.is_cuda:
+        out.copy_(wavefront_rows_plain(p_rows, levels, row0))
+        return out
+    n = levels.shape[0]
+    nrows = p_rows.shape[0]
+    if (p_rows.shape[1] != (n + 31) // 32 or tuple(out.shape) != (nrows,)
+            or levels.dtype != torch.int32 or out.dtype != torch.int32):
+        raise ValueError("wavefront_rows: packed rows i32[nrows, "
+                         "ceil(N/32)], levels i32[N], out i32[nrows]")
+    ext = _ext()
+    _check_cuda(p_rows, levels, out)
+    ext.call("dense_dag", "wavefront_rows", _addr(p_rows), _addr(levels), n,
+             row0, nrows, _addr(out), ext.stream())
+    LAUNCHES["wavefront_rows"] += 1
+    return out
+
+
 def pad_to(x: np.ndarray, size: int, axis: int = 0) -> np.ndarray:
     """Pad axis up to `size` with zeros."""
     if x.shape[axis] == size:

@@ -37,8 +37,13 @@ What differs from the reference:
   * the kernels are functional, like the JAX ones: every scatter returns a
     fresh tensor, so a staged plan's snapshot never sees a later
     registration (in-place updates with copy-on-write are a later change);
-  * the sharded resolver and `pad_store_tiers` are not ported (a plan's
-    recorded `pad_tier` is None, the reference's default);
+  * `pad_store_tiers` is not ported (a plan's recorded `pad_tier` is
+    None, the reference's default), so the sharded resolver's fused calls
+    carry no pad blocks either;
+  * ShardedBatchDepsResolver runs its kernels over the port's
+    single-controller mesh (parallel/mesh.py) and adds one contract:
+    num_buckets % (32 * model) == 0, because the arena holds bucket
+    words;
   * a plan's deferred calls may also return a device-value object of the
     cluster tick engine (node_lane.MergedView): _run_plan wraps only
     tensors in _DevBuf.
@@ -1548,6 +1553,9 @@ class BatchDepsResolver(DepsResolver):
     # device-computed bound back into the policy at harvest
     outcap_tier_switches = RegCounter("resolver.outcap_tier_switches")
     bound_readback_s = RegTimer("resolver.bound_readback_s")
+    # host launch time of the sharded finalize compaction (per-shard
+    # popcount/prefix + gather-merge) on a device mesh
+    shard_merge_s = RegTimer("resolver.shard_merge_s")
     # adaptive staged window: scale adjustments per direction
     window_shrinks = RegCounter("resolver.window_shrinks")
     window_widens = RegCounter("resolver.window_widens")
@@ -3740,4 +3748,95 @@ class BatchDepsResolver(DepsResolver):
                 out.append((True, arena.exec_max[j]))
             else:
                 out.append((False, None))  # bucket collision: host decides
+        return out
+
+
+class ShardedBatchDepsResolver(BatchDepsResolver):
+    """BatchDepsResolver whose deps kernels run SHARDED over a device mesh
+    (parallel/mesh.py): arena rows over 'data', key buckets over 'model'
+    (the overlap OR-folds across it), and the finalize compaction over
+    'data' word columns. Everything else -- arena upkeep, the staged
+    pipeline, the exact per-key decode -- is inherited unchanged, so the
+    host, single-device and sharded answers are differentially comparable.
+
+    The arenas stay on `mesh.device(0, 0)` (the resolver's device); each
+    call hands each shard its row and word block: a view when the device
+    is shared, a copy otherwise.
+
+    Contracts: initial_cap % (32 * data) == 0 (word order equals row
+    order; doubling keeps it, and every call checks it again), the range
+    arena's capacity max(64, 32 * data) for the same reason, and
+    num_buckets % (32 * model) == 0 -- the port's arena holds bucket WORDS
+    (i32 [cap, K/32]), and a 'model' shard takes whole words."""
+
+    def __init__(self, mesh=None, num_buckets: int = 256,
+                 initial_cap: int = 4096, device=None, **kwargs):
+        from accord_tpu_torch.parallel.mesh import make_mesh
+        self.mesh = mesh if mesh is not None else make_mesh()
+        home = self.mesh.device(0, 0)
+        if device is not None and torch.device(device) != home:
+            raise ValueError(f"ShardedBatchDepsResolver: device {device} is "
+                             f"not the mesh's first device {home}")
+        super().__init__(num_buckets, initial_cap, device=home, **kwargs)
+        data = self.mesh.shape["data"]
+        model = self.mesh.shape["model"]
+        Invariants.check_argument(
+            initial_cap % (32 * data) == 0,
+            "arena cap %s not divisible by 32*data(%s)", initial_cap, data)
+        Invariants.check_argument(
+            num_buckets % (32 * model) == 0,
+            "num_buckets %s not divisible by 32*model(%s): a 'model' shard "
+            "takes whole bucket words", num_buckets, model)
+        self.range_cap = max(64, 32 * data)
+
+    def _run_kernel(self, ksnap, subj_of, subj_keys, sb, sknd):
+        from accord_tpu_torch.parallel.mesh import sharded_deps_resolve
+        act_bm, act_ts, _, act_kinds, act_valid = ksnap
+        return sharded_deps_resolve(self.mesh)(
+            subj_of, subj_keys, sb, sknd, act_bm, act_ts, act_kinds,
+            act_valid, self._table)
+
+    def _run_fused_kernel(self, ksnaps, slots, subj_of, subj_keys,
+                          subj_store, sb, sknd):
+        from accord_tpu_torch.parallel.mesh import sharded_fused_deps_resolve
+        arenas = tuple((bm, ts, kinds, valid)
+                       for (bm, ts, _, kinds, valid) in ksnaps)
+        return sharded_fused_deps_resolve(self.mesh, len(arenas))(
+            subj_of, subj_keys, subj_store, sb, sknd, slots, arenas,
+            self._table)
+
+    def _run_range_kernel(self, rsnap, ksnap, iv_of, iv_s, iv_e,
+                          sb, sknd, srng):
+        from accord_tpu_torch.parallel.mesh import sharded_range_deps_resolve
+        r_start, r_end, r_ts, r_kinds, r_valid = rsnap
+        k_bm, k_ts, _, k_kinds, k_valid = ksnap
+        return sharded_range_deps_resolve(self.mesh)(
+            iv_of, iv_s, iv_e, sb, sknd, srng, r_start, r_end, r_ts,
+            r_kinds, r_valid, k_bm, k_ts, k_kinds, k_valid, self._table)
+
+    def _run_fused_range_kernel(self, rsnaps, r_slots, ksnaps, k_slots,
+                                iv_of, iv_s, iv_e, subj_store, sb, sknd,
+                                srng):
+        from accord_tpu_torch.parallel.mesh import (
+            sharded_fused_range_deps_resolve)
+        karenas = tuple((bm, ts, kinds, valid)
+                        for (bm, ts, _, kinds, valid) in ksnaps)
+        return sharded_fused_range_deps_resolve(
+            self.mesh, len(rsnaps), len(karenas))(
+            iv_of, iv_s, iv_e, subj_store, sb, sknd, srng, r_slots,
+            tuple(rsnaps), k_slots, karenas, self._table)
+
+    def _run_finalize_kernel(self, packed, j_off, kid_rows, j_subj, j_kid,
+                             j_srow, act_ts, out_cap: int):
+        """The sharded finalize: each 'data' shard popcounts and compacts
+        its slice of every slot's row mask, the gathered counts give the
+        global indptr and each shard's write base, and the disjoint
+        fragments sum-merge (launch time in shard_merge_s)."""
+        import time as _time
+        from accord_tpu_torch.parallel.mesh import sharded_finalize_csr
+        t0 = _time.perf_counter()
+        out = sharded_finalize_csr(self.mesh)(
+            packed, j_off, kid_rows, j_subj, j_kid, j_srow, act_ts,
+            out_cap=out_cap)
+        self.shard_merge_s += _time.perf_counter() - t0
         return out

@@ -409,10 +409,15 @@ class ClusterTickEngine:
             self._megakernel_launch(staged, key_entries, rng_entries,
                                     km, rm, lane_nodes, nl, res0, mesh)
             return
-        if km is not None:
-            packed = nl.run_key_merge(km, res0._table)
-        if rm is not None:
-            rpacked, kpacked = nl.run_range_merge(rm, res0._table)
+        if mesh is not None:
+            from accord_tpu_torch.parallel.mesh import sharded_node_tick
+            packed, rpacked, kpacked = sharded_node_tick(
+                mesh, km, rm, res0._table)
+        else:
+            if km is not None:
+                packed = nl.run_key_merge(km, res0._table)
+            if rm is not None:
+                rpacked, kpacked = nl.run_range_merge(rm, res0._table)
         ndisp = (1 if km is not None else 0) + (1 if rm is not None else 0)
         if ndisp:
             self.node_lane_dispatches += ndisp
@@ -505,6 +510,10 @@ class ClusterTickEngine:
         payloads in-program."""
         from accord_tpu_torch.ops.kernels import protocol_tick
         from accord_tpu_torch.ops.tiers import mega_lane_tier
+        if mesh is not None:
+            raise NotImplementedError(
+                "the sharded protocol megakernel is not ported yet -- "
+                "ROADMAP queue 2 rows 32 and 35b")
         tick = protocol_tick
 
         # host lanes go as numpy: on the card protocol_tick writes them
@@ -661,7 +670,7 @@ def run_mesh_burn(seed: int, ops: int = 500, *, nodes: int = 8,
                   resolver_kwargs: Optional[dict] = None,
                   collect_log: bool = False,
                   engine: Optional[ClusterTickEngine] = None,
-                  sharded: bool = False, device=None,
+                  sharded: bool = False, device=None, mesh=None,
                   **burn_kwargs) -> Tuple[BurnReport, ClusterTickEngine]:
     """Run one seeded burn with the whole cluster ticked by a
     ClusterTickEngine. mesh_tick=True launches every node's resolve as one
@@ -684,16 +693,29 @@ def run_mesh_burn(seed: int, ops: int = 500, *, nodes: int = 8,
     rkw.setdefault("pad_node_tiers", pad_node_tiers)
 
     if sharded:
-        raise NotImplementedError(
-            "run_mesh_burn(sharded=True): the sharded resolver and the "
-            "multi-GPU megakernel are not ported yet -- ROADMAP queue 1 "
-            "item 9")
-    # device=None is the card (the resolvers and planes raise without
-    # one); "cpu" runs every kernel's plain version
-    rkw.setdefault("device", device)
+        if megakernel or exec_in_megakernel or device_messages:
+            raise NotImplementedError(
+                "run_mesh_burn(sharded=True) with the megakernel, "
+                "exec_in_megakernel or device_messages: the sharded "
+                "protocol megakernel and the sharded mailbox are not "
+                "ported yet -- ROADMAP queue 2 rows 32 and 35b")
+        from accord_tpu_torch.ops.resolver import ShardedBatchDepsResolver
+        from accord_tpu_torch.parallel.mesh import make_mesh
+        the_mesh = mesh if mesh is not None else make_mesh()
+        # the resolvers' arenas and the planes on the mesh's first device
+        if device is None:
+            device = the_mesh.device(0, 0)
+        rkw.setdefault("device", device)
 
-    def factory():
-        return eng.adopt(BatchDepsResolver(**rkw))
+        def factory():
+            return eng.adopt(ShardedBatchDepsResolver(mesh=the_mesh, **rkw))
+    else:
+        # device=None is the card (the resolvers and planes raise without
+        # one); "cpu" runs every kernel's plain version
+        rkw.setdefault("device", device)
+
+        def factory():
+            return eng.adopt(BatchDepsResolver(**rkw))
 
     cfg = ClusterConfig(
         num_nodes=nodes, rf=min(rf, nodes),

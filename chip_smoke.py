@@ -132,7 +132,25 @@ launched.
      100,000 nodes and 192 levels (the packed adjacency, 1.25 GB, made on
      the card from a torch.Generator seeded 5 with bench_dag's density
      rule), settled, its depth reported;
- 22. kernels: each kernel's wrapper is called again on the card on the
+ 22. the sharded deps data plane (accord_tpu_torch/parallel/mesh.py):
+     make_mesh() on the machine's cards (1 x 1 on one H100) and the
+     virtual 4 x 2 mesh make_mesh(devices=[card] * 8). Paths: the key
+     burn (800 ops) and the range-mix burn (400 ops) with
+     ShardedBatchDepsResolver on the virtual mesh, each committing the
+     single-device card run's history (the key burn: finalized decodes
+     > 0, no legacy decode, finalize or host fallback, shard_merge_s > 0,
+     no graph captured); run_mesh_burn(sharded=True) at 64 nodes x 120
+     ops (seed 6) = the unsharded merged run's history, no mesh-tick
+     fallback; dryrun_multichip(8). Then sharded_deps_step on 8,192 live
+     rows of the PreAccept batch's arena (K 1,024), 4 rounds = K18 ->
+     K19 -> K20; each sharded entry point on
+     the batches' real-size calls (the 10k PreAccept batch's K1 and K2,
+     the range batch's K5; as one store and as two) bit-equal on the
+     virtual mesh, the real mesh, the single-device kernel and its plain
+     version, timed beside the single-device kernel; each shard wrapper
+     and K22 combining step bit-equal to its plain version on its
+     largest recorded call;
+ 23. kernels: each kernel's wrapper is called again on the card on the
      exact inputs its path (and a batch) gave it, and held bit-equal
      against its plain PyTorch version on the same inputs; kernel, plain
      and (where one exists) single-library-call times come from CUDA
@@ -283,54 +301,58 @@ def check(cond, msg: str) -> None:
 
 # -- recording the main path's kernel inputs ---------------------------------
 class Recorder:
-    """Wraps the kernel module's public functions (the resolver imports
-    them at call time) and keeps, per function, the arguments of its
-    largest call, so the kernel phase replays exactly what the path gave
-    each kernel. `cmd_tier` keeps cmd_tick's first call at that op tier
-    instead. `promoted` counts cmd_tick's calls with promote on. Recording
-    launches nothing itself."""
+    """Wraps the named functions of the kernel module, node_lane and the
+    mesh module (callers reach them through the module at call time;
+    `names`: every RECORDED function by default) and keeps, per function,
+    the arguments of its largest call, so the kernel phase replays exactly
+    what the path gave each kernel. `cmd_tier` keeps cmd_tick's first call
+    at that op tier instead. `promoted` counts cmd_tick's calls with
+    promote on. Recording launches nothing itself."""
 
-    def __init__(self, tk, cmd_tier=None):
+    def __init__(self, tk, cmd_tier=None, names=None):
         self.tk = tk
         self.calls = {}
         self.orig = {}
         self.cmd_tier = cmd_tier
         self.promoted = 0
+        self.names = names if names is not None else tuple(
+            n for ns in RECORDED.values() for n in ns)
 
     def __enter__(self):
         import torch
         from accord_tpu_torch.ops import node_lane
-        for names in RECORDED.values():
-            for name in names:
-                if name == "mailbox_route":
-                    continue   # a graph stage: kept from protocol_tick's
-                mod = self.tk if hasattr(self.tk, name) else node_lane
-                fn = getattr(mod, name)
-                self.orig[name] = (mod, fn)
+        from accord_tpu_torch.parallel import mesh as pm
+        for name in self.names:
+            if name == "mailbox_route":
+                continue   # a graph stage: kept from protocol_tick's
+            mod = next(m for m in (self.tk, node_lane, pm)
+                       if hasattr(m, name))
+            fn = getattr(mod, name)
+            self.orig[name] = (mod, fn)
 
-                def wrapped(*args, _fn=fn, _name=name, **kw):
-                    size = sum(a.numel() for a in _flat((args, kw))
-                               if torch.is_tensor(a))
-                    best = self.calls.get(_name)
-                    if _name == "cmd_tick":
-                        self.promoted += bool(kw.get("promote"))
-                        if self.cmd_tier is not None:
-                            if best is None \
-                                    and args[9].shape[0] == self.cmd_tier:
-                                self.calls[_name] = (size, args, kw)
-                            return _fn(*args, **kw)
-                    mail = kw.get("mailbox") \
-                        if _name == "protocol_tick" else None
-                    if mail is not None:
-                        m = self.calls.get("mailbox_route")
-                        if m is None or mail[2].shape[0] > m[0]:
-                            self.calls["mailbox_route"] = (
-                                mail[2].shape[0], tuple(mail), {})
-                    if best is None or size > best[0]:
-                        self.calls[_name] = (size, args, kw)
-                    return _fn(*args, **kw)
+            def wrapped(*args, _fn=fn, _name=name, **kw):
+                size = sum(a.numel() for a in _flat((args, kw))
+                           if torch.is_tensor(a))
+                best = self.calls.get(_name)
+                if _name == "cmd_tick":
+                    self.promoted += bool(kw.get("promote"))
+                    if self.cmd_tier is not None:
+                        if best is None \
+                                and args[9].shape[0] == self.cmd_tier:
+                            self.calls[_name] = (size, args, kw)
+                        return _fn(*args, **kw)
+                mail = kw.get("mailbox") \
+                    if _name == "protocol_tick" else None
+                if mail is not None:
+                    m = self.calls.get("mailbox_route")
+                    if m is None or mail[2].shape[0] > m[0]:
+                        self.calls["mailbox_route"] = (
+                            mail[2].shape[0], tuple(mail), {})
+                if best is None or size > best[0]:
+                    self.calls[_name] = (size, args, kw)
+                return _fn(*args, **kw)
 
-                setattr(mod, name, wrapped)
+            setattr(mod, name, wrapped)
         return self
 
     def __exit__(self, *exc):
@@ -828,16 +850,26 @@ def build_phase() -> float:
     return time.perf_counter() - t0
 
 
-def burn(device: str, ops: int, resolvers: list, seed: int = 9, **extra):
+def _resolver(device: str, mesh=None, **kw):
+    """The port's BatchDepsResolver on `device`, or with `mesh` its
+    ShardedBatchDepsResolver (on the mesh's first device)."""
+    from accord_tpu_torch.ops.resolver import (BatchDepsResolver,
+                                               ShardedBatchDepsResolver)
+    if mesh is not None:
+        return ShardedBatchDepsResolver(mesh=mesh, **kw)
+    return BatchDepsResolver(device=device, **kw)
+
+
+def burn(device: str, ops: int, resolvers: list, seed: int = 9, mesh=None,
+         **extra):
     """The key burn; `extra` adds ClusterConfig options (the cmd burn's
-    command planes)."""
-    from accord_tpu_torch.ops.resolver import BatchDepsResolver
+    command planes); `mesh` shards the resolvers over it."""
     from accord_tpu_torch.sim.burn import run_burn
     from accord_tpu_torch.sim.cluster import ClusterConfig
 
     def factory():
-        r = BatchDepsResolver(num_buckets=1024, initial_cap=2048,
-                              max_dispatch=256, device=device)
+        r = _resolver(device, mesh, num_buckets=1024, initial_cap=2048,
+                      max_dispatch=256)
         resolvers.append(r)
         return r
 
@@ -852,17 +884,18 @@ def burn(device: str, ops: int, resolvers: list, seed: int = 9, **extra):
     return rep, time.perf_counter() - t0
 
 
-def range_mix_burn(device: str, ops: int, resolvers: list, seed: int = 21):
+def range_mix_burn(device: str, ops: int, resolvers: list, seed: int = 21,
+                   mesh=None):
     """bench.py's bench_range_mix leg, unchanged: 5 nodes, rf 3, two
     stores per node, Zipf 0.99 over 16 hot keys, 10% range reads and 10%
-    range writes, durability rounds every 1000 ms."""
-    from accord_tpu_torch.ops.resolver import BatchDepsResolver
+    range writes, durability rounds every 1000 ms; `mesh` shards the
+    resolvers over it."""
     from accord_tpu_torch.sim.burn import run_burn
     from accord_tpu_torch.sim.cluster import ClusterConfig
 
     def factory():
-        r = BatchDepsResolver(num_buckets=1024, initial_cap=2048,
-                              max_dispatch=256, device=device)
+        r = _resolver(device, mesh, num_buckets=1024, initial_cap=2048,
+                      max_dispatch=256)
         resolvers.append(r)
         return r
 
@@ -1801,7 +1834,13 @@ def run(rehearse: bool) -> dict:
     graft_rec = graft_leg(device, cuda, tk, launches)
     dense_batch, dag_rec = dense_legs(device, cuda, rehearse, tk, launches)
 
-    # 22. kernels: replay the recorded inputs, kernel vs plain, timed
+    # 22. the sharded deps data plane: the real mesh and the virtual 4 x 2
+    sharded_entries = sharded_phase(
+        device, cuda, rehearse, tk, launches,
+        {"key_burn": rep.log, "range_burn": rrep.log},
+        sharded_batches(tk, 4, pa_rec, pr_rec, range_rec))
+
+    # 23. kernels: replay the recorded inputs, kernel vs plain, timed
     iters = 50 if cuda else 2
     path_rec = {"key_burn": key_rec, "range_burn": range_rec,
                 "inline": inline_rec, **exec_recs, "cmd_burn": cmd_rec,
@@ -1862,6 +1901,7 @@ def run(rehearse: bool) -> dict:
             entry[label] = dict(_brief(r),
                                 calls=[_brief(c) for c in r["calls"]])
         entries.append(entry)
+    entries.extend(sharded_entries)
     return {"card": card, "entries": entries, "cuda": cuda,
             "acked_per_s": rep.acked / wall}
 
@@ -2465,6 +2505,581 @@ def dense_legs(device: str, cuda: bool, rehearse: bool, tk, launches):
         f"levels {levels}, depth {depth}, settled {settled}, edges "
         f"{edges}, first call {wall * 1e3:.3f} ms")
     return batch, rec
+
+
+# -- the sharded deps data plane (accord_tpu_torch/parallel/mesh.py) --------
+MESH_PY = "accord_tpu/parallel/mesh.py"
+# the sharded entry points: (name, source, replaces, the path whose
+# launches the entry reports)
+SHARDED_FNS = (
+    ("sharded_deps_resolve",
+     "accord_tpu_torch/parallel/mesh.py (K1 csrc/deps_resolve.cu, K22 "
+     "csrc/mesh_combine.cu)", MESH_PY + ":170", "sharded_key_burn"),
+    ("sharded_range_deps_resolve",
+     "accord_tpu_torch/parallel/mesh.py (K5 csrc/range_resolve.cu, K22)",
+     MESH_PY + ":256", "sharded_range_burn"),
+    ("sharded_fused_deps_resolve",
+     "accord_tpu_torch/parallel/mesh.py (K1, K22)", MESH_PY + ":400",
+     "sharded_key_burn"),
+    ("sharded_fused_range_deps_resolve",
+     "accord_tpu_torch/parallel/mesh.py (K5, K22)", MESH_PY + ":441",
+     "sharded_range_burn"),
+    ("sharded_finalize_csr",
+     "accord_tpu_torch/parallel/mesh.py (K2 csrc/finalize_csr.cu, K22)",
+     MESH_PY + ":663", "sharded_key_burn"),
+    ("sharded_deps_step",
+     "accord_tpu_torch/parallel/mesh.py (K18-K20 csrc/dense_dag.cu, K22)",
+     MESH_PY + ":89", "sharded_dryrun"),
+)
+# each kernel wrapper a shard or a combining step launches: (LAUNCHES
+# key, the recorded functions, source, replaces, path)
+SHARD_WRAPPERS = (
+    ("deps_resolve_shard", ("deps_resolve_shard",),
+     "accord_tpu_torch/csrc/deps_resolve.cu",
+     MESH_PY + ":184 (shard_map body; :329 fused)", "sharded_key_burn"),
+    ("range_resolve_shard", ("range_block_shard", "range_key_shard"),
+     "accord_tpu_torch/csrc/range_resolve.cu",
+     MESH_PY + ":277 (shard_map body; :360 fused)", "sharded_range_burn"),
+    ("finalize_shard", ("finalize_shard_count", "finalize_shard_compact"),
+     "accord_tpu_torch/csrc/finalize_csr.cu",
+     MESH_PY + ":570 (_sharded_finalize_body's shard part)",
+     "sharded_key_burn"),
+    ("or_fold", ("_or_fold_model",), "accord_tpu_torch/csrc/mesh_combine.cu",
+     MESH_PY + ":200 (psum over 'model'; :111, :291, :351, :390)",
+     "sharded_key_burn"),
+    ("lane_concat", ("_concat_lane_blocks",),
+     "accord_tpu_torch/csrc/mesh_combine.cu", MESH_PY + ":224",
+     "sharded_key_burn"),
+    ("counts_scan", ("_gather_counts",),
+     "accord_tpu_torch/csrc/mesh_combine.cu",
+     MESH_PY + ":609 (all_gather + prefix sums)", "sharded_key_burn"),
+    ("fragment_merge", ("_sum_merge_fragments",),
+     "accord_tpu_torch/csrc/mesh_combine.cu",
+     MESH_PY + ":654 (fragment sum, dep_ts, checksum)", "sharded_key_burn"),
+    ("deps_matrix_shard", ("deps_matrix_shard",),
+     "accord_tpu_torch/csrc/dense_dag.cu", MESH_PY + ":106",
+     "sharded_dryrun"),
+    ("pack_rows", ("pack_rows",), "accord_tpu_torch/csrc/dense_dag.cu",
+     MESH_PY + ":132 (the closure's bf16 cast)", "sharded_dryrun"),
+    ("closure_rows", ("closure_rows",), "accord_tpu_torch/csrc/dense_dag.cu",
+     MESH_PY + ":128", "sharded_dryrun"),
+    ("wavefront_rows", ("wavefront_rows",),
+     "accord_tpu_torch/csrc/dense_dag.cu", MESH_PY + ":144",
+     "sharded_dryrun"),
+)
+SHARD_CALLS = tuple(f for _n, fns, *_ in SHARD_WRAPPERS for f in fns)
+SHARDED_PATHS = ("sharded_key_burn", "sharded_range_burn",
+                 "sharded_mesh_burn", "sharded_dryrun")
+
+
+def _pairs(tk, sknd, kinds, sb, ts, valid, table, mine=None) -> int:
+    """Subject x row pairs whose cheap masks pass (K1's bucket AND runs
+    only there): witness, lex-before, valid (and the block's mine)."""
+    nk = table.shape[0]
+    w = table[tk._gather_index(sknd, nk)[:, None],
+              tk._gather_index(kinds, nk)[None, :]] == 1
+    m = w & tk._lex_before(ts[None], sb[:, None]) & valid[None]
+    if mine is not None:
+        m &= mine[:, None]
+    return int(m.sum())
+
+
+# the shard wrappers' output buffers, which a replay writes into clones of
+OUT_PARAMS = ("out", "counts", "bound", "frag")
+# a shard wrapper's plain version where it is not `<name>_plain`
+PLAIN_OF = {"deps_matrix_shard": "deps_matrix_plain"}
+
+
+def _mesh_fn(tk, pm, name: str):
+    return getattr(pm if name.startswith("_") else tk, name)
+
+
+def shard_replay(tk, pm, fn_name, args, kw):
+    """(kernel thunk, plain thunk, the call's arguments by name) for a
+    recorded shard-wrapper or combining-step call: the wrapper re-called
+    with clones of its output buffers (so a replay leaves the recorded
+    ones alone) and its plain version on the same inputs, each returning
+    the outputs to compare (a wrapper that writes at out[:, col] gives
+    that span; a bound-only finalize count, which has no counts, its
+    bound)."""
+    import inspect
+    import torch
+    fn = _mesh_fn(tk, pm, fn_name)
+    plain = _mesh_fn(tk, pm, PLAIN_OF.get(fn_name, fn_name + "_plain"))
+    bound = inspect.signature(fn).bind(*args, **kw)
+    bound.apply_defaults()
+    a = dict(bound.arguments)
+    call = {k: v.clone() if k in OUT_PARAMS and torch.is_tensor(v) else v
+            for k, v in a.items()}
+    pargs = [a[k] for k in inspect.signature(plain).parameters]
+    col = a.get("col")
+
+    def kern():
+        return fn(**call)
+
+    def plain_fn():
+        return plain(*pargs)
+
+    def pair():
+        k, p = kern(), plain_fn()
+        if isinstance(k, tuple):
+            keep = [i for i, x in enumerate(k) if x is not None]
+            return tuple(k[i] for i in keep), tuple(p[i] for i in keep)
+        if col is not None:
+            k = k[:, col:col + p.shape[1]]
+        return k, p
+    return kern, plain_fn, pair, a
+
+
+def shard_cost(tk, fn_name, a):
+    """(bytes, ops) of a shard-wrapper or combining-step call by the
+    table's rule: its inputs each read once (a finalize shard's blk and kid
+    only by the rows its slots name, the merge's act_ts only where dep_rows
+    points), its outputs each written once."""
+    import torch
+    ins = [v for k, v in a.items() if k not in OUT_PARAMS]
+    if fn_name == "deps_resolve_shard":
+        mine = None if a["subj_store"] is None \
+            else a["subj_store"] == a["slot"]
+        ops = 2 * _pairs(tk, a["subj_kinds"], a["kinds"], a["subj_before"],
+                         a["ts"], a["valid"], a["witness_table"], mine) \
+            * a["bm"].shape[1]
+        out_b = a["subj_before"].shape[0] * a["bm"].shape[0] // 32 * 4
+    elif fn_name == "range_block_shard":
+        rows = a["r_start"].shape[0]
+        ops = 4 * a["iv_of"].shape[0] * rows
+        out_b = a["subj_before"].shape[0] * rows // 32 * 4
+    elif fn_name == "range_key_shard":
+        mine = a["subj_is_range"] if a["subj_store"] is None \
+            else (a["subj_store"] == a["slot"]) & a["subj_is_range"]
+        nwl = a["bm"].shape[1]
+        ops = 2 * _pairs(tk, a["subj_kinds"], a["kinds"], a["subj_before"],
+                         a["ts"], a["valid"], a["witness_table"], mine) \
+            * nwl + 2 * a["iv_of"].shape[0] * nwl * 32
+        out_b = a["subj_before"].shape[0] * a["bm"].shape[0] // 32 * 4
+    elif fn_name in ("finalize_shard_count", "finalize_shard_compact"):
+        kid, skid, ssub = a["kid"], a["slot_kid"], a["slot_subj"]
+        kc, wl = kid.shape
+        kids = torch.unique(skid[(skid >= 0) & (skid < kc)])
+        ins = [ssub, skid, a["subj_row"]]
+        if fn_name == "finalize_shard_count":
+            out_b = 4 * ssub.shape[0] + 4
+        else:
+            ins.append(a["seg_base"])
+            out_b = 4 * int(a["out_cap"])
+        out_b += a["blk"].shape[0] * wl * 4 + kids.numel() * wl * 4
+        ops = 3 * ssub.shape[0] * wl
+    elif fn_name == "_or_fold_model":
+        parts = a["parts"]
+        data, _model, b, wl = parts.shape
+        ops = parts.numel()
+        out_b = b * data * wl * parts.element_size()
+    elif fn_name == "_concat_lane_blocks":
+        ops, out_b = 0, nbytes(a["blocks"])
+    elif fn_name == "_gather_counts":
+        counts = a["counts"]
+        ops = 2 * counts.numel()
+        out_b = 4 * (2 * counts.shape[1] + 2 + counts.numel())
+    elif fn_name == "_sum_merge_fragments":
+        frags = a["frags"]
+        ins = [frags, a["indptr"]]
+        ops = frags.numel()
+        out_b = 16 * frags.shape[1] + 4 + 12 * frags.shape[1]
+    elif fn_name == "deps_matrix_shard":
+        b, kw_ = a["subj_words"].shape
+        ops = b * a["act_words"].shape[0] * kw_
+        out_b = a["out"].numel()
+    elif fn_name == "pack_rows":
+        ops, out_b = 0, nbytes(a["out"])
+    elif fn_name == "closure_rows":
+        full, row0 = a["full"], a["row0"]
+        ops = int(tk._popcount_u32(full[row0:row0 + a["nrows"]]).sum()) \
+            * full.shape[1]
+        out_b = nbytes(a["out"])
+    elif fn_name == "wavefront_rows":
+        ops = int(tk._popcount_u32(a["p_rows"]).sum())
+        out_b = nbytes(a["out"])
+    else:
+        raise SmokeFailure(f"no bound rule for {fn_name}")
+    return nbytes(ins) + out_b, ops
+
+
+def shard_wrapper_entries(tk, rec: Recorder, launches, cuda: bool,
+                          iters: int) -> list:
+    """One kernels-line entry per shard wrapper and combining step: each
+    recorded function replayed (kernel vs plain, bit-equal, timed,
+    bounded); the headline is its largest call."""
+    import torch
+    from accord_tpu_torch.parallel import mesh as pm
+    entries = []
+    for name, fns, source, replaces, path in SHARD_WRAPPERS:
+        rows = []
+        for fn_name in fns:
+            got = rec.get(fn_name)
+            check(got is not None, f"{name}: {fn_name} never called")
+            kern, plain, pair, a = shard_replay(tk, pm, fn_name, *got)
+            bytes_, ops = shard_cost(tk, fn_name, a)
+            lib = (lambda: torch.cat(list(a["blocks"]), dim=1)) \
+                if fn_name == "_concat_lane_blocks" else None
+            err = max_abs_err(*pair())
+            ms = time_ms(kern, iters, cuda)
+            plain_ms = time_ms(plain, max(1, iters // 10), cuda)
+            t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            row = {"call": fn_name, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": "bytes" if t_bytes >= t_ops
+                   else "operations",
+                   "share": bound_ms / ms if ms > 0 else None,
+                   "bytes": bytes_, "ops": ops,
+                   "library_ms": (time_ms(lib, iters, cuda)
+                                  if lib is not None else None),
+                   "input_mb": nbytes(got) / 1e6}
+            log(f"  shard {name}: {json.dumps(row)}")
+            check(err == 0, f"{name} ({fn_name}) disagrees with its plain "
+                  "version")
+            rows.append(row)
+        head = max(rows, key=lambda r: r["input_mb"])
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[path][name],
+            "path": path, "max_abs_err": 0, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            **({"library_call": "torch.cat of the blocks"}
+               if name == "lane_concat" else {}),
+            "call": head["call"], "calls": [_brief(r) for r in rows],
+            "launches_by_path": {p: launches[p][name]
+                                 for p in SHARDED_PATHS if p in launches}})
+    return entries
+
+
+def _pad_rows(t, rows: int, fill=0):
+    """t with its leading dimension padded to `rows` with `fill`."""
+    import torch
+    if t.shape[0] >= rows:
+        return t
+    pad = torch.full((rows - t.shape[0], *t.shape[1:]), fill, dtype=t.dtype,
+                     device=t.device)
+    return torch.cat([t, pad])
+
+
+def _range_call(args, data: int):
+    """A recorded single-store range_deps_resolve call with its range arena
+    padded (invalid rows) to a multiple of 32 * data rows."""
+    args = list(args)
+    mult = 32 * data
+    rcap = -(-args[6].shape[0] // mult) * mult
+    for i in (6, 7, 8, 9, 10):
+        args[i] = _pad_rows(args[i], rcap)
+    return tuple(args)
+
+
+def _step_inputs(pa_call, n: int):
+    """The dense step's in-flight batch: the first n live rows of the
+    PreAccept batch's recorded arena (bench.py's synthetic PreAccept batch:
+    writes of 4 keys drawn from 1,000, 1,024 buckets) -> (packed words,
+    ts, kinds, witness table)."""
+    (_of, _keys, _sb, _sknd, bm, ts, kinds, valid, table), _kw = pa_call
+    live = valid.nonzero().flatten()[:n]
+    check(live.numel() == n, f"sharded_deps_step: the PreAccept arena has "
+          f"{int(valid.sum())} live rows, fewer than {n}")
+    return bm[live], ts[live], kinds[live], table
+
+
+def _step_single(tk, args, iters: int, plain: bool = False):
+    """K18 -> K19 -> K20 with `iters` rounds on one device (or their plain
+    versions) -> (deps, levels)."""
+    import torch
+    words, ts, kinds, table = args
+    valid = torch.ones(words.shape[0], dtype=torch.bool, device=words.device)
+    if plain:
+        deps = tk.deps_matrix_plain(words, ts, kinds, words, ts, kinds,
+                                    valid, table)
+        closed = tk.transitive_closure_plain(deps, iters)
+        return deps, tk.execution_wavefronts_plain(closed, iters)
+    deps = tk.deps_matrix(words, ts, kinds, words, ts, kinds, valid, table)
+    closed = tk.transitive_closure(deps, iters)
+    return deps, tk.execution_wavefronts(closed, iters)
+
+
+STEP_ROUNDS = 4   # sharded_deps_step's closure and wavefront rounds
+
+
+def _sharded_fn(pm, name: str, mesh, args):
+    """The sharded entry point `name` built for `mesh` and these args'
+    store counts."""
+    if name == "sharded_deps_step":
+        return pm.sharded_deps_step(mesh, STEP_ROUNDS)
+    if name == "sharded_fused_deps_resolve":
+        return pm.sharded_fused_deps_resolve(mesh, len(args[6]))
+    if name == "sharded_fused_range_deps_resolve":
+        return pm.sharded_fused_range_deps_resolve(mesh, len(args[8]),
+                                                   len(args[10]))
+    return getattr(pm, name)(mesh)
+
+
+def sharded_fn_entries(tk, vmesh, real, batch, launches, cuda: bool,
+                       iters: int) -> list:
+    """Each sharded entry point at the batch's real size on the virtual
+    mesh, bit-equal to the real mesh's call, the single-device kernel and
+    the single-device plain version; timed beside the single-device
+    kernel (`single_ms`); the bound is the single-device function's, by
+    the table's rule."""
+    from accord_tpu_torch.parallel import mesh as pm
+    entries = []
+    for name, source, replaces, path in SHARDED_FNS:
+        (args, kw), single_name = batch[name]
+        fns = {m: _sharded_fn(pm, name, m, args) for m in (vmesh, real)}
+
+        def shard(m=vmesh, fns=fns, args=args, kw=kw):
+            return fns[m](*args, **kw)
+        if name == "sharded_deps_step":
+            def single(plain=False):
+                return _step_single(tk, args, STEP_ROUNDS, plain)
+
+            def plain_fn():
+                return single(True)
+            deps, levels = single()
+            b1, o1, _ = bound_inputs(tk, "deps_matrix", (
+                args[0], args[1], args[2], args[0], args[1], args[2],
+                None, args[3]), {}, deps)
+            closed_ops, r = 0, deps
+            nw = (deps.shape[0] + 31) // 32
+            for _ in range(STEP_ROUNDS):
+                closed_ops += int(r.sum()) * nw
+                r = tk.transitive_closure_step_plain(r)
+            bytes_ = b1 + nbytes(levels)
+            ops = o1 + closed_ops + STEP_ROUNDS * int(r.sum())
+        else:
+            def single(fn=getattr(tk, single_name)):
+                return fn(*args, **kw)
+
+            def plain_fn(fn=getattr(tk, single_name + "_plain")):
+                return fn(*args, **kw)
+            out = single()
+            bytes_, ops, _ = bound_inputs(tk, single_name, args, kw, out)
+        got = shard()
+        err = max(max_abs_err(got, shard(real)), max_abs_err(got, single()),
+                  max_abs_err(got, plain_fn()))
+        check(err == 0, f"{name}: the virtual mesh's answer differs from "
+              "the real mesh's, the single-device kernel's or the plain "
+              "version's")
+        ms = time_ms(shard, iters, cuda)
+        real_ms = time_ms(lambda: shard(real), iters, cuda)
+        single_ms = time_ms(single, iters, cuda)
+        plain_ms = time_ms(plain_fn, max(1, iters // 10), cuda)
+        t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        entry = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[path][name],
+            "path": path, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "share": bound_ms / ms if ms > 0 else None,
+            "single_device": single_name or "deps_matrix -> "
+            "transitive_closure -> execution_wavefronts",
+            "single_ms": single_ms, "real_mesh_ms": real_ms,
+            "input_mb": nbytes(args, kw) / 1e6,
+            "launches_by_path": {p: launches[p][name]
+                                 for p in SHARDED_PATHS if p in launches}}
+        log(f"  sharded {name}: {json.dumps(entry)}")
+        entries.append(entry)
+    return entries
+
+
+def sharded_phase(device: str, cuda: bool, rehearse: bool, tk, launches,
+                  logs: dict, batch_recs: dict):
+    """The sharded deps data plane (accord_tpu_torch/parallel/mesh.py):
+    make_mesh() on the machine's cards, then the virtual 4 x 2 mesh
+    make_mesh(devices=[card] * 8). Paths (counts zeroed before, read
+    after): the key burn and the range-mix burn with ShardedBatchDepsResolver
+    (the histories of the single-device card runs), the sharded merged
+    mesh burn (the unsharded merged run's history, no mesh-tick fallback),
+    the dry run's twin dryrun_multichip(8). Then sharded_deps_step on
+    8,192 of the PreAccept arena's live rows (K 1,024), 4 rounds, and
+    every entry point at the batches' real size against the real mesh,
+    the single-device kernel and the plain version; every shard wrapper
+    and combining step against its plain version. -> the kernels-line
+    entries."""
+    import torch
+    from accord_tpu_torch.graft_entry import dryrun_multichip
+    from accord_tpu_torch.parallel import mesh as pm
+    from accord_tpu_torch.sim.mesh_burn import run_mesh_burn
+    real = pm.make_mesh() if cuda else pm.make_mesh(devices=["cpu"])
+    vmesh = pm.make_mesh(devices=[real.device(0, 0)] * 8)
+    log(f"mesh: make_mesh() is data {real.shape['data']} x model "
+        f"{real.shape['model']} on {real.devices}; the virtual mesh is data "
+        f"{vmesh.shape['data']} x model {vmesh.shape['model']} on "
+        f"{vmesh.device(0, 0)}")
+    rec = Recorder(tk, names=SHARD_CALLS)
+    with rec:
+        # the key burn (the BASELINE rw-register cluster, 800 ops)
+        ops = 800 if not rehearse else 120
+        res = []
+        tk.reset_launches()
+        rep, wall = burn(device, ops, res, mesh=vmesh)
+        if cuda:
+            torch.cuda.synchronize()
+        launches["sharded_key_burn"] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
+        stats = dict(clean(res), shard_merge_s=sum(
+            float(r.shard_merge_s) for r in res))
+        log(f"sharded_key_burn[{device}]: acked {rep.acked} in {wall:.2f} "
+            f"s -> {rep.acked / wall:.1f} acked txn/s; {json.dumps(stats)}")
+        check(rep.log == logs["key_burn"],
+              "sharded key burn: the history differs from the single-device "
+              "card run's and the CPU's")
+        check(stats["finalized_decodes"] > 0 and stats["legacy_decodes"] == 0
+              and stats["finalize_fallbacks"] == 0
+              and stats["host_fallbacks"] == 0
+              and stats["shard_merge_s"] > 0,
+              f"sharded key burn: counters {stats}")
+        check(tk.CAPTURES["protocol_tick"] == 0,
+              "sharded key burn: a CUDA graph was captured")
+        # the range-mix burn (bench_range_mix's config)
+        rops = 400 if not rehearse else 60
+        rres = []
+        tk.reset_launches()
+        rrep, rwall = range_mix_burn(device, rops, rres, mesh=vmesh)
+        if cuda:
+            torch.cuda.synchronize()
+        launches["sharded_range_burn"] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
+        rstats = clean(rres)
+        log(f"sharded_range_burn[{device}]: acked {rrep.acked} in "
+            f"{rwall:.2f} s; {json.dumps(rstats)}")
+        check(rrep.log == logs["range_burn"],
+              "sharded range burn: the history differs from the "
+              "single-device card run's")
+        check(rrep.lost == 0 and rstats["host_fallbacks"] == 0
+              and rstats["range_fallbacks"] == 0
+              and rstats["checksum_mismatches"] == 0,
+              f"sharded range burn: counters {rstats}")
+        # the sharded merged mesh burn (the sweep's 64 nodes x 120 ops)
+        n, o = (64, 120) if not rehearse else (16, 40)
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        srep, eng = run_mesh_burn(6, o, nodes=n, collect_log=True,
+                                  sharded=True, mesh=vmesh)
+        if cuda:
+            torch.cuda.synchronize()
+        swall = time.perf_counter() - t0
+        launches["sharded_mesh_burn"] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
+        snap = eng.snapshot()
+        t0 = time.perf_counter()
+        merged, meng = run_mesh_burn(6, o, nodes=n, collect_log=True,
+                                     device=device)
+        mwall = time.perf_counter() - t0
+        mticks = max(1, meng.snapshot()["cluster_ticks"])
+        log(f"sharded_mesh_burn[{device}]: {n} nodes x {o} ops, acked "
+            f"{srep.acked} in {swall:.2f} s, {snap['cluster_ticks']} ticks, "
+            f"{swall * 1e3 / max(1, snap['cluster_ticks']):.2f} host ms per "
+            f"tick, node_lane_dispatches {snap['node_lane_dispatches']}; "
+            f"the unsharded merged run {mwall:.2f} s, "
+            f"{mwall * 1e3 / mticks:.2f} host ms per tick")
+        check(srep.log == merged.log,
+              "sharded mesh burn: the history differs from the unsharded "
+              "merged run's")
+        check(snap["mesh_tick_fallbacks"] == 0 and srep.lost == 0,
+              "sharded mesh burn: mesh-tick fallbacks or lost txns")
+        # the dry run's twin
+        tk.reset_launches()
+        dryrun_multichip(8, device=None if cuda else "cpu")
+        if cuda:
+            torch.cuda.synchronize()
+        launches["sharded_dryrun"] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
+        # the step at the dense leg's size, on the PreAccept batch's rows
+        n_step = 8_192 if not rehearse else 512
+        step_args = _step_inputs(batch_recs["deps_resolve"], n_step)
+        deps, levels = pm.sharded_deps_step(vmesh, STEP_ROUNDS)(*step_args)
+        one = _step_single(tk, step_args, STEP_ROUNDS)
+        check(max_abs_err((deps, levels), one) == 0,
+              "sharded_deps_step: differs from K18 -> K19 -> K20")
+        log(f"sharded_deps_step[{device}]: N {n_step}, {int(deps.sum())} "
+            f"deps, depth {int(levels.max())}")
+        batch = {
+            "sharded_deps_resolve": (batch_recs["deps_resolve"],
+                                     "deps_resolve"),
+            "sharded_fused_deps_resolve": (batch_recs["fused_deps_resolve"],
+                                           "fused_deps_resolve"),
+            "sharded_range_deps_resolve": (batch_recs["range_deps_resolve"],
+                                           "range_deps_resolve"),
+            "sharded_fused_range_deps_resolve": (
+                batch_recs["fused_range_deps_resolve"],
+                "fused_range_deps_resolve"),
+            "sharded_finalize_csr": (batch_recs["finalize_csr"],
+                                     "finalize_csr"),
+            "sharded_deps_step": ((step_args, {}), None)}
+        for name, ((args, kw), _single) in batch.items():
+            if name != "sharded_deps_step":   # its call ran above
+                _sharded_fn(pm, name, vmesh, args)(*args, **kw)
+    for path in SHARDED_PATHS:
+        log(f"{path}: launches "
+            f"{ {k: launches[path][k] for k in launches[path] if launches[path][k]} }")
+    if cuda:
+        for path, names in (
+                ("sharded_key_burn", ("sharded_deps_resolve",
+                                      "sharded_fused_deps_resolve",
+                                      "sharded_finalize_csr",
+                                      "deps_resolve_shard", "finalize_shard",
+                                      "or_fold", "lane_concat",
+                                      "counts_scan", "fragment_merge")),
+                ("sharded_range_burn", ("sharded_fused_range_deps_resolve",
+                                        "range_resolve_shard", "or_fold")),
+                ("sharded_mesh_burn", ("sharded_fused_deps_resolve",
+                                       "deps_resolve_shard", "or_fold",
+                                       "lane_concat")),
+                ("sharded_dryrun", ("sharded_deps_step",
+                                    "sharded_deps_resolve",
+                                    "deps_matrix_shard", "pack_rows",
+                                    "closure_rows", "wavefront_rows",
+                                    "or_fold"))):
+            for name in names:
+                check(launches[path][name] > 0,
+                      f"{path}: {name} never launched")
+        check(launches["sharded_mesh_burn"]["node_deps_resolve"] == 0,
+              "sharded mesh burn: the unsharded K13 launched")
+        check(launches["sharded_key_burn"]["deps_resolve"] == 0,
+              "sharded key burn: the single-device K1 launched")
+    iters = 20 if cuda else 1
+    return (sharded_fn_entries(tk, vmesh, real, batch, launches, cuda, iters)
+            + shard_wrapper_entries(tk, rec, launches, cuda, iters))
+
+
+def sharded_batches(tk, data: int, pa_rec, pr_rec, range_rec):
+    """The sharded entry points' real-size inputs, from recorded calls:
+    the 10k PreAccept batch's K1 and K2 calls (bench.py:53-62's shape:
+    10,000 live rows in cap 16,384, 1,024 buckets), as one store and as
+    two stores; the range batch's K5 call (1,024 range writes, 20% range
+    subjects) and the range-mix burn's, its range arena padded with
+    invalid rows to a multiple of 32 * data; as two stores each side."""
+    import torch
+    out = {}
+    args, kw = pa_rec.get("deps_resolve")
+    out["deps_resolve"] = (args, kw)
+    of, keys, sb, sknd, bm, ts, kinds, valid, table = args
+    b = sb.shape[0]
+    store = (torch.arange(b, device=sb.device) % 2).to(torch.int32)
+    slots = torch.arange(2, dtype=torch.int32, device=sb.device)
+    out["fused_deps_resolve"] = ((of, keys, store, sb, sknd, slots,
+                                  ((bm, ts, kinds, valid),) * 2, table), {})
+    out["finalize_csr"] = pa_rec.get("finalize_csr")
+    rng_calls = [c for c in (pr_rec.get("range_deps_resolve"),
+                             range_rec.get("range_deps_resolve"))
+                 if c is not None]
+    check(rng_calls, "sharded: no recorded range_deps_resolve call")
+    rargs = _range_call(rng_calls[0][0], data)
+    out["range_deps_resolve"] = (rargs, {})
+    (iv_of, iv_s, iv_e, sb, sknd, srng, *rar) = rargs[:11]
+    kar = rargs[11:15]
+    table = rargs[15]
+    b = sb.shape[0]
+    store = (torch.arange(b, device=sb.device) % 2).to(torch.int32)
+    slots = torch.arange(2, dtype=torch.int32, device=sb.device)
+    out["fused_range_deps_resolve"] = ((
+        iv_of, iv_s, iv_e, store, sb, sknd, srng, slots, (tuple(rar),) * 2,
+        slots, (tuple(kar),) * 2, table), {})
+    return out
 
 
 def _brief(row: dict) -> dict:

@@ -1118,3 +1118,286 @@ def test_protocol_tick_mailbox_stage_matches_plain(cuda):
         _eq(outs[0], outs[1])
         assert outs[1][0] is planes[1].arena
     assert tk.CAPTURES["protocol_tick"] - c0 == 1
+
+
+# -- the sharded deps data plane on a virtual mesh (cuda:0 x 8) ---------------
+def _meshes(cuda):
+    from accord_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(devices=["cpu"] * 8), make_mesh(devices=[cuda] * 8)
+
+
+def _resolve_lanes(seed, cap, k, b, nnz=96):
+    from accord_tpu_torch.ops import carry
+    from accord_tpu_torch.parallel.mesh import example_resolve_batch
+    lanes = example_resolve_batch(cap=cap, k=k, b=b, nnz=nnz, seed=seed)
+    args = [_t(a) for a in lanes]
+    args[4] = carry.packed(lanes[4])
+    return args
+
+
+def _range_lanes(rng, b, nv, rcap):
+    s = rng.integers(0, 1 << 11, nv).astype(np.int32)
+    e = (s + rng.integers(1, 40, nv)).astype(np.int32)
+    e[3] = s[3] + 5000
+    s[4], e[4] = I32_MIN + 5, np.iinfo(np.int32).max - 5
+    of = rng.integers(0, b, nv).astype(np.int32)
+    of[::7] = b
+    rs = rng.integers(0, 1 << 11, rcap).astype(np.int32)
+    ivs = [_t(of), _t(s), _t(e)]
+    rar = (_t(rs), _t((rs + rng.integers(1, 300, rcap)).astype(np.int32)),
+           _t(rng.integers(-50, 50, (rcap, 3)).astype(np.int32)),
+           _t(rng.integers(0, 6, rcap).astype(np.int32)),
+           _t(rng.random(rcap) < 0.9))
+    return ivs, rar
+
+
+def _counts_launched(before, names, counts=tk.LAUNCHES):
+    for name in names:
+        assert counts[name] > before[name], f"{name} never launched"
+
+
+def test_sharded_resolves_kernels(cuda):
+    """Every sharded resolve on the card's virtual 4 x 2 mesh = the same
+    call on the CPU mesh (the plain versions) = the single-device kernel,
+    with the shard entries and K22's fold and concat launched."""
+    from accord_tpu_torch.parallel import mesh as pm
+    cpu, card = _meshes(cuda)
+    rng = np.random.default_rng(7)
+    before, entries = dict(tk.LAUNCHES), dict(tk.ENTRY_LAUNCHES)
+    args = _resolve_lanes(1, 1024, 1024, 64)
+    want = pm.sharded_deps_resolve(cpu)(*args)
+    got = pm.sharded_deps_resolve(card)(*_deep(args, cuda))
+    _eq(want, got)
+    _eq(tk.deps_resolve(*args), got)
+    # fused over two stores of different caps
+    b = 64
+    subj = _resolve_lanes(2, 128, 1024, b)
+    arenas = [tuple(_resolve_lanes(3 + s, cap, 1024, b)[4:8])
+              for s, cap in enumerate((512, 256))]
+    store = _t(rng.integers(0, 3, b).astype(np.int32))
+    slots = _t(np.array([0, 1], np.int32))
+    fargs = (subj[0], subj[1], store, subj[2], subj[3], slots, arenas,
+             subj[8])
+    want = pm.sharded_fused_deps_resolve(cpu, 2)(*fargs)
+    got = pm.sharded_fused_deps_resolve(card, 2)(*_deep(fargs, cuda))
+    _eq(want, got)
+    # range: one store, then fused 2 x 2 and 1 x 0
+    ivs, rar = _range_lanes(rng, b, 200, 256)
+    sb, sknd, tab = subj[2], subj[3], subj[8]
+    srng = _t(rng.random(b) < 0.5)
+    key = tuple(_resolve_lanes(9, 512, 1024, b)[4:8])
+    rargs = (*ivs, sb, sknd, srng, *rar, *key, tab)
+    want = pm.sharded_range_deps_resolve(cpu)(*rargs)
+    got = pm.sharded_range_deps_resolve(card)(*_deep(rargs, cuda))
+    _eq(want, got)
+    _eq(tk.range_deps_resolve(*rargs), got)
+    assert bool((want[0] != 0).any()) and bool((want[1] != 0).any())
+    for nr, nk in ((2, 2), (1, 0)):
+        rars = tuple(_range_lanes(rng, b, 8, 128 * (s + 1))[1]
+                     for s in range(nr))
+        kars = tuple(tuple(_resolve_lanes(20 + s, 128 * (2 - s), 1024,
+                                          b)[4:8]) for s in range(nk))
+        fr = (*ivs, store, sb, sknd, srng, _t(np.arange(nr, dtype=np.int32)),
+              rars, _t(np.arange(nk, dtype=np.int32)), kars, tab)
+        want = pm.sharded_fused_range_deps_resolve(cpu, nr, nk)(*fr)
+        got = pm.sharded_fused_range_deps_resolve(card, nr, nk)(
+            *_deep(fr, cuda))
+        _eq(want, got)
+    torch.cuda.synchronize()
+    _counts_launched(before, ("deps_resolve_shard", "range_resolve_shard",
+                              "or_fold", "lane_concat"))
+    _counts_launched(entries, ("sharded_deps_resolve",
+                               "sharded_fused_deps_resolve",
+                               "sharded_range_deps_resolve",
+                               "sharded_fused_range_deps_resolve"),
+                     tk.ENTRY_LAUNCHES)
+
+
+@pytest.mark.parametrize("s,out_cap,spans,off,density", [
+    (32, 256, 1, 0, 0.004), (64, 256, 2, 16, 0.02), (33, 64, 1, 0, 0.5),
+    (4096, 1 << 15, 1, 0, 0.01)])
+def test_sharded_finalize_kernel(cuda, s, out_cap, spans, off, density):
+    """The sharded finalize on the card = the CPU mesh's = K2, fitting and
+    overflowing, at word_off != 0 and with S % model != 0 (the bound
+    unsplit)."""
+    from accord_tpu_torch.parallel import mesh as pm
+    cpu, card = _meshes(cuda)
+    rng = np.random.default_rng(s + off)
+    cap = 32 * 4 * 4 if s < 1000 else 16384
+    w = cap // 32
+    b, kc = 16 if s < 1000 else 4096, 128 if s < 1000 else 4096
+
+    def words(rows, n, p):
+        return _t(np.packbits(rng.random((rows, n, 32)) < p, axis=-1,
+                              bitorder="little").view(np.int32)
+                  .reshape(rows, n))
+
+    args = (words(b, spans * w, density), off, words(kc, w, 0.1),
+            _t(rng.integers(-1, b + 2, s).astype(np.int32)),
+            _t(rng.integers(0, kc + 1, s).astype(np.int32)),
+            _t(rng.integers(-1, cap, b).astype(np.int32)),
+            _t(rng.integers(0, 1 << 20, (cap, 3)).astype(np.int32)))
+    before, entries = dict(tk.LAUNCHES), dict(tk.ENTRY_LAUNCHES)
+    want = pm.sharded_finalize_csr(cpu)(*args, out_cap=out_cap)
+    got = pm.sharded_finalize_csr(card)(*_deep(args, cuda), out_cap=out_cap)
+    torch.cuda.synchronize()
+    _eq(want, got)
+    _eq(tk.finalize_csr(*args, out_cap=out_cap), got)
+    _counts_launched(before, ("finalize_shard", "counts_scan",
+                              "fragment_merge"))
+    _counts_launched(entries, ("sharded_finalize_csr",), tk.ENTRY_LAUNCHES)
+
+
+def test_sharded_deps_step_kernels(cuda):
+    """sharded_deps_step on the card's virtual mesh = the CPU mesh's = K18
+    -> K19 -> K20 with the same rounds, and the graft dry run's twin."""
+    from accord_tpu_torch.graft_entry import dryrun_multichip
+    from accord_tpu_torch.ops import carry
+    from accord_tpu_torch.parallel import mesh as pm
+    cpu, card = _meshes(cuda)
+    rng = np.random.default_rng(5)
+    n, k = 512, 256
+    bm = (rng.random((n, k)) < 0.02).astype(np.float32)
+    ts = np.stack([np.zeros(n), np.sort(rng.integers(0, 9999, n)),
+                   rng.integers(0, 99, n)], 1).astype(np.int32)
+    kinds = rng.integers(0, 2, n).astype(np.int32)
+    args = (carry.packed(bm), _t(ts), _t(kinds), _t(WITNESS_TABLE))
+    before, entries = dict(tk.LAUNCHES), dict(tk.ENTRY_LAUNCHES)
+    want = pm.sharded_deps_step(cpu, 4)(*args)
+    got = pm.sharded_deps_step(card, 4)(*_deep(args, cuda))
+    torch.cuda.synchronize()
+    _eq(want, got)
+    valid = torch.ones(n, dtype=torch.bool)
+    one = tk.deps_matrix(args[0], args[1], args[2], args[0], args[1],
+                         args[2], valid, args[3])
+    _eq(one, got[0])
+    _eq(tk.execution_wavefronts(tk.transitive_closure(one, 4), 4), got[1])
+    _counts_launched(before, ("deps_matrix_shard", "pack_rows",
+                              "closure_rows", "wavefront_rows", "or_fold"))
+    _counts_launched(entries, ("sharded_deps_step",), tk.ENTRY_LAUNCHES)
+    dryrun_multichip(8)
+
+
+def test_sharded_burns_card_match_cpu(cuda):
+    """A key burn with ShardedBatchDepsResolver on the card's virtual mesh
+    commits the CPU mesh's history; the sharded merged mesh burn at 16
+    nodes commits the unsharded merged run's."""
+    from accord_tpu_torch.ops.resolver import ShardedBatchDepsResolver
+    from accord_tpu_torch.sim.burn import run_burn
+    from accord_tpu_torch.sim.cluster import ClusterConfig
+    from accord_tpu_torch.sim.mesh_burn import run_mesh_burn
+    cpu, card = _meshes(cuda)
+    logs = []
+    for mesh in (cpu, card):
+        res = []
+
+        def factory(mesh=mesh, res=res):
+            r = ShardedBatchDepsResolver(mesh=mesh, num_buckets=1024,
+                                         initial_cap=2048)
+            res.append(r)
+            return r
+
+        rep = run_burn(9, ops=120, key_count=16, zipf_theta=0.99,
+                       max_keys_per_txn=4, write_ratio=0.7,
+                       collect_log=True,
+                       config=ClusterConfig(num_nodes=5, rf=3,
+                                            deps_resolver_factory=factory,
+                                            deps_batch_window_ms=16.0))
+        assert rep.lost == 0
+        assert sum(r.host_fallbacks for r in res) == 0
+        assert sum(r.finalized_decodes for r in res) > 0
+        logs.append(rep.log)
+    assert logs[0] == logs[1]
+    kw = dict(nodes=16, collect_log=True)
+    sharded, eng = run_mesh_burn(6, 40, sharded=True, mesh=card, **kw)
+    merged, _ = run_mesh_burn(6, 40, device=cuda, **kw)
+    assert sharded.log == merged.log
+    assert eng.snapshot()["mesh_tick_fallbacks"] == 0
+
+
+def test_sharded_mesh_across_every_card(cuda):
+    """make_mesh() over every visible card (2 or more): each shard's
+    operands and results cross cards through peer copies, and every
+    sharded entry, the dry run and a sharded burn still answer as one
+    device does."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 or more cards: a mesh across cards")
+    from accord_tpu_torch.graft_entry import dryrun_multichip
+    from accord_tpu_torch.ops import carry
+    from accord_tpu_torch.ops.resolver import (BatchDepsResolver,
+                                               ShardedBatchDepsResolver)
+    from accord_tpu_torch.parallel import mesh as pm
+    from accord_tpu_torch.sim.burn import run_burn
+    from accord_tpu_torch.sim.cluster import ClusterConfig
+    from accord_tpu_torch.sim.mesh_burn import run_mesh_burn
+    mesh = pm.make_mesh()
+    assert len({d for row in mesh.devices for d in row}) == n
+    home = mesh.device(0, 0)
+    rng = np.random.default_rng(11)
+    args = _deep(_resolve_lanes(1, 1024, 1024, 64), home)
+    _eq(tk.deps_resolve(*args).cpu(), pm.sharded_deps_resolve(mesh)(*args))
+    b = 64
+    ivs, rar = _range_lanes(rng, b, 200, 256)
+    key = tuple(_resolve_lanes(9, 512, 1024, b)[4:8])
+    rargs = _deep((*ivs, args[2], args[3], _t(rng.random(b) < 0.5), *rar,
+                   *key, args[8]), home)
+    for want, got in zip(tk.range_deps_resolve(*rargs),
+                         pm.sharded_range_deps_resolve(mesh)(*rargs)):
+        _eq(want.cpu(), got)
+    store = _t(rng.integers(0, 3, b).astype(np.int32))
+    fargs = _deep((args[0], args[1], store, args[2], args[3],
+                   _t(np.array([0, 1], np.int32)),
+                   [tuple(_resolve_lanes(3 + s, cap, 1024, b)[4:8])
+                    for s, cap in enumerate((512, 256))], args[8]), home)
+    _eq(tk.fused_deps_resolve(*fargs).cpu(),
+        pm.sharded_fused_deps_resolve(mesh, 2)(*fargs))
+    w = 64
+
+    def words(rows, cols, p):
+        return _t(np.packbits(rng.random((rows, cols, 32)) < p, axis=-1,
+                              bitorder="little").view(np.int32)
+                  .reshape(rows, cols))
+
+    fin = _deep((words(16, 2 * w, 0.05), w, words(64, w, 0.2),
+                 _t(rng.integers(-1, 18, 64).astype(np.int32)),
+                 _t(rng.integers(0, 65, 64).astype(np.int32)),
+                 _t(rng.integers(-1, 32 * w, 16).astype(np.int32)),
+                 _t(rng.integers(0, 99, (32 * w, 3)).astype(np.int32))),
+                home)
+    for out_cap in (64, 4096):
+        _eq(tuple(x.cpu() for x in tk.finalize_csr(*fin, out_cap=out_cap)),
+            pm.sharded_finalize_csr(mesh)(*fin, out_cap=out_cap))
+    bm = (rng.random((256, 256)) < 0.02).astype(np.float32)
+    step_args = (carry.packed(bm, home),
+                 _t(np.stack([np.zeros(256), np.arange(256),
+                              np.zeros(256)], 1).astype(np.int32)).to(home),
+                 _t(rng.integers(0, 2, 256).astype(np.int32)).to(home),
+                 _t(WITNESS_TABLE).to(home))
+    deps, levels = pm.sharded_deps_step(mesh, 4)(*step_args)
+    valid = torch.ones(256, dtype=torch.bool, device=home)
+    one = tk.deps_matrix(*step_args[:3], *step_args[:3], valid,
+                         step_args[3])
+    _eq(one.cpu(), deps)
+    _eq(tk.execution_wavefronts(tk.transitive_closure(one, 4), 4).cpu(),
+        levels)
+    dryrun_multichip(n)
+    logs = []
+    for make in (lambda: BatchDepsResolver(num_buckets=1024,
+                                           initial_cap=2048, device=home),
+                 lambda: ShardedBatchDepsResolver(mesh=mesh,
+                                                  num_buckets=1024,
+                                                  initial_cap=2048)):
+        rep = run_burn(9, ops=120, key_count=16, zipf_theta=0.99,
+                       max_keys_per_txn=4, write_ratio=0.7,
+                       collect_log=True,
+                       config=ClusterConfig(num_nodes=5, rf=3,
+                                            deps_resolver_factory=make,
+                                            deps_batch_window_ms=16.0))
+        logs.append(rep.log)
+    assert logs[0] == logs[1]
+    kw = dict(nodes=16, collect_log=True)
+    sharded, eng = run_mesh_burn(6, 40, sharded=True, mesh=mesh, **kw)
+    merged, _ = run_mesh_burn(6, 40, device=home, **kw)
+    assert sharded.log == merged.log
+    assert eng.snapshot()["mesh_tick_fallbacks"] == 0

@@ -94,11 +94,15 @@ def test_engine_reuse_rejected_reentry_safe():
 
 
 def test_sharded_and_card_defaults():
-    """sharded=True is not ported (ROADMAP queue 1 item 9); the default
-    device is the card, which raises here."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run_mesh_burn(1, 10, nodes=3, sharded=True, device="cpu")
+    """sharded=True with the megakernel is not ported (ROADMAP queue 2 rows
+    32 and 35b); the default device, and the default mesh, is the card,
+    which raises here."""
+    with pytest.raises(NotImplementedError, match="35b"):
+        run_mesh_burn(1, 10, nodes=3, sharded=True, megakernel=True,
+                      device="cpu")
     import torch
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             run_mesh_burn(1, 10, nodes=3)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_mesh_burn(1, 10, nodes=3, sharded=True)

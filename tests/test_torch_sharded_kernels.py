@@ -1,0 +1,470 @@
+"""The port's sharded deps data plane (accord_tpu_torch/parallel/mesh.py)
+against the JAX package's `parallel/mesh.py`, on the CPU.
+
+The JAX side runs on the conftest mesh of 8 virtual CPU devices (data 4 x
+model 2); the port's runs on `make_mesh(devices=["cpu"] * 8)`, the same
+4 x 2 grid, where every shard's kernel and every combining step takes its
+plain version. Inputs are made with numpy from a seed and fed to both (the
+JAX kernels take f32 bitmaps, the port packed int32 words). Tolerance:
+bit-equal everywhere -- packed words, indptr, dep_rows, dep_ts, bounds,
+checksum words, the bool deps and the levels. Each JAX entry is built once
+and reused across trials of one shape, so it compiles once.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from accord_tpu.ops import kernels as jk
+from accord_tpu.parallel import mesh as jm
+from accord_tpu_torch.ops import carry
+from accord_tpu_torch.ops import kernels as tk
+from accord_tpu_torch.parallel import mesh as pm
+
+I32_MIN = np.iinfo(np.int32).min
+I32_MAX = np.iinfo(np.int32).max
+DATA, MODEL = 4, 2
+
+
+@functools.lru_cache(maxsize=1)
+def _jmesh():
+    mesh = jm.make_mesh()
+    assert (mesh.shape["data"], mesh.shape["model"]) == (DATA, MODEL)
+    return mesh
+
+
+@functools.lru_cache(maxsize=1)
+def _pmesh():
+    return pm.make_mesh(devices=["cpu"] * 8)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _words(a) -> np.ndarray:
+    """A JAX u32 result as the port's int32 bit patterns."""
+    return np.array(a).view(np.int32)
+
+
+# -- the mesh ----------------------------------------------------------------
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_make_mesh_shapes_match_reference(n):
+    import jax
+    ref = jm.make_mesh(devices=jax.devices()[:n])
+    got = pm.make_mesh(devices=["cpu"] * n)
+    assert (got.shape["data"], got.shape["model"]) == ref.devices.shape
+    assert len(got.devices) * len(got.devices[0]) == n
+    assert hash(got) == hash(pm.make_mesh(devices=["cpu"] * n))
+    assert got == pm.make_mesh(devices=["cpu"] * n)
+
+
+def test_make_mesh_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pm.make_mesh()
+    with pytest.raises(ValueError):
+        pm.make_mesh(devices=[])
+
+
+def test_contract_violations_raise():
+    mesh = _pmesh()
+    args = [_t(a) for a in jm.example_resolve_batch(cap=96, k=256, b=4)]
+    args[4] = carry.packed(jm.example_resolve_batch(cap=96, k=256, b=4)[4])
+    with pytest.raises(ValueError, match="32 \\* data"):
+        pm.sharded_deps_resolve(mesh)(*args)       # cap 96 % 128 != 0
+    narrow = list(args)
+    narrow[4] = torch.zeros(128, 1, dtype=torch.int32)   # 32 buckets
+    for i in (5, 6, 7):
+        narrow[i] = torch.cat([args[i], args[i][:32]])
+    with pytest.raises(ValueError, match="'model' slices"):
+        pm.sharded_deps_resolve(mesh)(*narrow)
+    from accord_tpu_torch.ops.resolver import ShardedBatchDepsResolver
+    with pytest.raises(Exception, match="32\\*data"):
+        ShardedBatchDepsResolver(mesh=mesh, num_buckets=256,
+                                 initial_cap=96)
+    with pytest.raises(Exception, match="32\\*model"):
+        ShardedBatchDepsResolver(mesh=mesh, num_buckets=32,
+                                 initial_cap=128)
+    with pytest.raises(ValueError, match="first device"):
+        ShardedBatchDepsResolver(mesh=pm.make_mesh(devices=["meta"] * 8),
+                                 device="cpu")
+
+
+def test_entry_counts_only_its_kernels_launches(monkeypatch):
+    """A sharded entry's count is the launches its shards and combining
+    steps made: none for the plain versions or a call that raises, one a
+    shard for a wrapper that counts a launch."""
+    mesh = _pmesh()
+    host = jm.example_resolve_batch(cap=512, k=256, b=16, seed=0)
+    args = [_t(a) for a in host]
+    args[4] = carry.packed(host[4])
+    tk.reset_launches()
+    pm.sharded_deps_resolve(mesh)(*args)
+    bad = list(args)
+    bad[4] = args[4][:96]
+    with pytest.raises(ValueError):
+        pm.sharded_deps_resolve(mesh)(*bad)
+    assert not any(tk.ENTRY_LAUNCHES.values())
+    shard = tk.deps_resolve_shard
+
+    def counted(*a, **kw):
+        tk.LAUNCHES["deps_resolve_shard"] += 1
+        return shard(*a, **kw)
+    monkeypatch.setattr(tk, "deps_resolve_shard", counted)
+    want = pm.sharded_deps_resolve(mesh)(*args)
+    assert tk.ENTRY_LAUNCHES["sharded_deps_resolve"] == DATA * MODEL
+    assert np.array_equal(want.numpy(), tk.deps_resolve(*args).numpy())
+    tk.reset_launches()
+    assert not any(tk.ENTRY_LAUNCHES.values())
+
+
+# -- row 34: the sharded resolves --------------------------------------------
+@functools.lru_cache(maxsize=1)
+def _jax_resolve():
+    return jm.sharded_deps_resolve(_jmesh())
+
+
+@pytest.mark.parametrize("trial", [0, 1, 2])
+def test_sharded_deps_resolve_matches_jax(trial):
+    host = jm.example_resolve_batch(cap=512, k=256, b=16, seed=trial)
+    ref = _words(_jax_resolve()(*host))
+    args = [_t(a) for a in host]
+    args[4] = carry.packed(host[4])
+    got = pm.sharded_deps_resolve(_pmesh())(*args)
+    assert np.array_equal(ref, got.numpy())
+    assert np.array_equal(got.numpy(), tk.deps_resolve(*args).numpy())
+    assert ref.any()
+
+
+def test_sharded_deps_resolve_wraps_negative_keys_like_one_device():
+    """A negative key is normalised over K before a shard tests its bucket
+    slice, so the sharded answer is the single-device kernel's (key -1 is
+    bucket K-1, as jnp's `.at[]` wraps it on one device)."""
+    host = list(jm.example_resolve_batch(cap=512, k=256, b=16, seed=5))
+    host[1] = host[1].copy()
+    host[1][::3] -= 256                      # the same buckets, negative
+    args = [_t(a) for a in host]
+    args[4] = carry.packed(host[4])
+    got = pm.sharded_deps_resolve(_pmesh())(*args)
+    assert np.array_equal(got.numpy(), tk.deps_resolve(*args).numpy())
+    ref = _words(jk.deps_resolve(*host))
+    assert np.array_equal(got.numpy(), ref) and ref.any()
+
+
+def _range_inputs(seed, b=16, nv=48, rcap=128, cap=256, k=256):
+    rng = np.random.default_rng(seed)
+    iv_of = rng.integers(0, b, nv).astype(np.int32)
+    iv_of[::11] = b                          # CSR padding, dropped
+    iv_of[5] = -1                            # counts from the end
+    s = rng.integers(0, 1 << 11, nv).astype(np.int32)
+    e = (s + rng.integers(1, 40, nv)).astype(np.int32)
+    e[7] = s[7] + 3 * k                      # wider than the buckets
+    e[9] = s[9] - 4                          # a negative width
+    s[13], e[13] = I32_MIN + 5, I32_MAX - 5  # a width past int32
+    sb = np.stack([np.zeros(b, np.int32),
+                   rng.integers(1000, 100_000, b).astype(np.int32),
+                   rng.integers(0, 100, b).astype(np.int32)], 1)
+    sknd = rng.integers(0, 5, b).astype(np.int32)
+    srng = rng.random(b) < 0.5
+    r_start = rng.integers(0, 1 << 11, rcap).astype(np.int32)
+    r_end = (r_start + rng.integers(1, 300, rcap)).astype(np.int32)
+    r_ts = np.stack([np.zeros(rcap, np.int32),
+                     rng.integers(0, 90_000, rcap).astype(np.int32),
+                     rng.integers(0, 100, rcap).astype(np.int32)], 1)
+    r_kinds = rng.integers(0, 5, rcap).astype(np.int32)
+    r_valid = rng.random(rcap) < 0.9
+    k_bm = (rng.random((cap, k)) < 0.03).astype(np.float32)
+    k_ts = np.stack([np.zeros(cap, np.int32),
+                     rng.integers(0, 90_000, cap).astype(np.int32),
+                     rng.integers(0, 100, cap).astype(np.int32)], 1)
+    k_kinds = rng.integers(0, 5, cap).astype(np.int32)
+    k_valid = rng.random(cap) < 0.9
+    return (iv_of, s, e, sb, sknd, srng), \
+        (r_start, r_end, r_ts, r_kinds, r_valid), \
+        (k_bm, k_ts, k_kinds, k_valid)
+
+
+def _port_key(arena):
+    bm, *rest = arena
+    return (carry.packed(bm), *(_t(a) for a in rest))
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_range():
+    return jm.sharded_range_deps_resolve(_jmesh())
+
+
+@pytest.mark.parametrize("trial", [0, 1])
+def test_sharded_range_deps_resolve_matches_jax(trial):
+    from accord_tpu.ops.encoding import WITNESS_TABLE
+    subj, rar, kar = _range_inputs(trial)
+    ref = _jax_range()(*subj, *rar, *kar, WITNESS_TABLE)
+    got = pm.sharded_range_deps_resolve(_pmesh())(
+        *(_t(a) for a in subj), *(_t(a) for a in rar), *_port_key(kar),
+        _t(WITNESS_TABLE))
+    for r, g in zip(ref, got):
+        assert np.array_equal(_words(r), g.numpy())
+        assert _words(r).any()
+    single = tk.range_deps_resolve(
+        *(_t(a) for a in subj), *(_t(a) for a in rar), *_port_key(kar),
+        _t(WITNESS_TABLE))
+    for s, g in zip(single, got):
+        assert torch.equal(s, g)
+
+
+@functools.lru_cache(maxsize=2)
+def _jax_fused(n):
+    return jm.sharded_fused_deps_resolve(_jmesh(), n)
+
+
+@pytest.mark.parametrize("trial", [0, 1])
+def test_sharded_fused_deps_resolve_matches_jax(trial):
+    from accord_tpu.ops.encoding import WITNESS_TABLE
+    rng = np.random.default_rng(50 + trial)
+    b, k = 16, 256
+    arenas, parenas = [], []
+    for s, cap in enumerate((256, 128)):
+        a = jm.example_resolve_batch(cap=cap, k=k, b=b, seed=10 * trial + s)
+        arenas.append(tuple(a[4:8]))
+        parenas.append(_port_key(a[4:8]))
+    subj = jm.example_resolve_batch(cap=128, k=k, b=b, nnz=96, seed=trial)
+    store = rng.integers(0, 3, b).astype(np.int32)   # slot 2: no block
+    slots = np.array([0, 1], np.int32)
+    ref = _words(_jax_fused(2)(subj[0], subj[1], store, subj[2], subj[3],
+                               slots, tuple(arenas), WITNESS_TABLE))
+    got = pm.sharded_fused_deps_resolve(_pmesh(), 2)(
+        _t(subj[0]), _t(subj[1]), _t(store), _t(subj[2]), _t(subj[3]),
+        _t(slots), tuple(parenas), _t(WITNESS_TABLE))
+    assert np.array_equal(ref, got.numpy()) and ref.any()
+    assert ref.shape == (b, (256 + 128) // 32)
+
+
+@functools.lru_cache(maxsize=4)
+def _jax_fused_range(nr, nk):
+    return jm.sharded_fused_range_deps_resolve(_jmesh(), nr, nk)
+
+
+@pytest.mark.parametrize("nr,nk", [(2, 2), (1, 0)])
+def test_sharded_fused_range_deps_resolve_matches_jax(nr, nk):
+    from accord_tpu.ops.encoding import WITNESS_TABLE
+    rng = np.random.default_rng(60 + nr)
+    subj, _, _ = _range_inputs(70)
+    b = subj[3].shape[0]
+    rars = [_range_inputs(71 + s, rcap=128 * (s + 1))[1] for s in range(nr)]
+    kars = [_range_inputs(81 + s, cap=128 * (2 - s))[2] for s in range(nk)]
+    store = rng.integers(0, 3, b).astype(np.int32)
+    r_slots = np.arange(nr, dtype=np.int32)
+    k_slots = np.arange(nk, dtype=np.int32)[::-1].copy()
+    iv, rest = subj[:3], subj[3:]
+    ref = _jax_fused_range(nr, nk)(
+        *iv, store, *rest, r_slots, tuple(rars), k_slots, tuple(kars),
+        WITNESS_TABLE)
+    got = pm.sharded_fused_range_deps_resolve(_pmesh(), nr, nk)(
+        *(_t(a) for a in iv), _t(store), *(_t(a) for a in rest),
+        _t(r_slots), tuple(tuple(_t(a) for a in r) for r in rars),
+        _t(k_slots), tuple(_port_key(k) for k in kars), _t(WITNESS_TABLE))
+    for r, g in zip(ref, got):
+        assert np.array_equal(_words(r), g.numpy())
+    assert _words(ref[0]).any()
+    assert got[1].shape == (b, sum(128 * (2 - s) for s in range(nk)) // 32)
+
+
+def test_sharded_fused_two_store_differential():
+    """tests/test_fused_dispatch.py:233's two-store case on the port: the
+    sharded resolver's fused cross-store dispatch decodes bit-identically
+    to the host scans on a mixed key/range workload over two stores."""
+    from accord_tpu_torch.local.cfk import CfkStatus
+    from accord_tpu_torch.ops.resolver import ShardedBatchDepsResolver
+    from accord_tpu_torch.primitives.keyspace import Keys, Range, Ranges
+    from accord_tpu_torch.primitives.timestamp import (Domain, Timestamp,
+                                                       TxnId, TxnKind)
+    from accord_tpu_torch.sim.cluster import Cluster, ClusterConfig
+
+    cluster = Cluster(1, ClusterConfig(num_nodes=1, rf=1, num_shards=1,
+                                       stores_per_node=2, progress=False))
+    node = cluster.nodes[1]
+    stores = node.command_stores.stores
+    res = ShardedBatchDepsResolver(mesh=_pmesh(), num_buckets=128,
+                                   initial_cap=128)
+    for s in stores:
+        s.deps_resolver = res
+        s.batch_window_ms = 0.5
+    node.device_latency_ms = 5.0
+    span = 4096
+    rng = np.random.default_rng(41)
+    for store in stores:
+        lo = min(int(r.start) for r in store.ranges)
+        for i in range(25):
+            ts = node.unique_now()
+            kind = TxnKind.WRITE if i % 3 else TxnKind.READ
+            tid = TxnId.create(ts.epoch, ts.hlc, ts.node, kind, Domain.KEY)
+            width = 20 if i % 9 == 0 else 1 + int(rng.integers(0, 4))
+            store.register(tid, Keys(sorted(
+                {lo + int(k) for k in rng.integers(0, span, width)})),
+                CfkStatus.WITNESSED, ts)
+        for i in range(15):
+            ts = node.unique_now()
+            kind = TxnKind.WRITE if i % 2 else TxnKind.READ
+            tid = TxnId.create(ts.epoch, ts.hlc, ts.node, kind, Domain.RANGE)
+            s = lo + int(rng.integers(0, span))
+            store.register(tid, Ranges([Range(s, s + 1 + int(
+                rng.integers(0, 1024)))]), CfkStatus.WITNESSED, ts)
+    far = Timestamp(node.epoch, node.time_service.now_micros() + 50_000, 0,
+                    node.id)
+    subs = []
+    wave_rng = np.random.default_rng(9)
+    for store in stores:
+        lo = min(int(r.start) for r in store.ranges)
+        for i in range(9):
+            kind = TxnKind.WRITE if i % 2 else TxnKind.READ
+            if i % 3 == 0:
+                s = lo + int(wave_rng.integers(0, span))
+                owned = store.owned(Ranges([Range(s, s + 1 + int(
+                    wave_rng.integers(0, 2048)))]))
+                tid = node.next_txn_id(kind, Domain.RANGE)
+            else:
+                width = 1 + int(wave_rng.integers(0, 4))
+                owned = store.owned(Keys(sorted(
+                    {lo + int(k)
+                     for k in wave_rng.integers(0, span, width)})))
+                tid = node.next_txn_id(kind, Domain.KEY)
+            subs.append((store, tid, owned, far))
+    outs = [res.enqueue_deps(store, tid, owned, before)
+            for store, tid, owned, before in subs]
+    cluster.queue.drain(max_events=100_000)
+    assert all(o.done for o in outs)
+    assert res.dispatches < 2 * res.ticks, "fused path disengaged"
+    assert res.host_fallbacks == 0 and res.range_fallbacks == 0
+    key_seen = range_seen = 0
+    for (store, tid, owned, before), out in zip(subs, outs):
+        host = store.host_calculate_deps(tid, owned, before)
+        assert out.value() == host, f"sharded fused diverges on {tid}"
+        key_seen += bool(host.key_deps.all_txn_ids())
+        range_seen += bool(host.range_deps.all_txn_ids())
+    assert key_seen > 0 and range_seen > 0, "differential vacuous"
+
+
+# -- row 35a: the sharded finalize -------------------------------------------
+@functools.lru_cache(maxsize=1)
+def _jax_finalize():
+    return jm.sharded_finalize_csr(_jmesh())
+
+
+def _fin_inputs(rng, b, s, kc, cap, spans, density, kid_density):
+    w = cap // 32
+    packed = np.packbits(rng.random((b, spans * w, 32)) < density, axis=-1,
+                         bitorder="little").view(np.uint32) \
+        .reshape(b, spans * w)
+    kid = np.packbits(rng.random((kc, w, 32)) < kid_density, axis=-1,
+                      bitorder="little").view(np.uint32).reshape(kc, w)
+    return (packed, kid, rng.integers(-1, b + 2, s).astype(np.int32),
+            rng.integers(0, kc + 1, s).astype(np.int32),
+            rng.integers(-1, cap, b).astype(np.int32),
+            rng.integers(0, 1 << 20, (cap, 3)).astype(np.int32))
+
+
+def _fin_both(args, off, out_cap, ref_kernel=None):
+    import jax.numpy as jnp
+    packed, kid, ssub, skid, srow, ts = args
+    ref = (ref_kernel or _jax_finalize())(
+        jnp.asarray(packed), jnp.asarray(off, jnp.int32), jnp.asarray(kid),
+        ssub, skid, srow, ts, out_cap=out_cap)
+    port_args = (_t(packed.view(np.int32)), off, _t(kid.view(np.int32)),
+                 _t(ssub), _t(skid), _t(srow), _t(ts))
+    got = pm.sharded_finalize_csr(_pmesh())(*port_args, out_cap=out_cap)
+    single = tk.finalize_csr(*port_args, out_cap=out_cap)
+    for name, r, g, s1 in zip(("indptr", "dep_rows", "dep_ts", "bound",
+                               "csum"), ref, got, single):
+        assert np.array_equal(_words(r), g.numpy()), name
+        assert torch.equal(g, s1), name
+    return int(got[0][-1])
+
+
+@pytest.mark.parametrize("density,out_cap,spans,off", [
+    (0.004, 256, 1, 0),        # fits
+    (0.02, 256, 2, 16),        # a fused span at word_off != 0
+    (0.5, 64, 1, 0),           # overflows: the exact total, zero tail
+    (0.02, 256, 2, 40)])       # an offset past the end clamps
+def test_sharded_finalize_csr_matches_jax(density, out_cap, spans, off):
+    """Against the JAX package's sharded finalize; an offset past the end
+    (which no resolver span produces) against its single-device kernel,
+    whose clamp (jax.lax.dynamic_slice's) the port keeps: the reference's
+    sharded lowering reads another window there."""
+    rng = np.random.default_rng(int(density * 1000) + off)
+    cap = 32 * DATA * 4
+    args = _fin_inputs(rng, b=8, s=32, kc=64, cap=cap, spans=spans,
+                       density=density, kid_density=0.1)
+    w = cap // 32
+    clamped = off + w > spans * w
+    total = _fin_both(args, off, out_cap,
+                      jk.finalize_csr if clamped else None)
+    if density == 0.5:
+        assert total > out_cap
+    else:
+        assert 0 < total <= out_cap
+
+
+@pytest.mark.parametrize("s", [32, 64, 33])
+def test_sharded_finalize_bound_model_split_matches_jax(s):
+    """The out-cap bound splits over 'model' slot blocks when S % model
+    == 0 and stays whole otherwise (33 slots): integer sums, so equal."""
+    rng = np.random.default_rng(31 + s)
+    args = _fin_inputs(rng, b=16, s=s, kc=128, cap=32 * DATA * 4, spans=1,
+                       density=0.05, kid_density=0.2)
+    assert _fin_both(args, 0, 2048) > 0
+
+
+# -- row 33: the graft dry-run step ------------------------------------------
+def test_sharded_deps_step_matches_jax():
+    import jax.numpy as jnp
+    n, k = max(32, 8 * DATA), 128 * MODEL
+    bitmaps, ts, kinds, table = jm.example_batch(n=n, k=k, seed=3)
+    deps, levels = jm.sharded_deps_step(_jmesh(), closure_iters=4)(
+        jnp.asarray(bitmaps), jnp.asarray(ts), jnp.asarray(kinds),
+        jnp.asarray(table))
+    step = pm.sharded_deps_step(_pmesh(), closure_iters=4)
+    pdeps, plevels = step(carry.packed(bitmaps), _t(ts), _t(kinds),
+                          _t(table))
+    assert pdeps.dtype == torch.bool and plevels.dtype == torch.int32
+    assert np.array_equal(np.asarray(deps), pdeps.numpy())
+    assert np.array_equal(np.asarray(levels), plevels.numpy())
+    assert pdeps.any() and int(plevels.max()) > 0
+    # and the single-device chain K18 -> K19 -> K20 with the same rounds
+    valid = torch.ones(n, dtype=torch.bool)
+    words = carry.packed(bitmaps)
+    one = tk.deps_matrix(words, _t(ts), _t(kinds), words, _t(ts), _t(kinds),
+                         valid, _t(table))
+    lv = tk.execution_wavefronts(tk.transitive_closure(one, 4), 4)
+    assert torch.equal(one, pdeps) and torch.equal(lv, plevels)
+
+
+# -- the K22 combining steps' contracts ---------------------------------------
+def test_or_fold_is_an_or_not_a_sum():
+    """Two 'model' partials with the same bit set fold to that bit: a sum
+    would carry it into the next bit (the doubled packed word)."""
+    parts = torch.tensor([[[[1, -1]], [[1, 3]]]], dtype=torch.int32)
+    out = torch.zeros(1, 2, dtype=torch.int32)
+    pm._or_fold_model(parts, out)
+    assert out.tolist() == [[1, -1]]
+
+
+def test_gather_counts_and_fragment_merge():
+    counts = torch.tensor([[2, 0, 1], [1, 3, 0]], dtype=torch.int32)
+    indptr, seg_base, bound = pm._gather_counts(
+        counts, torch.tensor([4, 5, 6], dtype=torch.int32))
+    assert indptr.tolist() == [0, 3, 6, 7]
+    assert seg_base.tolist() == [[0, 3, 6], [2, 3, 7]]
+    assert int(bound) == 15
+    frags = torch.tensor([[5, 6, 0, 0], [0, 0, 7, 0]], dtype=torch.int32)
+    ts = torch.arange(30, dtype=torch.int32).reshape(10, 3)
+    rows, dep_ts, csum = pm._sum_merge_fragments(frags, indptr, ts)
+    assert rows.tolist() == [5, 6, 7, 0]
+    assert torch.equal(dep_ts, ts[[5, 6, 7, 0]])
+    assert int(csum) == int(tk.csr_checksum(indptr, rows, dep_ts))
+    blocks = [torch.full((2, 1), 3, dtype=torch.int32),
+              torch.full((2, 2), 4, dtype=torch.int32)]
+    assert pm._concat_lane_blocks(blocks).tolist() == [[3, 4, 4]] * 2
