@@ -173,9 +173,10 @@ struct ShardFin {
   }
 };
 
-__global__ void __launch_bounds__(CT)
-fin_shard_count_kernel(const ShardFin f, int s, int* __restrict__ counts,
-                       int* __restrict__ bound, int bound_lo, int bound_hi) {
+// the count pass of one shard over its slots blockIdx.x, + gridDim.x, ...
+__device__ __forceinline__ void shard_count_body(const ShardFin& f, int s,
+                                                 int* counts, int* bound,
+                                                 int bound_lo, int bound_hi) {
   for (int sl = blockIdx.x; sl < s; sl += gridDim.x) {
     const bool bounds = bound != nullptr && sl >= bound_lo && sl < bound_hi;
     int cnt = 0, kb = 0;
@@ -194,10 +195,10 @@ fin_shard_count_kernel(const ShardFin f, int s, int* __restrict__ counts,
   }
 }
 
-__global__ void __launch_bounds__(CT)
-fin_shard_compact_kernel(const ShardFin f, int s,
-                         const int* __restrict__ seg_base, int out_cap,
-                         int* __restrict__ frag) {
+// the compaction pass of one shard over its slots blockIdx.x, + gridDim.x
+__device__ __forceinline__ void shard_compact_body(const ShardFin& f, int s,
+                                                   const int* seg_base,
+                                                   int out_cap, int* frag) {
   for (int sl = blockIdx.x; sl < s; sl += gridDim.x) {
     int carry = seg_base[sl];
     for (int w0 = 0; w0 < f.wl; w0 += CT) {
@@ -216,6 +217,69 @@ fin_shard_compact_kernel(const ShardFin f, int s,
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(CT)
+fin_shard_count_kernel(const ShardFin f, int s, int* __restrict__ counts,
+                       int* __restrict__ bound, int bound_lo, int bound_hi) {
+  shard_count_body(f, s, counts, bound, bound_lo, bound_hi);
+}
+
+__global__ void __launch_bounds__(CT)
+fin_shard_compact_kernel(const ShardFin f, int s,
+                         const int* __restrict__ seg_base, int out_cap,
+                         int* __restrict__ frag) {
+  shard_compact_body(f, s, seg_base, out_cap, frag);
+}
+
+// The sharded protocol megakernel's form (accord_tpu_torch/ops/
+// tick_graph.py): one record per shard in the graph's parameter block, so
+// a replay reads the tick's own packed result, kid table and lanes, and
+// one launch covers every shard of a finalize (blockIdx.y the record).
+struct ShardFinEnt {
+  ShardFin f;
+  int* counts;          // the shard's slot counts, or null ('model' > 0)
+  int* bound;           // its out-cap bound partial
+  const int* seg_base;  // its write bases (the compaction)
+  int* frag;            // its fragment (the compaction)
+  int bound_lo, bound_hi;
+};
+
+extern "C" int shard_fin_bytes() { return (int)sizeof(ShardFinEnt); }
+
+// write the record of these operands (device pointers) to host memory dst
+extern "C" int shard_fin_pack(void* dst, const void* blk, int blk_stride,
+                              int b, const void* kid, int kid_stride, int kc,
+                              int wl, int base_w, const void* slot_subj,
+                              const void* slot_kid, const void* subj_row,
+                              void* counts, void* bound, int bound_lo,
+                              int bound_hi, const void* seg_base,
+                              void* frag) {
+  ShardFinEnt e;
+  e.f = ShardFin{(const unsigned*)blk, blk_stride, b, (const unsigned*)kid,
+                 kid_stride, kc, wl, base_w, (const int*)slot_subj,
+                 (const int*)slot_kid, (const int*)subj_row};
+  e.counts = (int*)counts;
+  e.bound = (int*)bound;
+  e.seg_base = (const int*)seg_base;
+  e.frag = (int*)frag;
+  e.bound_lo = bound_lo;
+  e.bound_hi = bound_hi;
+  *(ShardFinEnt*)dst = e;
+  return 0;
+}
+
+__global__ void __launch_bounds__(CT)
+fin_shard_count_tab_kernel(const ShardFinEnt* __restrict__ tab, int s) {
+  const ShardFinEnt e = tab[blockIdx.y];
+  shard_count_body(e.f, s, e.counts, e.bound, e.bound_lo, e.bound_hi);
+}
+
+__global__ void __launch_bounds__(CT)
+fin_shard_compact_tab_kernel(const ShardFinEnt* __restrict__ tab, int s,
+                             int out_cap) {
+  const ShardFinEnt e = tab[blockIdx.y];
+  shard_compact_body(e.f, s, e.seg_base, out_cap, e.frag);
 }
 
 static inline int shard_grid(int s) {
@@ -256,6 +320,41 @@ extern "C" int fin_shard_compact(const void* blk, int blk_stride, int b,
              (const int*)slot_kid, (const int*)subj_row};
   fin_shard_compact_kernel<<<shard_grid(s), CT, 0, st>>>(
       f, s, (const int*)seg_base, out_cap, (int*)frag);
+  ACCORD_CHECK();
+  return 0;
+}
+
+// fin_shard_count over a table of nent records (device memory) of s slots
+// each; the bound partials (nbounds ints at `bounds`) are zeroed first
+extern "C" int fin_shard_count_tab(const void* tab, int nent, int s,
+                                   void* bounds, int nbounds, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nbounds > 0) {
+    cudaMemsetAsync(bounds, 0, sizeof(int) * (size_t)nbounds, st);
+    ACCORD_CHECK();
+  }
+  if (s <= 0 || nent <= 0) return 0;
+  if (nent > 65535) return (int)cudaErrorInvalidValue;
+  fin_shard_count_tab_kernel<<<dim3(shard_grid(s), nent), CT, 0, st>>>(
+      (const ShardFinEnt*)tab, s);
+  ACCORD_CHECK();
+  return 0;
+}
+
+// fin_shard_compact over a table of nent records; the fragments (nfrag
+// ints at `frags`, every record's) are zeroed first
+extern "C" int fin_shard_compact_tab(const void* tab, int nent, int s,
+                                     int out_cap, void* frags, int nfrag,
+                                     void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nfrag > 0) {
+    cudaMemsetAsync(frags, 0, sizeof(int) * (size_t)nfrag, st);
+    ACCORD_CHECK();
+  }
+  if (s <= 0 || nent <= 0 || out_cap <= 0) return 0;
+  if (nent > 65535) return (int)cudaErrorInvalidValue;
+  fin_shard_compact_tab_kernel<<<dim3(shard_grid(s), nent), CT, 0, st>>>(
+      (const ShardFinEnt*)tab, s, out_cap);
   ACCORD_CHECK();
   return 0;
 }

@@ -24,6 +24,16 @@
 //        key side is K13's launch over the covered words, gated by
 //        subj_is_range. Either side may be empty.
 //
+// The sharded protocol megakernel (accord_tpu_torch/ops/tick_graph.py,
+// replacing the `_fused_key_resolve_blocks` / `_fused_range_resolve_blocks`
+// shard_map stages of accord_tpu/parallel/mesh.py :683) runs the same
+// bodies over SHARD tables: node_key_shard takes one KeyShard entry per
+// (block, 'data' shard, 'model' shard) -- the shard's row range, its
+// bucket-word column slice read in place through the arena's row stride,
+// its subject words and its 'model' partial -- in one launch; the range
+// side's entries are RngBlk rows per (block, 'data' shard) through
+// node_range_resolve as it is. The 'model' partials then OR-fold (K22).
+//
 // What bounds them: bytes -- the output, B x sum(cap)/32 words, is mostly
 // zero words written once; the arena lanes of a block are read once per
 // subject tile that holds one of its subjects.
@@ -50,6 +60,19 @@ struct TabHdr {              // 16 bytes, then the blocks
   unsigned* out;
   long long nblk;
 };
+
+struct KeyShard {            // 64 bytes
+  const unsigned* bm;        // the shard's first row, first 'model' word
+  const int* ts;             // the shard's rows
+  const int* kinds;
+  const unsigned char* valid;
+  const unsigned* sw;        // subject words of the 'model' slice [b, nwl]
+  unsigned* out;             // the 'model' partial [b, out_stride]
+  int cap, out_off;          // the shard's rows; its first word column
+  int bm_stride, pad;        // the arena's row stride in words
+};
+
+extern "C" int node_shard_bytes() { return (int)sizeof(KeyShard); }
 
 extern "C" int node_table_sizes(int* out) {
   out[0] = (int)sizeof(TabHdr);
@@ -98,6 +121,46 @@ extern "C" int node_key_resolve(const void* tab, int nblocks, int max_cap,
       (const int*)subj_before, (const int*)subj_kinds, (const int*)subj_node,
       (const int*)slots, (const unsigned char*)gate, b, nw,
       (const int*)witness, nk, out_stride);
+  ACCORD_CHECK();
+  return 0;
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+node_key_shard_kernel(const KeyShard* __restrict__ tab,
+                      const int* __restrict__ subj_before,
+                      const int* __restrict__ subj_kinds,
+                      const int* __restrict__ subj_node,
+                      const int* __restrict__ slots,
+                      const unsigned char* __restrict__ gate, int b, int nwl,
+                      const int* __restrict__ witness, int nk,
+                      int out_stride) {
+  const KeyShard e = tab[blockIdx.z];
+  if ((int)blockIdx.x * WARPS >= (e.cap >> 5)) return;  // whole block
+  resolve_body(e.sw, subj_before, subj_kinds, subj_node, slots[blockIdx.z],
+               gate, b, e.bm, e.bm_stride, e.ts, e.kinds, e.valid, e.cap,
+               nwl, witness, nk, e.out, out_stride, e.out_off);
+}
+
+// K13 over a shard table of nent KeyShard entries (slots[e]: entry e's
+// block slot; gate as node_key_resolve): each entry writes its rows' words
+// of its 'model' partial at out[s, out_off + w].
+extern "C" int node_key_shard(const void* tab, int nent, int max_cap,
+                              const void* subj_before, const void* subj_kinds,
+                              const void* subj_node, const void* slots,
+                              const void* gate, int b, int nwl,
+                              const void* witness, int nk, int out_stride,
+                              void* stream) {
+  if (nwl > MAX_NW || nk * nk > 64 || (max_cap & 31))
+    return (int)cudaErrorInvalidValue;
+  if (nent <= 0 || b <= 0 || max_cap <= 0) return 0;
+  if (nent > 65535) return (int)cudaErrorInvalidValue;
+  const int words = max_cap >> 5;
+  dim3 grid((words + WARPS - 1) / WARPS, (b + SUBJ_TILE - 1) / SUBJ_TILE,
+            nent);
+  node_key_shard_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const KeyShard*)tab, (const int*)subj_before, (const int*)subj_kinds,
+      (const int*)subj_node, (const int*)slots, (const unsigned char*)gate,
+      b, nwl, (const int*)witness, nk, out_stride);
   ACCORD_CHECK();
   return 0;
 }

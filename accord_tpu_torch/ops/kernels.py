@@ -47,6 +47,9 @@ PyTorch version beside it. There is no fallback from one to the other.
   mailbox_route  csrc/mailbox_route.cu   ops/mailbox.py _mailbox_route_body
                  (wrapper in ops/mailbox.py) :75, protocol_tick's mailbox
                                          stage :1377, :1420-1421
+  sharded_mailbox_route                  ops/mailbox.py
+                 csrc/mailbox_shard.cu   _sharded_mailbox_route_part :100
+                 (wrapper in ops/mailbox.py)
   deps_matrix, transitive_closure, execution_wavefronts,
   dag_wavefronts_packed
                  csrc/dense_dag.cu       deps_matrix :36,
@@ -57,7 +60,8 @@ The node-lane kernels (K13-K15) live in ops/node_lane.py and count here
 too. The mesh shards' entries (the last section below) run K1, K5, K2 and
 K18-K20 on one shard of a sharded call of parallel/mesh.py, whose
 combining steps (K22, csrc/mesh_combine.cu) and sharded entry points count
-here as well.
+here as well, as do the sharded protocol megakernel's replays and stages
+(parallel/mesh.sharded_protocol_tick, ops/tick_graph.py).
 
 The exec plane's adjacency is PACKED too, int32 [cap, cap/32] (dep d in
 bit d & 31 of word d >> 5), where the reference keeps bool [cap, cap].
@@ -101,7 +105,12 @@ LAUNCHES: Dict[str, int] = {"deps_resolve": 0, "finalize_csr": 0,
                             "closure_rows": 0, "wavefront_rows": 0,
                             # K22, the mesh's combining steps
                             "or_fold": 0, "lane_concat": 0,
-                            "counts_scan": 0, "fragment_merge": 0}
+                            "counts_scan": 0, "fragment_merge": 0,
+                            # the sharded protocol megakernel: its replays,
+                            # its shard-table stages, K23
+                            "sharded_protocol_tick": 0, "node_key_shard": 0,
+                            "node_range_shard": 0, "finalize_shard_tab": 0,
+                            "sharded_mailbox_route": 0}
 
 # the launches above made inside each sharded entry point (parallel/mesh.py
 # launches nothing itself: its shards and combining steps do)
@@ -110,13 +119,17 @@ ENTRY_LAUNCHES: Dict[str, int] = {"sharded_deps_resolve": 0,
                                   "sharded_fused_deps_resolve": 0,
                                   "sharded_fused_range_deps_resolve": 0,
                                   "sharded_finalize_csr": 0,
-                                  "sharded_deps_step": 0}
+                                  "sharded_deps_step": 0,
+                                  # sharded_protocol_tick across cards,
+                                  # stage by stage (no graph)
+                                  "sharded_protocol_tick_stages": 0}
 
-# CUDA graphs captured by protocol_tick (one per new static signature):
-# after a warm pass, a run over the same traffic must capture none; and
-# graphs dropped from its bounded cache (ops/tick_graph.py MAX_GRAPHS,
-# MAX_GRAPH_BYTES)
-CAPTURES: Dict[str, int] = {"protocol_tick": 0, "evictions": 0}
+# CUDA graphs captured by protocol_tick and sharded_protocol_tick (one per
+# new static signature): after a warm pass, a run over the same traffic
+# must capture none; and graphs dropped from their bounded cache
+# (ops/tick_graph.py MAX_GRAPHS, MAX_GRAPH_BYTES)
+CAPTURES: Dict[str, int] = {"protocol_tick": 0, "sharded_protocol_tick": 0,
+                            "evictions": 0}
 
 
 def reset_launches() -> None:
@@ -2059,6 +2072,28 @@ def _protocol_tick(runner, witness_table, key_in, rng_in, fins, cmds,
                  tuple(cmds), quorum, quorum_size, mailbox,
                  tuple(cmd_repairs), tuple(execs))
     return out[:2] + (_fin_unsort(out[2], order),) + out[3:]
+
+
+def jit_cache_sizes() -> dict:
+    """The reference's compiled-variant counts of the warmable hot-path
+    kernels (accord_tpu/ops/kernels.py:1535), with its keys. The port's
+    hand kernels take every shape as launch arguments and are not
+    specialised on it, so every kernel's entry is 0 here; the one thing
+    made per static signature is a CUDA graph, so protocol_tick and
+    sharded_protocol_tick read the graphs each holds (captured minus
+    evicted, ops/tick_graph.py). A bench snapshots this around a timed
+    window: equal snapshots mean no capture after warmup."""
+    from accord_tpu_torch.ops import tick_graph
+    held = tick_graph.held_graphs()
+    keys = ("deps_resolve", "range_deps_resolve", "fused_deps_resolve",
+            "fused_range_deps_resolve", "arena_scatter", "arena_scatter_keys",
+            "scatter_rows", "range_scatter", "finalize_csr",
+            "range_finalize_csr", "kid_word_scatter",
+            "fused_execution_frontier", "frontier_compact", "recovery_scan",
+            "cmd_tick", "protocol_tick", "node_fused_deps_resolve",
+            "node_fused_range_deps_resolve", "lane_slice",
+            "sharded_protocol_tick")
+    return {k: held.get(k, 0) for k in keys}
 
 
 # -- K18-K21: the execute-DAG kernels (csrc/dense_dag.cu) ---------------------

@@ -37,6 +37,13 @@ and MAX_GRAPH_BYTES of their memory, least recently replayed out first
 stage kernel it launches: a stage launches through its kernel's shared
 launch function (kernels.launch_*, node_lane.launch_*) once, at capture,
 so its count is kept per replay here rather than in that function.
+
+The sharded protocol megakernel (parallel/mesh.sharded_protocol_tick, on a
+mesh whose shards share this card) is the same program with its resolve,
+key finalize and mailbox stages in shard form -- launches over shard
+tables whose records the param block carries, then the mesh's combining
+steps (K22) on fixed memory, and K23 for the mailbox -- keyed by the mesh
+too and counted under "sharded_protocol_tick".
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ import torch
 
 from accord_tpu_torch.ops import kernels as K
 from accord_tpu_torch.ops import node_lane as nl
+from accord_tpu_torch.parallel import mesh as pm
 
 _ALIGN = 16
 # captured graphs by signature, least recently replayed first; past
@@ -407,6 +415,281 @@ def _stage_mail(P, ext, mailbox):
     return (arena, meta) + tuple(o[1] for o in outs)
 
 
+# -- the sharded protocol megakernel's stages ---------------------------------
+# parallel/mesh.sharded_protocol_tick on a mesh whose shards share one card:
+# the JAX package's shard_map regions become launches over SHARD tables
+# (csrc/node_resolve.cu node_key_shard, csrc/finalize_csr.cu
+# fin_shard_*_tab) whose records, like the single-device tables, are
+# written into the param block every tick, followed by the mesh's K22
+# combining steps on fixed memory; K23 routes the mailbox.
+def _host_np(x) -> np.ndarray:
+    """A slot lane as numpy (to expand it per shard entry on the host)."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _shift(ref, nbytes: int) -> tuple:
+    return (ref[0], ref[1] + int(nbytes))
+
+
+def _shard_rows(blocks, data: int, who: str) -> None:
+    for blk in blocks:
+        pm._check_rows(f"sharded_protocol_tick: a {who} block",
+                       blk[0].shape[0], data)
+
+
+def _shard_key_table(P, blocks, data: int, model: int, parts, sws, b: int,
+                     wtot: int) -> list:
+    """The int64 words of a KeyShard table: per (block, data shard d,
+    model shard m) the lane pointers at the shard's first row (the bucket
+    words at its 'model' column slice), its subject words sws[m], its
+    'model' partial (parts + m * b * wtot words), (rows | out word column
+    << 32) and the arena's row stride."""
+    nw = blocks[0][0].shape[1]
+    nwl = nw // model
+    words = []
+    off = 0
+    for bm, ts, kinds, valid in blocks:
+        cap = bm.shape[0]
+        cl = cap // data
+        bm_r, ts_r, kd_r, vl_r = (P.ptr(x) for x in (bm, ts, kinds, valid))
+        for d in range(data):
+            r0 = d * cl
+            for m in range(model):
+                words += [_shift(bm_r, 4 * (r0 * nw + m * nwl)),
+                          _shift(ts_r, 12 * r0), _shift(kd_r, 4 * r0),
+                          _shift(vl_r, r0), sws[m],
+                          _shift(parts, 4 * m * b * wtot),
+                          cl | ((off + r0 // 32) << 32), nw]
+        off += cap // 32
+    return words
+
+
+def _key_shard_launch(ext, A, subj, tab, nent: int, max_cl: int, sb, sknd,
+                      node, slots, gate, b: int, nw: int, nwl: int, model: int,
+                      sws, parts, out, wtot: int, wt, nk: int) -> None:
+    """The subject words of each 'model' slice -- K1's subject pass over
+    subj = (subj_of, subj_keys, nnz), or with a gate (K14's key side) K5's
+    covered pass over subj = (iv_of, iv_s, iv_e, nv) -- one K13 launch
+    over the shard table, and the 'model' partials OR-folded (K22) into
+    `out`."""
+    for m in range(model):
+        if gate is None:
+            ext.call("deps_resolve", "deps_subjects_slice", A(subj[0]),
+                     A(subj[1]), subj[2], b, nw * 32, m * nwl * 32, nwl * 32,
+                     A(sws[m]), ext.stream())
+        else:
+            ext.call("range_resolve", "range_covered_slice", A(subj[0]),
+                     A(subj[1]), A(subj[2]), subj[3], b, m * nwl * 32,
+                     nwl * 32, nw * 32, A(sws[m]), ext.stream())
+    ext.call("node_resolve", "node_key_shard", A(tab), nent, max_cl, A(sb),
+             A(sknd), A(node), A(slots), A(gate), b, nwl, A(wt), nk, wtot,
+             ext.stream())
+    ext.call("mesh_combine", "or_fold", A(parts), 1, model, b, wtot, A(out),
+             wtot, 0, ext.stream())
+
+
+def _stage_key_shard(P, ext, wt_ref, nk, key_in, mesh):
+    """The key resolve per (store block x 'data' shard x 'model' shard)."""
+    subj_of, subj_keys, subj_node, sb, sknd, slots, blocks = key_in
+    data, model = mesh.shape["data"], mesh.shape["model"]
+    b = sb.shape[0]
+    nw = nl.key_words(blocks, "sharded_protocol_tick")
+    nwl = pm._bucket_words(mesh, nw, "sharded_protocol_tick")
+    _shard_rows(blocks, data, "key")
+    _nblk, max_cap, wtot = nl.block_dims(blocks)
+    P.sig.append(("skey", len(blocks)))
+    of, keys, node, r_sb, r_sk = (P.inp(x) for x in (
+        subj_of, subj_keys, subj_node, sb, sknd))
+    r_sl = P.inp(np.repeat(_host_np(slots).astype(np.int32), data * model))
+    parts = P.alloc("f", 4 * model * b * wtot)
+    sws = [P.alloc("f", 4 * b * nwl) for _ in range(model)]
+    tab = P.table(_shard_key_table(P, blocks, data, model, parts, sws, b,
+                                   wtot))
+    f_ref, view = P.out((b, wtot), torch.int32)
+    subj = (of, keys, subj_of.shape[0])
+    nent = len(blocks) * data * model
+    P.launches.append(lambda B: _key_shard_launch(
+        ext, _addrs(B), subj, tab, nent, max_cap // data, r_sb, r_sk, node,
+        r_sl, None, b, nw, nwl, model, sws, parts, f_ref, wtot, wt_ref, nk))
+    P.count("node_key_shard")
+    P.count("or_fold")
+    return f_ref, view, wtot
+
+
+def _stage_range_shard(P, ext, wt_ref, nk, rng_in, mesh):
+    """The range side per (range block x 'data' shard) -- the interval
+    compares have no bucket dimension, so 'model' replicas would repeat
+    them -- through K14's range table; the key side per (key block x
+    'data' x 'model' shard) gated by subj_is_range."""
+    (iv_of, iv_s, iv_e, subj_node, sb, sknd, srng, r_slots, rblocks,
+     k_slots, kblocks) = rng_in
+    data, model = mesh.shape["data"], mesh.shape["model"]
+    b = sb.shape[0]
+    nv = iv_of.shape[0]
+    P.sig.append(("srng", len(rblocks), len(kblocks)))
+    of, ivs, ive, node, r_sb, r_sk, r_rng = (P.inp(x) for x in (
+        iv_of, iv_s, iv_e, subj_node, sb, sknd, srng))
+    rdims = nl.block_dims(rblocks, range_side=True)
+    kdims = nl.block_dims(kblocks)
+    r_ref, r_view = P.out((b, rdims[2]), torch.int32)
+    k_ref, k_view = P.out((b, kdims[2]), torch.int32)
+    if rdims[2]:
+        _shard_rows(rblocks, data, "range")
+        r_sl = P.inp(np.repeat(_host_np(r_slots).astype(np.int32), data))
+        words = [r_ref, len(rblocks) * data]
+        off = 0
+        for blk in rblocks:
+            rcap = blk[0].shape[0]
+            rl = rcap // data
+            st, en, ts, kd, vl = (P.ptr(x) for x in blk)
+            for d in range(data):
+                r0 = d * rl
+                words += [_shift(st, 4 * r0), _shift(en, 4 * r0),
+                          _shift(ts, 12 * r0), _shift(kd, 4 * r0),
+                          _shift(vl, r0), rl | ((off + r0 // 32) << 32)]
+            off += rcap // 32
+        rtab = P.table(words)
+        anyr = P.alloc("f", 4 * b * rdims[2])
+        nent_r = len(rblocks) * data
+
+        def rgo(B, rtab=rtab, r_sl=r_sl, anyr=anyr, nent_r=nent_r):
+            A = _addrs(B)
+            ext.call("node_resolve", "node_range_resolve", A(rtab), nent_r,
+                     rdims[1] // data, A(of), A(ivs), A(ive), nv, A(r_sb),
+                     A(r_sk), A(node), A(r_sl), b, A(wt_ref), nk, A(anyr),
+                     rdims[2], ext.stream())
+        P.launches.append(rgo)
+        P.count("node_range_shard")
+    if kdims[2]:
+        nw = nl.key_words(kblocks, "sharded_protocol_tick")
+        nwl = pm._bucket_words(mesh, nw, "sharded_protocol_tick")
+        _shard_rows(kblocks, data, "key")
+        k_sl = P.inp(np.repeat(_host_np(k_slots).astype(np.int32),
+                               data * model))
+        parts = P.alloc("f", 4 * model * b * kdims[2])
+        covs = [P.alloc("f", 4 * b * nwl) for _ in range(model)]
+        ktab = P.table(_shard_key_table(P, kblocks, data, model, parts, covs,
+                                        b, kdims[2]))
+        nent = len(kblocks) * data * model
+        P.launches.append(lambda B: _key_shard_launch(
+            ext, _addrs(B), (of, ivs, ive, nv), ktab, nent,
+            kdims[1] // data, r_sb, r_sk, node, k_sl, r_rng, b, nw, nwl,
+            model, covs, parts, k_ref, kdims[2], wt_ref, nk))
+        P.count("node_key_shard")
+        P.count("or_fold")
+    return (r_ref, r_view, rdims[2]), (k_ref, k_view, kdims[2])
+
+
+def _stage_fin_shard(P, ext, spec, args, src, mesh):
+    """A key/rkey finalize as parallel/mesh.sharded_finalize_csr's chain,
+    in table form: one count launch over every (data, model) shard's
+    record, K22's counts_scan, one compaction launch over every data
+    shard's record, K22's fragment_merge."""
+    kind, rows, words, out_cap = spec
+    (r0, w_lo, word_off, kid_rows, slot_subj, slot_kid, subj_row,
+     act_ts) = args
+    if src is None:
+        raise ValueError(f"sharded_protocol_tick: a {kind!r} finalize needs "
+                         "its resolve stage")
+    data, model = mesh.shape["data"], mesh.shape["model"]
+    s_ref, s_view, wt = src
+    nr = s_view[2][0]
+    kc, w = kid_rows.shape
+    if w % data:
+        raise ValueError(f"sharded_protocol_tick: a span of {w} words does "
+                         f"not split over data={data}")
+    wl = w // data
+    s = slot_subj.shape[0]
+    r = nl.dyn_start(r0, nr, rows)
+    c = nl.dyn_start(w_lo, wt, words)
+    off = min(max(int(word_off), 0), words - w)     # finalize_csr's rule
+    P.sig.append(("sfin", kind, rows, words, out_cap))
+    k_ptr, ss, sk, sr = (P.ptr(x) for x in (kid_rows, slot_subj, slot_kid,
+                                            subj_row))
+    ts = P.inp(act_ts)
+    lib = ext.lib("finalize_csr")
+    rec = int(lib.shard_fin_bytes())
+    split = s % model == 0
+    ents = [(d, m) for d in range(data) for m in range(model)
+            if split or m == 0]
+    ctab = P.alloc("p", rec * len(ents))
+    xtab = P.alloc("p", rec * data)
+    counts = P.alloc("f", 4 * data * s)
+    bounds = P.alloc("f", 4 * data * model)
+    seg = P.alloc("f", 4 * data * s)
+    frags = P.alloc("f", 4 * data * out_cap)
+    acc = P.alloc("f", 12)
+    outs = [P.out(sh, torch.int32) for sh in ((s + 1,), (out_cap,),
+                                              (out_cap, 3), (), ())]
+    indptr, dep_rows, dep_ts, bound, csum = (o[0] for o in outs)
+    blk_ref = _shift(s_ref, 4 * (r * wt + c + off))
+    vp = ctypes.c_void_p
+
+    def write(pin_addr, bases):
+        blk, kid = _addr(bases, blk_ref), _addr(bases, k_ptr)
+        lanes = [_A(bases, x) for x in (ss, sk, sr)]
+        cnt, bnd = _addr(bases, counts), _addr(bases, bounds)
+        sgb, frg = _addr(bases, seg), _addr(bases, frags)
+        for i, (d, m) in enumerate(ents + [(d, 0) for d in range(data)]):
+            lo, hi = (m * (s // model), (m + 1) * (s // model)) if split \
+                else (0, s)
+            dst = pin_addr + (ctab[1] + i * rec if i < len(ents)
+                              else xtab[1] + (i - len(ents)) * rec)
+            lib.shard_fin_pack(
+                vp(dst), vp(blk + 4 * d * wl), ctypes.c_int(wt),
+                ctypes.c_int(rows), vp(kid + 4 * d * wl), ctypes.c_int(w),
+                ctypes.c_int(kc), ctypes.c_int(wl), ctypes.c_int(d * wl),
+                *lanes, vp(cnt + 4 * d * s if m == 0 else None),
+                vp(bnd + 4 * (d * model + m)), ctypes.c_int(lo),
+                ctypes.c_int(hi), vp(sgb + 4 * d * s),
+                vp(frg + 4 * d * out_cap))
+    P.calls.append(write)
+
+    def go(B):
+        A = _addrs(B)
+        ext.call("finalize_csr", "fin_shard_count_tab", A(ctab), len(ents),
+                 s, A(bounds), data * model, ext.stream())
+        ext.call("mesh_combine", "counts_scan", A(counts), data, s,
+                 A(bounds), data * model, A(indptr), A(seg), A(bound),
+                 ext.stream())
+        ext.call("finalize_csr", "fin_shard_compact_tab", A(xtab), data, s,
+                 out_cap, A(frags), data * out_cap, ext.stream())
+        ext.call("mesh_combine", "fragment_merge", A(frags), data, out_cap,
+                 A(ts), act_ts.shape[0], s, A(indptr), A(dep_rows),
+                 A(dep_ts), A(csum), A(acc), ext.stream())
+    P.launches.append(go)
+    for name in ("finalize_shard_tab", "finalize_shard_tab", "counts_scan",
+                 "fragment_merge"):
+        P.count(name)
+    return tuple(o[1] for o in outs)
+
+
+def _stage_mail_shard(P, ext, mailbox, mesh):
+    """K23: the node-major arena, meta and partition-mask pointers through
+    a param-block table (updated in place), the emit lanes in the param
+    block, the landed outputs scattered into the tick's buffer."""
+    from accord_tpu_torch.ops import mailbox as mb
+    S = mesh.shape["data"]
+    dims = mb.check_shard_mail_lanes(S, mailbox) + (S,)
+    arena, meta, *lanes, part = mailbox
+    if not all(isinstance(t, torch.Tensor) and t.is_cuda
+               for t in (arena, meta, part)):
+        raise ValueError("sharded_protocol_tick: the mailbox arena, meta "
+                         "and partition mask must be card tensors")
+    L, W = dims[0], dims[1]
+    P.sig.append(("smail", S))
+    tab = P.table([P.ptr(arena), P.ptr(meta), P.ptr(part)])
+    refs = [P.inp(x) for x in lanes]
+    outs = [P.out(sh, dt) for sh, dt in (((L, W), torch.int32),
+                                         ((L, 3), torch.int32),
+                                         ((L,), torch.bool))]
+    o_refs = [o[0] for o in outs]
+    P.launches.append(lambda B: mb.launch_sharded_mailbox_route(
+        ext, _addrs(B), tab, None, refs, None, o_refs, dims, 0, S))
+    P.count("sharded_mailbox_route")
+    return (arena, meta) + tuple(o[1] for o in outs)
+
+
 def _copy_launch(P, ext, tab, ents) -> None:
     n = len(ents)
     most = max(e[2] for e in ents)
@@ -419,29 +702,41 @@ def _copy_launch(P, ext, tab, ents) -> None:
 
 
 def _build(ext, dev, witness_table, key_in, rng_in, fin_statics, fin_traced,
-           cmds, quorum, quorum_size, mailbox, cmd_repairs, execs) -> tuple:
+           cmds, quorum, quorum_size, mailbox, cmd_repairs, execs,
+           mesh=None) -> tuple:
+    """One tick's program; with `mesh` (every shard on `dev`) the sharded
+    megakernel's: its resolve, key/rkey finalize and mailbox stages run
+    sharded, the rest exactly as the single-device program runs them."""
     P = _Prog(dev)
+    if mesh is not None:
+        P.sig.append(("mesh", mesh.devices))
     nk = witness_table.shape[0]
     wt_ref = P.inp(witness_table)
     packed = rng = None
     views = {"packed": (), "rng": ()}
     if key_in is not None:
-        packed = _stage_key(P, ext, wt_ref, nk, key_in)
+        packed = _stage_key(P, ext, wt_ref, nk, key_in) if mesh is None \
+            else _stage_key_shard(P, ext, wt_ref, nk, key_in, mesh)
         views["packed"] = packed[1]
     if rng_in is not None:
-        rng = _stage_range(P, ext, wt_ref, nk, rng_in)
+        rng = _stage_range(P, ext, wt_ref, nk, rng_in) if mesh is None \
+            else _stage_range_shard(P, ext, wt_ref, nk, rng_in, mesh)
         views["rng"] = (rng[0][1], rng[1][1])
     fins = []
     for spec, args in zip(fin_statics, fin_traced):
         if spec[0] == "range":
             fins.append(_stage_fin_range(P, ext, wt_ref, nk, spec[1], args))
-        else:
-            src = packed if spec[0] == "key" else (rng[1] if rng else None)
-            fins.append(_stage_fin_key(P, ext, spec, args, src))
+            continue
+        src = packed if spec[0] == "key" else (rng[1] if rng else None)
+        fins.append(_stage_fin_key(P, ext, spec, args, src) if mesh is None
+                    else _stage_fin_shard(P, ext, spec, args, src, mesh))
     cmd_outs = [_stage_cmd(P, ext, c) for c in cmds]
     q_out = _stage_quorum(P, ext, quorum, quorum_size) \
         if quorum is not None else ()
-    mail = _stage_mail(P, ext, mailbox) if mailbox is not None else ()
+    mail = ()
+    if mailbox is not None:
+        mail = _stage_mail(P, ext, mailbox) if mesh is None \
+            else _stage_mail_shard(P, ext, mailbox, mesh)
     reps = [_stage_repair(P, ext, r) for r in cmd_repairs]
     exs = [_stage_exec(P, ext, pl, int(oc)) for pl, oc in execs]
     # the copy tables close the layout: the gather runs first, the scatter
@@ -468,7 +763,8 @@ class _TickGraph:
     """One captured program: its pinned param buffer, fixed device memory
     and graph, and the event of its last replay."""
 
-    def __init__(self, P: _Prog):
+    def __init__(self, P: _Prog, kind: str):
+        self.kind = kind
         self.pin_t = torch.empty(max(P.size["p"], _ALIGN), dtype=torch.uint8,
                                  pin_memory=True)
         self.pin = self.pin_t.numpy()
@@ -543,28 +839,43 @@ def _view(out, spec):
     return out[off:off + n].view(dtype).view(shape)
 
 
+def _check_layouts(ext) -> None:
+    """The tables above must match the C structs (once per process)."""
+    if _CHECKED:
+        return
+    nl.table_sizes_ok()
+    for lib, fn, size in (("tick_graph", "copy_ent_bytes", 24),
+                          ("mailbox_route", "mailbox_tab_bytes", 24),
+                          ("mailbox_shard", "mailbox_shard_tab_bytes", 24),
+                          ("node_resolve", "node_shard_bytes", 64)):
+        if int(getattr(ext.lib(lib), fn)()) != size:
+            raise RuntimeError(f"{lib}.{fn}: the table layout differs from "
+                               "ops/tick_graph.py")
+    _CHECKED.append(True)
+
+
 def run_protocol_tick(witness_table, key_in, rng_in, fin_statics,
                       fin_traced, cmds, quorum, quorum_size, mailbox,
-                      cmd_repairs, execs):
+                      cmd_repairs, execs, mesh=None):
+    """Build this tick's program, replay its graph (capturing it on the
+    first tick of its signature). With `mesh` it is the sharded protocol
+    megakernel's program (parallel/mesh.sharded_protocol_tick), counted
+    under "sharded_protocol_tick"."""
     ext = K._ext()
     dev = witness_table.device
-    if not _CHECKED:
-        nl.table_sizes_ok()
-        if int(ext.lib("tick_graph").copy_ent_bytes()) != 24:
-            raise RuntimeError("tick_graph CopyEnt layout differs")
-        if int(ext.lib("mailbox_route").mailbox_tab_bytes()) != 24:
-            raise RuntimeError("mailbox_route MailTab layout differs")
-        _CHECKED.append(True)
+    _check_layouts(ext)
+    kind = "protocol_tick" if mesh is None else "sharded_protocol_tick"
     P, layout, gtab, stab = _build(ext, dev, witness_table, key_in, rng_in,
                                    fin_statics, fin_traced, cmds, quorum,
-                                   quorum_size, mailbox, cmd_repairs, execs)
+                                   quorum_size, mailbox, cmd_repairs, execs,
+                                   mesh)
     sig = tuple(P.sig)
     g = _GRAPHS.get(sig)
     out = torch.empty(max(P.size["o"], _ALIGN), dtype=torch.uint8,
                       device=dev)
     fresh = g is None
     if fresh:
-        g = _TickGraph(P)
+        g = _TickGraph(P, kind)
     elif g.event is not None:
         g.event.synchronize()     # the last replay has read the pin buffer
     _fill(g, P, g.bases(out), gtab, stab)
@@ -572,7 +883,7 @@ def run_protocol_tick(witness_table, key_in, rng_in, fin_statics,
         g.body()                  # eager: loads and checks every launch
         g.capture()
         _GRAPHS[sig] = g
-        K.CAPTURES["protocol_tick"] += 1
+        K.CAPTURES[kind] += 1
         while len(_GRAPHS) > 1 and (len(_GRAPHS) > MAX_GRAPHS
                                     or _held_bytes() > MAX_GRAPH_BYTES):
             _evict()
@@ -581,7 +892,7 @@ def run_protocol_tick(witness_table, key_in, rng_in, fin_statics,
     g.graph.replay()
     g.event = torch.cuda.Event()
     g.event.record()
-    K.LAUNCHES["protocol_tick"] += 1
+    K.LAUNCHES[kind] += 1
     for name, n in P.counts.items():
         K.LAUNCHES[name] += n
     views, fins, cmd_outs, q_out, mail, reps, exs = layout
@@ -607,6 +918,15 @@ def _evict() -> None:
 
 def _held_bytes() -> int:
     return sum(g.nbytes for g in _GRAPHS.values())
+
+
+def held_graphs() -> Dict[str, int]:
+    """Graphs the cache holds, by program kind ("protocol_tick",
+    "sharded_protocol_tick"): captured minus evicted."""
+    held: Dict[str, int] = {}
+    for g in _GRAPHS.values():
+        held[g.kind] = held.get(g.kind, 0) + 1
+    return held
 
 
 def cache_stats() -> dict:

@@ -3,8 +3,9 @@ of the JAX package's `parallel/mesh.py` for its sharded resolves
 (`sharded_deps_resolve` :170, `sharded_range_deps_resolve` :256,
 `sharded_fused_deps_resolve` :400, `sharded_fused_range_deps_resolve`
 :441), the sharded finalize (`sharded_finalize_csr` :663, body :524), the
-unfused sharded node tick (`sharded_node_tick` :490) and the graft dry-run
-step (`sharded_deps_step` :89).
+unfused sharded node tick (`sharded_node_tick` :490), the graft dry-run
+step (`sharded_deps_step` :89) and the sharded protocol megakernel
+(`sharded_protocol_tick` :821, builder :683, `warmup_sharded` :865).
 
 A single-controller mesh, as the reference's: one Python process drives a
 (data, model) grid of torch devices. `make_mesh()` takes every visible
@@ -38,7 +39,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -108,10 +109,15 @@ def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
 
 def mesh_supports_message_plane(mesh: Mesh) -> bool:
     """Whether the device mailbox plane may ride a sharded mesh: the
-    reference's predicate (True). The port's sharded mailbox layout is
-    not ported yet, so MailboxPlane(shards > 1) raises (ROADMAP queue 2,
-    row 32)."""
+    reference's predicate (True). MailboxPlane(shards=data) lays the rings
+    out node-major over the 'data' shards, and the sharded protocol
+    megakernel routes them with K23 (ops/mailbox.sharded_mailbox_route)."""
     return True
+
+
+def one_card(mesh: Mesh) -> bool:
+    """Whether every shard of the mesh is on the same device."""
+    return len({d for row in mesh.devices for d in row}) == 1
 
 
 # -- moving shards' tensors ---------------------------------------------------
@@ -696,6 +702,180 @@ def sharded_deps_step(mesh: Mesh, closure_iters: int = 8):
         return deps, lv[cons]
 
     return _entry(mesh, "sharded_deps_step", step)
+
+
+# -- row 35b: the sharded protocol megakernel ----------------------------------
+def _sharded_tick_eager(mesh: Mesh, wt, key_in, rng_in, fin_statics,
+                        fin_traced, cmds, quorum, quorum_size, mailbox,
+                        cmd_repairs, execs):
+    """The sharded program stage by stage: the sharded entries above for
+    the resolves and every key/rkey finalize, K23 for the mailbox, and the
+    replicated stages (range finalize, cmd_tick, quorum, cmd_repair,
+    frontier_compact) as one kernels.protocol_tick on the consumer. On the
+    CPU every step is a plain version; across cards each shard's kernels
+    launch on its card."""
+    from accord_tpu_torch.ops.mailbox import sharded_mailbox_route
+    cons = mesh.device(0, 0)
+    packed = ()
+    rng_out = ()
+    if key_in is not None:
+        *lanes, blocks = key_in
+        packed = sharded_fused_deps_resolve(mesh, len(blocks))(
+            *(_on(x, cons) for x in lanes), blocks, wt)
+    if rng_in is not None:
+        (iv_of, iv_s, iv_e, snode, sb, sknd, srng, r_slots, rblocks,
+         k_slots, kblocks) = rng_in
+        rng_out = sharded_fused_range_deps_resolve(
+            mesh, len(rblocks), len(kblocks))(
+            *(_on(x, cons) for x in (iv_of, iv_s, iv_e, snode, sb, sknd,
+                                     srng, r_slots)),
+            rblocks, _on(k_slots, cons), kblocks, wt)
+    fin_outs: list = [None] * len(fin_statics)
+    rep_fins = []
+    for i, (spec, args) in enumerate(zip(fin_statics, fin_traced)):
+        if spec[0] == "range":
+            rep_fins.append((i, ("range",) + tuple(args) + (spec[1],)))
+            continue
+        kind, rows, words, out_cap = spec
+        (r0, w_lo, word_off, kid_rows, slot_subj, slot_kid, subj_row,
+         act_ts) = args
+        src = packed if kind == "key" else rng_out[1]
+        fin_outs[i] = sharded_finalize_csr(mesh)(
+            tk._window(src, r0, w_lo, rows, words), int(word_off), kid_rows,
+            *(_on(x, cons) for x in (slot_subj, slot_kid, subj_row)),
+            _on(act_ts, cons), out_cap=out_cap)
+    mail_out = ()
+    if mailbox is not None:
+        mail_out = sharded_mailbox_route(mesh.shape["data"], *mailbox)
+    cmd_outs = q_out = rep_outs = exec_outs = ()
+    if rep_fins or cmds or quorum is not None or cmd_repairs or execs:
+        _p, _r, rfin, cmd_outs, q_out, _m, rep_outs, exec_outs = \
+            tk.protocol_tick(wt, fins=tuple(f for _i, f in rep_fins),
+                             cmds=cmds, quorum=quorum,
+                             quorum_size=quorum_size,
+                             cmd_repairs=cmd_repairs, execs=execs)
+        for (i, _f), out in zip(rep_fins, rfin):
+            fin_outs[i] = out
+    return (packed, rng_out, tuple(fin_outs), cmd_outs, q_out, mail_out,
+            rep_outs, exec_outs)
+
+
+def sharded_protocol_tick(mesh: Mesh, witness_table, key_in=None,
+                          rng_in=None, fins=(), cmds=(), quorum=None,
+                          quorum_size=1, mailbox=None, cmd_repairs=(),
+                          execs=()):
+    """Multi-device twin of kernels.protocol_tick (the reference's :821,
+    builder :683): ONE program per cluster tick. Same argument contract
+    (see protocol_tick's docstring) with `mesh` first; key_in/rng_in are
+    the node-lane merge inputs sharded_node_tick would dispatch (the
+    resolves run per store block x 'data' shard x 'model' shard, the
+    'model' partials OR-folded), every key/rkey finalize runs as the
+    sharded finalize (counts, counts_scan, shard compaction,
+    fragment_merge), and `mailbox` is a MailboxPlane staged with shards ==
+    mesh.shape['data'] (K23 lands the cross-shard payloads). The range
+    finalize, cmd_tick, quorum, cmd_repair and frontier_compact stages run
+    once, on the consumer mesh.device(0, 0), as in the single-device
+    program. Finalize specs sort canonically by static signature
+    (kernels._fin_split), so the program depends on the signature
+    multiset. Outputs are bit-identical to protocol_tick's.
+
+    When every shard is on one card, the program is one CUDA graph per
+    static signature and mesh (ops/tick_graph.py), replayed once per call
+    and counted in LAUNCHES["sharded_protocol_tick"] (captures in
+    CAPTURES). Across cards it runs stage by stage (_sharded_tick_eager),
+    each shard's kernels on its card: no graph replays, and the kernels it
+    launches are counted in ENTRY_LAUNCHES["sharded_protocol_tick_stages"]
+    (beside each kernel's own count). On the CPU the same walk runs the
+    plain versions."""
+    if mailbox is not None:
+        from accord_tpu_torch.ops.mailbox import check_shard_mail_lanes
+        check_shard_mail_lanes(mesh.shape["data"], mailbox)
+        mailbox = tuple(mailbox)
+    fin_statics, fin_traced, order = tk._fin_split(fins)
+    args = (witness_table, key_in, rng_in, fin_statics, fin_traced,
+            tuple(cmds), quorum, quorum_size, mailbox, tuple(cmd_repairs),
+            tuple(execs))
+    with _at(mesh.device(0, 0)):
+        if witness_table.is_cuda and one_card(mesh):
+            from accord_tpu_torch.ops.tick_graph import run_protocol_tick
+            out = run_protocol_tick(*args, mesh=mesh)
+        else:
+            before = sum(tk.LAUNCHES.values())
+            try:
+                out = _sharded_tick_eager(mesh, *args)
+            finally:
+                tk.ENTRY_LAUNCHES["sharded_protocol_tick_stages"] += \
+                    sum(tk.LAUNCHES.values()) - before
+    return out[:2] + (tk._fin_unsort(out[2], order),) + out[3:]
+
+
+def sharded_protocol_tick_cache_sizes() -> int:
+    """The sharded protocol megakernel's held CUDA graphs (every mesh and
+    static signature), folded into kernels.jit_cache_sizes."""
+    from accord_tpu_torch.ops.tick_graph import held_graphs
+    return held_graphs().get("sharded_protocol_tick", 0)
+
+
+def warmup_sharded(mesh: Mesh, num_buckets: int = 256, cap: int = 4096,
+                   batch_tiers: Tuple[int, ...] = (8, 64, 128),
+                   nnz_tiers: Optional[Tuple[int, ...]] = None,
+                   range_cap: Optional[int] = None,
+                   store_tiers: Tuple[int, ...] = (1, 2),
+                   out_tiers: Tuple[int, ...] = (),
+                   kid_cap: int = 4096,
+                   cmd_caps: Tuple[int, ...] = (),
+                   cmd_key_caps: Tuple[int, ...] = (1024,),
+                   cmd_kpad: int = 4,
+                   cmd_op_tiers: Optional[Tuple[int, ...]] = None,
+                   cmd_promote_modes: Tuple[bool, ...] = (False,),
+                   node_tiers: Tuple[int, ...] = (),
+                   node_batch_tiers: Optional[Tuple[int, ...]] = None,
+                   mega_quorum_sizes: Tuple[int, ...] = (),
+                   mega_lane_tiers: Optional[Tuple[int, ...]] = None,
+                   exec_caps: Tuple[int, ...] = (),
+                   exec_tiers: Tuple[int, ...] = (),
+                   recovery_tiers: Tuple[int, ...] = ()) -> None:
+    """The reference's warmup_sharded (:865), with its signature. The
+    port's hand kernels are not specialised on shape (kernels.
+    jit_cache_sizes), so a launch per tier would warm nothing past the
+    kernels' first build: this builds them once (on a card), and captures
+    what a shape does make, a CUDA graph of the sharded protocol
+    megakernel -- the quorum-only ticks per `mega_quorum_sizes` x lane tier
+    and the exec-only ticks per (exec cap, plane count 1 and each
+    `store_tiers` entry above 1, `exec_tiers` out_cap), the graphs a warm
+    burn's idle and exec-only ticks replay. The other arguments (the
+    resolve, finalize, cmd, node and recovery tiers the reference compiles)
+    are accepted and have no effect. Lanes live on the consumer
+    mesh.device(0, 0); on the CPU the ticks run the plain program."""
+    from accord_tpu_torch.ops.tiers import MEGA_LANE_TIERS
+    cons = mesh.device(0, 0)
+    if cons.type == "cuda":
+        tk._ext().lib("tick_graph")   # builds and loads every library
+    table = tk.upload(WITNESS_TABLE, cons)
+    lt = (tuple(mega_lane_tiers) if mega_lane_tiers is not None
+          else MEGA_LANE_TIERS[:2])
+    for qs in mega_quorum_sizes:
+        for t in lt:
+            sharded_protocol_tick(
+                mesh, table, quorum=(np.zeros((t, 3), np.int32),
+                                     np.zeros((t, 3), np.int32),
+                                     np.zeros(t, np.int32),
+                                     np.zeros(t, bool)),
+                quorum_size=qs)
+    for ecap in (tuple(exec_caps) or (1024,)) if exec_tiers else ():
+        plane = (torch.zeros(ecap, ecap // 32, dtype=torch.int32,
+                             device=cons),
+                 torch.full((ecap, 3), tk.INT32_MIN, dtype=torch.int32,
+                            device=cons),
+                 *(torch.zeros(ecap, dtype=torch.bool, device=cons)
+                   for _ in range(3)))
+        for n in (1,) + tuple(s for s in store_tiers if s > 1):
+            for oc in exec_tiers:
+                sharded_protocol_tick(mesh, table,
+                                      execs=((tuple(plane for _ in range(n)),
+                                              oc),))
+    if cons.type == "cuda":
+        torch.cuda.synchronize(cons)
 
 
 # -- example inputs --------------------------------------------------------------

@@ -216,8 +216,13 @@ class ClusterTickEngine:
         if not tickets:
             return
         execs = tuple((t.planes, t.out_cap) for t in tickets)
-        from accord_tpu_torch.ops.kernels import protocol_tick
-        exec_outs = protocol_tick(self._exec_wtable, execs=execs)[7]
+        if self._exec_mesh is not None:
+            from accord_tpu_torch.parallel.mesh import sharded_protocol_tick
+            exec_outs = sharded_protocol_tick(
+                self._exec_mesh, self._exec_wtable, execs=execs)[7]
+        else:
+            from accord_tpu_torch.ops.kernels import protocol_tick
+            exec_outs = protocol_tick(self._exec_wtable, execs=execs)[7]
         self._fulfill_exec(tickets, exec_outs)
         self.exec_flush_ticks += 1
         self.megakernel_dispatches += 1
@@ -508,13 +513,15 @@ class ClusterTickEngine:
         the same one-launch ledger, the resolve/finalize stages sharded
         over the mesh, and the mailbox stage exchanging cross-shard
         payloads in-program."""
+        import functools
+
         from accord_tpu_torch.ops.kernels import protocol_tick
         from accord_tpu_torch.ops.tiers import mega_lane_tier
         if mesh is not None:
-            raise NotImplementedError(
-                "the sharded protocol megakernel is not ported yet -- "
-                "ROADMAP queue 2 rows 32 and 35b")
-        tick = protocol_tick
+            from accord_tpu_torch.parallel.mesh import sharded_protocol_tick
+            tick = functools.partial(sharded_protocol_tick, mesh)
+        else:
+            tick = protocol_tick
 
         # host lanes go as numpy: on the card protocol_tick writes them
         # into its graph's parameter block, one copy for the whole tick
@@ -693,12 +700,6 @@ def run_mesh_burn(seed: int, ops: int = 500, *, nodes: int = 8,
     rkw.setdefault("pad_node_tiers", pad_node_tiers)
 
     if sharded:
-        if megakernel or exec_in_megakernel or device_messages:
-            raise NotImplementedError(
-                "run_mesh_burn(sharded=True) with the megakernel, "
-                "exec_in_megakernel or device_messages: the sharded "
-                "protocol megakernel and the sharded mailbox are not "
-                "ported yet -- ROADMAP queue 2 rows 32 and 35b")
         from accord_tpu_torch.ops.resolver import ShardedBatchDepsResolver
         from accord_tpu_torch.parallel.mesh import make_mesh
         the_mesh = mesh if mesh is not None else make_mesh()

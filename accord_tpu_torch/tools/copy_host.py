@@ -79,25 +79,24 @@ EDITED: Dict[str, Tuple[Tuple[int, int, str], ...]] = {
     ),
     "sim/mesh_burn.py": (
         (202, 205, "an exec ticket holds the port's (_DevBuf, packed)"),
-        (218, 224, "exec-only flush through the port's protocol_tick (the "
-                   "sharded megakernel is ROADMAP queue 2 row 35b)"),
         (274, 274, "the quorum `met` lane reads back from a torch tensor"),
-        (515, 538, "megakernel staging hands protocol_tick numpy lanes; "
-                   "a sharded mesh raises (queue 2 rows 32, 35b)"),
+        (517, 518, "no jax import"),
+        (526, 538, "megakernel staging hands protocol_tick (or "
+                   "sharded_protocol_tick) numpy lanes"),
         (583, 584, "quorum lanes as numpy"),
         (684, 684, "run_mesh_burn(device=, mesh=): the kernels' device, "
                    "the sharded resolvers' mesh"),
         (707, 727, "sharded=True: the resolvers on `mesh` (make_mesh() "
-                   "by default), the megakernel, exec-in-megakernel and "
-                   "message plane raise (queue 2 rows 32, 35b); the "
-                   "resolvers and the exec and cmd planes on `device`"),
+                   "by default), and with the exec and cmd planes on "
+                   "`device`"),
         (781, 781, "--device"),
         (803, 803, "--device"),
     ),
     "sim/network.py": (
         (364, 364, "the port's MailboxPlane and its device helper"),
-        (369, 369, "the plane on the device of the resolvers the tick "
-                   "engine adopted (a CPU burn stays on the CPU)"),
+        (369, 369, "the plane on the device(s) of the resolvers the tick "
+                   "engine adopted: a CPU burn stays on the CPU, a mesh "
+                   "across cards gives each shard's rings to its card"),
     ),
 }
 

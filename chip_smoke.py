@@ -150,6 +150,29 @@ launched.
      version, timed beside the single-device kernel; each shard wrapper
      and K22 combining step bit-equal to its plain version on its
      largest recorded call;
+ 24. the sharded protocol megakernel (parallel/mesh.sharded_protocol_tick,
+     one CUDA graph replay a tick) on make_mesh() (1 x 1 on one H100,
+     where the mailbox keeps the single-device layout) and the virtual 4 x
+     2 mesh: warmup_sharded (timed; a second call captures nothing); the
+     10k merged tick through both meshes bit-equal to the single-device
+     replay, with the key stage alone and with its 128 finalizes against
+     their plain versions; the sharded megakernel sweep (seed 6; 64 x 120,
+     256 x 50) after a warm pass, each history the single-device
+     megakernel's (64 nodes: and the per-node loop's), launches_per_tick
+     1.0, one replay per fused dispatch, zero sharded-megakernel
+     fallbacks, no graph captured or evicted (kernels.CAPTURES) and
+     jit_cache_sizes() unchanged; the
+     key+range leg (K14's shard tables) and the exec-in-megakernel leg
+     (the exec-only flush through the mesh), each the single-device
+     history; the sharded message plane (bench_message_plane's config;
+     64 x 60, 256 x 30) with device messages, each history the host
+     network's, zero spills and verify fallbacks, messages per host
+     callback; the reference's MULTICHIP legs (bench.py:1662-1700,
+     :1860-1895: 4 nodes, 40 ops, 256 buckets, cap 512, the sharded loop's
+     history; 16 nodes, rf 5, concurrency 32, 50 ops, the host network's,
+     >= 10 messages per host callback) with the capture gate; K23 on the
+     message plane's largest mailbox block and at the 1,024-lane tier (W
+     384), each against its plain version;
  23. kernels: each kernel's wrapper is called again on the card on the
      exact inputs its path (and a batch) gave it, and held bit-equal
      against its plain PyTorch version on the same inputs; kernel, plain
@@ -280,6 +303,10 @@ class SmokeFailure(Exception):
     pass
 
 
+# numbers one phase measures and a later one reports beside its own
+SUMMARY: dict = {}
+
+
 class FixedCalls:
     """A Recorder's get() over calls built by a phase itself."""
 
@@ -341,12 +368,14 @@ class Recorder:
                                 and args[9].shape[0] == self.cmd_tier:
                             self.calls[_name] = (size, args, kw)
                         return _fn(*args, **kw)
-                mail = kw.get("mailbox") \
-                    if _name == "protocol_tick" else None
+                mail = kw.get("mailbox") if _name in (
+                    "protocol_tick", "sharded_protocol_tick") else None
                 if mail is not None:
-                    m = self.calls.get("mailbox_route")
+                    stage = "mailbox_route" if _name == "protocol_tick" \
+                        else "sharded_mailbox_route"
+                    m = self.calls.get(stage)
                     if m is None or mail[2].shape[0] > m[0]:
-                        self.calls["mailbox_route"] = (
+                        self.calls[stage] = (
                             mail[2].shape[0], tuple(mail), {})
                 if best is None or size > best[0]:
                     self.calls[_name] = (size, args, kw)
@@ -1821,16 +1850,17 @@ def run(rehearse: bool) -> dict:
     # 16-19. the cluster tick: the megakernel sweep, the key+range, cmd and
     #        exec legs, the merged tick at 10k in flight
     sweep_recs = {"mega_sweep": Recorder(tk), "merged_sweep": Recorder(tk)}
-    megakernel_sweep(device, cuda, rehearse, tk, launches, sweep_recs)
+    sweep_rows, sweep_logs = megakernel_sweep(device, cuda, rehearse, tk,
+                                              launches, sweep_recs)
     leg_recs = {"mega_range": Recorder(tk), "mega_cmd": Recorder(tk)}
     cluster_legs(device, cuda, tk, launches, leg_recs)
-    tick10k = FixedCalls(
-        protocol_tick=merged_tick(device, cuda, rehearse, tk)["args"])
+    tick_10k = merged_tick(device, cuda, rehearse, tk)
+    tick10k = FixedCalls(protocol_tick=tick_10k["args"])
 
     # 19-21. the message plane, the graft entry, the execute-DAG kernels
     mail_recs = {"message_plane": Recorder(tk)}
-    mail_big = message_plane(device, cuda, rehearse, tk, launches,
-                             mail_recs)["largest_leg"]
+    mail = message_plane(device, cuda, rehearse, tk, launches, mail_recs)
+    mail_big = mail["largest_leg"]
     graft_rec = graft_leg(device, cuda, tk, launches)
     dense_batch, dag_rec = dense_legs(device, cuda, rehearse, tk, launches)
 
@@ -1839,6 +1869,12 @@ def run(rehearse: bool) -> dict:
         device, cuda, rehearse, tk, launches,
         {"key_burn": rep.log, "range_burn": rrep.log},
         sharded_batches(tk, 4, pa_rec, pr_rec, range_rec))
+
+    # 24. the sharded protocol megakernel: the real mesh and the virtual
+    sharded_mega = sharded_mega_phase(
+        device, cuda, rehearse, tk, launches,
+        dict(sweep_rows=sweep_rows, sweep_logs=sweep_logs,
+             mail_logs=mail["logs"], tick_10k=tick_10k))
 
     # 23. kernels: replay the recorded inputs, kernel vs plain, timed
     iters = 50 if cuda else 2
@@ -1902,6 +1938,7 @@ def run(rehearse: bool) -> dict:
                                 calls=[_brief(c) for c in r["calls"]])
         entries.append(entry)
     entries.extend(sharded_entries)
+    entries.extend(sharded_mega)
     return {"card": card, "entries": entries, "cuda": cuda,
             "acked_per_s": rep.acked / wall}
 
@@ -2020,7 +2057,7 @@ def megakernel_sweep(device: str, cuda: bool, rehearse: bool, tk, launches,
             rows[f"mega_{n}"]["ms_per_replay_largest_tick"] = ms
             rows[f"mega_{n}"]["warm"] = warm[n]
             log(f"sweep: {n} nodes, the largest tick's replay {ms:.4f} ms")
-    return rows
+    return rows, logs
 
 
 def cluster_legs(device: str, cuda: bool, tk, launches, recs) -> dict:
@@ -2367,8 +2404,9 @@ def message_plane(device: str, cuda: bool, rehearse: bool, tk, launches,
           f"message plane {n0} nodes: the card's history != the CPU's")
     log(f"message_plane: {n0}-node history equal on {device} and cpu "
         f"({cwall:.2f} s on the cpu)")
+    logs = {}
     for n, _o in sizes:
-        rows[n].pop("log")
+        logs[n] = rows[n].pop("log")
         if cuda:
             args, kw = recs_by_size[n].get("protocol_tick")
             kw = dict(kw, mailbox=_fresh(kw["mailbox"]))
@@ -2379,7 +2417,7 @@ def message_plane(device: str, cuda: bool, rehearse: bool, tk, launches,
     log(f"message_plane: launches {launches['message_plane']}")
     big = recs_by_size[sizes[-1][0]].get("mailbox_route")
     check(big is not None, "message plane: the largest leg routed nothing")
-    return dict(rows, largest_leg=FixedCalls(mailbox_route=big))
+    return dict(rows, largest_leg=FixedCalls(mailbox_route=big), logs=logs)
 
 
 def graft_leg(device: str, cuda: bool, tk, launches):
@@ -2977,6 +3015,8 @@ def sharded_phase(device: str, cuda: bool, rehearse: bool, tk, launches,
             f"tick, node_lane_dispatches {snap['node_lane_dispatches']}; "
             f"the unsharded merged run {mwall:.2f} s, "
             f"{mwall * 1e3 / mticks:.2f} host ms per tick")
+        SUMMARY["sharded_merged_host_ms_per_tick"] = \
+            swall * 1e3 / max(1, snap["cluster_ticks"])
         check(srep.log == merged.log,
               "sharded mesh burn: the history differs from the unsharded "
               "merged run's")
@@ -3080,6 +3120,502 @@ def sharded_batches(tk, data: int, pa_rec, pr_rec, range_rec):
         iv_of, iv_s, iv_e, store, sb, sknd, srng, slots, (tuple(rar),) * 2,
         slots, (tuple(kar),) * 2, table), {})
     return out
+
+
+# -- the sharded protocol megakernel (parallel/mesh.sharded_protocol_tick) ---
+MAILBOX_PY = "accord_tpu/ops/mailbox.py"
+# its kernels-line entries: (name, source, replaces, the path whose
+# launches the entry reports)
+SHARDED_MEGA = (
+    ("sharded_protocol_tick",
+     "accord_tpu_torch/ops/tick_graph.py + csrc/tick_graph.cu (one CUDA "
+     "graph a tick: csrc/node_resolve.cu, finalize_csr.cu, mesh_combine.cu,"
+     " mailbox_shard.cu and the replicated stages' kernels)",
+     MESH_PY + ":821 (builder :683)", "sharded_mega_sweep"),
+    ("node_key_shard", "accord_tpu_torch/csrc/node_resolve.cu",
+     MESH_PY + ":718 (kpart: _fused_key_resolve_blocks in shard_map)",
+     "sharded_mega_sweep"),
+    ("node_range_shard", "accord_tpu_torch/csrc/node_resolve.cu",
+     MESH_PY + ":737 (rpart: _fused_range_resolve_blocks in shard_map)",
+     "sharded_mega_range"),
+    ("finalize_shard_tab", "accord_tpu_torch/csrc/finalize_csr.cu",
+     MESH_PY + ":779 (_sharded_finalize_body in the tick)",
+     "sharded_mega_sweep"),
+    ("sharded_mailbox_route", "accord_tpu_torch/csrc/mailbox_shard.cu",
+     MAILBOX_PY + ":100", "sharded_message_plane"),
+)
+SHARDED_MEGA_PATHS = ("sharded_warmup", "sharded_mega_sweep",
+                      "sharded_mega_range", "sharded_message_plane")
+
+
+def _bound_row(ms, plain_ms, bytes_, ops, err, **extra) -> dict:
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "share": bound_ms / ms if ms and ms > 0 else None,
+            "bytes": bytes_, "ops": ops, "library_ms": None, **extra}
+
+
+def _shard_mail_block(S: int, npsh: int, depth: int, w: int, bcap: int,
+                      seed: int = 23):
+    """A sharded mailbox block at a full tier, as host arrays: every
+    segment (s, t) 3/4 full of lanes from shard s's nodes to shard t's, on
+    distinct rings, with links cut between shards (K23's widest case)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    rows_nodes, L = npsh * S, S * S * bcap
+    part = np.zeros((rows_nodes, rows_nodes), bool)
+    for a in range(1, rows_nodes, 7):
+        b = (a + npsh) % rows_nodes
+        part[a, b] = part[b, a] = True
+    src, dst, slot, kind, seq = (np.zeros(L, np.int32) for _ in range(5))
+    keep = np.zeros(L, bool)
+    words = np.zeros((L, w), np.int32)
+    used = set()
+    for s in range(S):
+        for t in range(S):
+            for j in range(bcap * 3 // 4):
+                q = (s * S + t) * bcap + j
+                d = int(rng.integers(t * npsh, (t + 1) * npsh))
+                sl = int(rng.integers(0, depth))
+                if (d, sl) in used:
+                    continue
+                used.add((d, sl))
+                src[q] = int(rng.integers(s * npsh, (s + 1) * npsh))
+                dst[q], slot[q], keep[q] = d, sl, True
+                kind[q], seq[q] = rng.integers(1, 9), rng.integers(0, 1 << 30)
+                words[q] = rng.integers(-(1 << 31), 1 << 31, w)
+    arena = np.zeros((rows_nodes * depth, w), np.int32)
+    meta = np.zeros((rows_nodes * depth, 3), np.int32)
+    return (arena, meta, src, dst, slot, keep, kind, seq, words, part)
+
+
+def _k23_row(mb, S: int, block, device: str, cuda: bool, iters: int):
+    """K23 standalone on one mailbox block: kernel vs plain (each on its
+    own copy of the arena and meta), timed, bounded (every lane's small
+    fields and part entry read once, a landed lane's words read once and
+    written to its ring row once with its meta, the gather-back written
+    once)."""
+    args = _on(block, device)
+    lanes = args[2:9]
+
+    def kern(fresh=True):
+        # timed in place: routing the same lanes again rewrites the same rows
+        return mb.sharded_mailbox_route(S, *(_fresh(args) if fresh
+                                             else args))
+
+    def plain():
+        a, m = _fresh(args)[:2]
+        return (a, m) + mb.sharded_mailbox_route_plain(
+            S, mb.shard_parts(a, S), mb.shard_parts(m, S), *lanes,
+            mb.shard_parts(args[9], S))[2:]
+    out = kern()
+    err = max_abs_err(out, plain())
+    ms = time_ms(lambda: kern(False), iters, cuda)
+    plain_ms = time_ms(plain, max(1, iters // 10), cuda)
+    L, w = lanes[6].shape
+    landed = int(out[4].sum())
+    small = nbytes(*lanes[:6]) + L
+    return _bound_row(ms, plain_ms, small + 2 * landed * (w * 4 + 12)
+                      + nbytes(out[2:]), 0, err, lanes=L, words=w,
+                      landed=landed, input_mb=nbytes(args) / 1e6)
+
+
+def sharded_mega_phase(device: str, cuda: bool, rehearse: bool, tk,
+                       launches, prev: dict) -> list:
+    """The sharded protocol megakernel (parallel/mesh.sharded_protocol_tick:
+    one CUDA graph replay a tick on a card) on make_mesh() (1 x 1 on one
+    H100, where the mailbox keeps the single-device layout) and the
+    virtual 4 x 2 mesh make_mesh(devices=[card] * 8):
+      a. warmup_sharded (timed; a second call captures nothing);
+      b. the 10k merged tick: both meshes' outputs bit-equal to the
+         single-device replay's, replay ms beside it; the key stage alone
+         and with the finalizes, against their plain versions;
+      c. the sharded megakernel sweep (seed 6; 64 x 120, 256 x 50) after a
+         warm pass: each history the single-device megakernel's (and at 64
+         nodes the per-node loop's), launches_per_tick 1.0, one replay per
+         fused dispatch, zero sharded-megakernel fallbacks, no capture
+         or eviction (kernels.CAPTURES; jit_cache_sizes unchanged); host
+         ms per tick beside the
+         single-device megakernel's and the sharded merged run's; the
+         key+range leg (K14's shard tables) and the exec-in-megakernel leg
+         (the exec-only flush through the mesh), each the single-device
+         history;
+      d. the sharded message plane (bench_message_plane: seed 6, rf 5,
+         concurrency 24; 64 x 60, 256 x 30), device_messages=True: each
+         history the host network's, zero spills, verify and sharded
+         fallbacks, no capture, messages per host callback;
+      e. the reference's MULTICHIP legs (bench.py:1662-1700, :1860-1895)
+         with the capture gate in place of its compile count;
+      f. K23 on the 256-node leg's largest mailbox block and at the
+         1,024-lane tier (W 384) against its plain version.
+    -> the kernels-line entries."""
+    import torch
+    from accord_tpu_torch.ops import mailbox as mb
+    from accord_tpu_torch.ops import node_lane as nl
+    from accord_tpu_torch.parallel import mesh as pm
+    from accord_tpu_torch.sim.mesh_burn import run_mesh_burn
+    real = pm.make_mesh() if cuda else pm.make_mesh(devices=["cpu"])
+    vmesh = pm.make_mesh(devices=[real.device(0, 0)] * 8)
+    iters = 20 if cuda else 1
+    rows = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def burn(seed, ops, mesh, **kw):
+        t0 = time.perf_counter()
+        rep, eng = run_mesh_burn(seed, ops, collect_log=True,
+                                 sharded=mesh is not None, mesh=mesh,
+                                 device=None if mesh is not None else device,
+                                 **kw)
+        sync()
+        return rep, eng.snapshot(), time.perf_counter() - t0
+
+    def gate_fused(what, snap):
+        check(snap["megakernel_dispatches"] > 0
+              and snap["launches_per_tick"] == 1.0
+              and snap["sharded_megakernel_fallbacks"] == 0
+              and snap["mesh_tick_fallbacks"] == 0,
+              f"{what}: dispatches {snap['megakernel_dispatches']}, "
+              f"launches_per_tick {snap['launches_per_tick']}, sharded "
+              f"fallbacks {snap['sharded_megakernel_fallbacks']}")
+
+    def replay_ms(call):
+        """The replay of the graph `call` (a sharded_protocol_tick)
+        replayed last, its outputs kept alive; on the CPU the call."""
+        out = call()
+        sync()
+        if not cuda:
+            return time_ms(call, iters, cuda), out
+        return time_ms(last_graph_replay(), iters, cuda), out
+
+    def no_capture(what, cache):
+        """The gate of a timed window opened by tk.reset_launches(): no
+        sharded or single-device graph captured and none evicted in it,
+        and the held graphs unchanged."""
+        check(tk.CAPTURES["sharded_protocol_tick"] == 0
+              and tk.CAPTURES["protocol_tick"] == 0
+              and tk.CAPTURES["evictions"] == 0
+              and tk.jit_cache_sizes() == cache,
+              f"{what}: graphs captured or evicted after warmup "
+              f"({json.dumps(tk.CAPTURES)})")
+
+    # a. warmup_sharded: timed and its captures counted here (it is a loop
+    # of captures, each graph held against its plain version below, not a
+    # kernel of its own: it is on no kernels-line entry)
+    wkw = dict(num_buckets=128, cap=4096 if not rehearse else 512,
+               batch_tiers=(8, 64), nnz_tiers=(32, 256), store_tiers=(1, 2),
+               out_tiers=(256,), mega_quorum_sizes=(2, 3), exec_tiers=(32,))
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    pm.warmup_sharded(vmesh, **wkw)
+    sync()
+    warm = {"call": "warmup_sharded(virtual 4 x 2 mesh)",
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "graphs_captured": tk.CAPTURES["sharded_protocol_tick"],
+            "launches": sum(tk.LAUNCHES.values())}
+    launches["sharded_warmup"] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
+    pm.warmup_sharded(real, **wkw)
+    cache0 = tk.jit_cache_sizes()
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    pm.warmup_sharded(vmesh, **wkw)
+    sync()
+    warm["again_ms"] = (time.perf_counter() - t0) * 1e3
+    no_capture("warmup_sharded: a second call", cache0)
+    t0 = time.perf_counter()
+    pm.warmup_sharded(pm.make_mesh(devices=["cpu"] * 8), **wkw)
+    warm["cpu_mesh_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"sharded warmup[{device}]: {json.dumps(warm)}")
+
+    # b. the 10k merged tick
+    (wt,), kw = prev["tick_10k"]["args"]
+    single_ms, single = replay_ms(lambda: tk.protocol_tick(wt, **kw))
+    tick = {"single_device_replay_ms": single_ms}
+    for label, m in (("virtual", vmesh), ("real", real)):
+        ms, got = replay_ms(lambda m=m: pm.sharded_protocol_tick(m, wt, **kw))
+        err = max_abs_err(got, single)
+        check(err == 0, f"10k tick on the {label} mesh: the sharded program "
+              f"differs from the single-device replay (err {err})")
+        tick[f"{label}_replay_ms"] = ms
+        tick[f"{label}_call_ms"] = time_ms(
+            lambda m=m: pm.sharded_protocol_tick(m, wt, **kw), iters, cuda)
+    key_in, fins = kw["key_in"], kw["fins"]
+    dkey = _on(key_in, device)
+    key_ms, kout = replay_ms(
+        lambda: pm.sharded_protocol_tick(vmesh, wt, key_in=key_in))
+    kplain = nl.node_fused_deps_resolve_plain(*dkey, wt)
+    kb, ko, _ = bound_inputs(tk, "node_fused_deps_resolve", (*dkey, wt), {},
+                             kout[0])
+    rows["node_key_shard"] = _bound_row(
+        key_ms, time_ms(lambda: nl.node_fused_deps_resolve_plain(*dkey, wt),
+                        max(1, iters // 10), cuda),
+        kb, ko, max_abs_err(kout[0], kplain),
+        call="the 10k tick's key stage alone (one replay: 2 subject "
+        "passes, 1,024 shard entries in one launch, the 'model' fold)")
+    kf_ms, fout = replay_ms(lambda: pm.sharded_protocol_tick(
+        vmesh, wt, key_in=key_in, fins=fins))
+
+    def fin_args(f):
+        return (tk._window(kplain, f[1], f[2], f[3], f[4]), f[5], *f[6:11])
+
+    def fins_plain():
+        return tuple(tk.finalize_csr_plain(*fin_args(f), f[11])
+                     for f in fins)
+    fplain = fins_plain()
+    fb = fo = 0
+    for f, o in zip(fins, fplain):
+        b_, o_, _ = bound_inputs(tk, "finalize_csr", fin_args(f),
+                                 {"out_cap": f[11]}, o)
+        fb, fo = fb + b_, fo + o_
+    rows["finalize_shard_tab"] = _bound_row(
+        kf_ms - key_ms, time_ms(fins_plain, 1, cuda), fb, fo,
+        max(max_abs_err(fout[0], kplain), max_abs_err(fout[2], fplain)),
+        call=f"the 10k tick's {len(fins)} key finalizes (the replay with "
+        "them less the key stage's alone)", replay_with_key_ms=kf_ms)
+    log(f"sharded 10k tick[{device}]: {json.dumps(tick)}")
+    check(rows["node_key_shard"]["max_abs_err"] == 0
+          and rows["finalize_shard_tab"]["max_abs_err"] == 0,
+          "10k tick: a graph-form stage differs from its plain version")
+
+    # c. the sharded megakernel sweep
+    sizes = ((64, 120), (256, 50)) if not rehearse else ((16, 40), (32, 16))
+    n0, o0 = sizes[0]
+    for n, o in sizes:
+        burn(6, o, vmesh, nodes=n, megakernel=True)
+    burn(6, o0, real, nodes=n0, megakernel=True)
+    cache1 = tk.jit_cache_sizes()
+    tk.reset_launches()
+    rec = Recorder(tk, names=("sharded_protocol_tick",))
+    fused = 0
+    sweep = {}
+    with rec:
+        for n, o in sizes:
+            rep, snap, wall = burn(6, o, vmesh, nodes=n, megakernel=True)
+            gate_fused(f"sharded sweep {n} nodes", snap)
+            check(rep.log == prev["sweep_logs"][(n, "mega")],
+                  f"sharded sweep {n} nodes: history != the single-device "
+                  "megakernel's")
+            if n == n0:
+                check(rep.log == prev["sweep_logs"][(n, "loop")],
+                      f"sharded sweep {n} nodes: history != the per-node "
+                      "loop's")
+            fused += snap["megakernel_dispatches"]
+            hms = wall * 1e3 / max(1, snap["cluster_ticks"])
+            sweep[n] = {"nodes": n, "ops": o, "wall_s": wall,
+                        "committed_txn_per_s": rep.acked / wall,
+                        "cluster_ticks": snap["cluster_ticks"],
+                        "host_ms_per_tick": hms,
+                        "single_device_mega_host_ms_per_tick":
+                            prev["sweep_rows"][f"mega_{n}"][
+                                "host_ms_per_tick"],
+                        "launches_per_tick": snap["launches_per_tick"]}
+            if n == n0:
+                sweep[n]["sharded_merged_host_ms_per_tick"] = \
+                    SUMMARY.get("sharded_merged_host_ms_per_tick")
+            log(f"sharded sweep[{device}]: {json.dumps(sweep[n])}")
+    launches["sharded_mega_sweep"] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
+    rep, snap, wall = burn(6, o0, real, nodes=n0, megakernel=True)
+    gate_fused("sharded sweep on make_mesh()", snap)
+    check(rep.log == prev["sweep_logs"][(n0, "mega")],
+          "sharded sweep on make_mesh(): history != the single-device one")
+    sweep["real_mesh"] = {"nodes": n0, "wall_s": wall, "host_ms_per_tick":
+                          wall * 1e3 / max(1, snap["cluster_ticks"])}
+    no_capture("sharded sweep (after warmup_sharded and the warm pass)",
+               cache1)
+    if cuda:
+        ls = launches["sharded_mega_sweep"]
+        check(ls["sharded_protocol_tick"] == fused > 0,
+              f"sharded sweep: {ls['sharded_protocol_tick']} replays for "
+              f"{fused} fused dispatches")
+        for name in ("node_key_shard", "or_fold", "finalize_shard_tab",
+                     "counts_scan", "fragment_merge"):
+            check(ls[name] > 0, f"sharded sweep: {name} never ran in a "
+                  "replay")
+        check(ls["protocol_tick"] == 0 and ls["node_deps_resolve"] == 0,
+              "sharded sweep: the single-device program ran")
+    # the sweep's largest tick: the graph against the plain program
+    (mesh_a, wt_a), tkw = rec.get("sharded_protocol_tick")
+    s_ms, s_out = replay_ms(lambda: pm.sharded_protocol_tick(
+        mesh_a, wt_a, **tkw))
+    dkw = _on(tkw, device)
+    s_plain = tk.protocol_tick_plain(wt_a, **dkw)
+    sb_, so_, _ = tick_bound(tk, (wt_a,), dkw, s_out)
+    rows["sharded_protocol_tick"] = _bound_row(
+        s_ms, time_ms(lambda: tk.protocol_tick_plain(wt_a, **dkw),
+                      max(1, iters // 10), cuda),
+        sb_, so_, max_abs_err(s_out, s_plain),
+        call=f"the {sizes[-1][0]}-node sweep's largest tick",
+        call_ms=time_ms(lambda: pm.sharded_protocol_tick(mesh_a, wt_a,
+                                                         **tkw),
+                        iters, cuda),
+        tick_10k=tick, sweep=sweep, warmup=warm)
+    check(rows["sharded_protocol_tick"]["max_abs_err"] == 0,
+          "sharded sweep: the largest tick's replay differs from the plain "
+          "program")
+    # the key+range leg and the exec leg
+    kr = dict(nodes=4, range_read_ratio=0.2, range_write_ratio=0.1,
+              megakernel=True)
+    burn(9, 40, vmesh, **kr)
+    tk.reset_launches()
+    ticks, orig = [], pm.sharded_protocol_tick
+
+    def keep(*a, **k):        # every tick with a range stage, kept alive
+        if k.get("rng_in") is not None:
+            ticks.append((a, k))
+        return orig(*a, **k)
+    pm.sharded_protocol_tick = keep
+    try:
+        rrep, rsnap, _ = burn(9, 40, vmesh, **kr)
+    finally:
+        pm.sharded_protocol_tick = orig
+    launches["sharded_mega_range"] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
+    gate_fused("sharded key+range leg", rsnap)
+    check(rrep.log == burn(9, 40, None, **kr)[0].log,
+          "sharded key+range leg: history != the single-device megakernel's")
+    if cuda:
+        check(launches["sharded_mega_range"]["node_range_shard"] > 0,
+              "sharded key+range leg: K14's shard table never ran")
+    check(ticks, "sharded key+range leg: no tick had a range stage")
+    (mesh_r, wt_r), rkw_ = max(ticks, key=lambda t: sum(
+        len(x) for x in (t[1]["rng_in"][8], t[1]["rng_in"][10])))
+    drng = _on(rkw_["rng_in"], device)
+    r_ms, r_out = replay_ms(lambda: pm.sharded_protocol_tick(
+        mesh_r, wt_r, rng_in=rkw_["rng_in"]))
+    rb_, ro_, _ = bound_inputs(tk, "node_fused_range_deps_resolve",
+                               (*drng, wt_r), {}, r_out[1])
+    rows["node_range_shard"] = _bound_row(
+        r_ms, time_ms(lambda: nl.node_fused_range_deps_resolve_plain(
+            *drng, wt_r), max(1, iters // 10), cuda), rb_, ro_,
+        max_abs_err(r_out[1], nl.node_fused_range_deps_resolve_plain(
+            *drng, wt_r)),
+        call="the key+range leg's largest tick's range stage alone (one "
+        "replay: the range shard table and the gated key shard table)")
+    check(rows["node_range_shard"]["max_abs_err"] == 0,
+          "sharded key+range leg: the range stage differs from its plain "
+          "version")
+    base = dict(nodes=4, rf=3, stores_per_node=2, key_count=24,
+                concurrency=8, exec_plane=True, exec_compact=True,
+                exec_in_megakernel=True, megakernel=True)
+    ex, esnap, _ = burn(13, 40, vmesh, **base)
+    gate_fused("sharded exec leg", esnap)
+    check(ex.log == burn(13, 40, None, **base)[0].log
+          and esnap["exec_scan_blocks"] > 0,
+          "sharded exec leg: history != the single-device one, or no exec "
+          "block")
+    log(f"sharded legs[{device}]: key+range {json.dumps(rsnap)}; exec "
+        f"{json.dumps(esnap)}")
+
+    # d. the sharded message plane
+    msizes = ((64, 60), (256, 30)) if not rehearse else ((16, 20), (32, 12))
+    mbase = dict(rf=5, concurrency=24, megakernel=True, device_messages=True)
+    for n, o in msizes:
+        burn(6, o, vmesh, nodes=n, **mbase)
+    burn(6, msizes[0][1], real, nodes=msizes[0][0], **mbase)
+    cache2 = tk.jit_cache_sizes()
+    tk.reset_launches()
+    mrec = Recorder(tk, names=("sharded_protocol_tick",))
+    plane = {}
+    with mrec:
+        for n, o in msizes:
+            rep, snap, wall = burn(6, o, vmesh, nodes=n, **mbase)
+            gate_fused(f"sharded message plane {n} nodes", snap)
+            c = rep.counters
+            check(rep.log == prev["mail_logs"][n],
+                  f"sharded message plane {n} nodes: history != the host "
+                  "network's")
+            for k in ("mailbox_overflow_spills", "mailbox_verify_fallbacks"):
+                check(c[k] == 0, f"sharded message plane {n} nodes: {k} = "
+                      f"{c[k]}")
+            check(c["device_messages_delivered"] > 0,
+                  f"sharded message plane {n} nodes: nothing delivered")
+            plane[n] = {"nodes": n, "ops": o, "wall_s": wall,
+                        "host_ms_per_tick":
+                            wall * 1e3 / max(1, snap["cluster_ticks"]),
+                        **{k: c[k] for k in (
+                            "messages_per_host_callback",
+                            "device_messages_delivered",
+                            "mailbox_depth_high_water")}}
+            log(f"sharded message plane[{device}]: {json.dumps(plane[n])}")
+    launches["sharded_message_plane"] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
+    rep, snap, _ = burn(6, msizes[0][1], real, nodes=msizes[0][0], **mbase)
+    gate_fused("sharded message plane on make_mesh()", snap)
+    check(rep.log == prev["mail_logs"][msizes[0][0]],
+          "sharded message plane on make_mesh(): history differs")
+    no_capture("sharded message plane (after the warm pass)", cache2)
+    if cuda:
+        check(launches["sharded_message_plane"]["sharded_mailbox_route"] > 0,
+              "sharded message plane: K23 never ran in a replay")
+
+    # e. the reference's MULTICHIP legs
+    mc = {}
+    rkw = dict(nodes=4, resolver_kwargs=dict(num_buckets=256,
+                                             initial_cap=512))
+    burn(6, 40, vmesh, megakernel=True, **rkw)
+    burn(6, 40, vmesh, mesh_tick=False, **rkw)
+    c3 = tk.jit_cache_sizes()
+    tk.reset_launches()
+    sh, ssnap, _ = burn(6, 40, vmesh, megakernel=True, **rkw)
+    lp = burn(6, 40, vmesh, mesh_tick=False, **rkw)[0]
+    gate_fused("MULTICHIP megakernel leg", ssnap)
+    check(sh.log == lp.log,
+          "MULTICHIP megakernel leg: history != the sharded loop's")
+    no_capture("MULTICHIP megakernel leg", c3)
+    mc["megakernel"] = {k: ssnap[k] for k in (
+        "megakernel_dispatches", "launches_per_tick",
+        "sharded_megakernel_fallbacks")}
+    mkw = dict(nodes=16, rf=5, concurrency=32, megakernel=True)
+    burn(6, 50, vmesh, device_messages=True, **mkw)
+    burn(6, 50, vmesh, **mkw)
+    c4 = tk.jit_cache_sizes()
+    tk.reset_launches()
+    dev, dsnap, _ = burn(6, 50, vmesh, device_messages=True, **mkw)
+    host = burn(6, 50, vmesh, **mkw)[0]
+    c = dev.counters
+    gate_fused("MULTICHIP message leg", dsnap)
+    no_capture("MULTICHIP message leg", c4)
+    check(dev.log == host.log
+          and c["mailbox_overflow_spills"] == 0
+          and c["mailbox_verify_fallbacks"] == 0
+          and c["device_messages_delivered"] > 0
+          and c["messages_per_host_callback"] >= 10.0,
+          f"MULTICHIP message leg: {json.dumps(c)}")
+    mc["message"] = {k: c[k] for k in ("launches_per_tick",
+                                       "messages_per_host_callback",
+                                       "device_messages_delivered")}
+    log(f"sharded MULTICHIP legs[{device}]: {json.dumps(mc)}")
+
+    # f. K23 standalone: the 256-node leg's largest block, the 1,024 tier
+    big = mrec.get("sharded_mailbox_route")
+    check(big is not None, "sharded message plane: no mailbox block")
+    S = vmesh.shape["data"]
+    k23 = _k23_row(mb, S, big[0], device, cuda, iters)
+    k23["call"] = "the sharded message plane's largest mailbox block"
+    n_big = msizes[-1][0]
+    k23["lanes_1024"] = _k23_row(
+        mb, S, _shard_mail_block(S, -(-(n_big + 1) // S), 64, 384, 64),
+        device, cuda, iters)
+    check(k23["max_abs_err"] == 0 and k23["lanes_1024"]["max_abs_err"] == 0,
+          "K23 disagrees with its plain version")
+    rows["sharded_mailbox_route"] = dict(k23, plane=plane, multichip=mc)
+    log(f"K23[{device}]: {json.dumps(k23)}")
+
+    entries = []
+    for name, source, replaces, path in SHARDED_MEGA:
+        row = rows[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[path][name],
+            "path": path, **row,
+            "launches_by_path": {p: launches[p].get(name, 0)
+                                 for p in SHARDED_MEGA_PATHS}})
+        if cuda:
+            check(launches[path][name] > 0, f"{path}: {name} never launched")
+    return entries
 
 
 def _brief(row: dict) -> dict:

@@ -1401,3 +1401,268 @@ def test_sharded_mesh_across_every_card(cuda):
     merged, _ = run_mesh_burn(6, 40, device=home, **kw)
     assert sharded.log == merged.log
     assert eng.snapshot()["mesh_tick_fallbacks"] == 0
+
+
+# -- the sharded protocol megakernel and K23 (the virtual 4 x 2 mesh) ---------
+def _shard_route_inputs(rng, S, npsh, depth, W, bcap):
+    """Raw K23 inputs: landed lanes on distinct (dst, slot) rings, pads,
+    lanes toward every shard, links cut between nodes of different
+    shards; lane 0 of segment (0, S-1) lands on the last ring row of shard
+    S-1, where that shard's non-landing lanes gather back."""
+    rows_nodes = npsh * S
+    L = S * S * bcap
+    arena = rng.integers(-9, 9, (rows_nodes * depth, W)).astype(np.int32)
+    meta = rng.integers(-9, 9, (rows_nodes * depth, 3)).astype(np.int32)
+    part = np.zeros((rows_nodes, rows_nodes), bool)
+    for a, b in ((1, npsh + 1), (0, rows_nodes - 1), (npsh, npsh + 1)):
+        a, b = a % rows_nodes, b % rows_nodes
+        part[a, b] = part[b, a] = True
+    src, dst, slot, kind, seq = (np.zeros(L, np.int32) for _ in range(5))
+    keep = np.zeros(L, bool)
+    words = np.zeros((L, W), np.int32)
+    free = {v: list(rng.permutation(depth)) for v in range(rows_nodes)}
+    last = rows_nodes - 1
+    free[last].remove(depth - 1)
+    for s in range(S):
+        for t in range(S):
+            for j in range(int(rng.integers(bcap // 2, bcap + 1))):
+                q = (s * S + t) * bcap + j
+                d = int(rng.integers(t * npsh, (t + 1) * npsh))
+                if s == 0 and t == S - 1 and j == 0:
+                    d, sl = last, depth - 1
+                elif free[d]:
+                    sl = free[d].pop()
+                else:
+                    continue
+                src[q] = int(rng.integers(s * npsh, (s + 1) * npsh))
+                dst[q], slot[q] = d, sl
+                kind[q], seq[q] = rng.integers(1, 9), rng.integers(0, 1 << 30)
+                keep[q] = True
+                words[q] = rng.integers(-(1 << 31), 1 << 31, W)
+    return (arena, meta, src, dst, slot, keep, kind, seq, words, part)
+
+
+@pytest.mark.parametrize("S,npsh,depth,W,bcap", [
+    (4, 2, 4, 8, 4), (4, 17, 64, 384, 64), (1, 65, 64, 384, 1024),
+    (4, 65, 64, 384, 64)])
+def test_sharded_mailbox_route_kernel(cuda, S, npsh, depth, W, bcap):
+    """K23 on the card = its plain version on the CPU: every shard's arena
+    and meta updated in place, the landed words and meta receiver-major
+    (a non-landing lane gathers back its destination shard's last row,
+    after the scatter), land -- with cuts between shards and pads."""
+    from accord_tpu_torch.ops.mailbox import sharded_mailbox_route
+    rng = np.random.default_rng(S * 1000 + bcap)
+    ins = _shard_route_inputs(rng, S, npsh, depth, W, bcap)
+    arena, meta, part = _t(ins[0]), _t(ins[1]), _t(ins[9])
+    plain = sharded_mailbox_route(S, arena, meta, *ins[2:9], part)
+    ca, cm = arena.to(cuda), meta.to(cuda)
+    n0 = tk.LAUNCHES["sharded_mailbox_route"]
+    got = sharded_mailbox_route(S, _t(ins[0]).to(cuda), _t(ins[1]).to(cuda),
+                                *ins[2:9], part.to(cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["sharded_mailbox_route"] == n0 + 1
+    _eq(plain, got)
+    assert int(plain[4].sum()) > 0 and not bool(plain[4].all())
+    del ca, cm
+
+
+def _shard_merges(seed, k=128):
+    """Merges whose every block splits into 4 'data' shards of whole
+    words (caps multiples of 128) and every span into 4 word shards."""
+    from accord_tpu_torch.ops import node_lane as nl
+    rng = np.random.default_rng(seed)
+    pad_key, pad_rng = _pads(k)
+    kplans = [_key_plan(rng, 8, (128,), k, False),
+              _key_plan(rng, 64, (256, 256), k, True),
+              _key_plan(rng, 8, (128, 256), k, True)]
+    rplans = [_range_plan(rng, 8, (128,), (128,), k),
+              _range_plan(rng, 64, (128, 256), (256, 256), k),
+              _range_plan(rng, 8, (128,), (128,), k, has_k=False)]
+    km = nl.build_key_merge(list(enumerate(kplans)), pad_key)
+    rm = nl.build_range_merge(list(enumerate(rplans)), pad_key, pad_rng)
+    return km, rm
+
+
+def _shard_tick(seed, mail_plane=None):
+    """A tick with every stage the sharded megakernel has: key and range
+    resolves, key / rkey / range finalizes out of signature order, cmd,
+    repair, exec and quorum blocks, and (with a plane) the mailbox."""
+    from accord_tpu_torch.sim.network import _MailMsg
+    rng = np.random.default_rng(seed)
+    kw = _tick(seed)
+    km, rm = _shard_merges(seed)
+    kw["key_in"], kw["rng_in"] = _key_in(km), _rng_in(rm)
+    kw["fins"] = (_fin_range(rng, 16, 64, 256),
+                  _fin_key(rng, "key", km.spans[1], 8, 2048),
+                  _fin_key(rng, "key", km.spans[0], 4, 256),
+                  _fin_key(rng, "rkey",
+                           rm.spans[1][:2] + rm.spans[1][4:], 8, 256))
+    if mail_plane is not None:
+        ents = []
+        for i in range(40):
+            e = _MailMsg(kind=1 + i % 3, src=int(rng.integers(1, 8)),
+                         dst=int(rng.integers(1, 8)),
+                         payload=bytes(rng.integers(0, 256, 40)
+                                       .astype(np.uint8)))
+            e.ticket = i
+            ents.append(e)
+        mail_plane.set_partitions({frozenset((1, 6))}, version=1)
+        kw["mailbox"] = mail_plane.stage_batch(ents)
+        kw["entries"] = ents
+    return kw
+
+
+def test_sharded_protocol_tick_graph_matches_plain(cuda):
+    """The sharded megakernel's graph on the card's virtual mesh against
+    the single-device plain protocol_tick and the CPU mesh's sharded
+    program: every output bit-equal, one replay, each stage kernel
+    counted once per use; the mailbox plane's landed payloads equal."""
+    from accord_tpu_torch.ops.mailbox import MailboxPlane
+    from accord_tpu_torch.parallel.mesh import sharded_protocol_tick
+    cpu, card = _meshes(cuda)
+    wt = _t(WITNESS_TABLE)
+    pc = MailboxPlane(7, depth=16, words=16, shards=4, device="cpu")
+    pg = MailboxPlane(7, depth=16, words=16, shards=4, device=cuda)
+    kw_c, kw_g = _shard_tick(3, pc), _shard_tick(3, pg)
+    ents_c, ents_g = kw_c.pop("entries"), kw_g.pop("entries")
+    cpu_out = sharded_protocol_tick(cpu, wt, **kw_c)
+    single = tk.protocol_tick(wt, **{k: v for k, v in kw_c.items()
+                                     if k != "mailbox"})
+    l0 = dict(tk.LAUNCHES)
+    got = sharded_protocol_tick(card, wt.to(cuda), **_deep(kw_g, cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["sharded_protocol_tick"] == \
+        l0["sharded_protocol_tick"] + 1
+    assert tk.LAUNCHES["protocol_tick"] == l0["protocol_tick"]
+    for name, n in (("node_key_shard", 2), ("node_range_shard", 1),
+                    ("or_fold", 2), ("finalize_shard_tab", 6),
+                    ("counts_scan", 3), ("fragment_merge", 3),
+                    ("range_finalize", 1), ("cmd_tick", 1),
+                    ("quorum_count", 1), ("cmd_repair", 1),
+                    ("frontier_compact", 1), ("sharded_mailbox_route", 1),
+                    ("node_deps_resolve", 0), ("finalize_csr", 0)):
+        assert tk.LAUNCHES[name] == l0[name] + n, name
+    _eq(cpu_out, got)
+    for i in (0, 1, 2, 3, 4, 6, 7):
+        _eq(single[i], got[i])
+    pc.adopt(cpu_out[5])
+    pg.adopt(got[5])
+    landed = 0
+    for ec, eg in zip(ents_c, ents_g):
+        assert ec.slot is not None and eg.slot is not None
+        rc, rg = pc.read_landed(ec), pg.read_landed(eg)
+        assert rc == rg
+        landed += rc is not None
+    assert landed > 0
+    for fin in single[2]:
+        assert int(fin[0][-1]) > 0
+
+
+def test_sharded_protocol_tick_graph_replays_new_snapshots(cuda):
+    """Two sharded ticks of one signature: the second replays the first's
+    graph (no capture) and both keep their outputs."""
+    from accord_tpu_torch.parallel.mesh import sharded_protocol_tick
+    cpu, card = _meshes(cuda)
+    wt = _t(WITNESS_TABLE)
+    a, b = _shard_tick(4), _shard_tick(5)
+    pa = sharded_protocol_tick(cpu, wt, **a)
+    pb = sharded_protocol_tick(cpu, wt, **b)
+    ga = sharded_protocol_tick(card, wt.to(cuda), **_deep(a, cuda))
+    c1 = tk.CAPTURES["sharded_protocol_tick"]
+    held = tk.jit_cache_sizes()["sharded_protocol_tick"]
+    gb = sharded_protocol_tick(card, wt.to(cuda), **_deep(b, cuda))
+    torch.cuda.synchronize()
+    assert tk.CAPTURES["sharded_protocol_tick"] == c1
+    assert tk.jit_cache_sizes()["sharded_protocol_tick"] == held >= 1
+    _eq(pb, gb)
+    _eq(pa, ga)
+
+
+def test_sharded_megakernel_burn_card_matches_cpu_no_capture(cuda):
+    """run_mesh_burn(sharded=True, megakernel=True, device_messages=True,
+    exec_in_megakernel=True) on the card's virtual mesh commits the CPU
+    mesh's history; after warmup_sharded and one warm run, a second run
+    captures no graph (jit_cache_sizes unchanged), replays once per fused
+    dispatch, and falls back nowhere."""
+    from accord_tpu_torch.parallel.mesh import warmup_sharded
+    from accord_tpu_torch.sim.mesh_burn import run_mesh_burn
+    cpu, card = _meshes(cuda)
+    kw = dict(nodes=4, megakernel=True, device_messages=True,
+              exec_plane=True, exec_compact=True, exec_in_megakernel=True,
+              crash_restart=True, collect_log=True)
+    ref, _ = run_mesh_burn(23, 40, sharded=True, mesh=cpu, **kw)
+    warmup_sharded(card, num_buckets=128, cap=512, batch_tiers=(8,),
+                   nnz_tiers=(32,), mega_quorum_sizes=(2,),
+                   exec_tiers=(32,))
+    run_mesh_burn(23, 40, sharded=True, mesh=card, **kw)
+    cache0 = tk.jit_cache_sizes()
+    r0 = tk.LAUNCHES["sharded_protocol_tick"]
+    got, eng = run_mesh_burn(23, 40, sharded=True, mesh=card, **kw)
+    snap = eng.snapshot()
+    assert tk.jit_cache_sizes() == cache0
+    assert got.log == ref.log
+    assert snap["launches_per_tick"] == 1.0
+    assert snap["sharded_megakernel_fallbacks"] == 0
+    assert tk.LAUNCHES["sharded_protocol_tick"] - r0 == \
+        snap["megakernel_dispatches"] > 0
+    assert got.counters["mailbox_verify_fallbacks"] == 0
+    assert got.counters["device_messages_delivered"] > 0
+
+
+def test_sharded_megakernel_across_every_card(cuda):
+    """make_mesh() over every visible card (2 or more): the sharded tick
+    runs stage by stage on each shard's card (K23 with a land exchange
+    between cards), replays no graph, and answers as the CPU mesh does; a
+    sharded megakernel device-messages burn commits the CPU mesh's
+    history, each fused dispatch several kernel launches."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 or more cards: a mesh across cards")
+    from accord_tpu_torch.ops.mailbox import (MailboxPlane,
+                                              sharded_mailbox_route)
+    from accord_tpu_torch.parallel import mesh as pm
+    from accord_tpu_torch.sim.mesh_burn import run_mesh_burn
+    mesh = pm.make_mesh()
+    S = mesh.shape["data"]
+    devs = [mesh.device(d, 0) for d in range(S)]
+    rng = np.random.default_rng(S)
+    ins = _shard_route_inputs(rng, S, 9, 8, 64, 32)
+    arena, meta, part = _t(ins[0]), _t(ins[1]), _t(ins[9])
+    plain = sharded_mailbox_route(S, arena, meta, *ins[2:9], part)
+    rows = arena.shape[0] // S
+    ga = tuple(_t(ins[0][t * rows:(t + 1) * rows]).to(devs[t])
+               for t in range(S))
+    gm = tuple(_t(ins[1][t * rows:(t + 1) * rows]).to(devs[t])
+               for t in range(S))
+    gp = tuple(part[t * 9:(t + 1) * 9].to(devs[t]) for t in range(S))
+    got = sharded_mailbox_route(S, ga, gm, *ins[2:9], gp)
+    torch.cuda.synchronize()
+    _eq(arena, torch.cat([a.cpu() for a in got[0]]))
+    _eq(meta, torch.cat([m.cpu() for m in got[1]]))
+    for want, parts in zip(plain[2:], got[2:]):
+        _eq(want, torch.cat([p.cpu() for p in parts]))
+    cpu = pm.make_mesh(devices=["cpu"] * n)
+    wt = _t(WITNESS_TABLE)
+    kw = _shard_tick(9)
+    l0 = tk.LAUNCHES["sharded_protocol_tick"]
+    s0 = tk.ENTRY_LAUNCHES["sharded_protocol_tick_stages"]
+    _eq(pm.sharded_protocol_tick(cpu, wt, **kw),
+        pm.sharded_protocol_tick(mesh, wt.to(devs[0]),
+                                 **_deep(kw, devs[0])))
+    # stage by stage across cards: no graph replay, many kernel launches
+    assert tk.LAUNCHES["sharded_protocol_tick"] == l0
+    assert tk.ENTRY_LAUNCHES["sharded_protocol_tick_stages"] - s0 > S
+    plane = MailboxPlane(7, shards=S, device=devs)
+    assert plane.shard_devices is not None
+    bkw = dict(nodes=4, megakernel=True, device_messages=True,
+               collect_log=True)
+    ref, _ = run_mesh_burn(5, 40, device="cpu", **bkw)
+    s0 = tk.ENTRY_LAUNCHES["sharded_protocol_tick_stages"]
+    got_b, eng = run_mesh_burn(5, 40, sharded=True, mesh=mesh, **bkw)
+    assert got_b.log == ref.log
+    snap = eng.snapshot()
+    assert tk.LAUNCHES["sharded_protocol_tick"] == l0
+    assert tk.ENTRY_LAUNCHES["sharded_protocol_tick_stages"] - s0 > \
+        snap["megakernel_dispatches"] > 0
+    assert snap["sharded_megakernel_fallbacks"] == 0
+    assert got_b.counters["mailbox_verify_fallbacks"] == 0

@@ -169,11 +169,19 @@ def test_mailbox_partition_mask_symmetric():
 
 
 def test_mailbox_plane_needs_card_or_cpu_and_one_shard():
+    """The plane's device is the card unless the CPU is asked for; a
+    sharded plane takes one device, or one per shard (a list of one
+    repeated device keeps one node-major arena)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             MailboxPlane(4)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        MailboxPlane(4, shards=2, device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MailboxPlane(4, shards=2, device=["cuda:0", "cuda:1"])
+    with pytest.raises(ValueError, match="3 devices for 2 shards"):
+        MailboxPlane(4, shards=2, device=["cpu"] * 3)
+    plane = MailboxPlane(4, shards=2, device=["cpu"] * 2)
+    assert plane.shard_devices is None
+    assert (plane.npsh, plane.rows_nodes) == (3, 6)
 
 
 # -- burn differentials (engine-less batched drain) ---------------------------
