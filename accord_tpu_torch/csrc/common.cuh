@@ -47,17 +47,6 @@ __global__ void copy_kernel(T* __restrict__ dst, const T* __restrict__ src,
     dst[i] = src[i];
 }
 
-// copy n_src elements, then fill up to n_dst with `fill`
-template <typename T>
-__global__ void copy_fill_kernel(T* __restrict__ dst, long long n_dst,
-                                 const T* __restrict__ src, long long n_src,
-                                 T fill) {
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_dst; i += stride)
-    dst[i] = i < n_src ? src[i] : fill;
-}
-
 static inline int grid_for(long long n, int threads) {
   long long g = (n + threads - 1) / threads;
   if (g < 1) g = 1;

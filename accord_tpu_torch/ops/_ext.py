@@ -7,7 +7,9 @@ C interface: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 sources, so an edit rebuilds). The libraries load with `ctypes`; every
 pointer and the stream pass as `c_void_p`. Each C entry point returns
 `cudaGetLastError()` after its launches, and `call` raises when that is
-not 0, so a refused launch never passes silently.
+not 0, so a refused launch never passes silently. `entry` is the lean
+form of `call` for the small kernels whose host path is most of their
+time (K4, K15): the function is resolved once with its argtypes set.
 
 Nothing here runs when the module is imported: the first kernel launch
 builds, so an installation without a card or nvcc (the CPU tests) never
@@ -22,7 +24,7 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parents[2] / "build" / \
@@ -31,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], Callable[..., None]] = {}
 # wall seconds of the last build (all sources, in parallel); None until built
 build_seconds: Optional[float] = None
 # `-Xptxas -v` output per source from the last build (registers, spills)
@@ -115,6 +118,13 @@ def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def _raise(handle, name: str, entry: str, rc: int) -> None:
+    err = handle.accord_error_string
+    err.restype = ctypes.c_char_p
+    raise RuntimeError(f"{name}.{entry}: CUDA error {rc}: "
+                       f"{err(ctypes.c_int(rc)).decode()}")
+
+
 def call(name: str, entry: str, *args) -> None:
     """Run one C entry point of `csrc/<name>.cu` and raise on its
     cudaGetLastError() result. Ints pass as c_int unless already ctypes;
@@ -127,7 +137,33 @@ def call(name: str, entry: str, *args) -> None:
              else ctypes.c_int(a) for a in args]
     rc = fn(*cargs)
     if rc != 0:
-        err = handle.accord_error_string
-        err.restype = ctypes.c_char_p
-        raise RuntimeError(f"{name}.{entry}: CUDA error {rc}: "
-                           f"{err(ctypes.c_int(rc)).decode()}")
+        _raise(handle, name, entry, rc)
+
+
+def entry(name: str, entry_name: str,
+          argtypes: Sequence[type]) -> Callable[..., None]:
+    """The lean launch path: one C entry point of `csrc/<name>.cu`,
+    resolved once with its `argtypes` and restype set, called with plain
+    Python ints (pointers and the stream as ints, `raw_stream()`), raising
+    on a nonzero cudaGetLastError() result exactly as `call` does."""
+    key = (name, entry_name)
+    f = _ENTRIES.get(key)
+    if f is None:
+        handle = lib(name)
+        fn = getattr(handle, entry_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+
+        def f(*args, _fn=fn, _handle=handle):
+            rc = _fn(*args)
+            if rc != 0:
+                _raise(_handle, name, entry_name, rc)
+        _ENTRIES[key] = f
+    return f
+
+
+def raw_stream(index: int) -> int:
+    """The current CUDA stream of card `index` (a CUDA tensor's
+    `device.index`) as an int, without building a Stream object."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(index)

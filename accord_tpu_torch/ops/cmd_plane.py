@@ -39,7 +39,8 @@ Port: the plane lives on an explicit device (`device=None` is the card, and
 raises without one; "cpu" runs the kernels' plain versions). The columns
 are torch tensors there; a full rebuild uploads them through
 `kernels.upload` (pinned, non_blocking) and dirty rows go through
-`deltas.flush_lane` (K4). A dispatch is ONE cmd_tick launch (K10,
+`deltas.flush_lanes` (K4: one launch a flush and chunk for every dirty
+lane). A dispatch is ONE cmd_tick launch (K10,
 csrc/cmd_tick.cu) and ONE blocking pinned readback of its result block
 (out_code, out_status, out_ts, the op-sized chains, clock, csum): the
 reference is synchronous here (node._last_hlc = clock). The shadow sync
@@ -521,7 +522,7 @@ class CmdPlane:
         self._device_stale = False
 
     def _flush(self) -> None:
-        from accord_tpu_torch.ops.deltas import flush_lane
+        from accord_tpu_torch.ops.deltas import flush_lanes
         if self._device is None or self._device_stale:
             self._build_device()
             return
@@ -529,19 +530,24 @@ class CmdPlane:
         def account(nbytes: int, _tier: int) -> None:
             self.upload_bytes += nbytes
 
+        # every dirty lane in one flush: one K4 launch per chunk
         d = self._device
+        names, specs = [], []
         for name in _LANES:
             rows = self._dirty[name]
             if rows:
-                d[name] = flush_lane(d[name], sorted(rows),
-                                     self._shadow_of(name), account)
+                names.append(name)
+                specs.append((d[name], sorted(rows), self._shadow_of(name),
+                              account))
                 rows.clear()
         if self._kdirty:
             kids = sorted(self._kdirty)
-            d["kmax"] = flush_lane(d["kmax"], kids, self.kmax_h, account)
-            d["kvalid"] = flush_lane(d["kvalid"], kids, self.kvalid_h,
-                                     account)
+            names += ["kmax", "kvalid"]
+            specs += [(d["kmax"], kids, self.kmax_h, account),
+                      (d["kvalid"], kids, self.kvalid_h, account)]
             self._kdirty.clear()
+        for name, lane in zip(names, flush_lanes(specs)):
+            d[name] = lane
 
     # -- recovery scan (kernels.recovery_scan) -------------------------------
 

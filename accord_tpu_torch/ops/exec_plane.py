@@ -120,9 +120,9 @@ class ExecPlane:
         self.awaits_all = np.zeros(self.cap, dtype=bool)
         # per-field dirty sets (same scheme as the resolver arenas): `full`
         # rows re-ship every lane (new rows, stable ingests, edge rewrites);
-        # ts/flags rows ship just that lane group via the shared flush_lane
-        # helper -- an executeAt bump no longer re-uploads a cap/8-byte
-        # adjacency row
+        # ts/flags rows ship just that lane group via the shared flush_lanes
+        # helper (one K4 launch for the three lanes) -- an executeAt bump no
+        # longer re-uploads a cap/8-byte adjacency row
         self._dirty_full: set = set()
         self._dirty_ts: set = set()
         self._dirty_flags: set = set()
@@ -481,7 +481,7 @@ class ExecPlane:
         """Flush the dirty sets into the device arena and return its lane
         tuple (adj, exec_ts, applied, pending, awaits_all) -- the shared
         front half of the solo dispatch and the coordinator's fused one."""
-        from accord_tpu_torch.ops.deltas import (LANE_ROW_TIERS, flush_lane,
+        from accord_tpu_torch.ops.deltas import (LANE_ROW_TIERS, flush_lanes,
                                                  lane_row_tier)
         from accord_tpu_torch.ops.kernels import exec_scatter, upload
         dev = self.device
@@ -545,12 +545,12 @@ class ExecPlane:
                     self.upload_bytes_by_field[field] += nbytes
                 return on_chunk
 
-            d[1] = flush_lane(d[1], sorted(self._dirty_ts), self.exec_ts,
-                              acct("ts"))
-            self._dirty_ts.clear()
             flags = sorted(self._dirty_flags)
-            d[2] = flush_lane(d[2], flags, self.applied, acct("flags"))
-            d[3] = flush_lane(d[3], flags, self.pending, acct("flags"))
+            d[1], d[2], d[3] = flush_lanes((
+                (d[1], sorted(self._dirty_ts), self.exec_ts, acct("ts")),
+                (d[2], flags, self.applied, acct("flags")),
+                (d[3], flags, self.pending, acct("flags"))))
+            self._dirty_ts.clear()
             self._dirty_flags.clear()
             self._device = tuple(d)
         return self._device

@@ -22,8 +22,10 @@ PyTorch version beside it. There is no fallback from one to the other.
   arena_scatter  csrc/arena_scatter.cu   arena_scatter :822,
                                          arena_scatter_keys :840
   row_scatter    csrc/row_scatter.cu     scatter_rows :242,
-                                         kid_word_scatter :250,
-                                         arena_grow :864
+                 (the lane table; one    kid_word_scatter :250,
+                 launch a call)          arena_grow :864; lane_table
+                                         is all of them over up to 8
+                                         lanes (a plane flush)
   range_scatter  csrc/row_scatter.cu     range_scatter :852
   range_resolve  csrc/range_resolve.cu   range_deps_resolve :415,
                                          fused_range_deps_resolve :367,
@@ -73,6 +75,7 @@ cap and KC), where torch's own indexing would raise.
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import Dict, Tuple
 
 import numpy as np
@@ -83,7 +86,8 @@ from accord_tpu_torch.ops.tiers import snap
 INT32_MIN = -(1 << 31)
 _M32 = 0xFFFFFFFF
 
-# launches per kernel (one per wrapper call that reached the card)
+# launches per kernel (one per wrapper call that reached the card; K4's and
+# K15's count kernel launches, which is one a call)
 LAUNCHES: Dict[str, int] = {"deps_resolve": 0, "finalize_csr": 0,
                             "arena_scatter": 0, "row_scatter": 0,
                             "range_scatter": 0, "range_resolve": 0,
@@ -154,6 +158,23 @@ def upload(a: np.ndarray, device) -> torch.Tensor:
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.clone()
+
+
+def upload_many(arrays, device):
+    """Host arrays as tensors on `device` through ONE host-to-device copy:
+    packed into one byte buffer, each at a 16-byte boundary, and viewed
+    back with its own dtype and shape (never aliasing the arrays)."""
+    offs, total = [], 0
+    for a in arrays:
+        offs.append(total)
+        total += -(-a.nbytes // 16) * 16
+    buf = np.empty(total, np.uint8)
+    for a, o in zip(arrays, offs):
+        buf[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
+            np.uint8)
+    dev = upload(buf, device)
+    return [dev[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+            .view(a.shape) for a, o in zip(arrays, offs)]
 
 
 def _addr(x) -> ctypes.c_void_p:
@@ -605,24 +626,118 @@ def arena_scatter_keys(bitmaps, rows, key_rows, key_mods):
     return arena_scatter_keys_plain(bitmaps, rows, key_rows, key_mods)
 
 
-# -- K4: scatter_rows / kid_word_scatter / arena_grow ------------------------
+# -- K4: the lane table (lane_table, scatter_rows, kid_word_scatter,
+#    arena_grow, range_scatter) ---------------------------------------------
+LANE_TABLE_MAX = 8          # csrc/row_scatter.cu LT_MAX
+
+
+def _row_bytes(t: torch.Tensor) -> int:
+    return t.element_size() * (t.numel() // max(t.shape[0], 1))
+
+
+def _fill_pattern(t: torch.Tensor, fill: int) -> int:
+    """A fill value as csrc/row_scatter.cu's 32-bit pattern (byte o of a
+    lane gets byte o & 3 of it)."""
+    size = t.element_size()
+    if size not in (1, 2, 4):
+        raise ValueError(f"lane table: no fill for {t.dtype}")
+    v = int(fill) & ((1 << (8 * size)) - 1)
+    while size < 4:
+        v |= v << (8 * size)
+        size *= 2
+    return v
+
+
+def _lane_table(lanes, counter: str = "row_scatter") -> None:
+    """ONE K4 launch over up to LANE_TABLE_MAX lanes, each a tuple (out,
+    src, rows, idx, widx, n_src, fill): out = src's first n_src rows, the
+    rest `fill`; then out[idx[i]] = rows[i] (widx set: word widx[i] of
+    row idx[i] = the i-th word of rows). idx, widx and rows may be None.
+    Adds one to LAUNCHES[counter] when it launches (some lane not
+    empty)."""
+    if not 0 < len(lanes) <= LANE_TABLE_MAX:
+        raise ValueError(f"lane table: {len(lanes)} lanes (1 to "
+                         f"{LANE_TABLE_MAX})")
+    ext = _ext()
+    # the host table (csrc/row_scatter.cu: LT_FIELDS int64 a lane), which
+    # the C entry copies into the launch's parameters
+    spec = []
+    for out, src, rows, idx, widx, n_src, fill in lanes:
+        spec += (out.data_ptr(), src.data_ptr(),
+                 0 if rows is None else rows.data_ptr(),
+                 0 if idx is None else idx.data_ptr(),
+                 0 if widx is None else widx.data_ptr(),
+                 out.shape[0], n_src, _row_bytes(out),
+                 0 if idx is None else idx.shape[0],
+                 _fill_pattern(out, fill))
+    if any(lane[0].numel() > 0 for lane in lanes):
+        ext.entry("row_scatter", "lane_table",
+                  (ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p))(
+            struct.pack(f"<{len(spec)}q", *spec), len(lanes),
+            ext.raw_stream(lanes[0][0].device.index))
+        LAUNCHES[counter] += 1
+
+
+def _check_lane(dst, idx, rows) -> None:
+    if rows.dtype != dst.dtype or rows.shape[1:] != dst.shape[1:] \
+            or rows.shape[0] != idx.shape[0] or idx.dtype != torch.int32:
+        raise ValueError("scatter: rows must match dst's row shape and "
+                         "dtype, one int32 index a row")
+
+
+def _lane_spec(lane):
+    """(src, idx, rows, n_rows, fill) of a lane_table lane."""
+    src, idx, rows, *grow = lane
+    n_rows, fill = grow if grow else (src.shape[0], 0)
+    return src, idx, rows, n_rows, fill
+
+
+def lane_table_plain(lanes):
+    out = []
+    for lane in lanes:
+        src, idx, rows, n_rows, fill = _lane_spec(lane)
+        pad = torch.full((n_rows - src.shape[0], *src.shape[1:]), fill,
+                         dtype=src.dtype, device=src.device)
+        dst = torch.cat([src, pad])
+        out.append(dst if idx is None else _scatter_lane_plain(dst, idx,
+                                                               rows))
+    return tuple(out)
+
+
+def lane_table(lanes):
+    """K4's lane table: for each lane (src, idx, rows[, n_rows, fill]) a
+    fresh lane of n_rows rows (default src's) holding src's rows, then
+    `fill` (arena growth), with out[idx[i]] = rows[i] (out of range
+    dropped; idx None: no patch). ONE launch on the card for up to
+    LANE_TABLE_MAX lanes, each with its own index list: scatter_rows,
+    arena_grow, range_scatter and ops/deltas.flush_lanes' plane flush."""
+    if not lanes[0][0].is_cuda:
+        return lane_table_plain(lanes)
+    _check_cuda(*(t for lane in lanes for t in lane[:3] if t is not None))
+    specs, outs = [], []
+    for lane in lanes:
+        src, idx, rows, n_rows, fill = _lane_spec(lane)
+        if n_rows < src.shape[0]:
+            raise ValueError("lane_table: fewer rows than the source")
+        if idx is not None:
+            _check_lane(src, idx, rows)
+        out = torch.empty((n_rows, *src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+        outs.append(out)
+        specs.append((out, src, rows, idx, None, src.shape[0], fill))
+    _lane_table(specs)
+    return tuple(outs)
+
+
 def scatter_rows(dst, idx, rows):
     """A fresh copy of dst with dst[idx[i]] = rows[i] (out of range
     dropped; duplicates carry identical data)."""
     if not dst.is_cuda:
         return _scatter_lane_plain(dst, idx, rows)
-    ext = _ext()
     _check_cuda(dst, idx, rows)
-    if rows.dtype != dst.dtype or rows.shape[1:] != dst.shape[1:]:
-        raise ValueError("scatter_rows: rows must match dst's row shape "
-                         "and dtype")
+    _check_lane(dst, idx, rows)
     out = torch.empty_like(dst)
-    n = dst.shape[0]
-    row_bytes = dst.element_size() * (dst.numel() // max(n, 1))
-    ext.call("row_scatter", "row_scatter", ext.ptr(out), ext.ptr(dst), n,
-             row_bytes, ext.ptr(idx), idx.shape[0], ext.ptr(rows),
-             ext.stream())
-    LAUNCHES["row_scatter"] += 1
+    _lane_table(((out, dst, rows, idx, None, dst.shape[0], 0),))
     return out
 
 
@@ -641,14 +756,17 @@ def kid_word_scatter(kid_rows, kid_idx, word_idx, words):
     padding coordinates use kid == KC and are dropped."""
     if not kid_rows.is_cuda:
         return kid_word_scatter_plain(kid_rows, kid_idx, word_idx, words)
-    ext = _ext()
     _check_cuda(kid_rows, kid_idx, word_idx, words)
+    z = kid_idx.shape[0]
+    if (kid_rows.element_size() != 4 or words.element_size() != 4
+            or word_idx.shape[0] != z or words.shape[0] != z
+            or kid_idx.dtype != torch.int32
+            or word_idx.dtype != torch.int32):
+        raise ValueError("kid_word_scatter: 32-bit table and words, one "
+                         "int32 (kid, word) a word")
     out = torch.empty_like(kid_rows)
-    kc, w = kid_rows.shape
-    ext.call("row_scatter", "word_scatter2d", ext.ptr(out),
-             ext.ptr(kid_rows), kc, w, ext.ptr(kid_idx), ext.ptr(word_idx),
-             ext.ptr(words), kid_idx.shape[0], ext.stream())
-    LAUNCHES["row_scatter"] += 1
+    _lane_table(((out, kid_rows, words, kid_idx, word_idx,
+                  kid_rows.shape[0], 0),))
     return out
 
 
@@ -667,29 +785,13 @@ def arena_grow_plain(bitmaps, ts, exec_ts, kinds, valid, new_cap: int):
 
 def arena_grow(bitmaps, ts, exec_ts, kinds, valid, new_cap: int):
     """The arena lanes copied into new_cap rows: pad 0, INT32_MIN for
-    exec_ts, False for valid."""
+    exec_ts, False for valid (one launch over the five lanes)."""
     if not bitmaps.is_cuda:
         return arena_grow_plain(bitmaps, ts, exec_ts, kinds, valid, new_cap)
-    ext = _ext()
-    _check_cuda(bitmaps, ts, exec_ts, kinds, valid)
-    out = []
-    st = ext.stream()
-    for a, fill in zip((bitmaps, ts, exec_ts, kinds, valid), _GROW_FILL):
-        per_row = a.numel() // max(a.shape[0], 1)
-        dst = torch.empty((new_cap, *a.shape[1:]), dtype=a.dtype,
-                          device=a.device)
-        entry = "grow_u8" if a.element_size() == 1 else "grow_u32"
-        if a.element_size() not in (1, 4):
-            raise ValueError(f"arena_grow: unsupported lane {a.dtype}")
-        ext.call("row_scatter", entry, ext.ptr(dst),
-                 ext.ctypes.c_longlong(new_cap * per_row), ext.ptr(a),
-                 ext.ctypes.c_longlong(a.numel()), fill, st)
-        out.append(dst)
-    LAUNCHES["row_scatter"] += 1
-    return tuple(out)
+    return lane_table([(a, None, None, new_cap, fill) for a, fill in zip(
+        (bitmaps, ts, exec_ts, kinds, valid), _GROW_FILL)])
 
 
-# -- K4 (range entry): range_scatter -----------------------------------------
 def range_scatter_plain(starts, ends, ts, kinds, valid, rows, start_rows,
                         end_rows, ts_rows, kind_rows, valid_rows):
     return tuple(_scatter_lane_plain(dst, rows, src) for dst, src in (
@@ -702,24 +804,24 @@ def range_scatter(starts, ends, ts, kinds, valid, rows, start_rows,
     """Dirty rows into fresh copies of the five range-arena lanes
     (starts/ends/kinds i32[rcap], ts i32[rcap, 3], valid bool[rcap]):
     lane[rows[i]] = src[i], out of range dropped; padding duplicates
-    row[0] with identical data."""
+    row[0] with identical data. One launch over the five lanes, which
+    share the index list."""
     lanes = (starts, ends, ts, kinds, valid)
     srcs = (start_rows, end_rows, ts_rows, kind_rows, valid_rows)
     if not starts.is_cuda:
         return range_scatter_plain(*lanes, rows, *srcs)
-    ext = _ext()
     _check_cuda(*lanes, rows, *srcs)
     rcap = starts.shape[0]
     if (valid.dtype != torch.bool or tuple(ts.shape) != (rcap, 3)
             or any(t.dtype != torch.int32 for t in (starts, ends, ts, kinds))):
         raise ValueError("range_scatter: lanes must be i32[rcap] x2, "
                          "i32[rcap, 3], i32[rcap], bool[rcap]")
+    for dst, src in zip(lanes, srcs):
+        _check_lane(dst, rows, src)
     outs = tuple(torch.empty_like(t) for t in lanes)
-    ext.call("row_scatter", "range_scatter",
-             *(ext.ptr(t) for t in outs), *(ext.ptr(t) for t in lanes),
-             rcap, ext.ptr(rows), rows.shape[0],
-             *(ext.ptr(t) for t in srcs), ext.stream())
-    LAUNCHES["range_scatter"] += 1
+    _lane_table([(out, dst, src, rows, None, rcap, 0)
+                 for out, dst, src in zip(outs, lanes, srcs)],
+                "range_scatter")
     return outs
 
 

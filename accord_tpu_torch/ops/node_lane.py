@@ -28,7 +28,9 @@ blocks, span widths -- is the reference's. The kernels:
   K14 node_fused_range_deps_resolve  csrc/node_resolve.cu
       node_range_resolve + node_key_resolve (:133, body :151): K5 with a
       block table on each side, the covered-bucket pass once
-  K15 lane_slice                     csrc/row_scatter.cu lane_slice (:190)
+  K15 lane_slice_many, lane_slice    csrc/row_scatter.cu lane_slice_many
+      (:190, a dynamic_slice a window): every window of a merged
+      dispatch in one launch, over a window table
 
 Each is a plain PyTorch version for CPU tensors (the tests) and the CUDA
 kernel for CUDA tensors, counted in kernels.LAUNCHES. The arenas' bucket
@@ -38,6 +40,7 @@ results are int32 bit patterns.
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -325,31 +328,93 @@ def lane_slice_plain(packed, row_off, word_off, rows: int, words: int):
     return packed[r0:r0 + rows, w0:w0 + words].clone()
 
 
+LANE_SLICE_SOURCES = 4     # csrc/row_scatter.cu LS_SRCS
+LANE_SLICE_WINDOWS = 1024  # csrc/row_scatter.cu LS_LARGE: windows a launch
+
+
+def _slice_launch(packed, wins, offs, out) -> None:
+    """K15 over the window rows `wins` (source, r0, w0, rows, words, out
+    offset) of the sources `packed` into the flat `out`; `offs` (window
+    0's device offsets) or None. Counts its launches."""
+    ext = _ext()
+    # the host table (csrc/row_scatter.cu lane_slice_many): the sources,
+    # then the windows, int64 each
+    spec = []
+    for t in packed:
+        spec += (0, 0, 0) if t is None else (t.data_ptr(), *t.shape)
+    for win in wins:
+        spec += win
+    ext.entry("row_scatter", "lane_slice_many",
+              (ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_void_p))(
+        struct.pack(f"<{len(spec)}q", *spec), len(packed), len(wins), offs,
+        out.data_ptr(), ext.raw_stream(out.device.index))
+    LAUNCHES["lane_slice"] += -(-len(wins) // LANE_SLICE_WINDOWS)
+
+
+def lane_slice_many_plain(packed, spans):
+    return [lane_slice_plain(packed[s], r0, w0, rows, words)
+            for s, r0, w0, rows, words in spans]
+
+
+def lane_slice_many(packed, spans):
+    """lane_slice over many windows: `spans` holds (source, row_off,
+    word_off, rows, words) each, over the 2-D 32-bit tensors `packed` (up
+    to LANE_SLICE_SOURCES; a source no window names may be None). On the
+    card ONE launch (per LANE_SLICE_WINDOWS windows) writes every window
+    into one flat buffer, each at a 16-byte boundary; the windows come back
+    as contiguous [rows, words] views of it, in order."""
+    if not spans:
+        return []
+    first = packed[spans[0][0]]
+    if not first.is_cuda:
+        return lane_slice_many_plain(packed, spans)
+    if len(packed) > LANE_SLICE_SOURCES:
+        raise ValueError(f"lane_slice_many: {len(packed)} sources (at most "
+                         f"{LANE_SLICE_SOURCES})")
+    srcs = [t for t in packed if t is not None]
+    _check_cuda(*srcs)
+    if any(t.element_size() != 4 or t.dim() != 2 or t.dtype != first.dtype
+           for t in srcs):
+        raise ValueError("lane_slice_many: sources must be 2-D 32-bit "
+                         "tensors of one dtype")
+    wins, offs, off = [], [], 0
+    for s, r0, w0, rows, words in spans:
+        t = packed[s]
+        if rows > t.shape[0] or words > t.shape[1] or rows < 0 or words < 0:
+            raise ValueError("lane_slice_many: window larger than its "
+                             "source")
+        wins.append((s, int(r0), int(w0), rows, words, off))
+        offs.append(off)
+        off += -(-rows * words // 4) * 4
+    out = torch.empty(off, dtype=first.dtype, device=first.device)
+    _slice_launch(packed, wins, None, out)
+    return [out.as_strided((rows, words), (words, 1), o)
+            for o, (_s, _r, _w, rows, words) in zip(offs, spans)]
+
+
 def lane_slice(packed, row_off, word_off, rows: int, words: int):
     """Demux one plan's span out of the merged packed result: the window
     [row_off : row_off + rows, word_off : word_off + words], with
-    jax.lax.dynamic_slice's start rules (negative from the end, clamped). On the card the offsets may be
+    jax.lax.dynamic_slice's start rules (negative from the end, clamped):
+    lane_slice_many's one-window entry. On the card the offsets may be
     an i32[2] device tensor (`row_off`, with word_off None): the kernel
     reads them from device memory, so a captured launch replays with new
     offsets."""
+    device_offs = isinstance(row_off, torch.Tensor) and word_off is None
     if not packed.is_cuda:
-        if isinstance(row_off, torch.Tensor) and word_off is None:
+        if device_offs:
             row_off, word_off = (int(v) for v in row_off.tolist())
         return lane_slice_plain(packed, row_off, word_off, rows, words)
-    ext = _ext()
-    _check_cuda(packed)
+    if not device_offs:
+        return lane_slice_many((packed,),
+                               ((0, row_off, word_off, rows, words),))[0]
+    _check_cuda(packed, row_off)
     if rows > packed.shape[0] or words > packed.shape[1]:
         raise ValueError("lane_slice: window larger than the source")
     out = torch.empty(rows, words, dtype=packed.dtype, device=packed.device)
-    if isinstance(row_off, torch.Tensor) and word_off is None:
-        _check_cuda(packed, row_off)
-        offs, r0, w0 = ext.ptr(row_off), 0, 0
-    else:
-        offs, r0, w0 = ext.ctypes_null(), int(row_off), int(word_off)
-    ext.call("row_scatter", "lane_slice", ext.ptr(packed), packed.shape[0],
-             packed.shape[1], offs, r0, w0, rows, words, ext.ptr(out),
-             ext.stream())
-    LAUNCHES["lane_slice"] += 1
+    _slice_launch((packed,), ((0, 0, 0, rows, words, 0),),
+                  row_off.data_ptr(), out)
     return out
 
 

@@ -449,21 +449,28 @@ class ClusterTickEngine:
                     self.protocol_launches += (
                         (plan.key_call is not None)
                         + (plan.range_call is not None))
+        # the demux: every plan's window of a merged result in one
+        # lane_slice_many launch; each plan's call returns its view
         if km is not None:
-            for (plan, _args), (r0, b, wlo, w) in zip(key_entries, km.spans):
-                plan.key_call = (
-                    lambda packed=packed, r0=r0, wlo=wlo, b=b, w=w:
-                    nl.lane_slice(packed, r0, wlo, b, w))
+            views = nl.lane_slice_many(
+                (packed,), [(0, r0, wlo, b, w)
+                            for (r0, b, wlo, w), _e in zip(km.spans,
+                                                           key_entries)])
+            for (plan, _args), view in zip(key_entries, views):
+                plan.key_call = lambda view=view: view
         if rm is not None:
-            for (plan, args), (r0, b, rwlo, rw, kwlo, kw) \
+            wins = []
+            for (_plan, args), (r0, b, rwlo, rw, kwlo, kw) \
                     in zip(rng_entries, rm.spans):
-                def range_call(r0=r0, b=b, rwlo=rwlo, rw=rw, kwlo=kwlo,
-                               kw=kw, has_r=args["has_r"],
-                               has_k=args["has_k"], rp_=rpacked, kp_=kpacked):
-                    rp = nl.lane_slice(rp_, r0, rwlo, b, rw) if has_r else None
-                    kp = nl.lane_slice(kp_, r0, kwlo, b, kw) if has_k else None
-                    return rp, kp
-                plan.range_call = range_call
+                if args["has_r"]:
+                    wins.append((0, r0, rwlo, b, rw))
+                if args["has_k"]:
+                    wins.append((1, r0, kwlo, b, kw))
+            views = iter(nl.lane_slice_many((rpacked, kpacked), wins))
+            for (plan, args), _span in zip(rng_entries, rm.spans):
+                rp = next(views) if args["has_r"] else None
+                kp = next(views) if args["has_k"] else None
+                plan.range_call = lambda rp=rp, kp=kp: (rp, kp)
         for res, node, plans in staged:
             for plan in plans:
                 res._launch(node, plan)

@@ -80,6 +80,8 @@ EDITED: Dict[str, Tuple[Tuple[int, int, str], ...]] = {
     "sim/mesh_burn.py": (
         (202, 205, "an exec ticket holds the port's (_DevBuf, packed)"),
         (274, 274, "the quorum `met` lane reads back from a torch tensor"),
+        (451, 465, "the merged dispatch's demux: every plan's window in "
+                   "one lane_slice_many launch, each plan's call its view"),
         (517, 518, "no jax import"),
         (526, 538, "megakernel staging hands protocol_tick (or "
                    "sharded_protocol_tick) numpy lanes"),

@@ -182,9 +182,16 @@ launched.
      on a tier-8 dispatch of the cmd burn and a tier-512 dispatch of the
      cmd batch, with its time per op (the walk is serial). K13 replays
      the sweep's largest tick and the 10k tick, K14 the key+range leg's,
-     K15 a recorded demux, K16 the cmd leg's lanes and the 10k tick's
-     4,096; protocol_tick its graph (ms: the replay alone; call_ms: with
-     the host's per-tick program build).
+     K15 a recorded demux (lane_slice_many: a merged dispatch's windows in
+     one launch), K16 the cmd leg's lanes and the 10k tick's 4,096;
+     protocol_tick its graph (ms: the replay alone; call_ms: with the
+     host's per-tick program build). K4 replays the key burn's, the
+     batches' and the range burn's calls and the exec and cmd planes'
+     lane tables (flush_lanes); K4's and K15's wrappers also report
+     device_ms (100 calls captured in one CUDA graph, replayed, over 100)
+     beside ms (the wrapper called in a loop between events, which reads
+     the host's enqueue rate), and library_device_ms likewise; the merged
+     sweep's lane_slice launches are at most its merged dispatches.
 The last three lines are the card line, one JSON line of kernels, and the
 result line {"ok": true, "device": {...}}.
 """
@@ -266,7 +273,7 @@ RECORDED = {"deps_resolve": ("deps_resolve", "fused_deps_resolve"),
             "finalize_csr": ("finalize_csr",),
             "arena_scatter": ("arena_scatter", "arena_scatter_keys"),
             "row_scatter": ("scatter_rows", "kid_word_scatter",
-                            "arena_grow"),
+                            "arena_grow", "lane_table"),
             "range_scatter": ("range_scatter",),
             "range_resolve": ("range_deps_resolve",
                               "fused_range_deps_resolve", "covered_buckets"),
@@ -277,7 +284,8 @@ RECORDED = {"deps_resolve": ("deps_resolve", "fused_deps_resolve"),
             "cmd_repair": ("cmd_repair",),
             "node_deps_resolve": ("node_fused_deps_resolve",),
             "node_range_resolve": ("node_fused_range_deps_resolve",),
-            "lane_slice": ("lane_slice",), "quorum_count": ("quorum_count",),
+            "lane_slice": ("lane_slice", "lane_slice_many"),
+            "quorum_count": ("quorum_count",),
             "protocol_tick": ("protocol_tick",),
             "mailbox_route": ("mailbox_route",),
             **{k: (k,) for k in DENSE_KERNELS}}
@@ -437,6 +445,32 @@ def time_ms(fn, iters: int, cuda: bool) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the wrappers whose rows (PERF.md 6-8, 24, 30) also give device time
+DEVICE_TIMED = ("scatter_rows", "kid_word_scatter", "arena_grow",
+                "lane_table", "range_scatter", "lane_slice",
+                "lane_slice_many")
+
+
+def graph_ms(fn, n: int = 100) -> float:
+    """Device ms per call of `fn`: n calls captured in one CUDA graph, the
+    graph replayed between CUDA events and the time divided by n, so the
+    host's enqueue is not in the window."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms = time_ms(graph.replay, 5, True) / n
+    del graph
+    return ms
+
+
 def last_graph_replay():
     """The replay of the last protocol_tick call's CUDA graph as it stands
     (its parameter block unchanged): one tick's device work alone. The
@@ -477,7 +511,8 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
     the kernel's headline; every call's row is kept. Three wrappers the
     path does not call on their own replay on inputs derived from a
     recorded call: arena_grow on the recorded arena_scatter's lanes,
-    doubled; arena_scatter_keys on its bitmap and CSR; covered_buckets on the recorded range query's interval CSR
+    doubled; lane_slice on the largest window of a recorded
+    lane_slice_many; arena_scatter_keys on its bitmap and CSR; covered_buckets on the recorded range query's interval CSR
     (K5 runs the same pass inside); segment_compact on the stab words of
     the recorded range_finalize_csr call (K6 runs the same passes); the
     node-lane resolves and the quorum count on a recorded protocol_tick's
@@ -498,6 +533,7 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
         "kid_word_scatter": tk.kid_word_scatter_plain,
         "arena_grow": tk.arena_grow_plain,
         "range_scatter": tk.range_scatter_plain,
+        "lane_table": tk.lane_table_plain,
         "range_deps_resolve": tk.range_deps_resolve_plain,
         "fused_range_deps_resolve": tk.fused_range_deps_resolve_plain,
         "covered_buckets": tk.covered_buckets_plain,
@@ -515,6 +551,7 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
         "node_fused_range_deps_resolve":
             nl.node_fused_range_deps_resolve_plain,
         "lane_slice": nl.lane_slice_plain,
+        "lane_slice_many": nl.lane_slice_many_plain,
         "quorum_count": tk.quorum_count_plain,
         "protocol_tick": tk.protocol_tick_plain,
         "mailbox_route": mb.mailbox_route_plain,
@@ -543,6 +580,9 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
             err = max_abs_err(out, plain(*args, **kw))
         ms = time_ms(lambda: kern(*args, **kw), iters, cuda)
         extra = {}
+        if fn_name in DEVICE_TIMED and cuda:
+            # the host's enqueue left out: 100 calls in one CUDA graph
+            extra["device_ms"] = graph_ms(lambda: kern(*args, **kw))
         if fn_name == "protocol_tick" and cuda:
             out = kern(*args, **kw)      # the last call: its graph replays
             extra["call_ms"] = ms
@@ -552,6 +592,8 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
         bytes_, ops, library = bound_inputs(tk, fn_name, args, kw, out)
         t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
         bound_ms = max(t_bytes, t_ops) * 1e3
+        if library is not None and "device_ms" in extra:
+            extra["library_device_ms"] = graph_ms(library)
         row = {"call": fn_name, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -589,6 +631,13 @@ def derived_call(tk, fn_name, rec):
             if fn_name == "arena_scatter_keys":
                 return (args[0], args[5], args[6], args[7]), {}
             return args[:5], {"new_cap": 2 * args[0].shape[0]}
+    if fn_name == "lane_slice":
+        # one window of a recorded merged dispatch's demux: its largest
+        got = rec.get("lane_slice_many")
+        if got is not None:
+            packed, spans = got[0]
+            s, r0, w0, rows, words = max(spans, key=lambda w: w[3] * w[4])
+            return (packed[s], r0, w0, rows, words), {}
     if fn_name == "covered_buckets":
         for src in ("range_deps_resolve", "fused_range_deps_resolve"):
             got = rec.get(src)
@@ -850,6 +899,55 @@ def bound_inputs(tk, fn_name, args, kw, out):
             idx64 = idx.to(torch.int64)
             lib = (lambda: torch.index_copy(dst, 0, idx64, rows))
         return nbytes(args) + nbytes(out), 0, lib
+    if fn_name in ("lane_table", "range_scatter", "exec_scatter",
+                   "arena_grow"):
+        # per lane one call, summed: index_copy on the in-range indices
+        # (normalised and filtered here, outside the timed call), torch.cat
+        # with its pad for a grown lane
+        if fn_name == "lane_table":
+            lanes = [tk._lane_spec(lane) for lane in args[0]]
+        elif fn_name == "arena_grow":
+            new_cap = kw["new_cap"] if "new_cap" in kw else args[5]
+            lanes = [(a, None, None, new_cap, f)
+                     for a, f in zip(args[:5], tk._GROW_FILL)]
+        else:
+            idx = args[5]
+            lanes = [(a, idx, r, a.shape[0], 0)
+                     for a, r in zip(args[:5], args[6:11])]
+        calls = []
+        for src, idx, rows, n_rows, fill in lanes:
+            if idx is None:
+                pad = torch.full((n_rows - src.shape[0], *src.shape[1:]),
+                                 fill, dtype=src.dtype, device=src.device)
+                calls.append(lambda src=src, pad=pad: torch.cat([src, pad]))
+                continue
+            i, ok = tk._norm_index(idx, src.shape[0])
+            calls.append(lambda src=src, i=i[ok], r=rows[ok]:
+                         torch.index_copy(src, 0, i, r))
+        return (nbytes(args) + nbytes(kw.values()) + nbytes(out), 0,
+                lambda: [c() for c in calls])
+    if fn_name == "kid_word_scatter":
+        # out of place index_put on the in-range coordinates
+        kid_rows, kid_idx, word_idx, words = args
+        kc, w = kid_rows.shape
+        a, a_ok = tk._norm_index(kid_idx, kc)
+        b, b_ok = tk._norm_index(word_idx, w)
+        ok = a_ok & b_ok
+        coords, vals = (a[ok], b[ok]), words[ok]
+        return (nbytes(args) + nbytes(out), 0,
+                lambda: torch.index_put(kid_rows, coords, vals))
+    if fn_name == "lane_slice_many":
+        # each window read once and written once; a clone of each window
+        packed, spans = args
+        from accord_tpu_torch.ops.node_lane import dyn_start
+        views = []
+        for src, r0, w0, rows, words in spans:
+            t = packed[src]
+            r = dyn_start(r0, t.shape[0], rows)
+            c = dyn_start(w0, t.shape[1], words)
+            views.append(t[r:r + rows, c:c + words])
+        return (2 * sum(v.numel() * v.element_size() for v in views), 0,
+                lambda: [v.clone() for v in views])
     return nbytes(args) + nbytes(kw.values()) + nbytes(out), 0, None
 
 
@@ -1912,6 +2010,10 @@ def run(rehearse: bool) -> dict:
                      if lab != path and r.get(name) is not None]
         else:
             extra = extra_rec[path]
+        if name == "row_scatter":
+            # the plane flushes' lane tables (flush_lanes)
+            extra = extra + [("exec_burn", exec_recs["exec_burn"]),
+                             ("cmd_burn", cmd_rec)]
         labelled = []
         for label, rec in extra:
             log(f"kernel {name}, {label} inputs:")
@@ -1931,7 +2033,8 @@ def run(rehearse: bool) -> dict:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "call": head["call"],
             "calls": [_brief(r) for r in head["calls"]],
-            **{k: head[k] for k in ("op_tier", "ms_per_op") if k in head},
+            **{k: head[k] for k in ("op_tier", "ms_per_op", "device_ms",
+                                    "library_device_ms") if k in head},
             "launches_by_path": {p: launches[p][name] for p in launches}}
         for label, r in labelled:
             entry[label] = dict(_brief(r),
@@ -1993,7 +2096,7 @@ def megakernel_sweep(device: str, cuda: bool, rehearse: bool, tk, launches,
     for path, mode in (("mega_sweep", "mega"), ("merged_sweep", "merged"),
                        ("loop_sweep", "loop")):
         tk.reset_launches()
-        fused = 0
+        fused = merged = 0
         with recs.get(path) or Recorder(tk):
             for n, o, m in plan:
                 if m != mode:
@@ -2011,6 +2114,7 @@ def megakernel_sweep(device: str, cuda: bool, rehearse: bool, tk, launches,
                           f"sweep {n} nodes: launches_per_tick "
                           f"{snap['launches_per_tick']}")
                     fused += snap["megakernel_dispatches"]
+                merged += snap["node_lane_dispatches"]
                 logs[(n, m)] = rep.log
                 row = {"nodes": n, "ops": o, "mode": m, "wall_s": wall,
                        "committed_txn_per_s": rep.acked / wall,
@@ -2038,6 +2142,12 @@ def megakernel_sweep(device: str, cuda: bool, rehearse: bool, tk, launches,
             for name in ("node_deps_resolve", "lane_slice", "finalize_csr"):
                 check(launches[path][name] > 0,
                       f"sweep merged: kernel {name} never launched")
+            # K15 demuxes a whole merged dispatch in one launch
+            check(launches[path]["lane_slice"] <= merged,
+                  f"sweep merged: {launches[path]['lane_slice']} lane_slice "
+                  f"launches for {merged} merged key and range dispatches")
+            log(f"sweep merged: {launches[path]['lane_slice']} lane_slice "
+                f"launches, {merged} merged dispatches")
     for n, _o in sizes:
         check(logs[(n, "mega")] == logs[(n, "merged")],
               f"sweep {n} nodes: megakernel history != merged")
@@ -3621,7 +3731,8 @@ def sharded_mega_phase(device: str, cuda: bool, rehearse: bool, tk,
 def _brief(row: dict) -> dict:
     return {k: row[k] for k in ("call", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "share", "library_ms",
-                                "op_tier", "ms_per_op") if k in row}
+                                "op_tier", "ms_per_op", "device_ms",
+                                "library_device_ms") if k in row}
 
 
 def main(argv=None) -> int:

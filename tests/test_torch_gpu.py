@@ -190,6 +190,133 @@ def test_row_scatter_kernels(cuda):
     _eq(plain_g, got_g)
 
 
+def _unaligned(t, shift):
+    """`t` as a view `shift` elements into a larger buffer (a lane whose
+    base is not 16-byte aligned)."""
+    big = torch.empty((t.shape[0] + 1, *t.shape[1:]), dtype=t.dtype)
+    flat = big.reshape(-1)[shift:shift + t.numel()]
+    flat.copy_(t.reshape(-1))
+    return flat.view(t.shape)
+
+
+def _lane_case(rng, cap, row, dtype, m):
+    """A lane of `cap` rows of shape `row`, and m indices with duplicates
+    (same data), a negative one and out-of-range ones, plus their rows."""
+    shape = (cap, *row)
+    if dtype == torch.bool:
+        src = _t(rng.random(shape) < 0.5)
+    else:
+        src = _t(_words(rng, shape))
+    idx = rng.integers(0, cap, m).astype(np.int32)
+    if m >= 4:
+        idx[1] = idx[0]                           # duplicate, same data
+        idx[2] = -1 - int(rng.integers(0, cap))   # negative: wraps once
+        idx[3] = cap + 5                          # out of range: dropped
+    rows = src[_t(rng.integers(0, cap, m))].clone()
+    norm = np.where(idx < 0, idx + cap, idx)
+    first = {}
+    for j, r in enumerate(norm.tolist()):          # duplicates: same data
+        if 0 <= r < cap:
+            rows[j] = rows[first.setdefault(r, j)]
+    return src, _t(idx), rows
+
+
+@pytest.mark.parametrize("row,dtype", [((), torch.bool), ((), torch.int32),
+                                       ((3,), torch.int32),
+                                       ((512,), torch.int32)])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_lane_table_kernel(cuda, row, dtype, shift):
+    """K4's lane table against its plain version at row bytes 1, 4, 12
+    and 2 KB: lanes of different caps in one table, m = 0, a grow lane
+    with a fill, lanes whose base is not 16-byte aligned; one launch a
+    call, bit-equal."""
+    rng = np.random.default_rng(len(row) + shift)
+    lanes = []
+    for cap, m in ((64, 8), (2048, 64), (300, 0), (1, 8)):
+        src, idx, rows = _lane_case(rng, cap, row, dtype, m)
+        if shift:
+            src, rows = _unaligned(src, shift), _unaligned(rows, shift)
+        lanes.append((src, idx, rows))
+    grow_src = _lane_case(rng, 100, row, dtype, 8)[0]
+    fill = True if dtype == torch.bool else I32_MIN
+    lanes.append((grow_src, None, None, 257, fill))
+    plain = tk.lane_table(lanes)
+    n0 = tk.LAUNCHES["row_scatter"]
+    got = tk.lane_table([tuple(_on(lane, cuda)) for lane in lanes])
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["row_scatter"] == n0 + 1
+    _eq(plain, got)
+    for src, idx, rows in lanes[:4]:
+        n0 = tk.LAUNCHES["row_scatter"]
+        got = tk.scatter_rows(*_on([src, idx, rows], cuda))
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["row_scatter"] == n0 + 1
+        _eq(tk.scatter_rows(src, idx, rows), got)
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+def test_kid_word_scatter_2k_rows(cuda, shift):
+    """The 2-D word form at a 2 KB kid row (cap 16,384), padding
+    coordinates (kid == KC) and a negative word index; one launch."""
+    rng = np.random.default_rng(16 + shift)
+    kc, w = 96, 512
+    kid_rows = _t(_words(rng, (kc, w)))
+    z = 1024
+    coords = rng.choice(kc * w, 900, replace=False)
+    ki = np.full(z, kc, np.int32)
+    ki[:900] = coords // w
+    wi = rng.integers(0, w, z).astype(np.int32)
+    wi[:900] = coords % w
+    wi[5] -= w
+    words = _t(_words(rng, z))
+    args = [kid_rows, _t(ki), _t(wi), words]
+    if shift:
+        args[0], args[3] = _unaligned(args[0], 1), _unaligned(args[3], 1)
+    plain = tk.kid_word_scatter(*args)
+    n0 = tk.LAUNCHES["row_scatter"]
+    got = tk.kid_word_scatter(*_on(args, cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["row_scatter"] == n0 + 1
+    _eq(plain, got)
+
+
+def test_arena_grow_one_launch(cuda):
+    rng = np.random.default_rng(8)
+    arena = _arena(rng, 544, 1024)
+    n0 = tk.LAUNCHES["row_scatter"]
+    got = tk.arena_grow(*_cu(arena, cuda), new_cap=1088)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["row_scatter"] == n0 + 1
+    _eq(tk.arena_grow(*arena, new_cap=1088), got)
+
+
+def test_flush_lanes_kernel(cuda):
+    """A plane flush: eight lanes, some with 70 dirty rows (two chunks),
+    one K4 launch per chunk; the lanes and the upload accounting equal the
+    CPU's."""
+    from accord_tpu_torch.ops.deltas import flush_lanes
+    rng = np.random.default_rng(9)
+    host = [rng.integers(-9, 9, 512).astype(np.int32),
+            rng.integers(-9, 9, (512, 3)).astype(np.int32),
+            rng.random(512) < 0.5] * 2 + [
+            rng.integers(-9, 9, (64, 3)).astype(np.int32),
+            rng.random(64) < 0.5]
+    rows = [sorted(rng.choice(len(h), n, replace=False).tolist())
+            for h, n in zip(host, (70, 3, 0, 64, 65, 8, 20, 20))]
+    def specs(dev, log):
+        return [(torch.zeros(h.shape, dtype=_t(h).dtype, device=dev), r, h,
+                 lambda nb, m: log.append((nb, m)))
+                for h, r in zip(host, rows)]
+    cpu_log, card_log = [], []
+    plain = flush_lanes(specs("cpu", cpu_log))
+    n0 = tk.LAUNCHES["row_scatter"]
+    got = flush_lanes(specs(cuda, card_log))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["row_scatter"] == n0 + 2     # two chunks
+    _eq(list(plain), list(got))
+    assert cpu_log == card_log and cpu_log
+
+
 # -- range-domain and max-conflict kernels (K4 range entry, K5, K6, K7) ------
 I32_MAX = np.iinfo(np.int32).max
 
@@ -795,6 +922,31 @@ def test_lane_slice_kernel(cuda, r0, w0, rows, words):
     _eq(plain, got)
     offs = torch.tensor([r0, w0], dtype=torch.int32, device=cuda)
     _eq(plain, nl.lane_slice(src.to(cuda), offs, None, rows, words))
+
+
+def test_lane_slice_many_kernel(cuda):
+    """K15's window table against its plain version: two sources, negative
+    and clamped offsets, 16-byte and 4-byte windows, one launch for 200
+    windows (the large table) and two for 1,100."""
+    from accord_tpu_torch.ops import node_lane as nl
+    rng = np.random.default_rng(15)
+    packed = (_t(_words(rng, (256, 96))), _t(_words(rng, (128, 33))))
+    spans = [(0, 0, 0, 64, 8), (1, 7, 3, 8, 4), (0, 300, 100, 64, 64),
+             (0, -5, -2, 8, 4), (1, 120, 30, 16, 5), (0, 4, 4, 1, 92)]
+    for n in (6, 200, 1100):
+        win = list(spans)
+        while len(win) < n:
+            s = int(rng.integers(0, 2))
+            nr, nw = packed[s].shape
+            rows, words = int(rng.integers(0, 40)), int(rng.integers(0, nw))
+            win.append((s, int(rng.integers(-nr, nr)),
+                        int(rng.integers(-nw, nw)), rows, words))
+        plain = nl.lane_slice_many(packed, win)
+        n0 = tk.LAUNCHES["lane_slice"]
+        got = nl.lane_slice_many(tuple(_on(packed, cuda)), win)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["lane_slice"] == n0 + -(-n // 1024)
+        _eq(plain, got)
 
 
 def _quorum(rng, t):

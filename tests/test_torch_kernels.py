@@ -252,6 +252,69 @@ def test_kid_word_scatter(seed):
     _same(ref, got)
 
 
+def _dirty(rng, cap, m, src):
+    """m scatter indices into a lane of `cap` rows with a duplicate (same
+    data), a negative index, and out-of-range ones (cap, -cap - 1); and
+    their rows, gathered from `src`."""
+    idx = rng.integers(0, cap, m).astype(np.int32)
+    if m >= 4:
+        idx[1] = idx[0]
+        idx[2] = -1 - int(rng.integers(0, cap))
+        idx[3] = cap
+    if m >= 5:
+        idx[4] = -cap - 1
+    data = src[rng.integers(0, len(src), m)]
+    norm = np.where(idx < 0, idx + cap, idx)
+    first = {}
+    for j, r in enumerate(norm.tolist()):
+        if 0 <= r < cap:
+            data[j] = data[first.setdefault(r, j)]
+    return idx, data
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_lane_table_plain_matches_jax(seed):
+    """One lane table holding scatter lanes of different caps (negative,
+    out-of-range and duplicate indices, m = 0), the five range-arena lanes
+    sharing one index list, and the five arena lanes grown: each lane
+    bit-equal to the JAX scatter_rows, range_scatter and arena_grow."""
+    rng = np.random.default_rng(seed)
+    arena = _arena(rng)
+    lanes, refs = [], []
+    for src, cap, m in ((arena[1], CAP, 8), (arena[4], CAP, 64),
+                        (arena[2][:40], 40, 0), (arena[3][:7], 7, 8)):
+        src = np.ascontiguousarray(src)
+        idx, data = _dirty(rng, cap, m, src)
+        lanes.append((_t(src), _t(idx), _t(data)))
+        refs.append(jk.scatter_rows(jnp.asarray(src), jnp.asarray(idx),
+                                    jnp.asarray(data)))
+    got = tk.lane_table(lanes)
+    assert len(got) == len(refs)
+    for r, g in zip(refs, got):
+        _same(r, g)
+    rcap = 96
+    starts = rng.integers(0, 1 << 16, rcap).astype(np.int32)
+    rlanes = (starts, starts + 7, rng.integers(-50, 50, (rcap, 3))
+              .astype(np.int32), rng.integers(0, 6, rcap).astype(np.int32),
+              rng.random(rcap) < 0.5)
+    rows = _dirty(rng, rcap, 8, np.arange(rcap))[0]
+    rdata = [lane[np.where(rows < 0, rows + rcap, rows) % rcap]
+             for lane in rlanes]
+    ref = jk.range_scatter(*(jnp.asarray(a) for a in (*rlanes, rows,
+                                                      *rdata)))
+    got = tk.lane_table([(_t(lane), _t(rows), _t(d))
+                         for lane, d in zip(rlanes, rdata)])
+    for r, g in zip(ref, got):
+        _same(r, g)
+    ref = jk.arena_grow(*(jnp.asarray(a) for a in arena), new_cap=2 * CAP)
+    lanes = carry.arena_lanes(arena)
+    got = tk.lane_table([(lane, None, None, 2 * CAP, fill) for lane, fill
+                         in zip(lanes, (0, 0, I32_MIN, 0, False))])
+    _same(carry.pack_bitmaps(np.asarray(ref[0])), got[0])
+    for r, g in zip(ref[1:], got[1:]):
+        _same(r, g)
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_arena_grow(seed):
     rng = np.random.default_rng(seed)

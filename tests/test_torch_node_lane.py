@@ -280,6 +280,32 @@ def test_lane_slice_plain_matches_jax(r0, w0, rows, words):
     _same(ref, got2)
 
 
+@pytest.mark.parametrize("seed", (1, 2, 3))
+def test_lane_slice_many_plain_matches_jax(seed):
+    """lane_slice_many over two sources: every window, negative and clamped
+    offsets and empty windows included, equals the JAX lane_slice of its
+    source."""
+    rng = np.random.default_rng(seed)
+    packed = [rng.integers(0, 1 << 32, shape, dtype=np.uint64)
+              .astype(np.uint32) for shape in ((64, 32), (40, 9))]
+    spans = [(0, 0, 0, 8, 4), (1, 60, 30, 8, 4), (0, -3, 2, 8, 2),
+             (1, 5, -1, 40, 9), (0, 20, 0, 0, 4)]
+    for _ in range(12):
+        s = int(rng.integers(0, 2))
+        nr, nw = packed[s].shape
+        spans.append((s, int(rng.integers(-nr - 4, nr + 4)),
+                      int(rng.integers(-nw - 4, nw + 4)),
+                      int(rng.integers(1, nr + 1)),
+                      int(rng.integers(1, nw + 1))))
+    got = tnl.lane_slice_many(tuple(_t(p.view(np.int32)) for p in packed),
+                              spans)
+    assert len(got) == len(spans)
+    for (s, r0, w0, rows, words), g in zip(spans, got):
+        ref = jnl.lane_slice(jnp.asarray(packed[s]), r0, w0, rows=rows,
+                             words=words)
+        _same(ref, g)
+
+
 def _quorum_case():
     t1, t2 = (1, 10, 3), (1, 11, 4)
     txn = np.array([t1, t1, t2, t1, (0, 0, 0)], np.int32)
