@@ -72,24 +72,86 @@ static inline void launch_copy(T* dst, const T* src, long long n,
 
 // ---------------------------------------------------------------------------
 // Segment compaction of packed row words into a CSR (K2 finalize_csr, K6
-// range_finalize / segment_compact). A source `Src` exposes `int w` (words
-// per segment) and `unsigned word(long long f, unsigned* kw) const`, the
-// masked word at flat index f = segment * w + word, with *kw its bound
-// contribution (0 where the caller counts the bound elsewhere). The set
-// bits, in (segment, row) order, are the output rows. Four launches on one
-// stream: (1) per-block popcount totals (+ the bound, by an exact int
-// atomicAdd); (2) one block scans the block totals; (3) each block
-// recomputes its words, scans them in shared memory and writes every set
-// bit at global position p < out_cap to dep_rows (and dep_ts, gathered
-// from ts), and indptr at each segment's first word; (4) the grid pads
-// past the total (row 0, ts[0]) and folds the checksum, grid-wide: wrapping
-// u32 partial sums added atomically, whose order cannot change the word.
+// range_finalize / segment_compact, K9's compact entry, K11): ONE launch,
+// one pass over the words, no memset. A source `Src` exposes `int w` (words
+// per segment) and `unsigned word(int sg, int wd, long long f, unsigned*
+// kw) const`, the masked word wd of segment sg (flat index f = sg * w +
+// wd), with *kw its bound contribution (0 where the caller counts the
+// bound elsewhere). The set
+// bits, in (segment, row) order, are the output rows.
+//
+// A launch runs over one or more SPECS (a spec: a source, its outputs and
+// its scratch). Its tiles are numbered in order: every spec's compaction
+// tiles (CW consecutive words each), then every spec's pad tiles (CW output
+// positions each). A block takes tile ids from an atomic counter, so a
+// tile is only taken by a block that is running, and every lower id is
+// taken already: that is what lets a tile wait on lower tiles.
+//   * a compaction tile popcounts its masked words (CI consecutive words a
+//     thread) and scans them in the block; publishes its aggregate, then
+//     looks back over its predecessors' published words (decoupled
+//     look-back, one warp reading 32 at a time) for its offset, and
+//     publishes its inclusive prefix; it writes its set bits below out_cap
+//     (and dep_ts, gathered from ts), indptr at each segment's first word,
+//     and -- the spec's last tile -- indptr[S], the exact total;
+//   * a pad tile waits for the spec's total (its last compaction tile's
+//     inclusive prefix) and writes the padding past it: row 0, ts[0];
+//   * whoever writes a value folds it into the checksum: wrapping u32
+//     partial sums added atomically, whose order cannot change the word;
+//     the bound is an exact int atomic sum;
+//   * the block that finishes last (an atomic ticket) writes each spec's
+//     checksum and bound and leaves every scratch word zero again, so the
+//     next launch on the stream -- or the next replay of a graph -- finds
+//     it as the first did.
+// Scratch of a launch, zeroed once when allocated: a CsrHdr, a CsrAcc per
+// spec, and a tile state (u64: flag << 32 | value) per compaction tile.
+// The grid is at most four blocks an SM; correctness does not depend on
+// how many blocks are resident, because a block waits only on tiles that
+// running blocks have taken.
 #define CT 256          // threads per block
-#define CI 4            // passes of CT consecutive words per block
-#define CW (CT * CI)    // words per block
+#define CI 4            // consecutive words per thread
+#define CW (CT * CI)    // words per compaction tile, positions per pad tile
 
-static inline int compact_blocks_for(long long n) {
+// the compaction's tile width, for the wrappers' scratch sizes
+extern "C" int csr_tile_words() { return CW; }
+
+struct CsrHdr {
+  unsigned taken, done, unused0, unused1;
+};
+
+struct CsrAcc {
+  unsigned fold[3];  // indptr, dep_rows, dep_ts partial sums
+  int bound;
+};
+
+// the odd offsets of the checksum's position multipliers, per lane:
+// indptr, dep_rows, dep_ts (finalize: 1 / 5 / 9; frontier: 13 / 17 / -)
+struct FoldSeeds {
+  unsigned i, r, t;
+};
+
+// one spec's outputs, scratch and tiles (tile ids global to the launch)
+struct CsrOut {
+  const int* ts;               // dep_ts rows, or null: no dep_ts lane
+  int* indptr;
+  int* dep_rows;
+  int* dep_ts;
+  int* bound;                  // or null: no bound output
+  unsigned* csum;              // or null: no checksum
+  CsrAcc* acc;
+  unsigned long long* state;   // this spec's compaction tiles' states
+  long long n;                 // words: s * w
+  int s, w, out_cap;
+  int tile0, ntiles, pad0, npad;
+  FoldSeeds seeds;
+};
+
+static inline int csr_tiles_for(long long n) {
   return (int)((n + CW - 1) / CW);
+}
+
+static inline int csr_pads_for(int out_cap) {
+  const int p = (out_cap + CW - 1) / CW;
+  return p < 1 ? 1 : p;   // pad tile 0 also writes indptr when n == 0
 }
 
 // block-wide exclusive scan of one int per thread (CT threads); *total =
@@ -121,83 +183,6 @@ __device__ __forceinline__ int block_excl_scan(int x, int* total) {
   return before + incl - x;
 }
 
-template <class Src>
-__global__ void __launch_bounds__(CT)
-csr_count_kernel(const __grid_constant__ Src src, long long n,
-                 int* __restrict__ block_sums,
-                 int* __restrict__ bound) {
-  long long base = (long long)blockIdx.x * CW;
-  int cnt = 0, kb = 0;
-#pragma unroll
-  for (int i = 0; i < CI; ++i) {
-    long long f = base + (long long)i * CT + threadIdx.x;
-    if (f < n) {
-      unsigned kw;
-      cnt += __popc(src.word(f, &kw));
-      kb += __popc(kw);
-    }
-  }
-  int tot_c, tot_k;
-  block_excl_scan(cnt, &tot_c);
-  block_excl_scan(kb, &tot_k);
-  if (threadIdx.x == 0) {
-    block_sums[blockIdx.x] = tot_c;
-    if (bound != nullptr) atomicAdd(bound, tot_k);
-  }
-}
-
-// one block: exclusive scan of the block totals; indptr[S] = grand total
-__global__ void __launch_bounds__(CT)
-csr_scan_kernel(const int* __restrict__ block_sums, int nblocks,
-                int* __restrict__ block_off, int* __restrict__ indptr_end) {
-  int carry = 0;
-  for (int lo = 0; lo < nblocks; lo += CT) {
-    int i = lo + threadIdx.x;
-    int x = i < nblocks ? block_sums[i] : 0;
-    int tot;
-    int ex = block_excl_scan(x, &tot);
-    if (i < nblocks) block_off[i] = carry + ex;
-    carry += tot;
-  }
-  if (threadIdx.x == 0) *indptr_end = carry;
-}
-
-// ts == nullptr: no dep_ts lane (segment_compact)
-template <class Src>
-__global__ void __launch_bounds__(CT)
-csr_expand_kernel(const __grid_constant__ Src src, long long n,
-                  const int* __restrict__ block_off,
-                  const int* __restrict__ ts, int out_cap,
-                  int* __restrict__ indptr, int* __restrict__ dep_rows,
-                  int* __restrict__ dep_ts) {
-  long long base = (long long)blockIdx.x * CW;
-  int carry = block_off[blockIdx.x];
-  for (int i = 0; i < CI; ++i) {
-    long long f = base + (long long)i * CT + threadIdx.x;
-    unsigned v = 0u, kw;
-    if (f < n) v = src.word(f, &kw);
-    int tot;
-    int pos = carry + block_excl_scan(__popc(v), &tot);
-    carry += tot;
-    if (f >= n) continue;
-    int s = (int)(f / src.w);
-    int w = (int)(f - (long long)s * src.w);
-    if (w == 0) indptr[s] = pos;
-    while (v && pos < out_cap) {
-      int bit = __ffs(v) - 1;
-      int row = (w << 5) + bit;
-      dep_rows[pos] = row;
-      if (ts != nullptr) {
-        dep_ts[pos * 3] = ts[row * 3];
-        dep_ts[pos * 3 + 1] = ts[row * 3 + 1];
-        dep_ts[pos * 3 + 2] = ts[row * 3 + 2];
-      }
-      v &= v - 1u;
-      ++pos;
-    }
-  }
-}
-
 __device__ __forceinline__ unsigned fold_term(int x, unsigned idx,
                                               unsigned seed) {
   unsigned v = (unsigned)x;
@@ -205,123 +190,344 @@ __device__ __forceinline__ unsigned fold_term(int x, unsigned idx,
   return v * (2u * idx + seed);
 }
 
-__device__ __forceinline__ unsigned block_sum_u32(unsigned x) {
-  __shared__ unsigned part[32];
+// three wrapping u32 block sums (blockDim.x <= 1024), valid in thread 0
+__device__ __forceinline__ void block_sum3(unsigned& a, unsigned& b,
+                                           unsigned& c) {
+  __shared__ unsigned part[3][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int d = 16; d > 0; d >>= 1) x += __shfl_down_sync(0xffffffffu, x, d);
-  if (lane == 0) part[warp] = x;
+  for (int d = 16; d > 0; d >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, d);
+    b += __shfl_down_sync(0xffffffffu, b, d);
+    c += __shfl_down_sync(0xffffffffu, c, d);
+  }
+  if (lane == 0) {
+    part[0][warp] = a;
+    part[1][warp] = b;
+    part[2][warp] = c;
+  }
   __syncthreads();
-  unsigned t = 0;
   if (warp == 0) {
-    t = lane < (int)(blockDim.x >> 5) ? part[lane] : 0u;
+    const bool in = lane < (int)(blockDim.x >> 5);
+    a = in ? part[0][lane] : 0u;
+    b = in ? part[1][lane] : 0u;
+    c = in ? part[2][lane] : 0u;
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) t += __shfl_down_sync(0xffffffffu, t, d);
-  }
-  __syncthreads();
-  return t;  // valid in thread 0
-}
-
-// the odd offsets of the checksum's position multipliers, per lane:
-// indptr, dep_rows, dep_ts (finalize: 1 / 5 / 9; frontier: 13 / 17 / -)
-struct FoldSeeds {
-  unsigned i, r, t;
-};
-
-// pad dep_rows (and dep_ts) past the total -- row 0, ts[0] -- and fold the
-// checksum grid-wide: each thread folds the value it reads (below the
-// total) or writes (the padding), and each block adds its partial sums into
-// acc[0..2] (wrapping u32 adds: the order cannot change the sum). acc ==
-// nullptr pads and folds nothing more (no checksum); ts == nullptr has no
-// dep_ts lane to pad or fold.
-__global__ void __launch_bounds__(CT)
-csr_pad_fold_kernel(int s, const int* __restrict__ ts, int out_cap,
-                    const int* __restrict__ indptr, int* __restrict__ dep_rows,
-                    int* __restrict__ dep_ts, unsigned* __restrict__ acc,
-                    FoldSeeds seeds) {
-  const int total = indptr[s];
-  const int start = total < out_cap ? (total < 0 ? 0 : total) : out_cap;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned s1 = 0, s5 = 0, s9 = 0;
-  for (long long p = t; p < out_cap; p += stride) {
-    int v = 0;
-    if (p < start)
-      v = dep_rows[p];
-    else
-      dep_rows[p] = 0;
-    s5 += fold_term(v, (unsigned)p, seeds.r);
-  }
-  if (acc == nullptr) return;  // uniform across the grid: no barrier skipped
-  if (ts != nullptr) {
-    const int pad[3] = {ts[0], ts[1], ts[2]};
-    for (long long i = t; i < 3LL * out_cap; i += stride) {
-      const int lane = (int)(i % 3);
-      int v;
-      if (i / 3 < start) {
-        v = dep_ts[i];
-      } else {
-        v = pad[lane];
-        dep_ts[i] = v;
-      }
-      s9 += fold_term(v, (unsigned)i, seeds.t);
+    for (int d = 16; d > 0; d >>= 1) {
+      a += __shfl_down_sync(0xffffffffu, a, d);
+      b += __shfl_down_sync(0xffffffffu, b, d);
+      c += __shfl_down_sync(0xffffffffu, c, d);
     }
   }
-  for (long long i = t; i <= s; i += stride)
-    s1 += fold_term(indptr[i], (unsigned)i, seeds.i);
-  s1 = block_sum_u32(s1);
-  s5 = block_sum_u32(s5);
-  s9 = block_sum_u32(s9);
+  __syncthreads();  // part is reused by the next call
+}
+
+// a tile state: the flag in the high word, the count in the low
+#define CSR_AGG 1ull   // the tile's own aggregate
+#define CSR_PRE 2ull   // its inclusive prefix
+
+// a state word is self-contained (flag and count in one 64-bit access), so
+// relaxed device-scope accesses suffice: no other write has to be seen
+// with it, and an acquire would drop the spinning SM's L1 on every poll
+__device__ __forceinline__ unsigned long long csr_ld(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void csr_st(unsigned long long* p,
+                                       unsigned long long flag, int v) {
+  asm volatile("st.relaxed.gpu.u64 [%0], %1;" ::"l"(p),
+               "l"((flag << 32) | (unsigned)v)
+               : "memory");
+}
+
+// warp 0: publish tile t's aggregate, look back for its exclusive prefix,
+// publish its inclusive prefix; returns the exclusive prefix (all lanes)
+__device__ __forceinline__ int csr_look_back(unsigned long long* st, int t,
+                                             int agg) {
+  const int lane = threadIdx.x & 31;
+  if (t == 0) {
+    if (lane == 0) csr_st(st, CSR_PRE, agg);
+    return 0;
+  }
+  if (lane == 0) csr_st(st + t, CSR_AGG, agg);
+  int excl = 0;
+  for (int j = t - 1;; j -= 32) {
+    const int idx = j - lane;          // lane 0 the nearest predecessor
+    unsigned long long w = CSR_PRE << 32;   // before tile 0: a prefix of 0
+    if (idx >= 0) {
+      do {
+        w = csr_ld(st + idx);
+      } while ((w >> 32) == 0ull);
+    }
+    const unsigned pm = __ballot_sync(0xffffffffu, (w >> 32) == CSR_PRE);
+    const int lim = pm ? __ffs(pm) - 1 : 31;
+    int v = lane <= lim ? (int)(unsigned)w : 0;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+    excl += v;
+    if (pm) break;
+  }
+  if (lane == 0) csr_st(st + t, CSR_PRE, excl + agg);
+  return excl;
+}
+
+// compaction tile t of spec o
+template <class Src>
+__device__ __forceinline__ void csr_compact_tile(const Src& src,
+                                                 const CsrOut& o, int t,
+                                                 int* s_x) {
+  const long long base = (long long)t * CW + (long long)threadIdx.x * CI;
+  // the thread's first word's segment and word (one division a tile)
+  const int sg0 = (int)(base / o.w);
+  const int wd0 = (int)(base - (long long)sg0 * o.w);
+  unsigned v[CI];
+  int cnt = 0, kb = 0;
+  {
+    int sg = sg0, wd = wd0;
+#pragma unroll
+    for (int i = 0; i < CI; ++i) {
+      unsigned kw = 0u;
+      v[i] = base + i < o.n ? src.word(sg, wd, base + i, &kw) : 0u;
+      cnt += __popc(v[i]);
+      kb += __popc(kw);
+      if (++wd == o.w) {
+        wd = 0;
+        ++sg;
+      }
+    }
+  }
+  int agg, kbt;
+  const int ex = block_excl_scan(cnt, &agg);
+  block_excl_scan(kb, &kbt);
+  if (threadIdx.x < 32) {
+    const int x = csr_look_back(o.state, t, agg);
+    if (threadIdx.x == 0) {
+      *s_x = x;
+      if (o.bound != nullptr && kbt != 0) atomicAdd(&o.acc->bound, kbt);
+    }
+  }
+  __syncthreads();
+  const int x = *s_x;
+  int p = x + ex;
+  unsigned f1 = 0u, f5 = 0u, f9 = 0u;
+  int sg = sg0, wd = wd0;
+#pragma unroll
+  for (int i = 0; i < CI; ++i, ++wd) {
+    if (wd == o.w) {
+      wd = 0;
+      ++sg;
+    }
+    if (base + i >= o.n) break;
+    if (wd == 0) {
+      o.indptr[sg] = p;
+      f1 += fold_term(p, (unsigned)sg, o.seeds.i);
+    }
+    unsigned bits = v[i];
+    for (int q = p; bits != 0u && q < o.out_cap; ++q) {
+      const int row = (wd << 5) + __ffs(bits) - 1;
+      bits &= bits - 1u;
+      o.dep_rows[q] = row;
+      f5 += fold_term(row, (unsigned)q, o.seeds.r);
+      if (o.ts != nullptr) {
+#pragma unroll
+        for (int l = 0; l < 3; ++l) {
+          const int tv = o.ts[3LL * row + l];
+          o.dep_ts[3LL * q + l] = tv;
+          f9 += fold_term(tv, (unsigned)(3 * q + l), o.seeds.t);
+        }
+      }
+    }
+    p += __popc(v[i]);
+  }
+  if (threadIdx.x == 0 && t == o.ntiles - 1) {
+    o.indptr[o.s] = x + agg;   // the exact total, past out_cap too
+    f1 += fold_term(x + agg, (unsigned)o.s, o.seeds.i);
+  }
+  if (o.csum == nullptr) return;   // uniform across the block
+  block_sum3(f1, f5, f9);
   if (threadIdx.x == 0) {
-    atomicAdd(&acc[0], s1);
-    atomicAdd(&acc[1], s5);
-    atomicAdd(&acc[2], s9);
+    atomicAdd(&o.acc->fold[0], f1);
+    atomicAdd(&o.acc->fold[1], f5);
+    atomicAdd(&o.acc->fold[2], f9);
   }
 }
 
-__global__ void csr_csum_kernel(const unsigned* __restrict__ acc,
-                                unsigned* __restrict__ csum) {
-  *csum = acc[0] ^ acc[1] ^ acc[2];
+// pad tile u of spec o: positions [u * CW, (u + 1) * CW) past the total
+__device__ __forceinline__ void csr_pad_tile(const CsrOut& o, int u,
+                                             int* s_x) {
+  if (threadIdx.x == 0) {
+    int total = 0;
+    if (o.ntiles > 0) {
+      unsigned long long w;
+      do {
+        w = csr_ld(o.state + o.ntiles - 1);
+      } while ((w >> 32) != CSR_PRE);
+      total = (int)(unsigned)w;
+    }
+    *s_x = total;
+  }
+  __syncthreads();
+  const int total = *s_x;
+  if (o.ntiles == 0 && u == 0)   // no words: every indptr is 0 (folds 0)
+    for (int i = threadIdx.x; i <= o.s; i += CT) o.indptr[i] = 0;
+  const int start = min(max(total, 0), o.out_cap);
+  const int p0 = max(u * CW, start);
+  const int p1 = min((u + 1) * CW, o.out_cap);
+  if (p0 >= p1) return;            // uniform across the block
+  if (o.ts == nullptr) {            // row 0 folds to 0: no dep_rows term
+    for (int p = p0 + threadIdx.x; p < p1; p += CT) o.dep_rows[p] = 0;
+    return;
+  }
+  const int a = o.ts[0], b = o.ts[1], c = o.ts[2];
+  unsigned f9 = 0u;
+  for (int p = p0 + threadIdx.x; p < p1; p += CT) {
+    o.dep_rows[p] = 0;
+    o.dep_ts[3LL * p] = a;
+    o.dep_ts[3LL * p + 1] = b;
+    o.dep_ts[3LL * p + 2] = c;
+    const unsigned q = 3u * (unsigned)p;
+    f9 += fold_term(a, q, o.seeds.t) + fold_term(b, q + 1u, o.seeds.t) +
+          fold_term(c, q + 2u, o.seeds.t);
+  }
+  if (o.csum == nullptr) return;
+  unsigned z1 = 0u, z5 = 0u;
+  block_sum3(z1, z5, f9);
+  if (threadIdx.x == 0) atomicAdd(&o.acc->fold[2], f9);
 }
 
-// the compaction stages after the source words exist; *bound is zeroed by
-// the caller when the source counts it; acc is 3 u32 of scratch, nullptr
-// for no checksum (then csum is unused). Returns cudaGetLastError.
+// the last block: each spec's checksum and bound; scratch zeroed again
+__device__ __forceinline__ void csr_finish(const CsrOut& o) {
+  if (o.csum != nullptr)
+    *o.csum = __ldcg(&o.acc->fold[0]) ^ __ldcg(&o.acc->fold[1]) ^
+              __ldcg(&o.acc->fold[2]);
+  if (o.bound != nullptr) *o.bound = __ldcg(&o.acc->bound);
+  o.acc->fold[0] = 0u;
+  o.acc->fold[1] = 0u;
+  o.acc->fold[2] = 0u;
+  o.acc->bound = 0;
+}
+
+// Tab: `int tiles, nspec, ctiles` (all tiles, specs, compaction tiles);
+// `unsigned long long* state` (the ctiles states, contiguous);
+// `int locate(int g) const` (the spec of tile g); `CsrOut out(int k)
+// const`; `src(int k) const` (spec k's source)
+template <class Tab>
+__global__ void __launch_bounds__(CT)
+csr_kernel(const __grid_constant__ Tab tab, CsrHdr* hdr) {
+  __shared__ int s_g, s_x, s_last;
+  for (;;) {
+    __syncthreads();   // the last tile's shared words are read
+    if (threadIdx.x == 0) s_g = (int)atomicAdd(&hdr->taken, 1u);
+    __syncthreads();
+    const int g = s_g;
+    if (g >= tab.tiles) break;
+    const int k = tab.locate(g);
+    const CsrOut o = tab.out(k);
+    if (g < o.pad0)
+      csr_compact_tile(tab.src(k), o, g - o.tile0, &s_x);
+    else
+      csr_pad_tile(o, g - o.pad0, &s_x);
+  }
+  if (threadIdx.x == 0) {
+    __threadfence();
+    s_last = atomicAdd(&hdr->done, 1u) == gridDim.x - 1u;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int k = threadIdx.x; k < tab.nspec; k += CT) csr_finish(tab.out(k));
+  for (int i = threadIdx.x; i < tab.ctiles; i += CT) tab.state[i] = 0ull;
+  if (threadIdx.x == 0) {
+    hdr->taken = 0u;
+    hdr->done = 0u;
+  }
+}
+
+// one spec, by value
+template <class Src>
+struct CsrOne {
+  Src s_;
+  CsrOut o_;
+  int tiles, nspec, ctiles;
+  unsigned long long* state;
+  __device__ __forceinline__ int locate(int) const { return 0; }
+  __device__ __forceinline__ CsrOut out(int) const { return o_; }
+  __device__ __forceinline__ const Src& src(int) const { return s_; }
+};
+
+// the launch's blocks: at most four an SM of the current card
+static inline int csr_grid(int tiles) {
+  static int sms[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& m = sms[dev & 63];
+  if (m <= 0) {
+    cudaDeviceGetAttribute(&m, cudaDevAttrMultiProcessorCount, dev);
+    if (m <= 0) m = 1;
+  }
+  return tiles < 1 ? 1 : (tiles < 4 * m ? tiles : 4 * m);
+}
+
+// a spec's CsrOut over scratch laid out for one spec
+static inline CsrOut csr_out_one(int s, int w, const int* ts, int out_cap,
+                                 int* indptr, int* dep_rows, int* dep_ts,
+                                 int* bound, unsigned* csum, void* scratch,
+                                 FoldSeeds seeds) {
+  CsrOut o;
+  o.ts = ts;
+  o.indptr = indptr;
+  o.dep_rows = dep_rows;
+  o.dep_ts = dep_ts;
+  o.bound = bound;
+  o.csum = csum;
+  o.acc = (CsrAcc*)((char*)scratch + sizeof(CsrHdr));
+  o.state = (unsigned long long*)((char*)scratch + sizeof(CsrHdr) +
+                                  sizeof(CsrAcc));
+  o.n = (long long)s * w;
+  o.s = s;
+  o.w = w;
+  o.out_cap = out_cap;
+  o.tile0 = 0;
+  o.ntiles = csr_tiles_for(o.n);
+  o.pad0 = o.ntiles;
+  o.npad = csr_pads_for(out_cap);
+  o.seeds = seeds;
+  return o;
+}
+
+// the compaction of one spec after its source words exist: ONE launch.
+// scratch: a CsrHdr, one CsrAcc and a u64 state per compaction tile
+// (csr_tiles_for(s * src.w)), zeroed, and left zeroed; the bound (when
+// `bound` is not null) is the sum of the source's kw popcounts plus what
+// an earlier launch added to the spec's CsrAcc (csr_bound_slot). Returns
+// cudaGetLastError.
 template <class Src>
 static inline int launch_csr(const Src& src, int s, const int* ts,
                              int out_cap, int* indptr, int* dep_rows,
                              int* dep_ts, int* bound, unsigned* csum,
-                             int* block_sums, int* block_off, unsigned* acc,
-                             cudaStream_t st,
+                             void* scratch, cudaStream_t st,
                              FoldSeeds seeds = FoldSeeds{1u, 5u, 9u}) {
-  long long n = (long long)s * src.w;
-  int nblocks = compact_blocks_for(n);
-  if (n > 0) {
-    csr_count_kernel<Src><<<nblocks, CT, 0, st>>>(src, n, block_sums, bound);
-    ACCORD_CHECK();
-  }
-  csr_scan_kernel<<<1, CT, 0, st>>>(block_sums, n > 0 ? nblocks : 0,
-                                    block_off, indptr + s);
-  ACCORD_CHECK();
-  if (n > 0) {
-    csr_expand_kernel<Src><<<nblocks, CT, 0, st>>>(
-        src, n, block_off, ts, out_cap, indptr, dep_rows, dep_ts);
-    ACCORD_CHECK();
-  }
-  if (acc != nullptr) {
-    cudaMemsetAsync(acc, 0, 3 * sizeof(unsigned), st);
-    ACCORD_CHECK();
-  }
-  long long work = 3LL * out_cap > (long long)s + 1 ? 3LL * out_cap : s + 1;
-  int g = grid_for(work, CT);
-  if (g > 1024) g = 1024;
-  csr_pad_fold_kernel<<<g, CT, 0, st>>>(s, ts, out_cap, indptr, dep_rows,
-                                        dep_ts, acc, seeds);
-  ACCORD_CHECK();
-  if (acc == nullptr) return 0;
-  csr_csum_kernel<<<1, 1, 0, st>>>(acc, csum);
+  if (s < 0 || out_cap < 0) return (int)cudaErrorInvalidValue;
+  CsrOne<Src> tab;
+  tab.s_ = src;
+  tab.o_ = csr_out_one(s, src.w, ts, out_cap, indptr, dep_rows, dep_ts,
+                       bound, csum, scratch, seeds);
+  tab.ctiles = tab.o_.ntiles;
+  tab.tiles = tab.o_.ntiles + tab.o_.npad;
+  tab.nspec = 1;
+  tab.state = tab.o_.state;
+  csr_kernel<CsrOne<Src>><<<csr_grid(tab.tiles), CT, 0, st>>>(
+      tab, (CsrHdr*)scratch);
   ACCORD_CHECK();
   return 0;
+}
+
+// where a launch before launch_csr adds to the one spec's bound
+static inline int* csr_bound_slot(void* scratch) {
+  return &((CsrAcc*)((char*)scratch + sizeof(CsrHdr)))->bound;
 }
 
 // ---------------------------------------------------------------------------
@@ -338,9 +544,10 @@ struct CopyTable {
   int n;
 };
 
-__global__ void multi_copy_kernel(const __grid_constant__ CopyTable t) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// thread `tid` of `stride` threads copying every segment of t
+__device__ __forceinline__ void multi_copy_part(const CopyTable& t,
+                                                long long tid,
+                                                long long stride) {
   for (int k = 0; k < t.n; ++k) {
     const unsigned char* s = t.src[k];
     unsigned char* d = t.dst[k];
@@ -351,6 +558,11 @@ __global__ void multi_copy_kernel(const __grid_constant__ CopyTable t) {
       ((uint4*)d)[i] = ((const uint4*)s)[i];
     for (long long i = (nv << 4) + tid; i < b; i += stride) d[i] = s[i];
   }
+}
+
+__global__ void multi_copy_kernel(const __grid_constant__ CopyTable t) {
+  multi_copy_part(t, (long long)blockIdx.x * blockDim.x + threadIdx.x,
+                  (long long)gridDim.x * blockDim.x);
 }
 
 static inline int launch_multi_copy(const CopyTable& t, cudaStream_t st) {

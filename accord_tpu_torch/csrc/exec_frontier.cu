@@ -23,8 +23,9 @@
 // The fused entry takes a table of planes (pointers, cap, first output
 // word); caps may differ between planes, and the output is the planes'
 // words concatenated. frontier_compact writes that fused frontier into its
-// retained `packed` output, then runs the shared compaction
-// (common.cuh's launch_csr) over S segments of the whole word range, where
+// retained `packed` output, then runs the shared one-launch compaction
+// (common.cuh's launch_csr: two launches a call, no memset) over S
+// segments of the whole word range, where
 // segment s keeps only plane s's word span -- the block-diagonal [S, w_tot]
 // matrix of the JAX body -- so each row value is the GLOBAL bit index
 // 32 * word + bit; indptr is exact past out_cap, rows beyond out_cap are
@@ -172,25 +173,22 @@ struct FrontierSrc {
   const unsigned* packed;
   int w;  // w_tot: words per segment
   int off[FMAXP + 1];
-  __device__ __forceinline__ unsigned word(long long f, unsigned* kw) const {
-    const int s = (int)(f / w);
-    const int j = (int)(f - (long long)s * w);
+  __device__ __forceinline__ unsigned word(int s, int j, long long,
+                                           unsigned* kw) const {
     *kw = 0u;
     return (j >= off[s] && j < off[s + 1]) ? packed[j] : 0u;
   }
 };
 
-extern "C" int compact_blocks(long long n) { return compact_blocks_for(n); }
-
 // frontier_compact: packed[w_tot] (retained), indptr[n+1], rows[out_cap],
-// csum; scratch block_sums / block_off (compact_blocks(n * w_tot) ints
-// each) and acc (3 u32)
+// csum; scratch: kernels.csr_scratch_bytes(1, tiles of n * w_tot words)
+// zeroed bytes, left zeroed
 extern "C" int frontier_compact(int n, void* const* adj, void* const* ts,
                                 void* const* applied, void* const* pending,
                                 void* const* awaits, const int* caps,
                                 int out_cap, void* packed, void* indptr,
-                                void* rows, void* csum, void* block_sums,
-                                void* block_off, void* acc, void* stream) {
+                                void* rows, void* csum, void* scratch,
+                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   FPlanes ps;
   int w_tot;
@@ -206,7 +204,6 @@ extern "C" int frontier_compact(int n, void* const* adj, void* const* ts,
   for (int k = 0; k < n; ++k) src.off[k] = ps.p[k].word_off;
   src.off[n] = w_tot;
   return launch_csr(src, n, nullptr, out_cap, (int*)indptr, (int*)rows,
-                    nullptr, nullptr, (unsigned*)csum, (int*)block_sums,
-                    (int*)block_off, (unsigned*)acc, st,
+                    nullptr, nullptr, (unsigned*)csum, scratch, st,
                     FoldSeeds{13u, 17u, 0u});
 }

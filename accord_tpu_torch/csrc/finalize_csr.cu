@@ -15,17 +15,21 @@
 //   bound   i32          sum of the valid slots' kid-mask popcounts
 //   csum    u32          the position-weighted fold of the three arrays
 //
+// Design: common.cuh's launch_csr, ONE launch a call and no memset -- the
+// masked words are popcounted, scanned within a tile, offset by decoupled
+// look-back over the earlier tiles, expanded straight to dep_rows / dep_ts
+// and folded into the checksum by whoever writes them; pad tiles write
+// past the total; the last block writes the checksum and the bound and
+// leaves the scratch zeroed. `finalize_csr_tab` runs MANY finalizes in that
+// one launch, over a table of FinEnt records in device memory (each a
+// FinIn and its outputs and scratch): the protocol megakernel's graph
+// holds its tick's key finalizes in one such node, the table in its
+// parameter block.
+//
 // What bounds it: bytes. It reads S*W words of the packed result and of
 // the kid table (at the PreAccept-batch shape 4096 slots x 512 words, 8 MB
-// each) and writes out_cap rows. The design (common.cuh's launch_csr, which
-// K6 shares): launches on one stream.
-// (1) per-block popcount totals of the masked words (and the bound, by an
-// exact int atomicAdd); (2) one block scans the block totals; (3) each
-// block recomputes its masked words, scans them in shared memory, and
-// writes every set bit at global position p < out_cap straight to
-// dep_rows / dep_ts, and indptr at each slot's first word; (4) the grid
-// pads past the total and folds the checksum (wrapping u32 partial sums
-// added atomically, so the order of the reduction cannot change it).
+// each) and writes out_cap rows. At a burn's shapes (a few thousand words)
+// a call is one launch's latency: the tiles' scans and one look-back.
 #include "common.cuh"
 
 struct FinIn {
@@ -38,11 +42,10 @@ struct FinIn {
   int s;
   const int* subj_row;
 
-  // masked word of flat index f = slot * W + word; *kw = the slot's kid
-  // word (the bound counts its bits)
-  __device__ __forceinline__ unsigned word(long long f, unsigned* kw) const {
-    int sl = (int)(f / w);
-    int wd = (int)(f - (long long)sl * w);
+  // masked word wd of slot sl; *kw = the slot's kid word (the bound
+  // counts its bits)
+  __device__ __forceinline__ unsigned word(int sl, int wd, long long,
+                                           unsigned* kw) const {
     int subj = slot_subj[sl], kid = slot_kid[sl];
     if (subj < 0 || subj >= b || kid < 0 || kid >= kc) {
       *kw = 0u;
@@ -54,18 +57,6 @@ struct FinIn {
     int r = subj_row[subj];
     if (r >= 0 && (r >> 5) == wd) v &= ~(1u << (r & 31));
     return v;
-  }
-};
-
-// FinIn read from device memory: the protocol megakernel's graph keeps
-// one FinIn per finalize spec in its parameter block, so a replay runs
-// the spec against the tick's own packed result, kid table and lanes.
-struct FinRef {
-  const FinIn* in;
-  int w;
-
-  __device__ __forceinline__ unsigned word(long long f, unsigned* kw) const {
-    return in->word(f, kw);
   }
 };
 
@@ -83,47 +74,103 @@ extern "C" int fin_in_pack(void* dst, const void* packed, int b, int wt,
   return 0;
 }
 
-// block_sums / block_off: scratch of finalize_blocks(s * w) ints each;
-// acc: 3 more
-extern "C" int finalize_blocks(long long n) {
-  return compact_blocks_for(n);
-}
-
+// scratch: kernels.csr_scratch_bytes(1, tiles of s * w words) zeroed bytes
+// (the wrapper's pool), left zeroed
 extern "C" int finalize_csr(const void* packed, int b, int wt, int off,
                             const void* kid_rows, int kc, int w,
                             const void* slot_subj, const void* slot_kid,
                             int s, const void* subj_row, const void* act_ts,
                             int out_cap, void* indptr, void* dep_rows,
                             void* dep_ts, void* bound, void* csum,
-                            void* block_sums, void* block_off, void* acc,
-                            void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+                            void* scratch, void* stream) {
   FinIn in{(const unsigned*)packed, b, wt, off, (const unsigned*)kid_rows,
            kc, w, (const int*)slot_subj, (const int*)slot_kid, s,
            (const int*)subj_row};
-  cudaMemsetAsync(bound, 0, sizeof(int), st);
-  ACCORD_CHECK();
   return launch_csr(in, s, (const int*)act_ts, out_cap, (int*)indptr,
                     (int*)dep_rows, (int*)dep_ts, (int*)bound,
-                    (unsigned*)csum, (int*)block_sums, (int*)block_off,
-                    (unsigned*)acc, st);
+                    (unsigned*)csum, scratch, (cudaStream_t)stream);
 }
 
-// finalize_csr over a FinIn in device memory (`fin`, of w words per slot
-// and s slots); act_ts and every output as in finalize_csr
-extern "C" int finalize_csr_ref(const void* fin, int w, int s,
-                                const void* act_ts, int out_cap, void* indptr,
-                                void* dep_rows, void* dep_ts, void* bound,
-                                void* csum, void* block_sums, void* block_off,
-                                void* acc, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  FinRef in{(const FinIn*)fin, w};
-  cudaMemsetAsync(bound, 0, sizeof(int), st);
-  ACCORD_CHECK();
-  return launch_csr(in, s, (const int*)act_ts, out_cap, (int*)indptr,
+// One finalize of a table: its FinIn (device memory) and its CsrOut.
+struct FinEnt {
+  const FinIn* in;
+  CsrOut o;
+};
+
+// the table launch's specs: tile ids in order -- every spec's compaction
+// tiles, then every spec's pad tiles (pad0 strictly increasing)
+struct FinTab {
+  const FinEnt* ents;
+  int tiles, nspec, ctiles;
+  unsigned long long* state;
+
+  // the spec of tile g: the last whose first tile of g's kind is <= g
+  // (a spec with no words has no compaction tile and shares its tile0)
+  __device__ __forceinline__ int locate(int g) const {
+    const bool pad = g >= ctiles;
+    int lo = 0, hi = nspec - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      const int first = pad ? ents[mid].o.pad0 : ents[mid].o.tile0;
+      if (first <= g)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    return lo;
+  }
+  __device__ __forceinline__ CsrOut out(int k) const { return ents[k].o; }
+  __device__ __forceinline__ FinIn src(int k) const { return *ents[k].in; }
+};
+
+extern "C" int fin_ent_bytes() { return (int)sizeof(FinEnt); }
+
+// write the FinEnt of one finalize to host memory `dst`: `fin` the device
+// address of its FinIn (s slots of w words), act_ts and its five outputs
+// as finalize_csr's, `scratch` the table launch's scratch, k the spec's
+// index and tile0 / pad0 its first compaction and pad tile (the caller
+// numbers them: every spec's csr_tiles_for(s * w) compaction tiles in
+// order, then every spec's csr_pads_for(out_cap) pad tiles)
+extern "C" int fin_ent_pack(void* dst, const void* fin, int s, int w,
+                            const void* act_ts, int out_cap, void* indptr,
+                            void* dep_rows, void* dep_ts, void* bound,
+                            void* csum, void* scratch, int nspec, int k,
+                            int tile0, int pad0) {
+  FinEnt e;
+  e.in = (const FinIn*)fin;
+  e.o = csr_out_one(s, w, (const int*)act_ts, out_cap, (int*)indptr,
                     (int*)dep_rows, (int*)dep_ts, (int*)bound,
-                    (unsigned*)csum, (int*)block_sums, (int*)block_off,
-                    (unsigned*)acc, st);
+                    (unsigned*)csum, scratch, FoldSeeds{1u, 5u, 9u});
+  char* base = (char*)scratch;
+  e.o.acc = (CsrAcc*)(base + sizeof(CsrHdr)) + k;
+  e.o.state = (unsigned long long*)(base + sizeof(CsrHdr) +
+                                    sizeof(CsrAcc) * (size_t)nspec) +
+              tile0;
+  e.o.tile0 = tile0;
+  e.o.pad0 = pad0;
+  *(FinEnt*)dst = e;
+  return 0;
+}
+
+// nspec finalizes in ONE launch over the FinEnt table `tab` (device
+// memory) of `tiles` tiles in all, `ctiles` of them compaction tiles;
+// scratch: kernels.csr_scratch_bytes(nspec, ctiles) zeroed bytes, left
+// zeroed
+extern "C" int finalize_csr_tab(const void* tab, int nspec, int tiles,
+                                int ctiles, void* scratch, void* stream) {
+  if (nspec <= 0) return 0;
+  if (tiles < nspec || ctiles < 0) return (int)cudaErrorInvalidValue;
+  FinTab t;
+  t.ents = (const FinEnt*)tab;
+  t.tiles = tiles;
+  t.nspec = nspec;
+  t.ctiles = ctiles;
+  t.state = (unsigned long long*)((char*)scratch + sizeof(CsrHdr) +
+                                  sizeof(CsrAcc) * (size_t)nspec);
+  csr_kernel<FinTab><<<csr_grid(tiles), CT, 0, (cudaStream_t)stream>>>(
+      t, (CsrHdr*)scratch);
+  ACCORD_CHECK();
+  return 0;
 }
 
 // ---------------------------------------------------------------------------

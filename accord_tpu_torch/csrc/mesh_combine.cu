@@ -27,7 +27,7 @@
 //   fragment_merge  the fragments' sum-merge (:654), then dep_ts =
 //                   act_ts[dep_rows] (:656) and the checksum folded over
 //                   the merged triple (csr_checksum, :657) with the
-//                   padding past the total (common.cuh's pad/fold pass).
+//                   padding past the total (merge_pad_fold_kernel).
 //
 // What bounds them on an H100: bytes, each combine reads its inputs once
 // and writes its outputs once (a few hundred KB at the burn's shapes), so
@@ -187,6 +187,55 @@ __global__ void fragment_sum_kernel(const int* __restrict__ frags, int data,
   }
 }
 
+// pad dep_rows (and dep_ts) past the total -- row 0, ts[0] -- and fold the
+// finalize checksum grid-wide: each thread folds the value it reads (below
+// the total) or writes (the padding), and each block adds its partial sums
+// into acc[0..2] (wrapping u32 adds: the order cannot change the sum)
+__global__ void __launch_bounds__(CT)
+merge_pad_fold_kernel(int s, const int* __restrict__ ts, int out_cap,
+                      const int* __restrict__ indptr,
+                      int* __restrict__ dep_rows, int* __restrict__ dep_ts,
+                      unsigned* __restrict__ acc) {
+  const int total = indptr[s];
+  const int start = total < out_cap ? (total < 0 ? 0 : total) : out_cap;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned s1 = 0, s5 = 0, s9 = 0;
+  for (long long p = t; p < out_cap; p += stride) {
+    int v = 0;
+    if (p < start)
+      v = dep_rows[p];
+    else
+      dep_rows[p] = 0;
+    s5 += fold_term(v, (unsigned)p, 5u);
+  }
+  const int pad[3] = {ts[0], ts[1], ts[2]};
+  for (long long i = t; i < 3LL * out_cap; i += stride) {
+    const int lane = (int)(i % 3);
+    int v;
+    if (i / 3 < start) {
+      v = dep_ts[i];
+    } else {
+      v = lane == 0 ? pad[0] : (lane == 1 ? pad[1] : pad[2]);
+      dep_ts[i] = v;
+    }
+    s9 += fold_term(v, (unsigned)i, 9u);
+  }
+  for (long long i = t; i <= s; i += stride)
+    s1 += fold_term(indptr[i], (unsigned)i, 1u);
+  block_sum3(s1, s5, s9);
+  if (threadIdx.x == 0) {
+    atomicAdd(&acc[0], s1);
+    atomicAdd(&acc[1], s5);
+    atomicAdd(&acc[2], s9);
+  }
+}
+
+__global__ void merge_csum_kernel(const unsigned* __restrict__ acc,
+                                  unsigned* __restrict__ csum) {
+  *csum = acc[0] ^ acc[1] ^ acc[2];
+}
+
 // frags [data, out_cap] -> dep_rows [out_cap], dep_ts [out_cap, 3] and the
 // checksum word over (indptr [s+1], dep_rows, dep_ts); acc: 3 u32 scratch
 extern "C" int fragment_merge(const void* frags, int data, int out_cap,
@@ -208,11 +257,11 @@ extern "C" int fragment_merge(const void* frags, int data, int out_cap,
   long long work = 3LL * out_cap > (long long)s + 1 ? 3LL * out_cap : s + 1;
   int g = grid_for(work, CT);
   if (g > 1024) g = 1024;
-  csr_pad_fold_kernel<<<g, CT, 0, st>>>(
+  merge_pad_fold_kernel<<<g, CT, 0, st>>>(
       s, (const int*)ts, out_cap, (const int*)indptr, (int*)dep_rows,
-      (int*)dep_ts, (unsigned*)acc, FoldSeeds{1u, 5u, 9u});
+      (int*)dep_ts, (unsigned*)acc);
   ACCORD_CHECK();
-  csr_csum_kernel<<<1, 1, 0, st>>>((const unsigned*)acc, (unsigned*)csum);
+  merge_csum_kernel<<<1, 1, 0, st>>>((const unsigned*)acc, (unsigned*)csum);
   ACCORD_CHECK();
   return 0;
 }

@@ -17,11 +17,13 @@
 // out_cap on overflow) with the finalize checksum over the whole arrays.
 //
 // The JAX kernel materialises the dense [NV, rcap] 0/1 matrix and
-// compacts it with a scatter. Here one warp per (entry, 32-row word)
-// builds the packed word of m with `__ballot_sync` (and adds the stab
-// word's popcount to the bound), and K2's scan / expand / pad / checksum
-// code (common.cuh's launch_csr) compacts the packed words: the dense
-// column order is the packed bit order, so the outputs are the same.
+// compacts it with a scatter. Here two launches and no memset: one warp
+// per (entry, 32-row word) builds the packed word of m with
+// `__ballot_sync` (and adds the stab word's popcount to the bound, in the
+// compaction's zeroed scratch), then K2's one-launch compaction
+// (common.cuh's launch_csr) compacts the packed words, pads, folds the
+// checksum and writes the bound: the dense column order is the packed bit
+// order, so the outputs are the same.
 //
 // What bounds it: bytes -- the stab matrix read once as packed words
 // (NV x rcap/32) plus the outputs; the compares are a few per (entry, row).
@@ -31,7 +33,8 @@ struct WordsIn {
   const unsigned* words;
   int w;
 
-  __device__ __forceinline__ unsigned word(long long f, unsigned* kw) const {
+  __device__ __forceinline__ unsigned word(int, int, long long f,
+                                           unsigned* kw) const {
     *kw = 0u;  // the bound is counted when the words are built
     return words[f];
   }
@@ -83,34 +86,29 @@ __global__ void stab_words_kernel(const int* __restrict__ iv_of,
   }
 }
 
-// block_sums / block_off scratch: compact_blocks(S * W) ints each; acc: 3
-// more (range_finalize_csr's checksum)
-extern "C" int compact_blocks(long long n) { return compact_blocks_for(n); }
-
-// _segment_compact over packed rows m[s, w] -> (indptr, dep_rows)
+// _segment_compact over packed rows m[s, w] -> (indptr, dep_rows);
+// scratch: kernels.csr_scratch_bytes(1, tiles of s * w words) zeroed
+// bytes, left zeroed
 extern "C" int segment_compact(const void* m, int s, int w, int out_cap,
-                               void* indptr, void* dep_rows,
-                               void* block_sums, void* block_off,
+                               void* indptr, void* dep_rows, void* scratch,
                                void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
   WordsIn in{(const unsigned*)m, w};
   return launch_csr(in, s, nullptr, out_cap, (int*)indptr, (int*)dep_rows,
-                    nullptr, nullptr, nullptr, (int*)block_sums,
-                    (int*)block_off, nullptr, st);
+                    nullptr, nullptr, nullptr, scratch,
+                    (cudaStream_t)stream);
 }
 
+// words: the stab-word scratch u32[nv, rcap/32]; scratch as
+// segment_compact's over nv x rcap/32 words
 extern "C" int range_finalize_csr(
     const void* iv_of, const void* iv_s, const void* iv_e, const void* ent_ok,
     int nv, const void* subj_before, const void* subj_kinds, int b,
     const void* r_start, const void* r_end, const void* r_ts,
     const void* r_kinds, const void* r_valid, int rcap, const void* witness,
     int nk, int out_cap, void* words, void* indptr, void* dep_rows,
-    void* dep_ts, void* bound, void* csum, void* block_sums, void* block_off,
-    void* acc, void* stream) {
+    void* dep_ts, void* bound, void* csum, void* scratch, void* stream) {
   if ((rcap & 31) || b <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaMemsetAsync(bound, 0, sizeof(int), st);
-  ACCORD_CHECK();
   const long long threads = (long long)nv * (rcap >> 5) * 32;
   if (threads > 0) {
     stab_words_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
@@ -118,11 +116,12 @@ extern "C" int range_finalize_csr(
         (const unsigned char*)ent_ok, nv, (const int*)subj_before,
         (const int*)subj_kinds, b, (const int*)r_start, (const int*)r_end,
         (const int*)r_ts, (const int*)r_kinds, (const unsigned char*)r_valid,
-        rcap, (const int*)witness, nk, (unsigned*)words, (int*)bound);
+        rcap, (const int*)witness, nk, (unsigned*)words,
+        csr_bound_slot(scratch));
     ACCORD_CHECK();
   }
   WordsIn in{(const unsigned*)words, rcap >> 5};
   return launch_csr(in, nv, (const int*)r_ts, out_cap, (int*)indptr,
-                    (int*)dep_rows, (int*)dep_ts, nullptr, (unsigned*)csum,
-                    (int*)block_sums, (int*)block_off, (unsigned*)acc, st);
+                    (int*)dep_rows, (int*)dep_ts, (int*)bound,
+                    (unsigned*)csum, scratch, st);
 }

@@ -11,13 +11,14 @@
 // the count), and the checksum with seeds 13 / 17 over indptr and all
 // out_cap rows.
 //
-// Design: one warp per 32-row word packs the predicate with __ballot_sync
-// into cap/32 words of scratch (one segment); then common.cuh's launch_csr
-// compacts that segment, the same passes K2 / K6 / K9 run.
+// Design: two launches, no memset. One warp per 32-row word packs the
+// predicate with __ballot_sync into cap/32 words of scratch (one segment);
+// then common.cuh's launch_csr compacts that segment in one launch, the
+// compaction K2 / K6 / K9 run.
 //
 // What bounds it: bytes, status and touched read once (8 bytes a row: 131
-// KB at cap 16384) plus the outputs; the compaction's launches dominate at
-// every cap the plane reaches.
+// KB at cap 16384) plus the outputs; the two launches' latency dominates
+// at every cap the plane reaches.
 #include "common.cuh"
 
 #define RS_LIVE_LO 1   // CMD_ST_PRE_ACCEPTED
@@ -46,22 +47,21 @@ __global__ void stall_pack_kernel(const int* __restrict__ status,
 struct PackedSrc {
   const unsigned* packed;
   int w;
-  __device__ __forceinline__ unsigned word(long long f, unsigned* kw) const {
+  __device__ __forceinline__ unsigned word(int, int, long long f,
+                                           unsigned* kw) const {
     *kw = 0u;
     return packed[f];
   }
 };
 
-extern "C" int compact_blocks(long long n) { return compact_blocks_for(n); }
-
 // status/touched i32[cap] (cap % 32 == 0); packed: cap/32 words of
-// scratch; indptr[2], rows[out_cap], csum; block_sums / block_off
-// (compact_blocks(cap/32) ints each) and acc (3 u32)
+// scratch; indptr[2], rows[out_cap], csum; scratch:
+// kernels.csr_scratch_bytes(1, tiles of cap/32 words) zeroed bytes, left
+// zeroed
 extern "C" int recovery_scan(const void* status, const void* touched, int cap,
                              int now_ms, int stall_ms, int out_cap,
                              void* packed, void* indptr, void* rows,
-                             void* csum, void* block_sums, void* block_off,
-                             void* acc, void* stream) {
+                             void* csum, void* scratch, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (cap <= 0 || cap % 32) return (int)cudaErrorInvalidValue;
   const int words = cap / 32;
@@ -71,7 +71,6 @@ extern "C" int recovery_scan(const void* status, const void* touched, int cap,
   ACCORD_CHECK();
   PackedSrc src{(const unsigned*)packed, words};
   return launch_csr(src, 1, nullptr, out_cap, (int*)indptr, (int*)rows,
-                    nullptr, nullptr, (unsigned*)csum, (int*)block_sums,
-                    (int*)block_off, (unsigned*)acc, st,
+                    nullptr, nullptr, (unsigned*)csum, scratch, st,
                     FoldSeeds{13u, 17u, 0u});
 }

@@ -18,7 +18,10 @@ PyTorch version beside it. There is no fallback from one to the other.
   kernel         source                  replaces (the JAX ops/kernels.py)
   deps_resolve   csrc/deps_resolve.cu    deps_resolve :268,
                                          fused_deps_resolve :305
-  finalize_csr   csrc/finalize_csr.cu    finalize_csr :697 (body :736)
+  finalize_csr   csrc/finalize_csr.cu    finalize_csr :697 (body :736);
+                 (finalize_csr_tab:      the table entry runs many in
+                 one launch)             one launch (the tick's key
+                                         finalizes)
   arena_scatter  csrc/arena_scatter.cu   arena_scatter :822,
                                          arena_scatter_keys :840
   row_scatter    csrc/row_scatter.cu     scatter_rows :242,
@@ -75,6 +78,7 @@ cap and KC), where torch's own indexing would raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import struct
 from typing import Dict, Tuple
 
@@ -87,8 +91,10 @@ INT32_MIN = -(1 << 31)
 _M32 = 0xFFFFFFFF
 
 # launches per kernel (one per wrapper call that reached the card; K4's and
-# K15's count kernel launches, which is one a call)
+# K15's count kernel launches, which is one a call; finalize_csr_tab counts
+# its table launches, each running many finalizes)
 LAUNCHES: Dict[str, int] = {"deps_resolve": 0, "finalize_csr": 0,
+                            "finalize_csr_tab": 0,
                             "arena_scatter": 0, "row_scatter": 0,
                             "range_scatter": 0, "range_resolve": 0,
                             "range_finalize": 0, "max_conflict": 0,
@@ -483,16 +489,78 @@ def finalize_csr_plain(packed, word_off, kid_rows, slot_subj, slot_kid,
             csr_checksum(indptr, dep_rows, dep_ts))
 
 
-def _compact_scratch(nblocks: int, dev):
-    """Device scratch of the shared compaction (csrc/common.cuh launch_csr):
-    (the buffer, and pointers to its block totals and block offsets,
-    nblocks ints each, and to the checksum's three partial-sum words).
-    The caller keeps the buffer until the launches are queued; the caching
-    allocator orders its reuse after them on the stream."""
-    ext = _ext()
-    buf = torch.empty(2 * nblocks + 3, dtype=torch.int32, device=dev)
-    return buf, (ext.ptr(buf), ext.ptr(buf[nblocks:]),
-                 ext.ptr(buf[2 * nblocks:]))
+# The one-launch compaction (csrc/common.cuh launch_csr) of K2, K6, K9's
+# compact entry and K11: its tiles and its zeroed scratch.
+CSR_TILE_WORDS = 1024       # csrc/common.cuh CW: words (positions) a tile
+_CSR_HDR = 16               # sizeof(CsrHdr)
+_CSR_ACC = 16               # sizeof(CsrAcc), one a spec
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def csr_tiles(n_words: int, out_cap: int) -> Tuple[int, int]:
+    """(compaction tiles, pad tiles) of one compaction over n_words words
+    into out_cap rows."""
+    return (-(-int(n_words) // CSR_TILE_WORDS),
+            max(1, -(-int(out_cap) // CSR_TILE_WORDS)))
+
+
+def csr_scratch_bytes(nspec: int, ctiles: int) -> int:
+    """Zeroed scratch bytes of a compaction launch over nspec specs with
+    ctiles compaction tiles in all (its header, partial sums a spec, a
+    state word a tile)."""
+    return _CSR_HDR + _CSR_ACC * nspec + 8 * ctiles
+
+
+# per card: the zeroed scratch every eager compaction and cmd_tick launch
+# shares (see zeroed_scratch)
+_SCRATCH: Dict[int, torch.Tensor] = {}
+
+
+def zeroed_scratch(dev, nbytes: int) -> int:
+    """The device address of at least nbytes of card `dev`'s zeroed
+    scratch. The kernels that take it (the one-launch compaction, K10's
+    ticket) leave it zeroed at their end, and the port launches them on
+    one stream a card, in order, so every call shares one buffer: no
+    allocation and no memset a call. Allocated (zeroed) once and grown
+    when a call needs more, which may not happen inside a graph capture
+    (capture after one eager call of the same size)."""
+    dev = torch.device(dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    buf = _SCRATCH.get(idx)
+    if buf is None or buf.numel() < nbytes:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("zeroed_scratch: the scratch must grow, "
+                               "which a graph capture cannot; call the "
+                               "kernel once before capturing it")
+        if buf is None and int(_ext().lib("finalize_csr").csr_tile_words()) \
+                != CSR_TILE_WORDS:
+            raise RuntimeError("CSR_TILE_WORDS differs from common.cuh CW")
+        old = 0 if buf is None else buf.numel()
+        buf = torch.zeros(max(int(nbytes), 2 * old, 1 << 16),
+                          dtype=torch.uint8, device=torch.device("cuda", idx))
+        _SCRATCH[idx] = buf
+    return buf.data_ptr()
+
+
+def _csr_scratch(dev, n_words: int) -> int:
+    """The zeroed scratch of one spec's compaction over n_words words."""
+    return zeroed_scratch(dev, csr_scratch_bytes(
+        1, csr_tiles(n_words, 0)[0]))
+
+
+def _i32_outs(dev, *shapes):
+    """Fresh int32 outputs of these shapes, views of ONE allocation."""
+    sizes = [int(np.prod(sh, dtype=np.int64)) for sh in shapes]
+    buf = torch.empty(max(1, sum(sizes)), dtype=torch.int32, device=dev)
+    outs, off = [], 0
+    for sh, n in zip(shapes, sizes):
+        outs.append(buf[off:off + n].view(sh))
+        off += n
+    return outs
+
+
+_FIN_ARGS = (_VP, _I, _I, _I, _VP, _I, _I, _VP, _VP, _I, _VP, _VP, _I,
+             _VP, _VP, _VP, _VP, _VP, _VP, _VP)
 
 
 def _finalize_cuda(packed, word_off, kid_rows, slot_subj, slot_kid,
@@ -504,21 +572,14 @@ def _finalize_cuda(packed, word_off, kid_rows, slot_subj, slot_kid,
     kc, w = kid_rows.shape
     s = slot_subj.shape[0]
     off = _span_offset(packed, kid_rows, word_off)
-    nblocks = max(1, int(ext.lib("finalize_csr").finalize_blocks(
-        ext.ctypes.c_longlong(s * w))))
-    indptr = torch.empty(s + 1, dtype=torch.int32, device=dev)
-    dep_rows = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    dep_ts = torch.empty(out_cap, 3, dtype=torch.int32, device=dev)
-    bound = torch.empty((), dtype=torch.int32, device=dev)
-    csum = torch.empty((), dtype=torch.int32, device=dev)
-    _buf, scratch = _compact_scratch(nblocks, dev)
-    ext.call("finalize_csr", "finalize_csr", ext.ptr(packed), b, wt, off,
-             ext.ptr(kid_rows), kc, w, ext.ptr(slot_subj),
-             ext.ptr(slot_kid), s, ext.ptr(subj_row), ext.ptr(act_ts),
-             out_cap, ext.ptr(indptr), ext.ptr(dep_rows), ext.ptr(dep_ts),
-             ext.ptr(bound), ext.ptr(csum), *scratch, ext.stream())
+    outs = _i32_outs(dev, (s + 1,), (out_cap,), (out_cap, 3), (), ())
+    ext.entry("finalize_csr", "finalize_csr", _FIN_ARGS)(
+        packed.data_ptr(), b, wt, off, kid_rows.data_ptr(), kc, w,
+        slot_subj.data_ptr(), slot_kid.data_ptr(), s, subj_row.data_ptr(),
+        act_ts.data_ptr(), out_cap, *(o.data_ptr() for o in outs),
+        _csr_scratch(dev, s * w), ext.raw_stream(dev.index))
     LAUNCHES["finalize_csr"] += 1
-    return indptr, dep_rows, dep_ts, bound, csum
+    return tuple(outs)
 
 
 def finalize_csr(packed, word_off, kid_rows, slot_subj, slot_kid,
@@ -532,6 +593,99 @@ def finalize_csr(packed, word_off, kid_rows, slot_subj, slot_kid,
                               slot_kid, subj_row, act_ts, out_cap)
     return finalize_csr_plain(packed, word_off, kid_rows, slot_subj,
                               slot_kid, subj_row, act_ts, out_cap)
+
+
+def finalize_csr_tab_plain(specs):
+    return tuple(finalize_csr_plain(*sp) for sp in specs)
+
+
+def fin_tab_layout(dims):
+    """The tiles of a finalize table over specs of dims (s, w, out_cap):
+    (each spec's (tile0, pad0), all tiles, compaction tiles)."""
+    tiles = [csr_tiles(s * w, oc) for s, w, oc in dims]
+    ctiles = sum(t[0] for t in tiles)
+    firsts, c0, p0 = [], 0, ctiles
+    for nt, npad in tiles:
+        firsts.append((c0, p0))
+        c0 += nt
+        p0 += npad
+    return firsts, p0, ctiles
+
+
+def fin_ent_pack(ext, dst: int, fin: int, s: int, w: int, act_ts: int,
+                 out_cap: int, outs, scratch: int, nspec: int, k: int,
+                 first) -> None:
+    """Write spec k's FinEnt record (csrc/finalize_csr.cu) to host address
+    dst: its FinIn at device address fin, its act_ts and five outputs
+    (device addresses), the table's scratch and its first tiles."""
+    ext.entry("finalize_csr", "fin_ent_pack",
+              (_VP, _VP, _I, _I, _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I,
+               _I, _I, _I))(dst, fin, s, w, act_ts, out_cap, *outs, scratch,
+                            nspec, k, *first)
+
+
+def fin_tab_launcher(specs):
+    """K2's table entry over finalize specs, each (packed, word_off,
+    kid_rows, slot_subj, slot_kid, subj_row, act_ts, out_cap) on one card:
+    its FinIn and FinEnt records uploaded (one copy) and its outputs made
+    -> (launch, outs). launch() is the ONE kernel launch that runs every
+    finalize (a CUDA graph can capture it alone); outs are each spec's
+    five outputs (finalize_csr's)."""
+    ext = _ext()
+    dev = specs[0][0].device
+    lib = ext.lib("finalize_csr")
+    fin_b, ent_b = int(lib.fin_in_bytes()), int(lib.fin_ent_bytes())
+    n = len(specs)
+    dims, outs = [], []
+    for sp in specs:
+        _check_cuda(specs[0][0], sp[0], *sp[2:7])
+        s, w, out_cap = sp[3].shape[0], sp[2].shape[1], int(sp[7])
+        dims.append((s, w, out_cap))
+        outs.append(tuple(_i32_outs(dev, (s + 1,), (out_cap,),
+                                    (out_cap, 3), (), ())))
+    firsts, tiles, ctiles = fin_tab_layout(dims)
+    scratch = zeroed_scratch(dev, csr_scratch_bytes(n, ctiles))
+    host = torch.empty(n * (fin_b + ent_b), dtype=torch.uint8,
+                       pin_memory=True)
+    tab = torch.empty(host.shape[0], dtype=torch.uint8, device=dev)
+    h0, d0 = host.data_ptr(), tab.data_ptr()
+    for k, (sp, (s, w, out_cap)) in enumerate(zip(specs, dims)):
+        packed, word_off, kid_rows, slot_subj, slot_kid, subj_row, act_ts = \
+            sp[:7]
+        lib.fin_in_pack(_VP(h0 + k * fin_b), _VP(packed.data_ptr()),
+                        _I(packed.shape[0]), _I(packed.shape[1]),
+                        _I(_span_offset(packed, kid_rows, word_off)),
+                        _VP(kid_rows.data_ptr()), _I(kid_rows.shape[0]),
+                        _I(w), _VP(slot_subj.data_ptr()),
+                        _VP(slot_kid.data_ptr()), _I(s),
+                        _VP(subj_row.data_ptr()))
+        fin_ent_pack(ext, h0 + n * fin_b + k * ent_b, d0 + k * fin_b, s, w,
+                     act_ts.data_ptr(), out_cap,
+                     [o.data_ptr() for o in outs[k]], scratch, n, k,
+                     firsts[k])
+    tab.copy_(host, non_blocking=True)
+    entry = ext.entry("finalize_csr", "finalize_csr_tab",
+                      (_VP, _I, _I, _I, _VP, _VP))
+
+    def launch(tab=tab):
+        entry(d0 + n * fin_b, n, tiles, ctiles, scratch,
+              ext.raw_stream(dev.index))
+        LAUNCHES["finalize_csr_tab"] += 1
+    return launch, tuple(outs)
+
+
+def finalize_csr_tab(specs):
+    """finalize_csr over many specs, each (packed, word_off, kid_rows,
+    slot_subj, slot_kid, subj_row, act_ts, out_cap): a tuple of each
+    spec's five outputs. On the card ONE launch of K2's table entry runs
+    them all (the protocol megakernel's key finalizes are one such node);
+    the FinIn and FinEnt records go up in one copy (fin_tab_launcher)."""
+    specs = tuple(specs)
+    if not specs or not specs[0][0].is_cuda:
+        return finalize_csr_tab_plain(specs)
+    launch, outs = fin_tab_launcher(specs)
+    launch()
+    return outs
 
 
 # -- K3: arena_scatter / arena_scatter_keys ----------------------------------
@@ -1068,13 +1222,10 @@ def segment_compact(m: torch.Tensor, out_cap: int):
     _check_cuda(m)
     s, w = m.shape
     dev = m.device
-    nblocks = max(1, int(ext.lib("range_finalize").compact_blocks(
-        ext.ctypes.c_longlong(s * w))))
-    indptr = torch.empty(s + 1, dtype=torch.int32, device=dev)
-    dep_rows = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    _buf, scratch = _compact_scratch(nblocks, dev)
+    indptr, dep_rows = _i32_outs(dev, (s + 1,), (out_cap,))
     ext.call("range_finalize", "segment_compact", ext.ptr(m), s, w, out_cap,
-             ext.ptr(indptr), ext.ptr(dep_rows), *scratch[:2], ext.stream())
+             ext.ptr(indptr), ext.ptr(dep_rows),
+             _VP(_csr_scratch(dev, s * w)), ext.stream())
     LAUNCHES["range_finalize"] += 1
     return indptr, dep_rows
 
@@ -1131,18 +1282,12 @@ def range_finalize_csr(iv_of, iv_start, iv_end, ent_ok, subj_before,
     rcap = r_start.shape[0]
     w = range_words(rcap)
     words = torch.empty(nv, w, dtype=torch.int32, device=dev)
-    _buf, scratch = _compact_scratch(
-        compact_blocks("range_finalize", "compact_blocks", nv * w), dev)
-    outs = (torch.empty(nv + 1, dtype=torch.int32, device=dev),
-            torch.empty(out_cap, dtype=torch.int32, device=dev),
-            torch.empty(out_cap, 3, dtype=torch.int32, device=dev),
-            torch.empty((), dtype=torch.int32, device=dev),
-            torch.empty((), dtype=torch.int32, device=dev))
+    outs = _i32_outs(dev, (nv + 1,), (out_cap,), (out_cap, 3), (), ())
     launch_range_finalize(ext, _addr, lanes, nv, subj_before.shape[0], rcap,
                           witness_table.shape[0], out_cap, words, outs,
-                          scratch)
+                          _VP(_csr_scratch(dev, nv * w)))
     LAUNCHES["range_finalize"] += 1
-    return outs
+    return tuple(outs)
 
 
 def range_words(rcap: int) -> int:
@@ -1153,23 +1298,17 @@ def range_words(rcap: int) -> int:
     return rcap // 32
 
 
-def compact_blocks(lib: str, entry: str, n: int) -> int:
-    """Blocks of the shared compaction (csrc/common.cuh launch_csr) over
-    n words, as the library's entry sizes it."""
-    return max(1, int(getattr(_ext().lib(lib), entry)(ctypes.c_longlong(n))))
-
-
 def launch_range_finalize(ext, A, lanes, nv: int, b: int, rcap: int,
                           nk: int, out_cap: int, words, outs, scratch):
     """K6's launch on device addresses (`A(x)`, see _addr): lanes are
     range_finalize_csr's twelve inputs in order, `words` the stab-word
     scratch i32[nv, rcap/32], outs its five outputs, scratch the
-    compaction's three pointers. range_finalize_csr and the protocol
-    megakernel's graph both launch K6 here."""
+    compaction's zeroed scratch. range_finalize_csr and the protocol
+    megakernel's graph both launch K6 here (two launches, no memset)."""
     of, ivs, ive, ok, sb, sk, r0, r1, r2, r3, r4, wt = (A(x) for x in lanes)
     ext.call("range_finalize", "range_finalize_csr", of, ivs, ive, ok, nv,
              sb, sk, b, r0, r1, r2, r3, r4, rcap, wt, nk, out_cap, A(words),
-             *(A(o) for o in outs), *(A(x) for x in scratch), ext.stream())
+             *(A(o) for o in outs), A(scratch), ext.stream())
 
 
 # -- K7: max_conflict --------------------------------------------------------
@@ -1337,13 +1476,13 @@ def launch_frontier_compact(ext, A, lanes, caps, out_cap: int, outs,
                             scratch) -> None:
     """K9's compact entry on device addresses (`A(x)`, see _addr): lanes
     are the planes' five operands each, caps their row counts, outs
-    (packed, indptr, rows, csum), scratch the compaction's three
-    pointers. frontier_compact and the protocol megakernel's graph both
-    launch it here."""
+    (packed, indptr, rows, csum), scratch the compaction's zeroed scratch.
+    frontier_compact and the protocol megakernel's graph both launch it
+    here (two launches, no memset)."""
     packed, indptr, rows, csum = (A(o) for o in outs)
     ext.call("exec_frontier", "frontier_compact", len(lanes),
              *_plane_arrays(A, lanes, caps), out_cap, packed, indptr, rows,
-             csum, *(A(x) for x in scratch), ext.stream())
+             csum, A(scratch), ext.stream())
 
 
 def _frontier_cuda(planes) -> torch.Tensor:
@@ -1426,15 +1565,12 @@ def frontier_compact(planes, out_cap: int):
     _check_cuda(*(t for p in planes for t in p))
     n = len(planes)
     dev = planes[0][0].device
-    packed = torch.empty(w_tot, dtype=torch.int32, device=dev)
-    indptr = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    rows = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    csum = torch.empty((), dtype=torch.int32, device=dev)
-    _buf, scratch = _compact_scratch(
-        compact_blocks("exec_frontier", "compact_blocks", n * w_tot), dev)
+    packed, indptr, rows, csum = _i32_outs(dev, (w_tot,), (n + 1,),
+                                           (out_cap,), ())
     launch_frontier_compact(ext, _addr, planes,
                             [p[0].shape[0] for p in planes], out_cap,
-                            (packed, indptr, rows, csum), scratch)
+                            (packed, indptr, rows, csum),
+                            _VP(_csr_scratch(dev, n * w_tot)))
     LAUNCHES["frontier_compact"] += 1
     return indptr, rows, csum, packed
 
@@ -1797,6 +1933,23 @@ def _check_cmd_cols(status, flags, promised, accepted, execute_at,
                          "i32[cap], i32[kcap, 3] and bool[kcap]")
 
 
+# cmd_tick's C entry: 16 column pointers, cap, kcap, 12 op-lane pointers,
+# n, kpad, 5 scalars, promote, 6 result pointers, the ticket, the stream
+_CMD_TICK_ARGS = ((_VP,) * 16 + (_I, _I) + (_VP,) * 12 + (_I,) * 8
+                  + (_VP,) * 8)
+
+
+@functools.lru_cache(maxsize=64)
+def _cmd_sig(cap: int, kcap: int, n: int, kpad: int) -> tuple:
+    """(dtype, shape) of cmd_tick's eight columns and twelve op lanes."""
+    i32, b8 = torch.int32, torch.bool
+    shapes = ((cap,), (cap,), (cap, 3), (cap, 3), (cap, 3), (cap,),
+              (kcap, 3), (kcap,), (n,), (n,), (n, 3), (n, 3), (n, 3),
+              (n, kpad), (n,), (n,), (n,), (n,), (n, kpad), (n, kpad))
+    dtypes = (i32,) * 7 + (b8,) + (i32,) * 9 + (b8, i32, b8)
+    return tuple((d, torch.Size(sh)) for d, sh in zip(dtypes, shapes))
+
+
 def cmd_tick(status, flags, promised, accepted, execute_at, durability,
              kmax, kmax_valid, clock, op_kind, op_row, op_txn, op_ballot,
              op_exec, op_keys, op_flags, op_now, op_prev, op_rlast, op_kprev,
@@ -1821,31 +1974,26 @@ def cmd_tick(status, flags, promised, accepted, execute_at, durability,
         return cmd_tick_plain(*cols, clock, *ops, node_epoch, lane2_clean,
                               lane2_rej, dur_local, promote=promote)
     ext = _ext()
-    _check_cuda(*cols, *ops)
-    _check_cmd_cols(*cols)
+    ts = cols + ops
+    _check_cuda(*ts)
     n, kpad = op_keys.shape
-    if (not 1 <= kpad <= _CMD_KPAD_MAX
-            or any(t.dtype != torch.int32 for t in ops
-                   if t is not op_rlast and t is not op_klast)
-            or op_rlast.dtype != torch.bool or op_klast.dtype != torch.bool
-            or any(tuple(t.shape) != (n,) for t in (
-                op_kind, op_row, op_flags, op_now, op_prev, op_rlast))
-            or any(tuple(t.shape) != (n, 3)
-                   for t in (op_txn, op_ballot, op_exec))
-            or any(tuple(t.shape) != (n, kpad) for t in (op_kprev,
-                                                           op_klast))):
+    if not 1 <= kpad <= _CMD_KPAD_MAX \
+            or [(t.dtype, t.shape) for t in ts] != list(_cmd_sig(
+                status.shape[0], kmax.shape[0], n, kpad)):
+        _check_cmd_cols(*cols)
         raise ValueError(f"cmd_tick: op lanes must be i32/bool[n] and "
                          f"[n, 3] / [n, kpad] with 1 <= kpad <= "
                          f"{_CMD_KPAD_MAX}")
+    dev = status.device
     outs = tuple(torch.empty_like(t) for t in cols)
-    _blk, code, ost, ots, chains, oclock, csum = cmd_tick_block(
-        n, kpad, status.device)
-    ext.call("cmd_tick", "cmd_tick", *(ext.ptr(t) for t in cols),
-             *(ext.ptr(t) for t in outs), status.shape[0], kmax.shape[0],
-             *(ext.ptr(t) for t in ops), n, kpad,
-             *(int(s) for s in scalars), int(bool(promote)),
-             ext.ptr(code), ext.ptr(ost), ext.ptr(ots), ext.ptr(chains),
-             ext.ptr(oclock), ext.ptr(csum), ext.stream())
+    _blk, code, ost, ots, chains, oclock, csum = cmd_tick_block(n, kpad, dev)
+    ext.entry("cmd_tick", "cmd_tick", _CMD_TICK_ARGS)(
+        *(t.data_ptr() for t in cols), *(t.data_ptr() for t in outs),
+        status.shape[0], kmax.shape[0], *(t.data_ptr() for t in ops), n,
+        kpad, *(int(s) for s in scalars), int(bool(promote)),
+        code.data_ptr(), ost.data_ptr(), ots.data_ptr(), chains.data_ptr(),
+        oclock.data_ptr(), csum.data_ptr(), zeroed_scratch(dev, 16),
+        ext.raw_stream(dev.index))
     LAUNCHES["cmd_tick"] += 1
     return (*outs, oclock, code, ots, ost, csum, chains)
 
@@ -1882,17 +2030,14 @@ def recovery_scan(status, touched_ms, now_ms, stall_ms, out_cap: int):
     _check_cuda(status, touched_ms)
     dev = status.device
     words = cap // 32
-    nblocks = max(1, int(ext.lib("recovery_scan").compact_blocks(
-        ext.ctypes.c_longlong(words))))
-    packed = torch.empty(words, dtype=torch.int32, device=dev)
-    indptr = torch.empty(2, dtype=torch.int32, device=dev)
-    rows = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    csum = torch.empty((), dtype=torch.int32, device=dev)
-    _buf, scratch = _compact_scratch(nblocks, dev)
-    ext.call("recovery_scan", "recovery_scan", ext.ptr(status),
-             ext.ptr(touched_ms), cap, _w32(int(now_ms)),
-             _w32(int(stall_ms)), out_cap, ext.ptr(packed), ext.ptr(indptr),
-             ext.ptr(rows), ext.ptr(csum), *scratch, ext.stream())
+    packed, indptr, rows, csum = _i32_outs(dev, (words,), (2,), (out_cap,),
+                                           ())
+    ext.entry("recovery_scan", "recovery_scan",
+              (_VP, _VP, _I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP))(
+        status.data_ptr(), touched_ms.data_ptr(), cap, _w32(int(now_ms)),
+        _w32(int(stall_ms)), out_cap, packed.data_ptr(), indptr.data_ptr(),
+        rows.data_ptr(), csum.data_ptr(), _csr_scratch(dev, words),
+        ext.raw_stream(dev.index))
     LAUNCHES["recovery_scan"] += 1
     return indptr, rows, csum
 

@@ -15,11 +15,14 @@ byte regions:
          pointers, output pointer), the mailbox table (the plane's arena,
          meta and partition-mask pointers: the arena is updated in place),
          one FinIn per key finalize (its packed window, kid table and
-         lanes), and the copy tables below.
-  fixed  device memory that belongs to the graph: the tick's device inputs
-         that a stage reads by argument (gathered by the graph's second
-         node, csrc/tick_graph.cu table_copy), scratch, and every stage
-         output but the merged results.
+         lanes) and the FinEnt table that runs them all in ONE launch of
+         K2's table entry, and the copy tables below.
+  fixed  device memory that belongs to the graph, zeroed when allocated:
+         the tick's device inputs that a stage reads by argument
+         (gathered by the graph's second node, csrc/tick_graph.cu
+         table_copy), scratch (the compaction's tile states and K10's
+         ticket start at zero and every replay leaves them so), and every
+         stage output but the merged results.
   out    a fresh device buffer per tick: the merged results, written in
          place through the block tables' output pointers, and every other
          output, scattered there by the graph's last node. The caller's
@@ -108,6 +111,7 @@ class _Prog:
         self.scatters: list = []  # (fixed off, out off, bytes)
         self.launches: list = []  # fn(bases) under capture
         self.counts: Dict[str, int] = {}
+        self.fin_tab: list = []   # the key finalizes of K2's table launch
 
     def alloc(self, space: str, nbytes: int) -> tuple:
         off = self.size[space]
@@ -241,13 +245,17 @@ def _stage_range(P, ext, wt_ref, nk, rng_in):
     return (r_ref, r_view, rdims[2]), (k_ref, k_view, kdims[2])
 
 
-def _compact_scratch(P, lib: str, entry: str, n: int) -> tuple:
-    nblocks = K.compact_blocks(lib, entry, n)
-    return (P.alloc("f", 4 * nblocks), P.alloc("f", 4 * nblocks),
-            P.alloc("f", 12))
+def _fixed_csr_scratch(P, nspec: int, ctiles: int) -> tuple:
+    """The zeroed fixed-memory scratch of a one-launch compaction (the
+    graph's fixed region is zeroed when allocated, and every replay leaves
+    the scratch zeroed again)."""
+    return P.alloc("f", K.csr_scratch_bytes(nspec, ctiles))
 
 
 def _stage_fin_key(P, ext, spec, args, src):
+    """A key/rkey finalize: its FinIn (written into the param block every
+    tick) and its outputs. The tick's key finalizes run as ONE launch of
+    K2's table entry (_stage_fin_tab)."""
     kind, rows, words, out_cap = spec
     (r0, w_lo, word_off, kid_rows, slot_subj, slot_kid, subj_row,
      act_ts) = args
@@ -265,8 +273,8 @@ def _stage_fin_key(P, ext, spec, args, src):
     packed = (s_ref[0], s_ref[1] + 4 * (r * wt + c))
     k_ptr, ss, sk, sr = (P.ptr(x) for x in (kid_rows, slot_subj, slot_kid,
                                             subj_row))
-    fin = P.alloc("p", int(ext.lib("finalize_csr").fin_in_bytes()))
     lib = ext.lib("finalize_csr")
+    fin = P.alloc("p", int(lib.fin_in_bytes()))
 
     def write(pin_addr, bases, fin=fin, packed=packed):
         lib.fin_in_pack(
@@ -278,15 +286,40 @@ def _stage_fin_key(P, ext, spec, args, src):
     ts = P.inp(act_ts)
     outs = [P.out(sh, torch.int32) for sh in ((s + 1,), (out_cap,),
                                               (out_cap, 3), (), ())]
-    scratch = _compact_scratch(P, "finalize_csr", "finalize_blocks", s * w)
+    P.fin_tab.append((fin, s, w, ts, int(out_cap), [o[0] for o in outs]))
+    return tuple(o[1] for o in outs)
+
+
+def _stage_fin_tab(P, ext) -> None:
+    """Every key/rkey finalize of the tick in ONE launch of K2's table
+    entry: the FinEnt records in the param block (written every tick, as
+    their FinIns are), the scratch in fixed memory."""
+    lib = ext.lib("finalize_csr")
+    ent_b = int(lib.fin_ent_bytes())
+    ents = P.fin_tab
+    n = len(ents)
+    firsts, tiles, ctiles = K.fin_tab_layout(
+        [(s, w, oc) for _f, s, w, _t, oc, _o in ents])
+    tab = P.alloc("p", ent_b * n)
+    scratch = _fixed_csr_scratch(P, n, ctiles)
+
+    def write(pin_addr, bases):
+        sc = _addr(bases, scratch)
+        for k, (fin, s, w, ts, out_cap, outs) in enumerate(ents):
+            K.fin_ent_pack(ext, pin_addr + tab[1] + k * ent_b,
+                           _addr(bases, fin), s, w, _addr(bases, ts),
+                           out_cap, [_addr(bases, o) for o in outs], sc, n,
+                           k, firsts[k])
+    P.calls.append(write)
 
     def go(B):
-        ext.call("finalize_csr", "finalize_csr_ref", _A(B, fin), w, s,
-                 _A(B, ts), out_cap, *(_A(B, o[0]) for o in outs),
-                 *(_A(B, x) for x in scratch), ext.stream())
+        ext.entry("finalize_csr", "finalize_csr_tab",
+                  (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p))(
+            _addr(B, tab), n, tiles, ctiles, _addr(B, scratch),
+            ext.stream())
     P.launches.append(go)
-    P.count("finalize_csr")
-    return tuple(o[1] for o in outs)
+    P.count("finalize_csr_tab")
 
 
 def _stage_fin_range(P, ext, wt_ref, nk, out_cap, args):
@@ -302,7 +335,7 @@ def _stage_fin_range(P, ext, wt_ref, nk, out_cap, args):
     outs = [P.out(sh, torch.int32) for sh in ((nv + 1,), (out_cap,),
                                               (out_cap, 3), (), ())]
     o_refs = [o[0] for o in outs]
-    scratch = _compact_scratch(P, "range_finalize", "compact_blocks", nv * w)
+    scratch = _fixed_csr_scratch(P, 1, K.csr_tiles(nv * w, out_cap)[0])
     P.launches.append(lambda B: K.launch_range_finalize(
         ext, _addrs(B), lanes, nv, b, rcap, nk, out_cap, words, o_refs,
         scratch))
@@ -331,6 +364,7 @@ def _stage_cmd(P, ext, c):
     res = [P.out(sh, torch.int32) for sh in ((), (n,), (n, 3), (n,), (),
                                              (n, cw))]
     oclock, code, ots, ost, csum, chains = res
+    ticket = P.alloc("f", 16)     # zeroed; each replay leaves it so
 
     def go(B):
         ext.call("cmd_tick", "cmd_tick_dsc", *(_A(B, r) for r in col_refs),
@@ -338,7 +372,7 @@ def _stage_cmd(P, ext, c):
                  *(_A(B, r) for r in op_refs), n, kpad, _A(B, sc),
                  int(promote), _A(B, code[0]), _A(B, ost[0]),
                  _A(B, ots[0]), _A(B, chains[0]), _A(B, oclock[0]),
-                 _A(B, csum[0]), ext.stream())
+                 _A(B, csum[0]), _A(B, ticket), ext.stream())
     P.launches.append(go)
     P.count("cmd_tick")
     return tuple(o[1] for o in outs) + tuple(x[1] for x in res)
@@ -381,8 +415,7 @@ def _stage_exec(P, ext, planes, out_cap: int):
     # frontier_compact's outputs are (indptr, rows, csum, packed); the
     # launch takes (packed, indptr, rows, csum)
     o_refs = [outs[3][0], outs[0][0], outs[1][0], outs[2][0]]
-    scratch = _compact_scratch(P, "exec_frontier", "compact_blocks",
-                               n * w_tot)
+    scratch = _fixed_csr_scratch(P, 1, K.csr_tiles(n * w_tot, out_cap)[0])
     P.launches.append(lambda B: K.launch_frontier_compact(
         ext, _addrs(B), lanes, caps, out_cap, o_refs, scratch))
     P.count("frontier_compact")
@@ -730,6 +763,8 @@ def _build(ext, dev, witness_table, key_in, rng_in, fin_statics, fin_traced,
         src = packed if spec[0] == "key" else (rng[1] if rng else None)
         fins.append(_stage_fin_key(P, ext, spec, args, src) if mesh is None
                     else _stage_fin_shard(P, ext, spec, args, src, mesh))
+    if P.fin_tab:
+        _stage_fin_tab(P, ext)
     cmd_outs = [_stage_cmd(P, ext, c) for c in cmds]
     q_out = _stage_quorum(P, ext, quorum, quorum_size) \
         if quorum is not None else ()
@@ -771,7 +806,9 @@ class _TickGraph:
         self.pin_addr = self.pin_t.data_ptr()
         self.pdev = torch.empty(self.pin_t.shape[0], dtype=torch.uint8,
                                 device=P.dev)
-        self.fixed = torch.empty(max(P.size["f"], _ALIGN), dtype=torch.uint8,
+        # zeroed once: the compaction's and cmd_tick's scratch in it must
+        # start at zero (every replay leaves it so)
+        self.fixed = torch.zeros(max(P.size["f"], _ALIGN), dtype=torch.uint8,
                                  device=P.dev)
         self.nbytes = 2 * self.pin_t.numel() + self.fixed.numel()
         self.launches = P.launches

@@ -1,16 +1,17 @@
-"""Time K10 (`csrc/cmd_tick.cu`) with each side of its two forks.
+"""Time K10 (`csrc/cmd_tick.cu`) with each side of its one fork.
 
-K10 keeps its chains and staged op lanes in dynamic shared memory up to
-CMD_TICK_SMEM_MAX bytes (global memory above), and runs a walk
-specialised for kpad 4 (CMD_TICK_KPAD4). This script builds four
-libraries of the same source -- shipped, chains in global memory, runtime
-kpad, both -- and replays one recorded dispatch of each op tier through
-the `cmd_tick` wrapper with each library in turn: the cmd burn's first
-tier-8 dispatch, the cmd batch's first tier-512 dispatch (the inputs
-chip_smoke.py replays) and one 4096-op PreAccept span (the tier whose
-chains no longer fit shared memory). Every variant must be bit-equal to
-the plain version; the times are CUDA-event means, the variants
-interleaved (A B C D D C B A, three rounds) and the median kept.
+K10 keeps its chains, kid lanes and staged outputs in dynamic shared
+memory up to CMD_TICK_SMEM_MAX bytes (global memory above: tier 4096).
+This script builds two libraries of the same source -- shipped, and with
+everything in global memory (-DCMD_TICK_SMEM_MAX=0) -- and replays one
+recorded dispatch of each op tier through the `cmd_tick` wrapper with
+each library in turn: the cmd burn's first tier-8 dispatch, the cmd
+batch's first tier-512 dispatch (the inputs chip_smoke.py replays) and
+one 4096-op PreAccept span (the tier whose chains never fit shared
+memory). Every variant must be bit-equal to the plain version; the wall
+times are CUDA-event means of the wrapper called in a loop, the device
+times 100 calls in one CUDA graph, the variants interleaved (A B B A,
+three rounds) and the median kept.
 
     python -m accord_tpu_torch.tools.cmd_tick_variants
 
@@ -26,10 +27,7 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
-VARIANTS = {"shipped": (), "global_chains": ("-DCMD_TICK_SMEM_MAX=0",),
-            "runtime_kpad": ("-DCMD_TICK_KPAD4=0",),
-            "global_runtime_kpad": ("-DCMD_TICK_SMEM_MAX=0",
-                                    "-DCMD_TICK_KPAD4=0")}
+VARIANTS = {"shipped": (), "global_chains": ("-DCMD_TICK_SMEM_MAX=0",)}
 ITERS = {8: 200, 512: 50, 4096: 10}
 
 
@@ -96,26 +94,36 @@ def main() -> int:
     names = list(VARIANTS)
     order = (names + names[::-1]) * 3
     report = {"card": card, "tiers": {}}
+
+    def use(lib) -> None:
+        # the wrapper resolves its C entry once: drop it with the library
+        _ext._LIBS["cmd_tick"] = lib
+        _ext._ENTRIES.pop(("cmd_tick", "cmd_tick"), None)
     try:
         for tier, (args, kw) in calls.items():
             plain = tk.cmd_tick_plain(*args, **kw)
-            samples = {n: [] for n in names}
+            wall = {n: [] for n in names}
+            dev = {n: [] for n in names}
             for n in names:
-                _ext._LIBS["cmd_tick"] = libs[n]
+                use(libs[n])
                 err = smoke.max_abs_err(tk.cmd_tick(*args, **kw), plain)
                 smoke.check(err == 0, f"{n} at tier {tier}: differs from "
                             f"the plain version by {err}")
             for n in order:
-                _ext._LIBS["cmd_tick"] = libs[n]
-                samples[n].append(smoke.time_ms(
+                use(libs[n])
+                wall[n].append(smoke.time_ms(
                     lambda: tk.cmd_tick(*args, **kw), ITERS[tier], True))
+                dev[n].append(smoke.graph_ms(
+                    lambda: tk.cmd_tick(*args, **kw)))
             report["tiers"][str(tier)] = {
                 "kpad": int(args[14].shape[1]),
                 "promote": bool(kw.get("promote")),
-                "ms": {n: statistics.median(v) for n, v in samples.items()},
-                "ms_samples": samples}
+                "ms": {n: statistics.median(v) for n, v in wall.items()},
+                "device_ms": {n: statistics.median(v)
+                              for n, v in dev.items()},
+                "ms_samples": wall, "device_ms_samples": dev}
     finally:
-        _ext._LIBS["cmd_tick"] = shipped
+        use(shipped)
     print(card)
     print(json.dumps(report))
     return 0

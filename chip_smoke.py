@@ -109,8 +109,13 @@ launched.
      and 1,024 buckets, 30,000 live rows, 4,096 subjects in 128 plans of
      32, one key finalize each, 4,096 quorum lanes: the replay bit-equal
      to the plain protocol_tick, every plan's deps equal to the host
-     scan; the replay, K13, K2 and K16 alone, and the stages launched one
-     by one, timed;
+     scan, the 128 key finalizes ONE finalize_csr_tab launch; the replay,
+     the key stage alone and with its finalizes (the finalize stage is
+     the difference), K13, K2 and K16 alone, and the stages launched one
+     by one, timed; then the tick's 128 key finalizes, recorded, replayed
+     through K2's table entry (one launch) and through 128 per-spec
+     finalize_csr calls, each set captured in one CUDA graph and replayed
+     twice: both bit-equal to the plain versions, both replay times;
  19. message plane (bench.py's bench_message_plane config: seed 6, rf 5,
      concurrency 24, megakernel; 64 nodes x 60 ops, 256 x 30, 1024 x 12):
      replica payloads ride the mailbox stage (K17) of the one replay a
@@ -191,7 +196,14 @@ launched.
      device_ms (100 calls captured in one CUDA graph, replayed, over 100)
      beside ms (the wrapper called in a loop between events, which reads
      the host's enqueue rate), and library_device_ms likewise; the merged
-     sweep's lane_slice launches are at most its merged dispatches.
+     sweep's lane_slice launches are at most its merged dispatches. K10,
+     K2 (finalize_csr and its table entry finalize_csr_tab, replayed on
+     the sweep's largest tick's and the 10k tick's key finalizes), K6, K9's
+     compact entry and K11 also report device_ms, and a torch.profiler
+     trace of one eager call: K10 and K2 one kernel, K6, K9 and K11 their
+     words kernel and the one compaction kernel, no memset or copy. Every
+     kernel must have launched on its path. The build phase holds K10's
+     walking kernel to 0 bytes of stack frame and spills (ptxas -v).
 The last three lines are the card line, one JSON line of kernels, and the
 result line {"ok": true, "device": {...}}.
 """
@@ -210,6 +222,8 @@ KERNELS = (
     ("deps_resolve", "accord_tpu_torch/csrc/deps_resolve.cu",
      "accord_tpu/ops/kernels.py:268"),
     ("finalize_csr", "accord_tpu_torch/csrc/finalize_csr.cu",
+     "accord_tpu/ops/kernels.py:697"),
+    ("finalize_csr_tab", "accord_tpu_torch/csrc/finalize_csr.cu",
      "accord_tpu/ops/kernels.py:697"),
     ("arena_scatter", "accord_tpu_torch/csrc/arena_scatter.cu",
      "accord_tpu/ops/kernels.py:822"),
@@ -271,6 +285,7 @@ EXEC_KERNELS = ("exec_scatter", "execution_frontier",
 # kernel-module functions recorded on the paths, by kernel
 RECORDED = {"deps_resolve": ("deps_resolve", "fused_deps_resolve"),
             "finalize_csr": ("finalize_csr",),
+            "finalize_csr_tab": ("finalize_csr_tab",),
             "arena_scatter": ("arena_scatter", "arena_scatter_keys"),
             "row_scatter": ("scatter_rows", "kid_word_scatter",
                             "arena_grow", "lane_table"),
@@ -291,6 +306,7 @@ RECORDED = {"deps_resolve": ("deps_resolve", "fused_deps_resolve"),
             **{k: (k,) for k in DENSE_KERNELS}}
 # the path whose launches each kernel's entry reports
 PATH_OF = {"deps_resolve": "key_burn", "finalize_csr": "key_burn",
+           "finalize_csr_tab": "mega_sweep",
            "arena_scatter": "key_burn", "row_scatter": "key_burn",
            "range_scatter": "range_burn", "range_resolve": "range_burn",
            "range_finalize": "range_burn", "max_conflict": "inline",
@@ -445,10 +461,42 @@ def time_ms(fn, iters: int, cuda: bool) -> float:
     return start.elapsed_time(end) / iters
 
 
-# the wrappers whose rows (PERF.md 6-8, 24, 30) also give device time
+# the wrappers whose rows (PERF.md 3, 6-8, 21-25, 30) also give device time
 DEVICE_TIMED = ("scatter_rows", "kid_word_scatter", "arena_grow",
                 "lane_table", "range_scatter", "lane_slice",
-                "lane_slice_many")
+                "lane_slice_many", "cmd_tick", "finalize_csr",
+                "finalize_csr_tab", "range_finalize_csr", "frontier_compact",
+                "recovery_scan")
+# the kernels one eager call launches, by wrapper (a torch.profiler trace,
+# which must also show no memset or copy; finalize_csr_tab: its launch,
+# the table uploaded before)
+KERNELS_A_CALL = {"cmd_tick": 1, "finalize_csr": 1, "finalize_csr_tab": 1,
+                  "segment_compact": 1, "range_finalize_csr": 2,
+                  "frontier_compact": 2, "recovery_scan": 2}
+
+
+def trace_call(fn) -> dict:
+    """The kernels and the memsets and copies a torch.profiler trace shows
+    on the card in one call of fn (after a warm call). A trace that holds
+    no device activity at all says nothing of the call (the profiler
+    delivered none): it is taken again, up to three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    moves = [n for n in names if "memset" in n.lower()
+             or "memcpy" in n.lower()]
+    return {"kernels": [n.split("(")[0] for n in names if n not in moves],
+            "moves": moves}
 
 
 def graph_ms(fn, n: int = 100) -> float:
@@ -527,6 +575,7 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
         "deps_resolve": tk.deps_resolve_plain,
         "fused_deps_resolve": tk.fused_deps_resolve_plain,
         "finalize_csr": tk.finalize_csr_plain,
+        "finalize_csr_tab": tk.finalize_csr_tab_plain,
         "arena_scatter": tk.arena_scatter_plain,
         "arena_scatter_keys": tk.arena_scatter_keys_plain,
         "scatter_rows": tk._scatter_lane_plain,
@@ -580,9 +629,24 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
             err = max_abs_err(out, plain(*args, **kw))
         ms = time_ms(lambda: kern(*args, **kw), iters, cuda)
         extra = {}
-        if fn_name in DEVICE_TIMED and cuda:
+        if fn_name == "finalize_csr_tab" and cuda:
+            # its launch alone: the table goes up before the capture
+            launch, _outs = tk.fin_tab_launcher(args[0])
+            extra["device_ms"] = graph_ms(launch)
+            extra["specs"] = len(args[0])
+            extra["trace"] = trace_call(launch)
+        elif fn_name in DEVICE_TIMED and cuda:
             # the host's enqueue left out: 100 calls in one CUDA graph
             extra["device_ms"] = graph_ms(lambda: kern(*args, **kw))
+        if fn_name in KERNELS_A_CALL and cuda:
+            if "trace" not in extra:
+                extra["trace"] = trace_call(lambda: kern(*args, **kw))
+            t = extra["trace"]
+            check(len(t["kernels"]) == KERNELS_A_CALL[fn_name]
+                  and not t["moves"],
+                  f"{fn_name}: one call launched {t['kernels']} and moved "
+                  f"{t['moves']}, not {KERNELS_A_CALL[fn_name]} kernel(s) "
+                  "and no memset or copy")
         if fn_name == "protocol_tick" and cuda:
             out = kern(*args, **kw)      # the last call: its graph replays
             extra["call_ms"] = ms
@@ -660,6 +724,11 @@ def derived_call(tk, fn_name, rec):
             m, _ = tk.range_stab_words_plain(*args)
             return (m, kw["out_cap"]), {}
     tick = rec.get("protocol_tick")
+    if fn_name == "finalize_csr_tab" and tick is not None:
+        # the recorded tick's key finalizes over its key stage's result
+        (wt, *_), kw = tick
+        if kw.get("key_in") and any(f[0] == "key" for f in kw["fins"]):
+            return (key_fin_specs(tk, wt, kw),), {}
     if tick is not None:
         (wt, *_), kw = tick
         if fn_name == "node_fused_deps_resolve" and kw.get("key_in"):
@@ -669,6 +738,26 @@ def derived_call(tk, fn_name, rec):
         if fn_name == "quorum_count" and kw.get("quorum") is not None:
             return (*kw["quorum"], kw["quorum_size"]), {}
     return None
+
+
+def key_fin_specs(tk, wt, kw) -> list:
+    """finalize_csr's arguments for each key finalize of a protocol_tick
+    call: the key stage's merged result computed on wt's device (K13), a
+    spec's rows of it, and its word span as finalize_csr's word_off."""
+    from accord_tpu_torch.ops import node_lane as nl
+    key_in = _on(kw["key_in"], wt.device)
+    packed = nl.node_fused_deps_resolve(*key_in, wt)
+    specs = []
+    for f in kw["fins"]:
+        if f[0] != "key":
+            continue
+        _k, r0, w0, rows, words, off, kid_rows = f[:7]
+        r = nl.dyn_start(r0, packed.shape[0], rows)
+        c = nl.dyn_start(w0, packed.shape[1], words)
+        off = min(max(int(off), 0), words - kid_rows.shape[1])
+        specs.append((packed[r:r + rows], c + off,
+                      *_on(tuple(f[6:11]), wt.device), f[11]))
+    return specs
 
 
 def tick_bound(tk, args, kw, out):
@@ -801,6 +890,13 @@ def bound_inputs(tk, fn_name, args, kw, out):
         ops = 2 * pairs * nw
         bytes_ = nbytes(args) + nbytes(out)
         return bytes_, ops, None
+    if fn_name == "finalize_csr_tab":
+        b_ = o_ = 0
+        for sp, o in zip(args[0], out):
+            bb, oo, _ = bound_inputs(tk, "finalize_csr", sp[:7],
+                                     {"out_cap": sp[7]}, o)
+            b_, o_ = b_ + bb, o_ + oo
+        return b_, o_, None
     if fn_name == "finalize_csr":
         packed, word_off, kid_rows, slot_subj, slot_kid, subj_row, act_ts = \
             args
@@ -974,6 +1070,18 @@ def build_phase() -> float:
                      re.findall(r"(\d+) bytes spill stores", text))
         log(f"  ptxas {stem}: {len(regs)} kernels, at most "
             f"{max(regs, default=0)} registers, {spills} bytes spilled")
+        if stem == "cmd_tick":
+            # K10's walking kernel: no stack frame and no spills
+            lines = text.splitlines()
+            for i, line in enumerate(lines):
+                if "Function properties for" in line \
+                        and "cmd_tick_kernel" in line:
+                    props = lines[i + 1].strip()
+                    log(f"    {line.split()[-1]}: {props}")
+                    frame = [int(x) for x in re.findall(r"(\d+) bytes",
+                                                        props)]
+                    check(len(frame) == 3 and frame == [0, 0, 0],
+                          f"K10's walking kernel: {props}")
     return time.perf_counter() - t0
 
 
@@ -2023,6 +2131,9 @@ def run(rehearse: bool) -> dict:
         for k in reports:
             check(k["max_abs_err"] == 0,
                   f"kernel {name} disagrees with its plain version")
+        if cuda:
+            check(launches[path][name] > 0,
+                  f"{path}: kernel {name} never launched")
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[path][name],
@@ -2034,7 +2145,8 @@ def run(rehearse: bool) -> dict:
             "library_ms": head["library_ms"], "call": head["call"],
             "calls": [_brief(r) for r in head["calls"]],
             **{k: head[k] for k in ("op_tier", "ms_per_op", "device_ms",
-                                    "library_device_ms") if k in head},
+                                    "library_device_ms", "specs", "trace")
+               if k in head},
             "launches_by_path": {p: launches[p][name] for p in launches}}
         for label, r in labelled:
             entry[label] = dict(_brief(r),
@@ -2367,9 +2479,13 @@ def merged_tick(device: str, cuda: bool, rehearse: bool, tk) -> dict:
               quorum_size=2)
     plain = tk.protocol_tick_plain(wt, **_on(kw, device))
     c0 = tk.CAPTURES["protocol_tick"]
+    l0 = dict(tk.LAUNCHES)
     got = tk.protocol_tick(wt, **kw)
     if cuda:
         torch.cuda.synchronize()
+        check(tk.LAUNCHES["finalize_csr_tab"] - l0["finalize_csr_tab"] == 1
+              and tk.LAUNCHES["finalize_csr"] == l0["finalize_csr"],
+              "merged tick: the key finalizes are not one table launch")
     err = max_abs_err(got, plain)
     check(err == 0, f"merged tick: replay differs from the plain version "
           f"(max abs err {err})")
@@ -2404,6 +2520,17 @@ def merged_tick(device: str, cuda: bool, rehearse: bool, tk) -> dict:
     if cuda:
         iters = 20
         out["replay_ms"] = time_ms(last_graph_replay(), iters, cuda)
+        # the key finalize stage: the replay of the key stage with the
+        # finalizes less the replay of the key stage alone
+        k_only = tk.protocol_tick(wt, key_in=key_in)  # noqa: F841 (alive)
+        out["key_stage_replay_ms"] = time_ms(last_graph_replay(), iters,
+                                             cuda)
+        k_fins = tk.protocol_tick(wt, key_in=key_in,  # noqa: F841
+                                  fins=tuple(fins))
+        out["key_fins_replay_ms"] = time_ms(last_graph_replay(), iters,
+                                            cuda)
+        out["fin_stage_ms"] = out["key_fins_replay_ms"] \
+            - out["key_stage_replay_ms"]
         out["call_ms"] = time_ms(lambda: tk.protocol_tick(wt, **kw),
                                  iters, cuda)
         dkey = _on(key_in, device)
@@ -2427,7 +2554,44 @@ def merged_tick(device: str, cuda: bool, rehearse: bool, tk) -> dict:
             tk.quorum_count(*dq, 2)
         out["one_by_one_ms"] = time_ms(one_by_one, iters, cuda)
     log(f"merged_tick[{device}]: {json.dumps(out)}")
+    out["fin_table"] = fin_table(device, cuda, tk, wt, kw)
     return {"out": out, "args": ((wt,), kw)}
+
+
+def fin_table(device: str, cuda: bool, tk, wt, kw) -> dict:
+    """The 10k tick's key finalizes, recorded, through K2's table entry
+    (one launch) and through per-spec finalize_csr calls (one launch each),
+    each set captured in one CUDA graph and replayed twice: both bit-equal
+    to the plain versions after each replay; both replay times."""
+    import torch
+    specs = key_fin_specs(tk, _on(wt, device), kw)
+    plain = tk.finalize_csr_tab_plain(specs)
+    out = {"specs": len(specs)}
+    if not cuda:
+        check(max_abs_err(tk.finalize_csr_tab(specs), plain) == 0,
+              "finalize table: differs from the plain versions")
+        return out
+    launch, tab_outs = tk.fin_tab_launcher(specs)
+    launch()
+    per = [tk.finalize_csr(*sp) for sp in specs]     # warm, the scratch
+    torch.cuda.synchronize()
+    g_tab, g_per = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g_tab):
+        launch()
+    with torch.cuda.graph(g_per):
+        per = [tk.finalize_csr(*sp) for sp in specs]
+    for _ in range(2):
+        g_tab.replay()
+        g_per.replay()
+        torch.cuda.synchronize()
+        check(max_abs_err(tab_outs, plain) == 0
+              and max_abs_err(tuple(per), plain) == 0,
+              "finalize table: a replay differs from the plain versions")
+    out["table_replay_ms"] = time_ms(g_tab.replay, 20, cuda)
+    out["per_spec_replay_ms"] = time_ms(g_per.replay, 20, cuda)
+    out["per_spec_launches"] = len(specs)
+    log(f"finalize table[{device}]: {json.dumps(out)}")
+    return out
 
 
 
@@ -3732,7 +3896,7 @@ def _brief(row: dict) -> dict:
     return {k: row[k] for k in ("call", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "share", "library_ms",
                                 "op_tier", "ms_per_op", "device_ms",
-                                "library_device_ms") if k in row}
+                                "library_device_ms", "specs") if k in row}
 
 
 def main(argv=None) -> int:

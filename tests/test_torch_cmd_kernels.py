@@ -21,6 +21,7 @@ import torch
 
 from accord_tpu.ops import kernels as jk
 from accord_tpu_torch.ops import kernels as tk
+from torch_kernel_cases import CMD_CASES, CMD_SCALARS, cmd_case
 
 I32_MIN = np.iinfo(np.int32).min
 I32_MAX = np.iinfo(np.int32).max
@@ -343,3 +344,27 @@ def test_cmd_repair_plain_matches_jax(cap, kcap, m, k):
     assert len(got) == 8
     for r, g in zip(ref, got):
         _same(r, g)
+
+
+# -- the K10 fixtures the card tests reuse (tests/torch_kernel_cases.py) -----
+@pytest.mark.parametrize("name", CMD_CASES)
+def test_cmd_tick_plain_matches_jax_on_shared_cases(name):
+    """kpad 1 / 3 / 8 batches, a run of every kind on one row (op_prev =
+    i - 1 throughout), kid links across slots, and an all-PreAccept batch
+    whose every op takes the slow path."""
+    cols, clock, ops, promote = cmd_case(name)
+    ref, got = _tick_both(cols, clock, ops, CMD_SCALARS, promote)
+    _check_tick(ref, got, ops)
+    kprev, prev = ops[10], ops[8]
+    if name == "one_row_run":
+        assert prev[0] == -1 and (prev[1:] == np.arange(len(prev) - 1)).all()
+    if name == "kid_links_across_slots":
+        links = kprev[kprev >= 0]
+        slots = np.nonzero(kprev >= 0)[1]
+        assert (links % kprev.shape[1] != slots).sum() > len(links) // 2
+    if name == "all_preaccept_slow":
+        # every op witnessed a new hlc: the clock moved through all of them
+        assert (got[9].numpy() == tk.CMD_OUT_SUCCESS).all()
+        hlc = got[10][:, 1].numpy().astype(np.int64)
+        assert (np.diff(hlc) > 0).all()
+        assert int(got[8]) == int(hlc[-1])

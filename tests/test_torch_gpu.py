@@ -16,6 +16,8 @@ import torch
 
 from accord_tpu_torch.ops import kernels as tk
 from accord_tpu_torch.ops.encoding import WITNESS_TABLE
+from torch_kernel_cases import (CMD_CASES, CMD_SCALARS, cmd_case,
+                                      finalize_many_tiles)
 
 pytestmark = pytest.mark.gpu
 I32_MIN = np.iinfo(np.int32).min
@@ -1043,7 +1045,8 @@ def test_protocol_tick_graph_matches_plain(cuda):
     torch.cuda.synchronize()
     assert tk.LAUNCHES["protocol_tick"] == l0["protocol_tick"] + 1
     for name, n in (("node_deps_resolve", 1), ("node_range_resolve", 1),
-                    ("finalize_csr", 3), ("range_finalize", 2),
+                    ("finalize_csr_tab", 1), ("finalize_csr", 0),
+                    ("range_finalize", 2),
                     ("cmd_tick", 1), ("quorum_count", 1), ("cmd_repair", 1),
                     ("frontier_compact", 1)):
         assert tk.LAUNCHES[name] == l0[name] + n, name
@@ -1818,3 +1821,191 @@ def test_sharded_megakernel_across_every_card(cuda):
         snap["megakernel_dispatches"] > 0
     assert snap["sharded_megakernel_fallbacks"] == 0
     assert got_b.counters["mailbox_verify_fallbacks"] == 0
+
+
+# -- K10 and K2's compaction redesigned: one launch a call -------------------
+@pytest.mark.parametrize("tier", [64, 512])
+@pytest.mark.parametrize("name", CMD_CASES)
+def test_cmd_tick_kernel_shared_cases(cuda, name, tier):
+    """K10 against its plain version on the CPU tests' fixtures (kpad 1, 3
+    and 8; a run of every kind on one row; kid links across slots; an
+    all-PreAccept batch whose clock carries through every op), at the
+    op tiers 64 and 512 (the chains in shared memory)."""
+    cols, clock, ops, promote = cmd_case(name, tier)
+    cols, ops = [_t(a) for a in cols], [_t(a) for a in ops]
+    plain = tk.cmd_tick_plain(*cols, clock, *ops, *CMD_SCALARS,
+                              promote=promote)
+    got = tk.cmd_tick(*_on(cols, cuda), clock, *_on(ops, cuda),
+                      *CMD_SCALARS, promote=promote)
+    torch.cuda.synchronize()
+    _eq(plain, got)
+
+
+@pytest.mark.parametrize("name", ["random_kpad8", "one_row_run",
+                                  "all_preaccept_slow"])
+def test_cmd_tick_kernel_tier_4096(cuda, name):
+    """Tier 4096: the chains no longer fit shared memory and live in the
+    chain output (kpad 8 is the widest row)."""
+    cols, clock, ops, promote = cmd_case(name, 4096)
+    cols, ops = [_t(a) for a in cols], [_t(a) for a in ops]
+    plain = tk.cmd_tick_plain(*cols, clock, *ops, *CMD_SCALARS,
+                              promote=promote)
+    got = tk.cmd_tick(*_on(cols, cuda), clock, *_on(ops, cuda),
+                      *CMD_SCALARS, promote=promote)
+    torch.cuda.synchronize()
+    _eq(plain, got)
+
+
+def _trace_kernels(fn):
+    """(kernel names, memsets and copies) the profiler saw on the card in
+    one call of fn (after a warm call); a trace with no device activity
+    at all (the profiler delivered none) is taken again, up to 3 times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    moves = [n for n in names if "memset" in n.lower()
+             or "memcpy" in n.lower()]
+    return [n for n in names if n not in moves], moves
+
+
+def test_one_kernel_a_call(cuda):
+    """A profiler trace of one eager call: K10 and K2 are ONE kernel and no
+    memset or copy; K6, K9's compact entry and K11 are their words kernel
+    and the one compaction kernel."""
+    rng = np.random.default_rng(31)
+    cols, clock, ops, promote = cmd_case("random_kpad3", 512)
+    c_cols, c_ops = _on([_t(a) for a in cols], cuda), \
+        _on([_t(a) for a in ops], cuda)
+    fin = [_t(a) if isinstance(a, np.ndarray) else a
+           for a in finalize_many_tiles(5)]
+    fin[0], fin[2] = fin[0].view(torch.int32), fin[2].view(torch.int32)
+    c_fin = _on(fin, cuda)
+    status = _t(rng.integers(0, 12, 4096).astype(np.int32)).to(cuda)
+    touched = _t(rng.integers(0, 2000, 4096).astype(np.int32)).to(cuda)
+    planes = [_on(_exec_plane(rng, 256), cuda) for _ in range(3)]
+    calls = {
+        "cmd_tick": (lambda: tk.cmd_tick(*c_cols, clock, *c_ops,
+                                         *CMD_SCALARS, promote=promote), 1),
+        "finalize_csr": (lambda: tk.finalize_csr(*c_fin, out_cap=4096), 1),
+        "finalize_csr_tab": (lambda: tk.finalize_csr_tab(
+            [(*c_fin, 4096), (*c_fin, 256)]), 1),
+        "recovery_scan": (lambda: tk.recovery_scan(status, touched, 1000,
+                                                   300, 256), 2),
+        "frontier_compact": (lambda: tk.frontier_compact(planes, 256), 2)}
+    for name, (fn, want) in calls.items():
+        kernels, moves = _trace_kernels(fn)
+        if name == "finalize_csr_tab":
+            moves = [m for m in moves if "HtoD" not in m]   # its table
+        assert len(kernels) == want and not moves, (name, kernels, moves)
+
+
+@pytest.mark.parametrize("out_cap,total_zero", [(256, False),
+                                                (1 << 18, False),
+                                                (256, True)])
+def test_finalize_csr_many_tiles_kernel(cuda, out_cap, total_zero):
+    """K2 over 48 compaction tiles (the CPU test's fixture): the eager
+    entry and the table entry against the plain version."""
+    args = [_t(a) if isinstance(a, np.ndarray) else a
+            for a in finalize_many_tiles(11, total_zero=total_zero)]
+    args[0], args[2] = args[0].view(torch.int32), args[2].view(torch.int32)
+    plain = tk.finalize_csr(*args, out_cap=out_cap)
+    dev = _on(args, cuda)
+    got = tk.finalize_csr(*dev, out_cap=out_cap)
+    tab = tk.finalize_csr_tab([(*dev, out_cap)])
+    torch.cuda.synchronize()
+    _eq(plain, got)
+    _eq(plain, tab[0])
+
+
+def _fin_specs(seed, n):
+    """n finalize specs of differing widths, slot counts, spans and
+    out_caps (one with no slots, one past its out_cap)."""
+    rng = np.random.default_rng(seed)
+    specs = []
+    for k in range(n):
+        b, w = int(rng.integers(4, 40)), int(rng.choice([1, 4, 64, 96]))
+        s = 0 if k == 3 else int(rng.integers(1, 300))
+        kc = 24
+        packed = _words(rng, (b, 2 * w))
+        kid = _words(rng, (kc, w)) & _words(rng, (kc, w))
+        slot_subj = rng.integers(-1, b + 1, s).astype(np.int32)
+        slot_kid = rng.integers(-1, kc + 1, s).astype(np.int32)
+        subj_row = rng.integers(-1, 32 * w, b).astype(np.int32)
+        act_ts = rng.integers(-50, 50, (32 * w, 3)).astype(np.int32)
+        out_cap = 8 if k == 5 else int(rng.choice([64, 1024, 4096]))
+        specs.append((_t(packed), int(rng.integers(0, w + 3)), _t(kid),
+                      _t(slot_subj), _t(slot_kid), _t(subj_row),
+                      _t(act_ts), out_cap))
+    return specs
+
+
+def test_finalize_csr_tab_matches_per_spec(cuda):
+    """The table entry (one launch for 40 finalizes) = the per-spec eager
+    calls = the plain versions."""
+    specs = _fin_specs(3, 40)
+    plain = [tk.finalize_csr(*sp) for sp in specs]
+    dev = [tuple(_on(list(sp), cuda)) for sp in specs]
+    per = [tk.finalize_csr(*sp) for sp in dev]
+    n0 = tk.LAUNCHES["finalize_csr_tab"]
+    tab = tk.finalize_csr_tab(dev)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["finalize_csr_tab"] == n0 + 1
+    _eq(plain, per)
+    _eq(plain, list(tab))
+    assert int(plain[5][0][-1]) > 8
+
+
+def test_graph_replays_cmd_tick_and_fin_tab_twice(cuda):
+    """protocol_tick's graph with a cmd_tick_dsc stage and the key
+    finalizes' table node: the same tick twice (the second a replay of
+    the first's graph) gives the plain outputs both times, so the
+    kernels' scratch (K10's ticket, the compaction's tile states and
+    partial sums) is zero again after a replay."""
+    wt = _t(WITNESS_TABLE)
+    kw = _tick(8)
+    kw = {k: kw[k] for k in ("key_in", "rng_in", "fins", "cmds")}
+    plain = tk.protocol_tick(wt, **kw)
+    c0 = tk.CAPTURES["protocol_tick"]
+    dkw = _deep(kw, cuda)
+    first = tk.protocol_tick(wt.to(cuda), **dkw)
+    second = tk.protocol_tick(wt.to(cuda), **dkw)
+    torch.cuda.synchronize()
+    assert tk.CAPTURES["protocol_tick"] - c0 <= 1
+    _eq(plain, first)
+    _eq(plain, second)
+
+
+def test_compaction_many_tiles_kernels(cuda):
+    """K9's compact entry over 32 planes (64 compaction tiles), K11 over
+    2^21 rows (64 tiles) and segment_compact over 128 tiles: each one
+    launch of the compaction, against the plain versions."""
+    rng = np.random.default_rng(77)
+    planes = [_exec_plane(rng, 2048) for _ in range(32)]
+    for out_cap in (512, 1 << 16):
+        plain = tk.frontier_compact(planes, out_cap=out_cap)
+        got = tk.frontier_compact([_on(p, cuda) for p in planes],
+                                  out_cap=out_cap)
+        torch.cuda.synchronize()
+        _eq(plain, got)
+    cap = 1 << 21
+    status = _t(rng.integers(0, 12, cap).astype(np.int32))
+    touched = _t(rng.integers(0, 2000, cap).astype(np.int32))
+    for out_cap in (2048, 1 << 20):
+        plain = tk.recovery_scan(status, touched, 1000, 300, out_cap)
+        got = tk.recovery_scan(status.to(cuda), touched.to(cuda), 1000, 300,
+                               out_cap)
+        torch.cuda.synchronize()
+        _eq(plain, got)
+    m = _t(_words(rng, (512, 256)))
+    for out_cap in (1000, 1 << 22):
+        _eq(tk.segment_compact(m, out_cap),
+            tk.segment_compact(m.to(cuda), out_cap))

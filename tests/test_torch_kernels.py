@@ -19,6 +19,7 @@ from accord_tpu.ops import kernels as jk
 from accord_tpu.ops.encoding import WITNESS_TABLE
 from accord_tpu_torch.ops import carry
 from accord_tpu_torch.ops import kernels as tk
+from torch_kernel_cases import finalize_many_tiles
 
 B, CAP, K, KC = 64, 256, 128, 48
 I32_MIN = np.iinfo(np.int32).min
@@ -168,6 +169,30 @@ def test_finalize_csr_overflow(seed):
     for r, g in zip(ref, got):
         _same(r, g)
     assert int(np.asarray(ref[0])[-1]) > 256
+
+
+@pytest.mark.parametrize("out_cap,total_zero", [(256, False),
+                                                (1 << 18, False),
+                                                (256, True)])
+def test_finalize_csr_many_tiles(out_cap, total_zero):
+    """48 compaction tiles of the card's one-launch compaction (192 slots
+    x 256 words): the total past out_cap, below it, and 0 -- the fixture
+    the card test holds K2 and its table entry to."""
+    packed, word_off, kid_rows, slot_subj, slot_kid, subj_row, act_ts = \
+        finalize_many_tiles(11, total_zero=total_zero)
+    assert slot_subj.shape[0] * kid_rows.shape[1] \
+        >= 40 * tk.CSR_TILE_WORDS
+    ref, got = _finalize_both(packed, word_off, kid_rows, slot_subj,
+                              slot_kid, subj_row, act_ts, out_cap)
+    for r, g in zip(ref, got):
+        _same(r, g)
+    total = int(np.asarray(ref[0])[-1])
+    if total_zero:
+        assert total == 0 and int(got[3]) == 0
+    else:
+        assert (total > out_cap) == (out_cap == 256) and total > 0
+    assert tk.csr_checksum_host(*(g.numpy() for g in got[:3])) \
+        == int(got[4].numpy().view(np.uint32))
 
 
 def _scatter_inputs(rng, m=8, z=64):

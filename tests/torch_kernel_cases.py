@@ -1,0 +1,228 @@
+"""Inputs shared by the port's CPU kernel tests and its card tests.
+
+Everything here is numpy made from a seed (no JAX, no torch), so the CPU
+tests (tests/test_torch_cmd_kernels.py, tests/test_torch_kernels.py) hold
+the plain versions against the JAX kernels on these cases and the card
+tests (tests/test_torch_gpu.py) hold the CUDA kernels against the plain
+versions on the same cases.
+
+cmd_tick's op batches are built as the command plane builds them: rows and
+kid slots chained through op_prev / op_kprev (p * kpad + s), last writers
+flagged, padding slots of kind 0 on row 0 with kids -1 and no VALID flag.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+I32_MIN = np.iinfo(np.int32).min
+I32_MAX = np.iinfo(np.int32).max
+BAL0 = (0, 0, I32_MIN)
+
+# csrc/cmd_tick.cu's op flags
+F_PERMIT_FAST, F_EPOCH_OK, F_EXPIRED, F_MSG_HAS_TXN, F_VALID, F_DEPS_EMPTY = \
+    1, 2, 4, 8, 16, 32
+
+
+def lanes3(rng, n):
+    """Timestamp-like lanes: small epochs and hlcs, lane2 near -2^31."""
+    a = np.empty((n, 3), np.int32)
+    a[:, 0] = rng.integers(0, 3, n)
+    a[:, 1] = rng.integers(7, 18, n)
+    a[:, 2] = I32_MIN + rng.integers(0, 6, n)
+    return a
+
+
+def cmd_columns(rng, cap, kcap):
+    """The eight command-arena columns with every status and the ballot,
+    executeAt and kid-max hazards."""
+    status = rng.choice([0, 1, 3, 5, 6, 7, 8, 9, 10, 11], cap).astype(
+        np.int32)
+    flags = rng.integers(0, 2, cap).astype(np.int32)
+    pr, ab, ea = (lanes3(rng, cap) for _ in range(3))
+    pr[rng.random(cap) < 0.4] = BAL0
+    ab[rng.random(cap) < 0.5] = BAL0
+    ea[rng.random(cap) < 0.4] = I32_MIN
+    dur = rng.integers(0, 5, cap).astype(np.int32)
+    kmax = lanes3(rng, kcap)
+    kmax[rng.random(kcap) < 0.2] = I32_MIN
+    return [status, flags, pr, ab, ea, dur, kmax, rng.random(kcap) < 0.6]
+
+
+def _empty_ops(tier, kpad, now):
+    return [np.zeros(tier, np.int32), np.zeros(tier, np.int32),
+            np.zeros((tier, 3), np.int32), np.zeros((tier, 3), np.int32),
+            np.full((tier, 3), I32_MIN, np.int32),
+            np.full((tier, kpad), -1, np.int32), np.zeros(tier, np.int32),
+            np.full(tier, now, np.int32), np.full(tier, -1, np.int32),
+            np.zeros(tier, bool), np.full((tier, kpad), -1, np.int32),
+            np.zeros((tier, kpad), bool)]
+
+
+def _link(ops, kpad):
+    """op_prev / op_rlast / op_kprev / op_klast from op_row and op_keys
+    over the ops that carry VALID (the plane's chains)."""
+    kind, row, _t, _b, _e, keys, flags, _n, prev, rlast, kprev, klast = ops
+    last_row, last_kid = {}, {}
+    for j in np.nonzero(flags & F_VALID)[0]:
+        r = int(row[j])
+        prev[j] = last_row.get(r, -1)
+        last_row[r] = j
+        for s in range(kpad):
+            kid = int(keys[j, s])
+            if kid < 0:
+                continue
+            if kid in last_kid:
+                p, ps = last_kid[kid]
+                kprev[j, s] = p * kpad + ps
+            last_kid[kid] = (j, s)
+    for j in last_row.values():
+        rlast[j] = True
+    for j, s in last_kid.values():
+        klast[j, s] = True
+    return ops
+
+
+def _random_flags(rng):
+    f = F_VALID
+    for bit, p in ((F_PERMIT_FAST, 0.6), (F_EPOCH_OK, 0.8), (F_EXPIRED, 0.15),
+                   (F_MSG_HAS_TXN, 0.6), (F_DEPS_EMPTY, 0.6)):
+        if rng.random() < p:
+            f |= bit
+    return f
+
+
+def cmd_ops(rng, n_real, tier, rows, kids, now, kpad=4):
+    """A random op batch: n_real ops of every kind over `rows` and `kids`
+    (up to kpad kids an op, in random slots), padding after n_real."""
+    ops = _empty_ops(tier, kpad, now)
+    kind, row, txn, bal, exe, keys, flags, op_now = ops[:8]
+    for j in range(n_real):
+        kind[j] = rng.integers(0, 4)
+        row[j] = int(rng.choice(rows))
+        txn[j] = lanes3(rng, 1)[0]
+        bal[j] = BAL0 if rng.random() < 0.6 else lanes3(rng, 1)[0]
+        if rng.random() < 0.7:
+            exe[j] = lanes3(rng, 1)[0]
+        ks = rng.choice(kids, rng.integers(0, min(kpad, len(kids)) + 1),
+                        replace=False)
+        slots = rng.choice(kpad, len(ks), replace=False)
+        keys[j, slots] = ks
+        flags[j] = _random_flags(rng)
+        op_now[j] = min(now + int(rng.integers(-2, 3)), I32_MAX)
+    return _link(ops, kpad)
+
+
+def one_row_run(rng, tier, kpad, row=5):
+    """Every real op on ONE row (op_prev = i - 1 throughout), the four
+    kinds interleaved in a repeating order with random ballots and flags;
+    each op names one or two kids of a small set."""
+    ops = _empty_ops(tier, kpad, 50)
+    kind, rows, txn, bal, exe, keys, flags = ops[:7]
+    order = (0, 1, 0, 2, 3, 1, 2, 0, 3, 3, 2, 1)
+    for j in range(tier):
+        kind[j] = order[j % len(order)]
+        rows[j] = row
+        txn[j] = (0, 12, I32_MIN + 1)
+        bal[j] = BAL0 if rng.random() < 0.5 else (0, int(rng.integers(1, 6)),
+                                                  I32_MIN + 1)
+        exe[j] = (0, 30 + int(rng.integers(0, 3)), I32_MIN + 1)
+        for s in rng.choice(kpad, min(kpad, 1 + j % 2), replace=False):
+            keys[j, s] = int(rng.integers(0, 3))
+        flags[j] = _random_flags(rng) | F_VALID
+    return _link(ops, kpad)
+
+
+def kid_links_across_slots(rng, tier, kpad, nkids=6):
+    """Each op names every kid of a small set in a rotated slot order, so a
+    kid's previous writer is mostly in another slot (p * kpad + s' with
+    s' != s); rows are distinct, so only the kid chains link ops."""
+    ops = _empty_ops(tier, kpad, 40)
+    kind, rows, txn, bal, exe, keys, flags = ops[:7]
+    for j in range(tier):
+        kind[j] = rng.integers(0, 4)
+        rows[j] = j
+        txn[j] = lanes3(rng, 1)[0]
+        bal[j] = BAL0 if rng.random() < 0.7 else lanes3(rng, 1)[0]
+        exe[j] = lanes3(rng, 1)[0]
+        for s in range(kpad):
+            keys[j, s] = (s + j) % nkids if s < nkids else -1
+        flags[j] = _random_flags(rng)
+    return _link(ops, kpad)
+
+
+def all_preaccept_slow(rng, tier, kpad, cap):
+    """Every op a PreAccept of a fresh row (status 0, no definition, no
+    executeAt) without PERMIT_FAST and not expired: each takes the slow
+    path, witnesses unique_now and moves the clock, so the clock carries
+    through every op. -> (columns, ops)."""
+    cols = cmd_columns(rng, cap, 4 * kpad)
+    cols[0][:] = 0
+    cols[1][:] = 0
+    cols[2][:] = BAL0
+    cols[4][:] = I32_MIN
+    ops = _empty_ops(tier, kpad, 100)
+    kind, rows, txn, bal, exe, keys, flags, op_now = ops[:8]
+    for j in range(tier):
+        kind[j] = 0
+        rows[j] = j % cap
+        txn[j] = (0, int(rng.integers(0, 200)), I32_MIN + 1)
+        bal[j] = BAL0
+        for s in range(kpad):
+            keys[j, s] = int(rng.integers(0, 4 * kpad))
+        flags[j] = F_VALID | F_EPOCH_OK | F_MSG_HAS_TXN
+        op_now[j] = 100 + int(rng.integers(-3, 3))
+    return cols, _link(ops, kpad)
+
+
+# node_epoch, lane2_clean, lane2_rej, dur_local
+CMD_SCALARS = (1, I32_MIN + 1, ((0x8000 << 16) | 1) - (1 << 31), 3)
+CMD_CASES = ("random_kpad1", "random_kpad3", "random_kpad8", "one_row_run",
+             "kid_links_across_slots", "all_preaccept_slow")
+
+
+def cmd_case(name, tier=64):
+    """(columns, clock, ops, promote) of the K10 fixture `name` at an op
+    tier of `tier` (the CPU tests' 64; the card tests also run 512)."""
+    if name.startswith("random_kpad"):
+        kpad = int(name[len("random_kpad"):])
+        rng = np.random.default_rng(100 + kpad + tier)
+        cap, kcap = max(64, 2 * tier), 48
+        return (cmd_columns(rng, cap, kcap), 20,
+                cmd_ops(rng, tier - tier // 8, tier,
+                        rows=rng.choice(cap, tier // 4, replace=False),
+                        kids=rng.choice(kcap, 10, replace=False), now=16,
+                        kpad=kpad), kpad % 2 == 1)
+    rng = np.random.default_rng(tier)
+    if name == "one_row_run":
+        return cmd_columns(rng, 16, 8), 30, one_row_run(rng, tier, 4), True
+    if name == "kid_links_across_slots":
+        return (cmd_columns(rng, tier, 8), 25,
+                kid_links_across_slots(rng, tier, 4), False)
+    if name == "all_preaccept_slow":
+        cols, ops = all_preaccept_slow(rng, tier, 4, tier)
+        return cols, 10, ops, False
+    raise KeyError(name)
+
+
+def finalize_many_tiles(seed, total_zero=False, s=192, w=256, b=48):
+    """A finalize over s slots x w words (192 x 256 = 48 compaction tiles
+    of 1,024 words): (packed u32[b, 2w], word_off, kid_rows u32[40, w],
+    slot_subj, slot_kid, subj_row, act_ts) as numpy, the kid masks dense
+    enough that the total is far past a small out_cap; `total_zero`
+    clears every kid mask so the total is 0."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, (b, 2 * w), dtype=np.uint64) \
+        .astype(np.uint32)
+    kc = 40
+    kid = (rng.integers(0, 1 << 32, (kc, w), dtype=np.uint64)
+           & rng.integers(0, 1 << 32, (kc, w), dtype=np.uint64)) \
+        .astype(np.uint32)
+    if total_zero:
+        kid[:] = 0
+    slot_subj = np.full(s, b, np.int32)
+    slot_subj[:s - 5] = np.sort(rng.integers(0, b, s - 5))
+    slot_kid = np.full(s, kc, np.int32)
+    slot_kid[:s - 5] = rng.integers(0, kc, s - 5)
+    subj_row = rng.integers(-1, 32 * w, b).astype(np.int32)
+    act_ts = rng.integers(-1000, 1000, (32 * w, 3)).astype(np.int32)
+    return words, w // 2, kid, slot_subj, slot_kid, subj_row, act_ts
