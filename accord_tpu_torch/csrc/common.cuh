@@ -458,8 +458,8 @@ struct CsrOne {
   __device__ __forceinline__ const Src& src(int) const { return s_; }
 };
 
-// the launch's blocks: at most four an SM of the current card
-static inline int csr_grid(int tiles) {
+// the SMs of the current card (looked up once a card)
+static inline int sm_count() {
   static int sms[64];
   int dev = 0;
   cudaGetDevice(&dev);
@@ -468,6 +468,12 @@ static inline int csr_grid(int tiles) {
     cudaDeviceGetAttribute(&m, cudaDevAttrMultiProcessorCount, dev);
     if (m <= 0) m = 1;
   }
+  return m;
+}
+
+// the launch's blocks: at most four an SM of the current card
+static inline int csr_grid(int tiles) {
+  const int m = sm_count();
   return tiles < 1 ? 1 : (tiles < 4 * m ? tiles : 4 * m);
 }
 

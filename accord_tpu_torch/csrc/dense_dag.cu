@@ -7,20 +7,52 @@
 //   dep[b, a] = overlap(b, a) & witness[kind_b, kind_a] == 1
 //               & act_ts[a] <lex subj_before[b] & act_valid[a]
 //   The reference's overlap is a bf16 matmul of 0/1 bitmaps > 0.5; here the
-//   bitmaps arrive packed (i32[., K/32]) and the overlap is "any word of
-//   subj & act is nonzero", which is exact. A block computes a 64 x 64 tile
-//   (16 outputs a thread), streaming 32-word chunks of both operands through
-//   shared memory; the tile's bytes go out through shared memory as rows.
-//   Bound: operations, B*A*K/32 word ANDs (2.1 G at B 4,096, A 16,384,
-//   K 1,024: ~0.03 ms at 67 T op/s); the bool output (67 MB) is ~0.02 ms.
+//   bitmaps arrive packed (i32[., K/32]), exactly as the tensor cores'
+//   binary MMA takes them, and the overlap is popc(subj & act) > 0, which
+//   is exact. Bound: bytes, the bool output (67 MB at B 4,096, A 16,384)
+//   and both bitmaps read once, ~0.02 ms. The B*A*K/32 word ANDs (2.1 G
+//   at K 1,024) run on the tensor cores, whose b1 rate the H100's data
+//   sheet does not publish; on the CUDA cores (64 lanes of 32-bit logic a
+//   clock an SM) the AND-ORs alone would take ~0.13 ms.
+//   Design (shipped): `mma.sync.m16n8k256.row.col.s32.b1.b1.s32.and.popc`.
+//   A block of 16 warps takes 128 subjects x 128 actives, a warp 32 x 32
+//   as 2 x 4 MMA tiles (k 256 bits = 8 words a step). 16-word chunks of
+//   both bitmaps stream row-major into shared memory by 16-byte cp.async,
+//   double-buffered, the row pitch 20 words so a fragment's 8 rows x 4
+//   words fall on 32 banks. The counts become one overlap bit each; the
+//   tile's subject and active lanes (ts, kind, valid), staged in shared
+//   memory while the first chunk is in flight, are read only where a bit
+//   is set, and the tile's bytes leave through shared memory as 16-byte
+//   stores.
+//   The CUDA-core form (8 x 8 accumulators a thread, walking each
+//   subject row's nonzero words) lost to it and is kept only as
+//   tools/dense_dag_cuda_cores.cu, which tools/dense_dag_variants.py
+//   times.
 //
 // K19 transitive_closure -- replaces `transitive_closure` (:97):
-//   R |= (R @ R > 0.5), exactly `iterations` times (Jacobi: each squaring
-//   reads the previous R, writes a second buffer). On packed rows, R @ R's
-//   row i is the OR of the rows k with R[i, k] set; a block takes 8 rows at
-//   once, so each row k it loads serves all of them. The bool[N, N] input
-//   is packed first and the result unpacked last. Bound: operations, the
-//   word ORs this data needs (sum over iterations of set bits x N/32).
+//   R |= (R @ R > 0.5), exactly `iterations` launches (Jacobi: each
+//   squaring reads the previous R, writes a second buffer). On packed
+//   rows, R @ R's row i is the OR of the rows k with R[i, k] set: a
+//   blocked boolean product. A block owns a tile of 64 rows x 128 words;
+//   k streams in chunks of 32 rows (one word of each tile row), the
+//   chunk's [32 x 128] words staged in shared memory by cp.async,
+//   double-buffered. A warp keeps 8 rows x 4 words a lane in registers:
+//   one 16-byte shared load of row k's words serves each of the warp's
+//   rows with bit k set (predicated ORs). Zero words are skipped: a chunk
+//   whose words are zero in every tile row is never loaded, a warp walks
+//   only the bits set in the union of its rows' words. R's L2 traffic is
+//   N^2 x nw x 4 / 64 bytes a squaring (was up to N^2 x nw x 4 / 8).
+//   Blocks are persistent (one an SM) and take tiles from an atomic
+//   counter, last rows first, which balances the triangular DAGs the port
+//   closes. Early exit, exact: each squaring records in zeroed scratch
+//   whether any word changed; one whose predecessor changed nothing
+//   returns at once (if R_{i+1} == R_i every later R equals it, and the
+//   ping-pong already holds R in both buffers). So the launch count is
+//   fixed and the call can be captured in a CUDA graph. The bool[N, N]
+//   input is packed first and the result unpacked last; the unpack
+//   clears the flags. No limit on N but memory. Bound: operations, the
+//   word ORs this data needs (set bits x N/32 of each squaring up to and
+//   including the first that changes nothing).
 //
 // K20 execution_wavefronts -- replaces `execution_wavefronts` (:113):
 //   level'[i] = max(level[i], max_j adj[i, j] * (level[j] + 1)), from
@@ -45,106 +77,266 @@
 // place through row strides (the 'model' partials merge by OR in
 // csrc/mesh_combine.cu); `pack_rows` packs a bool row block; `closure_rows`
 // squares a row block against the gathered full matrix (one Jacobi round
-// of K19) and `wavefront_rows` runs one K20 round over a row block against
-// the gathered levels. One launch per shard per round. Bound: K18's, K19's
-// and K20's, each on its block's share of the work; the gathered matrix is
-// read from the shard's device, so a round adds no bytes on one card.
+// of K19, without the early exit) and `wavefront_rows` runs one K20 round
+// over a row block against the gathered levels. One launch per shard per
+// round. Bound: K18's, K19's and K20's, each on its block's share of the
+// work; the gathered matrix is read from the shard's device, so a round
+// adds no bytes on one card.
 #include "common.cuh"
 
-// ---------------------------------------------------------------- K18
-#define DT 64   // tile: subjects x actives
-#define DKW 32  // words per streamed chunk
-#define DTH 256
+// 4-byte asynchronous copy global -> shared; `ok` false fills zeros
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 4 : 0));
+}
 
-__global__ void __launch_bounds__(DTH)
+// 16-byte asynchronous copy; `ok` false fills zeros
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// every group but the newest `n` complete
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
+// ---------------------------------------------------------------- K18
+// gather rules of the reference's witness lookup: a negative kind counts
+// from the end, then clamps into [0, nk)
+__device__ __forceinline__ int kind_index(int k, int nk) {
+  if (k < 0) k += nk;
+  return k < 0 ? 0 : (k >= nk ? nk - 1 : k);
+}
+
+#define DM_KC 16  // words a staged chunk
+#define DM_TH 512
+#define DMB_MI 2    // 16-row MMA tiles a warp holds
+#define DMB_NJ 4    // 8-column MMA tiles a warp holds
+#define DMB_WM 4    // warps along the subjects (the rest along the actives)
+#define DMB_MINB 2  // blocks an SM (caps the registers: 64 a thread)
+#define DM_TB (DMB_WM * DMB_MI * 16)                    // subjects a tile
+#define DM_TA ((DM_TH / 32 / DMB_WM) * DMB_NJ * 8)      // actives a tile
+#define DM_PW 20   // [row][word] pitch: 20 = 4 x odd keeps a fragment
+                   // load's 8 rows x 4 words on 32 banks
+#define DM_STAGE ((DM_TB + DM_TA) * DM_PW)
+
+// what a tile's epilogue reads: subject and active lanes, staged once
+struct DmLanes {
+  int sts[DM_TB][3];
+  int skind[DM_TB];  // clamped kind; -1 past B
+  int ats[DM_TA][3];
+  int akind[DM_TA];  // clamped kind; -1 past A or invalid
+};
+
+// the operand stages, the lanes; the tile's bytes reuse the stages
+struct DmSmem {
+  unsigned stage[2][DM_STAGE];
+  DmLanes lanes;
+};
+// the tile's bytes as rows padded 16 bytes (a warp's writes spread over
+// the banks), staged in the operand stages once they are spent
+#define DM_OP (DM_TA + 16)
+static_assert(DM_TB * DM_OP <= sizeof(unsigned) * 2 * DM_STAGE,
+              "the staged output tile must fit the operand stages");
+
+__device__ __forceinline__ void dm_stage_lanes(
+    DmLanes& L, const int* __restrict__ sb, const int* __restrict__ sk,
+    const int* __restrict__ at, const int* __restrict__ ak,
+    const unsigned char* __restrict__ av, int nk0, int nk1, int B, int A,
+    int b0, int a0) {
+  for (int q = threadIdx.x; q < DM_TB; q += DM_TH) {
+    const int b = b0 + q;
+    const bool ok = b < B;
+    L.sts[q][0] = ok ? sb[3LL * b] : 0;
+    L.sts[q][1] = ok ? sb[3LL * b + 1] : 0;
+    L.sts[q][2] = ok ? sb[3LL * b + 2] : 0;
+    L.skind[q] = ok ? kind_index(sk[b], nk0) : -1;
+  }
+  for (int q = threadIdx.x; q < DM_TA; q += DM_TH) {
+    const int a = a0 + q;
+    const bool in = a < A;  // every load issued at once
+    const int t0 = in ? at[3LL * a] : 0, t1 = in ? at[3LL * a + 1] : 0;
+    const int t2 = in ? at[3LL * a + 2] : 0, k = in ? ak[a] : 0;
+    const bool ok = in && av[a];
+    L.ats[q][0] = t0;
+    L.ats[q][1] = t1;
+    L.ats[q][2] = t2;
+    L.akind[q] = ok ? kind_index(k, nk1) : -1;
+  }
+}
+
+// overlap known: the rest of the predicate for tile row r, tile column c
+__device__ __forceinline__ bool dm_dep(const DmLanes& L,
+                                       const int* __restrict__ wt, int nk1,
+                                       int r, int c) {
+  const int sk = L.skind[r], ak = L.akind[c];
+  return sk >= 0 && ak >= 0 && wt[sk * nk1 + ak] == 1 &&
+         lex_before(L.ats[c][0], L.ats[c][1], L.ats[c][2], L.sts[r][0],
+                    L.sts[r][1], L.sts[r][2]);
+}
+
+// the tile's bytes (s_out [DM_TB][DM_OP]) to out: 16-byte stores where
+// the rows allow, else bytes
+__device__ __forceinline__ void dm_store(const unsigned char* s_out,
+                                         unsigned char* __restrict__ out,
+                                         int B, int A, int b0, int a0) {
+  const bool vec = (A & 15) == 0 && a0 + DM_TA <= A &&
+                   (((uintptr_t)out) & 15u) == 0;
+  if (vec) {
+    for (int e = threadIdx.x; e < DM_TB * (DM_TA / 16); e += DM_TH) {
+      const int r = e / (DM_TA / 16), c = e % (DM_TA / 16);
+      if (b0 + r < B)
+        *(uint4*)(out + (long long)(b0 + r) * A + a0 + 16 * c) =
+            *(const uint4*)(s_out + r * DM_OP + 16 * c);
+    }
+  } else {
+    for (int e = threadIdx.x; e < DM_TB * DM_TA; e += DM_TH) {
+      const int r = e / DM_TA, c = e % DM_TA;
+      if (b0 + r < B && a0 + c < A)
+        out[(long long)(b0 + r) * A + a0 + c] = s_out[r * DM_OP + c];
+    }
+  }
+}
+
+// chunk [k0, k0 + DM_KC) of the tile's rows, [row][word] (zeros past an
+// edge)
+__device__ __forceinline__ void dm_load(unsigned* st,
+                                        const unsigned* __restrict__ sw,
+                                        const unsigned* __restrict__ aw,
+                                        int B, int A, int kw, int sws,
+                                        int aws, int b0, int a0, int k0,
+                                        bool vec) {
+  if (vec) {  // 16-byte copies: 4 words of a row
+    for (int e = threadIdx.x; e < (DM_TB + DM_TA) * (DM_KC / 4);
+         e += DM_TH) {
+      const int r = e / (DM_KC / 4), w = 4 * (e % (DM_KC / 4));
+      const bool subj = r < DM_TB;
+      const int row = subj ? b0 + r : a0 + r - DM_TB;
+      const bool ok = (subj ? row < B : row < A) && k0 + w < kw;
+      const unsigned* src = subj ? sw + (long long)row * sws + k0 + w
+                                 : aw + (long long)row * aws + k0 + w;
+      cp_async16(st + r * DM_PW + w, ok ? src : sw, ok);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < (DM_TB + DM_TA) * DM_KC; e += DM_TH) {
+    const int r = e / DM_KC, w = e % DM_KC;
+    const bool subj = r < DM_TB;
+    const int row = subj ? b0 + r : a0 + r - DM_TB;
+    const bool ok = (subj ? row < B : row < A) && k0 + w < kw;
+    const unsigned* src = subj ? sw + (long long)row * sws + k0 + w
+                               : aw + (long long)row * aws + k0 + w;
+    cp_async4(st + r * DM_PW + w, ok ? src : sw, ok);
+  }
+}
+
+__device__ __forceinline__ void mma_b1(int (&c)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__global__ void __launch_bounds__(DM_TH, DMB_MINB)
 deps_matrix_kernel(const unsigned* __restrict__ sw, const int* __restrict__ sb,
                    const int* __restrict__ sk, const unsigned* __restrict__ aw,
                    const int* __restrict__ at, const int* __restrict__ ak,
                    const unsigned char* __restrict__ av,
                    const int* __restrict__ wt, int nk0, int nk1, int B, int A,
                    int kw, int sws, int aws, unsigned char* __restrict__ out) {
-  // [word][row], padded so a row of the tile spreads over the banks
-  __shared__ unsigned s_s[DKW][DT + 1];
-  __shared__ unsigned s_a[DKW][DT + 1];
-  __shared__ __align__(16) unsigned char s_out[DT][DT];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b0 = blockIdx.y * DT, a0 = blockIdx.x * DT;
-  unsigned acc[4][4];
+  static_assert(DMB_MI * DMB_NJ * 4 <= 64, "a thread's outputs: 64 bits");
+  __shared__ __align__(16) DmSmem sm;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp % DMB_WM, wn = warp / DMB_WM;
+  const int b0 = blockIdx.y * DM_TB, a0 = blockIdx.x * DM_TA;
+  int acc[DMB_MI][DMB_NJ][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < DMB_MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-  for (int k0 = 0; k0 < kw; k0 += DKW) {
-    const int kn = min(DKW, kw - k0);
-    for (int e = threadIdx.x; e < DT * DKW; e += DTH) {
-      const int r = e / DKW, w = e % DKW;
-      unsigned vs = 0, va = 0;
-      if (w < kn) {
-        if (b0 + r < B) vs = sw[(long long)(b0 + r) * sws + k0 + w];
-        if (a0 + r < A) va = aw[(long long)(a0 + r) * aws + k0 + w];
-      }
-      s_s[w][r] = vs;
-      s_a[w][r] = va;
-    }
+    for (int j = 0; j < DMB_NJ; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
+  const int nch = (kw + DM_KC - 1) / DM_KC;
+  const bool vec = ((kw | sws | aws) & 3) == 0 &&
+                   ((((uintptr_t)sw) | ((uintptr_t)aw)) & 15u) == 0;
+  if (nch > 0)
+    dm_load(sm.stage[0], sw, aw, B, A, kw, sws, aws, b0, a0, 0, vec);
+  cp_async_commit();
+  // the epilogue's lanes load while the first chunk is in flight
+  dm_stage_lanes(sm.lanes, sb, sk, at, ak, av, nk0, nk1, B, A, b0, a0);
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch)
+      dm_load(sm.stage[(c + 1) & 1], sw, aw, B, A, kw, sws, aws, b0, a0,
+              (c + 1) * DM_KC, vec);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    for (int w = 0; w < kn; ++w) {
-      unsigned s[4], a[4];
+    const unsigned* S = sm.stage[c & 1];
+    const unsigned* T = S + DM_TB * DM_PW;
+    const int steps = (min(DM_KC, kw - c * DM_KC) + 7) / 8;
+    for (int ks = 0; ks < steps; ++ks) {
+      unsigned fa[DMB_MI][4], fb[DMB_NJ][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[i] = s_s[w][ty * 4 + i];
+      for (int i = 0; i < DMB_MI; ++i) {
+        const unsigned* p =
+            S + (wm * DMB_MI * 16 + i * 16 + gid) * DM_PW + ks * 8;
+        fa[i][0] = p[tig];
+        fa[i][1] = p[8 * DM_PW + tig];
+        fa[i][2] = p[4 + tig];
+        fa[i][3] = p[8 * DM_PW + 4 + tig];
+      }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) a[j] = s_a[w][tx + 16 * j];
+      for (int j = 0; j < DMB_NJ; ++j) {
+        const unsigned* p =
+            T + (wn * DMB_NJ * 8 + j * 8 + gid) * DM_PW + ks * 8;
+        fb[j][0] = p[tig];
+        fb[j][1] = p[4 + tig];
+      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < DMB_MI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] |= s[i] & a[j];
+        for (int j = 0; j < DMB_NJ; ++j) mma_b1(acc[i][j], fa[i], fb[j]);
     }
     __syncthreads();
   }
+  // the overlaps as bits (the counts die here), the tile's bytes zeroed,
+  // then the rest of the predicate where a bit is set (rare)
+  unsigned long long ov = 0ull;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = b0 + ty * 4 + i;
-    const bool brow = b < B;
-    int s0 = 0, s1 = 0, s2 = 0, skind = 0;
-    if (brow) {
-      s0 = sb[3LL * b];
-      s1 = sb[3LL * b + 1];
-      s2 = sb[3LL * b + 2];
-      int k = sk[b];
-      if (k < 0) k += nk0;
-      skind = k < 0 ? 0 : (k >= nk0 ? nk0 - 1 : k);
-    }
+  for (int i = 0; i < DMB_MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int a = a0 + tx + 16 * j;
-      bool d = false;
-      if (brow && a < A && acc[i][j] != 0 && av[a]) {
-        int k = ak[a];
-        if (k < 0) k += nk1;
-        k = k < 0 ? 0 : (k >= nk1 ? nk1 - 1 : k);
-        d = wt[skind * nk1 + k] == 1 &&
-            lex_before(at[3LL * a], at[3LL * a + 1], at[3LL * a + 2], s0, s1,
-                       s2);
-      }
-      s_out[ty * 4 + i][tx + 16 * j] = d ? 1 : 0;
-    }
+    for (int j = 0; j < DMB_NJ; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (acc[i][j][q] > 0) ov |= 1ull << ((i * DMB_NJ + j) * 4 + q);
+  __syncthreads();
+  unsigned char* s_out = (unsigned char*)sm.stage;
+  for (int e = threadIdx.x; e < DM_TB * DM_OP / 16; e += DM_TH)
+    ((uint4*)s_out)[e] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  while (ov) {
+    const int b = __ffsll(ov) - 1;
+    ov &= ov - 1ull;
+    const int i = b / (4 * DMB_NJ), j = (b / 4) % DMB_NJ, q = b % 4;
+    const int r = wm * DMB_MI * 16 + i * 16 + gid + 8 * (q >> 1);
+    const int c = wn * DMB_NJ * 8 + j * 8 + 2 * tig + (q & 1);
+    if (dm_dep(sm.lanes, wt, nk1, r, c)) s_out[r * DM_OP + c] = 1;
   }
   __syncthreads();
-  const bool vec = (A & 3) == 0 && a0 + DT <= A &&
-                   (((uintptr_t)out) & 3u) == 0;
-  if (vec) {
-    for (int e = threadIdx.x; e < DT * (DT / 4); e += DTH) {
-      const int r = e / (DT / 4), c = e % (DT / 4);
-      if (b0 + r < B)
-        *(unsigned*)(out + (long long)(b0 + r) * A + a0 + 4 * c) =
-            *(const unsigned*)(&s_out[r][4 * c]);
-    }
-  } else {
-    for (int e = threadIdx.x; e < DT * DT; e += DTH) {
-      const int r = e / DT, c = e % DT;
-      if (b0 + r < B && a0 + c < A)
-        out[(long long)(b0 + r) * A + a0 + c] = s_out[r][c];
-    }
-  }
+  dm_store(s_out, out, B, A, b0, a0);
 }
 
 // sw's and aw's rows start sws and aws words apart (kw of them used)
@@ -155,11 +347,11 @@ extern "C" int deps_matrix_strided(const void* sw, int sws, const void* sb,
                                    int nk1, int B, int A, int kw, void* out,
                                    void* stream) {
   if (B <= 0 || A <= 0) return 0;
-  if (nk0 <= 0 || nk1 <= 0 || sws < kw || aws < kw)
+  if (nk0 <= 0 || nk1 <= 0 || kw < 0 || sws < kw || aws < kw)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid((A + DT - 1) / DT, (B + DT - 1) / DT);
-  deps_matrix_kernel<<<grid, DTH, 0, st>>>(
+  dim3 grid((A + DM_TA - 1) / DM_TA, (B + DM_TB - 1) / DM_TB);
+  deps_matrix_kernel<<<grid, DM_TH, 0, st>>>(
       (const unsigned*)sw, (const int*)sb, (const int*)sk,
       (const unsigned*)aw, (const int*)at, (const int*)ak,
       (const unsigned char*)av, (const int*)wt, nk0, nk1, B, A, kw, sws, aws,
@@ -196,8 +388,18 @@ __global__ void pack_rows_kernel(const unsigned char* __restrict__ m,
   }
 }
 
+// packed [n, nw] -> bool[n, n]; the first thread also hands K19's count
+// of squarings that did work (0 without a squaring) to `worked` (if
+// given) and clears the flags
 __global__ void unpack_rows_kernel(const unsigned* __restrict__ p, int n,
-                                   int nw, unsigned char* __restrict__ m) {
+                                   int nw, unsigned char* __restrict__ m,
+                                   unsigned* __restrict__ flags,
+                                   int* __restrict__ worked, bool squared) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    if (worked) *worked = squared ? (int)flags[4] : 0;
+    flags[3] = 0u;
+    flags[4] = 0u;
+  }
   const long long total = (long long)n * n;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -232,99 +434,241 @@ extern "C" int pack_rows(const void* m, int rows, int n, void* p,
 }
 
 // ---------------------------------------------------------------- K19
-#define CRB 8      // rows a block squares at once
-#define CTH 256
+#define CT_RPW 8                       // rows a warp holds
+#define CT_WARPS 8
+#define CT_TH (32 * CT_WARPS)
+#define CT_ROWS (CT_RPW * CT_WARPS)    // 64 rows a tile
+#define CT_W 128                       // words a tile: 32 lanes x 4
+#define CT_SEG 1024                    // chunks one nonzero mask covers
+// the flags scratch (zeroed, left zeroed; ops/kernels.py
+// _CLOSURE_FLAG_BYTES): tile counter, ticket, changed, done, squarings
+// that did work
+#define CT_FLAGS 5
 
-// rows [row0, row0 + nrows) of one squaring of the full packed r [n, nw],
-// written to rn[(i - row0) * nw ...]
-__global__ void __launch_bounds__(CTH)
-closure_square_kernel(const unsigned* __restrict__ r,
-                      unsigned* __restrict__ rn, int n, int nw, int row0,
-                      int nrows) {
-  extern __shared__ unsigned s_rows[];  // CRB x nw
-  const int i0 = row0 + blockIdx.x * CRB;
-  const int iend = row0 + nrows;
-  for (int e = threadIdx.x; e < CRB * nw; e += CTH) {
-    const int q = e / nw, w = e % nw;
-    s_rows[e] = i0 + q < iend ? r[(long long)(i0 + q) * nw + w] : 0u;
-  }
-  __syncthreads();
-  for (int w0 = 0; w0 < nw; w0 += CTH) {
-    const int w = w0 + threadIdx.x;
-    unsigned acc[CRB];
-#pragma unroll
-    for (int q = 0; q < CRB; ++q) acc[q] = 0;
-    for (int kw = 0; kw < nw; ++kw) {
-      unsigned bits[CRB];
-      unsigned u = 0;
-#pragma unroll
-      for (int q = 0; q < CRB; ++q) {
-        bits[q] = s_rows[q * nw + kw];
-        u |= bits[q];
-      }
-      while (u) {
-        const int b = __ffs(u) - 1;
-        u &= u - 1;
-        const long long k = (long long)kw * 32 + b;
-        const unsigned v = w < nw ? r[k * nw + w] : 0u;
-#pragma unroll
-        for (int q = 0; q < CRB; ++q)
-          if ((bits[q] >> b) & 1u) acc[q] |= v;
-      }
+// chunk kc of the tile: rows 32kc.. of r, words [w0, w0 + CT_W), and the
+// tile rows' word kc (zeros past an edge)
+__device__ __forceinline__ void ct_load(unsigned (*sb)[CT_W], unsigned* sa,
+                                        const unsigned* __restrict__ r,
+                                        int n, int nw, int i0, int ie,
+                                        int w0, int kc, bool vec) {
+  const long long k0 = 32LL * kc;
+  if (vec) {
+    for (int e = threadIdx.x; e < 32 * (CT_W / 4); e += CT_TH) {
+      const int kr = e / (CT_W / 4), w = 4 * (e % (CT_W / 4));
+      const bool ok = k0 + kr < n && w0 + w < nw;
+      cp_async16(&sb[kr][w], ok ? r + (k0 + kr) * nw + w0 + w : r, ok);
     }
-    if (w < nw)
-#pragma unroll
-      for (int q = 0; q < CRB; ++q)
-        if (i0 + q < iend)
-          rn[(long long)(i0 + q - row0) * nw + w] = s_rows[q * nw + w] | acc[q];
+  } else {
+    for (int e = threadIdx.x; e < 32 * CT_W; e += CT_TH) {
+      const int kr = e / CT_W, w = e % CT_W;
+      const bool ok = k0 + kr < n && w0 + w < nw;
+      cp_async4(&sb[kr][w], ok ? r + (k0 + kr) * nw + w0 + w : r, ok);
+    }
+  }
+  for (int q = threadIdx.x; q < CT_ROWS; q += CT_TH) {
+    const bool ok = i0 + q < ie;
+    cp_async4(&sa[q], ok ? r + (long long)(i0 + q) * nw + kc : r, ok);
   }
 }
 
-extern "C" int closure_max_words() { return (48 * 1024) / (4 * CRB); }
+// rows [row0, row0 + nrows) of one squaring of the full packed r [n, nw],
+// written to rn[(i - row0) * nw ...]. Persistent blocks take tiles from
+// flags[0]; the last block to finish (ticket flags[1]) resets them. With
+// `track` 1: a block that finds flags[3] (done) set returns at once; else
+// flags[2] records a changed word, and the last block sets done when
+// nothing changed and counts the squaring in flags[4]. `track` 2 is a
+// call's first squaring: it reads no done and restarts the count, so
+// flags a faulted call left set cost one squaring's work, not a wrong
+// answer.
+__global__ void __launch_bounds__(CT_TH, 1)
+closure_tile_kernel(const unsigned* __restrict__ r, unsigned* __restrict__ rn,
+                    int n, int nw, int row0, int nrows,
+                    unsigned* __restrict__ flags, int track) {
+  __shared__ __align__(16) unsigned s_b[2][32][CT_W];
+  __shared__ __align__(16) unsigned s_a[2][CT_ROWS];
+  __shared__ unsigned s_nz[CT_SEG / 32];
+  __shared__ int s_tile;
+  volatile unsigned* vf = flags;
+  if (track == 1 && vf[3]) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ctiles = (nw + CT_W - 1) / CT_W;
+  const int ntiles = ((nrows + CT_ROWS - 1) / CT_ROWS) * ctiles;
+  const bool vec = (nw & 3) == 0 && (((uintptr_t)r) & 15u) == 0 &&
+                   (((uintptr_t)rn) & 15u) == 0;
+  bool changed = false;
+  for (;;) {
+    if (threadIdx.x == 0) s_tile = (int)atomicAdd(&flags[0], 1u);
+    __syncthreads();
+    const int t = s_tile;
+    if (t >= ntiles) break;
+    const int tt = ntiles - 1 - t;  // last rows first
+    const int i0 = row0 + (tt / ctiles) * CT_ROWS;
+    const int ie = min(i0 + CT_ROWS, row0 + nrows);
+    const int w0 = (tt % ctiles) * CT_W;
+    unsigned acc[CT_RPW][4];
+#pragma unroll
+    for (int q = 0; q < CT_RPW; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[q][j] = 0u;
+    for (int seg0 = 0; seg0 < nw; seg0 += CT_SEG) {
+      const int slen = min(CT_SEG, nw - seg0);
+      // which of the segment's chunks hold a set bit in some tile row
+      __syncthreads();  // every thread is done with the last mask
+      for (int q = threadIdx.x; q < CT_SEG / 32; q += CT_TH) s_nz[q] = 0u;
+      __syncthreads();
+      for (int c = threadIdx.x; c < slen; c += CT_TH) {
+        unsigned v = 0u;
+#pragma unroll 8
+        for (int i = i0; i < ie; ++i) v |= r[(long long)i * nw + seg0 + c];
+        if (v) atomicOr(&s_nz[c >> 5], 1u << (c & 31));
+      }
+      __syncthreads();
+      auto next = [&](int c) {
+        while (c < slen) {
+          const unsigned m = s_nz[c >> 5] >> (c & 31);
+          if (m) return c + __ffs(m) - 1;
+          c = (c | 31) + 1;
+        }
+        return slen;
+      };
+      int c = next(0), st = 0;
+      if (c < slen)
+        ct_load(s_b[0], s_a[0], r, n, nw, i0, ie, w0, seg0 + c, vec);
+      cp_async_commit();
+      while (c < slen) {
+        const int cn = next(c + 1);
+        if (cn < slen)
+          ct_load(s_b[st ^ 1], s_a[st ^ 1], r, n, nw, i0, ie, w0, seg0 + cn,
+                  vec);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        unsigned a[CT_RPW], u = 0u;
+        const uint4 a0 = *(const uint4*)&s_a[st][warp * CT_RPW];
+        const uint4 a1 = *(const uint4*)&s_a[st][warp * CT_RPW + 4];
+        a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+        a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+#pragma unroll
+        for (int q = 0; q < CT_RPW; ++q) u |= a[q];
+        while (u) {  // the bits set in the warp's rows (uniform)
+          const int b = __ffs(u) - 1;
+          u &= u - 1u;
+          const unsigned bm = 1u << b;
+          const uint4 v = *(const uint4*)&s_b[st][b][4 * lane];
+#pragma unroll
+          for (int q = 0; q < CT_RPW; ++q)
+            if (a[q] & bm) {
+              acc[q][0] |= v.x;
+              acc[q][1] |= v.y;
+              acc[q][2] |= v.z;
+              acc[q][3] |= v.w;
+            }
+        }
+        __syncthreads();
+        c = cn;
+        st ^= 1;
+      }
+    }
+    // rn = r | acc on the tile's words
+#pragma unroll
+    for (int q = 0; q < CT_RPW; ++q) {
+      const int i = i0 + warp * CT_RPW + q;
+      if (i >= ie) break;
+      const long long src = (long long)i * nw + w0 + 4 * lane;
+      const long long dst = (long long)(i - row0) * nw + w0 + 4 * lane;
+      if (vec && w0 + 4 * lane < nw) {
+        const uint4 o = *(const uint4*)(r + src);
+        const uint4 x = make_uint4(o.x | acc[q][0], o.y | acc[q][1],
+                                   o.z | acc[q][2], o.w | acc[q][3]);
+        changed |= x.x != o.x || x.y != o.y || x.z != o.z || x.w != o.w;
+        *(uint4*)(rn + dst) = x;
+      } else if (!vec) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (w0 + 4 * lane + j < nw) {
+            const unsigned o = r[src + j], x = o | acc[q][j];
+            changed |= x != o;
+            rn[dst + j] = x;
+          }
+      }
+    }
+  }
+  // the block's verdict, then the ticket
+  const bool any = __syncthreads_or(changed) != 0;
+  __shared__ bool s_last;
+  if (threadIdx.x == 0) {
+    if (track && any) atomicOr(&flags[2], 1u);
+    __threadfence();
+    s_last = atomicAdd(&flags[1], 1u) == gridDim.x - 1u;
+  }
+  __syncthreads();
+  if (s_last && threadIdx.x == 0) {
+    __threadfence();
+    if (track) {
+      vf[3] = vf[2] == 0u ? 1u : 0u;
+      vf[4] = track == 2 ? 1u : vf[4] + 1u;
+      vf[2] = 0u;
+    }
+    vf[0] = 0u;
+    vf[1] = 0u;
+  }
+}
 
-// adj bool[n, n] -> out bool[n, n]; pa, pb packed scratch [n, nw]
+static inline int closure_launch(const unsigned* r, unsigned* rn, int n,
+                                 int nw, int row0, int nrows,
+                                 unsigned* flags, int track,
+                                 cudaStream_t st) {
+  const long long tiles = (long long)((nrows + CT_ROWS - 1) / CT_ROWS) *
+                          ((nw + CT_W - 1) / CT_W);
+  const int sms = sm_count();
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  closure_tile_kernel<<<grid, CT_TH, 0, st>>>(r, rn, n, nw, row0, nrows,
+                                              flags, track);
+  return 0;
+}
+
+// adj bool[n, n] -> out bool[n, n]; pa, pb packed scratch [n, nw]; flags
+// zeroed scratch [CT_FLAGS] (left zeroed); worked (nullable) i32[1]: the
+// squarings that did work
 extern "C" int transitive_closure(const void* adj, int n, int iterations,
-                                  void* pa, void* pb, void* out,
-                                  void* stream) {
+                                  void* pa, void* pb, void* out, void* flags,
+                                  void* worked, void* stream) {
   if (n <= 0) return 0;
+  if (iterations < 0 || flags == nullptr) return (int)cudaErrorInvalidValue;
   const int nw = (n + 31) / 32;
-  if (nw > closure_max_words() || iterations < 0)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   unsigned* cur = (unsigned*)pa;
   unsigned* nxt = (unsigned*)pb;
   launch_pack((const unsigned char*)adj, n, n, nw, cur, st);
   ACCORD_CHECK();
-  const size_t smem = sizeof(unsigned) * CRB * nw;
   for (int it = 0; it < iterations; ++it) {
-    closure_square_kernel<<<(n + CRB - 1) / CRB, CTH, smem, st>>>(cur, nxt, n,
-                                                                  nw, 0, n);
+    closure_launch(cur, nxt, n, nw, 0, n, (unsigned*)flags, it ? 1 : 2,
+                   st);
     ACCORD_CHECK();
     unsigned* t = cur;
     cur = nxt;
     nxt = t;
   }
   unpack_rows_kernel<<<grid_for((long long)n * n, 256), 256, 0, st>>>(
-      cur, n, nw, (unsigned char*)out);
+      cur, n, nw, (unsigned char*)out, (unsigned*)flags, (int*)worked,
+      iterations > 0);
   ACCORD_CHECK();
   return 0;
 }
 
 // rows [row0, row0 + nrows) of one closure squaring: full r [n, nw] on the
-// device, the block's rows written to rn [nrows, nw]
+// device, the block's rows written to rn [nrows, nw]; flags as above
 extern "C" int closure_rows(const void* r, int n, int row0, int nrows,
-                            void* rn, void* stream) {
+                            void* rn, void* flags, void* stream) {
   if (n <= 0 || nrows <= 0) return 0;
-  const int nw = (n + 31) / 32;
-  if (nw > closure_max_words() || row0 < 0 || row0 + nrows > n)
+  if (row0 < 0 || row0 + nrows > n || flags == nullptr)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(unsigned) * CRB * nw;
-  closure_square_kernel<<<(nrows + CRB - 1) / CRB, CTH, smem,
-                          (cudaStream_t)stream>>>(
-      (const unsigned*)r, (unsigned*)rn, n, nw, row0, nrows);
+  closure_launch((const unsigned*)r, (unsigned*)rn, n, (n + 31) / 32, row0,
+                 nrows, (unsigned*)flags, 0, (cudaStream_t)stream);
   ACCORD_CHECK();
   return 0;
 }
+
 
 // ---------------------------------------------------------------- K20
 // one round over rows [row0, row0 + nrows): p holds those rows packed

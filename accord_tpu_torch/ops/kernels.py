@@ -2387,12 +2387,23 @@ def deps_matrix(subj_words, subj_before, subj_kinds, act_words, act_ts,
                          "bool[A], witness_table i32[k0, k1]")
     ext = _ext()
     _check_cuda(*lanes)
-    out = torch.empty(b, a, dtype=torch.bool, device=subj_words.device)
+    dev = subj_words.device
+    out = torch.empty(b, a, dtype=torch.bool, device=dev)
     n0, n1 = witness_table.shape
-    ext.call("dense_dag", "deps_matrix", *(_addr(x) for x in lanes), n0, n1,
-             b, a, kw, _addr(out), ext.stream())
+    ext.entry("dense_dag", "deps_matrix", _DEPS_MATRIX_ARGS)(
+        *(x.data_ptr() for x in lanes), n0, n1, b, a, kw, out.data_ptr(),
+        ext.raw_stream(dev.index))
     LAUNCHES["deps_matrix"] += 1
     return out
+
+
+_DEPS_MATRIX_ARGS = (_VP,) * 8 + (_I,) * 5 + (_VP, _VP)
+_DEPS_STRIDED_ARGS = (_VP, _I, _VP, _VP, _VP, _I) + (_VP,) * 4 + (_I,) * 5 \
+    + (_VP, _VP)
+# K19's zeroed flag words (csrc/dense_dag.cu CT_FLAGS)
+_CLOSURE_FLAG_BYTES = 4 * 5
+_CLOSURE_ARGS = (_VP, _I, _I) + (_VP,) * 6
+_CLOSURE_ROWS_ARGS = (_VP, _I, _I, _I) + (_VP,) * 3
 
 
 def transitive_closure_step_plain(r):
@@ -2401,10 +2412,20 @@ def transitive_closure_step_plain(r):
     return r | ((rf @ rf) > 0.5)
 
 
-def transitive_closure_plain(adj, iterations: int):
+def transitive_closure_plain(adj, iterations: int, worked=None):
+    """Every squaring, as the reference runs them. `worked` (i32[1]), if
+    given, gets the squarings up to and including the first that changes
+    nothing: the ones the kernel does work in."""
     r = adj.clone()
+    busy, settled = 0, worked is None
     for _ in range(int(iterations)):
-        r = transitive_closure_step_plain(r)
+        nxt = transitive_closure_step_plain(r)
+        if not settled:
+            busy += 1
+            settled = bool(torch.equal(nxt, r))
+        r = nxt
+    if worked is not None:
+        worked.fill_(busy)
     return r
 
 
@@ -2415,25 +2436,33 @@ def _check_square_bool(adj, who: str) -> int:
     return n
 
 
-def transitive_closure(adj, iterations: int):
+def transitive_closure(adj, iterations: int, worked=None):
     """K19: reachability by repeated squaring, R |= (R @ R > 0.5), exactly
     `iterations` times, each from the previous R (the reference's
-    transitive_closure). bool[N, N] -> bool[N, N]."""
+    transitive_closure). bool[N, N] -> bool[N, N]. The kernel returns at
+    once from each squaring after one that changed nothing (exact);
+    `worked` (i32[1] on adj's device), if given, gets the number of
+    squarings that did work."""
     if not adj.is_cuda:
-        return transitive_closure_plain(adj, iterations)
+        return transitive_closure_plain(adj, iterations, worked)
     ext = _ext()
     n = _check_square_bool(adj, "transitive_closure")
     _check_cuda(adj)
+    if worked is not None and (worked.dtype != torch.int32
+                               or worked.numel() != 1
+                               or worked.device != adj.device):
+        raise ValueError("transitive_closure: worked must be i32[1] on "
+                         "adj's device")
+    dev = adj.device
     nw = (n + 31) // 32
-    most = int(ext.lib("dense_dag").closure_max_words())
-    if nw > most:
-        raise ValueError("transitive_closure: N above the kernel's limit "
-                         f"({32 * most})")
-    pa = torch.empty(n, nw, dtype=torch.int32, device=adj.device)
+    pa = torch.empty(n, nw, dtype=torch.int32, device=dev)
     pb = torch.empty_like(pa)
     out = torch.empty_like(adj)
-    ext.call("dense_dag", "transitive_closure", _addr(adj), n,
-             int(iterations), _addr(pa), _addr(pb), _addr(out), ext.stream())
+    ext.entry("dense_dag", "transitive_closure", _CLOSURE_ARGS)(
+        adj.data_ptr(), n, int(iterations), pa.data_ptr(), pb.data_ptr(),
+        out.data_ptr(), zeroed_scratch(dev, _CLOSURE_FLAG_BYTES),
+        None if worked is None else worked.data_ptr(),
+        ext.raw_stream(dev.index))
     LAUNCHES["transitive_closure"] += 1
     return out
 
@@ -2817,11 +2846,11 @@ def deps_matrix_shard(subj_words, subj_before, subj_kinds, act_words,
     _check_cuda(subj_before, subj_kinds, act_ts, act_kinds, act_valid,
                 witness_table, out)
     n0, n1 = witness_table.shape
-    ext.call("dense_dag", "deps_matrix_strided", _addr(subj_words), sws,
-             _addr(subj_before), _addr(subj_kinds), _addr(act_words), aws,
-             _addr(act_ts), _addr(act_kinds), _addr(act_valid),
-             _addr(witness_table), n0, n1, b, a, kw, _addr(out),
-             ext.stream())
+    ext.entry("dense_dag", "deps_matrix_strided", _DEPS_STRIDED_ARGS)(
+        subj_words.data_ptr(), sws, subj_before.data_ptr(),
+        subj_kinds.data_ptr(), act_words.data_ptr(), aws, act_ts.data_ptr(),
+        act_kinds.data_ptr(), act_valid.data_ptr(), witness_table.data_ptr(),
+        n0, n1, b, a, kw, out.data_ptr(), ext.raw_stream(out.device.index))
     LAUNCHES["deps_matrix_shard"] += 1
     return out
 
@@ -2847,8 +2876,8 @@ def pack_rows(m: torch.Tensor, out) -> torch.Tensor:
                          "[rows, ceil(N/32)]")
     ext = _ext()
     _check_cuda(m, out)
-    ext.call("dense_dag", "pack_rows", _addr(m), rows, n, _addr(out),
-             ext.stream())
+    ext.entry("dense_dag", "pack_rows", (_VP, _I, _I, _VP, _VP))(
+        m.data_ptr(), rows, n, out.data_ptr(), ext.raw_stream(m.device.index))
     LAUNCHES["pack_rows"] += 1
     return out
 
@@ -2873,11 +2902,13 @@ def closure_rows(full, n: int, row0: int, nrows: int, out):
             or full.dtype != torch.int32 or out.dtype != torch.int32):
         raise ValueError("closure_rows: packed full i32[N, ceil(N/32)], "
                          "out i32[nrows, ceil(N/32)]")
-    if nw > int(ext.lib("dense_dag").closure_max_words()):
-        raise ValueError("closure_rows: N above the kernel's limit")
+    if row0 < 0 or row0 + nrows > n:
+        raise ValueError("closure_rows: rows outside [0, N)")
     _check_cuda(full, out)
-    ext.call("dense_dag", "closure_rows", _addr(full), n, row0, nrows,
-             _addr(out), ext.stream())
+    dev = full.device
+    ext.entry("dense_dag", "closure_rows", _CLOSURE_ROWS_ARGS)(
+        full.data_ptr(), n, row0, nrows, out.data_ptr(),
+        zeroed_scratch(dev, _CLOSURE_FLAG_BYTES), ext.raw_stream(dev.index))
     LAUNCHES["closure_rows"] += 1
     return out
 

@@ -133,7 +133,9 @@ launched.
  21. the execute-DAG kernels at a real size: K18 at BASELINE's PreAccept
      shape (4,096 subjects x 16,384 arena rows, 1,024 buckets, 10,000
      live rows of 4 keys over 1,000); K19 (13 iterations) and K20 (64
-     levels) at N 8,192 on a bench_dag-style DAG; K21 at bench_dag's
+     levels) at N 8,192 on a bench_dag-style DAG, logging how many of
+     K19's squarings did work (the rest return at once after a fixpoint;
+     the count equal to the plain version's); K21 at bench_dag's
      100,000 nodes and 192 levels (the packed adjacency, 1.25 GB, made on
      the card from a torch.Generator seeded 5 with bench_dag's density
      rule), settled, its depth reported;
@@ -201,7 +203,13 @@ launched.
      the sweep's largest tick's and the 10k tick's key finalizes), K6, K9's
      compact entry and K11 also report device_ms, and a torch.profiler
      trace of one eager call: K10 and K2 one kernel, K6, K9 and K11 their
-     words kernel and the one compaction kernel, no memset or copy. Every
+     words kernel and the one compaction kernel, no memset or copy. K18
+     and K19 report device_ms (K19: 10 calls a graph) and, beside the
+     bf16 matmul of one stage (library_ms), the whole function as a
+     PyTorch chain (library_chain_ms, library_chain_device_ms); their
+     traces show K18 one kernel and K19 `iterations` + 2 (pack, squarings,
+     unpack), and at the dense batch's size each is set against the
+     matmul yardstick (`vs_library`: K19 against 13 squarings). Every
      kernel must have launched on its path. The build phase holds K10's
      walking kernel to 0 bytes of stack frame and spills (ptxas -v).
 The last three lines are the card line, one JSON line of kernels, and the
@@ -218,6 +226,10 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 INT32_OPS_PER_S = 67e12          # 32-bit ops outside the tensor cores
+# K18's B*A*K/32 word ANDs run on the tensor cores (mma.sync b1.and.popc),
+# whose b1 rate NVIDIA's H100 data sheet does not publish: no operations
+# term, so K18's bound (and a shard's) is its bytes
+DEPS_MATRIX_OPS = 0
 KERNELS = (
     ("deps_resolve", "accord_tpu_torch/csrc/deps_resolve.cu",
      "accord_tpu/ops/kernels.py:268"),
@@ -278,6 +290,13 @@ LIBRARY_CALL = {
     "deps_matrix": "torch.matmul of the unpacked bf16 bitmaps: the overlap "
                    "stage only",
     "transitive_closure": "torch.matmul of R in bf16: one squaring"}
+# the PyTorch chain that computes a kernel's whole function (timed as
+# library_chain_ms / library_chain_device_ms; never on the path)
+LIBRARY_CHAIN = {
+    "deps_matrix": "bf16 matmul of the unpacked bitmaps > 0.5, the witness "
+                   "gather, lex-before and valid, ANDed",
+    "transitive_closure": "iterations x (R in bf16, bf16 matmul, > 0.5, "
+                          "OR into R)"}
 DENSE_KERNELS = ("deps_matrix", "transitive_closure", "execution_wavefronts",
                  "dag_wavefronts_packed")
 EXEC_KERNELS = ("exec_scatter", "execution_frontier",
@@ -466,37 +485,94 @@ DEVICE_TIMED = ("scatter_rows", "kid_word_scatter", "arena_grow",
                 "lane_table", "range_scatter", "lane_slice",
                 "lane_slice_many", "cmd_tick", "finalize_csr",
                 "finalize_csr_tab", "range_finalize_csr", "frontier_compact",
-                "recovery_scan")
+                "recovery_scan", "deps_matrix", "transitive_closure")
+# calls captured in one graph where a call takes milliseconds (else 100)
+GRAPH_CALLS = {"transitive_closure": 10}
 # the kernels one eager call launches, by wrapper (a torch.profiler trace,
 # which must also show no memset or copy; finalize_csr_tab: its launch,
-# the table uploaded before)
+# the table uploaded before; transitive_closure: a squaring an iteration,
+# the pack and the unpack, whatever the data)
 KERNELS_A_CALL = {"cmd_tick": 1, "finalize_csr": 1, "finalize_csr_tab": 1,
                   "segment_compact": 1, "range_finalize_csr": 2,
-                  "frontier_compact": 2, "recovery_scan": 2}
+                  "frontier_compact": 2, "recovery_scan": 2,
+                  "deps_matrix": 1,
+                  "transitive_closure": lambda args: int(args[1]) + 2}
 
 
-def trace_call(fn) -> dict:
+TRACE_TRIES = 6
+
+
+def _device_events(fn) -> list:
+    """The names of the device activities a torch.profiler trace shows in
+    one call of fn."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def trace_call(fn, call=None, want=None) -> dict:
     """The kernels and the memsets and copies a torch.profiler trace shows
     on the card in one call of fn (after a warm call). A trace that holds
     no device activity at all says nothing of the call (the profiler
-    delivered none): it is taken again, up to three times."""
+    delivered none): it is taken again, after a pause and a warm call, up
+    to TRACE_TRIES times. Late in a long process the profiler also drops
+    events of the port's kernels (a trace empty, or short of its first
+    kernels, where the same call traces whole in a fresh process). So
+    where the trace is empty, or other than `want` kernels, and `call` =
+    (the name in the kernel module, args, kw, whether it is a launcher)
+    is given, the trace is taken in a fresh process on the same inputs,
+    and the caller's check judges that one."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    names = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(TRACE_TRIES):
+        if attempt:
+            time.sleep(0.5)
+        fn()
+        torch.cuda.synchronize()
+        names = _device_events(fn)
         if names:
             break
     moves = [n for n in names if "memset" in n.lower()
              or "memcpy" in n.lower()]
-    return {"kernels": [n.split("(")[0] for n in names if n not in moves],
-            "moves": moves}
+    got = {"kernels": [n.split("(")[0] for n in names if n not in moves],
+           "moves": moves}
+    if call is not None and (not names or (want is not None
+                                           and len(got["kernels"]) != want)):
+        log(f"trace: {got} in this process; taken again in a fresh one")
+        got = _trace_in_child(*call)
+        log(f"trace: in a fresh process: {got}")
+    return got
+
+
+def _trace_in_child(fn_name: str, args, kw, launcher=False) -> dict:
+    """trace_call of kernels.<fn_name>(*args, **kw) (with `launcher`, of
+    the launch that call returns first) in a fresh process, the inputs
+    passed through a torch.save file in the build directory."""
+    import torch
+    from accord_tpu_torch.ops import _ext
+    root = os.path.dirname(os.path.abspath(__file__))
+    _ext.BUILD.mkdir(parents=True, exist_ok=True)
+    path = _ext.BUILD / f"trace_args.{os.getpid()}.pt"
+    torch.save((fn_name, args, kw, launcher), path)
+    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke as s; "
+            "from accord_tpu_torch.ops import kernels as tk; "
+            "n, a, k, l = torch.load(sys.argv[2], weights_only=False); "
+            "f = getattr(tk, n); "
+            "fn = f(*a, **k)[0] if l else (lambda: f(*a, **k)); "
+            "print(json.dumps(s.trace_call(fn)))")
+    try:
+        res = subprocess.run([sys.executable, "-c", code, root, str(path)],
+                             capture_output=True, text=True, timeout=300,
+                             cwd=root)
+    finally:
+        path.unlink(missing_ok=True)
+    check(res.returncode == 0, f"{fn_name}: the trace in a fresh process "
+          f"failed:\n{res.stdout[-1000:]}{res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
 
 
 def graph_ms(fn, n: int = 100) -> float:
@@ -629,24 +705,30 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
             err = max_abs_err(out, plain(*args, **kw))
         ms = time_ms(lambda: kern(*args, **kw), iters, cuda)
         extra = {}
+        want = KERNELS_A_CALL.get(fn_name)
+        want = want(args) if callable(want) else want
         if fn_name == "finalize_csr_tab" and cuda:
             # its launch alone: the table goes up before the capture
             launch, _outs = tk.fin_tab_launcher(args[0])
             extra["device_ms"] = graph_ms(launch)
             extra["specs"] = len(args[0])
-            extra["trace"] = trace_call(launch)
+            extra["trace"] = trace_call(
+                launch, ("fin_tab_launcher", (args[0],), {}, True), want)
         elif fn_name in DEVICE_TIMED and cuda:
             # the host's enqueue left out: 100 calls in one CUDA graph
-            extra["device_ms"] = graph_ms(lambda: kern(*args, **kw))
-        if fn_name in KERNELS_A_CALL and cuda:
+            extra["device_ms"] = graph_ms(lambda: kern(*args, **kw),
+                                          GRAPH_CALLS.get(fn_name, 100))
+        if want is not None and cuda:
             if "trace" not in extra:
-                extra["trace"] = trace_call(lambda: kern(*args, **kw))
+                extra["trace"] = trace_call(lambda: kern(*args, **kw),
+                                            (fn_name, args, kw)
+                                            if hasattr(tk, fn_name)
+                                            else None, want)
             t = extra["trace"]
-            check(len(t["kernels"]) == KERNELS_A_CALL[fn_name]
-                  and not t["moves"],
+            check(len(t["kernels"]) == want and not t["moves"],
                   f"{fn_name}: one call launched {t['kernels']} and moved "
-                  f"{t['moves']}, not {KERNELS_A_CALL[fn_name]} kernel(s) "
-                  "and no memset or copy")
+                  f"{t['moves']}, not {want} kernel(s) and no memset or "
+                  "copy")
         if fn_name == "protocol_tick" and cuda:
             out = kern(*args, **kw)      # the last call: its graph replays
             extra["call_ms"] = ms
@@ -657,7 +739,15 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
         t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
         bound_ms = max(t_bytes, t_ops) * 1e3
         if library is not None and "device_ms" in extra:
-            extra["library_device_ms"] = graph_ms(library)
+            extra["library_device_ms"] = graph_ms(
+                library, GRAPH_CALLS.get(fn_name, 100))
+        chain = library_chain(tk, fn_name, args)
+        if chain is not None:
+            extra["library_chain_ms"] = time_ms(chain, max(1, iters // 10),
+                                                cuda)
+            if "device_ms" in extra:
+                extra["library_chain_device_ms"] = graph_ms(
+                    chain, GRAPH_CALLS.get(fn_name, 100))
         row = {"call": fn_name, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -676,6 +766,22 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
     head = max(rows, key=lambda r: r["input_mb"])
     return dict(head, max_abs_err=max(r["max_abs_err"] for r in rows),
                 calls=rows)
+
+
+def dense_vs_library(name: str, row: dict) -> dict:
+    """K18's and K19's device ms at the dense batch's size against the
+    bf16 matmul yardstick in the same run: K18 against the overlap
+    matmul, K19 against 13 x one squaring (its 13 iterations)."""
+    times = 13 if name == "transitive_closure" else 1
+    got = {"device_ms": row["device_ms"],
+           "library_device_ms_x": times * row["library_device_ms"],
+           "library_chain_device_ms": row["library_chain_device_ms"]}
+    got["below_library"] = got["device_ms"] < got["library_device_ms_x"]
+    log(f"{name}: device {got['device_ms']:.4f} ms vs {times} x the bf16 "
+        f"matmul {got['library_device_ms_x']:.4f} ms (whole torch chain "
+        f"{got['library_chain_device_ms']:.4f}): "
+        f"{'below' if got['below_library'] else 'NOT below'}")
+    return got
 
 
 def _fresh(args):
@@ -817,6 +923,53 @@ def tick_bound(tk, args, kw, out):
     return sum(reads.values()) + nbytes(out), ops, None
 
 
+def closure_ops(tk, adj, iters: int) -> int:
+    """The word ORs K19's squarings need on this data: set bits x N/32 of
+    each squaring up to and including the first that changes nothing
+    (every later one repeats it)."""
+    import torch
+    nw = (adj.shape[0] + 31) // 32
+    ops, r = 0, adj
+    for _ in range(int(iters)):
+        ops += int(r.sum()) * nw
+        nxt = tk.transitive_closure_step_plain(r)
+        if torch.equal(nxt, r):
+            break
+        r = nxt
+    return ops
+
+
+def library_chain(tk, fn_name, args):
+    """The PyTorch chain computing the whole function of `fn_name` on
+    these inputs (LIBRARY_CHAIN), its operands prepared outside, or
+    None."""
+    import torch
+    if fn_name == "deps_matrix":
+        sw, sb, sk, aw, at, ak, av, wt = args
+        s_bf = tk._unpack_bits(sw).to(torch.bfloat16)
+        a_bf = tk._unpack_bits(aw).to(torch.bfloat16).T.contiguous()
+        n0, n1 = wt.shape
+
+        def chain():
+            overlap = torch.matmul(s_bf, a_bf) > 0.5
+            witness = wt[tk._gather_index(sk, n0)[:, None],
+                         tk._gather_index(ak, n1)[None, :]] == 1
+            before = tk._lex_before(at[None, :, :], sb[:, None, :])
+            return overlap & witness & before & av[None, :]
+        return chain
+    if fn_name == "transitive_closure":
+        adj, iters = args
+
+        def chain():
+            r = adj
+            for _ in range(int(iters)):
+                rb = r.to(torch.bfloat16)
+                r = r | (torch.matmul(rb, rb) > 0.5)
+            return r
+        return chain
+    return None
+
+
 def bound_inputs(tk, fn_name, args, kw, out):
     """(bytes the function must move, 32-bit operations it must do, one
     library call computing the same function or None) for this call's
@@ -835,22 +988,17 @@ def bound_inputs(tk, fn_name, args, kw, out):
         return (small + 2 * landed * (w * 4 + 12) + nbytes(out[2:]), 0,
                 None)
     if fn_name == "deps_matrix":
+        # its word ANDs run on the tensor cores (b1 MMA), for which the
+        # data sheet gives no rate: bound by bytes (DEPS_MATRIX_OPS)
         sw, aw = args[0], args[3]
-        b, kw_ = sw.shape
-        a = aw.shape[0]
         s_bf = tk._unpack_bits(sw).to(torch.bfloat16)
         a_bf = tk._unpack_bits(aw).to(torch.bfloat16).T.contiguous()
-        return (nbytes(args) + nbytes(out), b * a * kw_,
+        return (nbytes(args) + nbytes(out), DEPS_MATRIX_OPS,
                 lambda: torch.matmul(s_bf, a_bf))
     if fn_name == "transitive_closure":
         adj, iters = args
-        nw = (adj.shape[0] + 31) // 32
-        ops, r = 0, adj
-        for _ in range(int(iters)):
-            ops += int(r.sum()) * nw
-            r = tk.transitive_closure_step_plain(r)
         rf = adj.to(torch.bfloat16)
-        return (nbytes(adj) + nbytes(out), ops,
+        return (nbytes(adj) + nbytes(out), closure_ops(tk, adj, iters),
                 lambda: torch.matmul(rf, rf))
     if fn_name == "execution_wavefronts":
         adj, levels = args
@@ -2139,18 +2287,24 @@ def run(rehearse: bool) -> dict:
             "replaces": replaces, "launches": launches[path][name],
             "path": path, **({"library_call": LIBRARY_CALL[name]}
                              if name in LIBRARY_CALL else {}),
+            **({"library_chain": LIBRARY_CHAIN[name]}
+               if name in LIBRARY_CHAIN else {}),
             "max_abs_err": max(k["max_abs_err"] for k in reports),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "call": head["call"],
             "calls": [_brief(r) for r in head["calls"]],
             **{k: head[k] for k in ("op_tier", "ms_per_op", "device_ms",
-                                    "library_device_ms", "specs", "trace")
+                                    "library_device_ms", "library_chain_ms",
+                                    "library_chain_device_ms", "specs",
+                                    "trace")
                if k in head},
             "launches_by_path": {p: launches[p][name] for p in launches}}
         for label, r in labelled:
             entry[label] = dict(_brief(r),
                                 calls=[_brief(c) for c in r["calls"]])
+        if cuda and name in LIBRARY_CHAIN:
+            entry["vs_library"] = dense_vs_library(name, entry["real_size"])
         entries.append(entry)
     entries.extend(sharded_entries)
     entries.extend(sharded_mega)
@@ -2755,13 +2909,15 @@ def _dag_words(n: int, device: str, seed: int):
     return adj & mask
 
 
-def dense_legs(device: str, cuda: bool, rehearse: bool, tk, launches):
-    """K18-K20 at a real size (FixedCalls, the graft path's batch) and the
-    100k-node DAG (K21, its own path: counts zeroed before, read after),
-    settled, bit-equal to the plain version on the card."""
+def dense_batch_args(device: str, rehearse: bool):
+    """The dense batch's inputs on `device`: deps_matrix's arguments at
+    the PreAccept batch's shape (4,096 subjects of 1-4 keys, 16,384
+    actives of 4 keys, 10,000 live, 1,024 buckets) and the N 8,192 DAG
+    (bench_dag's generator) as bool[N, N] for K19 and K20."""
     import numpy as np
     import torch
     from accord_tpu_torch.ops import carry
+    from accord_tpu_torch.ops import kernels as tk
     from accord_tpu_torch.ops.encoding import WITNESS_TABLE
     rng = np.random.default_rng(18)
     b, cap, k, live, nkeys = (4_096, 16_384, 1_024, 10_000, 1_000) \
@@ -2784,14 +2940,33 @@ def dense_legs(device: str, cuda: bool, rehearse: bool, tk, launches):
                .to(device), torch.arange(cap, device=device) < live,
                torch.from_numpy(WITNESS_TABLE).to(device))
     n_mid = 8_192 if not rehearse else 512
-    mid = tk._unpack_bits(_dag_words(n_mid, device, 5))
+    return dm_args, tk._unpack_bits(_dag_words(n_mid, device, 5))
+
+
+def dense_legs(device: str, cuda: bool, rehearse: bool, tk, launches):
+    """K18-K20 at a real size (FixedCalls, the graft path's batch) and the
+    100k-node DAG (K21, its own path: counts zeroed before, read after),
+    settled, bit-equal to the plain version on the card. Logs how many of
+    K19's 13 squarings did work (the rest return at once)."""
+    import torch
+    dm_args, mid = dense_batch_args(device, rehearse)
+    n_mid = mid.shape[0]
     batch = FixedCalls(deps_matrix=(dm_args, {}),
                        transitive_closure=((mid, 13), {}),
                        execution_wavefronts=((mid, 64), {}))
     out = tk.deps_matrix(*dm_args)
     check(bool(out.any()), "deps_matrix batch: vacuous")
+    worked = torch.zeros(1, dtype=torch.int32, device=device)
+    want = torch.zeros(1, dtype=torch.int32, device=device)
+    tk.transitive_closure(mid, 13, worked=worked)
+    tk.transitive_closure_plain(mid, 13, want)
+    check(int(worked) == int(want), f"transitive_closure: {int(worked)} "
+          f"squarings did work, the plain version counts {int(want)}")
+    SUMMARY["closure_squarings_worked"] = int(worked)
     log(f"dense batch: deps_matrix {tuple(out.shape)} with "
-        f"{int(out.sum())} deps; DAG N {n_mid} with {int(mid.sum())} edges")
+        f"{int(out.sum())} deps; DAG N {n_mid} with {int(mid.sum())} edges; "
+        f"transitive_closure(13): {int(worked)} squarings did work, "
+        f"{13 - int(worked)} returned at once")
     # the 100k DAG: K21 on its own path
     n = 100_000 if not rehearse else 4_096
     levels = 192
@@ -2998,9 +3173,7 @@ def shard_cost(tk, fn_name, a):
         ops = frags.numel()
         out_b = 16 * frags.shape[1] + 4 + 12 * frags.shape[1]
     elif fn_name == "deps_matrix_shard":
-        b, kw_ = a["subj_words"].shape
-        ops = b * a["act_words"].shape[0] * kw_
-        out_b = a["out"].numel()
+        ops, out_b = DEPS_MATRIX_OPS, a["out"].numel()
     elif fn_name == "pack_rows":
         ops, out_b = 0, nbytes(a["out"])
     elif fn_name == "closure_rows":
@@ -3156,11 +3329,8 @@ def sharded_fn_entries(tk, vmesh, real, batch, launches, cuda: bool,
             b1, o1, _ = bound_inputs(tk, "deps_matrix", (
                 args[0], args[1], args[2], args[0], args[1], args[2],
                 None, args[3]), {}, deps)
-            closed_ops, r = 0, deps
-            nw = (deps.shape[0] + 31) // 32
-            for _ in range(STEP_ROUNDS):
-                closed_ops += int(r.sum()) * nw
-                r = tk.transitive_closure_step_plain(r)
+            closed_ops = closure_ops(tk, deps, STEP_ROUNDS)
+            r = tk.transitive_closure_plain(deps, STEP_ROUNDS)
             bytes_ = b1 + nbytes(levels)
             ops = o1 + closed_ops + STEP_ROUNDS * int(r.sum())
         else:
@@ -3896,7 +4066,9 @@ def _brief(row: dict) -> dict:
     return {k: row[k] for k in ("call", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "share", "library_ms",
                                 "op_tier", "ms_per_op", "device_ms",
-                                "library_device_ms", "specs") if k in row}
+                                "library_device_ms", "library_chain_ms",
+                                "library_chain_device_ms", "specs")
+            if k in row}
 
 
 def main(argv=None) -> int:

@@ -19,6 +19,8 @@ from accord_tpu.ops.encoding import WITNESS_TABLE
 from accord_tpu_torch import graft_entry
 from accord_tpu_torch.ops import carry
 from accord_tpu_torch.ops import kernels as tk
+from torch_kernel_cases import (CLOSURE_CASES, CLOSURE_ITERS, DEPS_CASES,
+                                closure_case, deps_case, pack_words)
 
 I32_MIN = np.iinfo(np.int32).min
 
@@ -94,6 +96,51 @@ def test_transitive_closure_plain_matches_jax(n, p, dag, iters):
     ref = np.asarray(jk.transitive_closure(adj, iters))
     got = tk.transitive_closure(_t(adj), iters).numpy()
     assert np.array_equal(ref, got)
+
+
+@pytest.mark.parametrize("name", DEPS_CASES)
+def test_deps_matrix_shared_cases_match_jax(name):
+    """The fixtures the card tests hold K18 to (K 32, all-zero bitmaps,
+    odd B and A over two chunks, bucket-sparse rows, a ragged chunk):
+    the plain version = the JAX kernel, packed by the fixtures' own
+    packer."""
+    sbm, sb, sk, abm, ts, ak, valid = deps_case(name)
+    ref = np.asarray(jk.deps_matrix(sbm, sb, sk, abm, ts, ak, valid,
+                                    WITNESS_TABLE))
+    assert np.array_equal(pack_words(sbm), carry.packed(sbm).numpy())
+    got = tk.deps_matrix(_t(pack_words(sbm)), _t(sb), _t(sk),
+                         _t(pack_words(abm)), _t(ts), _t(ak), _t(valid),
+                         _t(WITNESS_TABLE))
+    assert np.array_equal(ref, got.numpy())
+    assert ref.any() == (name != "all_zero")
+
+
+@pytest.mark.parametrize("iters", CLOSURE_ITERS)
+@pytest.mark.parametrize("name", CLOSURE_CASES)
+def test_transitive_closure_shared_cases_match_jax(name, iters):
+    """K19's fixtures at an odd N: iterations 0, 1, below the depth and
+    well past the fixpoint; a DAG, a graph with cycles, a chain."""
+    adj = closure_case(name, 77)
+    ref = np.asarray(jk.transitive_closure(adj, iters))
+    got = tk.transitive_closure(_t(adj), iters).numpy()
+    assert np.array_equal(ref, got)
+
+
+@pytest.mark.parametrize("iters,busy", [(0, 0), (3, 3), (7, 7), (8, 8),
+                                        (20, 8)])
+def test_transitive_closure_plain_counts_working_squarings(iters, busy):
+    """`worked` counts the squarings up to and including the first that
+    changes nothing: a 100-node chain closes in ceil(log2 99) = 7, the 8th
+    confirms it."""
+    adj = _t(closure_case("chain", 100))
+    worked = torch.full((1,), -1, dtype=torch.int32)
+    closed = tk.transitive_closure(adj, iters, worked=worked)
+    assert int(worked) == busy
+    assert torch.equal(closed, tk.transitive_closure_plain(adj, iters))
+    if iters >= 7:
+        assert torch.equal(closed, torch.tril(torch.ones(100, 100,
+                                                         dtype=torch.bool),
+                                              -1))
 
 
 @pytest.mark.parametrize("n,p,dag,levels", [

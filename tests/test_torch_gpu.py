@@ -16,8 +16,10 @@ import torch
 
 from accord_tpu_torch.ops import kernels as tk
 from accord_tpu_torch.ops.encoding import WITNESS_TABLE
-from torch_kernel_cases import (CMD_CASES, CMD_SCALARS, cmd_case,
-                                      finalize_many_tiles)
+from torch_kernel_cases import (CLOSURE_CASES, CLOSURE_ITERS, CMD_CASES,
+                                CMD_SCALARS, DEPS_CASES, closure_case,
+                                cmd_case, deps_case, finalize_many_tiles,
+                                pack_words)
 
 pytestmark = pytest.mark.gpu
 I32_MIN = np.iinfo(np.int32).min
@@ -2009,3 +2011,167 @@ def test_compaction_many_tiles_kernels(cuda):
     for out_cap in (1000, 1 << 22):
         _eq(tk.segment_compact(m, out_cap),
             tk.segment_compact(m.to(cuda), out_cap))
+
+
+# -- K18 and K19 redesigned: register tiles, blocked boolean product ---------
+def _deps_args(name):
+    sbm, sb, sk, abm, ts, ak, valid = deps_case(name)
+    return [_t(x) for x in (pack_words(sbm), sb, sk, pack_words(abm), ts, ak,
+                            valid, WITNESS_TABLE)]
+
+
+@pytest.mark.parametrize("name", DEPS_CASES)
+def test_deps_matrix_kernel_shared_cases(cuda, name):
+    """K18 against its plain version on the CPU tests' fixtures: K 32,
+    all-zero bitmaps, odd B and A over two chunks, bucket-sparse rows, a
+    ragged 33-word chunk."""
+    args = _deps_args(name)
+    plain = tk.deps_matrix_plain(*args)
+    got = tk.deps_matrix(*_on(args, cuda))
+    torch.cuda.synchronize()
+    _eq(plain, got)
+
+
+def test_deps_matrix_strided_kernel(cuda):
+    """deps_matrix_shard (`deps_matrix_strided`) on word slices read in
+    place through their row strides (17, 32 and 1 words of 32), odd B and
+    A, into an aligned and a byte-offset (unaligned) output."""
+    sw, sb, sk, aw, ts, ak, valid, wt = _deps_args("odd_two_chunks")
+    b, a = sw.shape[0], aw.shape[0]
+    c_sw, c_aw = sw.to(cuda), aw.to(cuda)
+    rest = _on([sb, sk, ts, ak, valid, wt], cuda)
+    for lo, hi in ((3, 20), (0, 32), (16, 17)):
+        plain = tk.deps_matrix_plain(sw[:, lo:hi].contiguous(), sb, sk,
+                                     aw[:, lo:hi].contiguous(), ts, ak,
+                                     valid, wt)
+        for shift in (0, 1):
+            out = torch.empty(b * a + shift, dtype=torch.bool,
+                              device=cuda)[shift:].view(b, a)
+            got = tk.deps_matrix_shard(c_sw[:, lo:hi], rest[0], rest[1],
+                                       c_aw[:, lo:hi], rest[2], rest[3],
+                                       rest[4], rest[5], out)
+            torch.cuda.synchronize()
+            assert got is out
+            _eq(plain, got)
+
+
+@pytest.mark.parametrize("name", CLOSURE_CASES)
+def test_transitive_closure_kernel_shared_cases(cuda, name):
+    """K19 against its plain version (run on the card) at odd N 77 and
+    1,031 (33 words: the 4-byte copies) and N 1,024 (the 16-byte ones):
+    iterations 0, 1, below the depth, past the fixpoint; its count of
+    working squarings equal to the plain version's."""
+    for n in (77, 1031, 1024):
+        adj = _t(closure_case(name, n)).to(cuda)
+        for it in CLOSURE_ITERS + (13,):
+            w_plain = torch.zeros(1, dtype=torch.int32, device=cuda)
+            w = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+            plain = tk.transitive_closure_plain(adj, it, w_plain)
+            got = tk.transitive_closure(adj, it, worked=w)
+            torch.cuda.synchronize()
+            _eq(plain.cpu(), got)
+            assert int(w) == int(w_plain), (n, it, int(w), int(w_plain))
+
+
+def test_closure_rows_kernel_unaligned(cuda):
+    """closure_rows (one Jacobi round of K19 on a row block) at row0 not
+    aligned to the 64-row tile, one row, the whole matrix; 33 and 32
+    words."""
+    for n in (1031, 1024):
+        full = tk.pack_rows_plain(_t(closure_case("cycles", n)))
+        c_full = full.to(cuda)
+        for row0, nrows in ((0, n), (37, 201), (n - 1, 1), (64, 64)):
+            plain = tk.closure_rows_plain(full, n, row0, nrows)
+            out = torch.empty(nrows, full.shape[1], dtype=torch.int32,
+                              device=cuda)
+            got = tk.closure_rows(c_full, n, row0, nrows, out)
+            torch.cuda.synchronize()
+            _eq(plain, got)
+
+
+def _graph_twice(fn):
+    """fn's output from a CUDA graph of one call, replayed twice."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    outs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(out.cpu())
+    return outs
+
+
+def test_dense_kernels_second_call_and_graph_replay(cuda):
+    """A second eager call and two replays of a captured call equal the
+    first call: K19's flags scratch (tile counter, ticket, done) is zero
+    again after every call, the early exit included; K18 likewise."""
+    adj = _t(closure_case("dag", 1031)).to(cuda)
+    w = torch.zeros(1, dtype=torch.int32, device=cuda)
+    first = tk.transitive_closure(adj, 20, worked=w).cpu()
+    assert 0 < int(w) < 20                       # the early exit ran
+    _eq(first, tk.transitive_closure(adj, 20))
+    for out in _graph_twice(lambda: tk.transitive_closure(adj, 20)):
+        _eq(first, out)
+    _eq(first, tk.transitive_closure(adj, 20))
+    args = _on(_deps_args("sparse_buckets"), cuda)
+    first = tk.deps_matrix(*args).cpu()
+    for out in _graph_twice(lambda: tk.deps_matrix(*args)):
+        _eq(first, out)
+
+
+def test_transitive_closure_after_dirty_flags(cuda):
+    """Flags that a faulted call could leave set (done, a count of working
+    squarings) cost the next call no correctness: its first squaring
+    reads no done and restarts the count, and the call leaves the flags
+    zeroed."""
+    adj = _t(closure_case("dag", 1031)).to(cuda)
+    tk.transitive_closure(adj, 1)                # the scratch exists
+    idx = torch.cuda.current_device()
+    flags = tk._SCRATCH[idx][:tk._CLOSURE_FLAG_BYTES].view(torch.int32)
+    for it in (0, 1, 20):
+        flags[3], flags[4] = 1, 7
+        w_plain = torch.zeros(1, dtype=torch.int32, device=cuda)
+        w = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+        got = tk.transitive_closure(adj, it, worked=w)
+        _eq(tk.transitive_closure_plain(adj, it, w_plain).cpu(), got)
+        assert int(w) == int(w_plain), (it, int(w), int(w_plain))
+        assert not bool(flags.any()), flags.cpu()
+
+
+def test_dense_kernels_launches_a_call(cuda):
+    """A profiler trace of one call: K19 is `iterations` squaring launches
+    plus its pack and unpack, whatever the data (past the fixpoint too),
+    K18 one launch; neither has a memset or a copy."""
+    adj = _t(closure_case("dag", 1031)).to(cuda)
+    for it in (0, 3, 20):
+        kernels, moves = _trace_kernels(
+            lambda: tk.transitive_closure(adj, it))
+        assert len(kernels) == it + 2 and not moves, (it, kernels, moves)
+    args = _on(_deps_args("odd_two_chunks"), cuda)
+    kernels, moves = _trace_kernels(lambda: tk.deps_matrix(*args))
+    assert len(kernels) == 1 and not moves, (kernels, moves)
+
+
+def test_transitive_closure_above_the_old_limit(cuda):
+    """N 49,184 (1,537 words; the old kernel's cap was 49,152): K19 at 2
+    iterations. The edges lie among 2,000 nodes spread over the range, so
+    the closure is the plain version's on their induced 2,000 x 2,000
+    graph, and every other bit stays clear."""
+    n, m = 49_184, 2_000
+    rng = np.random.default_rng(49)
+    nodes = np.sort(rng.choice(n, m, replace=False))
+    sub = rng.random((m, m)) < 2.0 / m
+    ii, jj = np.nonzero(sub)
+    adj = torch.zeros(n, n, dtype=torch.bool, device=cuda)
+    adj[_t(nodes[ii]).to(cuda), _t(nodes[jj]).to(cuda)] = True
+    got = tk.transitive_closure(adj, 2)
+    want = tk.transitive_closure_plain(_t(sub), 2)
+    idx = _t(nodes).to(cuda)
+    _eq(want, got[idx][:, idx])
+    assert int(got.sum()) == int(want.sum()) > int(sub.sum())

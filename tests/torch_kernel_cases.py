@@ -226,3 +226,77 @@ def finalize_many_tiles(seed, total_zero=False, s=192, w=256, b=48):
     subj_row = rng.integers(-1, 32 * w, b).astype(np.int32)
     act_ts = rng.integers(-1000, 1000, (32 * w, 3)).astype(np.int32)
     return words, w // 2, kid, slot_subj, slot_kid, subj_row, act_ts
+
+
+# -- K18 deps_matrix and K19 transitive_closure (csrc/dense_dag.cu) ---------
+def pack_words(bits):
+    """bool/0-1 [rows, K] (K a multiple of 32) -> int32 [rows, K/32], column
+    32*w + i in bit i of word w (the port's packed rows)."""
+    b = np.asarray(bits).astype(bool)
+    return np.packbits(b, axis=1, bitorder="little").view("<u4") \
+        .view(np.int32)
+
+
+DEPS_CASES = ("kw1", "all_zero", "odd_two_chunks", "sparse_buckets",
+              "ragged_chunk")
+
+
+def deps_case(name):
+    """deps_matrix's inputs for the fixture `name` as numpy: (subject
+    bitmaps f32[B, K], subj_before i32[B, 3], subj_kinds i32[B], active
+    bitmaps f32[A, K], act_ts i32[A, 3], act_kinds i32[A], act_valid
+    bool[A]), with INT32_MIN lanes, equal triples and out-of-range kinds.
+    kw1: K 32 (one word). all_zero: zero bitmaps (no overlap at all).
+    odd_two_chunks: odd B and A, K 1,024 (two 16-word chunks).
+    sparse_buckets: 1-4 buckets a subject and 4 an active in 1,024, as
+    the PreAccept batch's bitmaps. ragged_chunk: K 1,056 (33 words)."""
+    b, a, k, seed = {"kw1": (37, 70, 32, 1), "all_zero": (40, 90, 96, 2),
+                     "odd_two_chunks": (97, 301, 1024, 3),
+                     "sparse_buckets": (130, 600, 1024, 4),
+                     "ragged_chunk": (67, 259, 1056, 5)}[name]
+    rng = np.random.default_rng(seed)
+    if name == "sparse_buckets":
+        sbm = np.zeros((b, k), np.float32)
+        abm = np.zeros((a, k), np.float32)
+        for r in range(b):
+            sbm[r, rng.integers(0, 200, rng.integers(1, 5))] = 1
+        for r in range(a):
+            abm[r, rng.integers(0, 200, 4)] = 1
+    else:
+        p = max(0.03, 3 / k)
+        sbm = (rng.random((b, k)) < p).astype(np.float32)
+        abm = (rng.random((a, k)) < p).astype(np.float32)
+    if name == "all_zero":
+        sbm[:] = 0
+        abm[:] = 0
+    sb = rng.integers(-3, 3, (b, 3)).astype(np.int32)
+    ts = rng.integers(-3, 3, (a, 3)).astype(np.int32)
+    ts[::5, 0] = I32_MIN
+    sb[::7, 0] = I32_MIN
+    ts[1] = sb[0]
+    sbm[0] = abm[1]
+    sk = rng.integers(-2, 8, b).astype(np.int32)
+    ak = rng.integers(-8, 8, a).astype(np.int32)
+    valid = rng.random(a) < 0.8
+    return sbm, sb, sk, abm, ts, ak, valid
+
+
+CLOSURE_CASES = ("dag", "cycles", "chain")
+# 0, one squaring, below the depth, and well past the fixpoint
+CLOSURE_ITERS = (0, 1, 2, 20)
+
+
+def closure_case(name, n):
+    """bool[n, n] adjacency of the K19 fixture `name`: dag a random
+    lower-triangular DAG (i depends on earlier rows, as the port's deps
+    are); cycles a random graph with cycles; chain the path where row i
+    depends on i - 1 (depth n - 1: ceil(log2(n - 1)) squarings close it)."""
+    rng = np.random.default_rng(n + len(name))
+    if name == "chain":
+        adj = np.zeros((n, n), bool)
+        adj[np.arange(1, n), np.arange(n - 1)] = True
+        return adj
+    adj = rng.random((n, n)) < 3.0 / n
+    if name == "dag":
+        adj = np.tril(adj, -1)
+    return adj
