@@ -9,18 +9,21 @@
 // exactly `any(subject_words & row_words)`, which is what the 0/1 product
 // counted, and at cap 16384, K 1024 the lane is 2 MB instead of 64 MB.
 //
-// What bounds it on an H100: the work is B * cap * K/32 word ANDs on the
-// CUDA cores (1024 * 16384 * 32 = 537M at the PreAccept-batch shape); the
-// bytes (the 2 MB packed lane plus the small row lanes) are read once per
-// subject tile and mostly come from L2. The design: a pre-pass turns the
-// subject CSR into packed subject words with atomicOr; then one warp per
-// 32-row word keeps its 32 rows' words in registers (lane i holds row
-// 32w + i), walks a tile of subjects whose words sit in shared memory
-// (every lane reads the same address: a broadcast), tests the cheap row
-// masks first (valid, store slot, witness table, lexicographic before) and
-// the bucket AND only where they pass, and `__ballot_sync` yields the
-// packed word itself. The bitwise AND-popcount tensor-core path
-// (mma .b1) is a later change.
+// What bounds it on an H100: the work is the masked word ANDs of B x cap
+// (subject, row) pairs on the CUDA cores, and the output, B x cap/32
+// words, written once; the packed lane (2 MB at cap 16384, K 1024) and the
+// small row lanes are read once per subject tile and mostly come from L2.
+// The design: a pre-pass turns the subject CSR into packed subject words
+// with atomicOr; then the block body (deps_block.cuh) gives a CTA a tile
+// of 64 subjects x 32 row words: it checks ownership before any load,
+// compacts each owned subject's words into its nonzero (index, word) list
+// in shared memory, lets one warp a 32-row word test the cheap row masks
+// first (valid, store slot, witness, lexicographic before) and the AND
+// over the subject's nonzero words only (at most 4 for a PreAccept
+// subject, where the parent walked all 32), packs the word with
+// `__ballot_sync`, stages it in shared memory and writes the tile as
+// 16-byte vector stores. A b1 tensor-core form of the overlap (K18's) is
+// no faster at this shape: the gain is in what is skipped.
 //
 // A mesh shard (accord_tpu_torch/parallel/mesh.py, replacing the JAX
 // package's parallel/mesh.py `sharded_deps_resolve` :170 and the per-store
@@ -93,20 +96,8 @@ extern "C" int deps_block(const void* subj_words, const void* subj_before,
                           const void* act_valid, int cap, int nw,
                           const void* witness, int nk, void* out,
                           int out_stride, int out_off, void* stream) {
-  if (nw > MAX_NW || nk * nk > 64 || (cap & 31) || bm_stride < nw)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  int words = cap >> 5;
-  dim3 grid((words + WARPS - 1) / WARPS, (b + SUBJ_TILE - 1) / SUBJ_TILE);
-  if (words == 0 || b == 0) return 0;
-  resolve_kernel<<<grid, WARPS * 32, 0, st>>>(
-      (const unsigned*)subj_words, (const int*)subj_before,
-      (const int*)subj_kinds, (const int*)subj_store, (const int*)slot,
-      nullptr, b,
-      (const unsigned*)act_bm, bm_stride, (const int*)act_ts,
-      (const int*)act_kinds,
-      (const unsigned char*)act_valid, cap, nw, (const int*)witness, nk,
-      (unsigned*)out, out_stride, out_off);
-  ACCORD_CHECK();
-  return 0;
+  return launch_resolve(subj_words, subj_before, subj_kinds, subj_store,
+                        slot, nullptr, b, act_bm, bm_stride, act_ts,
+                        act_kinds, act_valid, cap, nw, witness, nk, out,
+                        out_stride, out_off, (cudaStream_t)stream);
 }

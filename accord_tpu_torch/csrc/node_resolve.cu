@@ -12,12 +12,13 @@
 // subj_node[s] == slots[z] (the globally unique (plan, store) slot); pad
 // blocks carry slot -1, which no subject holds.
 //
-//   K13: one launch, grid (row-word group, subject tile, block): K1's block
-//        body (deps_block.cuh) over the packed subject words of K1's
-//        subject pass. A subject tile with no subject of the block writes
-//        its zero words without touching the arena, which is what keeps a
-//        64-node tick (every tile foreign to all but a few blocks) at the
-//        cost of writing its output.
+//   K13: one launch, grid (run of 64-subject tiles, block, 32-word
+//        group): K1's block body (deps_block.cuh) over the packed subject
+//        words of K1's subject pass. A tile first reads its subjects' node
+//        slots; with none of the block's it writes its zero tile (16-byte
+//        stores, 128 B of each row) and moves on, touching no subject
+//        word, witness entry or arena lane: at the 10k tick ~98% of
+//        tiles, so the call costs about the writing of its output.
 //   K14: K5's covered-bucket pass once, then per side one launch over its
 //        table: the range side ORs each interval's overlap bits per
 //        subject (atomicOr, order-free) and masks them row by row; the
@@ -35,8 +36,9 @@
 // node_range_resolve as it is. The 'model' partials then OR-fold (K22).
 //
 // What bounds them: bytes -- the output, B x sum(cap)/32 words, is mostly
-// zero words written once; the arena lanes of a block are read once per
-// subject tile that holds one of its subjects.
+// zero words written once (as 16-byte stores); the arena lanes of a block
+// are read once per subject tile that holds one of its subjects, and only
+// the row words that hold a valid row.
 #include "range_block.cuh"
 
 struct KeyBlk {              // 48 bytes
@@ -81,7 +83,7 @@ extern "C" int node_table_sizes(int* out) {
   return 0;
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(KT_THREADS, KT_MIN_CTAS)
 node_key_kernel(const unsigned char* __restrict__ tab,
                 const unsigned* __restrict__ subj_words,
                 const int* __restrict__ subj_before,
@@ -89,14 +91,15 @@ node_key_kernel(const unsigned char* __restrict__ tab,
                 const int* __restrict__ subj_node,
                 const int* __restrict__ slots,
                 const unsigned char* __restrict__ gate, int b, int nw,
-                const int* __restrict__ witness, int nk, int out_stride) {
+                const int* __restrict__ witness, int nk, int out_stride,
+                int gw) {
   const TabHdr* h = (const TabHdr*)tab;
-  const KeyBlk bk = ((const KeyBlk*)(tab + sizeof(TabHdr)))[blockIdx.z];
-  if ((int)blockIdx.x * WARPS >= (bk.cap >> 5)) return;  // whole block
+  const KeyBlk bk = ((const KeyBlk*)(tab + sizeof(TabHdr)))[blockIdx.y];
+  if ((int)blockIdx.z * gw >= (bk.cap >> 5)) return;  // whole CTA
   resolve_body(subj_words, subj_before, subj_kinds, subj_node,
-               slots[blockIdx.z], gate, b, bk.bm, nw, bk.ts, bk.kinds,
+               slots[blockIdx.y], gate, b, bk.bm, nw, bk.ts, bk.kinds,
                bk.valid, bk.cap, nw, witness, nk, h->out, out_stride,
-               bk.out_off);
+               bk.out_off, gw);
 }
 
 // K13 (and K14's key side, gate = subj_is_range, subj_words = the covered
@@ -113,19 +116,17 @@ extern "C" int node_key_resolve(const void* tab, int nblocks, int max_cap,
   if (nblocks <= 0 || b <= 0 || max_cap <= 0) return 0;
   if (nblocks > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int words = max_cap >> 5;
-  dim3 grid((words + WARPS - 1) / WARPS, (b + SUBJ_TILE - 1) / SUBJ_TILE,
-            nblocks);
-  node_key_kernel<<<grid, WARPS * 32, 0, st>>>(
+  const KeyGeom g = key_geom(max_cap, b, nw, nblocks);
+  node_key_kernel<<<g.grid, g.threads, g.smem, st>>>(
       (const unsigned char*)tab, (const unsigned*)subj_words,
       (const int*)subj_before, (const int*)subj_kinds, (const int*)subj_node,
       (const int*)slots, (const unsigned char*)gate, b, nw,
-      (const int*)witness, nk, out_stride);
+      (const int*)witness, nk, out_stride, g.gw);
   ACCORD_CHECK();
   return 0;
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(KT_THREADS, KT_MIN_CTAS)
 node_key_shard_kernel(const KeyShard* __restrict__ tab,
                       const int* __restrict__ subj_before,
                       const int* __restrict__ subj_kinds,
@@ -133,12 +134,12 @@ node_key_shard_kernel(const KeyShard* __restrict__ tab,
                       const int* __restrict__ slots,
                       const unsigned char* __restrict__ gate, int b, int nwl,
                       const int* __restrict__ witness, int nk,
-                      int out_stride) {
-  const KeyShard e = tab[blockIdx.z];
-  if ((int)blockIdx.x * WARPS >= (e.cap >> 5)) return;  // whole block
-  resolve_body(e.sw, subj_before, subj_kinds, subj_node, slots[blockIdx.z],
+                      int out_stride, int gw) {
+  const KeyShard e = tab[blockIdx.y];
+  if ((int)blockIdx.z * gw >= (e.cap >> 5)) return;  // whole CTA
+  resolve_body(e.sw, subj_before, subj_kinds, subj_node, slots[blockIdx.y],
                gate, b, e.bm, e.bm_stride, e.ts, e.kinds, e.valid, e.cap,
-               nwl, witness, nk, e.out, out_stride, e.out_off);
+               nwl, witness, nk, e.out, out_stride, e.out_off, gw);
 }
 
 // K13 over a shard table of nent KeyShard entries (slots[e]: entry e's
@@ -154,13 +155,11 @@ extern "C" int node_key_shard(const void* tab, int nent, int max_cap,
     return (int)cudaErrorInvalidValue;
   if (nent <= 0 || b <= 0 || max_cap <= 0) return 0;
   if (nent > 65535) return (int)cudaErrorInvalidValue;
-  const int words = max_cap >> 5;
-  dim3 grid((words + WARPS - 1) / WARPS, (b + SUBJ_TILE - 1) / SUBJ_TILE,
-            nent);
-  node_key_shard_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+  const KeyGeom g = key_geom(max_cap, b, nwl, nent);
+  node_key_shard_kernel<<<g.grid, g.threads, g.smem, (cudaStream_t)stream>>>(
       (const KeyShard*)tab, (const int*)subj_before, (const int*)subj_kinds,
       (const int*)subj_node, (const int*)slots, (const unsigned char*)gate,
-      b, nwl, (const int*)witness, nk, out_stride);
+      b, nwl, (const int*)witness, nk, out_stride, g.gw);
   ACCORD_CHECK();
   return 0;
 }

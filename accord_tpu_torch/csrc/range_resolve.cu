@@ -26,7 +26,9 @@
 // result does not depend on the order of iv_of. The covered words are built
 // the same way, one warp per (interval, 32-bucket word). Pass 2 applies the
 // row masks with one warp per 32-row word over a shared-memory tile of
-// subjects (K1's layout).
+// subjects; the key side is K1's block body (deps_block.cuh: ownership
+// first, the AND over each subject's nonzero covered words, the tile out
+// as 16-byte stores).
 //
 // What bounds it on an H100: operations -- 4 compares per (interval, row)
 // plus the masked word ANDs of the key side; the lanes are small and sit
@@ -123,19 +125,8 @@ extern "C" int range_key_block(const void* cov, const void* subj_before,
                                const void* act_valid, int cap, int nw,
                                const void* witness, int nk, void* out,
                                int stride, int off, void* stream) {
-  if (nw > MAX_NW || nk * nk > 64 || (cap & 31) || bm_stride < nw)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int words = cap >> 5;
-  if (words == 0 || b == 0) return 0;
-  dim3 grid((words + WARPS - 1) / WARPS, (b + SUBJ_TILE - 1) / SUBJ_TILE);
-  resolve_kernel<<<grid, WARPS * 32, 0, st>>>(
-      (const unsigned*)cov, (const int*)subj_before, (const int*)subj_kinds,
-      (const int*)subj_store, (const int*)slot,
-      (const unsigned char*)subj_is_range, b, (const unsigned*)act_bm,
-      bm_stride, (const int*)act_ts, (const int*)act_kinds,
-      (const unsigned char*)act_valid, cap, nw, (const int*)witness, nk,
-      (unsigned*)out, stride, off);
-  ACCORD_CHECK();
-  return 0;
+  return launch_resolve(cov, subj_before, subj_kinds, subj_store, slot,
+                        subj_is_range, b, act_bm, bm_stride, act_ts,
+                        act_kinds, act_valid, cap, nw, witness, nk, out,
+                        stride, off, (cudaStream_t)stream);
 }

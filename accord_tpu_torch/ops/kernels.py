@@ -344,8 +344,28 @@ def fused_deps_resolve_plain(subj_of, subj_keys, subj_store, subj_before,
     return torch.cat(outs, dim=1)
 
 
-def _resolve_cuda(subj_of, subj_keys, subj_store, subj_before, subj_kinds,
-                  slots, arenas, witness_table) -> torch.Tensor:
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+# deps_subjects_slice and deps_block (csrc/deps_resolve.cu), lean launches
+_DEPS_SUBJ_ARGS = (_VP, _VP, _I, _I, _I, _I, _I, _VP, _VP)
+_DEPS_BLOCK_ARGS = (_VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _VP, _VP, _VP, _I,
+                    _I, _VP, _I, _VP, _I, _I, _VP)
+
+
+def _deps_subjects(ext, subj_of, subj_keys, b: int, k_total: int, base: int,
+                   k_local: int, words, st: int) -> None:
+    """K1's subject pass: the packed subject words of the bucket slice
+    [base, base + k_local) of k_total into `words` (zeroed first)."""
+    ext.entry("deps_resolve", "deps_subjects_slice", _DEPS_SUBJ_ARGS)(
+        subj_of.data_ptr(), subj_keys.data_ptr(), subj_of.shape[0], b,
+        k_total, base, k_local, words.data_ptr(), st)
+
+
+def resolve_launcher(subj_of, subj_keys, subj_store, subj_before,
+                     subj_kinds, slots, arenas, witness_table):
+    """K1 on the card, split at its body: the subject pass runs now (its
+    words in a fresh buffer) -> (launch, out). launch() is the body, one
+    deps_block launch per store block writing its span of out [B,
+    sum(cap)/32]; a CUDA graph can capture it alone."""
     ext = _ext()
     b = subj_before.shape[0]
     nw = arenas[0][0].shape[1]
@@ -356,28 +376,41 @@ def _resolve_cuda(subj_of, subj_keys, subj_store, subj_before, subj_kinds,
                 *[t for a in arenas for t in a],
                 *((subj_store, slots) if slots is not None else ()))
     dev = subj_before.device
+    st = ext.raw_stream(dev.index)
     words = torch.empty(b, nw, dtype=torch.int32, device=dev)
-    st = ext.stream()
-    ext.call("deps_resolve", "deps_subjects", ext.ptr(subj_of),
-             ext.ptr(subj_keys), subj_of.shape[0], b, nw * 32,
-             ext.ptr(words), st)
+    _deps_subjects(ext, subj_of, subj_keys, b, nw * 32, 0, nw * 32, words,
+                   st)
     wtot = sum(a[0].shape[0] // 32 for a in arenas)
     out = torch.empty(b, wtot, dtype=torch.int32, device=dev)
-    off = 0
+    calls, off = [], 0
+    store = subj_store.data_ptr() if subj_store is not None else None
     for s, (bm, ts, kinds, valid) in enumerate(arenas):
         cap = bm.shape[0]
         if bm.shape[1] != nw:
             raise ValueError("arena blocks differ in bucket count")
-        ext.call("deps_resolve", "deps_block", ext.ptr(words),
-                 ext.ptr(subj_before), ext.ptr(subj_kinds),
-                 ext.ptr(subj_store) if subj_store is not None
-                 else ext.ctypes_null(),
-                 ext.ptr(slots[s:s + 1]) if slots is not None
-                 else ext.ctypes_null(), b,
-                 ext.ptr(bm), nw, ext.ptr(ts), ext.ptr(kinds),
-                 ext.ptr(valid), cap, nw, ext.ptr(witness_table),
-                 witness_table.shape[0], ext.ptr(out), wtot, off, st)
+        calls.append((words.data_ptr(), subj_before.data_ptr(),
+                      subj_kinds.data_ptr(), store,
+                      slots.data_ptr() + 4 * s if slots is not None
+                      else None, b, bm.data_ptr(), nw, ts.data_ptr(),
+                      kinds.data_ptr(), valid.data_ptr(), cap, nw,
+                      witness_table.data_ptr(), witness_table.shape[0],
+                      out.data_ptr(), wtot, off))
         off += cap // 32
+
+    def launch(words=words, idx=dev.index):
+        body = ext.entry("deps_resolve", "deps_block", _DEPS_BLOCK_ARGS)
+        st = ext.raw_stream(idx)
+        for c in calls:
+            body(*c, st)
+    return launch, out
+
+
+def _resolve_cuda(subj_of, subj_keys, subj_store, subj_before, subj_kinds,
+                  slots, arenas, witness_table) -> torch.Tensor:
+    launch, out = resolve_launcher(subj_of, subj_keys, subj_store,
+                                   subj_before, subj_kinds, slots, arenas,
+                                   witness_table)
+    launch()
     LAUNCHES["deps_resolve"] += 1
     return out
 
@@ -494,9 +527,6 @@ def finalize_csr_plain(packed, word_off, kid_rows, slot_subj, slot_kid,
 CSR_TILE_WORDS = 1024       # csrc/common.cuh CW: words (positions) a tile
 _CSR_HDR = 16               # sizeof(CsrHdr)
 _CSR_ACC = 16               # sizeof(CsrAcc), one a spec
-_VP, _I = ctypes.c_void_p, ctypes.c_int
-
-
 def csr_tiles(n_words: int, out_cap: int) -> Tuple[int, int]:
     """(compaction tiles, pad tiles) of one compaction over n_words words
     into out_cap rows."""
@@ -1083,6 +1113,12 @@ def _covered_cuda(ext, iv_of, iv_start, iv_end, b: int, k: int, st):
     return cov
 
 
+# range_key_block (csrc/range_resolve.cu: K5's key side, the key body),
+# a lean launch
+_RANGE_KEY_ARGS = (_VP,) * 6 + (_I, _VP, _I, _VP, _VP, _VP, _I, _I, _VP, _I,
+                               _VP, _I, _I, _VP)
+
+
 def _range_resolve_cuda(iv_of, iv_start, iv_end, subj_store, subj_before,
                         subj_kinds, subj_is_range, r_slots, rarenas,
                         k_slots, karenas, witness_table):
@@ -1133,15 +1169,15 @@ def _range_resolve_cuda(iv_of, iv_start, iv_end, subj_store, subj_before,
             cap = k_bm.shape[0]
             if k_bm.shape[1] != nw:
                 raise ValueError("arena blocks differ in bucket count")
-            ext.call("range_resolve", "range_key_block", ext.ptr(cov),
-                     ext.ptr(subj_before), ext.ptr(subj_kinds),
-                     ext.ptr(subj_is_range),
-                     ext.ptr(subj_store) if subj_store is not None else null,
-                     ext.ptr(k_slots[s:s + 1]) if subj_store is not None
-                     else null, b,
-                     ext.ptr(k_bm), nw, ext.ptr(k_ts), ext.ptr(k_kinds),
-                     ext.ptr(k_valid), cap, nw, ext.ptr(witness_table),
-                     witness_table.shape[0], ext.ptr(kp), ktot, off, st)
+            ext.entry("range_resolve", "range_key_block", _RANGE_KEY_ARGS)(
+                ext.ptr(cov), ext.ptr(subj_before), ext.ptr(subj_kinds),
+                ext.ptr(subj_is_range),
+                ext.ptr(subj_store) if subj_store is not None else null,
+                ext.ptr(k_slots[s:s + 1]) if subj_store is not None
+                else null, b, ext.ptr(k_bm), nw, ext.ptr(k_ts),
+                ext.ptr(k_kinds), ext.ptr(k_valid), cap, nw,
+                ext.ptr(witness_table), witness_table.shape[0], ext.ptr(kp),
+                ktot, off, st)
             off += cap // 32
     if rtot or ktot:
         LAUNCHES["range_resolve"] += 1
@@ -2601,18 +2637,16 @@ def deps_resolve_shard(subj_of, subj_keys, subj_store, slot, subj_before,
     _check_out(out, col, cap // 32, dev, "deps_resolve_shard")
     b = subj_before.shape[0]
     words = torch.empty(b, nwl, dtype=torch.int32, device=dev)
-    st = ext.stream()
-    null = ext.ctypes_null()
-    ext.call("deps_resolve", "deps_subjects_slice", ext.ptr(subj_of),
-             ext.ptr(subj_keys), subj_of.shape[0], b, k_total, base,
-             nwl * 32, ext.ptr(words), st)
-    ext.call("deps_resolve", "deps_block", ext.ptr(words),
-             ext.ptr(subj_before), ext.ptr(subj_kinds),
-             ext.ptr(subj_store) if fused else null,
-             ext.ptr(slot) if fused else null, b, ext.ptr(bm), stride,
-             ext.ptr(ts), ext.ptr(kinds), ext.ptr(valid), cap, nwl,
-             ext.ptr(witness_table), witness_table.shape[0], ext.ptr(out),
-             out.shape[1], col, st)
+    st = ext.raw_stream(dev.index)
+    _deps_subjects(ext, subj_of, subj_keys, b, k_total, base, nwl * 32,
+                   words, st)
+    ext.entry("deps_resolve", "deps_block", _DEPS_BLOCK_ARGS)(
+        words.data_ptr(), subj_before.data_ptr(), subj_kinds.data_ptr(),
+        subj_store.data_ptr() if fused else None,
+        slot.data_ptr() if fused else None, b, bm.data_ptr(), stride,
+        ts.data_ptr(), kinds.data_ptr(), valid.data_ptr(), cap, nwl,
+        witness_table.data_ptr(), witness_table.shape[0], out.data_ptr(),
+        out.shape[1], col, st)
     LAUNCHES["deps_resolve_shard"] += 1
     return out
 
@@ -2709,14 +2743,13 @@ def range_key_shard(iv_of, iv_start, iv_end, subj_store, slot, subj_before,
     ext.call("range_resolve", "range_covered_slice", ext.ptr(iv_of),
              ext.ptr(iv_start), ext.ptr(iv_end), iv_of.shape[0], b, base,
              nwl * 32, k_total, ext.ptr(cov), st)
-    ext.call("range_resolve", "range_key_block", ext.ptr(cov),
-             ext.ptr(subj_before), ext.ptr(subj_kinds),
-             ext.ptr(subj_is_range),
-             ext.ptr(subj_store) if fused else null,
-             ext.ptr(slot) if fused else null, b, ext.ptr(bm), stride,
-             ext.ptr(ts), ext.ptr(kinds), ext.ptr(valid), cap, nwl,
-             ext.ptr(witness_table), witness_table.shape[0], ext.ptr(out),
-             out.shape[1], col, st)
+    ext.entry("range_resolve", "range_key_block", _RANGE_KEY_ARGS)(
+        ext.ptr(cov), ext.ptr(subj_before), ext.ptr(subj_kinds),
+        ext.ptr(subj_is_range), ext.ptr(subj_store) if fused else null,
+        ext.ptr(slot) if fused else null, b, ext.ptr(bm), stride,
+        ext.ptr(ts), ext.ptr(kinds), ext.ptr(valid), cap, nwl,
+        ext.ptr(witness_table), witness_table.shape[0], ext.ptr(out),
+        out.shape[1], col, st)
     LAUNCHES["range_resolve_shard"] += 1
     return out
 

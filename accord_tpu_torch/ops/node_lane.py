@@ -144,6 +144,14 @@ def block_dims(blocks, range_side: bool = False) -> Tuple[int, int, int]:
     return len(caps), max(caps, default=0), sum(c // 32 for c in caps)
 
 
+# node_key_resolve (csrc/node_resolve.cu) and K1's subject pass, lean
+# launches (kernels._ext's entry): pointers as c_void_p or ints
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_NODE_KEY_ARGS = (_VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _I,
+                  _I, _VP)
+_DEPS_SUBJ_ARGS = (_VP, _VP, _I, _I, _I, _VP, _VP)
+
+
 # -- the launches ---------------------------------------------------------------
 # K13's and K14's launch sequences, on device addresses: `A(x)` gives an
 # operand's address (kernels._addr over the wrappers' tensors; the protocol
@@ -154,17 +162,17 @@ def launch_key_blocks(ext, A, tab, dims, sw, sb, sknd, node, slots, gate,
     """node_key_resolve over the key block table at `tab`, on the subject
     words `sw` i32[b, nw]; `gate` (bool[b] or None) admits subject rows."""
     nblk, max_cap, wtot = dims
-    ext.call("node_resolve", "node_key_resolve", A(tab), nblk, max_cap,
-             A(sw), A(sb), A(sknd), A(node), A(slots), A(gate), b, nw, A(wt),
-             nk, wtot, ext.stream())
+    ext.entry("node_resolve", "node_key_resolve", _NODE_KEY_ARGS)(
+        A(tab), nblk, max_cap, A(sw), A(sb), A(sknd), A(node), A(slots),
+        A(gate), b, nw, A(wt), nk, wtot, ext.stream())
 
 
 def launch_node_deps(ext, A, of, keys, nnz: int, sw, tab, dims, sb, sknd,
                      node, slots, b: int, nw: int, wt, nk: int) -> None:
     """K13: K1's subject-word pass over the subject CSR (of, keys; nnz
     entries) into `sw`, then the key block table."""
-    ext.call("deps_resolve", "deps_subjects", A(of), A(keys), nnz, b,
-             nw * 32, A(sw), ext.stream())
+    ext.entry("deps_resolve", "deps_subjects", _DEPS_SUBJ_ARGS)(
+        A(of), A(keys), nnz, b, nw * 32, A(sw), ext.stream())
     launch_key_blocks(ext, A, tab, dims, sw, sb, sknd, node, slots, None, b,
                       nw, wt, nk)
 
@@ -225,6 +233,20 @@ def node_fused_deps_resolve(subj_of, subj_keys, subj_node, subj_before,
         return node_fused_deps_resolve_plain(
             subj_of, subj_keys, subj_node, subj_before, subj_kinds, slots,
             arenas, witness_table)
+    launch, out = key_launcher(subj_of, subj_keys, subj_node, subj_before,
+                               subj_kinds, slots, arenas, witness_table)
+    launch()
+    LAUNCHES["node_deps_resolve"] += 1
+    return out
+
+
+def key_launcher(subj_of, subj_keys, subj_node, subj_before, subj_kinds,
+                 slots, arenas, witness_table):
+    """K13 on the card, split at its body: the lanes and the block table
+    go up and K1's subject pass runs now -> (launch, out). launch() is the
+    one node_key_resolve launch over every block (a CUDA graph can capture
+    it alone); launch(True) runs the subject pass again first (the whole
+    call's device work)."""
     ext = _ext()
     dev = arenas[0][0].device
     of, keys, node, sb, sknd, sl = (_dev_lane(x, dev) for x in (
@@ -237,11 +259,19 @@ def node_fused_deps_resolve(subj_of, subj_keys, subj_node, subj_before,
     words = torch.empty(b, nw, dtype=torch.int32, device=dev)
     out = torch.empty(b, dims[2], dtype=torch.int32, device=dev)
     tab = _upload_table(key_table(arenas, out.data_ptr()), dev)
-    launch_node_deps(ext, _addr, of, keys, of.shape[0], words, tab, dims,
-                     sb, sknd, node, sl, b, nw, witness_table,
-                     witness_table.shape[0])
-    LAUNCHES["node_deps_resolve"] += 1
-    return out
+
+    def subjects():
+        ext.entry("deps_resolve", "deps_subjects", _DEPS_SUBJ_ARGS)(
+            of.data_ptr(), keys.data_ptr(), of.shape[0], b, nw * 32,
+            words.data_ptr(), ext.raw_stream(dev.index))
+    subjects()
+
+    def launch(subjects_too=False, keep=(of, keys, node, sb, sknd, sl, tab)):
+        if subjects_too:
+            subjects()
+        launch_key_blocks(ext, _addr, tab, dims, words, sb, sknd, node, sl,
+                          None, b, nw, witness_table, witness_table.shape[0])
+    return launch, out
 
 
 # -- K14: node_fused_range_deps_resolve --------------------------------------
@@ -274,6 +304,22 @@ def node_fused_range_deps_resolve(iv_of, iv_start, iv_end, subj_node,
             iv_of, iv_start, iv_end, subj_node, subj_before, subj_kinds,
             subj_is_range, r_slots, rarenas, k_slots, karenas,
             witness_table)
+    launch, rp, kp = range_launcher(iv_of, iv_start, iv_end, subj_node,
+                                    subj_before, subj_kinds, subj_is_range,
+                                    r_slots, rarenas, k_slots, karenas,
+                                    witness_table)
+    launch()
+    if rp.shape[1] or kp.shape[1]:
+        LAUNCHES["node_range_resolve"] += 1
+    return rp, kp
+
+
+def range_launcher(iv_of, iv_start, iv_end, subj_node, subj_before,
+                   subj_kinds, subj_is_range, r_slots, rarenas, k_slots,
+                   karenas, witness_table):
+    """K14 on the card with its tables uploaded -> (launch, rp, kp);
+    launch() runs its launches (a CUDA graph can capture them)."""
+    first = rarenas[0][0] if rarenas else karenas[0][0]
     ext = _ext()
     dev = first.device
     of, ivs, ive, node, sb, sknd, srng, rsl, ksl = (
@@ -298,12 +344,12 @@ def node_fused_range_deps_resolve(iv_of, iv_start, iv_end, subj_node,
         kside = (_upload_table(key_table(karenas, kp.data_ptr()), dev),
                  kdims, ksl,
                  torch.empty(b, nw, dtype=torch.int32, device=dev), nw)
-    launch_node_range_deps(ext, _addr, of, ivs, ive, of.shape[0], sb, sknd,
-                           node, srng, b, witness_table,
-                           witness_table.shape[0], rside, kside)
-    if rside or kside:
-        LAUNCHES["node_range_resolve"] += 1
-    return rp, kp
+
+    def launch(keep=(of, ivs, ive, node, sb, sknd, srng, rsl, ksl)):
+        launch_node_range_deps(ext, _addr, of, ivs, ive, of.shape[0], sb,
+                               sknd, node, srng, b, witness_table,
+                               witness_table.shape[0], rside, kside)
+    return launch, rp, kp
 
 
 # -- K15: lane_slice ----------------------------------------------------------

@@ -497,6 +497,13 @@ def _shard_key_table(P, blocks, data: int, model: int, parts, sws, b: int,
     return words
 
 
+# node_key_shard (csrc/node_resolve.cu), a lean launch (_ext.entry)
+_KEY_SHARD_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   *(ctypes.c_void_p,) * 5, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p)
+
+
 def _key_shard_launch(ext, A, subj, tab, nent: int, max_cl: int, sb, sknd,
                       node, slots, gate, b: int, nw: int, nwl: int, model: int,
                       sws, parts, out, wtot: int, wt, nk: int) -> None:
@@ -514,9 +521,9 @@ def _key_shard_launch(ext, A, subj, tab, nent: int, max_cl: int, sb, sknd,
             ext.call("range_resolve", "range_covered_slice", A(subj[0]),
                      A(subj[1]), A(subj[2]), subj[3], b, m * nwl * 32,
                      nwl * 32, nw * 32, A(sws[m]), ext.stream())
-    ext.call("node_resolve", "node_key_shard", A(tab), nent, max_cl, A(sb),
-             A(sknd), A(node), A(slots), A(gate), b, nwl, A(wt), nk, wtot,
-             ext.stream())
+    ext.entry("node_resolve", "node_key_shard", _KEY_SHARD_ARGS)(
+        A(tab), nent, max_cl, A(sb), A(sknd), A(node), A(slots), A(gate), b,
+        nwl, A(wt), nk, wtot, ext.stream())
     ext.call("mesh_combine", "or_fold", A(parts), 1, model, b, wtot, A(out),
              wtot, 0, ext.stream())
 

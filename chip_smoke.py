@@ -212,8 +212,25 @@ launched.
      matmul yardstick (`vs_library`: K19 against 13 squarings). Every
      kernel must have launched on its path. The build phase holds K10's
      walking kernel to 0 bytes of stack frame and spills (ptxas -v).
-The last three lines are the card line, one JSON line of kernels, and the
-result line {"ok": true, "device": {...}}.
+     K1 (single and fused), K3, K5, K7, K8, K9's plain entry and K12 also
+     report device_ms; K1 and K13 are also split at their key body
+     (kernels.resolve_launcher, node_lane.key_launcher): the body alone
+     bit-equal to the call, its device ms (body_device_ms; K13's
+     device_ms adds its subject pass), a trace of one body launch (one
+     kernel a store block, no memset or copy) and of one call (the
+     subject pass's memset and K13's table copy, nothing added), and the
+     parent's key body (tools/deps_block_parent.cu, built beside the
+     kernels) on the same inputs, bit-equal and timed interleaved with it
+     (parent_vs_new); their library_ms is the overlap stage as one bf16
+     matmul of the unpacked bitmaps. The 10k tick's replay and the
+     sharded 10k tick's key stage are timed beside the parent's too, and
+     K5's calls with the parent's key body (the whole call, a graph).
+     K5's fused entry reports device_ms too, and K14 the device ms of
+     its launches (range_launcher: its tables uploaded before).
+The last four lines are the parent-vs-new line (K1 at the PreAccept
+batch, K13 at the sweep's largest and the 10k tick, K5 at the range
+batch, the 10k replay, the sharded 10k key stage), the card line, one
+JSON line of kernels, and the result line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -287,6 +304,11 @@ KERNELS = (
 # the yardstick PyTorch call behind a kernel's library_ms where it computes
 # one stage of the kernel's function (timed only; never on the path)
 LIBRARY_CALL = {
+    "deps_resolve": "torch.matmul of the unpacked bf16 bucket bitmaps "
+                    "(subjects x every block's rows): the overlap stage only",
+    "node_deps_resolve": "torch.matmul of the unpacked bf16 bucket bitmaps "
+                         "(subjects x every block's rows): the overlap stage "
+                         "only",
     "deps_matrix": "torch.matmul of the unpacked bf16 bitmaps: the overlap "
                    "stage only",
     "transitive_closure": "torch.matmul of R in bf16: one squaring"}
@@ -480,14 +502,31 @@ def time_ms(fn, iters: int, cuda: bool) -> float:
     return start.elapsed_time(end) / iters
 
 
-# the wrappers whose rows (PERF.md 3, 6-8, 21-25, 30) also give device time
+# the wrappers whose rows (PERF.md 1-4, 6-9, 13, 16, 18, 19, 21-26, 30)
+# also give device time
 DEVICE_TIMED = ("scatter_rows", "kid_word_scatter", "arena_grow",
                 "lane_table", "range_scatter", "lane_slice",
                 "lane_slice_many", "cmd_tick", "finalize_csr",
                 "finalize_csr_tab", "range_finalize_csr", "frontier_compact",
-                "recovery_scan", "deps_matrix", "transitive_closure")
+                "recovery_scan", "deps_matrix", "transitive_closure",
+                "deps_resolve", "fused_deps_resolve", "range_deps_resolve",
+                "fused_range_deps_resolve", "arena_scatter", "max_conflict",
+                "exec_scatter", "execution_frontier", "cmd_repair")
+# the key body's wrappers (csrc/deps_block.cuh: K1, K13), each split at its
+# body by a launcher (the subject pass, and K13's table upload, run first):
+# the body's kernels a launch, which a trace must show with no memset or
+# copy, and the memsets and copies of a whole call (the subject pass's
+# memset; K13's table upload), which the body adds nothing to
+BODY_A_LAUNCH = {"deps_resolve": lambda args: 1,
+                 "fused_deps_resolve": lambda args: len(args[6]),
+                 "node_fused_deps_resolve": lambda args: 1}
+CALL_MOVES = {"deps_resolve": 1, "fused_deps_resolve": 1,
+              "node_fused_deps_resolve": 2}
+# the parent's key body beside the shipped one (tools/deps_block_variants):
+# by label, printed on a line before the card line
+PARENT_VS_NEW: dict = {}
 # calls captured in one graph where a call takes milliseconds (else 100)
-GRAPH_CALLS = {"transitive_closure": 10}
+GRAPH_CALLS = {"transitive_closure": 10, "node_fused_deps_resolve": 4}
 # the kernels one eager call launches, by wrapper (a torch.profiler trace,
 # which must also show no memset or copy; finalize_csr_tab: its launch,
 # the table uploaded before; transitive_closure: a squaring an iteration,
@@ -548,8 +587,9 @@ def trace_call(fn, call=None, want=None) -> dict:
 
 
 def _trace_in_child(fn_name: str, args, kw, launcher=False) -> dict:
-    """trace_call of kernels.<fn_name>(*args, **kw) (with `launcher`, of
-    the launch that call returns first) in a fresh process, the inputs
+    """trace_call of kernels.<fn_name>(*args, **kw) (or node_lane's; with
+    `launcher`, of the launch that call returns first) in a fresh
+    process, the inputs
     passed through a torch.save file in the build directory."""
     import torch
     from accord_tpu_torch.ops import _ext
@@ -560,8 +600,9 @@ def _trace_in_child(fn_name: str, args, kw, launcher=False) -> dict:
     code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); "
             "import chip_smoke as s; "
             "from accord_tpu_torch.ops import kernels as tk; "
+            "from accord_tpu_torch.ops import node_lane as nl; "
             "n, a, k, l = torch.load(sys.argv[2], weights_only=False); "
-            "f = getattr(tk, n); "
+            "f = getattr(tk, n, None) or getattr(nl, n); "
             "fn = f(*a, **k)[0] if l else (lambda: f(*a, **k)); "
             "print(json.dumps(s.trace_call(fn)))")
     try:
@@ -629,7 +670,64 @@ def nbytes(*ts) -> int:
 
 
 # -- per-kernel work: replay, compare, time, bound ---------------------------
-def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
+def body_launcher(tk, fn_name, args):
+    """(launcher's name, its args): the key body's launcher (see
+    BODY_A_LAUNCH) of a recorded call of fn_name."""
+    if fn_name == "deps_resolve":
+        of, keys, sb, sknd, bm, ts, kinds, valid, table = args
+        return "resolve_launcher", (of, keys, None, sb, sknd, None,
+                                    ((bm, ts, kinds, valid),), table)
+    if fn_name == "fused_deps_resolve":
+        return "resolve_launcher", tuple(args)
+    return "key_launcher", tuple(args)
+
+
+def body_report(tk, fn_name, kern, args, kw, out, want_call) -> dict:
+    """The key body of one recorded call on the card: its launcher's body
+    bit-equal to the call's output, its device ms alone (body_device_ms)
+    and, for K13, with the subject pass (device_ms); a trace of one body
+    launch (its kernels, no memset or copy) and of one whole call (the
+    subject pass's memset, K13's table copy, nothing more); the parent's
+    body beside it (tools/deps_block_variants: bit-equal, device ms)."""
+    from accord_tpu_torch.ops import node_lane as nl
+    from accord_tpu_torch.tools import deps_block_variants as dbv
+    lname, largs = body_launcher(tk, fn_name, args)
+    mk = getattr(tk, lname, None) or getattr(nl, lname)
+
+    def make():
+        return mk(*largs)
+    launch, bout = make()
+    launch()
+    check(max_abs_err(bout, out) == 0,
+          f"{fn_name}: the body launcher's output differs from the call's")
+    extra = {"body_device_ms": graph_ms(launch)}
+    if fn_name == "node_fused_deps_resolve":
+        extra["device_ms"] = graph_ms(lambda: launch(True))
+    n_body = BODY_A_LAUNCH[fn_name](args)
+    extra["body_trace"] = trace_call(launch, (lname, largs, {}, True),
+                                     n_body)
+    t = extra["body_trace"]
+    check(len(t["kernels"]) == n_body and not t["moves"],
+          f"{fn_name}: one body launch ran {t['kernels']} and moved "
+          f"{t['moves']}, not {n_body} kernel(s) and no memset or copy")
+    extra["trace"] = trace_call(lambda: kern(*args, **kw),
+                                (fn_name, args, kw), n_body + 1)
+    t = extra["trace"]
+    memsets = [m for m in t["moves"] if "memset" in m.lower()]
+    check(len(t["kernels"]) == n_body + 1 and len(memsets) == 1
+          and len(t["moves"]) <= want_call,
+          f"{fn_name}: one call ran {t['kernels']} and moved {t['moves']}, "
+          f"not the subject pass, {n_body} body kernel(s), one memset and "
+          f"at most {want_call} move(s)")
+    pair = dbv.body_pair(make)
+    check(pair["bit_equal"], f"{fn_name}: the parent's key body answers "
+          "differently")
+    extra["parent_vs_new"] = pair
+    return extra
+
+
+def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int,
+                  label: str = ""):
     """Replay each recorded call of `name`'s wrappers on the card: kernel
     vs plain (bit-equal), each timed. The call with the largest inputs is
     the kernel's headline; every call's row is kept. Three wrappers the
@@ -718,6 +816,21 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
             # the host's enqueue left out: 100 calls in one CUDA graph
             extra["device_ms"] = graph_ms(lambda: kern(*args, **kw),
                                           GRAPH_CALLS.get(fn_name, 100))
+        if fn_name == "node_fused_range_deps_resolve" and cuda:
+            # its tables go up from pinned memory a call, which a graph
+            # must not capture: the launches alone, the tables up before
+            launch, _rp, _kp = nl.range_launcher(*args, **kw)
+            extra["device_ms"] = graph_ms(launch)
+        if fn_name in BODY_A_LAUNCH and cuda:
+            extra.update(body_report(tk, fn_name, kern, args, kw, out,
+                                     CALL_MOVES[fn_name]))
+        if fn_name == "range_deps_resolve" and cuda:
+            # K5 with the parent's key body: the whole call in a graph
+            from accord_tpu_torch.tools import deps_block_variants as dbv
+            pair = dbv.call_pair(lambda: kern(*args, **kw))
+            check(pair["bit_equal"], f"{fn_name}: the parent's key body "
+                  "answers differently")
+            extra["parent_vs_new"] = pair
         if want is not None and cuda:
             if "trace" not in extra:
                 extra["trace"] = trace_call(lambda: kern(*args, **kw),
@@ -763,6 +876,11 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int):
             row["promote"] = bool(kw.get("promote"))
         log(f"  {json.dumps(row)}")
         rows.append(row)
+        if "parent_vs_new" in row:
+            have = PARENT_VS_NEW.get((label, fn_name))
+            if have is None or have["input_mb"] < row["input_mb"]:
+                PARENT_VS_NEW[(label, fn_name)] = dict(
+                    row["parent_vs_new"], input_mb=row["input_mb"])
     head = max(rows, key=lambda r: r["input_mb"])
     return dict(head, max_abs_err=max(r["max_abs_err"] for r in rows),
                 calls=rows)
@@ -1024,20 +1142,28 @@ def bound_inputs(tk, fn_name, args, kw, out):
         else:
             subj_of, subj_keys, store, sb, sknd, slots, blocks, table = args
             mines = [store == slots[s] for s in range(len(blocks))]
-        # the AND work this data needs: pairs whose cheap masks pass
+        # the AND work this data needs: for each pair whose cheap masks
+        # pass, an AND and an OR a nonzero word of the subject's (the other
+        # words cannot meet a row)
         nk = table.shape[0]
-        pairs = 0
+        nw = blocks[0][0].shape[1]
+        words = tk._subject_words(subj_of, subj_keys, sb.shape[0], nw * 32)
+        nzw = (words != 0).sum(1).to(torch.int64)
+        ops = 0
         for (bm, ts, kinds, valid), mine in zip(blocks, mines):
             w = table[tk._gather_index(sknd, nk)[:, None],
                       tk._gather_index(kinds, nk)[None, :]] == 1
             m = w & tk._lex_before(ts[None], sb[:, None]) & valid[None]
             if mine is not None:
                 m &= mine[:, None]
-            pairs += int(m.sum())
-        nw = blocks[0][0].shape[1]
-        ops = 2 * pairs * nw
+            ops += 2 * int((m.sum(1) * nzw).sum())
         bytes_ = nbytes(args) + nbytes(out)
-        return bytes_, ops, None
+        # the yardstick: the overlap stage as one bf16 matmul of the
+        # unpacked bitmaps, subjects x every block's rows
+        s_bf = tk._unpack_bits(words).to(torch.bfloat16)
+        a_bf = torch.cat([tk._unpack_bits(blk[0]) for blk in blocks]) \
+            .to(torch.bfloat16).T.contiguous()
+        return bytes_, ops, lambda: torch.matmul(s_bf, a_bf)
     if fn_name == "finalize_csr_tab":
         b_ = o_ = 0
         for sp, o in zip(args[0], out):
@@ -1902,8 +2028,12 @@ def run(rehearse: bool) -> dict:
     if cuda:
         log(f"device: {torch.cuda.get_device_name(0)} x "
             f"{torch.cuda.device_count()}")
+        from accord_tpu_torch.tools import deps_block_variants as dbv
+        parent = dbv.start_build()
         build_s = build_phase()
-        log(f"build: {build_s:.2f} s (all csrc/*.cu, nvcc in parallel)")
+        dbv.finish_build(parent)
+        log(f"build: {build_s:.2f} s (all csrc/*.cu, nvcc in parallel; the "
+            "parent's key body, tools/deps_block_parent.cu, beside them)")
 
     ops = 800 if not rehearse else 120
     launches = {}
@@ -2259,7 +2389,7 @@ def run(rehearse: bool) -> dict:
     for name, source, replaces in KERNELS:
         path = PATH_OF[name]
         log(f"kernel {name}, {path} inputs:")
-        head = kernel_report(tk, name, path_rec[path], cuda, iters)
+        head = kernel_report(tk, name, path_rec[path], cuda, iters, path)
         reports = [head]
         if name in EXEC_KERNELS:
             extra = [(lab, r) for lab, r in exec_extra
@@ -2274,7 +2404,7 @@ def run(rehearse: bool) -> dict:
         for label, rec in extra:
             log(f"kernel {name}, {label} inputs:")
             labelled.append((label, kernel_report(tk, name, rec, cuda,
-                                                  iters)))
+                                                  iters, label)))
             reports.append(labelled[-1][1])
         for k in reports:
             check(k["max_abs_err"] == 0,
@@ -2297,7 +2427,8 @@ def run(rehearse: bool) -> dict:
             **{k: head[k] for k in ("op_tier", "ms_per_op", "device_ms",
                                     "library_device_ms", "library_chain_ms",
                                     "library_chain_device_ms", "specs",
-                                    "trace")
+                                    "trace", "body_device_ms",
+                                    "body_trace", "parent_vs_new")
                if k in head},
             "launches_by_path": {p: launches[p][name] for p in launches}}
         for label, r in labelled:
@@ -2309,7 +2440,33 @@ def run(rehearse: bool) -> dict:
     entries.extend(sharded_entries)
     entries.extend(sharded_mega)
     return {"card": card, "entries": entries, "cuda": cuda,
-            "acked_per_s": rep.acked / wall}
+            "acked_per_s": rep.acked / wall,
+            "parent_vs_new": parent_vs_new_line()}
+
+
+# the parent-vs-new line's entries: (label, wrapper) of kernel_report
+PARENT_VS_NEW_KEYS = {
+    "k1_preaccept_batch": ("preaccept_batch", "deps_resolve"),
+    "k13_sweep_largest_tick": ("mega_sweep", "node_fused_deps_resolve"),
+    "k13_tick_10k": ("merged_tick_10k", "node_fused_deps_resolve"),
+    "k5_range_batch": ("preaccept_batch", "range_deps_resolve")}
+
+
+def parent_vs_new_line() -> dict:
+    """The key body's device ms beside the parent's (same card, same
+    process, interleaved): K1 at the PreAccept batch, K13 at the sweep's
+    largest tick and at the 10k tick (the body launch alone), K5 at the
+    range batch (the whole call), the 10k tick's replay, and the sharded
+    10k tick's key stage (its replay)."""
+    out = {}
+    for key, (label, fn) in PARENT_VS_NEW_KEYS.items():
+        got = PARENT_VS_NEW.get((label, fn))
+        if got is not None:
+            out[key] = got
+    for key in ("tick_10k_replay", "node_key_shard_10k_key_stage"):
+        if key in PARENT_VS_NEW:
+            out[key] = PARENT_VS_NEW[key]
+    return out
 
 
 # -- the cluster tick (mesh burn) and the protocol megakernel ----------------
@@ -2524,15 +2681,10 @@ def cluster_legs(device: str, cuda: bool, tk, launches, recs) -> dict:
     return out
 
 
-def merged_tick(device: str, cuda: bool, rehearse: bool, tk) -> dict:
-    """One merged cluster tick at 10k in flight: 128 (plan, store) blocks
-    (64 nodes x 2 stores), arenas of cap 2048 with 1,024 buckets holding
-    30,000 live rows (10,000 writes of 4 keys over 1,000 keys, rf 3, as
-    the synthetic PreAccept batch), 4,096 subject rows in 128 plans of 32
-    (1-4 keys each, one key finalize each) and 4,096 quorum lanes. The
-    replay equals the plain protocol_tick bit for bit, and every plan's
-    decoded deps equal the host scan. Timed: the replay; K13, K2 (all 128)
-    and K16 alone; the same stages launched one by one."""
+def merged_tick_inputs(device: str, rehearse: bool, tk) -> dict:
+    """The merged tick at 10k in flight's inputs (see merged_tick): the
+    key merge (key_in), the key finalize specs, the quorum lanes and the
+    witness table on `device`, with the host rows the check reads."""
     import numpy as np
     import torch
     from accord_tpu_torch.ops import carry
@@ -2631,6 +2783,27 @@ def merged_tick(device: str, cuda: bool, rehearse: bool, tk) -> dict:
               km.slots, km.blocks)
     kw = dict(key_in=key_in, fins=tuple(fins), quorum=quorum,
               quorum_size=2)
+    return dict(wt=wt, key_in=key_in, kw=kw, km=km, subj=subj,
+                host_rows=host_rows, wkeys=wkeys, table=table,
+                blk_rows=blk_rows, fins=fins, quorum=quorum, lanes=lanes)
+
+
+def merged_tick(device: str, cuda: bool, rehearse: bool, tk) -> dict:
+    """One merged cluster tick at 10k in flight: 128 (plan, store) blocks
+    (64 nodes x 2 stores), arenas of cap 2048 with 1,024 buckets holding
+    30,000 live rows (10,000 writes of 4 keys over 1,000 keys, rf 3, as
+    the synthetic PreAccept batch), 4,096 subject rows in 128 plans of 32
+    (1-4 keys each, one key finalize each) and 4,096 quorum lanes. The
+    replay equals the plain protocol_tick bit for bit, and every plan's
+    decoded deps equal the host scan. Timed: the replay; K13, K2 (all 128)
+    and K16 alone; the same stages launched one by one."""
+    import torch
+    from accord_tpu_torch.ops import node_lane as nl
+    t = merged_tick_inputs(device, rehearse, tk)
+    wt, key_in, kw, km, subj, host_rows, wkeys, table, blk_rows, fins, \
+        quorum, lanes = (t[x] for x in (
+            "wt", "key_in", "kw", "km", "subj", "host_rows", "wkeys",
+            "table", "blk_rows", "fins", "quorum", "lanes"))
     plain = tk.protocol_tick_plain(wt, **_on(kw, device))
     c0 = tk.CAPTURES["protocol_tick"]
     l0 = dict(tk.LAUNCHES)
@@ -2707,6 +2880,13 @@ def merged_tick(device: str, cuda: bool, rehearse: bool, tk) -> dict:
                                 *f[6:11], out_cap=f[11])
             tk.quorum_count(*dq, 2)
         out["one_by_one_ms"] = time_ms(one_by_one, iters, cuda)
+        # the whole replay with the parent's key body (its own graph)
+        from accord_tpu_torch.tools import deps_block_variants as dbv
+        pair = dbv.replay_pair(lambda: tk.protocol_tick(wt, **kw),
+                               lambda o: o[0])
+        check(pair["bit_equal"], "merged tick: the parent's key body "
+              "answers differently")
+        PARENT_VS_NEW["tick_10k_replay"] = out["parent_vs_new"] = pair
     log(f"merged_tick[{device}]: {json.dumps(out)}")
     out["fin_table"] = fin_table(device, cuda, tk, wt, kw)
     return {"out": out, "args": ((wt,), kw)}
@@ -3350,6 +3530,7 @@ def sharded_fn_entries(tk, vmesh, real, batch, launches, cuda: bool,
         ms = time_ms(shard, iters, cuda)
         real_ms = time_ms(lambda: shard(real), iters, cuda)
         single_ms = time_ms(single, iters, cuda)
+
         plain_ms = time_ms(plain_fn, max(1, iters // 10), cuda)
         t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
         bound_ms = max(t_bytes, t_ops) * 1e3
@@ -3801,6 +3982,16 @@ def sharded_mega_phase(device: str, cuda: bool, rehearse: bool, tk,
         kb, ko, max_abs_err(kout[0], kplain),
         call="the 10k tick's key stage alone (one replay: 2 subject "
         "passes, 1,024 shard entries in one launch, the 'model' fold)")
+    if cuda:
+        # a replay is device time; the parent's key body beside it
+        from accord_tpu_torch.tools import deps_block_variants as dbv
+        pair = dbv.replay_pair(
+            lambda: pm.sharded_protocol_tick(vmesh, wt, key_in=key_in),
+            lambda o: o[0])
+        check(pair["bit_equal"], "sharded 10k tick: the parent's key body "
+              "answers differently")
+        rows["node_key_shard"].update(device_ms=key_ms, parent_vs_new=pair)
+        PARENT_VS_NEW["node_key_shard_10k_key_stage"] = pair
     kf_ms, fout = replay_ms(lambda: pm.sharded_protocol_tick(
         vmesh, wt, key_in=key_in, fins=fins))
 
@@ -4103,6 +4294,7 @@ def main(argv=None) -> int:
         print("chip_smoke: rehearsal on the CPU finished; no result",
               file=sys.stderr)
         return 3
+    log(json.dumps({"parent_vs_new": res["parent_vs_new"]}))
     log(res["card"])
     log(json.dumps({"kernels": res["entries"]}))
     log(json.dumps({"ok": True, "device": {

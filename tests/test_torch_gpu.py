@@ -17,9 +17,11 @@ import torch
 from accord_tpu_torch.ops import kernels as tk
 from accord_tpu_torch.ops.encoding import WITNESS_TABLE
 from torch_kernel_cases import (CLOSURE_CASES, CLOSURE_ITERS, CMD_CASES,
-                                CMD_SCALARS, DEPS_CASES, closure_case,
-                                cmd_case, deps_case, finalize_many_tiles,
-                                pack_words)
+                                CMD_SCALARS, DEPS_CASES, KEY_BODY_CASES,
+                                KEY_BODY_RUN_CASES, KEY_SHARD_CASES,
+                                closure_case, cmd_case,
+                                deps_case, finalize_many_tiles,
+                                key_body_case, pack_words)
 
 pytestmark = pytest.mark.gpu
 I32_MIN = np.iinfo(np.int32).min
@@ -2175,3 +2177,126 @@ def test_transitive_closure_above_the_old_limit(cuda):
     idx = _t(nodes).to(cuda)
     _eq(want, got[idx][:, idx])
     assert int(got.sum()) == int(want.sum()) > int(sub.sum())
+
+
+# -- the key body (csrc/deps_block.cuh) on its tiling's edges ----------------
+def _body_case(name):
+    c = key_body_case(name)
+    blocks = [tuple(_t(a) for a in (pack_words(bits), ts, kd, v))
+              for bits, ts, kd, v in c["blocks"]]
+    lanes = {x: _t(c[x]) for x in ("subj_of", "subj_keys", "subj_store",
+                                   "sb", "sknd", "slots", "iv_of", "iv_s",
+                                   "iv_e", "srng")}
+    return lanes, blocks
+
+
+def _body_launches(launch, want):
+    """A profiler trace of one body launch: `want` key-body kernels and no
+    memset or copy. The profiler can drop a kernel's event (a trace short
+    of launches the outputs show ran): a short trace is taken again, up
+    to 3 times; a longer one, or a memset or copy, fails at once."""
+    for _ in range(3):
+        kernels, moves = _trace_kernels(launch)
+        assert len(kernels) <= want and not moves, (kernels, moves)
+        if len(kernels) == want:
+            return
+    assert len(kernels) == want, kernels
+
+
+BODY_CASES = [*KEY_BODY_CASES, *KEY_BODY_RUN_CASES]
+
+
+@pytest.mark.parametrize("name", BODY_CASES)
+def test_key_body_cases_kernels(cuda, name):
+    """K1 (single and fused), K13, K14's key side and K5's key side on the
+    key body's tiling edges (tests/torch_kernel_cases.py; with 128 blocks
+    a CTA walks a run of subject tiles): each bit-equal
+    to its plain version, one counted launch a call, and one body launch
+    one kernel a store block (K13: one for every block) with no memset
+    or copy."""
+    from accord_tpu_torch.ops import node_lane as nl
+    L, P = _body_case(name)
+    G = {k: v.to(cuda) for k, v in L.items()}
+    D = [tuple(t.to(cuda) for t in blk) for blk in P]
+    wt, gwt = _t(WITNESS_TABLE), _t(WITNESS_TABLE).to(cuda)
+
+    def single(X, B, w):
+        return (X["subj_of"], X["subj_keys"], X["sb"], X["sknd"], *B[0], w)
+
+    def fused(X, B, w):
+        return (X["subj_of"], X["subj_keys"], X["subj_store"], X["sb"],
+                X["sknd"], X["slots"], tuple(B), w)
+
+    def rng(X, B, w):
+        return (X["iv_of"], X["iv_s"], X["iv_e"], X["subj_store"], X["sb"],
+                X["sknd"], X["srng"], X["slots"][:0], (), X["slots"],
+                tuple(B), w)
+    for fn, args, count in (
+            (tk.deps_resolve, single, "deps_resolve"),
+            (tk.fused_deps_resolve, fused, "deps_resolve"),
+            (nl.node_fused_deps_resolve, fused, "node_deps_resolve"),
+            (nl.node_fused_range_deps_resolve, rng, "node_range_resolve"),
+            (tk.fused_range_deps_resolve, rng, "range_resolve")):
+        plain = fn(*args(L, P, wt))
+        n0 = tk.LAUNCHES[count]
+        got = fn(*args(G, D, gwt))
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES[count] == n0 + 1, (fn.__name__, count)
+        _eq(plain, got)
+    launch, out = tk.resolve_launcher(*fused(G, D, gwt))
+    _body_launches(launch, len(D))
+    _eq(tk.fused_deps_resolve(*fused(L, P, wt)), out)
+    launch, out = nl.key_launcher(*fused(G, D, gwt))
+    _body_launches(launch, 1)
+    _eq(nl.node_fused_deps_resolve(*fused(L, P, wt)), out)
+
+
+@pytest.mark.parametrize("case", KEY_SHARD_CASES, ids=lambda c: c[0])
+def test_key_body_shard_cases_kernel(cuda, case):
+    """K1's mesh-shard entry on a case's rows and 'model' word slice, read
+    in place (row stride nw > its words), into an odd column of a wider
+    output: the words around it untouched, the span = the plain version."""
+    name, r0, rows, base, kl, col = case
+    L, P = _body_case(name)
+    bm, ts, kd, v = (t[r0:r0 + rows] for t in P[0])
+    k = bm.shape[1] * 32
+    args = (L["subj_of"], L["subj_keys"], L["subj_store"], L["slots"][:1],
+            L["sb"], L["sknd"])
+    plain = torch.full((L["sb"].shape[0], col + rows // 32 + 2), -1,
+                       dtype=torch.int32)
+    tk.deps_resolve_shard(*args, bm[:, base // 32:(base + kl) // 32], ts, kd,
+                          v, _t(WITNESS_TABLE), k, base, plain, col)
+    gbm = bm.to(cuda)
+    got = plain.new_full(plain.shape, -1).to(cuda)
+    tk.deps_resolve_shard(*(a.to(cuda) for a in args),
+                          gbm[:, base // 32:(base + kl) // 32],
+                          ts.to(cuda), kd.to(cuda), v.to(cuda),
+                          _t(WITNESS_TABLE).to(cuda), k, base, got, col)
+    _eq(plain, got)
+    assert (plain[:, col:col + rows // 32] != 0).any()
+
+
+@pytest.mark.parametrize("name", BODY_CASES)
+def test_key_body_cases_node_key_shard(cuda, name):
+    """node_key_shard (the sharded megakernel's key stage) on each case:
+    a 2 x 2 mesh on the card where the caps split into 2 'data' shards of
+    whole words and the words into 2 'model' slices (the shard reads its
+    slice in place), else 1 x 1; one replay, the stage's one launch, the
+    packed words = K13's plain version."""
+    from accord_tpu_torch.ops import node_lane as nl
+    from accord_tpu_torch.parallel.mesh import (make_mesh,
+                                                sharded_protocol_tick)
+    L, P = _body_case(name)
+    nw = P[0][0].shape[1]
+    split = all(b[0].shape[0] % 64 == 0 for b in P) and nw % 2 == 0
+    mesh = make_mesh(devices=[cuda] * (4 if split else 1))
+    key = [L[x].numpy() for x in ("subj_of", "subj_keys", "subj_store",
+                                  "sb", "sknd", "slots")]
+    wt = _t(WITNESS_TABLE)
+    plain = nl.node_fused_deps_resolve(*(_t(a) for a in key), tuple(P), wt)
+    l0 = dict(tk.LAUNCHES)
+    got = sharded_protocol_tick(mesh, wt.to(cuda), key_in=(
+        *key, tuple(tuple(t.to(cuda) for t in b) for b in P)))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["node_key_shard"] == l0["node_key_shard"] + 1
+    _eq(plain, got[0])

@@ -19,7 +19,9 @@ from accord_tpu.ops import kernels as jk
 from accord_tpu.ops.encoding import WITNESS_TABLE
 from accord_tpu_torch.ops import carry
 from accord_tpu_torch.ops import kernels as tk
-from torch_kernel_cases import finalize_many_tiles
+from torch_kernel_cases import (KEY_BODY_CASES, KEY_SHARD_CASES,
+                                finalize_many_tiles, key_body_case,
+                                pack_words)
 
 B, CAP, K, KC = 64, 256, 128, 48
 I32_MIN = np.iinfo(np.int32).min
@@ -105,6 +107,79 @@ def test_fused_deps_resolve_two_stores_and_dummy_slot(seed):
         _t(WITNESS_TABLE))
     _same(ref, got)
     assert np.asarray(ref).any()
+
+
+def _jax_arena(block):
+    bits, ts, kinds, valid = block
+    return (jnp.asarray(bits.astype(np.float32)), jnp.asarray(ts),
+            jnp.asarray(kinds), jnp.asarray(valid))
+
+
+def _port_arena(block):
+    bits, ts, kinds, valid = block
+    return _t(pack_words(bits)), _t(ts), _t(kinds), _t(valid)
+
+
+@pytest.mark.parametrize("name", list(KEY_BODY_CASES))
+def test_key_body_cases_match_jax(name):
+    """K1 single (the case's first block) and fused (every block, slots
+    with a pad block, padding subjects) on the key body's tiling edges:
+    caps 32 / 96 / mixed with odd word offsets, B 1 / 63 / 65 / 130, K 32
+    and 128, a subject with no key, subjects with a key in every word, a
+    foreign subject tile, negative CSR rows, keys and kinds."""
+    c = key_body_case(name)
+    wt = np.asarray(WITNESS_TABLE)
+    lanes = [jnp.asarray(c[x]) for x in ("subj_of", "subj_keys", "sb",
+                                         "sknd")]
+    ref = jk.deps_resolve(*lanes, *_jax_arena(c["blocks"][0]),
+                          jnp.asarray(wt))
+    got = tk.deps_resolve(_t(c["subj_of"]), _t(c["subj_keys"]), _t(c["sb"]),
+                          _t(c["sknd"]), *_port_arena(c["blocks"][0]),
+                          _t(wt))
+    _same(ref, got)
+    ref = jk.fused_deps_resolve(
+        lanes[0], lanes[1], jnp.asarray(c["subj_store"]), lanes[2],
+        lanes[3], jnp.asarray(c["slots"]),
+        tuple(_jax_arena(x) for x in c["blocks"]), jnp.asarray(wt))
+    got = tk.fused_deps_resolve(
+        _t(c["subj_of"]), _t(c["subj_keys"]), _t(c["subj_store"]),
+        _t(c["sb"]), _t(c["sknd"]), _t(c["slots"]),
+        tuple(_port_arena(x) for x in c["blocks"]), _t(wt))
+    _same(ref, got)
+    assert np.asarray(ref).any(), "vacuous: no dependency bit set"
+
+
+@pytest.mark.parametrize("case", KEY_SHARD_CASES, ids=lambda c: c[0])
+def test_key_body_shard_cases_match_jax(case):
+    """K1's mesh-shard entry on a case's first block: rows [r0, r0 + rows)
+    and the bucket slice [base, base + kl) read in place (row stride nw >
+    the slice's words), fused on block 0's slot, written at an odd column
+    of a wider output; the JAX kernel on the same rows with the bitmaps
+    cleared outside the slice answers the same words."""
+    name, r0, rows, base, kl, col = case
+    c = key_body_case(name)
+    wt = np.asarray(WITNESS_TABLE)
+    bits, ts, kinds, valid = (x[r0:r0 + rows] for x in c["blocks"][0])
+    k = bits.shape[1]
+    masked = np.zeros_like(bits)
+    masked[:, base:base + kl] = bits[:, base:base + kl]
+    ref = jk.fused_deps_resolve(
+        jnp.asarray(c["subj_of"]), jnp.asarray(c["subj_keys"]),
+        jnp.asarray(c["subj_store"]), jnp.asarray(c["sb"]),
+        jnp.asarray(c["sknd"]), jnp.asarray(c["slots"][:1]),
+        (_jax_arena((masked, ts, kinds, valid)),), jnp.asarray(wt))
+    words = _t(pack_words(bits))
+    out = torch.full((c["sb"].shape[0], col + rows // 32 + 2), -1,
+                     dtype=torch.int32)
+    tk.deps_resolve_shard(
+        _t(c["subj_of"]), _t(c["subj_keys"]), _t(c["subj_store"]),
+        _t(c["slots"][:1]), _t(c["sb"]), _t(c["sknd"]),
+        words[:, base // 32:(base + kl) // 32], _t(ts), _t(kinds),
+        _t(valid), _t(wt), k, base, out, col)
+    _same(ref, out[:, col:col + rows // 32])
+    assert (out[:, :col] == -1).all() and (out[:, col + rows // 32:] ==
+                                           -1).all()
+    assert np.asarray(ref).any(), "vacuous: no dependency bit set"
 
 
 def _finalize_inputs(rng, s=64, out_cap=2048):

@@ -30,6 +30,7 @@ from tests.test_torch_cmd_kernels import _columns, _ops, _repair_inputs
 from tests.test_torch_exec_kernels import _jax as _jplane
 from tests.test_torch_exec_kernels import _plane
 from tests.test_torch_exec_kernels import _port as _tplane
+from torch_kernel_cases import KEY_BODY_CASES, key_body_case, pack_words
 
 K = 128
 KC = 40
@@ -179,6 +180,39 @@ def test_key_merge_and_k13_plain_match_jax(seed, node_tiers):
     got = tnl.run_key_merge(tm, _t(WITNESS_TABLE))
     _same(ref, got)
     assert np.asarray(ref).any(), "vacuous: no dependency bit"
+
+
+@pytest.mark.parametrize("name", list(KEY_BODY_CASES))
+def test_key_body_cases_k13_and_k14_key_side_match_jax(name):
+    """K13 and K14's key side (range subjects' covered buckets, gated by
+    subj_is_range; no range blocks) on the key body's tiling edges
+    (tests/torch_kernel_cases.py): the case's store lane routes subjects
+    as the node slot lane, the pad block under slot -1."""
+    c = key_body_case(name)
+    wt = np.asarray(WITNESS_TABLE)
+    jar = tuple((jnp.asarray(bits.astype(np.float32)), jnp.asarray(ts),
+                 jnp.asarray(kd), jnp.asarray(v))
+                for bits, ts, kd, v in c["blocks"])
+    tar = tuple((_t(pack_words(bits)), _t(ts), _t(kd), _t(v))
+                for bits, ts, kd, v in c["blocks"])
+    names = ("subj_of", "subj_keys", "subj_store", "sb", "sknd", "slots")
+    ref = jnl.node_fused_deps_resolve(*(jnp.asarray(c[x]) for x in names),
+                                      jar, jnp.asarray(wt))
+    got = tnl.node_fused_deps_resolve(*(_t(c[x]) for x in names), tar,
+                                      _t(wt))
+    _same(ref, got)
+    assert np.asarray(ref).any(), "vacuous: no dependency bit"
+    rng_names = ("iv_of", "iv_s", "iv_e", "subj_store", "sb", "sknd",
+                 "srng")
+    empty = np.zeros(0, np.int32)
+    _rp, ref = jnl.node_fused_range_deps_resolve(
+        *(jnp.asarray(c[x]) for x in rng_names), jnp.asarray(empty), (),
+        jnp.asarray(c["slots"]), jar, jnp.asarray(wt))
+    _grp, got = tnl.node_fused_range_deps_resolve(
+        *(_t(c[x]) for x in rng_names), _t(empty), (), _t(c["slots"]), tar,
+        _t(wt))
+    _same(ref, got)
+    assert np.asarray(ref).any(), "vacuous: no key-side bit"
 
 
 def _range_plan(rng, b, rcaps, kcaps, fused, has_r=True, has_k=True,

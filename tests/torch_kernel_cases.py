@@ -300,3 +300,110 @@ def closure_case(name, n):
     if name == "dag":
         adj = np.tril(adj, -1)
     return adj
+
+
+# -- K1/K13's key body (csrc/deps_block.cuh): the tiling's edges -----------
+# (subjects B, block caps, buckets K, seed): caps 32 and 96 (under one
+# 32-word tile), B 1 / 63 / 65 / 130 (ragged 64-subject tiles), K 32 and
+# 128 (nw 1 and 4), mixed caps whose word offsets are odd (1, 4, 6; the
+# output row stride 22 words), a cap of 34 words (two tiles, the second
+# 2 words), a subject tile foreign to every block but one, a pad block.
+KEY_BODY_CASES = {
+    "cap32_b1_k32": (1, (32,), 32, 1),
+    "cap96_b63_k128": (63, (96,), 128, 2),
+    "b65_mixed_caps_odd_off": (65, (32, 96, 64, 512), 128, 3),
+    "b130_dense_words_two_tiles": (130, (1088,), 1024, 4),
+    "foreign_tile_pad_block": (130, (64, 512, 64), 256, 5),
+    "negative_keys_kinds": (65, (64, 32), 64, 6),
+}
+# a node table's shape at which a CTA walks a run of subject tiles (the
+# grid would exceed 2,048 CTAs: 128 blocks x 33 tiles, runs of 2, the last
+# run half past B); the card tests only (a 128-block JAX trace is slow)
+KEY_BODY_RUN_CASES = {"tile_runs_128_blocks": (2053, (32,) * 128, 64, 7)}
+# a mesh shard of a case's first block: (case, first row, rows, first
+# bucket, buckets, output column): the shard reads a 'model' word slice of
+# a wider arena in place (row stride nw > its nwl) into an odd column
+KEY_SHARD_CASES = (("b130_dense_words_two_tiles", 544, 544, 512, 512, 3),
+                   ("cap96_b63_k128", 32, 64, 64, 64, 1),
+                   ("b65_mixed_caps_odd_off", 0, 32, 32, 32, 5))
+
+
+def key_body_case(name, nk=6):
+    """The inputs of one KEY_BODY_CASES case as numpy: subj_of, subj_keys
+    i32[nnz] (the CSR; pad entries B, a few negative rows and keys, which
+    count from the end), subj_store i32[B] (the block each subject asks;
+    B's padding value len(caps) matches no block), sb i32[B, 3], sknd
+    i32[B] (30% of kinds in -3 .. nk + 2: wrapped once, then clamped), slots i32[S]
+    (the pad block's -1), blocks: per block (bits bool[cap, K], ts i32[cap,
+    3], kinds i32[cap], valid bool[cap]; rows 32-63 of each block all
+    invalid), and a range CSR over the buckets for K14's key side: iv_of,
+    iv_s, iv_e i32[nv] (pad B) and srng bool[B]. Subject 1 has no key;
+    in the dense case subjects 2-9 have a key in every word."""
+    b, caps, k, seed = {**KEY_BODY_CASES, **KEY_BODY_RUN_CASES}[name]
+    rng = np.random.default_rng(100 + seed)
+    nblk = len(caps)
+    pad = name == "foreign_tile_pad_block"
+    slots = np.arange(nblk, dtype=np.int32)
+    if pad:
+        slots[-1] = -1
+    store = rng.integers(0, nblk - pad, b).astype(np.int32)
+    store[3::11] = nblk                         # padding subjects
+    if pad:
+        store[64:128] = 1                       # tile 1: block 1's only
+    hot = min(k, 48)                            # most keys in a hot range
+
+    def draw(n):
+        return np.where(rng.random(n) < 0.7, rng.integers(0, hot, n),
+                        rng.integers(0, k, n))
+
+    def kinds(n):
+        return np.where(rng.random(n) < 0.3, rng.integers(-3, nk + 3, n),
+                        rng.integers(0, nk - 1, n)).astype(np.int32)
+    keys = []
+    for s in range(b):
+        n = int(rng.integers(1, 5))
+        ks = draw(n)
+        if name == "negative_keys_kinds":
+            ks = np.where(rng.random(n) < 0.4, ks - k, ks)
+        keys.append(ks)
+    if b > 1:
+        keys[1] = np.zeros(0, np.int64)
+    if name == "b130_dense_words_two_tiles":
+        for s in range(2, 10):
+            keys[s] = 32 * np.arange(k // 32) + rng.integers(0, 32, k // 32)
+    of = np.concatenate([np.full(len(x), i) for i, x in enumerate(keys)])
+    kk = np.concatenate(keys)
+    if name == "negative_keys_kinds":
+        neg = rng.random(of.shape[0]) < 0.2
+        of = np.where(neg, of - b, of)
+    nnz = of.shape[0] + 5
+    subj_of = np.full(nnz, b, np.int32)
+    subj_of[:of.shape[0]] = of
+    subj_keys = np.zeros(nnz, np.int32)
+    subj_keys[:kk.shape[0]] = kk
+    sb = rng.integers(-3, 3, (b, 3)).astype(np.int32)
+    sb[3::7, 0] = I32_MIN
+    sknd = kinds(b)
+    blocks = []
+    for z, cap in enumerate(caps):
+        bits = np.zeros((cap, k), bool)
+        for r in range(cap):
+            bits[r, draw(int(rng.integers(1, 5)))] = True
+        ts = rng.integers(-3, 3, (cap, 3)).astype(np.int32)
+        ts[::5, 0] = I32_MIN
+        kd = kinds(cap)
+        valid = rng.random(cap) < 0.8
+        valid[32:64] = False
+        if pad and z == nblk - 1:
+            valid[:] = False
+        blocks.append((bits, ts, kd, valid))
+    nv = b + 3
+    iv_of = np.full(nv, b, np.int32)
+    iv_of[:b] = rng.permutation(b)
+    iv_s = rng.integers(0, k, nv).astype(np.int32)
+    iv_e = (iv_s + rng.integers(-3, k // 4 + 2, nv)).astype(np.int32)
+    iv_e[:2] = iv_s[:2] + 2 * k                 # wide: every bucket
+    srng = rng.random(b) < 0.6
+    return dict(subj_of=subj_of, subj_keys=subj_keys, subj_store=store,
+                sb=sb, sknd=sknd, slots=slots, blocks=blocks, iv_of=iv_of,
+                iv_s=iv_s, iv_e=iv_e, srng=srng)
