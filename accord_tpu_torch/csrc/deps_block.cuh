@@ -49,8 +49,6 @@
 #include "common.cuh"
 
 #define MAX_NW 32      // K <= 1024 buckets: a row's words fit one warp
-#define SUBJ_TILE 64   // K5's range-side mask tile (range_block.cuh)
-#define WARPS 4        // its 32-row words per block
 
 #define KT_SUBJ 64     // subjects of one key-body tile
 #define KT_WORDS 32    // row words of one key-body tile (128 B a subject)

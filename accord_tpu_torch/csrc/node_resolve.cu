@@ -19,11 +19,12 @@
 //        stores, 128 B of each row) and moves on, touching no subject
 //        word, witness entry or arena lane: at the 10k tick ~98% of
 //        tiles, so the call costs about the writing of its output.
-//   K14: K5's covered-bucket pass once, then per side one launch over its
-//        table: the range side ORs each interval's overlap bits per
-//        subject (atomicOr, order-free) and masks them row by row; the
-//        key side is K13's launch over the covered words, gated by
-//        subj_is_range. Either side may be empty.
+//   K14: one launch over the range table (range_block.cuh: a CTA stages
+//        its subject tile's intervals from the list, in any order, ORs the
+//        overlap ballots in shared memory and masks them; ownership first)
+//        that also writes the covered-bucket words, then K13's launch over
+//        the key table on the covered words, gated by subj_is_range.
+//        Either side may be empty.
 //
 // The sharded protocol megakernel (accord_tpu_torch/ops/tick_graph.py,
 // replacing the `_fused_key_resolve_blocks` / `_fused_range_resolve_blocks`
@@ -33,7 +34,8 @@
 // bucket-word column slice read in place through the arena's row stride,
 // its subject words and its 'model' partial -- in one launch; the range
 // side's entries are RngBlk rows per (block, 'data' shard) through
-// node_range_resolve as it is. The 'model' partials then OR-fold (K22).
+// node_range_resolve as it is, with the covered words of every 'model'
+// slice in the same launch. The 'model' partials then OR-fold (K22).
 //
 // What bounds them: bytes -- the output, B x sum(cap)/32 words, is mostly
 // zero words written once (as 16-byte stores); the arena lanes of a block
@@ -47,20 +49,6 @@ struct KeyBlk {              // 48 bytes
   const int* kinds;          // [cap]
   const unsigned char* valid;
   int cap, out_off, pad0, pad1;
-};
-
-struct RngBlk {              // 48 bytes
-  const int* start;          // [cap]
-  const int* end;
-  const int* ts;             // [cap, 3]
-  const int* kinds;
-  const unsigned char* valid;
-  int cap, out_off;
-};
-
-struct TabHdr {              // 16 bytes, then the blocks
-  unsigned* out;
-  long long nblk;
 };
 
 struct KeyShard {            // 64 bytes
@@ -164,65 +152,42 @@ extern "C" int node_key_shard(const void* tab, int nent, int max_cap,
   return 0;
 }
 
-__global__ void node_range_any_kernel(const unsigned char* __restrict__ tab,
-                                      const int* __restrict__ iv_of,
-                                      const int* __restrict__ iv_s,
-                                      const int* __restrict__ iv_e, int nv,
-                                      int b, unsigned* __restrict__ anyr,
-                                      int stride) {
-  const RngBlk bk = ((const RngBlk*)(tab + sizeof(TabHdr)))[blockIdx.y];
-  range_any_body(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5,
-                 threadIdx.x & 31, iv_of, iv_s, iv_e, nv, b, bk.start,
-                 bk.end, bk.cap, anyr, stride, bk.out_off);
-}
-
-__global__ void __launch_bounds__(WARPS * 32)
-node_range_mask_kernel(const unsigned char* __restrict__ tab,
-                       const unsigned* __restrict__ anyr,
-                       const int* __restrict__ subj_before,
-                       const int* __restrict__ subj_kinds,
-                       const int* __restrict__ subj_node,
-                       const int* __restrict__ slots, int b,
-                       const int* __restrict__ witness, int nk, int stride) {
-  const TabHdr* h = (const TabHdr*)tab;
-  const RngBlk bk = ((const RngBlk*)(tab + sizeof(TabHdr)))[blockIdx.z];
-  if ((int)blockIdx.x * WARPS >= (bk.cap >> 5)) return;  // whole block
-  range_mask_body(anyr, subj_before, subj_kinds, subj_node,
-                  slots[blockIdx.z], b, bk.ts, bk.kinds, bk.valid, bk.cap,
-                  witness, nk, h->out, stride, bk.out_off);
-}
-
-// K14's range side over its block table: anyr (scratch, [b, stride]) is
-// zeroed, OR-ed per subject, then masked into the table's output.
-extern "C" int node_range_resolve(const void* tab, int nblocks, int max_cap,
+// K14's range side over its block table (TabHdr, then nblk RngBlk in
+// device memory; range_block.cuh) in ONE launch, and with cov set the
+// covered words of the key side -- the slices [cov_base + m * k_local,
+// + k_local) of k_total buckets, m < slices, at cov + m * b * k_local / 32
+// -- in the same launch (tab may be null when nblk == 0). Block z answers
+// the subjects with subj_node[s] == slots[z].
+extern "C" int node_range_resolve(const void* tab, int nblk, int max_cap,
                                   const void* iv_of, const void* iv_s,
                                   const void* iv_e, int nv,
                                   const void* subj_before,
                                   const void* subj_kinds,
                                   const void* subj_node, const void* slots,
                                   int b, const void* witness, int nk,
-                                  void* anyr, int stride, void* stream) {
-  if (nk * nk > 64 || (max_cap & 31)) return (int)cudaErrorInvalidValue;
-  if (nblocks <= 0 || b <= 0 || max_cap <= 0) return 0;
-  if (nblocks > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int words = max_cap >> 5;
-  cudaMemsetAsync(anyr, 0, (size_t)b * stride * sizeof(unsigned), st);
-  ACCORD_CHECK();
-  const long long threads = (long long)nv * words * 32;
-  if (threads > 0) {
-    dim3 g1((unsigned)((threads + 255) / 256), nblocks);
-    node_range_any_kernel<<<g1, 256, 0, st>>>(
-        (const unsigned char*)tab, (const int*)iv_of, (const int*)iv_s,
-        (const int*)iv_e, nv, b, (unsigned*)anyr, stride);
-    ACCORD_CHECK();
-  }
-  dim3 g2((words + WARPS - 1) / WARPS, (b + SUBJ_TILE - 1) / SUBJ_TILE,
-          nblocks);
-  node_range_mask_kernel<<<g2, WARPS * 32, 0, st>>>(
-      (const unsigned char*)tab, (const unsigned*)anyr,
-      (const int*)subj_before, (const int*)subj_kinds, (const int*)subj_node,
-      (const int*)slots, b, (const int*)witness, nk, stride);
-  ACCORD_CHECK();
-  return 0;
+                                  int out_stride, void* cov, int cov_base,
+                                  int k_local, int k_total, int slices,
+                                  void* stream) {
+  RangeArgs a;
+  a.iv_of = (const int*)iv_of;
+  a.iv_s = (const int*)iv_s;
+  a.iv_e = (const int*)iv_e;
+  a.subj_before = (const int*)subj_before;
+  a.subj_kinds = (const int*)subj_kinds;
+  a.subj_store = (const int*)subj_node;
+  a.slots = (const int*)slots;
+  a.witness = (const int*)witness;
+  a.cov = (unsigned*)cov;
+  a.nv = nv;
+  a.b = b;
+  a.nk = nk;
+  a.out_stride = out_stride;
+  a.nblk = nblk;
+  a.cov_base = cov_base;
+  a.k_local = k_local;
+  a.k_total = k_total;
+  a.slices = slices;
+  if (nblk > 0 && (subj_node == nullptr || slots == nullptr || tab == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return launch_range_tab(tab, max_cap, a, (cudaStream_t)stream);
 }

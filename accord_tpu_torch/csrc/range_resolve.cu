@@ -2,7 +2,7 @@
 // of each store's range arena and, for range subjects, of its key arena.
 //
 // Replaces accord_tpu/ops/kernels.py `range_deps_resolve` (:415) and, with
-// one launch sequence per store block writing its own word span,
+// a table of store blocks each writing its own word span,
 // `fused_range_deps_resolve` (:367), with its helper `covered_buckets`
 // (:344) fused in. Every subject carries a CSR list of half-open int32
 // intervals (iv_of, iv_start, iv_end; padding iv_of == B is dropped, a
@@ -20,96 +20,107 @@
 //     AND witness, before, valid (K1's block kernel, gated by
 //     subj_is_range).
 //
-// The JAX kernel computes [nv, rcap] compares and a max-scatter by iv_of;
-// here pass 1 gives one warp per (interval, 32-row word): `__ballot_sync`
-// of the overlap, OR-ed into the subject's word with atomicOr, so the
-// result does not depend on the order of iv_of. The covered words are built
-// the same way, one warp per (interval, 32-bucket word). Pass 2 applies the
-// row masks with one warp per 32-row word over a shared-memory tile of
-// subjects; the key side is K1's block body (deps_block.cuh: ownership
-// first, the AND over each subject's nonzero covered words, the tile out
-// as 16-byte stores).
+// One launch a call (csrc/range_block.cuh): a CTA owns a (64-subject
+// tile, row-word group) of one range block, stages its tile's intervals
+// from the list in shared memory (any order), ORs each interval's overlap
+// ballot into its subject's word there and applies the row masks, and
+// writes each output word once (16-byte stores; a tile with no subject of
+// the block writes zeros without loading a row). The covered words of the
+// key side are one more row of the same grid. The key side is K1's block
+// body (deps_block.cuh: ownership first, the AND over each subject's
+// nonzero covered words, the tile out as 16-byte stores), one launch a key
+// block.
 //
-// What bounds it on an H100: operations -- 4 compares per (interval, row)
-// plus the masked word ANDs of the key side; the lanes are small and sit
-// in L2.
+// What bounds it on an H100: bytes -- the packed output, written once --
+// and at a burn's size the launch; the lanes are small and sit in L2.
 //
 // A mesh shard (accord_tpu_torch/parallel/mesh.py, replacing the JAX
 // package's parallel/mesh.py `sharded_range_deps_resolve` :256 with its
 // `_covered_buckets` :239 and the per-store body `_fused_range_resolve_
-// blocks` :360) runs `range_block` on its 'data' rows of the range arena
-// (the pointers at the block's first row, the output span at its lane
-// offset), and on the key side `range_covered_slice` over its 'model'
-// bucket slice (base, k_local of k_total, the same modular test) and
-// `range_key_block` over its rows' word slice of the key arena, read in
-// place through the row stride; the 'model' partials merge by OR
+// blocks` :360) runs `range_resolve` on a one-block table of its 'data'
+// rows of the range arena (the pointers at the block's first row, the
+// output span at its lane offset), and on the key side `range_resolve`'s
+// covered pass alone over its 'model' bucket slice (base, k_local of
+// k_total, the same modular test) and `range_key_block` over its rows'
+// word slice of the key arena, read in place through the row stride; the 'model' partials merge by OR
 // (csrc/mesh_combine.cu). Bound: K5's, on the shard's rows and bucket
 // words; a shard is launch-bound at the burns' sizes.
+#include <string.h>
+
 #include "range_block.cuh"
 
-// Covered-bucket words cov[b, k_local/32] of the bucket slice [base, base +
-// k_local) of k_total buckets, from the interval CSR (zeroed first).
-extern "C" int range_covered_slice(const void* iv_of, const void* iv_s,
-                                   const void* iv_e, int nv, int b, int base,
-                                   int k_local, int k_total, void* cov,
-                                   void* stream) {
-  if (k_total <= 0 || (k_total & (k_total - 1)) || (k_total & 31) ||
-      k_local <= 0 || (k_local & 31) || base < 0 || base + k_local > k_total)
-    return (int)cudaErrorInvalidValue;
+// One launch: the range blocks of the host table `spec` (int64 words: the
+// output pointer, the block count, then per block its five lane pointers
+// and cap | word offset << 32; node_lane.range_table's layout) passed by
+// value, and with cov set the covered words of the slices [cov_base + m *
+// k_local, + k_local) of k_total buckets, m < slices, into cov + m * b *
+// k_local / 32. subj_store == slots == NULL: one store, no slot mask;
+// else block z answers subjects with subj_store[s] == slots[z]. More than
+// RB_MAX blocks launch in chunks of RB_MAX (the covered pass in the first).
+extern "C" int range_resolve(const void* spec, int nblk, const void* iv_of,
+                             const void* iv_s, const void* iv_e, int nv,
+                             const void* subj_before, const void* subj_kinds,
+                             const void* subj_store, const void* slots,
+                             int b, const void* witness, int nk,
+                             int out_stride, void* cov, int cov_base,
+                             int k_local, int k_total, int slices,
+                             void* stream) {
+  RangeArgs a;
+  a.iv_of = (const int*)iv_of;
+  a.iv_s = (const int*)iv_s;
+  a.iv_e = (const int*)iv_e;
+  a.subj_before = (const int*)subj_before;
+  a.subj_kinds = (const int*)subj_kinds;
+  a.subj_store = (const int*)subj_store;
+  a.slots = (const int*)slots;
+  a.witness = (const int*)witness;
+  a.cov = (unsigned*)cov;
+  a.nv = nv;
+  a.b = b;
+  a.nk = nk;
+  a.out_stride = out_stride;
+  a.cov_base = cov_base;
+  a.k_local = k_local;
+  a.k_total = k_total;
+  a.slices = slices;
+  if (!range_args_ok(a) || nblk < 0) return (int)cudaErrorInvalidValue;
+  if (b <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nw = k_local >> 5;
-  cudaMemsetAsync(cov, 0, (size_t)b * nw * sizeof(unsigned), st);
-  ACCORD_CHECK();
-  const long long threads = (long long)nv * nw * 32;
-  if (threads > 0 && b > 0) {
-    covered_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
-        (const int*)iv_of, (const int*)iv_s, (const int*)iv_e, nv, b, base,
-        k_local, k_total, (unsigned*)cov);
-    ACCORD_CHECK();
-  }
-  return 0;
-}
-
-// Covered-bucket words cov[b, k/32] of the interval CSR (zeroed first).
-extern "C" int range_covered(const void* iv_of, const void* iv_s,
-                             const void* iv_e, int nv, int b, int k,
-                             void* cov, void* stream) {
-  return range_covered_slice(iv_of, iv_s, iv_e, nv, b, 0, k, k, cov, stream);
-}
-
-// One range block: its span [off, off + rcap/32) of anyr (scratch) and of
-// out, both [b, stride] words. subj_store == slot == NULL for the
-// single-store kernel (no slot mask).
-extern "C" int range_block(const void* iv_of, const void* iv_s,
-                           const void* iv_e, int nv, const void* subj_before,
-                           const void* subj_kinds, const void* subj_store,
-                           const void* slot, int b, const void* r_start,
-                           const void* r_end, const void* r_ts,
-                           const void* r_kinds, const void* r_valid, int rcap,
-                           const void* witness, int nk, void* anyr, void* out,
-                           int stride, int off, void* stream) {
-  if (nk * nk > 64 || (rcap & 31)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int words = rcap >> 5;
-  if (words == 0 || b == 0) return 0;
-  cudaMemset2DAsync((unsigned*)anyr + off, (size_t)stride * sizeof(unsigned),
-                    0, (size_t)words * sizeof(unsigned), (size_t)b, st);
-  ACCORD_CHECK();
-  const long long threads = (long long)nv * words * 32;
-  if (threads > 0) {
-    range_any_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
-        (const int*)iv_of, (const int*)iv_s, (const int*)iv_e, nv, b,
-        (const int*)r_start, (const int*)r_end, rcap, (unsigned*)anyr, stride,
-        off);
-    ACCORD_CHECK();
-  }
-  dim3 grid((words + WARPS - 1) / WARPS, (b + SUBJ_TILE - 1) / SUBJ_TILE);
-  range_mask_kernel<<<grid, WARPS * 32, 0, st>>>(
-      (const unsigned*)anyr, (const int*)subj_before, (const int*)subj_kinds,
-      (const int*)subj_store, (const int*)slot, b, (const int*)r_ts,
-      (const int*)r_kinds, (const unsigned char*)r_valid, rcap,
-      (const int*)witness, nk, (unsigned*)out, stride, off);
-  ACCORD_CHECK();
+  long long w[2];
+  memcpy(w, spec, sizeof(w));
+  int z0 = 0;
+  do {
+    RngTabV t;
+    const int n = nblk - z0 < RB_MAX ? nblk - z0 : RB_MAX;
+    t.h.out = (unsigned*)w[0];
+    t.h.nblk = n;
+    int max_cap = 0;
+    for (int z = 0; z < n; ++z) {
+      long long f[6];
+      memcpy(f, (const char*)spec + sizeof(w) + sizeof(f) * (z0 + z),
+             sizeof(f));
+      RngBlk& bk = t.blk[z];
+      bk.start = (const int*)f[0];
+      bk.end = (const int*)f[1];
+      bk.ts = (const int*)f[2];
+      bk.kinds = (const int*)f[3];
+      bk.valid = (const unsigned char*)f[4];
+      bk.cap = (int)(f[5] & 0xffffffffLL);
+      bk.out_off = (int)(f[5] >> 32);
+      if (bk.cap < 0 || (bk.cap & 31)) return (int)cudaErrorInvalidValue;
+      if (bk.cap > max_cap) max_cap = bk.cap;
+    }
+    RangeArgs c = a;
+    c.nblk = n;
+    c.slots = a.slots == nullptr ? nullptr : a.slots + z0;
+    if (z0 > 0) c.cov = nullptr;
+    if (n > 0 || c.cov != nullptr) {
+      const dim3 grid = range_geom(c, max_cap);
+      range_val_kernel<<<grid, RB_THREADS, 0, st>>>(t, c);
+      ACCORD_CHECK();
+    }
+    z0 += n;
+  } while (z0 < nblk);
   return 0;
 }
 

@@ -758,31 +758,54 @@ def arena_scatter_keys_plain(bitmaps, rows, key_rows, key_mods):
     return _set_bits_plain(cleared, key_rows, key_mods)
 
 
+# arena_scatter (csrc/arena_scatter.cu: K3, one launch), a lean launch
+_ARENA_SCATTER_ARGS = (_VP, _VP, _I, _I, *(_VP,) * 8, _VP, _I, _VP, _VP, _I,
+                       *(_VP,) * 4, _I, _VP)
+
+
+def _lane_views(buf: torch.Tensor, like) -> list:
+    """Views of one uint8 buffer laid out as the tensors `like` (each at a
+    16-byte aligned offset), each of its tensor's dtype and shape."""
+    views, off = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        views.append(buf[off:off + n].view(t.dtype).view(t.shape))
+        off += (n + 15) // 16 * 16
+    return views
+
+
+def _lanes_bytes(like) -> int:
+    return sum((t.numel() * t.element_size() + 15) // 16 * 16 for t in like)
+
+
 def _arena_scatter_cuda(bitmaps, rows, key_rows, key_mods, lanes=None):
-    ext = _ext()
     cap, nw = bitmaps.shape
     _check_cuda(bitmaps, rows, key_rows, key_mods,
                 *(lanes if lanes is not None else ()))
-    bm_out = torch.empty_like(bitmaps)
-    null = ext.ctypes_null()
+    dev = bitmaps.device
     if lanes is not None:
         ts, exec_ts, kinds, valid, ts_rows, exec_rows, kind_rows, \
             valid_rows = lanes
-        outs = [torch.empty_like(t) for t in (ts, exec_ts, kinds, valid)]
-        lane_ptrs = [ext.ptr(outs[0]), ext.ptr(ts), ext.ptr(outs[1]),
-                     ext.ptr(exec_ts), ext.ptr(outs[2]), ext.ptr(kinds),
-                     ext.ptr(outs[3]), ext.ptr(valid)]
-        row_ptrs = [ext.ptr(ts_rows), ext.ptr(exec_rows),
-                    ext.ptr(kind_rows), ext.ptr(valid_rows)]
+        like = (bitmaps, ts, exec_ts, kinds, valid)
+        # the five outputs in one allocation
+        bm_out, *outs = _lane_views(
+            torch.empty(_lanes_bytes(like), dtype=torch.uint8, device=dev),
+            like)
+        lane_ptrs = (outs[0].data_ptr(), ts.data_ptr(), outs[1].data_ptr(),
+                     exec_ts.data_ptr(), outs[2].data_ptr(),
+                     kinds.data_ptr(), outs[3].data_ptr(), valid.data_ptr())
+        row_ptrs = (ts_rows.data_ptr(), exec_rows.data_ptr(),
+                    kind_rows.data_ptr(), valid_rows.data_ptr())
     else:
+        bm_out = torch.empty_like(bitmaps)
         outs = []
-        lane_ptrs = [null] * 8
-        row_ptrs = [null] * 4
-    ext.call("arena_scatter", "arena_scatter", ext.ptr(bm_out),
-             ext.ptr(bitmaps), cap, nw, *lane_ptrs, ext.ptr(rows),
-             rows.shape[0], ext.ptr(key_rows), ext.ptr(key_mods),
-             key_rows.shape[0], *row_ptrs, int(lanes is not None),
-             ext.stream())
+        lane_ptrs = (None,) * 8
+        row_ptrs = (None,) * 4
+    _ext().entry("arena_scatter", "arena_scatter", _ARENA_SCATTER_ARGS)(
+        bm_out.data_ptr(), bitmaps.data_ptr(), cap, nw, *lane_ptrs,
+        rows.data_ptr(), rows.shape[0], key_rows.data_ptr(),
+        key_mods.data_ptr(), key_rows.shape[0], *row_ptrs,
+        int(lanes is not None), _ext().raw_stream(dev.index))
     LAUNCHES["arena_scatter"] += 1
     return bm_out, outs
 
@@ -1105,18 +1128,41 @@ def fused_range_deps_resolve_plain(iv_of, iv_start, iv_end, subj_store,
             torch.cat(kouts, dim=1) if kouts else empty)
 
 
-def _covered_cuda(ext, iv_of, iv_start, iv_end, b: int, k: int, st):
-    cov = torch.empty(b, k // 32, dtype=torch.int32, device=iv_of.device)
-    ext.call("range_resolve", "range_covered", ext.ptr(iv_of),
-             ext.ptr(iv_start), ext.ptr(iv_end), iv_of.shape[0], b, k,
-             ext.ptr(cov), st)
-    return cov
-
-
-# range_key_block (csrc/range_resolve.cu: K5's key side, the key body),
-# a lean launch
+# range_resolve (csrc/range_resolve.cu: K5's range side over a table of
+# range blocks passed by value, and the covered-bucket pass, ONE launch)
+# and range_key_block (K5's key side, the key body), lean launches
+_RANGE_ARGS = (ctypes.c_char_p, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP,
+               _I, _VP, _I, _I, _VP, _I, _I, _I, _I, _VP)
 _RANGE_KEY_ARGS = (_VP,) * 6 + (_I, _VP, _I, _VP, _VP, _VP, _I, _I, _VP, _I,
                                _VP, _I, _I, _VP)
+
+
+def range_spec(blocks, out_ptr: int, off: int = 0) -> bytes:
+    """The host table range_resolve takes by value: node_lane.range_table's
+    words of the range blocks (start, end, ts, kinds, valid), packed."""
+    from accord_tpu_torch.ops.node_lane import range_table
+    words = range_table(blocks, out_ptr, off=off)
+    return struct.pack(f"<{len(words)}q", *words)
+
+
+def launch_range(ext, spec: bytes, nblk: int, iv, b: int, sb, sknd, store,
+                 slots, wt, out_stride: int, cov=None, cov_base: int = 0,
+                 k_local: int = 0, k_total: int = 0, slices: int = 1) -> None:
+    """One range_resolve launch: the nblk range blocks of `spec`
+    (range_spec; `store` and `slots` None for one store: no slot mask)
+    and, with `cov` (i32[b, k_local/32] a slice), the covered words of the
+    bucket slices [cov_base + m * k_local, + k_local) of k_total buckets,
+    m < slices, slice m at cov's word m * b * k_local/32. A covered pass
+    alone (nblk 0) may leave sb, sknd and wt None."""
+    iv_of, iv_s, iv_e = iv
+
+    def p(t):
+        return None if t is None else t.data_ptr()
+    ext.entry("range_resolve", "range_resolve", _RANGE_ARGS)(
+        spec, nblk, iv_of.data_ptr(), iv_s.data_ptr(), iv_e.data_ptr(),
+        iv_of.shape[0], p(sb), p(sknd), p(store), p(slots), b, p(wt),
+        1 if wt is None else wt.shape[0], out_stride, p(cov), cov_base,
+        k_local, k_total, slices, ext.raw_stream(iv_of.device.index))
 
 
 def _range_resolve_cuda(iv_of, iv_start, iv_end, subj_store, subj_before,
@@ -1132,55 +1178,44 @@ def _range_resolve_cuda(iv_of, iv_start, iv_end, subj_store, subj_before,
                 *((k_slots,) if karenas and k_slots is not None else ()))
     dev = subj_before.device
     b = subj_before.shape[0]
-    nv = iv_of.shape[0]
-    st = ext.stream()
-    null = ext.ctypes_null()
+    if any(a[0].shape[0] % 32 for a in rarenas):
+        raise ValueError("range arena rcap must be a multiple of 32")
     rtot = sum(a[0].shape[0] // 32 for a in rarenas)
     ktot = sum(a[0].shape[0] // 32 for a in karenas)
     rp = torch.empty(b, rtot, dtype=torch.int32, device=dev)
     kp = torch.empty(b, ktot, dtype=torch.int32, device=dev)
-    if rtot:
-        # bit-packed "some interval overlaps the row", OR-ed by atomics
-        anyr = torch.empty(b, rtot, dtype=torch.int32, device=dev)
-        off = 0
-        for s, (r_start, r_end, r_ts, r_kinds, r_valid) in enumerate(rarenas):
-            rcap = r_start.shape[0]
-            if rcap % 32:
-                raise ValueError(f"range arena rcap {rcap} % 32 != 0")
-            ext.call("range_resolve", "range_block",
-                     ext.ptr(iv_of), ext.ptr(iv_start), ext.ptr(iv_end), nv,
-                     ext.ptr(subj_before), ext.ptr(subj_kinds),
-                     ext.ptr(subj_store) if subj_store is not None else null,
-                     ext.ptr(r_slots[s:s + 1]) if subj_store is not None
-                     else null, b,
-                     ext.ptr(r_start), ext.ptr(r_end), ext.ptr(r_ts),
-                     ext.ptr(r_kinds), ext.ptr(r_valid), rcap,
-                     ext.ptr(witness_table), witness_table.shape[0],
-                     ext.ptr(anyr), ext.ptr(rp), rtot, off, st)
-            off += rcap // 32
-    if ktot:
-        nw = karenas[0][0].shape[1]
-        if nw > 32:
-            raise ValueError(f"range_deps_resolve kernel takes K <= 1024 "
-                             f"buckets (got {nw * 32})")
-        cov = _covered_cuda(ext, iv_of, iv_start, iv_end, b, nw * 32, st)
-        off = 0
-        for s, (k_bm, k_ts, k_kinds, k_valid) in enumerate(karenas):
-            cap = k_bm.shape[0]
-            if k_bm.shape[1] != nw:
-                raise ValueError("arena blocks differ in bucket count")
-            ext.entry("range_resolve", "range_key_block", _RANGE_KEY_ARGS)(
-                ext.ptr(cov), ext.ptr(subj_before), ext.ptr(subj_kinds),
-                ext.ptr(subj_is_range),
-                ext.ptr(subj_store) if subj_store is not None else null,
-                ext.ptr(k_slots[s:s + 1]) if subj_store is not None
-                else null, b, ext.ptr(k_bm), nw, ext.ptr(k_ts),
-                ext.ptr(k_kinds), ext.ptr(k_valid), cap, nw,
-                ext.ptr(witness_table), witness_table.shape[0], ext.ptr(kp),
-                ktot, off, st)
-            off += cap // 32
-    if rtot or ktot:
-        LAUNCHES["range_resolve"] += 1
+    if not (rtot or ktot):
+        return rp, kp
+    nw = karenas[0][0].shape[1] if ktot else 0
+    if nw > 32:
+        raise ValueError(f"range_deps_resolve kernel takes K <= 1024 "
+                         f"buckets (got {nw * 32})")
+    if any(a[0].shape[1] != nw for a in karenas):
+        raise ValueError("arena blocks differ in bucket count")
+    cov = torch.empty(b, nw, dtype=torch.int32, device=dev) if ktot else None
+    fused = subj_store is not None
+    rblocks = rarenas if rtot else ()
+    # the range side over every range block, and the covered words: one
+    # launch
+    launch_range(ext, range_spec(rblocks, rp.data_ptr()), len(rblocks),
+                 (iv_of, iv_start, iv_end), b, subj_before, subj_kinds,
+                 subj_store if fused and rblocks else None,
+                 r_slots if fused and rblocks else None, witness_table, rtot,
+                 cov, 0, nw * 32, nw * 32)
+    st = ext.raw_stream(dev.index)
+    off = 0
+    for s, (k_bm, k_ts, k_kinds, k_valid) in enumerate(karenas):
+        cap = k_bm.shape[0]
+        ext.entry("range_resolve", "range_key_block", _RANGE_KEY_ARGS)(
+            cov.data_ptr(), subj_before.data_ptr(), subj_kinds.data_ptr(),
+            subj_is_range.data_ptr(),
+            subj_store.data_ptr() if fused else None,
+            k_slots[s:s + 1].data_ptr() if fused else None, b,
+            k_bm.data_ptr(), nw, k_ts.data_ptr(), k_kinds.data_ptr(),
+            k_valid.data_ptr(), cap, nw, witness_table.data_ptr(),
+            witness_table.shape[0], kp.data_ptr(), ktot, off, st)
+        off += cap // 32
+    LAUNCHES["range_resolve"] += 1
     return rp, kp
 
 
@@ -1192,9 +1227,10 @@ def covered_buckets(iv_of, iv_start, iv_end, b: int, k: int) -> torch.Tensor:
     if k & (k - 1) or k % 32 or k > 1024:
         raise ValueError(f"covered_buckets: k={k} must be a power of two "
                          "in [32, 1024]")
-    ext = _ext()
     _check_cuda(iv_of, iv_start, iv_end)
-    cov = _covered_cuda(ext, iv_of, iv_start, iv_end, b, k, ext.stream())
+    cov = torch.empty(b, k // 32, dtype=torch.int32, device=iv_of.device)
+    launch_range(_ext(), range_spec((), 0), 0, (iv_of, iv_start, iv_end), b,
+                 None, None, None, None, None, 0, cov, 0, k, k)
     LAUNCHES["range_resolve"] += 1
     return cov
 
@@ -2683,17 +2719,11 @@ def range_block_shard(iv_of, iv_start, iv_end, subj_store, slot,
                 *((subj_store, slot) if fused else ()))
     dev = subj_before.device
     _check_out(out, col, rcap // 32, dev, "range_block_shard")
-    null = ext.ctypes_null()
-    anyr = torch.empty_like(out)
-    ext.call("range_resolve", "range_block", ext.ptr(iv_of),
-             ext.ptr(iv_start), ext.ptr(iv_end), iv_of.shape[0],
-             ext.ptr(subj_before), ext.ptr(subj_kinds),
-             ext.ptr(subj_store) if fused else null,
-             ext.ptr(slot) if fused else null, subj_before.shape[0],
-             ext.ptr(r_start), ext.ptr(r_end), ext.ptr(r_ts),
-             ext.ptr(r_kinds), ext.ptr(r_valid), rcap,
-             ext.ptr(witness_table), witness_table.shape[0], ext.ptr(anyr),
-             ext.ptr(out), out.shape[1], col, ext.stream())
+    launch_range(ext, range_spec(((r_start, r_end, r_ts, r_kinds,
+                                   r_valid),), out.data_ptr(), col), 1,
+                 (iv_of, iv_start, iv_end), subj_before.shape[0],
+                 subj_before, subj_kinds, subj_store if fused else None,
+                 slot if fused else None, witness_table, out.shape[1])
     LAUNCHES["range_resolve_shard"] += 1
     return out
 
@@ -2740,9 +2770,9 @@ def range_key_shard(iv_of, iv_start, iv_end, subj_store, slot, subj_before,
     null = ext.ctypes_null()
     st = ext.stream()
     cov = torch.empty(b, nwl, dtype=torch.int32, device=dev)
-    ext.call("range_resolve", "range_covered_slice", ext.ptr(iv_of),
-             ext.ptr(iv_start), ext.ptr(iv_end), iv_of.shape[0], b, base,
-             nwl * 32, k_total, ext.ptr(cov), st)
+    launch_range(ext, range_spec((), 0), 0, (iv_of, iv_start, iv_end), b,
+                 None, None, None, None, None, 0, cov, base, nwl * 32,
+                 k_total)
     ext.entry("range_resolve", "range_key_block", _RANGE_KEY_ARGS)(
         ext.ptr(cov), ext.ptr(subj_before), ext.ptr(subj_kinds),
         ext.ptr(subj_is_range), ext.ptr(subj_store) if fused else null,

@@ -27,7 +27,8 @@ blocks, span widths -- is the reference's. The kernels:
       one launch for all blocks
   K14 node_fused_range_deps_resolve  csrc/node_resolve.cu
       node_range_resolve + node_key_resolve (:133, body :151): K5 with a
-      block table on each side, the covered-bucket pass once
+      block table on each side; the range side and the covered-bucket
+      pass are one launch
   K15 lane_slice_many, lane_slice    csrc/row_scatter.cu lane_slice_many
       (:190, a dynamic_slice a window): every window of a merged
       dispatch in one launch, over a window table
@@ -102,12 +103,13 @@ def key_table(blocks, out_ptr: int, ptr=None) -> list:
     return words
 
 
-def range_table(blocks, out_ptr: int, ptr=None) -> list:
-    """The int64 words of K14's range-side table: the header, then per
-    block the five lane pointers and (cap | word offset << 32)."""
+def range_table(blocks, out_ptr: int, ptr=None, off: int = 0) -> list:
+    """The int64 words of the range body's block table (K14's in device
+    memory, K5's by value: kernels.range_spec): the header, then per block
+    the five lane pointers and (cap | word offset << 32), the offsets from
+    `off` in block order."""
     ptr = ptr or (lambda t: t.data_ptr())
     words = [out_ptr, len(blocks)]
-    off = 0
     for start, end, ts, kinds, valid in blocks:
         cap = start.shape[0]
         words += [ptr(start), ptr(end), ptr(ts), ptr(kinds), ptr(valid),
@@ -150,6 +152,10 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _NODE_KEY_ARGS = (_VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _I,
                   _I, _VP)
 _DEPS_SUBJ_ARGS = (_VP, _VP, _I, _I, _I, _VP, _VP)
+# node_range_resolve (csrc/node_resolve.cu: K14's range side and covered
+# pass, one launch)
+_NODE_RANGE_ARGS = (_VP, _I, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _I,
+                    _VP, _I, _I, _VP, _I, _I, _I, _I, _VP)
 
 
 # -- the launches ---------------------------------------------------------------
@@ -179,19 +185,20 @@ def launch_node_deps(ext, A, of, keys, nnz: int, sw, tab, dims, sb, sknd,
 
 def launch_node_range_deps(ext, A, of, ivs, ive, nv: int, sb, sknd, node,
                            srng, b: int, wt, nk: int, rside, kside) -> None:
-    """K14: the range side (rtab, rdims, r_slots, anyr scratch) -- or None
-    -- stabs the range block table; the key side (ktab, kdims, k_slots,
-    cov scratch, nw) -- or None -- runs the covered-bucket pass once, then
-    the key block table gated by subj_is_range."""
-    if rside is not None:
-        rtab, (nr, rmax, rtot), rsl, anyr = rside
-        ext.call("node_resolve", "node_range_resolve", A(rtab), nr, rmax,
-                 A(of), A(ivs), A(ive), nv, A(sb), A(sknd), A(node), A(rsl),
-                 b, A(wt), nk, A(anyr), rtot, ext.stream())
+    """K14: ONE node_range_resolve launch over the range block table
+    (rside: rtab, rdims, r_slots -- or None) that also writes the covered
+    words of the key side (kside: ktab, kdims, k_slots, cov scratch, nw --
+    or None), then the key block table gated by subj_is_range."""
+    rtab, (nr, rmax, rtot), rsl = rside if rside is not None \
+        else (None, (0, 0, 0), None)
+    cov, nw = (kside[3], kside[4]) if kside is not None else (None, 0)
+    if rside is not None or kside is not None:
+        ext.entry("node_resolve", "node_range_resolve", _NODE_RANGE_ARGS)(
+            A(rtab), nr, rmax, A(of), A(ivs), A(ive), nv, A(sb), A(sknd),
+            A(node), A(rsl), b, A(wt), nk, rtot, A(cov), 0, nw * 32,
+            nw * 32, 1, ext.stream())
     if kside is not None:
-        ktab, kdims, ksl, cov, nw = kside
-        ext.call("range_resolve", "range_covered", A(of), A(ivs), A(ive),
-                 nv, b, nw * 32, A(cov), ext.stream())
+        ktab, kdims, ksl = kside[:3]
         launch_key_blocks(ext, A, ktab, kdims, cov, sb, sknd, node, ksl,
                           srng, b, nw, wt, nk)
 
@@ -337,8 +344,7 @@ def range_launcher(iv_of, iv_start, iv_end, subj_node, subj_before,
     rside = kside = None
     if rdims[2]:
         rside = (_upload_table(range_table(rarenas, rp.data_ptr()), dev),
-                 rdims, rsl,
-                 torch.empty(b, rdims[2], dtype=torch.int32, device=dev))
+                 rdims, rsl)
     if kdims[2]:
         nw = key_words(karenas, "node_fused_range_deps_resolve")
         kside = (_upload_table(key_table(karenas, kp.data_ptr()), dev),

@@ -232,7 +232,7 @@ def _stage_range(P, ext, wt_ref, nk, rng_in):
     rside = kside = None
     if rdims[2]:
         rside = (P.table(nl.range_table(rblocks, r_ref, ptr=P.ptr)), rdims,
-                 r_rsl, P.alloc("f", b * rdims[2] * 4))
+                 r_rsl)
     if kdims[2]:
         nw = nl.key_words(kblocks, "protocol_tick")
         kside = (P.table(nl.key_table(kblocks, k_ref, ptr=P.ptr)), kdims,
@@ -508,19 +508,15 @@ def _key_shard_launch(ext, A, subj, tab, nent: int, max_cl: int, sb, sknd,
                       node, slots, gate, b: int, nw: int, nwl: int, model: int,
                       sws, parts, out, wtot: int, wt, nk: int) -> None:
     """The subject words of each 'model' slice -- K1's subject pass over
-    subj = (subj_of, subj_keys, nnz), or with a gate (K14's key side) K5's
-    covered pass over subj = (iv_of, iv_s, iv_e, nv) -- one K13 launch
-    over the shard table, and the 'model' partials OR-folded (K22) into
+    subj = (subj_of, subj_keys, nnz); subj None: K14's key side, whose
+    covered words the range stage's launch wrote -- one K13 launch over
+    the shard table, and the 'model' partials OR-folded (K22) into
     `out`."""
-    for m in range(model):
-        if gate is None:
+    if subj is not None:
+        for m in range(model):
             ext.call("deps_resolve", "deps_subjects_slice", A(subj[0]),
                      A(subj[1]), subj[2], b, nw * 32, m * nwl * 32, nwl * 32,
                      A(sws[m]), ext.stream())
-        else:
-            ext.call("range_resolve", "range_covered_slice", A(subj[0]),
-                     A(subj[1]), A(subj[2]), subj[3], b, m * nwl * 32,
-                     nwl * 32, nw * 32, A(sws[m]), ext.stream())
     ext.entry("node_resolve", "node_key_shard", _KEY_SHARD_ARGS)(
         A(tab), nent, max_cl, A(sb), A(sknd), A(node), A(slots), A(gate), b,
         nwl, A(wt), nk, wtot, ext.stream())
@@ -559,8 +555,9 @@ def _stage_key_shard(P, ext, wt_ref, nk, key_in, mesh):
 def _stage_range_shard(P, ext, wt_ref, nk, rng_in, mesh):
     """The range side per (range block x 'data' shard) -- the interval
     compares have no bucket dimension, so 'model' replicas would repeat
-    them -- through K14's range table; the key side per (key block x
-    'data' x 'model' shard) gated by subj_is_range."""
+    them -- through K14's range table, in ONE launch with the covered
+    words of every 'model' slice; the key side per (key block x 'data' x
+    'model' shard) gated by subj_is_range."""
     (iv_of, iv_s, iv_e, subj_node, sb, sknd, srng, r_slots, rblocks,
      k_slots, kblocks) = rng_in
     data, model = mesh.shape["data"], mesh.shape["model"]
@@ -573,6 +570,8 @@ def _stage_range_shard(P, ext, wt_ref, nk, rng_in, mesh):
     kdims = nl.block_dims(kblocks)
     r_ref, r_view = P.out((b, rdims[2]), torch.int32)
     k_ref, k_view = P.out((b, kdims[2]), torch.int32)
+    rtab = r_sl = None
+    nent_r = rmax = 0
     if rdims[2]:
         _shard_rows(rblocks, data, "range")
         r_sl = P.inp(np.repeat(_host_np(r_slots).astype(np.int32), data))
@@ -589,32 +588,39 @@ def _stage_range_shard(P, ext, wt_ref, nk, rng_in, mesh):
                           _shift(vl, r0), rl | ((off + r0 // 32) << 32)]
             off += rcap // 32
         rtab = P.table(words)
-        anyr = P.alloc("f", 4 * b * rdims[2])
         nent_r = len(rblocks) * data
-
-        def rgo(B, rtab=rtab, r_sl=r_sl, anyr=anyr, nent_r=nent_r):
-            A = _addrs(B)
-            ext.call("node_resolve", "node_range_resolve", A(rtab), nent_r,
-                     rdims[1] // data, A(of), A(ivs), A(ive), nv, A(r_sb),
-                     A(r_sk), A(node), A(r_sl), b, A(wt_ref), nk, A(anyr),
-                     rdims[2], ext.stream())
-        P.launches.append(rgo)
-        P.count("node_range_shard")
+        rmax = rdims[1] // data
+    cov = None
+    nw = nwl = 0
     if kdims[2]:
         nw = nl.key_words(kblocks, "sharded_protocol_tick")
         nwl = pm._bucket_words(mesh, nw, "sharded_protocol_tick")
+        # the covered words of every 'model' slice, slice m at word
+        # m * b * nwl
+        cov = P.alloc("f", 4 * model * b * nwl)
+
+    def rgo(B, rtab=rtab, r_sl=r_sl, cov=cov):
+        A = _addrs(B)
+        ext.entry("node_resolve", "node_range_resolve", nl._NODE_RANGE_ARGS)(
+            A(rtab), nent_r, rmax, A(of), A(ivs), A(ive), nv, A(r_sb),
+            A(r_sk), A(node), A(r_sl), b, A(wt_ref), nk, rdims[2], A(cov),
+            0, nwl * 32, nw * 32, model, ext.stream())
+    if rdims[2] or kdims[2]:
+        P.launches.append(rgo)
+        P.count("node_range_shard")
+    if kdims[2]:
         _shard_rows(kblocks, data, "key")
         k_sl = P.inp(np.repeat(_host_np(k_slots).astype(np.int32),
                                data * model))
         parts = P.alloc("f", 4 * model * b * kdims[2])
-        covs = [P.alloc("f", 4 * b * nwl) for _ in range(model)]
+        covs = [_shift(cov, 4 * m * b * nwl) for m in range(model)]
         ktab = P.table(_shard_key_table(P, kblocks, data, model, parts, covs,
                                         b, kdims[2]))
         nent = len(kblocks) * data * model
         P.launches.append(lambda B: _key_shard_launch(
-            ext, _addrs(B), (of, ivs, ive, nv), ktab, nent,
-            kdims[1] // data, r_sb, r_sk, node, k_sl, r_rng, b, nw, nwl,
-            model, covs, parts, k_ref, kdims[2], wt_ref, nk))
+            ext, _addrs(B), None, ktab, nent, kdims[1] // data, r_sb, r_sk,
+            node, k_sl, r_rng, b, nw, nwl, model, covs, parts, k_ref,
+            kdims[2], wt_ref, nk))
         P.count("node_key_shard")
         P.count("or_fold")
     return (r_ref, r_view, rdims[2]), (k_ref, k_view, kdims[2])

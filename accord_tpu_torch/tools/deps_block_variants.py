@@ -81,18 +81,19 @@ def _entries() -> dict:
 
 
 @contextlib.contextmanager
-def parent_kernels():
-    """Inside, the four body entries resolve to the parent's library."""
+def bound(lib, entries: dict, who: str = "parent"):
+    """Inside, each (library, entry) of `entries` (-> its argtypes)
+    resolves to `lib`'s function of that name in ops/_ext.py's entry
+    cache; the tick graphs' cache is set aside inside and restored after
+    (a tick captured inside is dropped)."""
     from accord_tpu_torch.ops import _ext, kernels, tick_graph
-    lib = _LIB[0] if _LIB else finish_build(start_build())
-    entries = _entries()
     saved = {k: _ext._ENTRIES.get(k) for k in entries}
     for (name, entry), argtypes in entries.items():
         fn = getattr(lib, entry)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
 
-        def f(*args, _fn=fn, _who=f"parent {entry}"):
+        def f(*args, _fn=fn, _who=f"{who} {entry}"):
             rc = _fn(*args)
             if rc != 0:
                 raise RuntimeError(f"{_who}: CUDA error {rc}")
@@ -114,6 +115,14 @@ def parent_kernels():
         tick_graph._GRAPHS.clear()
         tick_graph._GRAPHS.update(graphs)
         kernels.CAPTURES.update(captures)
+
+
+@contextlib.contextmanager
+def parent_kernels():
+    """Inside, the four body entries resolve to the parent's library."""
+    lib = _LIB[0] if _LIB else finish_build(start_build())
+    with bound(lib, _entries()):
+        yield
 
 
 def _capture(fn, calls: int):
@@ -161,15 +170,18 @@ def _interleaved(replays: dict) -> dict:
 
 def _same(a, b) -> bool:
     import torch
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
-def body_pair(make, calls: int = CALLS) -> dict:
+def body_pair(make, calls: int = CALLS, parent=None) -> dict:
     """The shipped and the parent's body on one launcher's inputs: their
-    outputs bit-equal, and each side's device ms a call."""
+    outputs bit-equal, and each side's device ms a call (`parent`: the
+    context binding the parent's entries, by default this tool's)."""
     import torch
     launch, out = make()
-    with parent_kernels():
+    with (parent or parent_kernels)():
         p_launch, p_out = make()
         p_launch()
         p_graph = _capture(p_launch, calls)
@@ -185,17 +197,18 @@ def body_pair(make, calls: int = CALLS) -> dict:
             "bit_equal": equal}
 
 
-def call_pair(call, calls: int = CALLS) -> dict:
+def call_pair(call, calls: int = CALLS, parent=None) -> dict:
     """The shipped and the parent's body inside one whole call (`call()`
-    -> its outputs, a tuple of tensors): the outputs bit-equal, and each
-    side's device ms a call (a CUDA graph of `calls` calls)."""
+    -> its outputs, a tensor or a tuple of tensors): the outputs
+    bit-equal, and each side's device ms a call (a CUDA graph of `calls`
+    calls)."""
     import torch
     out = call()
-    with parent_kernels():
+    with (parent or parent_kernels)():
         p_out = call()
         p_graph = _capture(call, calls)
     torch.cuda.synchronize()
-    equal = all(_same(a, b) for a, b in zip(out, p_out))
+    equal = _same(out, p_out)
     graph = _capture(call, calls)
     t = _interleaved({"new": (graph.replay, calls),
                       "parent": (p_graph.replay, calls)})
@@ -205,13 +218,13 @@ def call_pair(call, calls: int = CALLS) -> dict:
             "bit_equal": equal}
 
 
-def replay_pair(call, first) -> dict:
+def replay_pair(call, first, parent=None) -> dict:
     """The shipped and the parent's graph of one tick call (`first` maps
-    the call's output to the tensor compared): the replays bit-equal and
+    the call's output to the tensors compared): the replays bit-equal and
     each side's replay ms."""
     import torch
     from accord_tpu_torch.ops import tick_graph
-    with parent_kernels():
+    with (parent or parent_kernels)():
         p_res = call()            # alive while its graph replays into it
         p_graph = next(reversed(tick_graph._GRAPHS.values()))
     res = call()

@@ -226,11 +226,24 @@ launched.
      sharded 10k tick's key stage are timed beside the parent's too, and
      K5's calls with the parent's key body (the whole call, a graph).
      K5's fused entry reports device_ms too, and K14 the device ms of
-     its launches (range_launcher: its tables uploaded before).
+     its launches (range_launcher: its tables uploaded before). K3
+     (arena_scatter and its keys-only entry), K5 (range_deps_resolve,
+     fused_range_deps_resolve, covered_buckets) and K14 are also set
+     beside the parent's range body and K3 (tools/range_block_parent.cu,
+     built beside the kernels; bit-equal, device ms interleaved:
+     range_parent_vs_new), K14's range stage alone as a protocol_tick
+     graph (stage_parent_vs_new) and the sharded key+range leg's range
+     stage likewise; traces of one call show K3 and the covered pass one
+     kernel, K5 the range kernel (its covered words in the same launch)
+     and a key body a key block, K14's launches two kernels, none a
+     memset or copy. K17 (mailbox_route) and K23 also report device_ms
+     (their calls captured in a CUDA graph: both route in place, a
+     replay rewriting the rows its lanes name).
 The last four lines are the parent-vs-new line (K1 at the PreAccept
 batch, K13 at the sweep's largest and the 10k tick, K5 at the range
-batch, the 10k replay, the sharded 10k key stage), the card line, one
-JSON line of kernels, and the result line {"ok": true, "device": {...}}.
+batch, the 10k replay, the sharded 10k key stage; under "range_body"
+the range body's and K3's), the card line, one JSON line of kernels,
+and the result line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -502,8 +515,9 @@ def time_ms(fn, iters: int, cuda: bool) -> float:
     return start.elapsed_time(end) / iters
 
 
-# the wrappers whose rows (PERF.md 1-4, 6-9, 13, 16, 18, 19, 21-26, 30)
-# also give device time
+# the wrappers whose rows (PERF.md 1-9, 13, 16-19, 21-26, 30, 31) also give
+# device time (K17's mailbox_route routes in place: a replay rewrites the
+# rows its lanes name)
 DEVICE_TIMED = ("scatter_rows", "kid_word_scatter", "arena_grow",
                 "lane_table", "range_scatter", "lane_slice",
                 "lane_slice_many", "cmd_tick", "finalize_csr",
@@ -511,7 +525,8 @@ DEVICE_TIMED = ("scatter_rows", "kid_word_scatter", "arena_grow",
                 "recovery_scan", "deps_matrix", "transitive_closure",
                 "deps_resolve", "fused_deps_resolve", "range_deps_resolve",
                 "fused_range_deps_resolve", "arena_scatter", "max_conflict",
-                "exec_scatter", "execution_frontier", "cmd_repair")
+                "exec_scatter", "execution_frontier", "cmd_repair",
+                "arena_scatter_keys", "covered_buckets", "mailbox_route")
 # the key body's wrappers (csrc/deps_block.cuh: K1, K13), each split at its
 # body by a launcher (the subject pass, and K13's table upload, run first):
 # the body's kernels a launch, which a trace must show with no memset or
@@ -525,6 +540,12 @@ CALL_MOVES = {"deps_resolve": 1, "fused_deps_resolve": 1,
 # the parent's key body beside the shipped one (tools/deps_block_variants):
 # by label, printed on a line before the card line
 PARENT_VS_NEW: dict = {}
+# the parent's range body and K3 beside the shipped ones
+# (tools/range_block_variants), by (label, wrapper) or stage name
+RANGE_VS_PARENT: dict = {}
+RANGE_PAIRED = ("arena_scatter", "arena_scatter_keys", "covered_buckets",
+                "range_deps_resolve", "fused_range_deps_resolve",
+                "node_fused_range_deps_resolve")
 # calls captured in one graph where a call takes milliseconds (else 100)
 GRAPH_CALLS = {"transitive_closure": 10, "node_fused_deps_resolve": 4}
 # the kernels one eager call launches, by wrapper (a torch.profiler trace,
@@ -535,7 +556,13 @@ KERNELS_A_CALL = {"cmd_tick": 1, "finalize_csr": 1, "finalize_csr_tab": 1,
                   "segment_compact": 1, "range_finalize_csr": 2,
                   "frontier_compact": 2, "recovery_scan": 2,
                   "deps_matrix": 1,
-                  "transitive_closure": lambda args: int(args[1]) + 2}
+                  "transitive_closure": lambda args: int(args[1]) + 2,
+                  # K3 and the covered pass one launch; K5 the range side
+                  # (with the covered words) and a key body a key block
+                  "arena_scatter": 1, "arena_scatter_keys": 1,
+                  "covered_buckets": 1, "range_deps_resolve": 2,
+                  "fused_range_deps_resolve": lambda args: int(
+                      bool(args[8] or args[10])) + len(args[10])}
 
 
 TRACE_TRIES = 6
@@ -726,6 +753,41 @@ def body_report(tk, fn_name, kern, args, kw, out, want_call) -> dict:
     return extra
 
 
+def range_pairs(tk, fn_name, kern, args, kw, label) -> dict:
+    """The parent's range body and K3 (tools/range_block_variants) beside
+    the shipped ones on one recorded call: the whole call in a CUDA graph
+    (K14: its launches, the tables up before; and its range stage alone
+    as a protocol_tick graph), bit-equal, device ms of each side."""
+    from accord_tpu_torch.ops import node_lane as nl
+    from accord_tpu_torch.tools import range_block_variants as rbv
+    out = {}
+    if fn_name == "node_fused_range_deps_resolve":
+        def make():
+            launch, rp, kp = nl.range_launcher(*args, **kw)
+            return launch, (rp, kp)
+        pair = rbv.body_pair(make)
+        wt = args[-1]
+        stage = rbv.replay_pair(
+            lambda: tk.protocol_tick(wt, rng_in=tuple(args[:-1])),
+            lambda r: r[1])
+        check(stage["bit_equal"], f"{fn_name}: the parent's range stage "
+              "answers differently")
+        stage["plain_equal"] = max_abs_err(
+            tk.protocol_tick(wt, rng_in=tuple(args[:-1]))[1],
+            nl.node_fused_range_deps_resolve_plain(*args, **kw)) == 0
+        check(stage["plain_equal"], f"{fn_name}: the range stage's replay "
+              "differs from the plain version")
+        out["stage_parent_vs_new"] = stage
+        RANGE_VS_PARENT[(label, fn_name + ":stage")] = stage
+    else:
+        pair = rbv.call_pair(lambda: kern(*args, **kw))
+    check(pair["bit_equal"], f"{fn_name}: the parent's range body / K3 "
+          "answers differently")
+    RANGE_VS_PARENT[(label, fn_name)] = pair
+    out["range_parent_vs_new"] = pair
+    return out
+
+
 def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int,
                   label: str = ""):
     """Replay each recorded call of `name`'s wrappers on the card: kernel
@@ -821,6 +883,15 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int,
             # must not capture: the launches alone, the tables up before
             launch, _rp, _kp = nl.range_launcher(*args, **kw)
             extra["device_ms"] = graph_ms(launch)
+            # one range launch (with the covered words), one key launch
+            n_k14 = int(bool(args[8] or args[10])) + int(bool(args[10]))
+            extra["trace"] = trace_call(
+                launch, ("range_launcher", args, kw, True), n_k14)
+            t = extra["trace"]
+            check(len(t["kernels"]) == n_k14 and not t["moves"],
+                  f"{fn_name}: its launches ran {t['kernels']} and moved "
+                  f"{t['moves']}, not {n_k14} kernel(s) and no memset or "
+                  "copy")
         if fn_name in BODY_A_LAUNCH and cuda:
             extra.update(body_report(tk, fn_name, kern, args, kw, out,
                                      CALL_MOVES[fn_name]))
@@ -831,6 +902,8 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int,
             check(pair["bit_equal"], f"{fn_name}: the parent's key body "
                   "answers differently")
             extra["parent_vs_new"] = pair
+        if fn_name in RANGE_PAIRED and cuda:
+            extra.update(range_pairs(tk, fn_name, kern, args, kw, label))
         if want is not None and cuda:
             if "trace" not in extra:
                 extra["trace"] = trace_call(lambda: kern(*args, **kw),
@@ -2029,11 +2102,15 @@ def run(rehearse: bool) -> dict:
         log(f"device: {torch.cuda.get_device_name(0)} x "
             f"{torch.cuda.device_count()}")
         from accord_tpu_torch.tools import deps_block_variants as dbv
+        from accord_tpu_torch.tools import range_block_variants as rbv
         parent = dbv.start_build()
+        rparent = rbv.start_build()
         build_s = build_phase()
         dbv.finish_build(parent)
+        rbv.finish_build(rparent)
         log(f"build: {build_s:.2f} s (all csrc/*.cu, nvcc in parallel; the "
-            "parent's key body, tools/deps_block_parent.cu, beside them)")
+            "parent's key body, tools/deps_block_parent.cu, and range body "
+            "and K3, tools/range_block_parent.cu, beside them)")
 
     ops = 800 if not rehearse else 120
     launches = {}
@@ -2428,7 +2505,9 @@ def run(rehearse: bool) -> dict:
                                     "library_device_ms", "library_chain_ms",
                                     "library_chain_device_ms", "specs",
                                     "trace", "body_device_ms",
-                                    "body_trace", "parent_vs_new")
+                                    "body_trace", "parent_vs_new",
+                                    "range_parent_vs_new",
+                                    "stage_parent_vs_new")
                if k in head},
             "launches_by_path": {p: launches[p][name] for p in launches}}
         for label, r in labelled:
@@ -2452,12 +2531,31 @@ PARENT_VS_NEW_KEYS = {
     "k5_range_batch": ("preaccept_batch", "range_deps_resolve")}
 
 
+# the range body's and K3's entries: (label, wrapper[:stage])
+RANGE_VS_PARENT_KEYS = {
+    "k3_key_burn": ("key_burn", "arena_scatter"),
+    "k3_range_burn": ("range_burn", "arena_scatter"),
+    "k3_cap_16384": ("preaccept_batch", "arena_scatter"),
+    "k3_keys_key_burn": ("key_burn", "arena_scatter_keys"),
+    "k3_keys_range_burn": ("range_burn", "arena_scatter_keys"),
+    "k5_range_burn": ("range_burn", "range_deps_resolve"),
+    "k5_fused_range_burn": ("range_burn", "fused_range_deps_resolve"),
+    "k5_range_batch": ("preaccept_batch", "range_deps_resolve"),
+    "k5_covered_range_burn": ("range_burn", "covered_buckets"),
+    "k5_covered_range_batch": ("preaccept_batch", "covered_buckets"),
+    "k14_key_range_leg": ("mega_range", "node_fused_range_deps_resolve"),
+    "mega_range_stage": ("mega_range",
+                         "node_fused_range_deps_resolve:stage")}
+
+
 def parent_vs_new_line() -> dict:
     """The key body's device ms beside the parent's (same card, same
     process, interleaved): K1 at the PreAccept batch, K13 at the sweep's
     largest tick and at the 10k tick (the body launch alone), K5 at the
     range batch (the whole call), the 10k tick's replay, and the sharded
-    10k tick's key stage (its replay)."""
+    10k tick's key stage (its replay); under "range_body", the range body's
+    and K3's beside theirs (RANGE_VS_PARENT_KEYS, and the sharded key+range
+    leg's range stage)."""
     out = {}
     for key, (label, fn) in PARENT_VS_NEW_KEYS.items():
         got = PARENT_VS_NEW.get((label, fn))
@@ -2466,6 +2564,12 @@ def parent_vs_new_line() -> dict:
     for key in ("tick_10k_replay", "node_key_shard_10k_key_stage"):
         if key in PARENT_VS_NEW:
             out[key] = PARENT_VS_NEW[key]
+    rng = {key: RANGE_VS_PARENT[k] for key, k in RANGE_VS_PARENT_KEYS.items()
+           if k in RANGE_VS_PARENT}
+    if "sharded_range_stage" in RANGE_VS_PARENT:
+        rng["sharded_range_stage"] = RANGE_VS_PARENT["sharded_range_stage"]
+    if rng:
+        out["range_body"] = rng
     return out
 
 
@@ -3843,9 +3947,13 @@ def _k23_row(mb, S: int, block, device: str, cuda: bool, iters: int):
     L, w = lanes[6].shape
     landed = int(out[4].sum())
     small = nbytes(*lanes[:6]) + L
+    extra = {}
+    if cuda:
+        # the host's enqueue left out: 100 calls in one CUDA graph
+        extra["device_ms"] = graph_ms(lambda: kern(False))
     return _bound_row(ms, plain_ms, small + 2 * landed * (w * 4 + 12)
                       + nbytes(out[2:]), 0, err, lanes=L, words=w,
-                      landed=landed, input_mb=nbytes(args) / 1e6)
+                      landed=landed, input_mb=nbytes(args) / 1e6, **extra)
 
 
 def sharded_mega_phase(device: str, cuda: bool, rehearse: bool, tk,
@@ -4133,6 +4241,15 @@ def sharded_mega_phase(device: str, cuda: bool, rehearse: bool, tk,
     check(rows["node_range_shard"]["max_abs_err"] == 0,
           "sharded key+range leg: the range stage differs from its plain "
           "version")
+    if cuda:
+        # the parent's range shard beside it (tools/range_block_variants)
+        from accord_tpu_torch.tools import range_block_variants as rbv
+        pair = rbv.replay_pair(lambda: pm.sharded_protocol_tick(
+            mesh_r, wt_r, rng_in=rkw_["rng_in"]), lambda r: r[1])
+        check(pair["bit_equal"], "sharded key+range leg: the parent's "
+              "range shard answers differently")
+        rows["node_range_shard"]["parent_vs_new"] = pair
+        RANGE_VS_PARENT["sharded_range_stage"] = pair
     base = dict(nodes=4, rf=3, stores_per_node=2, key_count=24,
                 concurrency=8, exec_plane=True, exec_compact=True,
                 exec_in_megakernel=True, megakernel=True)

@@ -16,12 +16,14 @@ import torch
 
 from accord_tpu_torch.ops import kernels as tk
 from accord_tpu_torch.ops.encoding import WITNESS_TABLE
-from torch_kernel_cases import (CLOSURE_CASES, CLOSURE_ITERS, CMD_CASES,
-                                CMD_SCALARS, DEPS_CASES, KEY_BODY_CASES,
+from torch_kernel_cases import (ARENA_SCATTER_CASES, CLOSURE_CASES,
+                                CLOSURE_ITERS, CMD_CASES, CMD_SCALARS,
+                                DEPS_CASES, KEY_BODY_CASES,
                                 KEY_BODY_RUN_CASES, KEY_SHARD_CASES,
-                                closure_case, cmd_case,
-                                deps_case, finalize_many_tiles,
-                                key_body_case, pack_words)
+                                RANGE_BODY_CASES, arena_scatter_case,
+                                closure_case, cmd_case, deps_case,
+                                finalize_many_tiles, key_body_case,
+                                pack_words, range_body_case)
 
 pytestmark = pytest.mark.gpu
 I32_MIN = np.iinfo(np.int32).min
@@ -2300,3 +2302,80 @@ def test_key_body_cases_node_key_shard(cuda, name):
     torch.cuda.synchronize()
     assert tk.LAUNCHES["node_key_shard"] == l0["node_key_shard"] + 1
     _eq(plain, got[0])
+
+
+# -- the range body (csrc/range_block.cuh) and K3 (csrc/arena_scatter.cu) --
+def _range_case(name):
+    c = range_body_case(name)
+    heads = [_t(c[x]) for x in ("iv_of", "iv_s", "iv_e", "subj_store", "sb",
+                                "sknd", "srng")]
+    rblocks = tuple(tuple(_t(x) for x in a) for a in c["rblocks"])
+    kblocks = tuple((_t(pack_words(bits)), _t(ts), _t(kd), _t(v))
+                    for bits, ts, kd, v in c["kblocks"])
+    return c, (*heads, _t(c["r_slots"]), rblocks, _t(c["k_slots"]), kblocks,
+               _t(WITNESS_TABLE))
+
+
+@pytest.mark.parametrize("name", list(RANGE_BODY_CASES))
+def test_range_body_cases_kernels(cuda, name):
+    """K5 (fused and single), K14 and the covered pass on the range body's
+    edges (tests/torch_kernel_cases.py): each bit-equal to its plain
+    version, one counted launch a call; a call's trace shows one range
+    kernel (its covered words in the same launch) and a key body a key
+    block, no memset and no copy; K14's launches the same, one for all
+    key blocks; a mesh shard's range launch at an odd column of a wider
+    output leaves the words around it alone."""
+    from accord_tpu_torch.ops import node_lane as nl
+    c, args = _range_case(name)
+    g = tuple(_on(args, cuda))
+    nr, nk = len(args[8]), len(args[10])
+    for fn, count in ((tk.fused_range_deps_resolve, "range_resolve"),
+                      (nl.node_fused_range_deps_resolve,
+                       "node_range_resolve")):
+        plain = fn(*args)
+        n0 = tk.LAUNCHES[count]
+        got = fn(*g)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES[count] == n0 + 1, count
+        _eq(plain, got)
+    _body_launches(lambda: tk.fused_range_deps_resolve(*g),
+                   int(bool(nr or nk)) + nk)
+    launch, _rp, _kp = nl.range_launcher(*g)
+    _body_launches(launch, int(bool(nr or nk)) + int(bool(nk)))
+    single = (args[0], args[1], args[2], args[4], args[5], args[6],
+              *args[8][0], *args[10][0], args[11])
+    _eq(tk.range_deps_resolve(*single),
+        tk.range_deps_resolve(*_on(single, cuda)))
+    b, k = args[4].shape[0], c["k"]
+    _eq(tk.covered_buckets(*args[:3], b, k),
+        tk.covered_buckets(*_on(args[:3], cuda), b, k))
+    r = args[8][0]
+    out = torch.full((b, 3 + r[0].shape[0] // 32 + 2), -1, dtype=torch.int32)
+    shard = (*args[:3], args[3], args[7][:1], args[4], args[5], *r,
+             args[11])
+    plain = tk.range_block_shard(*shard, out.clone(), 3)
+    got = tk.range_block_shard(*_on(shard, cuda), out.to(cuda), 3)
+    _eq(plain, got)
+
+
+@pytest.mark.parametrize("name", list(ARENA_SCATTER_CASES))
+def test_arena_scatter_cases_kernels(cuda, name):
+    """K3 and its keys-only form on their padding edges: bit-equal to the
+    plain versions, one counted launch a call, one kernel and no memset or
+    copy in a call's trace."""
+    c = arena_scatter_case(name)
+    arena = [_t(pack_words(c["bits"])), *(_t(c[x]) for x in (
+        "ts", "ex", "kinds", "valid"))]
+    ups = [_t(c[x]) for x in ("rows", "key_rows", "key_mods", "ts_rows",
+                              "ex_rows", "kind_rows", "valid_rows")]
+    ga, gu = _cu(arena, cuda), _cu(ups, cuda)
+    plain = tk.arena_scatter(*arena, *ups)
+    n0 = tk.LAUNCHES["arena_scatter"]
+    got = tk.arena_scatter(*ga, *gu)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["arena_scatter"] == n0 + 1
+    _eq(plain, got)
+    _eq(tk.arena_scatter_keys(arena[0], *ups[:3]),
+        tk.arena_scatter_keys(ga[0], *gu[:3]))
+    _body_launches(lambda: tk.arena_scatter(*ga, *gu), 1)
+    _body_launches(lambda: tk.arena_scatter_keys(ga[0], *gu[:3]), 1)

@@ -19,7 +19,8 @@ from accord_tpu.ops import kernels as jk
 from accord_tpu.ops.encoding import WITNESS_TABLE
 from accord_tpu_torch.ops import carry
 from accord_tpu_torch.ops import kernels as tk
-from torch_kernel_cases import (KEY_BODY_CASES, KEY_SHARD_CASES,
+from torch_kernel_cases import (ARENA_SCATTER_CASES, KEY_BODY_CASES,
+                                KEY_SHARD_CASES, arena_scatter_case,
                                 finalize_many_tiles, key_body_case,
                                 pack_words)
 
@@ -310,6 +311,30 @@ def test_arena_scatter_keys(seed):
                                 jnp.asarray(key_rows), jnp.asarray(key_mods))
     got = tk.arena_scatter_keys(carry.arena_lanes(arena)[0], _t(rows),
                                 _t(key_rows), _t(key_mods))
+    _same(carry.pack_bitmaps(np.asarray(ref)), got)
+
+
+@pytest.mark.parametrize("name", list(ARENA_SCATTER_CASES))
+def test_arena_scatter_cases_match_jax(name):
+    """K3 on its padding edges (tests/torch_kernel_cases.py): duplicate
+    padding rows, negative row and key indices, CSR entries naming rows
+    not in `rows` (their bits OR into the copied row), key_rows == cap,
+    m 0, z 0 and K 96."""
+    c = arena_scatter_case(name)
+    arena = (c["bits"].astype(np.float32), c["ts"], c["ex"], c["kinds"],
+             c["valid"])
+    ups = tuple(c[x] for x in ("rows", "key_rows", "key_mods", "ts_rows",
+                               "ex_rows", "kind_rows", "valid_rows"))
+    ref = jk.arena_scatter(*(jnp.asarray(a) for a in arena),
+                           *(jnp.asarray(a) for a in ups))
+    got = tk.arena_scatter(*carry.arena_lanes(arena), *(_t(a) for a in ups))
+    _same(carry.pack_bitmaps(np.asarray(ref[0])), got[0])
+    for r, g in zip(ref[1:], got[1:]):
+        _same(r, g)
+    ref = jk.arena_scatter_keys(*(jnp.asarray(a) for a in (arena[0],
+                                                           *ups[:3])))
+    got = tk.arena_scatter_keys(carry.arena_lanes(arena)[0],
+                                *(_t(a) for a in ups[:3]))
     _same(carry.pack_bitmaps(np.asarray(ref)), got)
 
 

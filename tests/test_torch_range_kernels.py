@@ -24,6 +24,8 @@ from accord_tpu.ops import kernels as jk
 from accord_tpu.ops.encoding import WITNESS_TABLE
 from accord_tpu_torch.ops import carry
 from accord_tpu_torch.ops import kernels as tk
+from accord_tpu_torch.ops import node_lane as nl
+from torch_kernel_cases import RANGE_BODY_CASES, pack_words, range_body_case
 
 B, RCAP, CAP, K = 16, 96, 128, 128
 I32_MIN = np.iinfo(np.int32).min
@@ -170,6 +172,46 @@ def test_fused_range_deps_resolve(nr, nk):
         assert np.asarray(ref[0]).any()
     if nk:
         assert np.asarray(ref[1]).any()
+
+
+@pytest.mark.parametrize("name", list(RANGE_BODY_CASES))
+def test_range_body_cases_match_jax(name):
+    """K5 fused (every block) and single (the first of each side), K14
+    (the node form of the same call) and the covered pass on the range
+    body's edges (tests/torch_kernel_cases.py): the interval list shuffled
+    with negative and padding iv_of, widths <= 0 and >= K, int32 wraps,
+    nv 0, range blocks of different caps, one under a slot no subject
+    holds, a foreign subject tile, a tile with 1,200 intervals."""
+    c = range_body_case(name)
+    wt = np.asarray(WITNESS_TABLE)
+    b, k = c["sb"].shape[0], c["k"]
+    heads = ("iv_of", "iv_s", "iv_e", "subj_store", "sb", "sknd", "srng")
+    jr = tuple(_j(*a) for a in c["rblocks"])
+    jkb = tuple(_j(bits.astype(np.float32), ts, kd, v)
+                for bits, ts, kd, v in c["kblocks"])
+    pr = tuple(tuple(_t(x) for x in a) for a in c["rblocks"])
+    pk = tuple((_t(pack_words(bits)), _t(ts), _t(kd), _t(v))
+               for bits, ts, kd, v in c["kblocks"])
+    ref = jk.fused_range_deps_resolve(
+        *_j(*(c[x] for x in heads), c["r_slots"]), jr,
+        jnp.asarray(c["k_slots"]), jkb, jnp.asarray(wt))
+    args = (*(_t(c[x]) for x in heads), _t(c["r_slots"]), pr,
+            _t(c["k_slots"]), pk, _t(wt))
+    for got in (tk.fused_range_deps_resolve(*args),
+                nl.node_fused_range_deps_resolve(*args)):
+        for rr, g in zip(ref, got):
+            _same(rr, g)
+    assert np.asarray(ref[0]).any() or not c["iv_of"].shape[0], "vacuous"
+    single = [c[x] for x in ("iv_of", "iv_s", "iv_e", "sb", "sknd", "srng")]
+    ref = jk.range_deps_resolve(*_j(*single, *c["rblocks"][0]), *jkb[0],
+                                jnp.asarray(wt))
+    got = tk.range_deps_resolve(*(_t(x) for x in single), *pr[0], *pk[0],
+                                _t(wt))
+    for rr, g in zip(ref, got):
+        _same(rr, g)
+    ref = jk.covered_buckets(*_j(*single[:3]), b, k, 0, k)
+    got = tk.covered_buckets(*(_t(x) for x in single[:3]), b, k)
+    _same(carry.pack_bitmaps(np.asarray(ref)).view(np.uint32), got)
 
 
 # -- K6 ----------------------------------------------------------------------

@@ -407,3 +407,139 @@ def key_body_case(name, nk=6):
     return dict(subj_of=subj_of, subj_keys=subj_keys, subj_store=store,
                 sb=sb, sknd=sknd, slots=slots, blocks=blocks, iv_of=iv_of,
                 iv_s=iv_s, iv_e=iv_e, srng=srng)
+
+
+# -- K5's range body (csrc/range_block.cuh) ----------------------------------
+# (subjects B, range caps, key caps, buckets K, intervals nv, seed): the
+# interval list in shuffled order with negative iv_of (counting from the
+# end) and padding iv_of == B spread through it, widths <= 0 and >= K and
+# endpoints that wrap int32; range blocks of different caps, one of them
+# under a slot no subject holds; a subject tile of no block's slot; nv 0;
+# and one subject tile with more intervals than the body stages at once
+# (RB_IV_CAP, 1,024), read in rounds.
+RANGE_BODY_CASES = {
+    "shuffled_neg_pad_b130": (130, (96,), (128,), 256, 400, 1),
+    "nv0": (65, (64,), (64,), 128, 0, 2),
+    "rcaps_unowned_block": (130, (64, 160, 32), (128, 64), 256, 500, 3),
+    "one_tile_1200_intervals": (64, (128,), (64,), 128, 1200, 4),
+}
+
+
+def range_body_case(name, nk=6):
+    """The inputs of one RANGE_BODY_CASES case as numpy: iv_of, iv_s,
+    iv_e i32[nv]; subj_store i32[B] (the padding value len(blocks) names
+    no block; subjects 64-127 of a case with B > 128 name none either),
+    sb i32[B, 3], sknd i32[B], srng bool[B]; r_slots i32[R] (the last
+    range block's slot held by no subject when R > 1) and rblocks (start,
+    end, ts, kinds, valid per range block); k_slots i32[Z] and kblocks
+    (bits bool[cap, K], ts, kinds, valid per key block)."""
+    b, rcaps, caps, k, nv, seed = RANGE_BODY_CASES[name]
+    rng = np.random.default_rng(200 + seed)
+    nblk = max(len(rcaps), len(caps))
+    store = rng.integers(0, nblk, b).astype(np.int32)
+    store[5::9] = nblk                          # padding subjects
+    if b > 128:
+        store[64:128] = nblk                    # a tile of no block's slot
+    r_slots = np.arange(len(rcaps), dtype=np.int32)[::-1].copy()
+    if len(rcaps) > 1:
+        r_slots[-1] = nblk + 7                  # a block no subject asks
+    k_slots = np.arange(len(caps), dtype=np.int32)
+    domain = 4096
+    iv_of = np.full(nv, b, np.int32)
+    n = nv * 7 // 8
+    iv_of[:n] = rng.integers(0, b, n)
+    if name == "one_tile_1200_intervals":
+        iv_of[:n] = rng.integers(0, 8, n)       # all in one tile's head
+    neg = rng.random(nv) < 0.15
+    iv_of = np.where(neg & (iv_of < b), iv_of - b, iv_of).astype(np.int32)
+    iv_s = rng.integers(0, domain, nv).astype(np.int32)
+    width = np.where(rng.random(nv) < 0.5, 1, rng.integers(1, 300, nv))
+    iv_e = (iv_s + width).astype(np.int32)
+    if nv:
+        iv_e[0] = iv_s[0]                       # width 0
+        iv_e[1] = iv_s[1] - 7                   # width < 0
+        iv_e[2] = iv_s[2] + 5 * k               # width >= K
+        iv_s[3], iv_e[3] = I32_MAX - 2, I32_MIN + 3   # wraps: width 6
+        iv_s[4], iv_e[4] = I32_MIN + 1, I32_MAX       # wraps: width -2
+    perm = rng.permutation(nv)
+    iv_of, iv_s, iv_e = iv_of[perm], iv_s[perm], iv_e[perm]
+    sb = rng.integers(-40, 40, (b, 3)).astype(np.int32)
+    sb[: b // 2] = (I32_MAX, 0, 0)              # half see every row
+    sb[3::7, 0] = I32_MIN
+    sknd = np.where(rng.random(b) < 0.3, rng.integers(-3, nk + 3, b),
+                    rng.integers(0, nk - 1, b)).astype(np.int32)
+    srng = rng.random(b) < 0.6
+    rblocks = []
+    for rcap in rcaps:
+        st = rng.integers(0, domain, rcap).astype(np.int32)
+        en = (st + rng.integers(1, 600, rcap)).astype(np.int32)
+        ts = rng.integers(-40, 40, (rcap, 3)).astype(np.int32)
+        ts[rng.random(rcap) < 0.1, 0] = I32_MIN
+        kd = rng.integers(-2, nk + 2, rcap).astype(np.int32)
+        valid = rng.random(rcap) < 0.8
+        valid[32:64] = False                    # a row word of no valid row
+        rblocks.append((st, en, ts, kd, valid))
+    kblocks = []
+    for cap in caps:
+        bits = rng.random((cap, k)) < 0.04
+        ts = rng.integers(-40, 40, (cap, 3)).astype(np.int32)
+        kd = rng.integers(0, nk, cap).astype(np.int32)
+        valid = rng.random(cap) < 0.8
+        kblocks.append((bits, ts, kd, valid))
+    return dict(iv_of=iv_of, iv_s=iv_s, iv_e=iv_e, subj_store=store, sb=sb,
+                sknd=sknd, srng=srng, r_slots=r_slots, rblocks=rblocks,
+                k_slots=k_slots, kblocks=kblocks, k=k)
+
+
+# -- K3 arena_scatter (csrc/arena_scatter.cu) --------------------------------
+# (cap, K, dirty rows m, CSR entries z, seed): duplicate padding rows (the
+# first dirty row repeated, its data identical), negative row and key
+# indices (counting from the end), CSR entries naming rows not in `rows`,
+# padding key_rows == cap, m 0, z 0, and K 96 (3 words a row: no 16-byte
+# vectors).
+ARENA_SCATTER_CASES = {
+    "dup_pad_foreign_csr": (256, 128, 64, 512, 1),
+    "negative_indices": (320, 256, 16, 200, 2),
+    "m0": (128, 128, 0, 64, 3),
+    "z0": (128, 128, 8, 0, 4),
+    "k96_scalar_words": (96, 96, 8, 40, 5),
+}
+
+
+def arena_scatter_case(name):
+    """One ARENA_SCATTER_CASES case as numpy: the arena (bits bool[cap,
+    K], ts, exec_ts i32[cap, 3], kinds i32[cap], valid bool[cap]) and the
+    update (rows i32[m], key_rows, key_mods i32[z], ts_rows, exec_rows
+    i32[m, 3], kind_rows i32[m], valid_rows bool[m]); entries that name one
+    row carry that row's data."""
+    cap, k, m, z, seed = ARENA_SCATTER_CASES[name]
+    rng = np.random.default_rng(300 + seed)
+    bits = rng.random((cap, k)) < 0.1
+    ts = rng.integers(-9, 9, (cap, 3)).astype(np.int32)
+    ex = rng.integers(-9, 9, (cap, 3)).astype(np.int32)
+    ex[::5, 0] = I32_MIN
+    kinds = rng.integers(0, 6, cap).astype(np.int32)
+    valid = rng.random(cap) < 0.5
+    chunk = rng.choice(cap, max(1, m * 2 // 3), replace=False)
+    rows = np.full(m, chunk[0], np.int32)       # padding repeats row 0
+    rows[:min(m, len(chunk))] = chunk[:m]
+    if m > 4:
+        rows[1::4] -= cap                       # negative: counts from end
+    nrow = rows % cap if m else rows
+    new_ts = rng.integers(-9, 9, (cap, 3)).astype(np.int32)
+    new_ex = rng.integers(-9, 9, (cap, 3)).astype(np.int32)
+    new_kd = rng.integers(0, 6, cap).astype(np.int32)
+    new_vl = rng.random(cap) < 0.5
+    key_rows = np.full(z, cap, np.int32)        # padding entries: cap
+    n = z * 3 // 4
+    if n:
+        pool = np.concatenate([nrow, rng.integers(0, cap, 6)])
+        key_rows[:n] = rng.choice(pool, n)      # some rows not in `rows`
+        key_rows[: n // 5] -= cap               # negative rows
+    key_mods = rng.integers(0, k, z).astype(np.int32)
+    key_mods[1::7] -= k                         # negative keys
+    key_mods[2::11] = -k - 1                    # past -K: dropped
+    return dict(bits=bits, ts=ts, ex=ex, kinds=kinds, valid=valid,
+                rows=rows, key_rows=key_rows, key_mods=key_mods,
+                ts_rows=new_ts[nrow], ex_rows=new_ex[nrow],
+                kind_rows=new_kd[nrow], valid_rows=new_vl[nrow])
