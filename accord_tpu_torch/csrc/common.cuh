@@ -15,6 +15,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define ACCORD_CHECK()                                   \
   do {                                                   \
     cudaError_t e_ = cudaGetLastError();                 \
@@ -77,8 +79,12 @@ static inline void launch_copy(T* dst, const T* src, long long n,
 // per segment) and `unsigned word(int sg, int wd, long long f, unsigned*
 // kw) const`, the masked word wd of segment sg (flat index f = sg * w +
 // wd), with *kw its bound contribution (0 where the caller counts the
-// bound elsewhere). The set
-// bits, in (segment, row) order, are the output rows.
+// bound elsewhere). The set bits, in (segment, row) order, are the output
+// rows. A source may also expose `void stage(long long base, long long n)
+// const`, which every thread of the block calls at the start of each
+// compaction tile (base its first flat word, n the spec's words): it builds
+// the tile's words in shared memory, and `word` reads them there (K6
+// computes its stab words so, never writing them to global memory).
 //
 // A launch runs over one or more SPECS (a spec: a source, its outputs and
 // its scratch). Its tiles are numbered in order: every spec's compaction
@@ -109,10 +115,13 @@ static inline void launch_copy(T* dst, const T* src, long long n,
 // running blocks have taken.
 #define CT 256          // threads per block
 #define CI 4            // consecutive words per thread
-#define CW (CT * CI)    // words per compaction tile, positions per pad tile
+#define CW (CT * CI)    // words per compaction tile
+#define CP (4 * CW)     // positions per pad tile
 
-// the compaction's tile width, for the wrappers' scratch sizes
+// the compaction's tile width and pad tile width, for the wrappers'
+// scratch sizes and a table launch's tile numbers
 extern "C" int csr_tile_words() { return CW; }
+extern "C" int csr_pad_positions() { return CP; }
 
 struct CsrHdr {
   unsigned taken, done, unused0, unused1;
@@ -145,12 +154,13 @@ struct CsrOut {
   FoldSeeds seeds;
 };
 
-static inline int csr_tiles_for(long long n) {
-  return (int)((n + CW - 1) / CW);
+// compaction tiles of tw words each over n words
+static inline int csr_tiles_for(long long n, int tw = CW) {
+  return (int)((n + tw - 1) / tw);
 }
 
 static inline int csr_pads_for(int out_cap) {
-  const int p = (out_cap + CW - 1) / CW;
+  const int p = (out_cap + CP - 1) / CP;
   return p < 1 ? 1 : p;   // pad tile 0 also writes indptr when n == 0
 }
 
@@ -274,21 +284,42 @@ __device__ __forceinline__ int csr_look_back(unsigned long long* st, int t,
   return excl;
 }
 
-// compaction tile t of spec o
-template <class Src>
+// whether a source builds each tile's words first (see above)
+template <class S, class = void>
+struct csr_staged : std::false_type {};
+template <class S>
+struct csr_staged<S, std::void_t<decltype(&S::stage)>> : std::true_type {};
+
+// a source's words a thread (`static constexpr int ci`, at most CI): its
+// compaction tiles are CT * ci words (CW by default)
+template <class S, class = void>
+struct csr_ci {
+  static constexpr int value = CI;
+};
+template <class S>
+struct csr_ci<S, std::void_t<decltype(S::ci)>> {
+  static constexpr int value = S::ci;
+};
+
+// compaction tile t of spec o (Solo: the launch's one block runs the
+// spec's only tile, so its prefix is 0 and *s_x takes the total)
+template <class Src, bool Solo = false>
 __device__ __forceinline__ void csr_compact_tile(const Src& src,
                                                  const CsrOut& o, int t,
                                                  int* s_x) {
-  const long long base = (long long)t * CW + (long long)threadIdx.x * CI;
+  constexpr int ci = csr_ci<Src>::value;
+  static_assert(ci >= 1 && ci <= CI, "words a thread");
+  if constexpr (csr_staged<Src>::value) src.stage((long long)t * CT * ci, o.n);
+  const long long base = (long long)t * CT * ci + (long long)threadIdx.x * ci;
   // the thread's first word's segment and word (one division a tile)
   const int sg0 = (int)(base / o.w);
   const int wd0 = (int)(base - (long long)sg0 * o.w);
-  unsigned v[CI];
+  unsigned v[ci];
   int cnt = 0, kb = 0;
   {
     int sg = sg0, wd = wd0;
 #pragma unroll
-    for (int i = 0; i < CI; ++i) {
+    for (int i = 0; i < ci; ++i) {
       unsigned kw = 0u;
       v[i] = base + i < o.n ? src.word(sg, wd, base + i, &kw) : 0u;
       cnt += __popc(v[i]);
@@ -303,19 +334,19 @@ __device__ __forceinline__ void csr_compact_tile(const Src& src,
   const int ex = block_excl_scan(cnt, &agg);
   block_excl_scan(kb, &kbt);
   if (threadIdx.x < 32) {
-    const int x = csr_look_back(o.state, t, agg);
+    const int x = Solo ? 0 : csr_look_back(o.state, t, agg);
     if (threadIdx.x == 0) {
-      *s_x = x;
+      *s_x = Solo ? agg : x;
       if (o.bound != nullptr && kbt != 0) atomicAdd(&o.acc->bound, kbt);
     }
   }
-  __syncthreads();
-  const int x = *s_x;
+  if (!Solo) __syncthreads();
+  const int x = Solo ? 0 : *s_x;
   int p = x + ex;
   unsigned f1 = 0u, f5 = 0u, f9 = 0u;
   int sg = sg0, wd = wd0;
 #pragma unroll
-  for (int i = 0; i < CI; ++i, ++wd) {
+  for (int i = 0; i < ci; ++i, ++wd) {
     if (wd == o.w) {
       wd = 0;
       ++sg;
@@ -355,10 +386,33 @@ __device__ __forceinline__ void csr_compact_tile(const Src& src,
   }
 }
 
-// pad tile u of spec o: positions [u * CW, (u + 1) * CW) past the total
+// x[e] = (a, b, c)[e % 3] for e in [e0, e1), by the block: 16-byte
+// stores from the first 16-byte boundary, single ones at either end
+__device__ __forceinline__ void csr_fill3(int* x, long long e0, long long e1,
+                                          int a, int b, int c) {
+  const int v3[5] = {a, b, c, a, b};
+  long long va = e0 + (long long)(((16u - ((unsigned)(uintptr_t)(x + e0) &
+                                           15u)) & 15u) >> 2);
+  if (va > e1) va = e1;
+  for (long long e = e0 + threadIdx.x; e < va; e += CT) x[e] = v3[e % 3];
+  const long long nv = (e1 - va) >> 2;
+  for (long long v = threadIdx.x; v < nv; v += CT) {
+    const long long e = va + 4 * v;
+    const int m = (int)(e % 3);
+    *(int4*)(x + e) = make_int4(v3[m], v3[m + 1], v3[m + 2], v3[m]);
+  }
+  for (long long e = va + 4 * nv + threadIdx.x; e < e1; e += CT)
+    x[e] = v3[e % 3];
+}
+
+// pad tile u of spec o: positions [u * CP, (u + 1) * CP) past the total
+// (Solo: the total is in *s_x already). The padding's checksum terms sum
+// in closed form (the values repeat: sum over positions p of v * (6p + 2l
+// + seed)), so the tile only stores.
+template <bool Solo = false>
 __device__ __forceinline__ void csr_pad_tile(const CsrOut& o, int u,
                                              int* s_x) {
-  if (threadIdx.x == 0) {
+  if (!Solo && threadIdx.x == 0) {
     int total = 0;
     if (o.ntiles > 0) {
       unsigned long long w;
@@ -374,28 +428,22 @@ __device__ __forceinline__ void csr_pad_tile(const CsrOut& o, int u,
   if (o.ntiles == 0 && u == 0)   // no words: every indptr is 0 (folds 0)
     for (int i = threadIdx.x; i <= o.s; i += CT) o.indptr[i] = 0;
   const int start = min(max(total, 0), o.out_cap);
-  const int p0 = max(u * CW, start);
-  const int p1 = min((u + 1) * CW, o.out_cap);
+  const int p0 = max(u * CP, start);
+  const int p1 = (int)min((long long)(u + 1) * CP, (long long)o.out_cap);
   if (p0 >= p1) return;            // uniform across the block
-  if (o.ts == nullptr) {            // row 0 folds to 0: no dep_rows term
-    for (int p = p0 + threadIdx.x; p < p1; p += CT) o.dep_rows[p] = 0;
-    return;
-  }
+  csr_fill3(o.dep_rows, p0, p1, 0, 0, 0);   // row 0 folds to 0
+  if (o.ts == nullptr) return;
   const int a = o.ts[0], b = o.ts[1], c = o.ts[2];
-  unsigned f9 = 0u;
-  for (int p = p0 + threadIdx.x; p < p1; p += CT) {
-    o.dep_rows[p] = 0;
-    o.dep_ts[3LL * p] = a;
-    o.dep_ts[3LL * p + 1] = b;
-    o.dep_ts[3LL * p + 2] = c;
-    const unsigned q = 3u * (unsigned)p;
-    f9 += fold_term(a, q, o.seeds.t) + fold_term(b, q + 1u, o.seeds.t) +
-          fold_term(c, q + 2u, o.seeds.t);
-  }
-  if (o.csum == nullptr) return;
-  unsigned z1 = 0u, z5 = 0u;
-  block_sum3(z1, z5, f9);
-  if (threadIdx.x == 0) atomicAdd(&o.acc->fold[2], f9);
+  csr_fill3(o.dep_ts, 3LL * p0, 3LL * p1, a, b, c);
+  if (o.csum == nullptr || threadIdx.x != 0) return;
+  // fold_term(v, 3p + l, seed) summed over p: v' * (6 sum(p) + n (2l + seed))
+  const unsigned n = (unsigned)(p1 - p0), t = o.seeds.t;
+  const unsigned s6 = 6u * (unsigned)(((long long)p0 + p1 - 1) *
+                                      (long long)(p1 - p0) / 2);
+  auto hv = [](int v) { return (unsigned)v ^ ((unsigned)v >> 16); };
+  atomicAdd(&o.acc->fold[2], hv(a) * (s6 + n * t) +
+                                 hv(b) * (s6 + n * (t + 2u)) +
+                                 hv(c) * (s6 + n * (t + 4u)));
 }
 
 // the last block: each spec's checksum and bound; scratch zeroed again
@@ -446,6 +494,30 @@ csr_kernel(const __grid_constant__ Tab tab, CsrHdr* hdr) {
   }
 }
 
+// A one-spec launch whose work fits one block (at most one compaction
+// tile and one pad tile): the block runs both in turn, with the total and
+// the partial sums in shared memory -- no tile counter, look-back, wait or
+// finishing ticket, and the scratch untouched (it stays zeroed).
+template <class Src>
+__global__ void __launch_bounds__(CT)
+csr_solo_kernel(const __grid_constant__ Src src, CsrOut o) {
+  __shared__ CsrAcc acc;
+  __shared__ int s_x;
+  if (threadIdx.x == 0) {
+    acc = CsrAcc{};
+    s_x = 0;
+  }
+  __syncthreads();
+  o.acc = &acc;
+  if (o.ntiles == 1) csr_compact_tile<Src, true>(src, o, 0, &s_x);
+  csr_pad_tile<true>(o, 0, &s_x);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (o.csum != nullptr) *o.csum = acc.fold[0] ^ acc.fold[1] ^ acc.fold[2];
+    if (o.bound != nullptr) *o.bound = acc.bound;
+  }
+}
+
 // one spec, by value
 template <class Src>
 struct CsrOne {
@@ -477,11 +549,12 @@ static inline int csr_grid(int tiles) {
   return tiles < 1 ? 1 : (tiles < 4 * m ? tiles : 4 * m);
 }
 
-// a spec's CsrOut over scratch laid out for one spec
+// a spec's CsrOut over scratch laid out for one spec (tw: its source's
+// words a compaction tile)
 static inline CsrOut csr_out_one(int s, int w, const int* ts, int out_cap,
                                  int* indptr, int* dep_rows, int* dep_ts,
                                  int* bound, unsigned* csum, void* scratch,
-                                 FoldSeeds seeds) {
+                                 FoldSeeds seeds, int tw = CW) {
   CsrOut o;
   o.ts = ts;
   o.indptr = indptr;
@@ -497,18 +570,18 @@ static inline CsrOut csr_out_one(int s, int w, const int* ts, int out_cap,
   o.w = w;
   o.out_cap = out_cap;
   o.tile0 = 0;
-  o.ntiles = csr_tiles_for(o.n);
+  o.ntiles = csr_tiles_for(o.n, tw);
   o.pad0 = o.ntiles;
   o.npad = csr_pads_for(out_cap);
   o.seeds = seeds;
   return o;
 }
 
-// the compaction of one spec after its source words exist: ONE launch.
-// scratch: a CsrHdr, one CsrAcc and a u64 state per compaction tile
-// (csr_tiles_for(s * src.w)), zeroed, and left zeroed; the bound (when
-// `bound` is not null) is the sum of the source's kw popcounts plus what
-// an earlier launch added to the spec's CsrAcc (csr_bound_slot). Returns
+// the compaction of one spec: ONE launch (one block, csr_solo_kernel,
+// where the work fits it). scratch: a CsrHdr, one CsrAcc and a u64 state
+// per compaction tile (csr_tiles_for(s * src.w, CT *
+// csr_ci<Src>::value)), zeroed, and left zeroed; the bound (when `bound`
+// is not null) is the sum of the source's kw popcounts. Returns
 // cudaGetLastError.
 template <class Src>
 static inline int launch_csr(const Src& src, int s, const int* ts,
@@ -520,20 +593,18 @@ static inline int launch_csr(const Src& src, int s, const int* ts,
   CsrOne<Src> tab;
   tab.s_ = src;
   tab.o_ = csr_out_one(s, src.w, ts, out_cap, indptr, dep_rows, dep_ts,
-                       bound, csum, scratch, seeds);
+                       bound, csum, scratch, seeds, CT * csr_ci<Src>::value);
   tab.ctiles = tab.o_.ntiles;
   tab.tiles = tab.o_.ntiles + tab.o_.npad;
   tab.nspec = 1;
   tab.state = tab.o_.state;
-  csr_kernel<CsrOne<Src>><<<csr_grid(tab.tiles), CT, 0, st>>>(
-      tab, (CsrHdr*)scratch);
+  if (tab.o_.ntiles <= 1 && tab.o_.npad == 1)
+    csr_solo_kernel<Src><<<1, CT, 0, st>>>(src, tab.o_);
+  else
+    csr_kernel<CsrOne<Src>><<<csr_grid(tab.tiles), CT, 0, st>>>(
+        tab, (CsrHdr*)scratch);
   ACCORD_CHECK();
   return 0;
-}
-
-// where a launch before launch_csr adds to the one spec's bound
-static inline int* csr_bound_slot(void* scratch) {
-  return &((CsrAcc*)((char*)scratch + sizeof(CsrHdr)))->bound;
 }
 
 // ---------------------------------------------------------------------------

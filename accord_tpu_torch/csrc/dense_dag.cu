@@ -61,14 +61,19 @@
 //
 // K21 dag_wavefronts_packed -- replaces `dag_wavefronts_packed` (:197):
 //   per round r: blocked[i] = any_w(adj[i, w] & ~applied[w]); ready =
-//   !blocked & level < 0; level[i] = r for ready rows, whose bits OR into
-//   the NEXT round's applied (a copy of this round's, so the round reads
-//   only the previous one: Jacobi). A warp scans a row 32 words at a time
-//   and stops at the first blocking word, which it keeps: applied only
-//   grows, so the words before it stay clear and the next round resumes
-//   there. Settled rows are skipped. So the adjacency (1.25 GB at N =
-//   100,000) is read about once in all, not once a round. Bound: bytes,
-//   the adjacency read once (~0.37 ms at 3.35 TB/s).
+//   !blocked & level < 0; level[i] = r for ready rows, whose bits join
+//   the NEXT round's applied set (Jacobi: a row settled in round r
+//   releases nothing in round r). ONE persistent cooperative launch over
+//   the grid the occupancy API shows fits the card at once, a grid
+//   barrier between rounds (see dag_settle_kernel). Exact shortcuts: a
+//   round that settles no row ends the work (applied stops changing, so
+//   every later round is a no-op); a round walks only the rows still
+//   unsettled (each lane keeps a mask of its live rows); a row keeps the
+//   words that blocked it (applied only grows, so a word that stopped
+//   blocking never blocks again), so the adjacency (1.25 GB at N =
+//   100,000) is read about once in all, most of it in round 0, and a
+//   later round reads a few kept words a live row. Bound:
+//   bytes, the adjacency read once (~0.37 ms at 3.35 TB/s).
 //
 // A mesh shard's entries (accord_tpu_torch/parallel/mesh.py
 // `sharded_deps_step`, replacing the JAX package's parallel/mesh.py
@@ -740,70 +745,301 @@ extern "C" int execution_wavefronts(const void* adj, int n, int max_levels,
 }
 
 // ---------------------------------------------------------------- K21
-__global__ void dag_round_kernel(const unsigned* __restrict__ p,
-                                 const unsigned* __restrict__ app,
-                                 unsigned* __restrict__ app_nxt,
-                                 int* __restrict__ level,
-                                 int* __restrict__ resume, int n, int nw,
-                                 int round) {
-  const int lane = threadIdx.x & 31;
-  const int warps = gridDim.x * (blockDim.x >> 5);
-  for (int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); i < n;
-       i += warps) {
-    if (level[i] >= 0) continue;  // settled (the whole warp reads it)
-    const unsigned* row = p + (long long)i * nw;
-    int first = -1;
-    for (int base = resume[i]; base < nw; base += 32) {
-      const int w = base + lane;
-      const bool blk = w < nw && (row[w] & ~app[w]) != 0u;
-      const unsigned bal = __ballot_sync(0xffffffffu, blk);
-      if (bal) {
-        first = base + __ffs(bal) - 1;
-        break;
+#define DW_TH 1024  // threads a block (32 warps), a block an SM
+#define DW_K 16    // words a lane loads a scan step (32 * DW_K a warp)
+#define DW_C 64    // blocking words a row keeps (index, value)
+#define DW_B 4     // kept words a lane tests at once
+#define DW_R 32    // rows a lane owns at most
+// the zeroed scratch (ops/kernels.py _DAG_FLAG_BYTES): the grid barrier's
+// arrival count and generation, the exit ticket
+#define DW_FLAGS 3
+
+// The grid barrier of a cooperative launch (its blocks all resident):
+// each block arrives once; the last to arrive resets the count and
+// advances the generation, which the others wait on. The count is zero
+// again after every barrier; the generation may hold any value on entry.
+__device__ __forceinline__ void dw_barrier(unsigned* flags) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = flags + 1;
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(&flags[0], 1u) == gridDim.x - 1u) {
+      atomicExch(&flags[0], 0u);
+      __threadfence();
+      atomicAdd(&flags[1], 1u);
+    } else {
+      while (*gen == g) {
       }
     }
-    if (lane == 0) {
-      if (first >= 0) {
-        resume[i] = first;
-      } else {
-        level[i] = round;
-        atomicOr(app_nxt + (i >> 5), 1u << (i & 31));
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The words at and after `start` of `row` that block now (a bit outside
+// `app`), in order: the first DW_C go to `cache` as (index, value), the
+// first also to *head, their count to *count; returns the index of the
+// next blocking word past them,
+// or nw when there is none (the whole warp; `app` is read only where the
+// row's word is nonzero). A word that does not block now never will:
+// applied only grows.
+__device__ __forceinline__ int dw_collect(const unsigned* __restrict__ row,
+                                          const unsigned* app, int start,
+                                          int nw, int lane, uint2* cache,
+                                          uint2* head, int* count) {
+  int cnt = 0;
+  for (int base = start; base < nw; base += 32 * DW_K) {
+    unsigned x[DW_K];
+#pragma unroll
+    for (int j = 0; j < DW_K; ++j) {
+      const int w = base + 32 * j + lane;
+      x[j] = w < nw ? __ldg(row + w) : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < DW_K; ++j)
+      if (x[j]) x[j] &= ~__ldcg(app + base + 32 * j + lane);
+#pragma unroll
+    for (int j = 0; j < DW_K; ++j) {
+      const unsigned bal = __ballot_sync(0xffffffffu, x[j] != 0u);
+      if (!bal) continue;
+      const int pos = cnt + __popc(bal & ((1u << lane) - 1u));
+      const int w = base + 32 * j + lane;
+      if (x[j] && pos < DW_C) __stcg(cache + pos, make_uint2(w, x[j]));
+      if (x[j] && pos == 0) __stcg(head, make_uint2(w, x[j]));
+      cnt += __popc(bal);
+      if (cnt > DW_C) {
+        const unsigned at = __ballot_sync(0xffffffffu, x[j] && pos == DW_C);
+        *count = DW_C;
+        return base + 32 * j + __ffs(at) - 1;
       }
+    }
+  }
+  *count = cnt;
+  return nw;
+}
+
+// ONE launch settles every round: rounds r = 0 .. max_levels - 1 with a
+// grid barrier after each, until a round settles nothing (every later
+// round would be a no-op: applied stops changing) or every row settled.
+// A lane owns the rows k * 32 W + lane * W + warp (W warps in the grid,
+// k < DW_R), so a warp's rows lie far apart, and keeps which of them are
+// unsettled in a register: a round visits only those. A row keeps the
+// words that blocked it when it was last read -- up to DW_C of them,
+// (index, value), from the first -- with `ptr` its first one not yet
+// cleared, `head` that word, and `gnx` where its unread words resume (nw:
+// none). In round 0 a warp reads each of its rows from word 0 and keeps
+// its blocking words; a row with none settles. Later the owner lane tests
+// the row's head against applied: a row still blocked costs that one
+// test; else the lane walks the next kept words, DW_B at a time with their
+// loads issued together, and a row whose kept words all cleared settles if
+// nothing is left unread, else the warp reads on from gnx and keeps the
+// next blocking words (none: the row settles). So each word of the
+// adjacency (1.25 GB at N = 100,000) is read about once in all, and a
+// round after the first reads a live row's head and applied word.
+// Settling: level r, the row's bit into the next round's applied, counted
+// by the block in shared memory and added to rc[r] at the barrier. Jacobi:
+// round r reads applied app[r & 1] (the rows of rounds < r) and writes
+// app[(r + 1) & 1], which held rounds < r - 1 and first takes app[r &
+// 1]'s bits. Everything but the barrier's count and the exit ticket is
+// rebuilt before use; the last block to leave zeroes the flags.
+__global__ void __launch_bounds__(DW_TH, 1)
+dag_settle_kernel(const unsigned* __restrict__ adj, int n, int nw,
+                  int max_levels, int* __restrict__ level, uint2* cache,
+                  uint2* head, int* ptr, int* cnt, int* gnx, unsigned* app0,
+                  unsigned* app1, int* rc, unsigned* flags) {
+  __shared__ int s_set;  // the block's settles this round
+  const long long nth = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  if (max_levels == 0) {
+    for (long long i = tid; i < n; i += nth) level[i] = -1;
+    return;
+  }
+  for (long long w = tid; w < nw; w += nth) {
+    app0[w] = 0u;
+    app1[w] = 0u;
+  }
+  for (long long q = tid; q < max_levels; q += nth) rc[q] = 0;
+  if (threadIdx.x == 0) s_set = 0;
+  dw_barrier(flags);
+  const long long nwarps = nth >> 5;
+  const long long mine = (long long)lane * nwarps + (tid >> 5);
+  const int rows = (int)((n + 32 * nwarps - 1) / (32 * nwarps));
+  unsigned live = 0u;  // bit k: the lane's row k is unsettled
+  long long done = 0;  // rows settled so far
+  for (int r = 0; r < max_levels; ++r) {
+    const unsigned* cur = (r & 1) ? app1 : app0;
+    unsigned* nxt = (r & 1) ? app0 : app1;
+    if (r > 0)
+      for (long long w = tid; w < nw; w += nth) {
+        const unsigned v = __ldcg(cur + w);
+        if (v & ~__ldcg(nxt + w)) atomicOr(nxt + w, v);
+      }
+    int settled = 0;
+    for (int k = 0; k < rows; ++k) {  // uniform across the warp
+      const long long p = (long long)k * 32 * nwarps + mine;
+      const int i = (int)p;
+      int start = 0;
+      int how = 0;  // 1 blocked, 2 settles, 3 to read on from `start`
+      if (p < n && (r == 0 || ((live >> k) & 1u))) {
+        if (r == 0) {
+          how = 3;
+        } else {
+          const uint2 h = __ldcg(head + i);
+          how = (h.y & ~__ldcg(cur + h.x)) ? 1 : 0;
+        }
+        if (how == 0) {  // the head cleared: the next kept words
+          const int c = __ldcg(cnt + i);
+          const uint2* ci = cache + (size_t)i * DW_C;
+          int q = __ldcg(ptr + i) + 1;
+          uint2 hn = make_uint2(0u, 0u);
+          while (q < c) {
+            uint2 e[DW_B];
+            unsigned a[DW_B];
+#pragma unroll
+            for (int j = 0; j < DW_B; ++j)
+              e[j] = q + j < c ? __ldcg(ci + q + j) : make_uint2(0u, 0u);
+#pragma unroll
+            for (int j = 0; j < DW_B; ++j)
+              a[j] = q + j < c ? __ldcg(cur + e[j].x) : 0u;
+            int f = DW_B;
+#pragma unroll
+            for (int j = DW_B - 1; j >= 0; --j)
+              if (e[j].y & ~a[j]) {
+                f = j;
+                hn = e[j];
+              }
+            if (f < DW_B) {
+              q += f;
+              break;
+            }
+            q = min(q + DW_B, c);
+          }
+          if (q < c) {
+            how = 1;
+            __stcg(ptr + i, q);
+            __stcg(head + i, hn);
+          } else {
+            start = __ldcg(gnx + i);
+            how = start < nw ? 3 : 2;
+          }
+        }
+      }
+      unsigned todo = __ballot_sync(0xffffffffu, how == 3);
+      while (todo) {
+        const int l = __ffs(todo) - 1;
+        todo &= todo - 1u;
+        const int ri = __shfl_sync(0xffffffffu, i, l);
+        const int st = __shfl_sync(0xffffffffu, start, l);
+        int got = 0;
+        const int g = dw_collect(adj + (size_t)ri * nw, cur, st, nw, lane,
+                                 cache + (size_t)ri * DW_C, head + ri, &got);
+        if (lane == l) {
+          how = got > 0 ? 1 : 2;
+          if (got > 0) {
+            __stcg(ptr + ri, 0);
+            __stcg(cnt + ri, got);
+            __stcg(gnx + ri, g);
+          }
+        }
+      }
+      if (how == 1) {
+        live |= 1u << k;
+        if (r == 0) level[i] = -1;
+      } else if (how == 2) {
+        live &= ~(1u << k);
+        level[i] = r;
+        atomicOr(nxt + (i >> 5), 1u << (i & 31));
+        ++settled;
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+      settled += __shfl_xor_sync(0xffffffffu, settled, d);
+    if (lane == 0 && settled) atomicAdd(&s_set, settled);
+    __syncthreads();
+    if (threadIdx.x == 0 && s_set) {
+      atomicAdd(&rc[r], s_set);
+      s_set = 0;
+    }
+    dw_barrier(flags);
+    const int got = __ldcg(&rc[r]);
+    done += got;
+    if (got == 0 || done == n) break;
+  }
+  // every block has passed its last barrier once it takes a ticket
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(&flags[2], 1u) == gridDim.x - 1u) {
+      atomicExch(&flags[1], 0u);
+      atomicExch(&flags[2], 0u);
     }
   }
 }
 
-__global__ void fill_kernel(int* __restrict__ x, int n, int v) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x)
-    x[i] = v;
+// the blocks of the settle kernel that fit on the current card at once
+static inline int dw_resident() {
+  static int per[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& m = per[dev & 63];
+  if (m <= 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&m, dag_settle_kernel,
+                                                  DW_TH, 0);
+  return m * sm_count();
 }
 
-// adj_packed [n, nw] (n == 32 * nw) -> level i32[n]; app_a, app_b scratch
-// [nw]; resume scratch i32[n]
+// the int32 scratch dag_wavefronts_packed takes (`buf`): the kept words
+// (2 DW_C a row, first) and the heads (2 a row), ptr, cnt and gnx (n
+// each), two applied sets (nw each), the round counts (max_levels)
+extern "C" long long dag_buf_ints(int n, int max_levels) {
+  return 2LL * (DW_C + 1) * n + 3LL * n + 2LL * ((n + 31) / 32) +
+         (max_levels > 0 ? max_levels : 0);
+}
+
+// adj_packed [n, nw] (n == 32 * nw) -> level i32[n]; buf dag_buf_ints(n,
+// max_levels) i32 scratch, 8-byte aligned (all written before use); flags
+// zeroed scratch [DW_FLAGS], left zeroed; max_blocks caps the grid (0:
+// every block the card holds at once; fewer give each lane more rows).
+// ONE cooperative launch (none when n is 0), whatever the data: the
+// runtime places every block at once or returns an error, so the grid
+// barrier cannot wait on a block that never runs.
 extern "C" int dag_wavefronts_packed(const void* adj, int n, int nw,
-                                     int max_levels, void* level, void* app_a,
-                                     void* app_b, void* resume,
+                                     int max_levels, void* level, void* buf,
+                                     void* flags, int max_blocks,
                                      void* stream) {
   if (n <= 0) return 0;
-  if (n != 32 * nw || max_levels < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  fill_kernel<<<grid_for(n, 256), 256, 0, st>>>((int*)level, n, -1);
-  ACCORD_CHECK();
-  cudaMemsetAsync(app_a, 0, sizeof(unsigned) * (size_t)nw, st);
-  cudaMemsetAsync(resume, 0, sizeof(int) * (size_t)n, st);
-  unsigned* cur = (unsigned*)app_a;
-  unsigned* nxt = (unsigned*)app_b;
-  const int grid = grid_cap(n, 8);
-  for (int r = 0; r < max_levels; ++r) {
-    launch_copy(nxt, (const unsigned*)cur, nw, st);
-    dag_round_kernel<<<grid, 256, 0, st>>>((const unsigned*)adj, cur, nxt,
-                                           (int*)level, (int*)resume, n, nw,
-                                           r);
-    ACCORD_CHECK();
-    unsigned* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  return 0;
+  if (n != 32 * nw || max_levels < 0 || flags == nullptr || max_blocks < 0 ||
+      ((uintptr_t)buf & 7u))
+    return (int)cudaErrorInvalidValue;
+  int grid = dw_resident();
+  if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
+  if (max_blocks > 0 && max_blocks < grid) grid = max_blocks;
+  // at least two rows a warp where the rows are few
+  const long long want = ((long long)n + 2 * (DW_TH / 32) - 1) /
+                         (2 * (DW_TH / 32));
+  if (want < grid) grid = (int)want;
+  // a lane owns at most DW_R rows (its unsettled ones are a register's
+  // bits): never short at N the card can hold on the whole grid
+  if ((n + (long long)DW_TH * grid - 1) / ((long long)DW_TH * grid) > DW_R)
+    return (int)cudaErrorInvalidConfiguration;
+  const unsigned* a = (const unsigned*)adj;
+  int* lv = (int*)level;
+  uint2* cache = (uint2*)buf;
+  uint2* head = cache + (size_t)DW_C * n;
+  int* ptr = (int*)buf + 2LL * (DW_C + 1) * n;
+  int* cnt = ptr + n;
+  int* gnx = ptr + 2LL * n;
+  unsigned* app0 = (unsigned*)(ptr + 3LL * n);
+  unsigned* app1 = app0 + nw;
+  int* rc = (int*)(app1 + nw);
+  unsigned* fl = (unsigned*)flags;
+  void* args[] = {&a,    &n,   &nw,  &max_levels, &lv,   &cache, &head,
+                  &ptr,  &cnt, &gnx, &app0,       &app1, &rc,    &fl};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)dag_settle_kernel, grid, DW_TH, args, 0,
+      (cudaStream_t)stream);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
 }

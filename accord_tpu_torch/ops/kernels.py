@@ -524,14 +524,31 @@ def finalize_csr_plain(packed, word_off, kid_rows, slot_subj, slot_kid,
 
 # The one-launch compaction (csrc/common.cuh launch_csr) of K2, K6, K9's
 # compact entry and K11: its tiles and its zeroed scratch.
-CSR_TILE_WORDS = 1024       # csrc/common.cuh CW: words (positions) a tile
+CSR_TILE_WORDS = 1024       # csrc/common.cuh CW: words a compaction tile
 _CSR_HDR = 16               # sizeof(CsrHdr)
 _CSR_ACC = 16               # sizeof(CsrAcc), one a spec
-def csr_tiles(n_words: int, out_cap: int) -> Tuple[int, int]:
+
+
+@functools.lru_cache(maxsize=None)
+def csr_sizes() -> Tuple[int, int, int]:
+    """(words a compaction tile, positions a pad tile, words a K6 tile), as
+    the built sources define them (csrc/common.cuh CW and CP,
+    csrc/range_finalize.cu RF_TW)."""
+    ext = _ext()
+    fin = ext.lib("finalize_csr")
+    got = (int(fin.csr_tile_words()), int(fin.csr_pad_positions()),
+           int(ext.lib("range_finalize").range_finalize_tile_words()))
+    if got[0] != CSR_TILE_WORDS:
+        raise RuntimeError("CSR_TILE_WORDS differs from common.cuh CW")
+    return got
+
+
+def csr_tiles(n_words: int, out_cap: int,
+              tile_words: int = CSR_TILE_WORDS) -> Tuple[int, int]:
     """(compaction tiles, pad tiles) of one compaction over n_words words
-    into out_cap rows."""
-    return (-(-int(n_words) // CSR_TILE_WORDS),
-            max(1, -(-int(out_cap) // CSR_TILE_WORDS)))
+    (tile_words a compaction tile) into out_cap rows."""
+    return (-(-int(n_words) // tile_words),
+            max(1, -(-int(out_cap) // csr_sizes()[1])))
 
 
 def csr_scratch_bytes(nspec: int, ctiles: int) -> int:
@@ -562,9 +579,6 @@ def zeroed_scratch(dev, nbytes: int) -> int:
             raise RuntimeError("zeroed_scratch: the scratch must grow, "
                                "which a graph capture cannot; call the "
                                "kernel once before capturing it")
-        if buf is None and int(_ext().lib("finalize_csr").csr_tile_words()) \
-                != CSR_TILE_WORDS:
-            raise RuntimeError("CSR_TILE_WORDS differs from common.cuh CW")
         old = 0 if buf is None else buf.numel()
         buf = torch.zeros(max(int(nbytes), 2 * old, 1 << 16),
                           dtype=torch.uint8, device=torch.device("cuda", idx))
@@ -572,10 +586,11 @@ def zeroed_scratch(dev, nbytes: int) -> int:
     return buf.data_ptr()
 
 
-def _csr_scratch(dev, n_words: int) -> int:
+def _csr_scratch(dev, n_words: int,
+                 tile_words: int = CSR_TILE_WORDS) -> int:
     """The zeroed scratch of one spec's compaction over n_words words."""
     return zeroed_scratch(dev, csr_scratch_bytes(
-        1, csr_tiles(n_words, 0)[0]))
+        1, csr_tiles(n_words, 0, tile_words)[0]))
 
 
 def _i32_outs(dev, *shapes):
@@ -1295,9 +1310,10 @@ def segment_compact(m: torch.Tensor, out_cap: int):
     s, w = m.shape
     dev = m.device
     indptr, dep_rows = _i32_outs(dev, (s + 1,), (out_cap,))
-    ext.call("range_finalize", "segment_compact", ext.ptr(m), s, w, out_cap,
-             ext.ptr(indptr), ext.ptr(dep_rows),
-             _VP(_csr_scratch(dev, s * w)), ext.stream())
+    ext.entry("range_finalize", "segment_compact",
+              (_VP, _I, _I, _I, _VP, _VP, _VP, _VP))(
+        m.data_ptr(), s, w, out_cap, indptr.data_ptr(), dep_rows.data_ptr(),
+        _csr_scratch(dev, s * w), ext.raw_stream(dev.index))
     LAUNCHES["range_finalize"] += 1
     return indptr, dep_rows
 
@@ -1353,11 +1369,10 @@ def range_finalize_csr(iv_of, iv_start, iv_end, ent_ok, subj_before,
     nv = iv_of.shape[0]
     rcap = r_start.shape[0]
     w = range_words(rcap)
-    words = torch.empty(nv, w, dtype=torch.int32, device=dev)
     outs = _i32_outs(dev, (nv + 1,), (out_cap,), (out_cap, 3), (), ())
     launch_range_finalize(ext, _addr, lanes, nv, subj_before.shape[0], rcap,
-                          witness_table.shape[0], out_cap, words, outs,
-                          _VP(_csr_scratch(dev, nv * w)))
+                          witness_table.shape[0], out_cap, outs,
+                          _VP(_csr_scratch(dev, nv * w, csr_sizes()[2])))
     LAUNCHES["range_finalize"] += 1
     return tuple(outs)
 
@@ -1370,17 +1385,22 @@ def range_words(rcap: int) -> int:
     return rcap // 32
 
 
+# range_finalize_csr (csrc/range_finalize.cu), a lean launch
+_RANGE_FIN_ARGS = (_VP,) * 4 + (_I, _VP, _VP, _I) + (_VP,) * 5 \
+    + (_I, _VP, _I, _I) + (_VP,) * 7
+
+
 def launch_range_finalize(ext, A, lanes, nv: int, b: int, rcap: int,
-                          nk: int, out_cap: int, words, outs, scratch):
+                          nk: int, out_cap: int, outs, scratch):
     """K6's launch on device addresses (`A(x)`, see _addr): lanes are
-    range_finalize_csr's twelve inputs in order, `words` the stab-word
-    scratch i32[nv, rcap/32], outs its five outputs, scratch the
-    compaction's zeroed scratch. range_finalize_csr and the protocol
-    megakernel's graph both launch K6 here (two launches, no memset)."""
+    range_finalize_csr's twelve inputs in order, outs its five outputs,
+    scratch the compaction's zeroed scratch. range_finalize_csr and the
+    protocol megakernel's graph both launch K6 here (ONE launch, no
+    memset: the stab words are built inside the compaction's tiles)."""
     of, ivs, ive, ok, sb, sk, r0, r1, r2, r3, r4, wt = (A(x) for x in lanes)
-    ext.call("range_finalize", "range_finalize_csr", of, ivs, ive, ok, nv,
-             sb, sk, b, r0, r1, r2, r3, r4, rcap, wt, nk, out_cap, A(words),
-             *(A(o) for o in outs), A(scratch), ext.stream())
+    ext.entry("range_finalize", "range_finalize_csr", _RANGE_FIN_ARGS)(
+        of, ivs, ive, ok, nv, sb, sk, b, r0, r1, r2, r3, r4, rcap, wt, nk,
+        out_cap, *(A(o) for o in outs), A(scratch), ext.stream())
 
 
 # -- K7: max_conflict --------------------------------------------------------
@@ -2584,12 +2604,24 @@ def dag_wavefronts_packed_plain(adj_packed, max_levels: int):
     return level
 
 
-def dag_wavefronts_packed(adj_packed, max_levels: int):
+# dag_wavefronts_packed (csrc/dense_dag.cu): its zeroed flags (the grid
+# barrier's count and generation, the exit ticket; left zeroed) and lean
+# launch
+_DAG_FLAG_BYTES = 4 * 3
+_DAG_ARGS = (_VP, _I, _I, _I, _VP, _VP, _VP, _I, _VP)
+
+
+def dag_wavefronts_packed(adj_packed, max_levels: int, max_blocks: int = 0):
     """K21: release rounds over a packed DAG (the reference's
     dag_wavefronts_packed): adj_packed i32[N, N/32], bit d of row w set
     iff w depends on d. Round i: rows with no dependency outside the
     previous rounds' applied set, and no level yet, get level i and join
-    the applied set. -> i32[N], -1 where never settled."""
+    the applied set. -> i32[N], -1 where never settled. On the card ONE
+    launch, which stops at the first round that settles nothing (exact:
+    every later round would be a no-op) and walks only unsettled rows.
+    max_blocks caps its grid (0: every block the card holds at once); a
+    smaller grid gives each lane more rows, which the card tests use to
+    walk several rows a lane at small N."""
     n, words = adj_packed.shape
     if n != 32 * words or adj_packed.dtype != torch.int32:
         raise ValueError("dag_wavefronts_packed: adjacency must be "
@@ -2599,13 +2631,16 @@ def dag_wavefronts_packed(adj_packed, max_levels: int):
     ext = _ext()
     _check_cuda(adj_packed)
     dev = adj_packed.device
+    levels = max(0, int(max_levels))   # no round below 0, as a fori_loop
     level = torch.empty(n, dtype=torch.int32, device=dev)
-    app_a = torch.empty(words, dtype=torch.int32, device=dev)
-    app_b = torch.empty_like(app_a)
-    resume = torch.empty_like(level)
-    ext.call("dense_dag", "dag_wavefronts_packed", _addr(adj_packed), n,
-             words, int(max_levels), _addr(level), _addr(app_a),
-             _addr(app_b), _addr(resume), ext.stream())
+    lib = ext.lib("dense_dag")
+    lib.dag_buf_ints.restype = ctypes.c_longlong
+    buf = torch.empty(int(lib.dag_buf_ints(n, levels)), dtype=torch.int32,
+                      device=dev)
+    ext.entry("dense_dag", "dag_wavefronts_packed", _DAG_ARGS)(
+        adj_packed.data_ptr(), n, words, levels, level.data_ptr(),
+        buf.data_ptr(), zeroed_scratch(dev, _DAG_FLAG_BYTES),
+        int(max_blocks), ext.raw_stream(dev.index))
     LAUNCHES["dag_wavefronts_packed"] += 1
     return level
 

@@ -331,14 +331,13 @@ def _stage_fin_range(P, ext, wt_ref, nk, out_cap, args):
     P.sig.append(("rfin", out_cap))
     lanes = [P.inp(x) for x in (iv_of, iv_s, iv_e, ent_ok, sb, sknd,
                                 *rsnap)] + [wt_ref]
-    words = P.alloc("f", nv * w * 4)
     outs = [P.out(sh, torch.int32) for sh in ((nv + 1,), (out_cap,),
                                               (out_cap, 3), (), ())]
     o_refs = [o[0] for o in outs]
-    scratch = _fixed_csr_scratch(P, 1, K.csr_tiles(nv * w, out_cap)[0])
+    scratch = _fixed_csr_scratch(P, 1, K.csr_tiles(
+        nv * w, out_cap, K.csr_sizes()[2])[0])
     P.launches.append(lambda B: K.launch_range_finalize(
-        ext, _addrs(B), lanes, nv, b, rcap, nk, out_cap, words, o_refs,
-        scratch))
+        ext, _addrs(B), lanes, nv, b, rcap, nk, out_cap, o_refs, scratch))
     P.count("range_finalize")
     return tuple(o[1] for o in outs)
 

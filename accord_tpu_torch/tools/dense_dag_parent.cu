@@ -1,10 +1,12 @@
-// The parent's K18 deps_matrix and K19 transitive_closure (before the
-// Hopper redesign in csrc/dense_dag.cu), kept as the baseline that
-// `python -m accord_tpu_torch.tools.dense_dag_variants` times beside the
-// shipped kernels. Built only by that tool (nvcc -I csrc), never by the
-// port's build and never on a path. Its C entry points keep the old
-// signatures: transitive_closure takes no flags scratch, and N is capped
-// at 32 x closure_max_words().
+// The parent's K18 deps_matrix and K19 transitive_closure (before their
+// Hopper redesign in csrc/dense_dag.cu), and the parent's K21
+// dag_wavefronts_packed (before its redesign), kept as the baseline that
+// `python -m accord_tpu_torch.tools.dense_dag_variants` (and chip_smoke.py)
+// times beside the shipped kernels. Built only by those (nvcc -I csrc),
+// never by the port's build and never on a path. K18's and K19's C entry
+// points keep the old signatures: transitive_closure takes no flags
+// scratch, and N is capped at 32 x closure_max_words(). K21's has the
+// shipped signature, so it binds in place of the shipped entry.
 //
 // K18: a block computes a 64 x 64 tile (16 outputs a thread), streaming
 // 32-word chunks of both operands through shared memory.
@@ -284,5 +286,81 @@ extern "C" int closure_rows(const void* r, int n, int row0, int nrows,
                           (cudaStream_t)stream>>>(
       (const unsigned*)r, (unsigned*)rn, n, nw, row0, nrows);
   ACCORD_CHECK();
+  return 0;
+}
+
+
+// The parent's K21: 2 x max_levels + 3 stream operations, a
+// copy of applied and a round launch over every row each round.
+__global__ void dag_round_kernel(const unsigned* __restrict__ p,
+                                 const unsigned* __restrict__ app,
+                                 unsigned* __restrict__ app_nxt,
+                                 int* __restrict__ level,
+                                 int* __restrict__ resume, int n, int nw,
+                                 int round) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (blockDim.x >> 5);
+  for (int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); i < n;
+       i += warps) {
+    if (level[i] >= 0) continue;  // settled (the whole warp reads it)
+    const unsigned* row = p + (long long)i * nw;
+    int first = -1;
+    for (int base = resume[i]; base < nw; base += 32) {
+      const int w = base + lane;
+      const bool blk = w < nw && (row[w] & ~app[w]) != 0u;
+      const unsigned bal = __ballot_sync(0xffffffffu, blk);
+      if (bal) {
+        first = base + __ffs(bal) - 1;
+        break;
+      }
+    }
+    if (lane == 0) {
+      if (first >= 0) {
+        resume[i] = first;
+      } else {
+        level[i] = round;
+        atomicOr(app_nxt + (i >> 5), 1u << (i & 31));
+      }
+    }
+  }
+}
+
+__global__ void fill_kernel(int* __restrict__ x, int n, int v) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    x[i] = v;
+}
+
+// the shipped signature (csrc/dense_dag.cu): buf i32[3n + 2nw + ...] holds
+// the parent's resume (first n) and its two applied sets (from 3n); the
+// flags scratch and the grid cap are not used
+extern "C" int dag_wavefronts_packed(const void* adj, int n, int nw,
+                                     int max_levels, void* level, void* buf,
+                                     void* flags, int max_blocks,
+                                     void* stream) {
+  if (n <= 0) return 0;
+  if (n != 32 * nw || max_levels < 0) return (int)cudaErrorInvalidValue;
+  (void)flags;
+  (void)max_blocks;
+  cudaStream_t st = (cudaStream_t)stream;
+  int* resume = (int*)buf;
+  unsigned* app_a = (unsigned*)((int*)buf + 3LL * n);
+  unsigned* app_b = app_a + nw;
+  fill_kernel<<<grid_for(n, 256), 256, 0, st>>>((int*)level, n, -1);
+  ACCORD_CHECK();
+  cudaMemsetAsync(app_a, 0, sizeof(unsigned) * (size_t)nw, st);
+  cudaMemsetAsync(resume, 0, sizeof(int) * (size_t)n, st);
+  unsigned* cur = app_a;
+  unsigned* nxt = app_b;
+  const int grid = grid_cap(n, 8);
+  for (int r = 0; r < max_levels; ++r) {
+    launch_copy(nxt, (const unsigned*)cur, nw, st);
+    dag_round_kernel<<<grid, 256, 0, st>>>((const unsigned*)adj, cur, nxt,
+                                           (int*)level, resume, n, nw, r);
+    ACCORD_CHECK();
+    unsigned* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
   return 0;
 }

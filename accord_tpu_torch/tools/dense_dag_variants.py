@@ -1,6 +1,6 @@
-"""Time K18 (deps_matrix) and K19 (transitive_closure) of
-`csrc/dense_dag.cu` beside the parent's kernels and the variants that
-lost.
+"""Time K18 (deps_matrix), K19 (transitive_closure) and K21
+(dag_wavefronts_packed) of `csrc/dense_dag.cu` beside the parent's kernels
+and the variants that lost.
 
 Builds three libraries, in parallel: the parent's kernels
 (`tools/dense_dag_parent.cu`), the shipped source (K18's overlap as
@@ -15,7 +15,14 @@ the plain version, and timed as device ms: a CUDA graph of calls
 replayed between CUDA events, the variants interleaved (A B C C B A,
 three rounds) and the median kept. The bf16 matmul yardsticks (K18's
 overlap stage, one K19 squaring) are timed the same way. `ptxas -v`
-lines of the two kernels are kept.
+lines of the kernels are kept. K21 runs on bench_dag's DAG (chip_smoke.py's
+generator, seed 5) at N 100,000 and at N 8,192, 192 levels: the parent's
+(2 x max_levels + 3 stream operations; its entry has the shipped
+signature), the shipped one (one persistent cooperative launch; DW_K 16
+words a lane a scan step, DW_B 4 kept words a lane tests at once, DW_C 64
+blocking words kept a row) and copies of the shipped source with DW_K 8,
+DW_B 8 and DW_C 32, each held bit-equal to the plain version and timed the
+same way.
 
     python -m accord_tpu_torch.tools.dense_dag_variants
 
@@ -23,6 +30,7 @@ Needs a card and nvcc. Prints the card line and one JSON object.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import pathlib
@@ -33,11 +41,20 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 TOOLS = pathlib.Path(__file__).resolve().parent
-VARIANTS = {"parent": TOOLS / "dense_dag_parent.cu",
-            "shipped": ROOT / "accord_tpu_torch" / "csrc" / "dense_dag.cu",
-            "deps_register_tiled": TOOLS / "dense_dag_cuda_cores.cu"}
+SHIPPED = ROOT / "accord_tpu_torch" / "csrc" / "dense_dag.cu"
+# name -> (source, its #define values changed: a copy of it is built)
+VARIANTS = {"parent": (TOOLS / "dense_dag_parent.cu", {}),
+            "shipped": (SHIPPED, {}),
+            "deps_register_tiled": (TOOLS / "dense_dag_cuda_cores.cu", {}),
+            "k21_dw_k8": (SHIPPED, {"DW_K": 8}),
+            "k21_dw_b8": (SHIPPED, {"DW_B": 8}),
+            "k21_dw_c32": (SHIPPED, {"DW_C": 32})}
 K18 = ("parent", "deps_register_tiled", "shipped")
 K19 = ("parent", "shipped", "closure_no_exit")
+K21 = ("parent", "shipped", "k21_dw_k8", "k21_dw_b8", "k21_dw_c32")
+K21_SIZES = ((100_000, 2), (8_192, 20))   # (N, calls a graph)
+K21_LEVELS = 192
+K21_BUF_ROW = 2 * 65 + 5   # int32 scratch a row, enough for DW_C <= 64
 CALLS = {"deps_matrix": 100, "transitive_closure": 4}
 ROUNDS = 3
 VP, I = ctypes.c_void_p, ctypes.c_int
@@ -47,11 +64,14 @@ def build_variants() -> tuple:
     """(name -> loaded library, name -> ptxas lines of K18's and K19's
     kernels), all compiled in parallel."""
     from accord_tpu_torch.ops import _ext
+    from accord_tpu_torch.tools import deps_block_variants as dbv
     out_dir = _ext.BUILD / "dense_dag_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, path in VARIANTS.items():
+    for name, (path, values) in VARIANTS.items():
         so = out_dir / f"{name}.so"
+        if values:
+            path = dbv.with_constants(path, out_dir / f"{name}.cu", values)
         procs[name] = (so, subprocess.Popen(
             [_ext.nvcc(), *_ext.NVCC_FLAGS, "-Xptxas", "-v", "-I",
              str(_ext.CSRC), "-o", str(so), str(path)],
@@ -74,7 +94,8 @@ def _kernel_lines(log: str) -> dict:
         if m:
             cur = next((k for k in ("deps_matrix_kernel",
                                     "closure_tile_kernel",
-                                    "closure_square_kernel")
+                                    "closure_square_kernel",
+                                    "dag_settle_kernel", "dag_round_kernel")
                         if k in m.group(1)), None)
         elif cur and ("registers" in line or "spill" in line):
             out.setdefault(cur, []).append(line.split("info    :")[-1]
@@ -151,6 +172,62 @@ def closure_no_exit_caller(lib, adj, iters: int, bufs):
         if rc:
             raise RuntimeError(f"closure_rows: CUDA error {rc}")
     return call
+
+
+def k21_caller(lib, adj, levels: int, out, buf, flags):
+    """One K21 call of `lib` (the shipped signature, the parent's too) on
+    adj into out, over its own scratch."""
+    n, nw = adj.shape
+    fn = _fn(lib, "dag_wavefronts_packed", (VP, I, I, I, VP, VP, VP, I, VP))
+    ptrs = (adj.data_ptr(), n, nw, levels, out.data_ptr(), buf.data_ptr(),
+            flags.data_ptr(), 0)
+
+    def call():
+        rc = fn(*ptrs, _stream())
+        if rc:
+            raise RuntimeError(f"dag_wavefronts_packed: CUDA error {rc}")
+    return call
+
+
+# the parent's K21 alone, bound in place of the shipped entry (chip_smoke)
+_PARENT: list = []
+
+
+def _parent_so() -> pathlib.Path:
+    from accord_tpu_torch.ops import _ext
+    return _ext.BUILD / "dense_dag_variants" / "parent_only.so"
+
+
+def start_parent_build():
+    """Start nvcc on the parent's file alone; finish_parent_build waits."""
+    from accord_tpu_torch.ops import _ext
+    so = _parent_so()
+    so.parent.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [_ext.nvcc(), *_ext.NVCC_FLAGS, "-I", str(_ext.CSRC), "-o", str(so),
+         str(VARIANTS["parent"][0])], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def finish_parent_build(proc) -> ctypes.CDLL:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for dense_dag_parent.cu:\n{log}")
+    _PARENT[:] = [ctypes.CDLL(str(_parent_so()))]
+    return _PARENT[0]
+
+
+@contextlib.contextmanager
+def k21_parent():
+    """Inside, K21's entry resolves to the parent's library (through
+    deps_block_variants.bound)."""
+    from accord_tpu_torch.ops import kernels
+    from accord_tpu_torch.tools import deps_block_variants as dbv
+    lib = _PARENT[0] if _PARENT else finish_parent_build(
+        start_parent_build())
+    with dbv.bound(lib, {("dense_dag", "dag_wavefronts_packed"):
+                         kernels._DAG_ARGS}, "parent K21"):
+        yield
 
 
 def graph_device_ms(fn, calls: int) -> float:
@@ -263,6 +340,37 @@ def main() -> int:
         "n": int(n), "iterations": iters, "squarings_worked": worked,
         "device_ms": {n_: v[0] for n_, v in k19.items()},
         "device_ms_samples": {n_: v[1] for n_, v in k19.items()}}
+
+    # K21
+    k21 = {}
+    for n, calls in K21_SIZES:
+        adj = smoke._dag_words(n, "cuda", 5)
+        want = tk.dag_wavefronts_packed_plain(adj, K21_LEVELS)
+        fns = {}
+        for name in K21:
+            out = torch.empty(n, dtype=torch.int32, device=dev)
+            buf = torch.empty(K21_BUF_ROW * n + 2 * (n // 32)
+                              + 2 * K21_LEVELS, dtype=torch.int32,
+                              device=dev)
+            flags = torch.zeros(4, dtype=torch.int32, device=dev)
+            fns[name] = k21_caller(libs[name], adj, K21_LEVELS, out, buf,
+                                   flags)
+            out.fill_(-7)
+            fns[name]()
+            err = smoke.max_abs_err(out, want)
+            smoke.check(err == 0, f"dag_wavefronts_packed {name} at N {n}: "
+                        f"differs from the plain version by {err}")
+            smoke.check(not bool(flags.any()), f"dag_wavefronts_packed "
+                        f"{name}: its flags are not left zeroed")
+        t = interleaved(fns, calls)
+        k21[str(n)] = {"depth": int(want.max()),
+                       "settled": bool((want >= 0).all()),
+                       "levels": K21_LEVELS, "calls_a_graph": calls,
+                       "device_ms": {k: v[0] for k, v in t.items()},
+                       "device_ms_samples": {k: v[1] for k, v in t.items()}}
+        del adj
+        torch.cuda.empty_cache()
+    report["dag_wavefronts_packed"] = k21
     print(card)
     print(json.dumps(report))
     return 0

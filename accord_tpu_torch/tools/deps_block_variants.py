@@ -36,6 +36,7 @@ import contextlib
 import ctypes
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -70,6 +71,23 @@ def finish_build(proc) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed for {PARENT.name}:\n{log}")
     _LIB[:] = [ctypes.CDLL(str(_so()))]
     return _LIB[0]
+
+
+def with_constants(src: pathlib.Path, dst: pathlib.Path,
+                   values: dict) -> pathlib.Path:
+    """Write a copy of the kernel source `src` to `dst` with each
+    `#define NAME value` line of `values` (name -> value) changed: a
+    variant of a shipped tile or cache size, built beside the shipped one
+    (a copy outside csrc/ still finds its headers through nvcc's -I)."""
+    text = src.read_text()
+    for name, value in values.items():
+        text, hits = re.subn(rf"^#define {name} \S+", f"#define {name} "
+                             f"{value}", text, count=1, flags=re.M)
+        if hits != 1:
+            raise RuntimeError(f"{src.name} defines no {name}")
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    dst.write_text(text)
+    return dst
 
 
 def _entries() -> dict:

@@ -138,7 +138,8 @@ launched.
      the count equal to the plain version's); K21 at bench_dag's
      100,000 nodes and 192 levels (the packed adjacency, 1.25 GB, made on
      the card from a torch.Generator seeded 5 with bench_dag's density
-     rule), settled, its depth reported;
+     rule), settled, its depth reported (ONE launch, which stops at the
+     first round that settles nothing);
  22. the sharded deps data plane (accord_tpu_torch/parallel/mesh.py):
      make_mesh() on the machine's cards (1 x 1 on one H100) and the
      virtual 4 x 2 mesh make_mesh(devices=[card] * 8). Paths: the key
@@ -202,11 +203,21 @@ launched.
      K2 (finalize_csr and its table entry finalize_csr_tab, replayed on
      the sweep's largest tick's and the 10k tick's key finalizes), K6, K9's
      compact entry and K11 also report device_ms, and a torch.profiler
-     trace of one eager call: K10 and K2 one kernel, K6, K9 and K11 their
-     words kernel and the one compaction kernel, no memset or copy. K18
-     and K19 report device_ms (K19: 10 calls a graph) and, beside the
-     bf16 matmul of one stage (library_ms), the whole function as a
-     PyTorch chain (library_chain_ms, library_chain_device_ms); their
+     trace of one eager call: K10, K2 and K6 one kernel (K6 builds its
+     stab words inside the compaction's tiles), K9 and K11 their words
+     kernel and the one compaction kernel, no memset or copy. K6 is also
+     set beside the parent's (tools/range_finalize_parent.cu, built
+     beside the kernels: a stab-word kernel, then the compaction), each
+     recorded call whole and as the megakernel's range-finalize stage (a
+     protocol_tick graph holding it alone), bit-equal, device ms
+     interleaved (k6_parent_vs_new). K20, K21, K9's fused entry and
+     segment_compact report device_ms too; K21 is one kernel in a trace,
+     and it is set beside the parent's (tools/dense_dag_parent.cu: a
+     launch and a copy a round) at the 100k DAG and at N 8,192
+     (k21_parent_vs_new). K18 and K19 report device_ms (K19: 10 calls a
+     graph) and, beside the bf16 matmul of one stage (library_ms), the
+     whole function as a PyTorch chain (library_chain_ms,
+     library_chain_device_ms); their
      traces show K18 one kernel and K19 `iterations` + 2 (pack, squarings,
      unpack), and at the dense batch's size each is set against the
      matmul yardstick (`vs_library`: K19 against 13 squarings). Every
@@ -242,8 +253,10 @@ launched.
 The last four lines are the parent-vs-new line (K1 at the PreAccept
 batch, K13 at the sweep's largest and the 10k tick, K5 at the range
 batch, the 10k replay, the sharded 10k key stage; under "range_body"
-the range body's and K3's), the card line, one JSON line of kernels,
-and the result line {"ok": true, "device": {...}}.
+the range body's and K3's; under "k6" K6 at the range burn and the range
+batch, each whole and as the megakernel's stage; under "k21" K21 at N
+100,000 and 8,192), the card line, one JSON line of kernels, and the
+result line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -515,7 +528,7 @@ def time_ms(fn, iters: int, cuda: bool) -> float:
     return start.elapsed_time(end) / iters
 
 
-# the wrappers whose rows (PERF.md 1-9, 13, 16-19, 21-26, 30, 31) also give
+# the wrappers whose rows (PERF.md 1-26, 30, 31) also give
 # device time (K17's mailbox_route routes in place: a replay rewrites the
 # rows its lanes name)
 DEVICE_TIMED = ("scatter_rows", "kid_word_scatter", "arena_grow",
@@ -526,7 +539,9 @@ DEVICE_TIMED = ("scatter_rows", "kid_word_scatter", "arena_grow",
                 "deps_resolve", "fused_deps_resolve", "range_deps_resolve",
                 "fused_range_deps_resolve", "arena_scatter", "max_conflict",
                 "exec_scatter", "execution_frontier", "cmd_repair",
-                "arena_scatter_keys", "covered_buckets", "mailbox_route")
+                "arena_scatter_keys", "covered_buckets", "mailbox_route",
+                "fused_execution_frontier", "execution_wavefronts",
+                "dag_wavefronts_packed", "segment_compact")
 # the key body's wrappers (csrc/deps_block.cuh: K1, K13), each split at its
 # body by a launcher (the subject pass, and K13's table upload, run first):
 # the body's kernels a launch, which a trace must show with no memset or
@@ -547,13 +562,21 @@ RANGE_PAIRED = ("arena_scatter", "arena_scatter_keys", "covered_buckets",
                 "range_deps_resolve", "fused_range_deps_resolve",
                 "node_fused_range_deps_resolve")
 # calls captured in one graph where a call takes milliseconds (else 100)
-GRAPH_CALLS = {"transitive_closure": 10, "node_fused_deps_resolve": 4}
+GRAPH_CALLS = {"transitive_closure": 10, "node_fused_deps_resolve": 4,
+               "execution_wavefronts": 10, "dag_wavefronts_packed": 4}
+# K6 and K21 beside their parents' kernels (tools/range_finalize_variants,
+# tools/dense_dag_variants), by (label, wrapper) of kernel_report
+K6_VS_PARENT: dict = {}
+K21_VS_PARENT: dict = {}
 # the kernels one eager call launches, by wrapper (a torch.profiler trace,
 # which must also show no memset or copy; finalize_csr_tab: its launch,
 # the table uploaded before; transitive_closure: a squaring an iteration,
-# the pack and the unpack, whatever the data)
+# the pack and the unpack, whatever the data; range_finalize_csr: its
+# stab words built inside the compaction's tiles; dag_wavefronts_packed:
+# every round in one persistent launch)
 KERNELS_A_CALL = {"cmd_tick": 1, "finalize_csr": 1, "finalize_csr_tab": 1,
-                  "segment_compact": 1, "range_finalize_csr": 2,
+                  "segment_compact": 1, "range_finalize_csr": 1,
+                  "dag_wavefronts_packed": 1,
                   "frontier_compact": 2, "recovery_scan": 2,
                   "deps_matrix": 1,
                   "transitive_closure": lambda args: int(args[1]) + 2,
@@ -788,6 +811,51 @@ def range_pairs(tk, fn_name, kern, args, kw, label) -> dict:
     return out
 
 
+def k6_pairs(tk, args, kw, label) -> dict:
+    """The parent's K6 (tools/range_finalize_variants) beside the shipped
+    one on one recorded call: the whole call in a CUDA graph, and the call
+    as the megakernel's range-finalize stage (a protocol_tick graph holding
+    it alone), bit-equal, device ms of each side."""
+    from accord_tpu_torch.tools import range_finalize_variants as rfv
+    out = {"call": rfv.call_pair(lambda: tk.range_finalize_csr(*args, **kw)),
+           "stage": rfv.stage_pair(args, kw)}
+    for part, pair in out.items():
+        check(pair["bit_equal"], f"range_finalize_csr: the parent's K6 "
+              f"answers differently ({part})")
+    wt, spec = rfv.stage_spec(args, kw)
+    out["stage"]["plain_equal"] = max_abs_err(
+        tk.protocol_tick(wt, fins=(spec,))[2][0],
+        tk.range_finalize_csr_plain(*args, **kw)) == 0
+    check(out["stage"]["plain_equal"], "range_finalize_csr: the stage's "
+          "replay differs from the plain version")
+    K6_VS_PARENT[label] = out
+    return out
+
+
+def k21_pairs(tk, args, label) -> dict:
+    """The parent's K21 (tools/dense_dag_variants.k21_parent) beside the
+    shipped one on the recorded 100k DAG and on bench_dag's DAG at N
+    8,192 (the same levels): the whole call in a CUDA graph, bit-equal,
+    device ms of each side."""
+    import torch
+    from accord_tpu_torch.tools import deps_block_variants as dbv
+    from accord_tpu_torch.tools import dense_dag_variants as ddv
+    adj, levels = args
+    out = {}
+    small = _dag_words(8_192, str(adj.device), 5)
+    for key, a, calls in ((str(adj.shape[0]), adj, 2),
+                          ("8192", small, dbv.CALLS)):
+        pair = dbv.call_pair(lambda a=a: tk.dag_wavefronts_packed(a, levels),
+                             calls, parent=ddv.k21_parent)
+        check(pair["bit_equal"], f"dag_wavefronts_packed: the parent's K21 "
+              f"answers differently at N {key}")
+        out[key] = pair
+    del small
+    torch.cuda.empty_cache()
+    K21_VS_PARENT[label] = out
+    return out
+
+
 def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int,
                   label: str = ""):
     """Replay each recorded call of `name`'s wrappers on the card: kernel
@@ -904,6 +972,10 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int,
             extra["parent_vs_new"] = pair
         if fn_name in RANGE_PAIRED and cuda:
             extra.update(range_pairs(tk, fn_name, kern, args, kw, label))
+        if fn_name == "range_finalize_csr" and cuda:
+            extra["k6_parent_vs_new"] = k6_pairs(tk, args, kw, label)
+        if fn_name == "dag_wavefronts_packed" and cuda:
+            extra["k21_parent_vs_new"] = k21_pairs(tk, args, label)
         if want is not None and cuda:
             if "trace" not in extra:
                 extra["trace"] = trace_call(lambda: kern(*args, **kw),
@@ -2102,15 +2174,23 @@ def run(rehearse: bool) -> dict:
         log(f"device: {torch.cuda.get_device_name(0)} x "
             f"{torch.cuda.device_count()}")
         from accord_tpu_torch.tools import deps_block_variants as dbv
+        from accord_tpu_torch.tools import dense_dag_variants as ddv
         from accord_tpu_torch.tools import range_block_variants as rbv
+        from accord_tpu_torch.tools import range_finalize_variants as rfv
         parent = dbv.start_build()
         rparent = rbv.start_build()
+        fparent = rfv.start_build()
+        dparent = ddv.start_parent_build()
         build_s = build_phase()
         dbv.finish_build(parent)
         rbv.finish_build(rparent)
+        rfv.finish_build(fparent)
+        ddv.finish_parent_build(dparent)
         log(f"build: {build_s:.2f} s (all csrc/*.cu, nvcc in parallel; the "
-            "parent's key body, tools/deps_block_parent.cu, and range body "
-            "and K3, tools/range_block_parent.cu, beside them)")
+            "parent's key body, tools/deps_block_parent.cu, range body "
+            "and K3, tools/range_block_parent.cu, K6, "
+            "tools/range_finalize_parent.cu, and K21, "
+            "tools/dense_dag_parent.cu, beside them)")
 
     ops = 800 if not rehearse else 120
     launches = {}
@@ -2507,7 +2587,9 @@ def run(rehearse: bool) -> dict:
                                     "trace", "body_device_ms",
                                     "body_trace", "parent_vs_new",
                                     "range_parent_vs_new",
-                                    "stage_parent_vs_new")
+                                    "stage_parent_vs_new",
+                                    "k6_parent_vs_new",
+                                    "k21_parent_vs_new")
                if k in head},
             "launches_by_path": {p: launches[p][name] for p in launches}}
         for label, r in labelled:
@@ -2555,7 +2637,8 @@ def parent_vs_new_line() -> dict:
     range batch (the whole call), the 10k tick's replay, and the sharded
     10k tick's key stage (its replay); under "range_body", the range body's
     and K3's beside theirs (RANGE_VS_PARENT_KEYS, and the sharded key+range
-    leg's range stage)."""
+    leg's range stage); under "k6" and "k21", K6's and K21's beside their
+    parents' (K6_VS_PARENT, K21_VS_PARENT: by kernel_report's label)."""
     out = {}
     for key, (label, fn) in PARENT_VS_NEW_KEYS.items():
         got = PARENT_VS_NEW.get((label, fn))
@@ -2570,6 +2653,10 @@ def parent_vs_new_line() -> dict:
         rng["sharded_range_stage"] = RANGE_VS_PARENT["sharded_range_stage"]
     if rng:
         out["range_body"] = rng
+    if K6_VS_PARENT:
+        out["k6"] = dict(K6_VS_PARENT)
+    if K21_VS_PARENT:
+        out["k21"] = dict(K21_VS_PARENT)
     return out
 
 

@@ -19,8 +19,10 @@ from accord_tpu.ops.encoding import WITNESS_TABLE
 from accord_tpu_torch import graft_entry
 from accord_tpu_torch.ops import carry
 from accord_tpu_torch.ops import kernels as tk
-from torch_kernel_cases import (CLOSURE_CASES, CLOSURE_ITERS, DEPS_CASES,
-                                closure_case, deps_case, pack_words)
+from torch_kernel_cases import (CLOSURE_CASES, CLOSURE_ITERS, DAG_CASES,
+                                DEPS_CASES, closure_case, dag_case,
+                                dag_levels, dag_wide_row_hazards, deps_case,
+                                pack_words)
 
 I32_MIN = np.iinfo(np.int32).min
 
@@ -175,6 +177,38 @@ def test_dag_wavefronts_packed_plain_matches_jax(n, p, levels):
     if levels:
         assert ref[10] == ref[11] == ref[12] == -1
         assert (ref >= 0).any()
+
+
+@pytest.mark.parametrize("name", DAG_CASES)
+def test_dag_wavefronts_packed_shared_cases_match_jax(name):
+    """K21's plain version against the JAX kernel on the persistent
+    kernel's edges (tests/torch_kernel_cases.py, which the card tests run
+    the kernel on): max_levels 0, 1, exactly the depth and depth + 1, far
+    past the fixpoint; a cycle and a row waiting on it, a chain, a graph of
+    cycles only (nothing settles), no edges (everything settles in round
+    0), a dense DAG, and rows wider than the kernel's kept words (some
+    settled, some whose kept count runs out inside a ballot)."""
+    adj = dag_case(name)
+    words = carry.pack_bitmaps(adj.astype(np.float32))
+    n = adj.shape[0]
+    full = np.asarray(jk.dag_wavefronts_packed(words.view(np.uint32), n + 1))
+    depth = int(full.max())
+    for levels in dag_levels(depth):
+        ref = np.asarray(jk.dag_wavefronts_packed(words.view(np.uint32),
+                                                  levels))
+        got = tk.dag_wavefronts_packed(_t(words), levels).numpy()
+        assert np.array_equal(ref, got), levels
+        if levels == depth + 1:
+            assert np.array_equal(ref, full)
+        if 0 < levels <= depth:
+            assert (ref < 0).sum() > (full < 0).sum()
+    expect = {"chain": n - 1, "all_cycles": -1, "no_edges": 0}
+    if name in expect:
+        assert depth == expect[name]
+    if name == "wide_rows":
+        wide, inside = dag_wide_row_hazards(words)
+        assert (wide & (full >= 1)).any() and inside.any()
+        assert (full < 0).any() and depth >= 5
 
 
 def test_dense_adjacency_carries_to_packed_words():

@@ -18,12 +18,13 @@ from accord_tpu_torch.ops import kernels as tk
 from accord_tpu_torch.ops.encoding import WITNESS_TABLE
 from torch_kernel_cases import (ARENA_SCATTER_CASES, CLOSURE_CASES,
                                 CLOSURE_ITERS, CMD_CASES, CMD_SCALARS,
-                                DEPS_CASES, KEY_BODY_CASES,
+                                DAG_CASES, DEPS_CASES, KEY_BODY_CASES,
                                 KEY_BODY_RUN_CASES, KEY_SHARD_CASES,
-                                RANGE_BODY_CASES, arena_scatter_case,
-                                closure_case, cmd_case, deps_case,
+                                RANGE_BODY_CASES, RANGE_FIN_CASES,
+                                arena_scatter_case, closure_case, cmd_case,
+                                dag_case, dag_levels, deps_case,
                                 finalize_many_tiles, key_body_case,
-                                pack_words, range_body_case)
+                                pack_words, range_body_case, range_fin_case)
 
 pytestmark = pytest.mark.gpu
 I32_MIN = np.iinfo(np.int32).min
@@ -1865,12 +1866,16 @@ def test_cmd_tick_kernel_tier_4096(cuda, name):
 def _trace_kernels(fn):
     """(kernel names, memsets and copies) the profiler saw on the card in
     one call of fn (after a warm call); a trace with no device activity
-    at all (the profiler delivered none) is taken again, up to 3 times."""
+    at all (the profiler delivered none) is taken again, after a pause
+    and a warm call, up to 3 times (as chip_smoke.trace_call does)."""
+    import time
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     names = []
-    for _ in range(3):
+    for attempt in range(3):
+        if attempt:
+            time.sleep(0.5)
+        fn()
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -2379,3 +2384,185 @@ def test_arena_scatter_cases_kernels(cuda, name):
         tk.arena_scatter_keys(ga[0], *gu[:3]))
     _body_launches(lambda: tk.arena_scatter(*ga, *gu), 1)
     _body_launches(lambda: tk.arena_scatter_keys(ga[0], *gu[:3]), 1)
+
+
+# -- K6 range_finalize_csr (csrc/range_finalize.cu): ONE launch ------------
+def _fin_args(name, witness=True):
+    c = range_fin_case(name)
+    wt = WITNESS_TABLE if c["witness"] is None or not witness \
+        else c["witness"]
+    return [_t(a) for a in c["lanes"]] + [_t(np.asarray(wt, np.int32))], \
+        c["out_cap"]
+
+
+@pytest.mark.parametrize("name", list(RANGE_FIN_CASES))
+def test_range_finalize_kernel_shared_cases(cuda, name):
+    """K6 against its plain version on the shared cases (the CPU tests
+    hold the plain version to the JAX kernel on them): rcap 32 and 96,
+    every row invalid, NV 0, iv_of and kinds out of range, witness entries
+    other than 0/1, out_cap 0 and overflowed, 44 compaction tiles; one
+    launch counted a call."""
+    args, out_cap = _fin_args(name)
+    plain = tk.range_finalize_csr(*args, out_cap=out_cap)
+    n0 = tk.LAUNCHES["range_finalize"]
+    got = tk.range_finalize_csr(*_on(args, cuda), out_cap=out_cap)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["range_finalize"] == n0 + 1
+    _eq(plain, got)
+
+
+def test_range_finalize_one_kernel_a_call(cuda):
+    """A profiler trace of one eager K6 call: ONE kernel (the compaction,
+    its stab words built inside its tiles) and no memset or copy, at 44
+    compaction tiles, at one word a row set and at NV 0."""
+    for name in ("many_tiles", "rcap32_one_word", "nv0"):
+        args, out_cap = _fin_args(name)
+        args = _on(args, cuda)
+        kernels, moves = _trace_kernels(
+            lambda: tk.range_finalize_csr(*args, out_cap=out_cap))
+        assert len(kernels) == 1 and not moves, (name, kernels, moves)
+
+
+def test_range_finalize_stage_replays_twice(cuda):
+    """K6 as the megakernel's range-finalize stage: a protocol_tick graph
+    of two range finalizes, called twice (the second a replay of the
+    first's graph), equal to the plain versions both times, so the
+    compaction's scratch is zero again after a replay."""
+    wt = _t(WITNESS_TABLE)
+    fins = []
+    for name in ("rcap96_three_words", "out_cap_overflow"):
+        args, out_cap = _fin_args(name, witness=False)
+        fins.append(("range", *args[:6], tuple(args[6:11]), out_cap))
+    fins = tuple(fins)
+    plain = tk.protocol_tick(wt, fins=fins)
+    c0 = tk.CAPTURES["protocol_tick"]
+    l0 = tk.LAUNCHES["range_finalize"]
+    dfins = _deep(fins, cuda)
+    first = [tuple(t.cpu() for t in f)
+             for f in tk.protocol_tick(wt.to(cuda), fins=dfins)[2]]
+    second = tk.protocol_tick(wt.to(cuda), fins=dfins)[2]
+    torch.cuda.synchronize()
+    assert tk.CAPTURES["protocol_tick"] - c0 <= 1
+    assert tk.LAUNCHES["range_finalize"] - l0 == 4
+    _eq(list(plain[2]), first)
+    _eq(list(plain[2]), list(second))
+
+
+# -- K21 dag_wavefronts_packed (csrc/dense_dag.cu): ONE launch -------------
+def _dag_words(name):
+    from accord_tpu_torch.ops import carry
+    return carry.packed_adjacency(dag_case(name))
+
+
+@pytest.mark.parametrize("name", DAG_CASES)
+def test_dag_wavefronts_packed_kernel_shared_cases(cuda, name):
+    """K21 against its plain version on the shared cases (the CPU tests
+    hold the plain version to the JAX kernel on them) at max_levels 0, 1,
+    the depth, depth + 1 and far past the fixpoint: a cycle and a row
+    waiting on it, a chain, cycles only, no edges, a dense DAG, and rows
+    wider than the 64 words the kernel keeps (read on in a later round;
+    some run out of kept words inside one ballot)."""
+    words = _dag_words(name)
+    n = words.shape[0]
+    depth = int(tk.dag_wavefronts_packed_plain(words, n + 1).max())
+    c_words = words.to(cuda)
+    for levels in dag_levels(depth):
+        plain = tk.dag_wavefronts_packed(words, levels)
+        got = tk.dag_wavefronts_packed(c_words, levels)
+        torch.cuda.synchronize()
+        _eq(plain, got)
+
+
+@pytest.mark.parametrize("blocks", [1, 3])
+@pytest.mark.parametrize("name", ["wide_rows", "dag_with_cycle"])
+def test_dag_wavefronts_packed_kernel_rows_a_lane(cuda, name, blocks):
+    """K21 on a grid capped at `blocks` blocks of 1,024 lanes: at 4,096
+    rows a lane owns 4 rows (one block) or 2, the last lanes 1 (three
+    blocks), so its live-row mask walks several rows, settled and not,
+    between barriers; at 256 rows a lane owns one row or none. Against
+    the plain version at every dag_levels count."""
+    words = _dag_words(name)
+    n = words.shape[0]
+    depth = int(tk.dag_wavefronts_packed_plain(words, n + 1).max())
+    c_words = words.to(cuda)
+    for levels in dag_levels(depth):
+        plain = tk.dag_wavefronts_packed(words, levels)
+        got = tk.dag_wavefronts_packed(c_words, levels, max_blocks=blocks)
+        torch.cuda.synchronize()
+        _eq(plain, got)
+
+
+def test_dag_wavefronts_packed_graph_replays_twice(cuda):
+    """K21 captured in a CUDA graph and replayed twice equals the eager
+    call and the plain version both times (its flags are zero again after
+    every call, and a replay rebuilds its lists and applied sets); a
+    second eager call too."""
+    words = _dag_words("dag_with_cycle")
+    c_words = words.to(cuda)
+    plain = tk.dag_wavefronts_packed(words, 40)
+    _eq(plain, tk.dag_wavefronts_packed(c_words, 40))
+    for out in _graph_twice(lambda: tk.dag_wavefronts_packed(c_words, 40)):
+        _eq(plain, out)
+    _eq(plain, tk.dag_wavefronts_packed(c_words, 40))
+
+
+def test_dag_wavefronts_packed_after_dirty_flags(cuda):
+    """A barrier generation left at any value costs the next call no
+    correctness (its barriers wait for a change, not a value), and the
+    call leaves the flags zeroed; the scratch lists, counts and applied
+    sets hold garbage from torch.empty and are rebuilt in the call."""
+    words = _dag_words("chain")
+    c_words = words.to(cuda)
+    tk.dag_wavefronts_packed(c_words, 3)        # the scratch exists
+    idx = torch.cuda.current_device()
+    flags = tk._SCRATCH[idx][:tk._DAG_FLAG_BYTES].view(torch.int32)
+    for levels, gen in ((0, 7), (5, -1), (300, 12345)):
+        flags[1] = gen
+        got = tk.dag_wavefronts_packed(c_words, levels)
+        torch.cuda.synchronize()
+        _eq(tk.dag_wavefronts_packed(words, levels), got)
+        if levels:
+            assert not bool(flags.any()), flags.cpu()
+
+
+def _graph_node_types(fn):
+    """The node types (cuda.h's CUgraphNodeType: 0 a kernel, 1 a
+    copy, 2 a memset, ...) of one call of fn captured in a CUDA graph,
+    after a warm call. Late in a long process the profiler can deliver no
+    event of a cooperative launch at all; a capture records every
+    operation the call puts on its stream."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0
+    types = []
+    for node in nodes[:count.value]:
+        t = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(t)) == 0
+        types.append(t.value)
+    return types
+
+
+def test_dag_wavefronts_packed_one_kernel_a_call(cuda):
+    """One K21 call, captured in a CUDA graph, is ONE kernel node and no
+    other (no memset or copy), whatever the data and the level count
+    (cut, past the fixpoint, 0)."""
+    for name, levels in (("dag_with_cycle", 3), ("dag_with_cycle", 192),
+                         ("no_edges", 0), ("all_cycles", 50)):
+        c_words = _dag_words(name).to(cuda)
+        types = _graph_node_types(
+            lambda: tk.dag_wavefronts_packed(c_words, levels))
+        assert types == [0], (name, types)

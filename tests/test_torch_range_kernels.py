@@ -25,7 +25,8 @@ from accord_tpu.ops.encoding import WITNESS_TABLE
 from accord_tpu_torch.ops import carry
 from accord_tpu_torch.ops import kernels as tk
 from accord_tpu_torch.ops import node_lane as nl
-from torch_kernel_cases import RANGE_BODY_CASES, pack_words, range_body_case
+from torch_kernel_cases import (RANGE_BODY_CASES, RANGE_FIN_CASES,
+                                pack_words, range_body_case, range_fin_case)
 
 B, RCAP, CAP, K = 16, 96, 128, 128
 I32_MIN = np.iinfo(np.int32).min
@@ -253,6 +254,31 @@ def test_range_finalize_csr(seed, out_cap):
     assert int(np.asarray(ref[3])) >= total      # the stab-count bound
     assert tk.csr_checksum_host(*(g.numpy() for g in got[:3])) \
         == int(got[4].numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("name", list(RANGE_FIN_CASES))
+def test_range_finalize_shared_cases_match_jax(name):
+    """K6's plain version against the JAX kernel on the one-launch
+    kernel's edges (tests/torch_kernel_cases.py, which the card tests run
+    the kernel on): rcap 32 and 96, every row invalid, NV 0, iv_of below 0
+    and >= B, kinds out of range, witness entries other than 0/1, out_cap
+    0 and overflowed, 44 compaction tiles."""
+    c = range_fin_case(name)
+    wt = np.asarray(WITNESS_TABLE if c["witness"] is None else c["witness"],
+                    np.int32)
+    ref = jk.range_finalize_csr(*_j(*c["lanes"], wt), out_cap=c["out_cap"])
+    got = tk.range_finalize_csr(*(_t(a) for a in c["lanes"]), _t(wt),
+                                out_cap=c["out_cap"])
+    for rr, g in zip(ref, got):
+        _same(rr, g)
+    total, bound = int(np.asarray(ref[0])[-1]), int(np.asarray(ref[3]))
+    assert bound >= total
+    if name == "all_rows_invalid" or name == "nv0":
+        assert bound == 0
+    else:
+        assert total > 0, "vacuous"
+    if name == "out_cap_overflow":
+        assert total > c["out_cap"]
 
 
 # -- K7 ----------------------------------------------------------------------

@@ -543,3 +543,130 @@ def arena_scatter_case(name):
                 rows=rows, key_rows=key_rows, key_mods=key_mods,
                 ts_rows=new_ts[nrow], ex_rows=new_ex[nrow],
                 kind_rows=new_kd[nrow], valid_rows=new_vl[nrow])
+
+
+# -- K6 range_finalize_csr (csrc/range_finalize.cu) -------------------------
+# (B, NV, rcap, out_cap, seed, hazard): rcap 32 (one word a row set, so a
+# compaction tile spans 1,024 entries), rcap 96 (three words: the tile's
+# columns not a power of two), every row invalid, NV 0, iv_of below 0 and
+# >= B, subject and row kinds below 0 and >= nk, witness entries other than
+# 0 and 1, out_cap 0, an out_cap the hits overflow, and a call of 44
+# compaction tiles.
+RANGE_FIN_CASES = {
+    "rcap32_one_word": (16, 1500, 32, 4096, 1, ""),
+    "rcap96_three_words": (16, 300, 96, 4096, 2, ""),
+    "all_rows_invalid": (8, 64, 64, 256, 3, "invalid"),
+    "nv0": (8, 0, 64, 16, 4, ""),
+    "iv_of_out_of_range": (8, 200, 64, 4096, 5, "iv_of"),
+    "kinds_out_of_range": (8, 200, 64, 4096, 6, "kinds"),
+    "witness_not_0_1": (8, 200, 64, 4096, 7, "witness"),
+    "out_cap0": (8, 64, 64, 0, 8, ""),
+    "out_cap_overflow": (8, 200, 128, 32, 9, ""),
+    "many_tiles": (64, 700, 2048, 1 << 16, 10, ""),
+}
+
+
+def range_fin_case(name, nk=6):
+    """range_finalize_csr's inputs of one RANGE_FIN_CASES case as numpy:
+    dict(lanes=[iv_of, iv_s, iv_e, ent_ok, sb, sknd, r_start, r_end, r_ts,
+    r_kinds, r_valid], witness (None: the encoding's WITNESS_TABLE, else
+    an i32[nk, nk] table), out_cap)."""
+    b, nv, rcap, out_cap, seed, hazard = RANGE_FIN_CASES[name]
+    rng = np.random.default_rng(600 + seed)
+    iv_of = np.sort(rng.integers(0, b, nv)).astype(np.int32)
+    iv_of[nv - nv // 8:] = b                    # padding entries at the tail
+    if hazard == "iv_of":
+        iv_of = rng.integers(-2 * b, 2 * b, nv).astype(np.int32)
+    iv_s = rng.integers(0, 4096, nv).astype(np.int32)
+    width = np.where(rng.random(nv) < 0.5, 1, rng.integers(-3, 600, nv))
+    iv_e = (iv_s + width).astype(np.int32)
+    if nv > 12:
+        iv_s[9], iv_e[9] = I32_MAX - 2, I32_MIN + 3     # wraps: width 6
+        iv_s[11], iv_e[11] = I32_MIN + 1, I32_MAX       # wraps: width -2
+    ent_ok = rng.random(nv) < 0.85
+    sb = rng.integers(-40, 40, (b, 3)).astype(np.int32)
+    sb[: b // 2] = (I32_MAX, 0, 0)              # half see every row
+    sb[1::5, 0] = I32_MIN
+    lo, hi = (-nk - 2, 2 * nk) if hazard == "kinds" else (0, nk)
+    sknd = rng.integers(lo, hi, b).astype(np.int32)
+    r_start = rng.integers(0, 4096, rcap).astype(np.int32)
+    r_end = (r_start + rng.integers(1, 900, rcap)).astype(np.int32)
+    r_ts = rng.integers(-40, 40, (rcap, 3)).astype(np.int32)
+    r_ts[rng.random(rcap) < 0.1, 0] = I32_MIN
+    r_kinds = rng.integers(lo, hi, rcap).astype(np.int32)
+    r_valid = rng.random(rcap) < 0.8
+    if hazard == "invalid":
+        r_valid[:] = False
+    witness = None
+    if hazard == "witness":
+        witness = rng.integers(-1, 3, (nk, nk)).astype(np.int32)
+    return dict(lanes=[iv_of, iv_s, iv_e, ent_ok, sb, sknd, r_start, r_end,
+                       r_ts, r_kinds, r_valid],
+                witness=witness, out_cap=out_cap)
+
+
+# -- K21 dag_wavefronts_packed (csrc/dense_dag.cu) ---------------------------
+DAG_CASES = ("dag_with_cycle", "chain", "all_cycles", "no_edges", "dense",
+             "wide_rows")
+# rows of a case (256 where not named)
+DAG_ROWS = {"wide_rows": 4096}
+# blocking words the card's kernel keeps a row (csrc/dense_dag.cu DW_C)
+DAG_KEPT_WORDS = 64
+
+
+def dag_case(name):
+    """bool[n, n] adjacency (row w depends on d where [w, d] is set) of the
+    K21 fixture `name`: dag_with_cycle a random lower-triangular DAG with
+    a 2-cycle and a row waiting on it (never settled); chain row i on
+    i - 1 (depth n - 1); all_cycles a ring through every row plus random
+    edges (nothing settles); no_edges (everything settles in round 0);
+    dense a lower-triangular DAG of density 1/2; wide_rows 4,096 rows in
+    8 layers, each row on a random share (5% to 50%) of the rows of lower
+    layers, the rows shuffled: most rows have more nonzero words than the
+    kernel keeps (so it reads such a row on in a later round), some cross
+    that count inside one 32-word ballot, and a 2-cycle holds its rows
+    and their waiters back."""
+    n = DAG_ROWS.get(name, 256)
+    rng = np.random.default_rng(700 + n + len(name))
+    if name == "wide_rows":
+        layer = rng.permutation(np.arange(n) * 8 // n)
+        share = rng.uniform(0.05, 0.5, n)
+        adj = (layer[None, :] < layer[:, None]) \
+            & (rng.random((n, n)) < share[:, None])
+        a, b = np.flatnonzero(layer == 5)[:2]
+        adj[a, b] = adj[b, a] = True
+    elif name == "dag_with_cycle":
+        adj = np.tril(rng.random((n, n)) < 4.0 / n, -1)
+        adj[10, 11] = adj[11, 10] = True
+        adj[12, 10] = True
+    elif name == "chain":
+        adj = np.zeros((n, n), bool)
+        adj[np.arange(1, n), np.arange(n - 1)] = True
+    elif name == "all_cycles":
+        adj = rng.random((n, n)) < 2.0 / n
+        adj[np.arange(n), (np.arange(n) + 1) % n] = True
+    elif name == "no_edges":
+        adj = np.zeros((n, n), bool)
+    else:
+        adj = np.tril(rng.random((n, n)) < 0.5, -1)
+    return adj
+
+
+def dag_levels(depth):
+    """The max_levels a K21 case runs at: 0, 1, the depth (the deepest
+    row left unsettled), depth + 1 (just enough) and far past it."""
+    return sorted({0, 1, max(depth, 0), depth + 1, depth + 41})
+
+
+def dag_wide_row_hazards(words):
+    """(rows with more nonzero words than the kernel keeps, rows whose
+    kept-word count runs out inside a 32-word ballot: their last kept
+    word and the next nonzero one share the ballot) of packed rows
+    words[n, n/32]."""
+    nz = words != 0
+    wide = nz.sum(1) > DAG_KEPT_WORDS
+    inside = np.zeros_like(wide)
+    for r in np.flatnonzero(wide):
+        at = np.flatnonzero(nz[r])
+        inside[r] = at[DAG_KEPT_WORDS - 1] // 32 == at[DAG_KEPT_WORDS] // 32
+    return wide, inside
