@@ -1426,6 +1426,10 @@ def max_conflict_plain(subj_words, act_bm, act_exec_ts, act_valid):
     return torch.stack(lanes, dim=1), row.to(torch.int32)
 
 
+# max_conflict (csrc/max_conflict.cu), a lean launch
+_MAX_CONFLICT_ARGS = (_VP, _I, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP)
+
+
 def max_conflict(subj_words, act_bm, act_exec_ts, act_valid):
     """Per subject (packed bucket words i32[B, K/32]): the lexicographic
     3-lane max of exec_ts over the valid rows whose bucket words meet the
@@ -1442,9 +1446,10 @@ def max_conflict(subj_words, act_bm, act_exec_ts, act_valid):
     dev = act_bm.device
     lanes = torch.empty(b, 3, dtype=torch.int32, device=dev)
     row = torch.empty(b, dtype=torch.int32, device=dev)
-    ext.call("max_conflict", "max_conflict", ext.ptr(subj_words), b, nw,
-             ext.ptr(act_bm), ext.ptr(act_exec_ts), ext.ptr(act_valid),
-             act_bm.shape[0], ext.ptr(lanes), ext.ptr(row), ext.stream())
+    ext.entry("max_conflict", "max_conflict", _MAX_CONFLICT_ARGS)(
+        subj_words.data_ptr(), b, nw, act_bm.data_ptr(),
+        act_exec_ts.data_ptr(), act_valid.data_ptr(), act_bm.shape[0],
+        lanes.data_ptr(), row.data_ptr(), ext.raw_stream(dev.index))
     LAUNCHES["max_conflict"] += 1
     return lanes, row
 
@@ -2241,12 +2246,30 @@ def check_quorum_lanes(lanes) -> int:
     return t
 
 
+# quorum_count and quorum_geometry (csrc/quorum.cu), lean launches
+_QUORUM_ARGS = (_VP,) * 4 + (_I, _I) + (_VP,) * 4
+_QUORUM_GEOM_ARGS = (_I, _VP)
+
+
 def launch_quorum(ext, A, lanes, t: int, qsize: int, outs) -> None:
     """K16's launch on device addresses (`A(x)`, see _addr): lanes (txn,
     ts, code, valid) of t lanes, outs (fast, votes, met). quorum_count
-    and the protocol megakernel's graph both launch it here."""
-    ext.call("quorum", "quorum_count", *(A(x) for x in lanes), t,
-             int(qsize), *(A(o) for o in outs), ext.stream())
+    and the protocol megakernel's graph both launch it here (ONE launch:
+    a cluster of CTAs a tile of lanes, csrc/quorum.cu)."""
+    ext.entry("quorum", "quorum_count", _QUORUM_ARGS)(
+        *(A(x) for x in lanes), t, int(qsize), *(A(o) for o in outs),
+        ext.stream())
+
+
+def quorum_geometry(t: int) -> dict:
+    """K16's launch at t lanes on the current card: threads a CTA (a lane
+    i each), the cluster size (slices of the lanes j a CTA's tile is split
+    into), the clusters of the grid, and the clusters the card holds at
+    once (cudaOccupancyMaxActiveClusters)."""
+    out = (ctypes.c_int * 4)()
+    _ext().entry("quorum", "quorum_geometry", _QUORUM_GEOM_ARGS)(
+        int(t), ctypes.addressof(out))
+    return dict(zip(("threads", "cluster", "clusters", "max_active"), out))
 
 
 def _fin_split(fins):

@@ -100,7 +100,9 @@ launched.
      range writes): fused = merged = loop on the card = the CPU, K14 in
      the graph; the cmd-plane leg (3 nodes, authoritative, 32 ops):
      card = CPU = unfused, fast-path quorum txns > 0 and equal to the
-     CPU's, cmd counters (deferred spans) equal, K16 in the graph; the
+     CPU's, cmd counters (deferred spans) equal, K16 in the graph, the
+     mix of its ticks' quorum lanes (lanes, valid, fast, distinct txns,
+     most lanes a txn); the
      exec leg (bench.py's exec-in-megakernel config: seed 13, 40 ops, 4
      nodes, rf 3, 2 stores, 24 keys, concurrency 8, exec_compact): the
      standalone compact coordinator's history, exec blocks > 0,
@@ -112,10 +114,16 @@ launched.
      scan, the 128 key finalizes ONE finalize_csr_tab launch; the replay,
      the key stage alone and with its finalizes (the finalize stage is
      the difference), K13, K2 and K16 alone, and the stages launched one
-     by one, timed; then the tick's 128 key finalizes, recorded, replayed
-     through K2's table entry (one launch) and through 128 per-spec
-     finalize_csr calls, each set captured in one CUDA graph and replayed
-     twice: both bit-equal to the plain versions, both replay times;
+     by one, timed; K16 beside the parent's
+     (tools/quorum_conflict_parent.cu) and beside K16 without its
+     compaction (tools/quorum_uncompacted.cu) at 64, 256, 1,024 and
+     4,096 lanes of the tick's lane mix, with its cluster geometry (the
+     occupancy API must hold every cluster of the 4,096-lane grid at
+     once), and the whole replay with each K16; then the tick's 128 key
+     finalizes, recorded, replayed through K2's table entry (one launch)
+     and through 128 per-spec finalize_csr calls, each set captured in
+     one CUDA graph and replayed twice: both bit-equal to the plain
+     versions, both replay times;
  19. message plane (bench.py's bench_message_plane config: seed 6, rf 5,
      concurrency 24, megakernel; 64 nodes x 60 ops, 256 x 30, 1024 x 12):
      replica payloads ride the mailbox stage (K17) of the one replay a
@@ -191,7 +199,8 @@ launched.
      cmd batch, with its time per op (the walk is serial). K13 replays
      the sweep's largest tick and the 10k tick, K14 the key+range leg's,
      K15 a recorded demux (lane_slice_many: a merged dispatch's windows in
-     one launch), K16 the cmd leg's lanes and the 10k tick's 4,096;
+     one launch), K16 the cmd leg's lanes and the 10k tick's 4,096 (one
+     kernel a call, device_ms, beside the parent's: k16_parent_vs_new);
      protocol_tick its graph (ms: the replay alone; call_ms: with the
      host's per-tick program build). K4 replays the key burn's, the
      batches' and the range burn's calls and the exec and cmd planes'
@@ -224,7 +233,9 @@ launched.
      kernel must have launched on its path. The build phase holds K10's
      walking kernel to 0 bytes of stack frame and spills (ptxas -v).
      K1 (single and fused), K3, K5, K7, K8, K9's plain entry and K12 also
-     report device_ms; K1 and K13 are also split at their key body
+     report device_ms; K7 is one kernel in a trace and is set beside the
+     parent's on the inline leg's call and at (64, 16,384, 1,024)
+     (k7_parent_vs_new); K1 and K13 are also split at their key body
      (kernels.resolve_launcher, node_lane.key_launcher): the body alone
      bit-equal to the call, its device ms (body_device_ms; K13's
      device_ms adds its subject pass), a trace of one body launch (one
@@ -255,8 +266,10 @@ batch, K13 at the sweep's largest and the 10k tick, K5 at the range
 batch, the 10k replay, the sharded 10k key stage; under "range_body"
 the range body's and K3's; under "k6" K6 at the range burn and the range
 batch, each whole and as the megakernel's stage; under "k21" K21 at N
-100,000 and 8,192), the card line, one JSON line of kernels, and the
-result line {"ok": true, "device": {...}}.
+100,000 and 8,192; under "k16" K16 at the cmd leg's call, the 10k tick's
+lanes, the lane tiers and the 10k replay; under "k7" K7 at the inline
+leg's call and at (64, 16,384, 1,024)), the card line, one JSON line of
+kernels, and the result line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -425,7 +438,8 @@ class Recorder:
     the arguments of its largest call, so the kernel phase replays exactly
     what the path gave each kernel. `cmd_tier` keeps cmd_tick's first call
     at that op tier instead. `promoted` counts cmd_tick's calls with
-    promote on. Recording launches nothing itself."""
+    promote on; `quorum_mix` sums the quorum lanes of every protocol_tick
+    call (note_quorum). Recording launches nothing itself."""
 
     def __init__(self, tk, cmd_tier=None, names=None):
         self.tk = tk
@@ -433,6 +447,7 @@ class Recorder:
         self.orig = {}
         self.cmd_tier = cmd_tier
         self.promoted = 0
+        self.quorum_mix = None
         self.names = names if names is not None else tuple(
             n for ns in RECORDED.values() for n in ns)
 
@@ -461,6 +476,9 @@ class Recorder:
                         return _fn(*args, **kw)
                 mail = kw.get("mailbox") if _name in (
                     "protocol_tick", "sharded_protocol_tick") else None
+                if _name == "protocol_tick" \
+                        and kw.get("quorum") is not None:
+                    self.note_quorum(kw["quorum"])
                 if mail is not None:
                     stage = "mailbox_route" if _name == "protocol_tick" \
                         else "sharded_mailbox_route"
@@ -482,6 +500,28 @@ class Recorder:
     def get(self, name):
         c = self.calls.get(name)
         return None if c is None else (c[1], c[2])
+
+    def note_quorum(self, lanes):
+        """Adds one tick's quorum lanes (txn, ts, code, valid) to
+        `quorum_mix`: ticks, lanes (padding included), valid lanes, fast
+        lanes (K16's voters), the distinct txns among the valid lanes,
+        and the most valid lanes one txn holds."""
+        import numpy as np
+        txn, ts, code, valid = (np.asarray(x.cpu()) if hasattr(x, "cpu")
+                                else np.asarray(x) for x in lanes)
+        v = valid.astype(bool)
+        fast = v & ((code & 7) == 0) & (ts == txn).all(1)
+        per_txn = np.unique(txn[v], axis=0, return_counts=True)[1]
+        m = self.quorum_mix or dict(ticks=0, lanes=0, valid=0, fast=0,
+                                    txns=0, max_lanes_a_txn=0)
+        m["ticks"] += 1
+        m["lanes"] += int(v.shape[0])
+        m["valid"] += int(v.sum())
+        m["fast"] += int(fast.sum())
+        m["txns"] += int(per_txn.shape[0])
+        m["max_lanes_a_txn"] = max(m["max_lanes_a_txn"],
+                                   int(per_txn.max(initial=0)))
+        self.quorum_mix = m
 
 
 def _flat(xs):
@@ -528,7 +568,7 @@ def time_ms(fn, iters: int, cuda: bool) -> float:
     return start.elapsed_time(end) / iters
 
 
-# the wrappers whose rows (PERF.md 1-26, 30, 31) also give
+# the wrappers whose rows (PERF.md 1-27, 30, 31) also give
 # device time (K17's mailbox_route routes in place: a replay rewrites the
 # rows its lanes name)
 DEVICE_TIMED = ("scatter_rows", "kid_word_scatter", "arena_grow",
@@ -541,7 +581,7 @@ DEVICE_TIMED = ("scatter_rows", "kid_word_scatter", "arena_grow",
                 "exec_scatter", "execution_frontier", "cmd_repair",
                 "arena_scatter_keys", "covered_buckets", "mailbox_route",
                 "fused_execution_frontier", "execution_wavefronts",
-                "dag_wavefronts_packed", "segment_compact")
+                "dag_wavefronts_packed", "segment_compact", "quorum_count")
 # the key body's wrappers (csrc/deps_block.cuh: K1, K13), each split at its
 # body by a launcher (the subject pass, and K13's table upload, run first):
 # the body's kernels a launch, which a trace must show with no memset or
@@ -568,15 +608,22 @@ GRAPH_CALLS = {"transitive_closure": 10, "node_fused_deps_resolve": 4,
 # tools/dense_dag_variants), by (label, wrapper) of kernel_report
 K6_VS_PARENT: dict = {}
 K21_VS_PARENT: dict = {}
+# K16 and K7 beside their parents' kernels (tools/quorum_conflict_variants):
+# by kernel_report's label, the 10k tick's lane tiers and replay, and K7
+# at (64, 16,384, 1,024)
+K16_VS_PARENT: dict = {}
+K7_VS_PARENT: dict = {}
 # the kernels one eager call launches, by wrapper (a torch.profiler trace,
 # which must also show no memset or copy; finalize_csr_tab: its launch,
 # the table uploaded before; transitive_closure: a squaring an iteration,
 # the pack and the unpack, whatever the data; range_finalize_csr: its
 # stab words built inside the compaction's tiles; dag_wavefronts_packed:
-# every round in one persistent launch)
+# every round in one persistent launch; quorum_count: a cluster of CTAs a
+# tile of lanes; max_conflict: a CTA a subject)
 KERNELS_A_CALL = {"cmd_tick": 1, "finalize_csr": 1, "finalize_csr_tab": 1,
                   "segment_compact": 1, "range_finalize_csr": 1,
-                  "dag_wavefronts_packed": 1,
+                  "dag_wavefronts_packed": 1, "quorum_count": 1,
+                  "max_conflict": 1,
                   "frontier_compact": 2, "recovery_scan": 2,
                   "deps_matrix": 1,
                   "transitive_closure": lambda args: int(args[1]) + 2,
@@ -636,6 +683,22 @@ def trace_call(fn, call=None, want=None) -> dict:
     return got
 
 
+def _owned(x):
+    """x with every tensor copied into a storage of its own, through
+    containers: torch.save cannot hold two views of one storage under
+    different dtypes (the lanes of one kernels.upload_many buffer)."""
+    import torch
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_owned(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_owned(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _owned(v) for k, v in x.items()}
+    return x
+
+
 def _trace_in_child(fn_name: str, args, kw, launcher=False) -> dict:
     """trace_call of kernels.<fn_name>(*args, **kw) (or node_lane's; with
     `launcher`, of the launch that call returns first) in a fresh
@@ -646,7 +709,7 @@ def _trace_in_child(fn_name: str, args, kw, launcher=False) -> dict:
     root = os.path.dirname(os.path.abspath(__file__))
     _ext.BUILD.mkdir(parents=True, exist_ok=True)
     path = _ext.BUILD / f"trace_args.{os.getpid()}.pt"
-    torch.save((fn_name, args, kw, launcher), path)
+    torch.save((fn_name, _owned(args), _owned(kw), launcher), path)
     code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); "
             "import chip_smoke as s; "
             "from accord_tpu_torch.ops import kernels as tk; "
@@ -856,6 +919,45 @@ def k21_pairs(tk, args, label) -> dict:
     return out
 
 
+def k16_pairs(args, label) -> dict:
+    """The parent's K16 (tools/quorum_conflict_variants), and K16 without
+    its compaction of the fast voters (tools/quorum_uncompacted.cu),
+    each beside the shipped one on one recorded call (the whole call in a
+    CUDA graph), bit-equal, device ms of each side."""
+    from accord_tpu_torch.tools import quorum_conflict_variants as qcv
+    pair = qcv.quorum_pair(args[:4], args[4])
+    check(pair["bit_equal"], "quorum_count: the parent's K16 answers "
+          "differently")
+    pair["uncompacted"] = qcv.quorum_pair(args[:4], args[4],
+                                          parent=qcv.uncompacted_kernels)
+    check(pair["uncompacted"]["bit_equal"], "quorum_count: the "
+          "uncompacted K16 answers differently")
+    K16_VS_PARENT[label] = pair
+    return pair
+
+
+def k7_pairs(tk, args, label) -> dict:
+    """The parent's K7 beside the shipped one on one recorded call, and on
+    (64 subjects, cap 16,384, K 1,024) made from a seed (the inline
+    label's row holds both), bit-equal, device ms of each side."""
+    from accord_tpu_torch.tools import quorum_conflict_variants as qcv
+    out = {"call": qcv.conflict_pair(args)}
+    if label == "inline":
+        big = qcv.conflict_args(64, 64, 16_384, 1_024, 7, args[0].device)
+        out["b64_cap16384_k1024"] = dict(
+            qcv.conflict_pair(big), plain_equal=max_abs_err(
+                tuple(x.cpu() for x in tk.max_conflict(*big)),
+                tk.max_conflict_plain(*(x.cpu() for x in big))) == 0)
+        check(out["b64_cap16384_k1024"]["plain_equal"], "max_conflict "
+              "differs from its plain version at (64, 16,384, 1,024)")
+        K7_VS_PARENT["b64_cap16384_k1024"] = out["b64_cap16384_k1024"]
+    for part, pair in out.items():
+        check(pair["bit_equal"], f"max_conflict: the parent's K7 answers "
+              f"differently ({part})")
+    K7_VS_PARENT[label] = out["call"]
+    return out
+
+
 def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int,
                   label: str = ""):
     """Replay each recorded call of `name`'s wrappers on the card: kernel
@@ -976,6 +1078,11 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int,
             extra["k6_parent_vs_new"] = k6_pairs(tk, args, kw, label)
         if fn_name == "dag_wavefronts_packed" and cuda:
             extra["k21_parent_vs_new"] = k21_pairs(tk, args, label)
+        if fn_name == "quorum_count" and cuda:
+            extra["k16_parent_vs_new"] = k16_pairs(args, label)
+            extra["geometry"] = tk.quorum_geometry(args[0].shape[0])
+        if fn_name == "max_conflict" and cuda:
+            extra["k7_parent_vs_new"] = k7_pairs(tk, args, label)
         if want is not None and cuda:
             if "trace" not in extra:
                 extra["trace"] = trace_call(lambda: kern(*args, **kw),
@@ -1109,6 +1216,18 @@ def derived_call(tk, fn_name, rec):
     return None
 
 
+def quorum_ops(lanes) -> int:
+    """K16's operations on these lanes (tensors or numpy): 4 (three lane
+    compares and the add) per pair of a lane and a FAST lane -- the
+    kernel stages only the fast voters (its parent compared every
+    pair)."""
+    import numpy as np
+    txn, ts, code, valid = (np.asarray(x.cpu()) if hasattr(x, "cpu")
+                            else np.asarray(x) for x in lanes)
+    fast = valid & ((code & 7) == 0) & (ts == txn).all(1)
+    return 4 * txn.shape[0] * int(fast.sum())
+
+
 def key_fin_specs(tk, wt, kw) -> list:
     """finalize_csr's arguments for each key finalize of a protocol_tick
     call: the key stage's merged result computed on wt's device (K13), a
@@ -1139,7 +1258,7 @@ def tick_bound(tk, args, kw, out):
     in place are the tick's outputs, not inputs again, and no stage's
     scratch counts. Operations: the resolve stages' (K13's and K14's
     rules), 3 per slot word of a key finalize, 4 per interval x range row
-    of a range finalize, 4 per pair of quorum lanes."""
+    of a range finalize, K16's (quorum_ops)."""
     import torch
     wt = args[0]
     reads = {}
@@ -1175,7 +1294,7 @@ def tick_bound(tk, args, kw, out):
         take(c[:-1])
     if kw.get("quorum") is not None:
         take(kw["quorum"])
-        ops += 4 * kw["quorum"][0].shape[0] ** 2
+        ops += quorum_ops(kw["quorum"])
     for r in kw.get("cmd_repairs", ()):
         take(r)
     for planes, _cap in kw.get("execs", ()):
@@ -1277,8 +1396,7 @@ def bound_inputs(tk, fn_name, args, kw, out):
         return (2 * rows * words * packed.element_size(), 0,
                 lambda: packed[r:r + rows, w:w + words].clone())
     if fn_name == "quorum_count":
-        t = args[0].shape[0]
-        return nbytes(args) + nbytes(out), 4 * t * t, None
+        return nbytes(args) + nbytes(out), quorum_ops(args[:4]), None
     if fn_name in ("deps_resolve", "fused_deps_resolve",
                    "node_fused_deps_resolve"):
         if fn_name == "deps_resolve":
@@ -1368,16 +1486,25 @@ def bound_inputs(tk, fn_name, args, kw, out):
         return nbytes(args) + nbytes(out), 0, None
     if fn_name == "max_conflict":
         subj, bm, ex, valid = args
-        # the word ANDs the data needs (a row stops at its first meeting
-        # word) over valid rows, then 3 lane compares per overlapping row
+        # the word ANDs the data needs over valid rows: the subject's
+        # nonzero words only (none for an all-zero subject), a row
+        # stopping at its first meeting word; then 3 lane compares per
+        # overlapping row
         meet = (subj[:, None, :] & bm[None, :, :]) != 0
-        first = torch.where(meet.any(-1),
-                            meet.to(torch.int8).argmax(-1) + 1,
-                            torch.full(meet.shape[:2], bm.shape[1],
-                                       device=bm.device))
-        ands = int((first * valid[None, :]).sum())
-        overlaps = int((meet.any(-1) & valid[None, :]).sum())
-        return nbytes(args) + nbytes(out), ands + 3 * overlaps, None
+        upto = torch.cumsum((subj != 0).to(torch.int64), -1)   # [B, nw]
+        first = meet.to(torch.int8).argmax(-1)                  # [B, cap]
+        need = torch.where(meet.any(-1), upto.gather(1, first),
+                           upto[:, -1:].expand_as(first))
+        ands = int((need * valid[None, :]).sum())
+        hits = meet.any(-1) & valid[None, :]                    # [B, cap]
+        overlaps = int(hits.sum())
+        # the bytes the function needs: the subjects and the valid lane;
+        # of each valid row, the words nonzero in some subject, once; the
+        # exec_ts of each row meeting some subject, once; the outputs
+        used = int((subj != 0).any(0).sum())
+        bytes_ = (nbytes(subj, valid) + 4 * used * int(valid.sum())
+                  + 12 * int(hits.any(0).sum()) + nbytes(out))
+        return bytes_, ands + 3 * overlaps, None
     if fn_name in ("execution_frontier", "fused_execution_frontier",
                    "frontier_compact"):
         planes = ((args,) if fn_name == "execution_frontier" else args[0])
@@ -2176,21 +2303,25 @@ def run(rehearse: bool) -> dict:
         from accord_tpu_torch.tools import deps_block_variants as dbv
         from accord_tpu_torch.tools import dense_dag_variants as ddv
         from accord_tpu_torch.tools import range_block_variants as rbv
+        from accord_tpu_torch.tools import quorum_conflict_variants as qcv
         from accord_tpu_torch.tools import range_finalize_variants as rfv
         parent = dbv.start_build()
         rparent = rbv.start_build()
         fparent = rfv.start_build()
         dparent = ddv.start_parent_build()
+        qparent = qcv.start_build()
         build_s = build_phase()
         dbv.finish_build(parent)
         rbv.finish_build(rparent)
         rfv.finish_build(fparent)
         ddv.finish_parent_build(dparent)
+        qcv.finish_build(qparent)
         log(f"build: {build_s:.2f} s (all csrc/*.cu, nvcc in parallel; the "
             "parent's key body, tools/deps_block_parent.cu, range body "
             "and K3, tools/range_block_parent.cu, K6, "
-            "tools/range_finalize_parent.cu, and K21, "
-            "tools/dense_dag_parent.cu, beside them)")
+            "tools/range_finalize_parent.cu, K21, "
+            "tools/dense_dag_parent.cu, and K16 and K7, "
+            "tools/quorum_conflict_parent.cu, beside them)")
 
     ops = 800 if not rehearse else 120
     launches = {}
@@ -2589,7 +2720,9 @@ def run(rehearse: bool) -> dict:
                                     "range_parent_vs_new",
                                     "stage_parent_vs_new",
                                     "k6_parent_vs_new",
-                                    "k21_parent_vs_new")
+                                    "k21_parent_vs_new",
+                                    "k16_parent_vs_new",
+                                    "k7_parent_vs_new", "geometry")
                if k in head},
             "launches_by_path": {p: launches[p][name] for p in launches}}
         for label, r in labelled:
@@ -2637,8 +2770,11 @@ def parent_vs_new_line() -> dict:
     range batch (the whole call), the 10k tick's replay, and the sharded
     10k tick's key stage (its replay); under "range_body", the range body's
     and K3's beside theirs (RANGE_VS_PARENT_KEYS, and the sharded key+range
-    leg's range stage); under "k6" and "k21", K6's and K21's beside their
-    parents' (K6_VS_PARENT, K21_VS_PARENT: by kernel_report's label)."""
+    leg's range stage); under "k6", "k21", "k16" and "k7", K6's, K21's,
+    K16's and K7's beside their parents' (K6_VS_PARENT, K21_VS_PARENT,
+    K16_VS_PARENT, K7_VS_PARENT: by kernel_report's label; K16 also at
+    the 10k tick's lane tiers and its whole replay, K7 at (64, 16,384,
+    1,024))."""
     out = {}
     for key, (label, fn) in PARENT_VS_NEW_KEYS.items():
         got = PARENT_VS_NEW.get((label, fn))
@@ -2657,6 +2793,10 @@ def parent_vs_new_line() -> dict:
         out["k6"] = dict(K6_VS_PARENT)
     if K21_VS_PARENT:
         out["k21"] = dict(K21_VS_PARENT)
+    if K16_VS_PARENT:
+        out["k16"] = dict(K16_VS_PARENT)
+    if K7_VS_PARENT:
+        out["k7"] = dict(K7_VS_PARENT)
     return out
 
 
@@ -2840,7 +2980,8 @@ def cluster_legs(device: str, cuda: bool, tk, launches, recs) -> dict:
               "cmd leg: K16 never ran")
     out["cmd"] = {"acked": mega.acked, "wall_s": wall, **snap,
                   **{k: v for k, v in cmd_counters(mega).items()
-                     if "deferred" in k}}
+                     if "deferred" in k},
+                  "quorum_lane_mix": recs["mega_cmd"].quorum_mix}
     log(f"cmd_leg[{device}]: {json.dumps(out['cmd'])}; launches "
         f"{launches['mega_cmd']}")
     # exec in the megakernel: seed 13, 40 ops, 4 nodes, rf 3, 2 stores
@@ -3078,9 +3219,48 @@ def merged_tick(device: str, cuda: bool, rehearse: bool, tk) -> dict:
         check(pair["bit_equal"], "merged tick: the parent's key body "
               "answers differently")
         PARENT_VS_NEW["tick_10k_replay"] = out["parent_vs_new"] = pair
+        out["k16"] = k16_tiers(tk, device, wt, kw)
     log(f"merged_tick[{device}]: {json.dumps(out)}")
     out["fin_table"] = fin_table(device, cuda, tk, wt, kw)
     return {"out": out, "args": ((wt,), kw)}
+
+
+def k16_tiers(tk, device: str, wt, kw) -> dict:
+    """K16 beside the parent's (tools/quorum_conflict_variants) and the
+    uncompacted form's at 64, 256, 1,024 and 4,096 lanes of the 10k
+    tick's lane mix (each call bit-equal to the plain version and to
+    both), with its launch geometry
+    (the cluster the occupancy API must place: at 4,096 lanes all 16
+    clusters of 8 at once), and the 10k tick's whole replay with each K16
+    (its key stage and quorum outputs bit-equal)."""
+    from accord_tpu_torch.tools import quorum_conflict_variants as qcv
+    out = {}
+    for t in qcv.QUORUM_TIERS:
+        lanes = qcv.tick_lanes(t, t, device)
+        err = max_abs_err(tuple(x.cpu() for x in tk.quorum_count(*lanes, 2)),
+                          tk.quorum_count_plain(*(x.cpu() for x in lanes),
+                                                2))
+        geo = tk.quorum_geometry(t)
+        check(err == 0, f"quorum_count differs from its plain version at "
+              f"{t} lanes")
+        check(geo["max_active"] >= min(geo["clusters"], 16),
+              f"quorum_count: the card holds {geo['max_active']} clusters "
+              f"of {geo['cluster']} at once, not {geo['clusters']}")
+        pair = qcv.quorum_pair(lanes, 2)
+        check(pair["bit_equal"], f"quorum_count: the parent's K16 answers "
+              f"differently at {t} lanes")
+        pair["uncompacted"] = qcv.quorum_pair(
+            lanes, 2, parent=qcv.uncompacted_kernels)
+        check(pair["uncompacted"]["bit_equal"], f"quorum_count: the "
+              f"uncompacted K16 answers differently at {t} lanes")
+        out[str(t)] = dict(pair, geometry=geo)
+    out["tick_10k_replay"] = qcv.tick_pair(wt, kw)
+    check(out["tick_10k_replay"]["bit_equal"], "merged tick: the parent's "
+          "K16 answers differently")
+    K16_VS_PARENT.update({f"lanes_{k}": v for k, v in out.items()
+                          if k != "tick_10k_replay"},
+                         tick_10k_replay=out["tick_10k_replay"])
+    return out
 
 
 def fin_table(device: str, cuda: bool, tk, wt, kw) -> dict:

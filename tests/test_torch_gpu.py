@@ -18,13 +18,16 @@ from accord_tpu_torch.ops import kernels as tk
 from accord_tpu_torch.ops.encoding import WITNESS_TABLE
 from torch_kernel_cases import (ARENA_SCATTER_CASES, CLOSURE_CASES,
                                 CLOSURE_ITERS, CMD_CASES, CMD_SCALARS,
-                                DAG_CASES, DEPS_CASES, KEY_BODY_CASES,
-                                KEY_BODY_RUN_CASES, KEY_SHARD_CASES,
-                                RANGE_BODY_CASES, RANGE_FIN_CASES,
-                                arena_scatter_case, closure_case, cmd_case,
+                                CONFLICT_CASES, DAG_CASES, DEPS_CASES,
+                                KEY_BODY_CASES, KEY_BODY_RUN_CASES,
+                                KEY_SHARD_CASES, QUORUM_CARD_TIERS,
+                                QUORUM_CASES, RANGE_BODY_CASES,
+                                RANGE_FIN_CASES, arena_scatter_case,
+                                closure_case, cmd_case, conflict_case,
                                 dag_case, dag_levels, deps_case,
                                 finalize_many_tiles, key_body_case,
-                                pack_words, range_body_case, range_fin_case)
+                                pack_words, quorum_case, quorum_lanes,
+                                range_body_case, range_fin_case)
 
 pytestmark = pytest.mark.gpu
 I32_MIN = np.iinfo(np.int32).min
@@ -458,8 +461,10 @@ def test_range_finalize_kernel(cuda, out_cap):
                                                            out_cap))
 
 
-@pytest.mark.parametrize("b,cap,k", [(8, 4096, 128), (64, 16384, 1024)])
-def test_max_conflict_kernel(cuda, b, cap, k):
+def _conflict_shape(b, cap, k):
+    """max_conflict's inputs at (b, cap, k) from a seed: subject 0 all
+    zero, subject 1 meeting one row whose lanes are all INT32_MIN, the
+    rest 2 buckets each; ~1 bucket a row, exact exec_ts ties."""
     rng = np.random.default_rng(b + cap)
     bm = _words(rng, (cap, k // 32)) & _words(rng, (cap, k // 32)) \
         & _words(rng, (cap, k // 32)) & _words(rng, (cap, k // 32)) \
@@ -479,15 +484,34 @@ def test_max_conflict_kernel(cuda, b, cap, k):
     valid[only] = True
     ex[only] = I32_MIN
     subj[1, 0] = 1
-    args = [_t(subj), _t(bm), _t(ex), _t(valid)]
+    return [_t(subj), _t(bm), _t(ex), _t(valid)], only
+
+
+@pytest.mark.parametrize("case", [(8, 4096, 128), (64, 16384, 1024),
+                                  *CONFLICT_CASES], ids=str)
+def test_max_conflict_kernel(cuda, case):
+    """K7 against its plain version, ONE launch a call: at the inline
+    leg's shape and at (64, 16,384, 1,024) (four row batches a subject),
+    and on the shared cases the CPU tests hold the plain version to the
+    JAX kernel on (all-zero subjects beside live ones, ties first met in
+    the last, ragged row batch, one all-INT32_MIN meeting row, every row
+    invalid, K 32 and 1,024, a subject of six nonzero words whose rows
+    meet only the sixth)."""
+    if isinstance(case, str):
+        subj, bits, ex, valid = conflict_case(case)
+        args = [_t(pack_words(subj)), _t(pack_words(bits)), _t(ex),
+                _t(valid)]
+    else:
+        args, only = _conflict_shape(*case)
     plain = tk.max_conflict(*args)
     n0 = tk.LAUNCHES["max_conflict"]
     got = tk.max_conflict(*_on(args, cuda))
     torch.cuda.synchronize()
     assert tk.LAUNCHES["max_conflict"] == n0 + 1
     _eq(plain, got)
-    assert int(plain[1][0]) == -1 and int(plain[1][1]) == only
-    assert (plain[1][2:] >= 0).all()
+    if not isinstance(case, str):
+        assert int(plain[1][0]) == -1 and int(plain[1][1]) == only
+        assert (plain[1][2:] >= 0).all()
 
 
 def _exec_plane(rng, cap, pending=0.6):
@@ -973,16 +997,70 @@ def _quorum(rng, t):
     return txn, ts, code, valid
 
 
-@pytest.mark.parametrize("t", [64, 256, 1024, 4096])
+@pytest.mark.parametrize("t", [64, 256, 1024, *QUORUM_CARD_TIERS,
+                               *QUORUM_CASES], ids=str)
 def test_quorum_count_kernel(cuda, t):
-    """K16 against its plain version at each lane tier."""
-    lanes = [_t(a) for a in _quorum(np.random.default_rng(t), t)]
-    plain = tk.quorum_count(*lanes, 2)
+    """K16 against its plain version, ONE launch a call: at each lane tier
+    (one CTA and a cluster of 1 at 64 lanes; clusters of 2 and 8; above
+    the ladder at 8,192 and 16,384, a CTA looping over several chunks of
+    its slice) and on the shared cases the CPU tests hold the plain
+    version to the JAX stage on. The occupancy API places the cluster."""
+    if isinstance(t, str):
+        lanes, qsize = quorum_case(t)
+        lanes = [_t(a) for a in lanes]
+    else:
+        lanes, qsize = [_t(a) for a in _quorum(np.random.default_rng(t),
+                                               t)], 2
+    n = lanes[0].shape[0]
+    plain = tk.quorum_count(*lanes, qsize)
     n0 = tk.LAUNCHES["quorum_count"]
-    got = tk.quorum_count(*(x.to(cuda) for x in lanes), 2)
+    got = tk.quorum_count(*(x.to(cuda) for x in lanes), qsize)
     torch.cuda.synchronize()
     assert tk.LAUNCHES["quorum_count"] == n0 + 1
     _eq(plain, got)
+    geo = tk.quorum_geometry(n)
+    assert geo["max_active"] >= 1, geo
+    if n == 64:
+        assert geo["cluster"] == 1, geo
+    if n == 4096:
+        # the 10k tick's tier: clusters of 8, every one resident at once
+        assert geo["cluster"] == 8, geo
+        assert geo["max_active"] >= geo["clusters"], geo
+
+
+@pytest.mark.parametrize("t", [100, 4096])
+def test_quorum_stage_replays_twice(cuda, t):
+    """K16 as the megakernel's quorum stage: a protocol_tick graph of the
+    stage alone, called twice with the same lanes and then with new lanes
+    of the same shape (each call after the first a replay of its graph),
+    equal to the plain version every time."""
+    wt = _t(WITNESS_TABLE)
+    c0 = tk.CAPTURES["protocol_tick"]
+    l0 = tk.LAUNCHES["quorum_count"]
+    for seed in (t, t, t + 1):
+        lanes = quorum_lanes(t, seed)
+        plain = tk.quorum_count(*(_t(a) for a in lanes), 3)
+        got = tk.protocol_tick(wt.to(cuda), quorum=lanes, quorum_size=3)[4]
+        torch.cuda.synchronize()
+        _eq(plain, got)
+    assert tk.CAPTURES["protocol_tick"] - c0 <= 1
+    assert tk.LAUNCHES["quorum_count"] - l0 == 3
+
+
+def test_quorum_and_max_conflict_one_kernel_a_call(cuda):
+    """One K16 call (a cluster of 1 at 64 lanes, of 8 at 4,096) and one K7
+    call (pads beside a live subject), each captured in a CUDA graph, is
+    ONE kernel node and no other (no memset or copy)."""
+    calls = []
+    for t in (64, 4096):
+        lanes = [_t(a).to(cuda) for a in quorum_lanes(t, t)]
+        calls.append(lambda lanes=lanes: tk.quorum_count(*lanes, 2))
+    subj, bits, ex, valid = conflict_case("ties_in_last_batch")
+    args = _on([_t(pack_words(subj)), _t(pack_words(bits)), _t(ex),
+                _t(valid)], cuda)
+    calls.append(lambda: tk.max_conflict(*args))
+    for fn in calls:
+        assert _graph_node_types(fn) == [0]
 
 
 def _fin_key(rng, kind, span, k_w, out_cap, kc=40):

@@ -30,7 +30,8 @@ from tests.test_torch_cmd_kernels import _columns, _ops, _repair_inputs
 from tests.test_torch_exec_kernels import _jax as _jplane
 from tests.test_torch_exec_kernels import _plane
 from tests.test_torch_exec_kernels import _port as _tplane
-from torch_kernel_cases import KEY_BODY_CASES, key_body_case, pack_words
+from torch_kernel_cases import (KEY_BODY_CASES, QUORUM_CASES, key_body_case,
+                                pack_words, quorum_case)
 
 K = 128
 KC = 40
@@ -383,7 +384,42 @@ def test_quorum_count_plain_matches_jax(case):
         fast, votes, met = (g.tolist() for g in got)
         assert fast == [True, True, True, False, False]
         assert votes[:3] == [2, 2, 1]
+
         assert met == [True, True, False, False, False]
+
+
+@pytest.mark.parametrize("name", list(QUORUM_CASES))
+def test_quorum_count_shared_cases(name):
+    """K16's plain version (and the plain protocol_tick's quorum stage) vs
+    the JAX stage on the shared cases the card tests hold the kernel to:
+    t 100 and 1,000 (no tile multiple), one txn on every lane, no fast
+    lane, qsize 1 and above t, padding whose txn (0, 0, 0) meets real fast
+    lanes', codes with bits above the low three."""
+    lanes, qsize = quorum_case(name)
+    ref = jk.protocol_tick(jnp.zeros((8, 8), jnp.bfloat16),
+                           quorum=tuple(jnp.asarray(x) for x in lanes),
+                           quorum_size=qsize)[4]
+    got = tk.quorum_count(*(_t(x) for x in lanes), qsize)
+    for r, g in zip(ref, got):
+        _same(r, g)
+    for r, g in zip(ref, tk.protocol_tick(_t(WITNESS_TABLE), quorum=lanes,
+                                          quorum_size=qsize)[4]):
+        _same(r, g)
+    fast, votes, met = (np.asarray(r) for r in ref)
+    t = len(fast)
+    pad = slice(t - t // 5, t)
+    if name == "no_fast":
+        assert not fast.any() and not votes.any()
+    elif name == "one_txn":
+        assert (votes[:t - t // 5] == fast.sum()).all()
+    elif name == "qsize_above_t":
+        assert fast.any() and not met.any()
+    elif name == "qsize1":
+        assert (met == fast).all()
+    elif name == "pad_meets_fast":
+        assert (votes[pad] > 0).all() and not fast[pad].any()
+    else:
+        assert fast.any() and met.any()
 
 
 def _fin_key(rng, kind, span, kc, w, out_cap, b_plan):

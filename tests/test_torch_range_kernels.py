@@ -25,8 +25,11 @@ from accord_tpu.ops.encoding import WITNESS_TABLE
 from accord_tpu_torch.ops import carry
 from accord_tpu_torch.ops import kernels as tk
 from accord_tpu_torch.ops import node_lane as nl
-from torch_kernel_cases import (RANGE_BODY_CASES, RANGE_FIN_CASES,
-                                pack_words, range_body_case, range_fin_case)
+from torch_kernel_cases import (CONFLICT_BATCH_ROWS, CONFLICT_CASES,
+                                MANY_WORD_BUCKETS, RANGE_BODY_CASES,
+                                RANGE_FIN_CASES,
+                                conflict_case, pack_words, range_body_case,
+                                range_fin_case)
 
 B, RCAP, CAP, K = 16, 96, 128, 128
 I32_MIN = np.iinfo(np.int32).min
@@ -311,6 +314,41 @@ def test_max_conflict(seed):
     assert rows[0] == -1 and (lanes[0] == I32_MIN).all()
     assert rows[1] == only and (lanes[1] == I32_MIN).all()
     assert (rows[2:] >= 0).any()
+
+
+@pytest.mark.parametrize("name", list(CONFLICT_CASES))
+def test_max_conflict_shared_cases(name):
+    """K7's plain version vs the JAX kernel on the shared cases the card
+    tests hold the kernel to: all-zero subjects beside live ones, exact
+    ties whose lowest row lies past the card's first row batch, one
+    meeting row with all-INT32_MIN lanes, every row invalid, K 32 (one
+    word) and K 1,024 (32 words), a subject of six nonzero words whose
+    rows meet only the sixth."""
+    subj, bits, ex, valid = conflict_case(name)
+    ref = jk.max_conflict(*_j(subj.astype(np.float32),
+                              bits.astype(np.float32), ex, valid))
+    got = tk.max_conflict(_t(pack_words(subj)), _t(pack_words(bits)),
+                          _t(ex), _t(valid))
+    for rr, g in zip(ref, got):
+        _same(rr, g)
+    lanes, rows = (np.asarray(x) for x in ref)
+    zero = ~subj.any(1)
+    assert zero.any() and (rows[zero] == -1).all() \
+        and (lanes[zero] == I32_MIN).all()
+    if name == "all_rows_invalid":
+        assert (rows == -1).all()
+    else:
+        assert (rows >= 0).any()
+    if name == "ties_in_last_batch":
+        assert rows[1] == 5000 > CONFLICT_BATCH_ROWS
+        assert (lanes[1] == 7).all()
+    if name == "single_min_row":
+        assert rows[1] == len(valid) - 5 and (lanes[1] == I32_MIN).all()
+    if name == "meet_past_fourth_word":
+        words = np.flatnonzero(pack_words(subj)[1])
+        assert len(words) == 6
+        assert not bits[:, list(MANY_WORD_BUCKETS[:-1])].any()
+        assert rows[1] >= 0 and bits[rows[1], MANY_WORD_BUCKETS[-1]]
 
 
 def test_new_wrappers_use_plain_version_only_on_cpu():

@@ -670,3 +670,127 @@ def dag_wide_row_hazards(words):
         at = np.flatnonzero(nz[r])
         inside[r] = at[DAG_KEPT_WORDS - 1] // 32 == at[DAG_KEPT_WORDS] // 32
     return wide, inside
+
+
+# -- K16 quorum_count (csrc/quorum.cu) ----------------------------------------
+# name -> (lanes t, quorum size, seed, kind); the card adds 4,096, 8,192
+# and 16,384 lanes (QUORUM_CARD_TIERS: clusters of 8, a CTA looping over
+# several chunks of its slice above the ladder)
+QUORUM_CASES = {
+    "t100": (100, 2, 1, "random"),         # one CTA, a cluster of 1
+    "t1000": (1000, 2, 2, "random"),       # a cluster of 7, ragged slices
+    "one_txn": (256, 2, 3, "one_txn"),     # every lane the same txn
+    "no_fast": (256, 2, 4, "no_fast"),
+    "qsize1": (256, 1, 5, "random"),
+    "qsize_above_t": (256, 257, 6, "random"),
+    "pad_meets_fast": (256, 2, 7, "pad_meets_fast"),
+    "high_code_bits": (256, 2, 8, "high_code_bits"),
+}
+QUORUM_CARD_TIERS = (4096, 8192, 16384)
+
+
+def quorum_lanes(t, seed, kind="random"):
+    """(txn i32[t, 3], ts i32[t, 3], code i32[t], valid bool[t]): a tick's
+    PreAccept transition lanes, the last fifth padding (txn 0, ts
+    INT32_MIN, code 0, invalid). kind: "random" (txns from a small pool,
+    70% echoed, codes 0 0 0 1 2 8 9 -1), "one_txn" (every lane one txn),
+    "no_fast" (no lane echoes its txn), "pad_meets_fast" (real fast lanes
+    with txn (0, 0, 0), which the padding's txn meets), "high_code_bits"
+    (codes with bits above the low three: 8 and 16 pass, 9, -1 and 15 do
+    not)."""
+    rng = np.random.default_rng(seed)
+    n = t - t // 5
+    pool = rng.integers(-5, 5, (max(2, n // 3), 3)).astype(np.int32)
+    txn = np.zeros((t, 3), np.int32)
+    txn[:n] = pool[rng.integers(0, len(pool), n)]
+    if kind == "one_txn":
+        txn[:] = pool[0]
+    echo = rng.random((n, 1)) < 0.7
+    ts = np.full((t, 3), I32_MIN, np.int32)
+    ts[:n] = np.where(echo, txn[:n], txn[:n] + 1)
+    code = np.zeros(t, np.int32)
+    code[:n] = rng.choice([0, 0, 0, 1, 2, 8, 9, -1], n)
+    if kind == "no_fast":
+        ts[:n] = txn[:n] + 1
+    elif kind == "pad_meets_fast":
+        zero = np.arange(0, n, 7)
+        txn[zero] = ts[zero] = 0
+        code[zero] = 0
+    elif kind == "high_code_bits":
+        code[:n] = rng.choice([8, 16, 9, -1, 15, -8], n)
+    valid = np.zeros(t, bool)
+    valid[:n] = True
+    return txn, ts, code, valid
+
+
+def quorum_case(name):
+    """(lanes, qsize) of the QUORUM_CASES case `name`."""
+    t, qsize, seed, kind = QUORUM_CASES[name]
+    return quorum_lanes(t, seed, kind), qsize
+
+
+# -- K7 max_conflict (csrc/max_conflict.cu) ---------------------------------
+# name -> (subjects b, arena rows cap, buckets k, seed, kind); every case
+# has all-zero subjects beside live ones (a bucketed batch's pads)
+CONFLICT_CASES = {
+    "zero_beside_live": (8, 512, 128, 1, "random"),
+    "ties_in_last_batch": (8, 7000, 128, 2, "ties_late"),
+    "single_min_row": (8, 512, 128, 3, "single_min"),
+    "all_rows_invalid": (8, 512, 128, 4, "invalid"),
+    "nw1": (8, 512, 32, 5, "random"),
+    "nw32": (8, 512, 1024, 6, "random"),
+    "meet_past_fourth_word": (8, 512, 1024, 7, "many_words"),
+}
+# the buckets of "meet_past_fourth_word"'s subject 1, in six words; its
+# rows meet only the last one's
+MANY_WORD_BUCKETS = (33, 97, 161, 300, 420, 900)
+# the rows one batch of the card's kernel covers (1,024 threads x 4 rows)
+CONFLICT_BATCH_ROWS = 4096
+
+
+def conflict_case(name):
+    """max_conflict's inputs of the CONFLICT_CASES case `name` as numpy:
+    (subject bits bool[b, k], arena bits bool[cap, k], exec_ts i32[cap, 3],
+    valid bool[cap]). Subjects 0, 2 and the last are all zero; live ones
+    hold 1-3 buckets. exec_ts has exact ties, INT32_MIN lane 0s and
+    all-INT32_MIN rows. kind "ties_late": subject 1's best triple is tied
+    on rows 5,000, 5,001 and 6,999 only (its lowest winner past the first
+    CONFLICT_BATCH_ROWS rows, the last batch ragged); "single_min":
+    subject 1 meets one row, whose lanes are all INT32_MIN; "invalid":
+    every row invalid; "many_words": subject 1 holds MANY_WORD_BUCKETS,
+    six buckets in six words, and rows meet only the sixth."""
+    b, cap, k, seed, kind = CONFLICT_CASES[name]
+    rng = np.random.default_rng(seed)
+    bits = rng.random((cap, k)) < 3.0 / k
+    ex = rng.integers(-2, 2, (cap, 3)).astype(np.int32)
+    ex[rng.random(cap) < 0.2, 0] = I32_MIN
+    ex[rng.random(cap) < 0.1] = I32_MIN
+    valid = rng.random(cap) < 0.9
+    subj = np.zeros((b, k), bool)
+    for i in range(b):
+        if i not in (0, 2, b - 1):
+            subj[i, rng.integers(0, k, 1 + i % 3)] = True
+    if kind == "ties_late":
+        subj[1] = False
+        subj[1, 5] = True
+        bits[:, 5] = rng.random(cap) < 0.3
+        ex[bits[:, 5], 0] = np.minimum(ex[bits[:, 5], 0], 1)
+        late = [5000, 5001, 6999]
+        bits[late, 5] = True
+        valid[late] = True
+        ex[late] = (7, 7, 7)
+    elif kind == "single_min":
+        subj[1] = False
+        subj[1, 0] = True
+        bits[:, 0] = False
+        bits[cap - 5, 0] = True
+        valid[cap - 5] = True
+        ex[cap - 5] = I32_MIN
+    elif kind == "invalid":
+        valid[:] = False
+    elif kind == "many_words":
+        subj[1] = False
+        subj[1, list(MANY_WORD_BUCKETS)] = True
+        bits[:, list(MANY_WORD_BUCKETS[:-1])] = False
+        bits[:, MANY_WORD_BUCKETS[-1]] = rng.random(cap) < 0.05
+    return subj, bits, ex, valid
