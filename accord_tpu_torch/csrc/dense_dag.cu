@@ -56,8 +56,18 @@
 //
 // K20 execution_wavefronts -- replaces `execution_wavefronts` (:113):
 //   level'[i] = max(level[i], max_j adj[i, j] * (level[j] + 1)), from
-//   zeros, `max_levels` rounds, double-buffered (one launch a round reads
-//   the previous round's levels). A warp takes a row of the packed matrix.
+//   zeros, `max_levels` Jacobi rounds, which give min(max_levels, L(i)),
+//   L(i) the longest dependency path from i (infinite on a cycle). ONE
+//   persistent cooperative launch (see wavefront_kernel): a block owns a
+//   run of rows, packs them from the bool matrix itself and keeps their
+//   column lists in shared memory (a row too wide for them is read packed
+//   from L2), then updates the levels in place, clamped at max_levels,
+//   KW_SWEEPS sweeps between grid barriers, each sweep reading a copy of
+//   the levels refreshed into shared memory; the barrier carries whether
+//   any level changed, and the first phase that changes none ends the
+//   work (exact: the fixpoint is the answer). Bound: bytes, the bool
+//   matrix read once (67 MB at N 8,192). The shard entry `wavefront_rows`
+//   keeps the one-round kernel.
 //
 // K21 dag_wavefronts_packed -- replaces `dag_wavefronts_packed` (:197):
 //   per round r: blocked[i] = any_w(adj[i, w] & ~applied[w]); ready =
@@ -717,31 +727,379 @@ extern "C" int wavefront_rows(const void* p, const void* lvl, int n,
   return 0;
 }
 
-// adj bool[n, n] -> out i32[n]; packed scratch [n, nw]; lb scratch i32[n]
+// The K20 kernel's sizes: KW_TH threads a block (a block an SM); one
+// block up to KW_ONE rows (its levels in shared memory only, no grid
+// barrier), else at least KW_ROWS rows a block; KW_SMEM bytes of dynamic
+// shared memory a block, holding the block's row slots, its rows' column
+// lists and a copy of the levels (up to KW_LVL bytes of them, else they
+// are read from L2); KW_U (row, 32-word group) items a warp loads at once
+// while packing; KW_SWEEPS sweeps of a block's rows between two grid
+// barriers.
+#define KW_TH 1024
+#define KW_ONE 128
+#define KW_ROWS 96
+#define KW_SMEM (160 * 1024)
+#define KW_LVL (96 * 1024)
+#define KW_U 4
+#define KW_SWEEPS 8
+
+// byte i of x nonzero -> bit i (four bits)
+__device__ __forceinline__ unsigned kw_bits4(unsigned x) {
+  return ((__vcmpne4(x, 0u) & 0x01010101u) * 0x08102040u) >> 27;
+}
+
+__device__ __forceinline__ unsigned kw_bits16(uint4 v) {
+  return kw_bits4(v.x) | (kw_bits4(v.y) << 4) | (kw_bits4(v.z) << 8) |
+         (kw_bits4(v.w) << 12);
+}
+
+// word[u] = this lane's packed word (32 g[u] + lane) of bool row rows[u]
+// (0 past the row, or where rows[u] < 0): vec, 16-byte loads (two a
+// 32-word group, every load of the KW_U items issued first, halves joined
+// by shuffles); else a byte a lane and a ballot a word
+__device__ __forceinline__ void kw_words(const unsigned char* __restrict__ adj,
+                                         int n, const int (&rows)[KW_U],
+                                         const int (&g)[KW_U], int lane,
+                                         bool vec, unsigned (&word)[KW_U]) {
+  if (vec) {
+    uint4 a[KW_U], b[KW_U];
+#pragma unroll
+    for (int u = 0; u < KW_U; ++u) {
+      const long long c = 1024LL * g[u] + 16 * lane;
+      const unsigned char* row = adj + (size_t)max(rows[u], 0) * n;
+      const bool in = rows[u] >= 0;
+      a[u] = in && c < n ? __ldcs((const uint4*)(row + c))
+                         : make_uint4(0, 0, 0, 0);
+      b[u] = in && c + 512 < n ? __ldcs((const uint4*)(row + c + 512))
+                               : make_uint4(0, 0, 0, 0);
+    }
+    const int src = 2 * (lane & 15);
+#pragma unroll
+    for (int u = 0; u < KW_U; ++u) {
+      const unsigned ma = kw_bits16(a[u]), mb = kw_bits16(b[u]);
+      const unsigned wa = __shfl_sync(0xffffffffu, ma, src) |
+                          (__shfl_sync(0xffffffffu, ma, src + 1) << 16);
+      const unsigned wb = __shfl_sync(0xffffffffu, mb, src) |
+                          (__shfl_sync(0xffffffffu, mb, src + 1) << 16);
+      word[u] = lane < 16 ? wa : wb;
+    }
+    return;
+  }
+#pragma unroll 1
+  for (int u = 0; u < KW_U; ++u) {
+    const unsigned char* row = adj + (size_t)max(rows[u], 0) * n;
+    unsigned char x[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const long long c = 32LL * (32 * g[u] + j) + lane;
+      x[j] = rows[u] >= 0 && c < n ? row[c] : 0;
+    }
+    unsigned w = 0u;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const unsigned bal = __ballot_sync(0xffffffffu, x[j] != 0);
+      if (lane == j) w = bal;
+    }
+    word[u] = w;
+  }
+}
+
+// The round's vote and grid barrier: every block arrives with whether it
+// changed a level (arrival count in the low 16 bits of flags[0], changed
+// blocks in the high 16); the last to arrive resets the count and
+// advances the generation by 2 if any block changed a level, else by 1,
+// so the vote rides the release. *g is thread 0's view of the
+// generation (read once at the start: it moves only at a barrier, which
+// needs every block). One block: a block barrier. Returns whether any
+// block changed a level.
+__device__ __forceinline__ bool kw_vote(unsigned* flags, int changed,
+                                        unsigned* g) {
+  __shared__ unsigned s_any;
+  const int mine = __syncthreads_or(changed);
+  if (gridDim.x == 1) return mine != 0;
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = flags + 1;
+    __threadfence();
+    const unsigned add = mine ? 0x10001u : 1u;
+    const unsigned got = atomicAdd(&flags[0], add) + add;
+    unsigned v;
+    if ((got & 0xffffu) == gridDim.x) {
+      atomicExch(&flags[0], 0u);
+      __threadfence();
+      v = *g + ((got >> 16) ? 2u : 1u);
+      atomicExch(&flags[1], v);
+    } else {
+      while ((v = *gen) == *g) {
+      }
+      __threadfence();
+    }
+    s_any = v - *g - 1u;
+    *g = v;
+  }
+  __syncthreads();
+  return s_any != 0u;
+}
+
+// ONE persistent cooperative launch, a block per run of rpb rows (a warp
+// its rows lr = warp + 32 j). Jacobi rounds from zeros give level_r[i] =
+// min(r, L(i)), L(i) the longest dependency path from i (infinite on a
+// cycle), so the answer is min(max_levels, L(i)): the fixpoint of
+//   level[i] = min(max_levels, max(level[i], max over i's columns j of
+//                                   level[j] + 1)),
+// which updates in place reach from zeros in any order (every value stays
+// at or below the answer, and a sweep that changes nothing ends at it).
+// Setup: a warp reads its bool rows once, the loads of KW_U (row, 32-word
+// group) items issued together (16-byte loads where the rows are 16-byte
+// aligned), keeps each row's columns in its share of shared memory (ecap
+// entries a warp; a word's bits go out a lane a bit or a lane a word,
+// whichever takes fewer steps) and sets the row's level to 1 if it has a
+// column (min(max_levels, L) >= 1); a row too wide for the share is
+// written packed to `packed` and read from there (L2) each sweep. A grid
+// barrier (every level set) carries the vote; then phases of KW_SWEEPS
+// sweeps, a barrier and its vote each, until a phase in which no level
+// changed. A sweep first copies the levels from L2 into shared memory
+// (other blocks write their rows meanwhile: any copy is a lower bound, the
+// freshest only speeds it; beyond KW_LVL bytes each level is read from
+// L2), then takes a warp's rows 4 at a time, a row's columns across the
+// lanes: every level[col] of the 4 rows read at once, a warp max a row,
+// then lane q writes row q's level where it rose. One block (up to
+// KW_ONE rows): the levels live in shared memory only, a phase is one
+// sweep and the barrier the block's. The last block to leave zeroes the
+// barrier's generation and its ticket.
+__global__ void __launch_bounds__(KW_TH, 1)
+wavefront_kernel(const unsigned char* __restrict__ adj, int n, int nw,
+                 int max_levels, unsigned* __restrict__ packed, int* out,
+                 int rpb, int lvl_ints, int ecap, int vec, unsigned* flags) {
+  extern __shared__ __align__(16) int kw_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * rpb;
+  const int rows = min(rpb, n - r0);
+  const bool single = gridDim.x == 1;
+  if (max_levels == 0) {
+    for (int lr = threadIdx.x; lr < rows; lr += KW_TH) out[r0 + lr] = 0;
+    return;
+  }
+  unsigned g = 0u;   // thread 0: the barrier's generation
+  if (!single && threadIdx.x == 0) g = *(volatile unsigned*)(flags + 1);
+  int* s_lv = kw_smem;                    // the levels (lvl_ints > 0)
+  int* s_st = kw_smem + lvl_ints;         // a row's first entry
+  int* s_cnt = s_st + rpb;                // its entries (-1: read packed)
+  int* s_own = s_cnt + rpb;               // its level (its writer's copy)
+  int* E = s_own + rpb + warp * ecap;     // this warp's column lists
+  const int ng = (nw + 31) >> 5;          // 32-word groups a row
+  const int mine = rows > warp ? (rows - warp + 31) >> 5 : 0;
+  const unsigned lt = (1u << lane) - 1u;
+  int changed = 0;
+  int used = 0, cnt = 0;                  // warp-uniform
+  for (int it0 = 0; it0 < mine * ng; it0 += KW_U) {
+    int rr[KW_U], gg[KW_U];
+#pragma unroll
+    for (int u = 0; u < KW_U; ++u) {
+      const int it = it0 + u, j = it / ng;
+      rr[u] = it < mine * ng ? r0 + warp + 32 * j : -1;
+      gg[u] = it - j * ng;
+    }
+    unsigned word[KW_U];
+    kw_words(adj, n, rr, gg, lane, vec != 0, word);
+#pragma unroll
+    for (int u = 0; u < KW_U; ++u) {
+      if (rr[u] < 0) break;                 // uniform across the warp
+      const int j = (it0 + u) / ng;
+      const unsigned w = word[u];
+      const int c = __popc(w);
+      int incl = c;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += y;
+      }
+      const int tot = __shfl_sync(0xffffffffu, incl, 31);
+      if (used + cnt + tot <= ecap) {
+        const int base = 32 * (32 * gg[u] + lane);
+        int* e = E + used + cnt + incl - c;   // this lane's word's entries
+        const unsigned nz = __ballot_sync(0xffffffffu, w != 0u);
+        if (__reduce_max_sync(0xffffffffu, c) <= __popc(nz)) {
+          for (unsigned b = w; b; b &= b - 1u) *e++ = base + __ffs(b) - 1;
+        } else {   // a lane a bit of each nonzero word in turn
+          for (unsigned z = nz; z; z &= z - 1u) {
+            const int s = __ffs(z) - 1;
+            const unsigned ws = __shfl_sync(0xffffffffu, w, s);
+            int* es = E + used + cnt + __shfl_sync(0xffffffffu, incl - c, s);
+            if ((ws >> lane) & 1u)
+              es[__popc(ws & lt)] = 32 * (32 * gg[u] + s) + lane;
+          }
+        }
+      }
+      cnt += tot;
+      if (gg[u] < ng - 1) continue;
+      // row j's last group: keep its list, or read it packed from L2
+      const int lr = warp + 32 * j, i = r0 + lr;
+      if (used + cnt <= ecap) {
+        if (lane == 0) {
+          s_st[lr] = used;
+          s_cnt[lr] = cnt;
+        }
+        used += cnt;
+      } else {
+        if (lane == 0) s_cnt[lr] = -1;
+        for (int q0 = 0; q0 < ng; q0 += KW_U) {
+          int pr[KW_U], pg[KW_U];
+          unsigned pw[KW_U];
+#pragma unroll
+          for (int v = 0; v < KW_U; ++v) {
+            pr[v] = q0 + v < ng ? i : -1;
+            pg[v] = q0 + v;
+          }
+          kw_words(adj, n, pr, pg, lane, vec != 0, pw);
+#pragma unroll
+          for (int v = 0; v < KW_U; ++v) {
+            const int wi = 32 * (q0 + v) + lane;
+            if (pr[v] >= 0 && wi < nw) packed[(size_t)i * nw + wi] = pw[v];
+          }
+        }
+      }
+      if (lane == 0) {
+        (single ? s_lv : out)[i] = cnt > 0 ? 1 : 0;
+        s_own[lr] = cnt > 0 ? 1 : 0;
+        changed |= cnt > 0;
+      }
+      cnt = 0;
+    }
+  }
+  __syncwarp();
+  // every level is set before any is read
+  if (!kw_vote(flags, changed, &g) || max_levels == 1) goto done;
+  for (;;) {
+    changed = 0;
+    for (int sw = 0; sw < (single ? 1 : KW_SWEEPS); ++sw) {
+      if (!single && lvl_ints > 0) {   // the levels' copy, refreshed
+        if (sw > 0) __syncthreads();
+        if ((n & 3) == 0)
+          for (int v = threadIdx.x; v < (n >> 2); v += KW_TH)
+            ((int4*)s_lv)[v] = __ldcg((const int4*)out + v);
+        else
+          for (int v = threadIdx.x; v < n; v += KW_TH)
+            s_lv[v] = __ldcg(out + v);
+        __syncthreads();
+      }
+      for (int j0 = 0; j0 < mine; j0 += 4) {
+        int st[4], c[4], m[4];
+        int most = 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int lr = warp + 32 * (j0 + q);
+          c[q] = j0 + q < mine ? s_cnt[lr] : 0;
+          st[q] = c[q] > 0 ? s_st[lr] : 0;
+          most = max(most, c[q]);
+          m[q] = 0;
+        }
+        for (int k0 = 0; k0 < most; k0 += 32) {
+          int col[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            col[q] = k0 + lane < c[q] ? E[st[q] + k0 + lane] : -1;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (col[q] >= 0)
+              m[q] = max(m[q], (lvl_ints > 0 ? s_lv[col[q]]
+                                             : __ldcg(out + col[q])) + 1);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (c[q] == -1) {   // read packed: the warp walks the row
+            const int i = r0 + warp + 32 * (j0 + q);
+            for (int w = lane; w < nw; w += 32) {
+              unsigned u = __ldcg(packed + (size_t)i * nw + w);
+              for (; u; u &= u - 1u) {
+                const int col = 32 * w + __ffs(u) - 1;
+                m[q] = max(m[q], (lvl_ints > 0 ? s_lv[col]
+                                               : __ldcg(out + col)) + 1);
+              }
+            }
+          }
+          m[q] = __reduce_max_sync(0xffffffffu, m[q]);
+        }
+        if (lane < 4 && j0 + lane < mine) {
+          const int lr = warp + 32 * (j0 + lane);
+          const int mm = lane == 0 ? m[0] : lane == 1 ? m[1]
+                                          : lane == 2 ? m[2] : m[3];
+          const int cur = s_own[lr];
+          const int nv = min(max_levels, max(cur, mm));
+          if (nv != cur) {
+            s_own[lr] = nv;
+            if (lvl_ints > 0) s_lv[r0 + lr] = nv;
+            if (!single) out[r0 + lr] = nv;
+            changed = 1;
+          }
+        }
+      }
+    }
+    if (!kw_vote(flags, changed, &g)) break;
+  }
+done:
+  if (single) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += KW_TH) out[i] = s_lv[i];
+    return;
+  }
+  // every block has passed its last barrier once it takes a ticket
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(&flags[2], 1u) == gridDim.x - 1u) {
+      atomicExch(&flags[1], 0u);
+      atomicExch(&flags[2], 0u);
+    }
+  }
+}
+
+// the blocks of the K20 kernel that fit on the current card at once (its
+// dynamic shared memory allowed once a card)
+static inline int kw_resident() {
+  static int per[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& m = per[dev & 63];
+  if (m <= 0) {
+    cudaFuncSetAttribute(wavefront_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         KW_SMEM);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&m, wavefront_kernel,
+                                                  KW_TH, KW_SMEM);
+  }
+  return m * sm_count();
+}
+
+// adj bool[n, n] -> out i32[n]; packed scratch u32[n, ceil(n/32)] (rows
+// whose columns do not fit shared memory; written before use); flags
+// zeroed scratch u32[3] (the barrier's count and generation, the exit
+// ticket), left zeroed. ONE cooperative launch.
 extern "C" int execution_wavefronts(const void* adj, int n, int max_levels,
-                                    void* packed, void* out, void* lb,
+                                    void* packed, void* out, void* flags,
                                     void* stream) {
   if (n <= 0) return 0;
-  if (max_levels < 0) return (int)cudaErrorInvalidValue;
-  const int nw = (n + 31) / 32;
-  cudaStream_t st = (cudaStream_t)stream;
-  launch_pack((const unsigned char*)adj, n, n, nw, (unsigned*)packed, st);
-  ACCORD_CHECK();
-  int* cur = (int*)out;
-  int* nxt = (int*)lb;
-  cudaMemsetAsync(cur, 0, sizeof(int) * (size_t)n, st);
-  const int grid = grid_cap(n, 8);
-  for (int r = 0; r < max_levels; ++r) {
-    wavefront_round_kernel<<<grid, 256, 0, st>>>((const unsigned*)packed,
-                                                 cur, nxt, n, nw, 0, n);
-    ACCORD_CHECK();
-    int* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  if (cur != (int*)out) launch_copy((int*)out, (const int*)cur, n, st);
-  ACCORD_CHECK();
-  return 0;
+  if (max_levels < 0 || flags == nullptr) return (int)cudaErrorInvalidValue;
+  int nw = (n + 31) / 32;
+  int grid = kw_resident();
+  if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
+  const int want = n <= KW_ONE ? 1 : (n + KW_ROWS - 1) / KW_ROWS;
+  if (want < grid) grid = want;
+  int rpb = (n + grid - 1) / grid;
+  grid = (n + rpb - 1) / rpb;
+  int lvl_ints = grid == 1 || 4LL * n <= KW_LVL ? (n + 3) & ~3 : 0;
+  int ecap = (int)(((long long)KW_SMEM / 4 - lvl_ints - 3LL * rpb) / 32);
+  if (ecap < 0) return (int)cudaErrorInvalidConfiguration;
+  int vec = n % 16 == 0 && ((uintptr_t)adj & 15u) == 0;
+  const unsigned char* a = (const unsigned char*)adj;
+  unsigned* p = (unsigned*)packed;
+  int* o = (int*)out;
+  unsigned* fl = (unsigned*)flags;
+  void* args[] = {&a,   &n,        &nw,   &max_levels, &p,   &o,
+                  &rpb, &lvl_ints, &ecap, &vec,        &fl};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)wavefront_kernel, grid, KW_TH, args, KW_SMEM,
+      (cudaStream_t)stream);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
 }
 
 // ---------------------------------------------------------------- K21

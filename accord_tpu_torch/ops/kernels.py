@@ -1569,25 +1569,41 @@ def _plane_table(ext, planes):
             w_tot)
 
 
+# K9's entries (csrc/exec_frontier.cu), lean launches (_ext.entry): the
+# per-plane arrays (five pointer arrays, the caps) pass as pointers
+_FRONTIER_ARGS = (_I,) + (_VP,) * 8
+_FRONTIER_COMPACT_ARGS = (_I,) + (_VP,) * 6 + (_I,) + (_VP,) * 6
+
+
+def frontier_scratch_bytes(w_tot: int) -> int:
+    """Zeroed scratch bytes of K9's compact entry over w_tot output words.
+    The kernel uses the first word (its exit ticket, left zeroed); the
+    size is a one-spec launch_csr compaction's over the words, so the
+    C entry's scratch contract is unchanged."""
+    return csr_scratch_bytes(1, int(w_tot))
+
+
 def launch_frontier_compact(ext, A, lanes, caps, out_cap: int, outs,
                             scratch) -> None:
     """K9's compact entry on device addresses (`A(x)`, see _addr): lanes
     are the planes' five operands each, caps their row counts, outs
-    (packed, indptr, rows, csum), scratch the compaction's zeroed scratch.
-    frontier_compact and the protocol megakernel's graph both launch it
-    here (two launches, no memset)."""
+    (packed, indptr, rows, csum), scratch frontier_scratch_bytes zeroed
+    bytes. frontier_compact and the protocol megakernel's graph both
+    launch it here (ONE launch: a block an output word, the last block
+    by ticket compacting them)."""
     packed, indptr, rows, csum = (A(o) for o in outs)
-    ext.call("exec_frontier", "frontier_compact", len(lanes),
-             *_plane_arrays(A, lanes, caps), out_cap, packed, indptr, rows,
-             csum, A(scratch), ext.stream())
+    ext.entry("exec_frontier", "frontier_compact", _FRONTIER_COMPACT_ARGS)(
+        len(lanes), *_plane_arrays(A, lanes, caps), out_cap, packed, indptr,
+        rows, csum, A(scratch), ext.stream())
 
 
 def _frontier_cuda(planes) -> torch.Tensor:
     ext = _ext()
     table, w_tot = _plane_table(ext, planes)
-    out = torch.empty(w_tot, dtype=torch.int32, device=planes[0][0].device)
-    ext.call("exec_frontier", "exec_frontier", len(planes), *table,
-             ext.ptr(out), ext.stream())
+    dev = planes[0][0].device
+    out = torch.empty(w_tot, dtype=torch.int32, device=dev)
+    ext.entry("exec_frontier", "exec_frontier", _FRONTIER_ARGS)(
+        len(planes), *table, out.data_ptr(), ext.raw_stream(dev.index))
     return out
 
 
@@ -1667,7 +1683,8 @@ def frontier_compact(planes, out_cap: int):
     launch_frontier_compact(ext, _addr, planes,
                             [p[0].shape[0] for p in planes], out_cap,
                             (packed, indptr, rows, csum),
-                            _VP(_csr_scratch(dev, n * w_tot)))
+                            _VP(zeroed_scratch(dev,
+                                               frontier_scratch_bytes(w_tot))))
     LAUNCHES["frontier_compact"] += 1
     return indptr, rows, csum, packed
 
@@ -2582,6 +2599,12 @@ def transitive_closure(adj, iterations: int, worked=None):
     return out
 
 
+# execution_wavefronts (csrc/dense_dag.cu): its lean launch; its zeroed
+# flags are dag_wavefronts_packed's (_DAG_FLAG_BYTES: the grid barrier's
+# count and generation, the exit ticket; left zeroed)
+_WAVE_ARGS = (_VP, _I, _I, _VP, _VP, _VP, _VP)
+
+
 def execution_wavefronts_plain(adj, max_levels: int):
     n = adj.shape[0]
     level = torch.zeros(n, dtype=torch.int32, device=adj.device)
@@ -2603,13 +2626,14 @@ def execution_wavefronts(adj, max_levels: int):
     ext = _ext()
     n = _check_square_bool(adj, "execution_wavefronts")
     _check_cuda(adj)
+    dev = adj.device
     nw = (n + 31) // 32
-    packed = torch.empty(n, nw, dtype=torch.int32, device=adj.device)
-    out = torch.empty(n, dtype=torch.int32, device=adj.device)
-    lb = torch.empty_like(out)
-    ext.call("dense_dag", "execution_wavefronts", _addr(adj), n,
-             int(max_levels), _addr(packed), _addr(out), _addr(lb),
-             ext.stream())
+    packed = torch.empty(n, nw, dtype=torch.int32, device=dev)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    ext.entry("dense_dag", "execution_wavefronts", _WAVE_ARGS)(
+        adj.data_ptr(), n, max(0, int(max_levels)), packed.data_ptr(),
+        out.data_ptr(), zeroed_scratch(dev, _DAG_FLAG_BYTES),
+        ext.raw_stream(dev.index))
     LAUNCHES["execution_wavefronts"] += 1
     return out
 

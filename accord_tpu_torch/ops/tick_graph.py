@@ -414,7 +414,7 @@ def _stage_exec(P, ext, planes, out_cap: int):
     # frontier_compact's outputs are (indptr, rows, csum, packed); the
     # launch takes (packed, indptr, rows, csum)
     o_refs = [outs[3][0], outs[0][0], outs[1][0], outs[2][0]]
-    scratch = _fixed_csr_scratch(P, 1, K.csr_tiles(n * w_tot, out_cap)[0])
+    scratch = _fixed_csr_scratch(P, 1, w_tot)   # frontier_scratch_bytes
     P.launches.append(lambda B: K.launch_frontier_compact(
         ext, _addrs(B), lanes, caps, out_cap, o_refs, scratch))
     P.count("frontier_compact")

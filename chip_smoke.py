@@ -212,18 +212,25 @@ launched.
      K2 (finalize_csr and its table entry finalize_csr_tab, replayed on
      the sweep's largest tick's and the 10k tick's key finalizes), K6, K9's
      compact entry and K11 also report device_ms, and a torch.profiler
-     trace of one eager call: K10, K2 and K6 one kernel (K6 builds its
-     stab words inside the compaction's tiles), K9 and K11 their words
-     kernel and the one compaction kernel, no memset or copy. K6 is also
+     trace of one eager call: K10, K2, K6 and K9's three entries one
+     kernel (K6 builds its stab words inside the compaction's tiles, K9
+     compacts its frontier in the frontier's kernel), K11 its words kernel
+     and the one compaction kernel, no memset or copy. K6 is also
      set beside the parent's (tools/range_finalize_parent.cu, built
      beside the kernels: a stab-word kernel, then the compaction), each
      recorded call whole and as the megakernel's range-finalize stage (a
      protocol_tick graph holding it alone), bit-equal, device ms
      interleaved (k6_parent_vs_new). K20, K21, K9's fused entry and
-     segment_compact report device_ms too; K21 is one kernel in a trace,
-     and it is set beside the parent's (tools/dense_dag_parent.cu: a
-     launch and a copy a round) at the 100k DAG and at N 8,192
-     (k21_parent_vs_new). K18 and K19 report device_ms (K19: 10 calls a
+     segment_compact report device_ms too; K20 and K21 are one kernel in
+     a trace, and K21 is set beside the parent's (tools/dense_dag_parent.cu:
+     a launch and a copy a round) at the 100k DAG and at N 8,192
+     (k21_parent_vs_new). K9's three entries (every recorded call: the
+     burns' and the frontier batches') and K20 (the graft entry, N 8,192
+     with 64 levels) are set beside their parents
+     (tools/frontier_wavefront_parent.cu: K9 a block a word with a
+     compaction launch after it, K20 a launch a round), bit-equal, device
+     ms interleaved (k9_parent_vs_new, k20_parent_vs_new), and the exec
+     megakernel leg's largest replay is timed with each K9. K18 and K19 report device_ms (K19: 10 calls a
      graph) and, beside the bf16 matmul of one stage (library_ms), the
      whole function as a PyTorch chain (library_chain_ms,
      library_chain_device_ms); their
@@ -268,7 +275,9 @@ the range body's and K3's; under "k6" K6 at the range burn and the range
 batch, each whole and as the megakernel's stage; under "k21" K21 at N
 100,000 and 8,192; under "k16" K16 at the cmd leg's call, the 10k tick's
 lanes, the lane tiers and the 10k replay; under "k7" K7 at the inline
-leg's call and at (64, 16,384, 1,024)), the card line, one JSON line of
+leg's call and at (64, 16,384, 1,024); under "k9" K9's entries at each
+recorded call and the exec megakernel leg's largest replay; under "k20"
+K20 at the graft entry and N 8,192), the card line, one JSON line of
 kernels, and the result line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -439,10 +448,12 @@ class Recorder:
     what the path gave each kernel. `cmd_tier` keeps cmd_tick's first call
     at that op tier instead. `promoted` counts cmd_tick's calls with
     promote on; `quorum_mix` sums the quorum lanes of every protocol_tick
-    call (note_quorum). Recording launches nothing itself."""
+    call (note_quorum). `keep(name, args, kw)`, where given, picks the
+    calls that may be kept. Recording launches nothing itself."""
 
-    def __init__(self, tk, cmd_tier=None, names=None):
+    def __init__(self, tk, cmd_tier=None, names=None, keep=None):
         self.tk = tk
+        self.keep = keep
         self.calls = {}
         self.orig = {}
         self.cmd_tier = cmd_tier
@@ -486,7 +497,8 @@ class Recorder:
                     if m is None or mail[2].shape[0] > m[0]:
                         self.calls[stage] = (
                             mail[2].shape[0], tuple(mail), {})
-                if best is None or size > best[0]:
+                if (best is None or size > best[0]) and (
+                        self.keep is None or self.keep(_name, args, kw)):
                     self.calls[_name] = (size, args, kw)
                 return _fn(*args, **kw)
 
@@ -613,18 +625,25 @@ K21_VS_PARENT: dict = {}
 # at (64, 16,384, 1,024)
 K16_VS_PARENT: dict = {}
 K7_VS_PARENT: dict = {}
+# K9 and K20 beside their parents' kernels (tools/frontier_wavefront_variants):
+# by "label:wrapper" of kernel_report, and K9's at the exec megakernel
+# leg's largest replay (mega_exec_replay)
+K9_VS_PARENT: dict = {}
+K20_VS_PARENT: dict = {}
 # the kernels one eager call launches, by wrapper (a torch.profiler trace,
 # which must also show no memset or copy; finalize_csr_tab: its launch,
 # the table uploaded before; transitive_closure: a squaring an iteration,
 # the pack and the unpack, whatever the data; range_finalize_csr: its
-# stab words built inside the compaction's tiles; dag_wavefronts_packed:
-# every round in one persistent launch; quorum_count: a cluster of CTAs a
-# tile of lanes; max_conflict: a CTA a subject)
+# stab words built inside the compaction's tiles; dag_wavefronts_packed
+# and execution_wavefronts: every round in one persistent launch;
+# quorum_count: a cluster of CTAs a tile of lanes; max_conflict: a CTA a
+# subject; K9's entries: the frontier, compacted in the same kernel)
 KERNELS_A_CALL = {"cmd_tick": 1, "finalize_csr": 1, "finalize_csr_tab": 1,
                   "segment_compact": 1, "range_finalize_csr": 1,
                   "dag_wavefronts_packed": 1, "quorum_count": 1,
-                  "max_conflict": 1,
-                  "frontier_compact": 2, "recovery_scan": 2,
+                  "max_conflict": 1, "execution_wavefronts": 1,
+                  "execution_frontier": 1, "fused_execution_frontier": 1,
+                  "frontier_compact": 1, "recovery_scan": 2,
                   "deps_matrix": 1,
                   "transitive_closure": lambda args: int(args[1]) + 2,
                   # K3 and the covered pass one launch; K5 the range side
@@ -1083,6 +1102,16 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int,
             extra["geometry"] = tk.quorum_geometry(args[0].shape[0])
         if fn_name == "max_conflict" and cuda:
             extra["k7_parent_vs_new"] = k7_pairs(tk, args, label)
+        if fn_name in EXEC_KERNELS[1:] + ("execution_wavefronts",) and cuda:
+            from accord_tpu_torch.tools import frontier_wavefront_variants \
+                as fwv
+            pair = fwv.call_pair(fn_name, args, kw)
+            k = "k20" if fn_name == "execution_wavefronts" else "k9"
+            check(pair["bit_equal"], f"{fn_name}: the parent's {k.upper()} "
+                  "answers differently")
+            extra[f"{k}_parent_vs_new"] = pair
+            (K20_VS_PARENT if k == "k20" else K9_VS_PARENT)[
+                f"{label}:{fn_name}"] = pair
         if want is not None and cuda:
             if "trace" not in extra:
                 extra["trace"] = trace_call(lambda: kern(*args, **kw),
@@ -2305,23 +2334,28 @@ def run(rehearse: bool) -> dict:
         from accord_tpu_torch.tools import range_block_variants as rbv
         from accord_tpu_torch.tools import quorum_conflict_variants as qcv
         from accord_tpu_torch.tools import range_finalize_variants as rfv
+        from accord_tpu_torch.tools import frontier_wavefront_variants \
+            as fwv
         parent = dbv.start_build()
         rparent = rbv.start_build()
         fparent = rfv.start_build()
         dparent = ddv.start_parent_build()
         qparent = qcv.start_build()
+        wparent = fwv.start_build()
         build_s = build_phase()
         dbv.finish_build(parent)
         rbv.finish_build(rparent)
         rfv.finish_build(fparent)
         ddv.finish_parent_build(dparent)
         qcv.finish_build(qparent)
+        fwv.finish_build(wparent)
         log(f"build: {build_s:.2f} s (all csrc/*.cu, nvcc in parallel; the "
             "parent's key body, tools/deps_block_parent.cu, range body "
             "and K3, tools/range_block_parent.cu, K6, "
             "tools/range_finalize_parent.cu, K21, "
-            "tools/dense_dag_parent.cu, and K16 and K7, "
-            "tools/quorum_conflict_parent.cu, beside them)")
+            "tools/dense_dag_parent.cu, K16 and K7, "
+            "tools/quorum_conflict_parent.cu, and K9 and K20, "
+            "tools/frontier_wavefront_parent.cu, beside them)")
 
     ops = 800 if not rehearse else 120
     launches = {}
@@ -2722,7 +2756,8 @@ def run(rehearse: bool) -> dict:
                                     "k6_parent_vs_new",
                                     "k21_parent_vs_new",
                                     "k16_parent_vs_new",
-                                    "k7_parent_vs_new", "geometry")
+                                    "k7_parent_vs_new", "k9_parent_vs_new",
+                                    "k20_parent_vs_new", "geometry")
                if k in head},
             "launches_by_path": {p: launches[p][name] for p in launches}}
         for label, r in labelled:
@@ -2770,11 +2805,12 @@ def parent_vs_new_line() -> dict:
     range batch (the whole call), the 10k tick's replay, and the sharded
     10k tick's key stage (its replay); under "range_body", the range body's
     and K3's beside theirs (RANGE_VS_PARENT_KEYS, and the sharded key+range
-    leg's range stage); under "k6", "k21", "k16" and "k7", K6's, K21's,
-    K16's and K7's beside their parents' (K6_VS_PARENT, K21_VS_PARENT,
-    K16_VS_PARENT, K7_VS_PARENT: by kernel_report's label; K16 also at
+    leg's range stage); under "k6", "k21", "k16", "k7", "k9" and "k20",
+    K6's, K21's, K16's, K7's, K9's and K20's beside their parents'
+    (K6_VS_PARENT, K21_VS_PARENT, K16_VS_PARENT, K7_VS_PARENT,
+    K9_VS_PARENT, K20_VS_PARENT: by kernel_report's label; K16 also at
     the 10k tick's lane tiers and its whole replay, K7 at (64, 16,384,
-    1,024))."""
+    1,024), K9 at the exec megakernel leg's largest replay)."""
     out = {}
     for key, (label, fn) in PARENT_VS_NEW_KEYS.items():
         got = PARENT_VS_NEW.get((label, fn))
@@ -2797,6 +2833,10 @@ def parent_vs_new_line() -> dict:
         out["k16"] = dict(K16_VS_PARENT)
     if K7_VS_PARENT:
         out["k7"] = dict(K7_VS_PARENT)
+    if K9_VS_PARENT:
+        out["k9"] = dict(K9_VS_PARENT)
+    if K20_VS_PARENT:
+        out["k20"] = dict(K20_VS_PARENT)
     return out
 
 
@@ -2924,6 +2964,12 @@ def megakernel_sweep(device: str, cuda: bool, rehearse: bool, tk, launches,
     return rows, logs
 
 
+# bench.py's exec-in-megakernel leg (seed 13, 40 ops): its cluster
+MEGA_EXEC = dict(nodes=4, rf=3, stores_per_node=2, key_count=24,
+                 concurrency=8, exec_plane=True, exec_compact=True,
+                 exec_in_megakernel=True)
+
+
 def cluster_legs(device: str, cuda: bool, tk, launches, recs) -> dict:
     """tests/test_megakernel.py's key+range and cmd-plane legs and
     bench.py's exec-in-megakernel leg, on the card, each against the CPU
@@ -2985,17 +3031,17 @@ def cluster_legs(device: str, cuda: bool, tk, launches, recs) -> dict:
     log(f"cmd_leg[{device}]: {json.dumps(out['cmd'])}; launches "
         f"{launches['mega_cmd']}")
     # exec in the megakernel: seed 13, 40 ops, 4 nodes, rf 3, 2 stores
-    base = dict(nodes=4, rf=3, stores_per_node=2, key_count=24,
-                concurrency=8, exec_plane=True, exec_compact=True)
+    base = {k: v for k, v in MEGA_EXEC.items() if k != "exec_in_megakernel"}
     solo = mesh_leg(device, 13, 40, "mega", **base)[0]
+    tick = Recorder(tk, names=("protocol_tick",),
+                    keep=lambda _n, _a, kw: bool(kw.get("execs")))
     tk.reset_launches()
-    fused, snap, wall = mesh_leg(device, 13, 40, "mega",
-                                 exec_in_megakernel=True, **base)
+    with tick:
+        fused, snap, wall = mesh_leg(device, 13, 40, "mega", **MEGA_EXEC)
     if cuda:
         torch.cuda.synchronize()
     launches["mega_exec"] = dict(tk.LAUNCHES)
-    cpu = mesh_leg("cpu", 13, 40, "mega", exec_in_megakernel=True,
-                   **base)[0]
+    cpu = mesh_leg("cpu", 13, 40, "mega", **MEGA_EXEC)[0]
     check(fused.log == solo.log == cpu.log,
           "exec leg: exec-in-megakernel history != the standalone "
           "coordinator's / the CPU's")
@@ -3009,6 +3055,22 @@ def cluster_legs(device: str, cuda: bool, tk, launches, recs) -> dict:
               == snap["megakernel_dispatches"],
               "exec leg: the exec stage never ran in a replay")
     out["exec"] = {"acked": fused.acked, "wall_s": wall, **snap}
+    if cuda:
+        # the leg's largest tick replayed with each K9 (the parent's: two
+        # kernels in the exec stage), and its exec outputs = the plain's;
+        # the kernels a replay runs are the variants tool's to count
+        from accord_tpu_torch.tools import frontier_wavefront_variants \
+            as fwv
+        args, kw = tick.get("protocol_tick")
+        pair = fwv.tick_pair(args[0], kw, count=False)
+        pair["plain_equal"] = max_abs_err(
+            tk.protocol_tick(args[0], **kw)[-1],
+            tk.protocol_tick_plain(args[0], **kw)[-1]) == 0
+        check(pair["bit_equal"] and pair["plain_equal"], "exec leg: the "
+              "largest replay differs with the parent's K9 or from the "
+              "plain protocol_tick")
+        K9_VS_PARENT["mega_exec_replay"] = out["exec"]["k9_parent_vs_new"] \
+            = pair
     log(f"exec_leg[{device}]: {json.dumps(out['exec'])}")
     return out
 

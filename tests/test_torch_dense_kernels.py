@@ -20,9 +20,9 @@ from accord_tpu_torch import graft_entry
 from accord_tpu_torch.ops import carry
 from accord_tpu_torch.ops import kernels as tk
 from torch_kernel_cases import (CLOSURE_CASES, CLOSURE_ITERS, DAG_CASES,
-                                DEPS_CASES, closure_case, dag_case,
-                                dag_levels, dag_wide_row_hazards, deps_case,
-                                pack_words)
+                                DEPS_CASES, WAVEFRONT_CASES, closure_case,
+                                dag_case, dag_levels, dag_wide_row_hazards,
+                                deps_case, pack_words, wavefront_case)
 
 I32_MIN = np.iinfo(np.int32).min
 
@@ -145,18 +145,30 @@ def test_transitive_closure_plain_counts_working_squarings(iters, busy):
                                               -1))
 
 
-@pytest.mark.parametrize("n,p,dag,levels", [
-    (40, 0.05, True, 0), (40, 0.08, True, 2), (50, 0.04, False, 40),
-    (70, 0.03, True, 70)])
-def test_execution_wavefronts_plain_matches_jax(n, p, dag, levels):
+@pytest.mark.parametrize("case", [
+    *(pytest.param(c, id="-".join(map(str, c)))
+      for c in ((40, 0.05, True, 0), (40, 0.08, True, 2),
+                (50, 0.04, False, 40), (70, 0.03, True, 70))),
+    *WAVEFRONT_CASES])
+def test_execution_wavefronts_plain_matches_jax(case):
     """max_levels below the DAG's depth, and a cycle, where the levels
-    climb to the round count."""
-    adj = _random_adj(n * 3 + levels, n, p, dag)
+    climb to the round count; the shared K20 cases (which the card tests
+    run the kernel on): a DAG whose depth equals max_levels and one whose
+    depth is max_levels - 1, a cycle at 0, 1 and 40 levels, self-loops, N
+    not a multiple of 32."""
+    if isinstance(case, str):
+        adj, levels = wavefront_case(case)
+    else:
+        n, p, dag, levels = case
+        adj = _random_adj(n * 3 + levels, n, p, dag)
     ref = np.asarray(jk.execution_wavefronts(adj, levels))
     got = tk.execution_wavefronts(_t(adj), levels).numpy()
     assert np.array_equal(ref, got)
-    if not dag and levels:
+    cyclic = isinstance(case, str) and case.startswith(("cycle", "self"))
+    if (not isinstance(case, str) and not case[2] and levels) or cyclic:
         assert ref.max() == levels
+    if isinstance(case, str) and case.startswith("depth_"):
+        assert ref.max() == 9
 
 
 def _dag_packed(seed, n, p):

@@ -21,6 +21,7 @@ import torch
 
 from accord_tpu.ops import kernels as jk
 from accord_tpu_torch.ops import kernels as tk
+from torch_kernel_cases import FRONTIER_CASES, frontier_case
 
 I32_MIN = np.iinfo(np.int32).min
 I32_MAX = np.iinfo(np.int32).max
@@ -134,11 +135,28 @@ def test_fused_execution_frontier_matches_jax(caps):
     _same(ref, got)
 
 
-@pytest.mark.parametrize("caps", [(64,), (128, 64), (64, 96, 128)])
-@pytest.mark.parametrize("out_cap", [4, 128])
-def test_frontier_compact_matches_jax(caps, out_cap):
-    rng = np.random.default_rng(7 * len(caps) + out_cap)
-    planes = [_plane(rng, c, density=0.03) for c in caps]
+_RANDOM_COMPACT = [((64,), 4), ((128, 64), 4), ((64, 96, 128), 4),
+                   ((64,), 128), ((128, 64), 128), ((64, 96, 128), 128)]
+
+
+@pytest.mark.parametrize("case", [
+    *(pytest.param(c, id=f"{c[1]}-caps{i % 3}")
+      for i, c in enumerate(_RANDOM_COMPACT)),
+    *FRONTIER_CASES])
+def test_frontier_compact_matches_jax(case):
+    """Random planes (out_cap 4 overflows), and the shared K9 cases
+    (tests/torch_kernel_cases.py, which the card tests run the kernel on):
+    every row pending and awaiting all, no row pending, every dep
+    applied, self-edges, equal and INT32_MIN exec_ts, caps 32 and 96
+    beside 2,048, out_cap below the released count, 32 planes. The fused
+    and the one-store frontier are held to the JAX kernels on the same
+    planes."""
+    if isinstance(case, str):
+        planes, out_cap = frontier_case(case)
+    else:
+        caps, out_cap = case
+        rng = np.random.default_rng(7 * len(caps) + out_cap)
+        planes = [_plane(rng, c, density=0.03) for c in caps]
     ref = jk.frontier_compact(tuple(_jax(p) for p in planes),
                               out_cap=out_cap)
     got = tk.frontier_compact(tuple(_port(p) for p in planes),
@@ -150,12 +168,23 @@ def test_frontier_compact_matches_jax(caps, out_cap):
     released = np.nonzero(np.unpackbits(packed.view(np.uint8),
                                         bitorder="little"))[0]
     assert total == released.size          # exact, overflow or not
-    if out_cap == 4:
+    if out_cap == 4 or case == "out_cap_below_released":
         assert total > out_cap, "fixture must overflow the small out_cap"
     assert tk.frontier_checksum_host(indptr, rows) \
         == int(csum) & 0xFFFFFFFF
     assert tk.frontier_checksum_host(indptr, rows) \
         == jk.frontier_checksum_host(np.asarray(ref[0]), np.asarray(ref[1]))
+    if isinstance(case, str):
+        _same(jk.fused_execution_frontier(tuple(_jax(p) for p in planes)),
+              tk.fused_execution_frontier(tuple(_port(p) for p in planes)))
+        _same(jk.execution_frontier(*_jax(planes[-1])),
+              tk.execution_frontier(*_port(planes[-1])))
+        pend = sum(int(p[3].sum()) for p in planes)
+        expect = {"none_pending": 0, "all_applied": pend}
+        if case in expect:
+            assert total == expect[case]
+        if case != "none_pending":
+            assert 0 < total < pend or case == "all_applied"
 
 
 def test_frontier_checksum_matches_jax():

@@ -19,15 +19,17 @@ from accord_tpu_torch.ops.encoding import WITNESS_TABLE
 from torch_kernel_cases import (ARENA_SCATTER_CASES, CLOSURE_CASES,
                                 CLOSURE_ITERS, CMD_CASES, CMD_SCALARS,
                                 CONFLICT_CASES, DAG_CASES, DEPS_CASES,
-                                KEY_BODY_CASES, KEY_BODY_RUN_CASES,
+                                FRONTIER_CASES, KEY_BODY_CASES, KEY_BODY_RUN_CASES,
                                 KEY_SHARD_CASES, QUORUM_CARD_TIERS,
                                 QUORUM_CASES, RANGE_BODY_CASES,
                                 RANGE_FIN_CASES, arena_scatter_case,
                                 closure_case, cmd_case, conflict_case,
                                 dag_case, dag_levels, deps_case,
                                 finalize_many_tiles, key_body_case,
-                                pack_words, quorum_case, quorum_lanes,
-                                range_body_case, range_fin_case)
+                                frontier_case, pack_words, quorum_case,
+                                quorum_lanes, range_body_case,
+                                range_fin_case, WAVEFRONT_CASES,
+                                wavefront_case)
 
 pytestmark = pytest.mark.gpu
 I32_MIN = np.iinfo(np.int32).min
@@ -560,24 +562,45 @@ def test_exec_scatter_kernel(cuda, cap, m):
     _eq(plain, got)
 
 
-@pytest.mark.parametrize("cap,pending", [(64, 0.6), (2048, 1.0),
-                                         (16384, 0.6)])
-def test_execution_frontier_kernel(cuda, cap, pending):
-    rng = np.random.default_rng(cap)
-    lanes = _exec_plane(rng, cap, pending)
-    plain = tk.execution_frontier(*lanes)
-    n0 = tk.LAUNCHES["execution_frontier"]
-    got = tk.execution_frontier(*_on(lanes, cuda))
-    torch.cuda.synchronize()
-    assert tk.LAUNCHES["execution_frontier"] == n0 + 1
-    _eq(plain, got)
-    assert int(tk._popcount_u32(plain).sum()) > 0
+def _frontier_planes(name):
+    """The shared K9 case `name` as the port's lanes (packed adjacency)."""
+    planes, out_cap = frontier_case(name)
+    return [[_t(pack_words(adj)), _t(ts), _t(app), _t(pend), _t(aw)]
+            for adj, ts, app, pend, aw in planes], out_cap
 
 
-@pytest.mark.parametrize("caps", [(64, 128), (2048, 1024, 64), (96,)])
+@pytest.mark.parametrize("case", [
+    pytest.param((64, 0.6), id="64-0.6"),
+    pytest.param((2048, 1.0), id="2048-1.0"),
+    pytest.param((16384, 0.6), id="16384-0.6"), *FRONTIER_CASES])
+def test_execution_frontier_kernel(cuda, case):
+    """K9's one-store entry (a block an output word) = its plain version:
+    caps 64 to 16,384, and each plane of a shared case
+    (tests/torch_kernel_cases.py) alone."""
+    if isinstance(case, str):
+        calls = _frontier_planes(case)[0]
+    else:
+        cap, pending = case
+        calls = [_exec_plane(np.random.default_rng(cap), cap, pending)]
+    for lanes in calls:
+        plain = tk.execution_frontier(*lanes)
+        n0 = tk.LAUNCHES["execution_frontier"]
+        got = tk.execution_frontier(*_on(lanes, cuda))
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["execution_frontier"] == n0 + 1
+        _eq(plain, got)
+    if not isinstance(case, str):
+        assert int(tk._popcount_u32(plain).sum()) > 0
+
+
+@pytest.mark.parametrize("caps", [(64, 128), (2048, 1024, 64), (96,),
+                                  *FRONTIER_CASES])
 def test_fused_execution_frontier_kernel(cuda, caps):
-    rng = np.random.default_rng(sum(caps))
-    planes = [_exec_plane(rng, c) for c in caps]
+    if isinstance(caps, str):
+        planes = _frontier_planes(caps)[0]
+    else:
+        rng = np.random.default_rng(sum(caps))
+        planes = [_exec_plane(rng, c) for c in caps]
     plain = tk.fused_execution_frontier(planes)
     n0 = tk.LAUNCHES["fused_execution_frontier"]
     got = tk.fused_execution_frontier([_on(p, cuda) for p in planes])
@@ -586,13 +609,21 @@ def test_fused_execution_frontier_kernel(cuda, caps):
     _eq(plain, got)
 
 
-@pytest.mark.parametrize("caps,out_cap", [((64,), 4), ((128, 64, 96), 32),
-                                          ((2048,) * 5, 256),
-                                          ((16384,), 2048),
-                                          ((16384,), 1 << 14)])
+@pytest.mark.parametrize("caps,out_cap", [
+    ((64,), 4), ((128, 64, 96), 32), ((2048,) * 5, 256), ((16384,), 2048),
+    ((16384,), 1 << 14), ((32,), 8), ((32768,), 2048),
+    *((c, None) for c in FRONTIER_CASES)])
 def test_frontier_compact_kernel(cuda, caps, out_cap):
-    rng = np.random.default_rng(len(caps) * 7 + out_cap)
-    planes = [_exec_plane(rng, c) for c in caps]
+    """K9's compact entry (ONE launch: a block an output word, the last
+    block by ticket compacting them) = its plain version: one block (cap
+    32), 3 to 1,024 blocks (5 x 2,048 rows: 320; cap 16,384: 512, at
+    out_cap 2,048 and 16,384; cap 32,768, whose rows take two passes of
+    a warp's slots), the shared K9 cases."""
+    if isinstance(caps, str):
+        planes, out_cap = _frontier_planes(caps)
+    else:
+        rng = np.random.default_rng(len(caps) * 7 + out_cap)
+        planes = [_exec_plane(rng, c) for c in caps]
     plain = tk.frontier_compact(planes, out_cap=out_cap)
     n0 = tk.LAUNCHES["frontier_compact"]
     got = tk.frontier_compact([_on(p, cuda) for p in planes],
@@ -603,6 +634,28 @@ def test_frontier_compact_kernel(cuda, caps, out_cap):
     indptr, rows, csum, _ = (t.cpu().numpy() for t in got)
     assert tk.frontier_checksum_host(indptr, rows) \
         == int(csum) & 0xFFFFFFFF
+    # a second call on the scratch the first left zeroed
+    _eq(plain, tk.frontier_compact([_on(p, cuda) for p in planes],
+                                   out_cap=out_cap))
+
+
+@pytest.mark.parametrize("caps", [(64, 96), (2048,) * 5])
+def test_frontier_compact_tick_graph_replays_twice(cuda, caps):
+    """K9's compact entry as a protocol_tick stage (its ticket in the
+    graph's zeroed fixed memory): the tick called twice, the second a
+    replay of the first's graph, equals the plain version both times, at
+    5 and at 320 blocks."""
+    rng = np.random.default_rng(sum(caps))
+    planes = tuple(tuple(_exec_plane(rng, c, 1.0)) for c in caps)
+    wt = _t(WITNESS_TABLE)
+    plain = tk.protocol_tick(wt, execs=((planes, 4096),))
+    c_planes = tuple(tuple(_on(p, cuda)) for p in planes)
+    for _ in range(2):
+        c0 = tk.LAUNCHES["frontier_compact"]
+        got = tk.protocol_tick(wt.to(cuda), execs=((c_planes, 4096),))
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["frontier_compact"] == c0 + 1
+        _eq(plain, got)
 
 
 def test_exec_plane_burn_small_cap_matches_cpu(cuda):
@@ -1271,23 +1324,88 @@ def test_deps_matrix_kernel(cuda, b, a, k):
     assert plain.any()
 
 
-@pytest.mark.parametrize("n,p,dag", [(50, 0.04, False), (300, 0.01, True),
-                                     (1024, 0.004, True)])
-def test_closure_and_wavefront_kernels(cuda, n, p, dag):
+def _wave_big(name, dev):
+    """(adj bool[n, n] made on the card, max_levels) of a K20 card case:
+    dag_8192_64 a lower-triangular DAG of 8,192 rows, each edge with
+    probability 1/256 (bench_dag's density; deeper than 64), at 64
+    levels; dense_2048 a lower-triangular DAG of density 1/2 over 2,048
+    rows (most rows' columns do not fit the kernel's shared memory: read
+    packed from L2), 40 levels; n_32768 32,768 rows of density 1/4,096,
+    6 levels (the levels, 128 KB, read from L2)."""
+    n, p, levels = {"dag_8192_64": (8192, 1 / 256, 64),
+                    "dense_2048": (2048, 0.5, 40),
+                    "n_32768": (32768, 1 / 4096, 6)}[name]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    adj = torch.rand(n, n, device=dev, generator=gen) < p
+    return torch.tril(adj, -1), levels
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param((50, 0.04, False), id="50-0.04-False"),
+    pytest.param((300, 0.01, True), id="300-0.01-True"),
+    pytest.param((1024, 0.004, True), id="1024-0.004-True"),
+    *WAVEFRONT_CASES, "dag_8192_64", "dense_2048", "n_32768"])
+def test_closure_and_wavefront_kernels(cuda, case):
     """K19 and K20 = their plain versions, iterations/levels below and
-    above the depth, with a cycle where dag is False."""
-    rng = np.random.default_rng(n)
-    adj = rng.random((n, n)) < p
-    if dag:
-        adj = np.tril(adj, -1)
+    above the depth, with a cycle where dag is False; K20 on the shared
+    cases (one block: up to 128 rows, the levels in shared memory) and,
+    against the plain version run on the card, at N 8,192 with 64 levels,
+    on rows too wide for shared memory and at N 32,768 (levels read from
+    L2)."""
+    if isinstance(case, str) and case not in WAVEFRONT_CASES:
+        adj, levels = _wave_big(case, cuda)
+        got = tk.execution_wavefronts(adj, levels)
+        torch.cuda.synchronize()
+        _eq(tk.execution_wavefronts_plain(adj, levels).cpu(), got)
+        return
+    if isinstance(case, str):
+        adj, levels = wavefront_case(case)
+        wave = (levels,)
+    else:
+        n, p, dag = case
+        rng = np.random.default_rng(n)
+        adj = rng.random((n, n)) < p
+        if dag:
+            adj = np.tril(adj, -1)
+        wave = (0, 3, 40)
     t = _t(adj)
     for it in (0, 2, 11):
         _eq(tk.transitive_closure(t, it),
             tk.transitive_closure(t.to(cuda), it))
-    for lv in (0, 3, 40):
+    for lv in wave:
+        n0 = tk.LAUNCHES["execution_wavefronts"]
         _eq(tk.execution_wavefronts(t, lv),
             tk.execution_wavefronts(t.to(cuda), lv))
+        assert tk.LAUNCHES["execution_wavefronts"] == n0 + 1
     torch.cuda.synchronize()
+
+
+def test_execution_wavefronts_one_kernel_graph_replays(cuda):
+    """One K20 call, captured in a CUDA graph, is ONE kernel node (no
+    memset or copy), one block or many, levels cut or past the fixpoint;
+    replayed twice (its barrier flags zero again after every call) it
+    equals the plain version both times, as does a call after a dirty
+    barrier generation."""
+    for name, n in (("cycle_levels_40", 96), ("dag", 1031)):
+        adj = _t(wavefront_case(name)[0] if n == 96
+                 else closure_case("dag", n))
+        c_adj = adj.to(cuda)
+        for lv in (0, 3, 40):
+            assert _graph_node_types(
+                lambda: tk.execution_wavefronts(c_adj, lv)) == [0], (n, lv)
+            plain = tk.execution_wavefronts(adj, lv)
+            for out in _graph_twice(
+                    lambda: tk.execution_wavefronts(c_adj, lv)):
+                _eq(plain, out)
+    # nine blocks at 1,031 rows: the barrier's flags, dirty generation
+    idx = torch.cuda.current_device()
+    flags = tk._SCRATCH[idx][:tk._DAG_FLAG_BYTES].view(torch.int32)
+    flags[1] = 12345
+    got = tk.execution_wavefronts(c_adj, 40)
+    torch.cuda.synchronize()
+    _eq(tk.execution_wavefronts(adj, 40), got)
+    assert not bool(flags.any()), flags.cpu()
 
 
 @pytest.mark.parametrize("n,p,levels", [(256, 0.03, 5), (4096, 0.002, 192)])
@@ -1967,9 +2085,9 @@ def _trace_kernels(fn):
 
 
 def test_one_kernel_a_call(cuda):
-    """A profiler trace of one eager call: K10 and K2 are ONE kernel and no
-    memset or copy; K6, K9's compact entry and K11 are their words kernel
-    and the one compaction kernel."""
+    """A profiler trace of one eager call: K10, K2 and K9's three entries
+    (at 24 and at 192 output words) are ONE kernel and no memset or copy;
+    K11 is its predicate kernel and the one compaction kernel."""
     rng = np.random.default_rng(31)
     cols, clock, ops, promote = cmd_case("random_kpad3", 512)
     c_cols, c_ops = _on([_t(a) for a in cols], cuda), \
@@ -1981,6 +2099,7 @@ def test_one_kernel_a_call(cuda):
     status = _t(rng.integers(0, 12, 4096).astype(np.int32)).to(cuda)
     touched = _t(rng.integers(0, 2000, 4096).astype(np.int32)).to(cuda)
     planes = [_on(_exec_plane(rng, 256), cuda) for _ in range(3)]
+    wide = [_on(_exec_plane(rng, 2048), cuda) for _ in range(3)]
     calls = {
         "cmd_tick": (lambda: tk.cmd_tick(*c_cols, clock, *c_ops,
                                          *CMD_SCALARS, promote=promote), 1),
@@ -1989,7 +2108,12 @@ def test_one_kernel_a_call(cuda):
             [(*c_fin, 4096), (*c_fin, 256)]), 1),
         "recovery_scan": (lambda: tk.recovery_scan(status, touched, 1000,
                                                    300, 256), 2),
-        "frontier_compact": (lambda: tk.frontier_compact(planes, 256), 2)}
+        "frontier_compact": (lambda: tk.frontier_compact(planes, 256), 1),
+        "frontier_compact_wide": (lambda: tk.frontier_compact(wide, 4096),
+                                   1),
+        "execution_frontier": (lambda: tk.execution_frontier(*wide[0]), 1),
+        "fused_execution_frontier": (
+            lambda: tk.fused_execution_frontier(wide), 1)}
     for name, (fn, want) in calls.items():
         kernels, moves = _trace_kernels(fn)
         if name == "finalize_csr_tab":

@@ -794,3 +794,122 @@ def conflict_case(name):
         bits[:, list(MANY_WORD_BUCKETS[:-1])] = False
         bits[:, MANY_WORD_BUCKETS[-1]] = rng.random(cap) < 0.05
     return subj, bits, ex, valid
+
+
+# -- K9 execution_frontier / frontier_compact (csrc/exec_frontier.cu) -------
+# name -> out_cap of the compacted call (the released count is data's)
+FRONTIER_CASES = {
+    "all_pending_awaits_all": 256,
+    "none_pending": 32,
+    "all_applied": 256,
+    "self_edges": 256,
+    "equal_and_undecided_ts": 256,
+    "caps_32_96_2048": 2048,     # 68 words: the card's one-block-a-word path
+    "out_cap_below_released": 8,
+    "planes_32": 2048,           # 80 words in 32 planes of 1-4 words
+}
+
+
+def frontier_plane(rng, cap, density=0.03, pending=0.6, awaits=0.15,
+                   applied=0.35):
+    """One exec plane (bool adjacency [cap, cap], signed exec_ts [cap, 3],
+    applied, pending, awaits_all) with the compare's hazards: INT32_MIN
+    (undecided) and INT32_MAX rows, runs of equal triples, set diagonal
+    bits."""
+    adj = rng.random((cap, cap)) < density
+    adj[np.arange(cap), np.arange(cap)] |= rng.random(cap) < 0.05
+    ts = rng.integers(-4, 4, (cap, 3)).astype(np.int32)
+    ts[rng.random(cap) < 0.1] = I32_MIN
+    ts[rng.random(cap) < 0.05] = I32_MAX
+    eq = rng.choice(cap, max(2, cap // 8), replace=False)
+    ts[eq] = ts[eq[0]]
+    return (adj, ts, rng.random(cap) < applied, rng.random(cap) < pending,
+            rng.random(cap) < awaits)
+
+
+def frontier_case(name):
+    """(planes, out_cap) of the K9 fixture `name`, each plane (adj bool
+    [cap, cap], exec_ts, applied, pending, awaits_all) in numpy:
+    all_pending_awaits_all every row pending and awaiting all its deps;
+    none_pending no row pending (nothing released, total 0); all_applied
+    every dep applied (every pending row released); self_edges a set
+    diagonal on half the rows, some of them applied (a row is gated by
+    itself unless applied); equal_and_undecided_ts exec_ts drawn from
+    three triples, one of them INT32_MIN in every lane, another INT32_MIN
+    in its first lane only; caps_32_96_2048 planes of 32, 96 and 2,048
+    rows in one call; out_cap_below_released an out_cap of 8 below ~100
+    released rows (indptr exact, rows dropped); planes_32 the most planes
+    a call takes, of 32-128 rows."""
+    rng = np.random.default_rng(900 + len(name))
+    out_cap = FRONTIER_CASES[name]
+    if name == "all_pending_awaits_all":
+        planes = [frontier_plane(rng, 256, pending=1.0, awaits=1.0,
+                                 applied=0.8, density=0.01)]
+    elif name == "none_pending":
+        planes = [frontier_plane(rng, 128, pending=0.0)]
+    elif name == "all_applied":
+        planes = [frontier_plane(rng, 256, applied=1.0, density=0.1)]
+    elif name == "self_edges":
+        adj, ts, app, pend, aw = frontier_plane(rng, 256, density=0.004)
+        half = rng.random(256) < 0.5
+        adj[np.arange(256), np.arange(256)] = half
+        app = half & (rng.random(256) < 0.3)
+        planes = [(adj, ts, app, pend, aw)]
+    elif name == "equal_and_undecided_ts":
+        adj, _ts, app, pend, aw = frontier_plane(rng, 256, density=0.02)
+        triples = np.array([[I32_MIN] * 3, [I32_MIN, 5, 5], [1, 2, 3]],
+                           np.int32)
+        ts = triples[rng.integers(0, 3, 256)]
+        planes = [(adj, ts, app, pend, aw)]
+    elif name == "caps_32_96_2048":
+        planes = [frontier_plane(rng, 32, density=0.1),
+                  frontier_plane(rng, 96, density=0.05),
+                  frontier_plane(rng, 2048, density=0.002)]
+    elif name == "out_cap_below_released":
+        planes = [frontier_plane(rng, 256, density=0.003, applied=0.6)]
+    else:
+        planes = [frontier_plane(rng, 32 * (1 + k % 4), density=0.05)
+                  for k in range(32)]
+    return planes, out_cap
+
+
+# -- K20 execution_wavefronts (csrc/dense_dag.cu) ----------------------------
+# name -> max_levels
+WAVEFRONT_CASES = {
+    "depth_eq_levels": 9,
+    "depth_levels_minus_1": 10,
+    "cycle_levels_0": 0,
+    "cycle_levels_1": 1,
+    "cycle_levels_40": 40,
+    "self_loop": 12,
+    "n_77": 30,
+}
+
+
+def wavefront_case(name):
+    """(adj bool [n, n], max_levels) of the K20 fixture `name`:
+    depth_eq_levels a DAG of depth 9 (rows in 10 layers, each on random
+    rows of lower layers, a path through every layer) at 9 levels, so the
+    last round still raises a level; depth_levels_minus_1 the same DAG at 10 levels (the levels
+    settle in the last round); cycle_levels_* a random DAG with a 3-cycle
+    and rows waiting on it (their levels climb with the rounds) at 0, 1
+    and 40 levels; self_loop a DAG whose rows 5 and 70 depend on
+    themselves; n_77 a random DAG of 77 rows (not a multiple of 32), far
+    fewer levels deep than 30."""
+    levels = WAVEFRONT_CASES[name]
+    rng = np.random.default_rng(500 + len(name))
+    n = 77 if name == "n_77" else 96
+    adj = np.tril(rng.random((n, n)) < 0.02, -1)
+    if name.startswith("depth_"):
+        layer = rng.permutation(np.arange(n) % 10)
+        adj = (layer[None, :] < layer[:, None]) & (rng.random((n, n)) < 0.05)
+        for lv in range(1, 10):     # a path through every layer
+            adj[np.flatnonzero(layer == lv)[0],
+                np.flatnonzero(layer == lv - 1)[0]] = True
+    elif name.startswith("cycle_"):
+        adj[20, 21] = adj[21, 22] = adj[22, 20] = True
+        adj[40, 21] = adj[60, 40] = True
+    elif name == "self_loop":
+        adj[5, 5] = adj[70, 70] = True
+        adj[80, 70] = True
+    return adj, levels
