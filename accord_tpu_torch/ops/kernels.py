@@ -1474,12 +1474,17 @@ def exec_scatter_plain(adj, exec_ts, applied, pending, awaits_all, rows,
         (pending, pending_rows), (awaits_all, awaits_rows)))
 
 
+# exec_scatter (csrc/exec_scatter.cu: K8, one launch), a lean launch
+_EXEC_SCATTER_ARGS = (*(_VP,) * 10, _I, _I, _VP, _I, *(_VP,) * 6)
+
+
 def exec_scatter(adj, exec_ts, applied, pending, awaits_all, rows, adj_rows,
                  ts_rows, applied_rows, pending_rows, awaits_rows):
     """Dirty rows into fresh copies of the exec arena's five lanes (packed
     adjacency i32[cap, cap/32], exec_ts i32[cap, 3], applied / pending /
     awaits_all bool[cap]): lane[rows[i]] = src[i], out of range dropped;
-    padding duplicates rows[0] with identical data."""
+    padding duplicates rows[0] with identical data. On the card the five
+    lanes come back as views of one allocation."""
     lanes = (adj, exec_ts, applied, pending, awaits_all)
     srcs = (adj_rows, ts_rows, applied_rows, pending_rows, awaits_rows)
     if not adj.is_cuda:
@@ -1494,10 +1499,16 @@ def exec_scatter(adj, exec_ts, applied, pending, awaits_all, rows, adj_rows,
                    for t, d in zip(srcs, lanes))):
         raise ValueError("exec_scatter: row data must match the lanes' row "
                          "shapes and dtypes")
-    outs = tuple(torch.empty_like(t) for t in lanes)
-    ext.call("exec_scatter", "exec_scatter", *(ext.ptr(t) for t in outs),
-             *(ext.ptr(t) for t in lanes), cap, w, ext.ptr(rows), m,
-             *(ext.ptr(t) for t in srcs), ext.stream())
+    if rows.dtype != torch.int32:
+        raise ValueError("exec_scatter: one int32 index a row")
+    # the five outputs in one allocation, each lane 16-byte aligned
+    outs = tuple(_lane_views(torch.empty(_lanes_bytes(lanes),
+                                         dtype=torch.uint8,
+                                         device=adj.device), lanes))
+    ext.entry("exec_scatter", "exec_scatter", _EXEC_SCATTER_ARGS)(
+        *(t.data_ptr() for t in outs), *(t.data_ptr() for t in lanes), cap,
+        w, rows.data_ptr(), m, *(t.data_ptr() for t in srcs),
+        ext.raw_stream(adj.device.index))
     LAUNCHES["exec_scatter"] += 1
     return outs
 

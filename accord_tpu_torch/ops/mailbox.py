@@ -110,6 +110,16 @@ def check_mail_lanes(mailbox) -> tuple:
     return lanes, w, rows, n1
 
 
+def route_rows(e_src, e_dst, e_slot, e_keep, part, rows: int):
+    """K17's land flags and flat arena rows (`rows`: none) of the emit
+    lanes, over an arena of `rows` rows and the partition mask part."""
+    n1 = part.shape[0]
+    land = e_keep & ~part[K._gather_index(e_src, n1),
+                          K._gather_index(e_dst, n1)]
+    return land, torch.where(land, e_dst * (rows // n1) + e_slot,
+                             torch.full_like(e_dst, rows))
+
+
 def mailbox_route_plain(arena, meta, e_src, e_dst, e_slot, e_keep, e_kind,
                         e_seq, e_words, part):
     """The reference's _mailbox_route_body, updating arena and meta IN
@@ -120,12 +130,7 @@ def mailbox_route_plain(arena, meta, e_src, e_dst, e_slot, e_keep, e_kind,
     are gathered back, after the scatter. -> (arena, meta, landed_words,
     landed_meta, land)."""
     rows = arena.shape[0]
-    n1 = part.shape[0]
-    depth = rows // n1
-    land = e_keep & ~part[K._gather_index(e_src, n1),
-                          K._gather_index(e_dst, n1)]
-    flat = torch.where(land, e_dst * depth + e_slot,
-                       torch.full_like(e_dst, rows))
+    land, flat = route_rows(e_src, e_dst, e_slot, e_keep, part, rows)
     idx, ok = K._norm_index(flat, rows)
     arena[idx[ok]] = e_words[ok]
     meta[idx[ok]] = torch.stack([e_src, e_kind, e_seq], 1)[ok]
@@ -236,6 +241,34 @@ def _recv_order(shards: int, bcap: int, dev) -> torch.Tensor:
     return (s * S + t) * bcap + j
 
 
+def sharded_route_rows(shards: int, e_src, e_dst, e_slot, e_keep, part_l,
+                       rows_l: int):
+    """K23's routing decisions, receiver-major: (q, land, flat) -- the send
+    lane each position reads, its land flag (decided on its source shard
+    s: keep & ~part_l[s][clip(src - s*npsh, 0, npsh-1), dst], the column
+    gather wrapping once, then clamping) and its flat ring row on its
+    destination shard t ((dst - t*npsh)*depth + slot when it lands on a
+    node of t's, else rows_l)."""
+    S = int(shards)
+    npsh, rows_nodes = part_l[0].shape
+    L = e_src.shape[0]
+    bcap = L // (S * S)
+    land_send = torch.empty(L, dtype=torch.bool, device=e_src.device)
+    for s in range(S):
+        seg = slice(s * S * bcap, (s + 1) * S * bcap)
+        loc = (e_src[seg] - s * npsh).clamp(0, npsh - 1).to(torch.int64)
+        land_send[seg] = e_keep[seg] & ~part_l[s][
+            loc, K._gather_index(e_dst[seg], rows_nodes)]
+    q = _recv_order(S, bcap, e_src.device)
+    land = land_send[q]
+    t = torch.arange(L, device=e_src.device) // (S * bcap)
+    loc = e_dst[q] - t * npsh
+    flat = torch.where(land & (loc >= 0) & (loc < npsh),
+                       loc * (rows_l // npsh) + e_slot[q],
+                       torch.full_like(loc, rows_l))
+    return q, land, flat
+
+
 def sharded_mailbox_route_plain(shards, arena_l, meta_l, e_src, e_dst,
                                 e_slot, e_keep, e_kind, e_seq, e_words,
                                 part_l):
@@ -252,54 +285,46 @@ def sharded_mailbox_route_plain(shards, arena_l, meta_l, e_src, e_dst,
     lane that did not land. -> (arena_l, meta_l, landed_words,
     landed_meta, land), the last three receiver-major."""
     S = int(shards)
-    npsh, rows_nodes = part_l[0].shape
     rows_l = arena_l[0].shape[0]
-    depth = rows_l // npsh
     L = e_src.shape[0]
-    bcap = L // (S * S)
-    land_send = torch.empty(L, dtype=torch.bool, device=e_src.device)
-    for s in range(S):
-        seg = slice(s * S * bcap, (s + 1) * S * bcap)
-        loc = (e_src[seg] - s * npsh).clamp(0, npsh - 1).to(torch.int64)
-        land_send[seg] = e_keep[seg] & ~part_l[s][
-            loc, K._gather_index(e_dst[seg], rows_nodes)]
-    q = _recv_order(S, bcap, e_src.device)
+    q, land, flat = sharded_route_rows(S, e_src, e_dst, e_slot, e_keep,
+                                       part_l, rows_l)
     landed = torch.empty_like(e_words)
     landed_meta = torch.empty(L, 3, dtype=torch.int32, device=e_src.device)
-    land = land_send[q]
     for t in range(S):
-        seg = slice(t * S * bcap, (t + 1) * S * bcap)
-        qs = q[seg]
-        r_src, r_dst, r_slot = e_src[qs], e_dst[qs], e_slot[qs]
-        r_land = land[seg]
-        loc = r_dst - t * npsh
-        flat = torch.where(r_land & (loc >= 0) & (loc < npsh),
-                           loc * depth + r_slot,
-                           torch.full_like(r_dst, rows_l))
-        idx, ok = K._norm_index(flat, rows_l)
+        seg = slice(t * L // S, (t + 1) * L // S)
+        qs, f = q[seg], flat[seg]
+        idx, ok = K._norm_index(f, rows_l)
         arena_l[t][idx[ok]] = e_words[qs][ok]
-        meta_l[t][idx[ok]] = torch.stack([r_src, e_kind[qs], e_seq[qs]],
+        meta_l[t][idx[ok]] = torch.stack([e_src[qs], e_kind[qs], e_seq[qs]],
                                          1)[ok]
-        back = K._gather_index(torch.clamp(flat, max=rows_l - 1), rows_l)
+        back = K._gather_index(torch.clamp(f, max=rows_l - 1), rows_l)
         landed[seg] = arena_l[t][back]
         landed_meta[seg] = meta_l[t][back]
     return arena_l, meta_l, landed, landed_meta, land
 
 
+# csrc/mailbox_shard.cu's entries (K23), lean launches
+_VP, _I = K._VP, K._I
+_SHARD_ROUTE_ARGS = (_VP,) * 12 + (_I,) * 8 + (_VP,) * 4
+_SHARD_LAND_ARGS = (_VP,) + (_I,) * 5 + (_VP,) * 5
+
+
 def launch_sharded_mailbox_route(ext, A, tab, planes, lanes, land_in, outs,
                                  dims, t0: int, nt: int) -> None:
-    """K23's scatter + gather-back launch on device addresses (`A(x)`, see
-    kernels._addr) for destination shards t0 .. t0+nt-1: the arena, meta
-    and partition mask through `tab` (the sharded megakernel's graph) or,
-    with tab None, as `planes`; lanes (e_src, e_dst, e_slot, e_keep,
-    e_kind, e_seq, e_words); land_in (land flags gathered from the source
-    cards) or None (decided here from the mask); outs (landed, landed_meta,
-    land); dims check_shard_mail_lanes' plus shards."""
+    """K23's launch (scatter and gather-back in ONE kernel) on device
+    addresses (`A(x)`, see kernels._addr) for destination shards t0 ..
+    t0+nt-1: the arena, meta and partition mask through `tab` (the sharded
+    megakernel's graph) or, with tab None, as `planes`; lanes (e_src,
+    e_dst, e_slot, e_keep, e_kind, e_seq, e_words); land_in (land flags
+    gathered from the source cards) or None (decided here from the mask);
+    outs (landed, landed_meta, land); dims check_shard_mail_lanes' plus
+    shards."""
     L, W, rows_l, npsh, rows_nodes, bcap, S = dims
-    ext.call("mailbox_shard", "mailbox_shard_route", A(tab),
-             *(A(x) for x in (planes or (None, None, None))),
-             *(A(x) for x in lanes), A(land_in), S, t0, nt, bcap, W, rows_l,
-             npsh, rows_nodes, *(A(o) for o in outs), ext.stream())
+    ext.entry("mailbox_shard", "mailbox_shard_route", _SHARD_ROUTE_ARGS)(
+        A(tab), *(A(x) for x in (planes or (None, None, None))),
+        *(A(x) for x in lanes), A(land_in), S, t0, nt, bcap, W, rows_l, npsh,
+        rows_nodes, *(A(o) for o in outs), ext.stream())
 
 
 def sharded_mailbox_route(shards, arena, meta, e_src, e_dst, e_slot, e_keep,
@@ -356,10 +381,11 @@ def sharded_mailbox_route(shards, arena, meta, e_src, e_dst, e_slot, e_keep,
         K._check_cuda(arena[s], meta[s], part[s], *ln)
         land_s = torch.empty(S * bcap, dtype=torch.bool, device=devs[s])
         with torch.cuda.device(devs[s]):
-            ext.call("mailbox_shard", "mailbox_shard_land", K._addr(part[s]),
-                     s, S, bcap, npsh, rows_nodes, K._addr(ln[0]),
-                     K._addr(ln[1]), K._addr(ln[3]), K._addr(land_s),
-                     ext.stream())
+            ext.entry("mailbox_shard", "mailbox_shard_land",
+                      _SHARD_LAND_ARGS)(
+                part[s].data_ptr(), s, S, bcap, npsh, rows_nodes,
+                ln[0].data_ptr(), ln[1].data_ptr(), ln[3].data_ptr(),
+                land_s.data_ptr(), ext.raw_stream(devs[s].index))
         sends.append(land_s)
     outs = []
     for t in range(S):

@@ -721,6 +721,11 @@ def _stage_mail_shard(P, ext, mailbox, mesh):
                for t in (arena, meta, part)):
         raise ValueError("sharded_protocol_tick: the mailbox arena, meta "
                          "and partition mask must be card tensors")
+    if arena.data_ptr() % 16:
+        # K23 moves rows as 16-byte vectors where the width allows, and
+        # reads the arena through the table, where it cannot check it
+        raise ValueError("sharded_protocol_tick: the mailbox arena must "
+                         "be 16-byte aligned")
     L, W = dims[0], dims[1]
     P.sig.append(("smail", S))
     tab = P.table([P.ptr(arena), P.ptr(meta), P.ptr(part)])

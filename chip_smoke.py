@@ -188,7 +188,11 @@ launched.
      history; 16 nodes, rf 5, concurrency 32, 50 ops, the host network's,
      >= 10 messages per host callback) with the capture gate; K23 on the
      message plane's largest mailbox block and at the 1,024-lane tier (W
-     384), each against its plain version;
+     384), each against its plain version, with device_ms, the library
+     yardstick (index_put_ into the arena and the meta, index_select of
+     each, summed) and beside the parent's two kernels
+     (tools/exec_scatter_mailbox_parent.cu: k23_parent_vs_new), and the
+     message plane's largest tick replayed with each K23;
  23. kernels: each kernel's wrapper is called again on the card on the
      exact inputs its path (and a batch) gave it, and held bit-equal
      against its plain PyTorch version on the same inputs; kernel, plain
@@ -267,7 +271,11 @@ launched.
      and a key body a key block, K14's launches two kernels, none a
      memset or copy. K17 (mailbox_route) and K23 also report device_ms
      (their calls captured in a CUDA graph: both route in place, a
-     replay rewriting the rows its lanes name).
+     replay rewriting the rows its lanes name), and their library_ms is
+     the scatter and the gather-back as index_put_ and index_select
+     calls, summed. K8 is one kernel in a trace and is set beside the
+     parent's (tools/exec_scatter_mailbox_parent.cu: a whole-lane copy,
+     then a scatter kernel) at every recorded call (k8_parent_vs_new).
 The last four lines are the parent-vs-new line (K1 at the PreAccept
 batch, K13 at the sweep's largest and the 10k tick, K5 at the range
 batch, the 10k replay, the sharded 10k key stage; under "range_body"
@@ -277,8 +285,10 @@ batch, each whole and as the megakernel's stage; under "k21" K21 at N
 lanes, the lane tiers and the 10k replay; under "k7" K7 at the inline
 leg's call and at (64, 16,384, 1,024); under "k9" K9's entries at each
 recorded call and the exec megakernel leg's largest replay; under "k20"
-K20 at the graft entry and N 8,192), the card line, one JSON line of
-kernels, and the result line {"ok": true, "device": {...}}.
+K20 at the graft entry and N 8,192; under "k8" K8 at each recorded call;
+under "k23" K23 at the sharded message plane's largest block, the
+1,024-lane tier and the largest tick's replay), the card line, one JSON
+line of kernels, and the result line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -630,6 +640,12 @@ K7_VS_PARENT: dict = {}
 # leg's largest replay (mega_exec_replay)
 K9_VS_PARENT: dict = {}
 K20_VS_PARENT: dict = {}
+# K8 and K23 beside their parents' kernels
+# (tools/exec_scatter_mailbox_variants): K8 by "label:wrapper" of
+# kernel_report, K23 at the sharded message plane's largest block, the
+# 1,024-lane tier and the largest tick's replay
+K8_VS_PARENT: dict = {}
+K23_VS_PARENT: dict = {}
 # the kernels one eager call launches, by wrapper (a torch.profiler trace,
 # which must also show no memset or copy; finalize_csr_tab: its launch,
 # the table uploaded before; transitive_closure: a squaring an iteration,
@@ -637,8 +653,10 @@ K20_VS_PARENT: dict = {}
 # stab words built inside the compaction's tiles; dag_wavefronts_packed
 # and execution_wavefronts: every round in one persistent launch;
 # quorum_count: a cluster of CTAs a tile of lanes; max_conflict: a CTA a
-# subject; K9's entries: the frontier, compacted in the same kernel)
+# subject; K9's entries: the frontier, compacted in the same kernel; K8: a
+# CTA a span of rows of all five lanes, no copy before it)
 KERNELS_A_CALL = {"cmd_tick": 1, "finalize_csr": 1, "finalize_csr_tab": 1,
+                  "exec_scatter": 1,
                   "segment_compact": 1, "range_finalize_csr": 1,
                   "dag_wavefronts_packed": 1, "quorum_count": 1,
                   "max_conflict": 1, "execution_wavefronts": 1,
@@ -1102,6 +1120,14 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int,
             extra["geometry"] = tk.quorum_geometry(args[0].shape[0])
         if fn_name == "max_conflict" and cuda:
             extra["k7_parent_vs_new"] = k7_pairs(tk, args, label)
+        if fn_name == "exec_scatter" and cuda:
+            from accord_tpu_torch.tools import exec_scatter_mailbox_variants \
+                as esv
+            pair = esv.k8_pair(args)
+            check(pair["bit_equal"], "exec_scatter: the parent's K8 answers "
+                  "differently")
+            extra["k8_parent_vs_new"] = K8_VS_PARENT[
+                f"{label}:{fn_name}"] = pair
         if fn_name in EXEC_KERNELS[1:] + ("execution_wavefronts",) and cuda:
             from accord_tpu_torch.tools import frontier_wavefront_variants \
                 as fwv
@@ -1396,8 +1422,11 @@ def bound_inputs(tk, fn_name, args, kw, out):
         lanes, w = words.shape
         landed = int(out[4].sum())
         small = nbytes(src, dst, slot, keep, kind, seq) + lanes
+        from accord_tpu_torch.ops.mailbox import route_rows
+        flat = route_rows(src, dst, slot, keep, part, arena.shape[0])[1]
         return (small + 2 * landed * (w * 4 + 12) + nbytes(out[2:]), 0,
-                None)
+                _route_library(tk, arena, meta, (src, kind, seq), words,
+                               flat, arena.shape[0]))
     if fn_name == "deps_matrix":
         # its word ANDs run on the tensor cores (b1 MMA), for which the
         # data sheet gives no rate: bound by bytes (DEPS_MATRIX_OPS)
@@ -2336,12 +2365,15 @@ def run(rehearse: bool) -> dict:
         from accord_tpu_torch.tools import range_finalize_variants as rfv
         from accord_tpu_torch.tools import frontier_wavefront_variants \
             as fwv
+        from accord_tpu_torch.tools import exec_scatter_mailbox_variants \
+            as esv
         parent = dbv.start_build()
         rparent = rbv.start_build()
         fparent = rfv.start_build()
         dparent = ddv.start_parent_build()
         qparent = qcv.start_build()
         wparent = fwv.start_build()
+        eparent = esv.start_build()
         build_s = build_phase()
         dbv.finish_build(parent)
         rbv.finish_build(rparent)
@@ -2349,13 +2381,15 @@ def run(rehearse: bool) -> dict:
         ddv.finish_parent_build(dparent)
         qcv.finish_build(qparent)
         fwv.finish_build(wparent)
+        esv.finish_build(eparent)
         log(f"build: {build_s:.2f} s (all csrc/*.cu, nvcc in parallel; the "
             "parent's key body, tools/deps_block_parent.cu, range body "
             "and K3, tools/range_block_parent.cu, K6, "
             "tools/range_finalize_parent.cu, K21, "
             "tools/dense_dag_parent.cu, K16 and K7, "
-            "tools/quorum_conflict_parent.cu, and K9 and K20, "
-            "tools/frontier_wavefront_parent.cu, beside them)")
+            "tools/quorum_conflict_parent.cu, K9 and K20, "
+            "tools/frontier_wavefront_parent.cu, and K8 and K23, "
+            "tools/exec_scatter_mailbox_parent.cu, beside them)")
 
     ops = 800 if not rehearse else 120
     launches = {}
@@ -2757,7 +2791,8 @@ def run(rehearse: bool) -> dict:
                                     "k21_parent_vs_new",
                                     "k16_parent_vs_new",
                                     "k7_parent_vs_new", "k9_parent_vs_new",
-                                    "k20_parent_vs_new", "geometry")
+                                    "k20_parent_vs_new", "k8_parent_vs_new",
+                                    "geometry")
                if k in head},
             "launches_by_path": {p: launches[p][name] for p in launches}}
         for label, r in labelled:
@@ -2810,7 +2845,10 @@ def parent_vs_new_line() -> dict:
     (K6_VS_PARENT, K21_VS_PARENT, K16_VS_PARENT, K7_VS_PARENT,
     K9_VS_PARENT, K20_VS_PARENT: by kernel_report's label; K16 also at
     the 10k tick's lane tiers and its whole replay, K7 at (64, 16,384,
-    1,024), K9 at the exec megakernel leg's largest replay)."""
+    1,024), K9 at the exec megakernel leg's largest replay); under "k8"
+    and "k23", K8's (by label) and K23's (the sharded message plane's
+    largest block, the 1,024-lane tier, the largest tick's replay)
+    beside their parents' (K8_VS_PARENT, K23_VS_PARENT)."""
     out = {}
     for key, (label, fn) in PARENT_VS_NEW_KEYS.items():
         got = PARENT_VS_NEW.get((label, fn))
@@ -2837,6 +2875,10 @@ def parent_vs_new_line() -> dict:
         out["k9"] = dict(K9_VS_PARENT)
     if K20_VS_PARENT:
         out["k20"] = dict(K20_VS_PARENT)
+    if K8_VS_PARENT:
+        out["k8"] = dict(K8_VS_PARENT)
+    if K23_VS_PARENT:
+        out["k23"] = dict(K23_VS_PARENT)
     return out
 
 
@@ -4250,12 +4292,42 @@ def _shard_mail_block(S: int, npsh: int, depth: int, w: int, bcap: int,
     return (arena, meta, src, dst, slot, keep, kind, seq, words, part)
 
 
+def _route_library(tk, arena, meta, smalls, words, flat, rows_l, q=None,
+                   base=0):
+    """K17's and K23's yardstick: the scatter and the gather-back as
+    PyTorch calls, summed -- an index_put_ into the arena and one into the
+    meta (the landed lanes' rows, normalised and filtered outside the
+    timed call), then an index_select of each at the gathered-back rows.
+    flat: each position's ring row (rows_l: none) in its shard's rows_l
+    rows, which start at arena row `base` (a tensor a position, or 0);
+    position i reads send lane q[i] (q None: lane i). Routes into copies
+    of the arena and meta (routing the same lanes again rewrites the same
+    rows)."""
+    import torch
+    if q is None:
+        q = torch.arange(flat.shape[0], device=flat.device)
+    idx, ok = tk._norm_index(flat, rows_l)
+    put = (base + idx)[ok]
+    back = base + tk._gather_index(torch.clamp(flat, max=rows_l - 1),
+                                   rows_l)
+    vals = words[q][ok]
+    mvals = torch.stack([x[q] for x in smalls], 1)[ok]
+    a, m = arena.clone(), meta.clone()
+
+    def lib():
+        a.index_put_((put,), vals)
+        m.index_put_((put,), mvals)
+        return a.index_select(0, back), m.index_select(0, back)
+    return lib
+
+
 def _k23_row(mb, S: int, block, device: str, cuda: bool, iters: int):
     """K23 standalone on one mailbox block: kernel vs plain (each on its
     own copy of the arena and meta), timed, bounded (every lane's small
     fields and part entry read once, a landed lane's words read once and
     written to its ring row once with its meta, the gather-back written
     once)."""
+    import torch
     args = _on(block, device)
     lanes = args[2:9]
 
@@ -4276,10 +4348,27 @@ def _k23_row(mb, S: int, block, device: str, cuda: bool, iters: int):
     L, w = lanes[6].shape
     landed = int(out[4].sum())
     small = nbytes(*lanes[:6]) + L
-    extra = {}
+    from accord_tpu_torch.ops import kernels as tk
+    rows_l = args[0].shape[0] // S
+    recv, _land, flat = mb.sharded_route_rows(
+        S, *lanes[:4], mb.shard_parts(args[9], S), rows_l)
+    base = torch.arange(L, device=flat.device) // (L // S) * rows_l
+    lib = _route_library(tk, args[0], args[1],
+                         (lanes[0], lanes[4], lanes[5]), lanes[6], flat,
+                         rows_l, recv, base)
+    check(max_abs_err(lib(), out[2:4]) == 0,
+          "K23's library yardstick routes differently")
+    extra = {"library_ms": time_ms(lib, iters, cuda)}
     if cuda:
         # the host's enqueue left out: 100 calls in one CUDA graph
         extra["device_ms"] = graph_ms(lambda: kern(False))
+        extra["library_device_ms"] = graph_ms(lib)
+        from accord_tpu_torch.tools import exec_scatter_mailbox_variants \
+            as esv
+        pair = esv.k23_pair(S, args)
+        check(pair["bit_equal"], "K23: the parent's kernels answer "
+              "differently")
+        extra["k23_parent_vs_new"] = pair
     return _bound_row(ms, plain_ms, small + 2 * landed * (w * 4 + 12)
                       + nbytes(out[2:]), 0, err, lanes=L, words=w,
                       landed=landed, input_mb=nbytes(args) / 1e6, **extra)
@@ -4599,7 +4688,8 @@ def sharded_mega_phase(device: str, cuda: bool, rehearse: bool, tk,
     burn(6, msizes[0][1], real, nodes=msizes[0][0], **mbase)
     cache2 = tk.jit_cache_sizes()
     tk.reset_launches()
-    mrec = Recorder(tk, names=("sharded_protocol_tick",))
+    mrec = Recorder(tk, names=("sharded_protocol_tick",),
+                    keep=lambda _n, _a, kw: kw.get("mailbox") is not None)
     plane = {}
     with mrec:
         for n, o in msizes:
@@ -4682,6 +4772,21 @@ def sharded_mega_phase(device: str, cuda: bool, rehearse: bool, tk,
         device, cuda, iters)
     check(k23["max_abs_err"] == 0 and k23["lanes_1024"]["max_abs_err"] == 0,
           "K23 disagrees with its plain version")
+    if cuda:
+        # beside the parent's K23 (tools/exec_scatter_mailbox_parent.cu):
+        # both blocks (in _k23_row) and the largest tick's replay (the
+        # kernels a replay runs are the variants tool's to count)
+        from accord_tpu_torch.tools import exec_scatter_mailbox_variants \
+            as esv
+        pair = esv.tick_pair(*mrec.get("sharded_protocol_tick"),
+                             count=False)
+        check(pair["bit_equal"], "sharded message plane: the largest "
+              "replay differs with the parent's K23")
+        k23["tick_parent_vs_new"] = pair
+        K23_VS_PARENT.update(
+            largest_block_256=k23["k23_parent_vs_new"],
+            lanes_1024=k23["lanes_1024"]["k23_parent_vs_new"],
+            largest_tick_replay=pair)
     rows["sharded_mailbox_route"] = dict(k23, plane=plane, multichip=mc)
     log(f"K23[{device}]: {json.dumps(k23)}")
 

@@ -220,8 +220,11 @@ def _scatter_inputs(rng, cap, m):
         [f[full] for f in flags]
 
 
-@pytest.mark.parametrize("cap,m", [(64, 8), (128, 64)])
+@pytest.mark.parametrize("cap,m", [(64, 8), (128, 64), (96, 24), (96, 80)])
 def test_exec_scatter_matches_jax(cap, m):
+    """K8's plain version = the JAX kernel, at caps of 2-8 of the card
+    kernel's 16-row spans (96: three 32-row words) and with more dirty
+    rows than a span holds."""
     rng = np.random.default_rng(cap + m)
     plane, rows, adj_rows, ts_rows, flags = _scatter_inputs(rng, cap, m)
     ref = jk.exec_scatter(*_jax(plane), jnp.asarray(rows),

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from accord_tpu_torch.ops import kernels as tk
+from accord_tpu_torch.ops import mailbox as tmb
 from accord_tpu_torch.ops.encoding import WITNESS_TABLE
 from torch_kernel_cases import (ARENA_SCATTER_CASES, CLOSURE_CASES,
                                 CLOSURE_ITERS, CMD_CASES, CMD_SCALARS,
@@ -28,7 +29,8 @@ from torch_kernel_cases import (ARENA_SCATTER_CASES, CLOSURE_CASES,
                                 finalize_many_tiles, key_body_case,
                                 frontier_case, pack_words, quorum_case,
                                 quorum_lanes, range_body_case,
-                                range_fin_case, WAVEFRONT_CASES,
+                                range_fin_case, SHARD_ROUTE_HAZARDS,
+                                shard_route_case, WAVEFRONT_CASES,
                                 wavefront_case)
 
 pytestmark = pytest.mark.gpu
@@ -539,8 +541,13 @@ def _exec_plane(rng, cap, pending=0.6):
             _t(rng.random(cap) < pending), _t(rng.random(cap) < 0.05)]
 
 
-@pytest.mark.parametrize("cap,m", [(64, 8), (2048, 64), (16384, 64)])
+@pytest.mark.parametrize("cap,m", [(64, 8), (2048, 64), (16384, 64),
+                                   (96, 24), (96, 80), (32, 40)])
 def test_exec_scatter_kernel(cuda, cap, m):
+    """K8 (ONE launch, a CTA a span of 16 rows of all five lanes) = its
+    plain version: caps of 1 to 1,024 spans, more dirty rows than a span
+    holds, duplicates, a negative index and one out of range; its five
+    outputs views of one allocation."""
     rng = np.random.default_rng(cap + m)
     lanes = _exec_plane(rng, cap)
     n = m // 2
@@ -560,6 +567,22 @@ def test_exec_scatter_kernel(cuda, cap, m):
     torch.cuda.synchronize()
     assert tk.LAUNCHES["exec_scatter"] == n0 + 1
     _eq(plain, got)
+    base = got[0].untyped_storage().data_ptr()
+    assert all(g.untyped_storage().data_ptr() == base for g in got)
+
+
+@pytest.mark.parametrize("cap", [1024, 16384])
+def test_exec_scatter_one_kernel_a_call(cuda, cap):
+    """One K8 call, captured in a CUDA graph, is ONE kernel node: no copy
+    of the lanes before it, no memset, no second kernel."""
+    rng = np.random.default_rng(cap)
+    lanes = _on(_exec_plane(rng, cap), cuda)
+    rows = _t(rng.choice(cap, 64, replace=False).astype(np.int32)).to(cuda)
+    srcs = [_t(_words(rng, (64, cap // 32))).to(cuda),
+            _t(rng.integers(-3, 3, (64, 3)).astype(np.int32)).to(cuda),
+            *(_t(rng.random(64) < 0.5).to(cuda) for _ in range(3))]
+    assert _graph_node_types(
+        lambda: tk.exec_scatter(*lanes, rows, *srcs)) == [0]
 
 
 def _frontier_planes(name):
@@ -1824,6 +1847,85 @@ def test_sharded_mailbox_route_kernel(cuda, S, npsh, depth, W, bcap):
     del ca, cm
 
 
+# the card test's shapes (S, npsh, depth, W, bcap), each with bcap >= 4
+ROUTE_CARD_SHAPES = ((4, 2, 4, 8, 4), (4, 17, 64, 384, 64),
+                     (1, 65, 64, 384, 1024), (4, 65, 64, 384, 64))
+
+
+def _route_hazard(S, npsh, depth, W, bcap, hazard):
+    rng = np.random.default_rng(S * 1000 + bcap + len(hazard))
+    ins, writers = shard_route_case(rng, S, npsh, depth, W, bcap, hazard)
+    plain = tmb.sharded_mailbox_route(
+        S, _t(ins[0]), _t(ins[1]), *ins[2:9], _t(ins[9]))
+    return ins, writers, plain
+
+
+@pytest.mark.parametrize("hazard", SHARD_ROUTE_HAZARDS)
+@pytest.mark.parametrize("shape", ROUTE_CARD_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_sharded_mailbox_route_clamped_rows_kernel(cuda, shape, hazard):
+    """K23's ONE launch = its plain version where a gather-back reads a
+    clamped row another lane lands on in the same launch (tests/
+    torch_kernel_cases.shard_route_case): the reader takes the writer's
+    words and meta, never the arena row a block of the launch writes."""
+    S = shape[0]
+    ins, writers, plain = _route_hazard(*shape, hazard)
+    n0 = tk.LAUNCHES["sharded_mailbox_route"]
+    got = tmb.sharded_mailbox_route(
+        S, _t(ins[0]).to(cuda), _t(ins[1]).to(cuda), *ins[2:9],
+        _t(ins[9]).to(cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["sharded_mailbox_route"] == n0 + 1
+    _eq(plain, got)
+    words = _t(ins[8])
+    for q in writers:        # the write is read back somewhere else
+        assert int((plain[2] == words[q]).all(1).sum()) > 1
+
+
+def test_sharded_mailbox_route_one_kernel_a_call(cuda):
+    """One K23 call on a shared card (lanes already on it), captured in a
+    CUDA graph, is ONE kernel node: the scatter and the gather-back in one
+    launch, no memset or copy."""
+    S, npsh, depth, W, bcap = ROUTE_CARD_SHAPES[3]
+    ins, _w, _p = _route_hazard(S, npsh, depth, W, bcap, "last_row")
+    a, m, *lanes, part = (_t(x).to(cuda) for x in ins)
+    assert _graph_node_types(lambda: tmb.sharded_mailbox_route(
+        S, a, m, *lanes, part)) == [0]
+
+
+@pytest.mark.parametrize("hazard", SHARD_ROUTE_HAZARDS)
+def test_sharded_mailbox_route_tuple_form_one_card(cuda, hazard):
+    """K23's tuple form (a tensor a shard, as across cards) with every
+    shard on this one card: the land kernel on each source shard, the land
+    segments gathered, then the route kernel with land_in on each
+    destination shard -- one route launch a destination -- = the plain
+    version, the clamped-row hazards included."""
+    S, npsh, depth, W, bcap = ROUTE_CARD_SHAPES[1]
+    ins, _w, plain = _route_hazard(S, npsh, depth, W, bcap, hazard)
+    rows, n1 = npsh * depth, npsh
+    ga = tuple(_t(ins[0][t * rows:(t + 1) * rows]).to(cuda)
+               for t in range(S))
+    gm = tuple(_t(ins[1][t * rows:(t + 1) * rows]).to(cuda)
+               for t in range(S))
+    gp = tuple(_t(ins[9][t * n1:(t + 1) * n1]).to(cuda) for t in range(S))
+    n0 = tk.LAUNCHES["sharded_mailbox_route"]
+    got = tmb.sharded_mailbox_route(S, ga, gm, *ins[2:9], gp)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["sharded_mailbox_route"] == n0 + 1
+    _eq(plain[0], torch.cat([x.cpu() for x in got[0]]))
+    _eq(plain[1], torch.cat([x.cpu() for x in got[1]]))
+    for want, parts in zip(plain[2:], got[2:]):
+        assert len(parts) == S
+        _eq(want, torch.cat([x.cpu() for x in parts]))
+    # one route kernel a destination shard (and one land kernel a source)
+    lanes = [_t(x).to(cuda) for x in ins[2:9]]
+    dot = _graph_dot(lambda: tmb.sharded_mailbox_route(
+        S, ga, gm, *lanes, gp))
+    nodes = dot.splitlines()
+    assert sum("mailbox_shard_route_kernel" in ln for ln in nodes) == S, dot
+    assert sum("mailbox_shard_land_kernel" in ln for ln in nodes) == S, dot
+
+
 def _shard_merges(seed, k=128):
     """Merges whose every block splits into 4 'data' shards of whole
     words (caps multiples of 128) and every span into 4 word shards."""
@@ -2727,13 +2829,9 @@ def test_dag_wavefronts_packed_after_dirty_flags(cuda):
             assert not bool(flags.any()), flags.cpu()
 
 
-def _graph_node_types(fn):
-    """The node types (cuda.h's CUgraphNodeType: 0 a kernel, 1 a
-    copy, 2 a memset, ...) of one call of fn captured in a CUDA graph,
-    after a warm call. Late in a long process the profiler can deliver no
-    event of a cooperative launch at all; a capture records every
-    operation the call puts on its stream."""
-    import ctypes
+def _captured(fn):
+    """One call of fn captured in a CUDA graph kept for inspection, after
+    a warm call on a side stream."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -2743,6 +2841,17 @@ def _graph_node_types(fn):
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
+    return graph
+
+
+def _graph_node_types(fn):
+    """The node types (cuda.h's CUgraphNodeType: 0 a kernel, 1 a
+    copy, 2 a memset, ...) of one call of fn captured in a CUDA graph,
+    after a warm call. Late in a long process the profiler can deliver no
+    event of a cooperative launch at all; a capture records every
+    operation the call puts on its stream."""
+    import ctypes
+    graph = _captured(fn)
     cu = ctypes.CDLL("libcuda.so.1")
     raw = ctypes.c_void_p(graph.raw_cuda_graph())
     count = ctypes.c_size_t(0)
@@ -2756,6 +2865,27 @@ def _graph_node_types(fn):
                                      ctypes.byref(t)) == 0
         types.append(t.value)
     return types
+
+
+def _graph_dot(fn):
+    """One call of fn captured in a CUDA graph, as libcuda's verbose DOT
+    description (cuGraphDebugDotPrint), where a kernel node's label names
+    its function on one line -- the kernels of a call without the profiler, whose use here
+    can leave it delivering no events to the tests after."""
+    import ctypes
+    import os
+    import tempfile
+    graph = _captured(fn)
+    cu = ctypes.CDLL("libcuda.so.1")
+    fd, path = tempfile.mkstemp(suffix=".dot")
+    os.close(fd)
+    try:
+        assert cu.cuGraphDebugDotPrint(
+            ctypes.c_void_p(graph.raw_cuda_graph()), path.encode(), 1) == 0
+        with open(path) as f:
+            return f.read()
+    finally:
+        os.unlink(path)
 
 
 def test_dag_wavefronts_packed_one_kernel_a_call(cuda):

@@ -39,6 +39,7 @@ from accord_tpu_torch.ops.mailbox import (MailboxPlane, sharded_mailbox_route,
 from accord_tpu_torch.parallel import mesh as tpm
 from accord_tpu_torch.sim.mesh_burn import run_mesh_burn
 from accord_tpu_torch.sim.network import _MailMsg
+from torch_kernel_cases import SHARD_ROUTE_HAZARDS, shard_route_case
 
 pytestmark = pytest.mark.sharded_megakernel
 
@@ -173,6 +174,28 @@ def _route_inputs(rng, S, npsh, depth, W, bcap):
             e["seq"], words, part)
 
 
+# the JAX route under shard_map, one jitted program a 'data' width (the
+# tests below share its compiles)
+_JAX_ROUTE: dict = {}
+
+
+def _jax_route(jmesh):
+    S = jmesh.shape["data"]
+    if S not in _JAX_ROUTE:
+        def part_fn(*args):
+            return jmb._sharded_mailbox_route_part(S, "data", *args)
+        d1, d2 = P("data"), P("data", None)
+        _JAX_ROUTE[S] = jax.jit(jpm.shard_map(
+            part_fn, mesh=jmesh,
+            in_specs=(d2, d2, d1, d1, d1, d1, d1, d1, d2, d2),
+            out_specs=(d2, d2, d2, d2, d1)))
+    return _JAX_ROUTE[S]
+
+
+# the (npsh, depth, W, bcap) shapes of the route differentials
+ROUTE_SHAPES = ((2, 4, 8, 4), (3, 8, 16, 8))
+
+
 def test_sharded_route_plain_matches_jax_shard_map(jmesh):
     """K23's plain version against the JAX package's
     _sharded_mailbox_route_part under shard_map over 'data', on the raw
@@ -180,17 +203,10 @@ def test_sharded_route_plain_matches_jax_shard_map(jmesh):
     receiver-major (a non-landing lane gathers its destination shard's
     last row) and the land flags -- with partitions between shards."""
     S = jmesh.shape["data"]
-
-    def part_fn(*args):
-        return jmb._sharded_mailbox_route_part(S, "data", *args)
-    d1, d2 = P("data"), P("data", None)
-    route = jax.jit(jpm.shard_map(
-        part_fn, mesh=jmesh,
-        in_specs=(d2, d2, d1, d1, d1, d1, d1, d1, d2, d2),
-        out_specs=(d2, d2, d2, d2, d1)))
+    route = _jax_route(jmesh)
     rng = np.random.default_rng(11)
     landed = cut = 0
-    for npsh, depth, W, bcap in ((2, 4, 8, 4), (3, 8, 16, 8)):
+    for npsh, depth, W, bcap in ROUTE_SHAPES:
         ins = _route_inputs(rng, S, npsh, depth, W, bcap)
         ref = route(*ins)
         arena, meta, part = _t(ins[0]), _t(ins[1]), _t(ins[9])
@@ -211,6 +227,38 @@ def test_sharded_route_plain_matches_jax_shard_map(jmesh):
         landed += int(land.sum())
         cut += int((keep_recv & ~land).sum())
     assert landed and cut, "differential vacuous"
+
+
+@pytest.mark.parametrize("hazard", SHARD_ROUTE_HAZARDS)
+def test_sharded_route_plain_matches_jax_clamped_rows(jmesh, hazard):
+    """K23's plain version = the JAX _sharded_mailbox_route_part under
+    shard_map where a gather-back reads a clamped row that another lane
+    lands on in the same tick: pads gathering back row rows_l - 1 while a
+    lane lands there (last_row); a lane with flat < -rows_l gathering back
+    row 0 while a lane lands there, beside a flat in [-rows_l, 0) that
+    wraps to its own row and a landed flat past the ring (first_row). The
+    gather-back must see the tick's write, from every shard."""
+    S = jmesh.shape["data"]
+    route = _jax_route(jmesh)
+    rng = np.random.default_rng(17)
+    for npsh, depth, W, bcap in ROUTE_SHAPES:
+        ins, writers = shard_route_case(rng, S, npsh, depth, W, bcap,
+                                        hazard)
+        ref = route(*ins)
+        arena, meta, part = _t(ins[0]), _t(ins[1]), _t(ins[9])
+        got = sharded_mailbox_route_plain(
+            S, shard_parts(arena, S), shard_parts(meta, S),
+            *(_t(x) for x in ins[2:9]), shard_parts(part, S))
+        _same(ref[0], arena)
+        _same(ref[1], meta)
+        for a, b in zip(ref[2:], got[2:]):
+            _same(a, b)
+        # every writer's words read back at some other position
+        landed, words = np.asarray(ref[2]), ins[8]
+        recv = _recv_positions(S, bcap)
+        for q in writers:
+            hits = (landed == words[q]).all(1) & (recv != q)
+            assert hits.any(), (hazard, q)
 
 
 def _recv_positions(S, bcap):

@@ -913,3 +913,74 @@ def wavefront_case(name):
         adj[5, 5] = adj[70, 70] = True
         adj[80, 70] = True
     return adj, levels
+
+
+# K23's clamped rows: a position that does not read back its own ring row
+# gathers its destination shard's row rows_l - 1 (a lane that does not
+# land, padding, or a landed flat past the ring) or row 0 (flat <
+# -rows_l), after the whole tick's scatter -- where another lane of the
+# same tick may land
+SHARD_ROUTE_HAZARDS = ("last_row", "first_row")
+
+
+def shard_route_case(rng, S, npsh, depth, W, bcap, hazard):
+    """Raw sharded-route inputs (arena, meta, the seven emit lanes, part)
+    with landed lanes on distinct (dst, slot) rings, pads in every segment
+    and cut links, plus, for every destination shard t, lanes of segment
+    (t + 1 mod S, t) on uncut links: `last_row` -- one lands on row
+    rows_l - 1, which t's pads gather back; `first_row` -- one lands on
+    row 0, one has flat < -rows_l (gathers back row 0), one a flat in
+    [-rows_l, 0) (wraps once to row 1: its own row) and one a flat past
+    the ring (dropped: gathers back row rows_l - 1). -> (inputs, the send
+    positions of the lanes landing on the clamped row)."""
+    assert bcap >= 4 and hazard in SHARD_ROUTE_HAZARDS
+    rows_nodes, rows_l = npsh * S, npsh * depth
+    L = S * S * bcap
+    arena = rng.integers(-9, 9, (rows_nodes * depth, W)).astype(np.int32)
+    meta = rng.integers(-9, 9, (rows_nodes * depth, 3)).astype(np.int32)
+    part = np.zeros((rows_nodes, rows_nodes), bool)
+    for a, b in ((1, npsh + 1), (2, 3 * npsh - 1), (npsh, npsh + 1)):
+        a, b = a % rows_nodes, b % rows_nodes
+        part[a, b] = part[b, a] = True
+    src, dst, slot, kind, seq = (np.zeros(L, np.int32) for _ in range(5))
+    keep = np.zeros(L, bool)
+    words = np.zeros((L, W), np.int32)
+    free = {v: list(rng.permutation(depth)) for v in range(rows_nodes)}
+    for t in range(S):                      # the hazard lanes' rows
+        if hazard == "last_row":
+            free[t * npsh + npsh - 1].remove(depth - 1)
+        else:
+            free[t * npsh] = [sl for sl in free[t * npsh] if sl > 1]
+
+    def put(q, s, d, sl):
+        src[q], dst[q], slot[q] = s, d, sl
+        kind[q], seq[q] = int(rng.integers(1, 5)), int(rng.integers(0, 1 << 20))
+        keep[q] = True
+        words[q] = rng.integers(-1 << 30, 1 << 30, W)
+
+    for s in range(S):
+        for t in range(S):
+            for j in range(int(rng.integers(0, bcap - 3))):
+                d = int(rng.integers(t * npsh, (t + 1) * npsh))
+                if free[d]:
+                    put((s * S + t) * bcap + j,
+                        int(rng.integers(s * npsh, (s + 1) * npsh)), d,
+                        free[d].pop())
+    writers = []
+    for t in range(S):
+        s = (t + 1) % S
+        q = (s * S + t) * bcap + bcap - 1
+        sv, t0 = s * npsh + npsh - 1, t * npsh
+        if hazard == "last_row":
+            put(q, sv, t0 + npsh - 1, depth - 1)
+        else:
+            loc = npsh - 1
+            put(q, sv, t0, 0)
+            put(q - 1, sv, t0 + loc, -(rows_l + 1) - loc * depth)
+            put(q - 2, sv, t0, 1 - rows_l)
+            put(q - 3, sv, t0 + loc, rows_l + 3)
+        for d in dst[q - 3:q + 1]:
+            part[sv, d] = part[d, sv] = False
+        writers.append(q)
+    return (arena, meta, src, dst, slot, keep, kind, seq, words,
+            part), writers
