@@ -24,7 +24,8 @@
 // one launch, over a table of FinEnt records in device memory (each a
 // FinIn and its outputs and scratch): the protocol megakernel's graph
 // holds its tick's key finalizes in one such node, the table in its
-// parameter block.
+// parameter block. `fin_shard_tab` (below) does the same for the sharded
+// megakernel's finalizes, each read through its data shards' records.
 //
 // What bounds it: bytes. It reads S*W words of the packed result and of
 // the kid table (at the PreAccept-batch shape 4096 slots x 512 words, 8 MB
@@ -95,12 +96,15 @@ extern "C" int finalize_csr(const void* packed, int b, int wt, int off,
 struct FinEnt {
   const FinIn* in;
   CsrOut o;
+  __device__ __forceinline__ FinIn src() const { return *in; }
 };
 
-// the table launch's specs: tile ids in order -- every spec's compaction
-// tiles, then every spec's pad tiles (pad0 strictly increasing)
-struct FinTab {
-  const FinEnt* ents;
+// a table launch's specs (Ent: FinEnt, or ShardEnt below): tile ids in
+// order -- every spec's compaction tiles, then every spec's pad tiles
+// (pad0 strictly increasing)
+template <class Ent>
+struct EntTab {
+  const Ent* ents;
   int tiles, nspec, ctiles;
   unsigned long long* state;
 
@@ -120,17 +124,56 @@ struct FinTab {
     return lo;
   }
   __device__ __forceinline__ CsrOut out(int k) const { return ents[k].o; }
-  __device__ __forceinline__ FinIn src(int k) const { return *ents[k].in; }
+  __device__ __forceinline__ auto src(int k) const { return ents[k].src(); }
 };
+
+// spec k's CsrOut in a table launch: s slots of w words, act_ts and its
+// five outputs as finalize_csr's, `scratch` the launch's (nspec specs),
+// tile0 / pad0 its first compaction and pad tile (the caller numbers
+// them: every spec's csr_tiles_for(s * w) compaction tiles in order,
+// then every spec's csr_pads_for(out_cap) pad tiles)
+static inline CsrOut tab_out(int s, int w, const void* act_ts, int out_cap,
+                             void* indptr, void* dep_rows, void* dep_ts,
+                             void* bound, void* csum, void* scratch,
+                             int nspec, int k, int tile0, int pad0) {
+  CsrOut o = csr_out_one(s, w, (const int*)act_ts, out_cap, (int*)indptr,
+                         (int*)dep_rows, (int*)dep_ts, (int*)bound,
+                         (unsigned*)csum, scratch, FoldSeeds{1u, 5u, 9u});
+  char* base = (char*)scratch;
+  o.acc = (CsrAcc*)(base + sizeof(CsrHdr)) + k;
+  o.state = (unsigned long long*)(base + sizeof(CsrHdr) +
+                                  sizeof(CsrAcc) * (size_t)nspec) +
+            tile0;
+  o.tile0 = tile0;
+  o.pad0 = pad0;
+  return o;
+}
+
+// nspec specs in ONE launch over the Ent table `tab` (device memory) of
+// `tiles` tiles in all, `ctiles` of them compaction tiles; scratch:
+// kernels.csr_scratch_bytes(nspec, ctiles) zeroed bytes, left zeroed
+template <class Ent>
+static inline int launch_tab(const void* tab, int nspec, int tiles,
+                             int ctiles, void* scratch, void* stream) {
+  if (nspec <= 0) return 0;
+  if (tiles < nspec || ctiles < 0) return (int)cudaErrorInvalidValue;
+  EntTab<Ent> t;
+  t.ents = (const Ent*)tab;
+  t.tiles = tiles;
+  t.nspec = nspec;
+  t.ctiles = ctiles;
+  t.state = (unsigned long long*)((char*)scratch + sizeof(CsrHdr) +
+                                  sizeof(CsrAcc) * (size_t)nspec);
+  csr_kernel<EntTab<Ent>><<<csr_grid(tiles), CT, 0, (cudaStream_t)stream>>>(
+      t, (CsrHdr*)scratch);
+  ACCORD_CHECK();
+  return 0;
+}
 
 extern "C" int fin_ent_bytes() { return (int)sizeof(FinEnt); }
 
 // write the FinEnt of one finalize to host memory `dst`: `fin` the device
-// address of its FinIn (s slots of w words), act_ts and its five outputs
-// as finalize_csr's, `scratch` the table launch's scratch, k the spec's
-// index and tile0 / pad0 its first compaction and pad tile (the caller
-// numbers them: every spec's csr_tiles_for(s * w) compaction tiles in
-// order, then every spec's csr_pads_for(out_cap) pad tiles)
+// address of its FinIn (s slots of w words), the rest as tab_out's
 extern "C" int fin_ent_pack(void* dst, const void* fin, int s, int w,
                             const void* act_ts, int out_cap, void* indptr,
                             void* dep_rows, void* dep_ts, void* bound,
@@ -138,39 +181,16 @@ extern "C" int fin_ent_pack(void* dst, const void* fin, int s, int w,
                             int tile0, int pad0) {
   FinEnt e;
   e.in = (const FinIn*)fin;
-  e.o = csr_out_one(s, w, (const int*)act_ts, out_cap, (int*)indptr,
-                    (int*)dep_rows, (int*)dep_ts, (int*)bound,
-                    (unsigned*)csum, scratch, FoldSeeds{1u, 5u, 9u});
-  char* base = (char*)scratch;
-  e.o.acc = (CsrAcc*)(base + sizeof(CsrHdr)) + k;
-  e.o.state = (unsigned long long*)(base + sizeof(CsrHdr) +
-                                    sizeof(CsrAcc) * (size_t)nspec) +
-              tile0;
-  e.o.tile0 = tile0;
-  e.o.pad0 = pad0;
+  e.o = tab_out(s, w, act_ts, out_cap, indptr, dep_rows, dep_ts, bound,
+                csum, scratch, nspec, k, tile0, pad0);
   *(FinEnt*)dst = e;
   return 0;
 }
 
-// nspec finalizes in ONE launch over the FinEnt table `tab` (device
-// memory) of `tiles` tiles in all, `ctiles` of them compaction tiles;
-// scratch: kernels.csr_scratch_bytes(nspec, ctiles) zeroed bytes, left
-// zeroed
+// nspec finalizes in ONE launch over the FinEnt table `tab`
 extern "C" int finalize_csr_tab(const void* tab, int nspec, int tiles,
                                 int ctiles, void* scratch, void* stream) {
-  if (nspec <= 0) return 0;
-  if (tiles < nspec || ctiles < 0) return (int)cudaErrorInvalidValue;
-  FinTab t;
-  t.ents = (const FinEnt*)tab;
-  t.tiles = tiles;
-  t.nspec = nspec;
-  t.ctiles = ctiles;
-  t.state = (unsigned long long*)((char*)scratch + sizeof(CsrHdr) +
-                                  sizeof(CsrAcc) * (size_t)nspec);
-  csr_kernel<FinTab><<<csr_grid(tiles), CT, 0, (cudaStream_t)stream>>>(
-      t, (CsrHdr*)scratch);
-  ACCORD_CHECK();
-  return 0;
+  return launch_tab<FinEnt>(tab, nspec, tiles, ctiles, scratch, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -190,9 +210,13 @@ extern "C" int finalize_csr_tab(const void* tab, int nspec, int tiles,
 //                     into this shard's fragment; positions >= out_cap
 //                     drop, and the fragment is zeroed first, because the
 //                     fragments merge by a sum (csrc/mesh_combine.cu).
-// The self-bit test uses the shard-global word index. Bound: bytes, the
-// shard's S x wl words of blk and kid read twice (count, compact); a
-// block walks a slot's words CT at a time, so slots wider than CT loop.
+// The self-bit test uses the shard-global word index. These are the
+// per-shard launches of the eager form, which shards across cards (with
+// K22's counts_scan and fragment_merge); the megakernel's graph, whose
+// shards share its card, runs the sharded finalize TABLE below instead.
+// Bound: bytes, the shard's S x wl words of blk and kid read twice
+// (count, compact); a block walks a slot's words CT at a time, so slots
+// wider than CT loop.
 struct ShardFin {
   const unsigned* blk;
   int blk_stride, b;
@@ -220,10 +244,10 @@ struct ShardFin {
   }
 };
 
-// the count pass of one shard over its slots blockIdx.x, + gridDim.x, ...
-__device__ __forceinline__ void shard_count_body(const ShardFin& f, int s,
-                                                 int* counts, int* bound,
-                                                 int bound_lo, int bound_hi) {
+// fin_shard_count: a block per slot (blockIdx.x, + gridDim.x, ...)
+__global__ void __launch_bounds__(CT)
+fin_shard_count_kernel(const ShardFin f, int s, int* __restrict__ counts,
+                       int* __restrict__ bound, int bound_lo, int bound_hi) {
   for (int sl = blockIdx.x; sl < s; sl += gridDim.x) {
     const bool bounds = bound != nullptr && sl >= bound_lo && sl < bound_hi;
     int cnt = 0, kb = 0;
@@ -242,10 +266,11 @@ __device__ __forceinline__ void shard_count_body(const ShardFin& f, int s,
   }
 }
 
-// the compaction pass of one shard over its slots blockIdx.x, + gridDim.x
-__device__ __forceinline__ void shard_compact_body(const ShardFin& f, int s,
-                                                   const int* seg_base,
-                                                   int out_cap, int* frag) {
+// fin_shard_compact: a block per slot
+__global__ void __launch_bounds__(CT)
+fin_shard_compact_kernel(const ShardFin f, int s,
+                         const int* __restrict__ seg_base, int out_cap,
+                         int* __restrict__ frag) {
   for (int sl = blockIdx.x; sl < s; sl += gridDim.x) {
     int carry = seg_base[sl];
     for (int w0 = 0; w0 < f.wl; w0 += CT) {
@@ -264,69 +289,6 @@ __device__ __forceinline__ void shard_compact_body(const ShardFin& f, int s,
       }
     }
   }
-}
-
-__global__ void __launch_bounds__(CT)
-fin_shard_count_kernel(const ShardFin f, int s, int* __restrict__ counts,
-                       int* __restrict__ bound, int bound_lo, int bound_hi) {
-  shard_count_body(f, s, counts, bound, bound_lo, bound_hi);
-}
-
-__global__ void __launch_bounds__(CT)
-fin_shard_compact_kernel(const ShardFin f, int s,
-                         const int* __restrict__ seg_base, int out_cap,
-                         int* __restrict__ frag) {
-  shard_compact_body(f, s, seg_base, out_cap, frag);
-}
-
-// The sharded protocol megakernel's form (accord_tpu_torch/ops/
-// tick_graph.py): one record per shard in the graph's parameter block, so
-// a replay reads the tick's own packed result, kid table and lanes, and
-// one launch covers every shard of a finalize (blockIdx.y the record).
-struct ShardFinEnt {
-  ShardFin f;
-  int* counts;          // the shard's slot counts, or null ('model' > 0)
-  int* bound;           // its out-cap bound partial
-  const int* seg_base;  // its write bases (the compaction)
-  int* frag;            // its fragment (the compaction)
-  int bound_lo, bound_hi;
-};
-
-extern "C" int shard_fin_bytes() { return (int)sizeof(ShardFinEnt); }
-
-// write the record of these operands (device pointers) to host memory dst
-extern "C" int shard_fin_pack(void* dst, const void* blk, int blk_stride,
-                              int b, const void* kid, int kid_stride, int kc,
-                              int wl, int base_w, const void* slot_subj,
-                              const void* slot_kid, const void* subj_row,
-                              void* counts, void* bound, int bound_lo,
-                              int bound_hi, const void* seg_base,
-                              void* frag) {
-  ShardFinEnt e;
-  e.f = ShardFin{(const unsigned*)blk, blk_stride, b, (const unsigned*)kid,
-                 kid_stride, kc, wl, base_w, (const int*)slot_subj,
-                 (const int*)slot_kid, (const int*)subj_row};
-  e.counts = (int*)counts;
-  e.bound = (int*)bound;
-  e.seg_base = (const int*)seg_base;
-  e.frag = (int*)frag;
-  e.bound_lo = bound_lo;
-  e.bound_hi = bound_hi;
-  *(ShardFinEnt*)dst = e;
-  return 0;
-}
-
-__global__ void __launch_bounds__(CT)
-fin_shard_count_tab_kernel(const ShardFinEnt* __restrict__ tab, int s) {
-  const ShardFinEnt e = tab[blockIdx.y];
-  shard_count_body(e.f, s, e.counts, e.bound, e.bound_lo, e.bound_hi);
-}
-
-__global__ void __launch_bounds__(CT)
-fin_shard_compact_tab_kernel(const ShardFinEnt* __restrict__ tab, int s,
-                             int out_cap) {
-  const ShardFinEnt e = tab[blockIdx.y];
-  shard_compact_body(e.f, s, e.seg_base, out_cap, e.frag);
 }
 
 static inline int shard_grid(int s) {
@@ -371,37 +333,101 @@ extern "C" int fin_shard_compact(const void* blk, int blk_stride, int b,
   return 0;
 }
 
-// fin_shard_count over a table of nent records (device memory) of s slots
-// each; the bound partials (nbounds ints at `bounds`) are zeroed first
-extern "C" int fin_shard_count_tab(const void* tab, int nent, int s,
-                                   void* bounds, int nbounds, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (nbounds > 0) {
-    cudaMemsetAsync(bounds, 0, sizeof(int) * (size_t)nbounds, st);
-    ACCORD_CHECK();
+// ---------------------------------------------------------------------------
+// The sharded finalize TABLE (the sharded protocol megakernel's key
+// finalizes, accord_tpu_torch/ops/tick_graph.py; the reference's
+// _sharded_finalize_body inlined per finalize in its sharded tick,
+// parallel/mesh.py :779): every finalize of a tick in ONE launch of K2's
+// compaction (common.cuh csr_kernel), the finalize's data shards read
+// through their own ShardFin records. A graph holds only shards on its own
+// card, so the shards' positions are disjoint inside ONE output: the
+// compaction walks each finalize's words in (slot, data shard, word)
+// order -- which is (slot, span word) order, shard d holding words [d wl,
+// (d + 1) wl) -- reading word wd of a slot through record wd / wl at its
+// local word, and writes each set bit straight to its final dep_rows /
+// dep_ts position. A compaction tile is CW consecutive words of that
+// order (a run of slots x every data shard of them), so its look-back
+// prefix is that of one contiguous run of positions. No counts pass, no
+// scan of per-shard counts, no fragments, no sum-merge and no memset:
+// pad tiles write past the total, whoever writes a value folds it, and
+// the last block (by ticket) writes each finalize's checksum and bound and
+// leaves the scratch zeroed. The bound is the sum over every (data,
+// 'model') shard's partial -- the kid words' popcount of its slot block --
+// which, being exact integers, is each in-range slot's kid popcount
+// summed over its words: the tile adds each word's once, through the
+// record that reads it. What bounds it: bytes, each finalize's S x w
+// words of the packed result and the kid table read once (as K2's table).
+//
+// A thread keeps in registers the record of the shard its last word was
+// read through and that shard's first word: a thread's words are
+// consecutive, so the shard rarely changes between them (where each word
+// divided for its shard and loaded its record's fields, the 10k tick's
+// table took ~10% longer: tools/sharded_finalize_variants.py).
+struct ShardSpan {
+  const ShardFin* rec;   // the finalize's data shards' records
+  int wl;
+  mutable int c0 = -(1 << 30);   // the cached shard's first word
+  mutable ShardFin cur;
+
+  __device__ __forceinline__ unsigned word(int sl, int wd, long long,
+                                           unsigned* kw) const {
+    if (wd < c0 || wd >= c0 + wl) {
+      const int d = wd / wl;
+      cur = rec[d];
+      c0 = d * wl;
+    }
+    return cur.word(sl, wd - c0, kw);
   }
-  if (s <= 0 || nent <= 0) return 0;
-  if (nent > 65535) return (int)cudaErrorInvalidValue;
-  fin_shard_count_tab_kernel<<<dim3(shard_grid(s), nent), CT, 0, st>>>(
-      (const ShardFinEnt*)tab, s);
-  ACCORD_CHECK();
+};
+
+// one finalize of the sharded table: its records and its CsrOut (over s
+// slots of w = data * wl words)
+struct ShardEnt {
+  const ShardFin* rec;
+  int wl;
+  CsrOut o;
+  __device__ __forceinline__ ShardSpan src() const {
+    return ShardSpan{rec, wl};
+  }
+};
+
+extern "C" int shard_fin_bytes() { return (int)sizeof(ShardFin); }
+
+// write the ShardFin of one data shard (device pointers: blk and kid at the
+// shard's first column) to host memory dst
+extern "C" int shard_fin_pack(void* dst, const void* blk, int blk_stride,
+                              int b, const void* kid, int kid_stride, int kc,
+                              int wl, int base_w, const void* slot_subj,
+                              const void* slot_kid, const void* subj_row) {
+  *(ShardFin*)dst = ShardFin{(const unsigned*)blk, blk_stride, b,
+                             (const unsigned*)kid, kid_stride, kc, wl,
+                             base_w, (const int*)slot_subj,
+                             (const int*)slot_kid, (const int*)subj_row};
   return 0;
 }
 
-// fin_shard_compact over a table of nent records; the fragments (nfrag
-// ints at `frags`, every record's) are zeroed first
-extern "C" int fin_shard_compact_tab(const void* tab, int nent, int s,
-                                     int out_cap, void* frags, int nfrag,
-                                     void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (nfrag > 0) {
-    cudaMemsetAsync(frags, 0, sizeof(int) * (size_t)nfrag, st);
-    ACCORD_CHECK();
-  }
-  if (s <= 0 || nent <= 0 || out_cap <= 0) return 0;
-  if (nent > 65535) return (int)cudaErrorInvalidValue;
-  fin_shard_compact_tab_kernel<<<dim3(shard_grid(s), nent), CT, 0, st>>>(
-      (const ShardFinEnt*)tab, s, out_cap);
-  ACCORD_CHECK();
+extern "C" int shard_ent_bytes() { return (int)sizeof(ShardEnt); }
+
+// write the ShardEnt of one finalize to host memory dst: `rec` the device
+// address of its `data` ShardFin records (wl words each), the rest as
+// fin_ent_pack's over s slots of data * wl words
+extern "C" int shard_ent_pack(void* dst, const void* rec, int data, int wl,
+                              int s, const void* act_ts, int out_cap,
+                              void* indptr, void* dep_rows, void* dep_ts,
+                              void* bound, void* csum, void* scratch,
+                              int nspec, int k, int tile0, int pad0) {
+  ShardEnt e;
+  e.rec = (const ShardFin*)rec;
+  e.wl = wl;
+  e.o = tab_out(s, data * wl, act_ts, out_cap, indptr, dep_rows, dep_ts,
+                bound, csum, scratch, nspec, k, tile0, pad0);
+  *(ShardEnt*)dst = e;
   return 0;
+}
+
+// nspec sharded finalizes in ONE launch over the ShardEnt table `tab`
+// (device memory); scratch as finalize_csr_tab's
+extern "C" int fin_shard_tab(const void* tab, int nspec, int tiles,
+                             int ctiles, void* scratch, void* stream) {
+  return launch_tab<ShardEnt>(tab, nspec, tiles, ctiles, scratch, stream);
 }

@@ -23,11 +23,15 @@
 //                   per-shard slot counts -> indptr [S+1] and each shard's
 //                   exclusive write base in every slot's segment, and the
 //                   out-cap bound summed over its per-shard partials. One
-//                   block of CT threads walks the slots CT at a time.
+//                   block of 1,024 threads, 4 slots a thread a pass.
 //   fragment_merge  the fragments' sum-merge (:654), then dep_ts =
 //                   act_ts[dep_rows] (:656) and the checksum folded over
-//                   the merged triple (csr_checksum, :657) with the
-//                   padding past the total (merge_pad_fold_kernel).
+//                   the merged triple (csr_checksum, :657): ONE launch,
+//                   one pass over out_cap, the last block by ticket
+//                   writing the checksum.
+// counts_scan and fragment_merge serve the eager sharded finalize (the
+// form that shards across cards); the sharded megakernel's graph runs its
+// finalizes as one table launch (csrc/finalize_csr.cu fin_shard_tab).
 //
 // What bounds them on an H100: bytes, each combine reads its inputs once
 // and writes its outputs once (a few hundred KB at the burn's shapes), so
@@ -122,29 +126,79 @@ extern "C" int lane_concat_segs() { return CAT_SEGS; }
 // counts [data, s] -> indptr [s+1] (exclusive prefix of the column sums,
 // indptr[s] the total), seg_base [data, s] (indptr[i] + the lower shards'
 // counts of slot i), bound = the sum of bounds [nb]; wrapping int32, as
-// the reference's int32 cumsum
-__global__ void __launch_bounds__(CT)
+// the reference's int32 cumsum. One block of CS_T threads, CS_U
+// consecutive slots a thread a pass (4,096 slots, the PreAccept batch's,
+// in one pass): a thread issues its slots' loads of every shard's counts
+// before it sums them (was a block of CT threads, a slot each, walking
+// the slots CT at a time: 16 dependent passes at the batch).
+#define CS_T 1024
+#define CS_U 4
+
+// block-wide exclusive scan of one u32 a thread (CS_T threads); *total =
+// the block sum
+__device__ __forceinline__ unsigned cs_excl_scan(unsigned x,
+                                                 unsigned* total) {
+  __shared__ unsigned ws[CS_T / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned incl = x;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) ws[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned v = ws[lane];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned y = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v += y;
+    }
+    ws[lane] = v;
+  }
+  __syncthreads();
+  const unsigned before = warp == 0 ? 0u : ws[warp - 1];
+  *total = ws[CS_T / 32 - 1];
+  __syncthreads();   // ws is reused by the next pass
+  return before + incl - x;
+}
+
+__global__ void __launch_bounds__(CS_T)
 counts_scan_kernel(const int* __restrict__ counts, int data, int s,
                    const int* __restrict__ bounds, int nb,
                    int* __restrict__ indptr, int* __restrict__ seg_base,
                    int* __restrict__ bound) {
   unsigned carry = 0u;
-  for (int lo = 0; lo < s; lo += CT) {
-    const int i = lo + threadIdx.x;
-    unsigned col = 0u;
-    if (i < s)
-      for (int d = 0; d < data; ++d) col += (unsigned)counts[(long long)d * s + i];
-    int tot;
-    const unsigned ex = carry + (unsigned)block_excl_scan((int)col, &tot);
-    if (i < s) {
+  for (long long lo = 0; lo < s; lo += CS_T * CS_U) {
+    const long long i0 = lo + (long long)threadIdx.x * CS_U;
+    unsigned col[CS_U];
+#pragma unroll
+    for (int u = 0; u < CS_U; ++u) col[u] = 0u;
+#pragma unroll 4
+    for (int d = 0; d < data; ++d) {
+      const int* c = counts + (long long)d * s;
+#pragma unroll
+      for (int u = 0; u < CS_U; ++u)
+        if (i0 + u < s) col[u] += (unsigned)c[i0 + u];
+    }
+    unsigned mine = 0u, tot;
+#pragma unroll
+    for (int u = 0; u < CS_U; ++u) mine += col[u];
+    unsigned ex = carry + cs_excl_scan(mine, &tot);
+#pragma unroll
+    for (int u = 0; u < CS_U; ++u) {
+      const long long i = i0 + u;
+      if (i >= s) break;
       indptr[i] = (int)ex;
       unsigned below = 0u;
       for (int d = 0; d < data; ++d) {
         seg_base[(long long)d * s + i] = (int)(ex + below);
         below += (unsigned)counts[(long long)d * s + i];
       }
+      ex += col[u];
     }
-    carry += (unsigned)tot;
+    carry += tot;
   }
   if (threadIdx.x == 0) {
     indptr[s] = (int)carry;
@@ -158,110 +212,125 @@ extern "C" int counts_scan(const void* counts, int data, int s,
                            const void* bounds, int nb, void* indptr,
                            void* seg_base, void* bound, void* stream) {
   if (data <= 0 || s < 0 || nb < 0) return (int)cudaErrorInvalidValue;
-  counts_scan_kernel<<<1, CT, 0, (cudaStream_t)stream>>>(
+  counts_scan_kernel<<<1, CS_T, 0, (cudaStream_t)stream>>>(
       (const int*)counts, data, s, (const int*)bounds, nb, (int*)indptr,
       (int*)seg_base, (int*)bound);
   ACCORD_CHECK();
   return 0;
 }
 
-// dep_rows[p] = sum_d frags[d][p]; dep_ts[p] = ts[dep_rows[p]] (a jnp
-// gather: a negative row wraps once, then clamps)
-__global__ void fragment_sum_kernel(const int* __restrict__ frags, int data,
-                                    int out_cap, const int* __restrict__ ts,
-                                    int ts_rows, int* __restrict__ dep_rows,
-                                    int* __restrict__ dep_ts) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       p < out_cap; p += stride) {
-    unsigned v = 0u;
-    for (int d = 0; d < data; ++d)
-      v += (unsigned)frags[(long long)d * out_cap + p];
-    int r = (int)v;
-    dep_rows[p] = r;
-    if (r < 0) r += ts_rows;
-    r = r < 0 ? 0 : (r >= ts_rows ? ts_rows - 1 : r);
-    dep_ts[3 * p] = ts[3LL * r];
-    dep_ts[3 * p + 1] = ts[3LL * r + 1];
-    dep_ts[3 * p + 2] = ts[3LL * r + 2];
-  }
-}
+// The fragments' merge in ONE launch (was a sum kernel, a memset of the
+// checksum's partial sums, a pad/fold kernel and a one-thread checksum
+// kernel): a thread takes MG_U positions a pass (p, p + stride, ...),
+// issues every fragment load of them, then their dep_ts gathers from ts (a
+// jnp gather: a negative row wraps once, then clamps), and writes and
+// folds both; the padding past the total is the fragments' zeros there and
+// ts[0], written by the same walk. The indptr words fold in the same
+// launch (a thread's first one loaded before any fragment). Each block adds its partial sums into zeroed scratch and takes
+// a ticket; the last block writes the checksum word and zeroes the scratch
+// again. A merge of at most CT * MG_U positions is one block, which writes
+// the checksum from its own sums and leaves the scratch alone (a burn's
+// merge: its latency is the launch and two dependent loads).
+#define MG_U 4
 
-// pad dep_rows (and dep_ts) past the total -- row 0, ts[0] -- and fold the
-// finalize checksum grid-wide: each thread folds the value it reads (below
-// the total) or writes (the padding), and each block adds its partial sums
-// into acc[0..2] (wrapping u32 adds: the order cannot change the sum)
+struct MergeScratch {
+  unsigned acc[3];   // indptr, dep_rows, dep_ts partial sums
+  unsigned ticket;
+};
+
 __global__ void __launch_bounds__(CT)
-merge_pad_fold_kernel(int s, const int* __restrict__ ts, int out_cap,
+fragment_merge_kernel(const int* __restrict__ frags, int data, int out_cap,
+                      const int* __restrict__ ts, int ts_rows, int s,
                       const int* __restrict__ indptr,
                       int* __restrict__ dep_rows, int* __restrict__ dep_ts,
-                      unsigned* __restrict__ acc) {
-  const int total = indptr[s];
-  const int start = total < out_cap ? (total < 0 ? 0 : total) : out_cap;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned s1 = 0, s5 = 0, s9 = 0;
-  for (long long p = t; p < out_cap; p += stride) {
-    int v = 0;
-    if (p < start)
-      v = dep_rows[p];
-    else
-      dep_rows[p] = 0;
-    s5 += fold_term(v, (unsigned)p, 5u);
-  }
-  const int pad[3] = {ts[0], ts[1], ts[2]};
-  for (long long i = t; i < 3LL * out_cap; i += stride) {
-    const int lane = (int)(i % 3);
-    int v;
-    if (i / 3 < start) {
-      v = dep_ts[i];
-    } else {
-      v = lane == 0 ? pad[0] : (lane == 1 ? pad[1] : pad[2]);
-      dep_ts[i] = v;
+                      unsigned* __restrict__ csum, MergeScratch* sc) {
+  __shared__ bool s_last;
+  const long long stride = (long long)gridDim.x * CT;
+  const long long t = (long long)blockIdx.x * CT + threadIdx.x;
+  unsigned s1 = 0u, s5 = 0u, s9 = 0u;
+  // the thread's first indptr word, loaded before the fragments' (its
+  // latency hides behind theirs), folded after
+  const int y0 = t <= s ? indptr[t] : 0;
+  for (long long p0 = t; p0 < out_cap; p0 += MG_U * stride) {
+    unsigned v[MG_U];
+#pragma unroll
+    for (int u = 0; u < MG_U; ++u) v[u] = 0u;
+    for (int d = 0; d < data; ++d) {
+      const int* f = frags + (long long)d * out_cap;
+#pragma unroll
+      for (int u = 0; u < MG_U; ++u) {
+        const long long p = p0 + u * stride;
+        if (p < out_cap) v[u] += (unsigned)f[p];
+      }
     }
-    s9 += fold_term(v, (unsigned)i, 9u);
+    int x[MG_U][3];
+#pragma unroll
+    for (int u = 0; u < MG_U; ++u) {
+      int r = (int)v[u];
+      if (r < 0) r += ts_rows;
+      r = r < 0 ? 0 : (r >= ts_rows ? ts_rows - 1 : r);
+      if (p0 + u * stride < out_cap) {
+#pragma unroll
+        for (int l = 0; l < 3; ++l) x[u][l] = ts[3LL * r + l];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < MG_U; ++u) {
+      const long long p = p0 + u * stride;
+      if (p >= out_cap) break;
+      dep_rows[p] = (int)v[u];
+      s5 += fold_term((int)v[u], (unsigned)p, 5u);
+#pragma unroll
+      for (int l = 0; l < 3; ++l) {
+        dep_ts[3 * p + l] = x[u][l];
+        s9 += fold_term(x[u][l], (unsigned)(3 * p + l), 9u);
+      }
+    }
   }
-  for (long long i = t; i <= s; i += stride)
+  if (t <= s) s1 += fold_term(y0, (unsigned)t, 1u);
+  for (long long i = t + stride; i <= s; i += stride)
     s1 += fold_term(indptr[i], (unsigned)i, 1u);
   block_sum3(s1, s5, s9);
-  if (threadIdx.x == 0) {
-    atomicAdd(&acc[0], s1);
-    atomicAdd(&acc[1], s5);
-    atomicAdd(&acc[2], s9);
+  if (gridDim.x == 1) {
+    if (threadIdx.x == 0) *csum = s1 ^ s5 ^ s9;
+    return;
   }
+  if (threadIdx.x == 0) {
+    atomicAdd(&sc->acc[0], s1);
+    atomicAdd(&sc->acc[1], s5);
+    atomicAdd(&sc->acc[2], s9);
+    __threadfence();
+    s_last = atomicAdd(&sc->ticket, 1u) == gridDim.x - 1u;
+  }
+  __syncthreads();
+  if (!s_last || threadIdx.x != 0) return;
+  __threadfence();
+  *csum = __ldcg(&sc->acc[0]) ^ __ldcg(&sc->acc[1]) ^ __ldcg(&sc->acc[2]);
+  sc->acc[0] = 0u;
+  sc->acc[1] = 0u;
+  sc->acc[2] = 0u;
+  sc->ticket = 0u;
 }
 
-__global__ void merge_csum_kernel(const unsigned* __restrict__ acc,
-                                  unsigned* __restrict__ csum) {
-  *csum = acc[0] ^ acc[1] ^ acc[2];
-}
+extern "C" int merge_scratch_bytes() { return (int)sizeof(MergeScratch); }
 
 // frags [data, out_cap] -> dep_rows [out_cap], dep_ts [out_cap, 3] and the
-// checksum word over (indptr [s+1], dep_rows, dep_ts); acc: 3 u32 scratch
+// checksum word over (indptr [s+1], dep_rows, dep_ts), ONE launch;
+// scratch: merge_scratch_bytes() zeroed bytes, left zeroed
 extern "C" int fragment_merge(const void* frags, int data, int out_cap,
                               const void* ts, int ts_rows, int s,
                               const void* indptr, void* dep_rows,
-                              void* dep_ts, void* csum, void* acc,
+                              void* dep_ts, void* csum, void* scratch,
                               void* stream) {
-  if (data <= 0 || out_cap < 0 || ts_rows <= 0)
+  if (data <= 0 || out_cap < 0 || ts_rows <= 0 || s < 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (out_cap > 0) {
-    fragment_sum_kernel<<<grid_for(out_cap, 256), 256, 0, st>>>(
-        (const int*)frags, data, out_cap, (const int*)ts, ts_rows,
-        (int*)dep_rows, (int*)dep_ts);
-    ACCORD_CHECK();
-  }
-  cudaMemsetAsync(acc, 0, 3 * sizeof(unsigned), st);
-  ACCORD_CHECK();
-  long long work = 3LL * out_cap > (long long)s + 1 ? 3LL * out_cap : s + 1;
-  int g = grid_for(work, CT);
-  if (g > 1024) g = 1024;
-  merge_pad_fold_kernel<<<g, CT, 0, st>>>(
-      s, (const int*)ts, out_cap, (const int*)indptr, (int*)dep_rows,
-      (int*)dep_ts, (unsigned*)acc);
-  ACCORD_CHECK();
-  merge_csum_kernel<<<1, 1, 0, st>>>((const unsigned*)acc, (unsigned*)csum);
+  const int most = 4 * sm_count();
+  int g = grid_for(out_cap, CT * MG_U);
+  if (g > most) g = most;
+  fragment_merge_kernel<<<g, CT, 0, (cudaStream_t)stream>>>(
+      (const int*)frags, data, out_cap, (const int*)ts, ts_rows, s,
+      (const int*)indptr, (int*)dep_rows, (int*)dep_ts, (unsigned*)csum,
+      (MergeScratch*)scratch);
   ACCORD_CHECK();
   return 0;
 }

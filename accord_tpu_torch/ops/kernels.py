@@ -669,6 +669,47 @@ def fin_ent_pack(ext, dst: int, fin: int, s: int, w: int, act_ts: int,
                             nspec, k, *first)
 
 
+# the sharded finalize table (csrc/finalize_csr.cu fin_shard_tab): its
+# records, packed on the host, and its launch
+_SHARD_FIN_PACK_ARGS = (_VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _VP, _VP,
+                        _VP)
+_SHARD_ENT_PACK_ARGS = (_VP, _VP, _I, _I, _I, _VP, _I, _VP, _VP, _VP, _VP,
+                        _VP, _VP, _I, _I, _I, _I)
+_FIN_TAB_ARGS = (_VP, _I, _I, _I, _VP, _VP)
+
+
+def shard_fin_pack(ext, dst: int, blk: int, blk_stride: int, b: int,
+                   kid: int, kid_stride: int, kc: int, wl: int, base_w: int,
+                   slot_subj: int, slot_kid: int, subj_row: int) -> None:
+    """Write one data shard's ShardFin record to host address dst: its
+    columns of the packed span (blk, row stride blk_stride, b rows) and of
+    the kid table (kid, row stride kid_stride, kc rows) from word base_w,
+    wl words, and the slot lanes (device addresses)."""
+    ext.entry("finalize_csr", "shard_fin_pack", _SHARD_FIN_PACK_ARGS)(
+        dst, blk, blk_stride, b, kid, kid_stride, kc, wl, base_w, slot_subj,
+        slot_kid, subj_row)
+
+
+def shard_ent_pack(ext, dst: int, rec: int, data: int, wl: int, s: int,
+                   act_ts: int, out_cap: int, outs, scratch: int, nspec: int,
+                   k: int, first) -> None:
+    """Write finalize k's ShardEnt record to host address dst: its `data`
+    ShardFin records at device address rec, its act_ts and five outputs
+    (device addresses), the table's scratch and its first tiles
+    (fin_tab_layout over s slots of data * wl words)."""
+    ext.entry("finalize_csr", "shard_ent_pack", _SHARD_ENT_PACK_ARGS)(
+        dst, rec, data, wl, s, act_ts, out_cap, *outs, scratch, nspec, k,
+        *first)
+
+
+def launch_fin_shard_tab(ext, tab: int, n: int, tiles: int, ctiles: int,
+                         scratch: int, stream: int) -> None:
+    """ONE launch of the sharded finalize table over n ShardEnt records at
+    device address tab."""
+    ext.entry("finalize_csr", "fin_shard_tab", _FIN_TAB_ARGS)(
+        tab, n, tiles, ctiles, scratch, stream)
+
+
 def fin_tab_launcher(specs):
     """K2's table entry over finalize specs, each (packed, word_off,
     kid_rows, slot_subj, slot_kid, subj_row, act_ts, out_cap) on one card:
@@ -709,8 +750,7 @@ def fin_tab_launcher(specs):
                      [o.data_ptr() for o in outs[k]], scratch, n, k,
                      firsts[k])
     tab.copy_(host, non_blocking=True)
-    entry = ext.entry("finalize_csr", "finalize_csr_tab",
-                      (_VP, _I, _I, _I, _VP, _VP))
+    entry = ext.entry("finalize_csr", "finalize_csr_tab", _FIN_TAB_ARGS)
 
     def launch(tab=tab):
         entry(d0 + n * fin_b, n, tiles, ctiles, scratch,
@@ -2897,6 +2937,13 @@ def _shard_masked(blk, kid, slot_subj, slot_kid, subj_row, base_w: int):
     return m & ~selfbit, kid_m, ok
 
 
+# K2's per-shard launches (csrc/finalize_csr.cu), lean launches
+_SHARD_COUNT_ARGS = (_VP, _I, _I, _VP, _I, _I, _I, _I, _VP, _VP, _I, _VP,
+                     _VP, _VP, _I, _I, _VP)
+_SHARD_COMPACT_ARGS = (_VP, _I, _I, _VP, _I, _I, _I, _I, _VP, _VP, _I, _VP,
+                       _VP, _I, _VP, _VP)
+
+
 def finalize_shard_count_plain(blk, kid, slot_subj, slot_kid, subj_row,
                                base_w: int, bound_lo: int, bound_hi: int):
     m, kid_m, ok = _shard_masked(blk, kid, slot_subj, slot_kid, subj_row,
@@ -2929,13 +2976,14 @@ def finalize_shard_count(blk, kid, slot_subj, slot_kid, subj_row,
     _check_cuda(slot_subj, slot_kid, subj_row, bound,
                 *((counts,) if counts is not None else ()))
     bound.zero_()
-    ext.call("finalize_csr", "fin_shard_count", ext.ptr(blk),
-             _rows_view(blk, "finalize_shard_count"), blk.shape[0],
-             ext.ptr(kid), _rows_view(kid, "finalize_shard_count"),
-             kid.shape[0], kid.shape[1], base_w, ext.ptr(slot_subj),
-             ext.ptr(slot_kid), slot_subj.shape[0], ext.ptr(subj_row),
-             ext.ptr(counts) if counts is not None else ext.ctypes_null(),
-             ext.ptr(bound), bound_lo, bound_hi, ext.stream())
+    ext.entry("finalize_csr", "fin_shard_count", _SHARD_COUNT_ARGS)(
+        blk.data_ptr(), _rows_view(blk, "finalize_shard_count"),
+        blk.shape[0], kid.data_ptr(),
+        _rows_view(kid, "finalize_shard_count"), kid.shape[0], kid.shape[1],
+        base_w, slot_subj.data_ptr(), slot_kid.data_ptr(),
+        slot_subj.shape[0], subj_row.data_ptr(),
+        counts.data_ptr() if counts is not None else None, bound.data_ptr(),
+        bound_lo, bound_hi, ext.raw_stream(blk.device.index))
     LAUNCHES["finalize_shard"] += 1
     return counts, bound
 
@@ -2970,12 +3018,13 @@ def finalize_shard_compact(blk, kid, slot_subj, slot_kid, subj_row,
         return frag
     ext = _ext()
     _check_cuda(slot_subj, slot_kid, subj_row, seg_base, frag)
-    ext.call("finalize_csr", "fin_shard_compact", ext.ptr(blk),
-             _rows_view(blk, "finalize_shard_compact"), blk.shape[0],
-             ext.ptr(kid), _rows_view(kid, "finalize_shard_compact"),
-             kid.shape[0], kid.shape[1], base_w, ext.ptr(slot_subj),
-             ext.ptr(slot_kid), slot_subj.shape[0], ext.ptr(subj_row),
-             ext.ptr(seg_base), out_cap, ext.ptr(frag), ext.stream())
+    ext.entry("finalize_csr", "fin_shard_compact", _SHARD_COMPACT_ARGS)(
+        blk.data_ptr(), _rows_view(blk, "finalize_shard_compact"),
+        blk.shape[0], kid.data_ptr(),
+        _rows_view(kid, "finalize_shard_compact"), kid.shape[0],
+        kid.shape[1], base_w, slot_subj.data_ptr(), slot_kid.data_ptr(),
+        slot_subj.shape[0], subj_row.data_ptr(), seg_base.data_ptr(),
+        out_cap, frag.data_ptr(), ext.raw_stream(blk.device.index))
     LAUNCHES["finalize_shard"] += 1
     return frag
 

@@ -44,9 +44,10 @@ so its count is kept per replay here rather than in that function.
 The sharded protocol megakernel (parallel/mesh.sharded_protocol_tick, on a
 mesh whose shards share this card) is the same program with its resolve,
 key finalize and mailbox stages in shard form -- launches over shard
-tables whose records the param block carries, then the mesh's combining
-steps (K22) on fixed memory, and K23 for the mailbox -- keyed by the mesh
-too and counted under "sharded_protocol_tick".
+tables whose records the param block carries (the resolves' 'model'
+partials OR-folded by K22 on fixed memory; every key finalize of the tick
+in ONE launch of the sharded finalize table), and K23 for the mailbox --
+keyed by the mesh too and counted under "sharded_protocol_tick".
 """
 from __future__ import annotations
 
@@ -112,6 +113,8 @@ class _Prog:
         self.launches: list = []  # fn(bases) under capture
         self.counts: Dict[str, int] = {}
         self.fin_tab: list = []   # the key finalizes of K2's table launch
+        self.fin_shard: list = []  # the sharded finalizes of its table
+        self.copies: dict = {}     # table_copy's layouts, by kind
 
     def alloc(self, space: str, nbytes: int) -> tuple:
         off = self.size[space]
@@ -313,9 +316,7 @@ def _stage_fin_tab(P, ext) -> None:
     P.calls.append(write)
 
     def go(B):
-        ext.entry("finalize_csr", "finalize_csr_tab",
-                  (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p))(
+        ext.entry("finalize_csr", "finalize_csr_tab", K._FIN_TAB_ARGS)(
             _addr(B, tab), n, tiles, ctiles, _addr(B, scratch),
             ext.stream())
     P.launches.append(go)
@@ -451,9 +452,9 @@ def _stage_mail(P, ext, mailbox):
 # parallel/mesh.sharded_protocol_tick on a mesh whose shards share one card:
 # the JAX package's shard_map regions become launches over SHARD tables
 # (csrc/node_resolve.cu node_key_shard, csrc/finalize_csr.cu
-# fin_shard_*_tab) whose records, like the single-device tables, are
-# written into the param block every tick, followed by the mesh's K22
-# combining steps on fixed memory; K23 routes the mailbox.
+# fin_shard_tab) whose records, like the single-device tables, are
+# written into the param block every tick; K22's or_fold combines the
+# resolves' 'model' partials on fixed memory; K23 routes the mailbox.
 def _host_np(x) -> np.ndarray:
     """A slot lane as numpy (to expand it per shard entry on the host)."""
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
@@ -519,8 +520,8 @@ def _key_shard_launch(ext, A, subj, tab, nent: int, max_cl: int, sb, sknd,
     ext.entry("node_resolve", "node_key_shard", _KEY_SHARD_ARGS)(
         A(tab), nent, max_cl, A(sb), A(sknd), A(node), A(slots), A(gate), b,
         nwl, A(wt), nk, wtot, ext.stream())
-    ext.call("mesh_combine", "or_fold", A(parts), 1, model, b, wtot, A(out),
-             wtot, 0, ext.stream())
+    ext.entry("mesh_combine", "or_fold", pm._OR_FOLD_ARGS)(
+        A(parts), 1, model, b, wtot, A(out), wtot, 0, ext.stream())
 
 
 def _stage_key_shard(P, ext, wt_ref, nk, key_in, mesh):
@@ -626,17 +627,18 @@ def _stage_range_shard(P, ext, wt_ref, nk, rng_in, mesh):
 
 
 def _stage_fin_shard(P, ext, spec, args, src, mesh):
-    """A key/rkey finalize as parallel/mesh.sharded_finalize_csr's chain,
-    in table form: one count launch over every (data, model) shard's
-    record, K22's counts_scan, one compaction launch over every data
-    shard's record, K22's fragment_merge."""
+    """A key/rkey finalize of the sharded program: its data shards'
+    ShardFin records (each reading its own word columns of the span,
+    written into the param block every tick) and its outputs. The tick's
+    sharded finalizes run as ONE launch of the sharded finalize table
+    (_stage_fin_shard_tab)."""
     kind, rows, words, out_cap = spec
     (r0, w_lo, word_off, kid_rows, slot_subj, slot_kid, subj_row,
      act_ts) = args
     if src is None:
         raise ValueError(f"sharded_protocol_tick: a {kind!r} finalize needs "
                          "its resolve stage")
-    data, model = mesh.shape["data"], mesh.shape["model"]
+    data = mesh.shape["data"]
     s_ref, s_view, wt = src
     nr = s_view[2][0]
     kc, w = kid_rows.shape
@@ -652,61 +654,51 @@ def _stage_fin_shard(P, ext, spec, args, src, mesh):
     k_ptr, ss, sk, sr = (P.ptr(x) for x in (kid_rows, slot_subj, slot_kid,
                                             subj_row))
     ts = P.inp(act_ts)
-    lib = ext.lib("finalize_csr")
-    rec = int(lib.shard_fin_bytes())
-    split = s % model == 0
-    ents = [(d, m) for d in range(data) for m in range(model)
-            if split or m == 0]
-    ctab = P.alloc("p", rec * len(ents))
-    xtab = P.alloc("p", rec * data)
-    counts = P.alloc("f", 4 * data * s)
-    bounds = P.alloc("f", 4 * data * model)
-    seg = P.alloc("f", 4 * data * s)
-    frags = P.alloc("f", 4 * data * out_cap)
-    acc = P.alloc("f", 12)
-    outs = [P.out(sh, torch.int32) for sh in ((s + 1,), (out_cap,),
-                                              (out_cap, 3), (), ())]
-    indptr, dep_rows, dep_ts, bound, csum = (o[0] for o in outs)
+    rec_b = int(ext.lib("finalize_csr").shard_fin_bytes())
+    recs = P.alloc("p", rec_b * data)
     blk_ref = _shift(s_ref, 4 * (r * wt + c + off))
-    vp = ctypes.c_void_p
 
     def write(pin_addr, bases):
         blk, kid = _addr(bases, blk_ref), _addr(bases, k_ptr)
-        lanes = [_A(bases, x) for x in (ss, sk, sr)]
-        cnt, bnd = _addr(bases, counts), _addr(bases, bounds)
-        sgb, frg = _addr(bases, seg), _addr(bases, frags)
-        for i, (d, m) in enumerate(ents + [(d, 0) for d in range(data)]):
-            lo, hi = (m * (s // model), (m + 1) * (s // model)) if split \
-                else (0, s)
-            dst = pin_addr + (ctab[1] + i * rec if i < len(ents)
-                              else xtab[1] + (i - len(ents)) * rec)
-            lib.shard_fin_pack(
-                vp(dst), vp(blk + 4 * d * wl), ctypes.c_int(wt),
-                ctypes.c_int(rows), vp(kid + 4 * d * wl), ctypes.c_int(w),
-                ctypes.c_int(kc), ctypes.c_int(wl), ctypes.c_int(d * wl),
-                *lanes, vp(cnt + 4 * d * s if m == 0 else None),
-                vp(bnd + 4 * (d * model + m)), ctypes.c_int(lo),
-                ctypes.c_int(hi), vp(sgb + 4 * d * s),
-                vp(frg + 4 * d * out_cap))
+        lanes = [_addr(bases, x) for x in (ss, sk, sr)]
+        for d in range(data):
+            K.shard_fin_pack(ext, pin_addr + recs[1] + d * rec_b,
+                             blk + 4 * d * wl, wt, rows, kid + 4 * d * wl,
+                             w, kc, wl, d * wl, *lanes)
     P.calls.append(write)
-
-    def go(B):
-        A = _addrs(B)
-        ext.call("finalize_csr", "fin_shard_count_tab", A(ctab), len(ents),
-                 s, A(bounds), data * model, ext.stream())
-        ext.call("mesh_combine", "counts_scan", A(counts), data, s,
-                 A(bounds), data * model, A(indptr), A(seg), A(bound),
-                 ext.stream())
-        ext.call("finalize_csr", "fin_shard_compact_tab", A(xtab), data, s,
-                 out_cap, A(frags), data * out_cap, ext.stream())
-        ext.call("mesh_combine", "fragment_merge", A(frags), data, out_cap,
-                 A(ts), act_ts.shape[0], s, A(indptr), A(dep_rows),
-                 A(dep_ts), A(csum), A(acc), ext.stream())
-    P.launches.append(go)
-    for name in ("finalize_shard_tab", "finalize_shard_tab", "counts_scan",
-                 "fragment_merge"):
-        P.count(name)
+    outs = [P.out(sh, torch.int32) for sh in ((s + 1,), (out_cap,),
+                                              (out_cap, 3), (), ())]
+    P.fin_shard.append((recs, data, wl, s, ts, int(out_cap),
+                        [o[0] for o in outs]))
     return tuple(o[1] for o in outs)
+
+
+def _stage_fin_shard_tab(P, ext) -> None:
+    """Every sharded key/rkey finalize of the tick in ONE launch of the
+    sharded finalize table: the ShardEnt records in the param block
+    (written every tick, as their ShardFin records are), the scratch in
+    fixed memory."""
+    ent_b = int(ext.lib("finalize_csr").shard_ent_bytes())
+    ents = P.fin_shard
+    n = len(ents)
+    firsts, tiles, ctiles = K.fin_tab_layout(
+        [(s, data * wl, oc) for _r, data, wl, s, _t, oc, _o in ents])
+    tab = P.alloc("p", ent_b * n)
+    scratch = _fixed_csr_scratch(P, n, ctiles)
+
+    def write(pin_addr, bases):
+        sc = _addr(bases, scratch)
+        for k, (recs, data, wl, s, ts, out_cap, outs) in enumerate(ents):
+            K.shard_ent_pack(ext, pin_addr + tab[1] + k * ent_b,
+                             _addr(bases, recs), data, wl, s,
+                             _addr(bases, ts), out_cap,
+                             [_addr(bases, o) for o in outs], sc, n, k,
+                             firsts[k])
+    P.calls.append(write)
+    P.launches.append(lambda B: K.launch_fin_shard_tab(
+        ext, _addr(B, tab), n, tiles, ctiles, _addr(B, scratch),
+        ext.stream()))
+    P.count("finalize_shard_tab")
 
 
 def _stage_mail_shard(P, ext, mailbox, mesh):
@@ -740,14 +732,34 @@ def _stage_mail_shard(P, ext, mailbox, mesh):
     return (arena, meta) + tuple(o[1] for o in outs)
 
 
-def _copy_launch(P, ext, tab, ents) -> None:
+_TABLE_COPY_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_void_p)
+
+
+def _copy_order(ents, per: int) -> tuple:
+    """table_copy's layout of `ents` (csrc/tick_graph.cu: `per` 16-byte
+    slots a block, at least one an entry): (the table's entry order, the
+    entries of one block first; each listed entry's first block; how many
+    have one block; all blocks)."""
+    slots = -(-np.fromiter((e[2] for e in ents), np.int64, len(ents)) // 16)
+    nb = np.maximum(1, -(-slots // per))
+    order = np.argsort(nb > 1, kind="stable")
+    blk0 = np.concatenate(([0], np.cumsum(nb[order])[:-1]))
+    return order, blk0, int((nb == 1).sum()), int(nb.sum())
+
+
+def _copy_launch(P, ext, tab, ents, kind: str) -> None:
+    """ONE table_copy launch over `ents`, each entry's bytes split over
+    blocks of its own; the table's order and each entry's first block
+    kept in P.copies[kind] for _fill."""
     n = len(ents)
-    most = max(e[2] for e in ents)
-    grid = max(1, min(1024, (most // 16 + 255) // 256))
+    order, blk0, n1, blocks = _copy_order(
+        ents, int(ext.lib("tick_graph").table_copy_slots()))
+    P.copies[kind] = (order, blk0)
 
     def go(B):
-        ext.call("tick_graph", "table_copy", _A(B, tab), n, grid,
-                 ext.stream())
+        ext.entry("tick_graph", "table_copy", _TABLE_COPY_ARGS)(
+            _A(B, tab), n, n1, blocks, ext.stream())
     return go
 
 
@@ -782,6 +794,8 @@ def _build(ext, dev, witness_table, key_in, rng_in, fin_statics, fin_traced,
                     else _stage_fin_shard(P, ext, spec, args, src, mesh))
     if P.fin_tab:
         _stage_fin_tab(P, ext)
+    if P.fin_shard:
+        _stage_fin_shard_tab(P, ext)
     cmd_outs = [_stage_cmd(P, ext, c) for c in cmds]
     q_out = _stage_quorum(P, ext, quorum, quorum_size) \
         if quorum is not None else ()
@@ -795,14 +809,14 @@ def _build(ext, dev, witness_table, key_in, rng_in, fin_statics, fin_traced,
     # last; their entry counts and sizes are part of the signature
     pre, post = [], []
     if P.gathers:
-        gtab = P.alloc("p", 24 * len(P.gathers))
-        pre.append(_copy_launch(P, ext, gtab, P.gathers))
+        gtab = P.alloc("p", 32 * len(P.gathers))
+        pre.append(_copy_launch(P, ext, gtab, P.gathers, "gather"))
         P.sig.append(("gather", tuple(g[2] for g in P.gathers)))
     else:
         gtab = None
     if P.scatters:
-        stab = P.alloc("p", 24 * len(P.scatters))
-        post.append(_copy_launch(P, ext, stab, P.scatters))
+        stab = P.alloc("p", 32 * len(P.scatters))
+        post.append(_copy_launch(P, ext, stab, P.scatters, "scatter"))
     else:
         stab = None
     P.launches = pre + P.launches + post
@@ -878,14 +892,17 @@ def _fill(g: _TickGraph, P: _Prog, bases, gtab, stab) -> None:
             _addr(bases, w) if isinstance(w, tuple) else w for w in words]
     for fn in P.calls:
         fn(g.pin_addr, bases)
-    if gtab is not None:
-        ents = np.array([(src, bases[1] + f, n) for src, f, n in P.gathers],
-                        dtype=np.int64)
-        pin64[gtab[1] // 8:gtab[1] // 8 + ents.size] = ents.reshape(-1)
-    if stab is not None:
-        ents = np.array([(bases[1] + f, bases[2] + o, n)
-                         for f, o, n in P.scatters], dtype=np.int64)
-        pin64[stab[1] // 8:stab[1] // 8 + ents.size] = ents.reshape(-1)
+    for tab, kind, ents in ((gtab, "gather", [
+            (src, bases[1] + f, n) for src, f, n in P.gathers]),
+            (stab, "scatter", [(bases[1] + f, bases[2] + o, n)
+                               for f, o, n in P.scatters])):
+        if tab is None:
+            continue
+        order, blk0 = P.copies[kind]
+        rows = np.empty((len(ents), 4), dtype=np.int64)
+        rows[:, :3] = np.asarray(ents, dtype=np.int64)[order]
+        rows[:, 3] = blk0
+        pin64[tab[1] // 8:tab[1] // 8 + rows.size] = rows.reshape(-1)
 
 
 def _view(out, spec):
@@ -898,7 +915,7 @@ def _check_layouts(ext) -> None:
     if _CHECKED:
         return
     nl.table_sizes_ok()
-    for lib, fn, size in (("tick_graph", "copy_ent_bytes", 24),
+    for lib, fn, size in (("tick_graph", "copy_ent_bytes", 32),
                           ("mailbox_route", "mailbox_tab_bytes", 24),
                           ("mailbox_shard", "mailbox_shard_tab_bytes", 24),
                           ("node_resolve", "node_shard_bytes", 64)):

@@ -163,6 +163,14 @@ def _bucket_words(mesh: Mesh, nw: int, who: str) -> int:
 
 
 # -- K22: the combining steps --------------------------------------------------
+# their C entries (csrc/mesh_combine.cu), lean launches (_ext.entry)
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_OR_FOLD_ARGS = (_VP, _I, _I, _I, _I, _VP, _I, _I, _VP)
+_LANE_CONCAT_ARGS = (_I, _VP, _VP, _VP, _I, _VP, _I, _VP)
+_COUNTS_SCAN_ARGS = (_VP, _I, _I, _VP, _I, _VP, _VP, _VP, _VP)
+_MERGE_ARGS = (_VP, _I, _I, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP)
+
+
 def _or_fold_model_plain(parts: torch.Tensor) -> torch.Tensor:
     """parts i32[data, model, B, wl] -> i32[B, data * wl]: the OR over
     'model', each data shard's words at its lane span."""
@@ -185,8 +193,9 @@ def _or_fold_model(parts: torch.Tensor, out: torch.Tensor,
         return out
     ext = tk._ext()
     tk._check_cuda(parts, out)
-    ext.call("mesh_combine", "or_fold", ext.ptr(parts), data, model, b, wl,
-             ext.ptr(out), out.shape[1], col, ext.stream())
+    ext.entry("mesh_combine", "or_fold", _OR_FOLD_ARGS)(
+        parts.data_ptr(), data, model, b, wl, out.data_ptr(), out.shape[1],
+        col, ext.raw_stream(out.device.index))
     tk.LAUNCHES["or_fold"] += 1
     return out
 
@@ -210,6 +219,8 @@ def _concat_lane_blocks(blocks: Sequence[torch.Tensor]) -> torch.Tensor:
     out = torch.empty(b, sum(x.shape[1] for x in blocks), dtype=torch.int32,
                       device=blocks[0].device)
     segs = int(ext.lib("mesh_combine").lane_concat_segs())
+    launch = ext.entry("mesh_combine", "lane_concat", _LANE_CONCAT_ARGS)
+    st = ext.raw_stream(out.device.index)
     off = 0
     for lo in range(0, len(blocks), segs):
         chunk = blocks[lo:lo + segs]
@@ -220,9 +231,8 @@ def _concat_lane_blocks(blocks: Sequence[torch.Tensor]) -> torch.Tensor:
         for x in chunk:
             offs.append(off)
             off += x.shape[1]
-        ext.call("mesh_combine", "lane_concat", n, src, w,
-                 (ctypes.c_int * n)(*offs), b, ext.ptr(out), out.shape[1],
-                 ext.stream())
+        launch(n, src, w, (ctypes.c_int * n)(*offs), b, out.data_ptr(),
+               out.shape[1], st)
         tk.LAUNCHES["lane_concat"] += 1
     return out
 
@@ -255,9 +265,10 @@ def _gather_counts(counts: torch.Tensor, bounds: torch.Tensor):
     indptr = torch.empty(s + 1, dtype=torch.int32, device=dev)
     seg_base = torch.empty(data, s, dtype=torch.int32, device=dev)
     bound = torch.empty((), dtype=torch.int32, device=dev)
-    ext.call("mesh_combine", "counts_scan", ext.ptr(counts), data, s,
-             ext.ptr(bounds), bounds.numel(), ext.ptr(indptr),
-             ext.ptr(seg_base), ext.ptr(bound), ext.stream())
+    ext.entry("mesh_combine", "counts_scan", _COUNTS_SCAN_ARGS)(
+        counts.data_ptr(), data, s, bounds.data_ptr(), bounds.numel(),
+        indptr.data_ptr(), seg_base.data_ptr(), bound.data_ptr(),
+        ext.raw_stream(dev.index))
     tk.LAUNCHES["counts_scan"] += 1
     return indptr, seg_base, bound
 
@@ -273,23 +284,28 @@ def _sum_merge_fragments(frags: torch.Tensor, indptr: torch.Tensor,
     """The shards' disjoint dep_rows fragments i32[data, out_cap] summed
     (zeros elsewhere), dep_ts = act_ts[dep_rows], and the checksum folded
     over the merged (indptr, dep_rows, dep_ts) -> (dep_rows, dep_ts,
-    csum)."""
+    csum). On the card ONE launch over the card's zeroed scratch
+    (kernels.zeroed_scratch), which it leaves zeroed."""
     if not frags.is_cuda:
         return _sum_merge_fragments_plain(frags, indptr, act_ts)
     ext = tk._ext()
     tk._check_cuda(frags, indptr, act_ts)
     data, out_cap = frags.shape
     dev = frags.device
-    dep_rows = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    dep_ts = torch.empty(out_cap, 3, dtype=torch.int32, device=dev)
-    csum = torch.empty((), dtype=torch.int32, device=dev)
-    acc = torch.empty(3, dtype=torch.int32, device=dev)
-    ext.call("mesh_combine", "fragment_merge", ext.ptr(frags), data,
-             out_cap, ext.ptr(act_ts), act_ts.shape[0], indptr.shape[0] - 1,
-             ext.ptr(indptr), ext.ptr(dep_rows), ext.ptr(dep_ts),
-             ext.ptr(csum), ext.ptr(acc), ext.stream())
+    dep_rows, dep_ts, csum = tk._i32_outs(dev, (out_cap,), (out_cap, 3), ())
+    ext.entry("mesh_combine", "fragment_merge", _MERGE_ARGS)(
+        frags.data_ptr(), data, out_cap, act_ts.data_ptr(), act_ts.shape[0],
+        indptr.shape[0] - 1, indptr.data_ptr(), dep_rows.data_ptr(),
+        dep_ts.data_ptr(), csum.data_ptr(),
+        tk.zeroed_scratch(dev, _merge_scratch_bytes()),
+        ext.raw_stream(dev.index))
     tk.LAUNCHES["fragment_merge"] += 1
     return dep_rows, dep_ts, csum
+
+
+@functools.lru_cache(maxsize=None)
+def _merge_scratch_bytes() -> int:
+    return int(tk._ext().lib("mesh_combine").merge_scratch_bytes())
 
 
 def _at(dev: torch.device):
@@ -602,6 +618,132 @@ def sharded_finalize_csr(mesh: Mesh):
     return _entry(mesh, "sharded_finalize_csr", call)
 
 
+def sharded_finalize_plain(data: int, model: int, packed, word_off,
+                           kid_rows, slot_subj, slot_kid, subj_row, act_ts,
+                           out_cap: int):
+    """sharded_finalize_csr's chain on a (data, model) split, every step a
+    plain version on the inputs' device: each (data, model) shard's count
+    pass, the counts' scan, each data shard's fragment and the merge."""
+    kc, w = kid_rows.shape
+    if w % data:
+        raise ValueError(f"sharded_finalize_plain: a span of {w} words does "
+                         f"not split over data={data}")
+    wl = w // data
+    off = tk._span_offset(packed, kid_rows, word_off)
+    s = slot_subj.shape[0]
+    split = s % model == 0
+    lanes = (slot_subj, slot_kid, subj_row)
+    cols = [(packed[:, off + d * wl:off + (d + 1) * wl],
+             kid_rows[:, d * wl:(d + 1) * wl]) for d in range(data)]
+    counts, bounds = [], []
+    for d, (blk, kid) in enumerate(cols):
+        for m in range(model if split else 1):
+            lo, hi = (m * (s // model), (m + 1) * (s // model)) if split \
+                else (0, s)
+            c, bd = tk.finalize_shard_count_plain(blk, kid, *lanes, d * wl,
+                                                  lo, hi)
+            if m == 0:
+                counts.append(c)
+            bounds.append(bd)
+    indptr, seg_base, bound = _gather_counts_plain(torch.stack(counts),
+                                                   torch.stack(bounds))
+    frags = torch.stack([tk.finalize_shard_compact_plain(
+        blk, kid, *lanes, d * wl, seg_base[d], out_cap)
+        for d, (blk, kid) in enumerate(cols)])
+    dep_rows, dep_ts, csum = _sum_merge_fragments_plain(frags, indptr, act_ts)
+    return indptr, dep_rows, dep_ts, bound, csum
+
+
+def sharded_finalize_tab_plain(mesh: Mesh, specs):
+    """sharded_finalize_tab's plain version: each spec through
+    sharded_finalize_plain on the mesh's split."""
+    data, model = mesh.shape["data"], mesh.shape["model"]
+    return tuple(sharded_finalize_plain(data, model, *sp[:7], int(sp[7]))
+                 for sp in specs)
+
+
+def sharded_finalize_tab_launcher(mesh: Mesh, specs):
+    """The sharded finalize table (csrc/finalize_csr.cu fin_shard_tab) over
+    specs, each (packed, word_off, kid_rows, slot_subj, slot_kid, subj_row,
+    act_ts, out_cap) on the card every shard of the mesh shares: each
+    spec's data-shard records and the table uploaded (one copy), its
+    outputs made -> (launch, outs). launch() is the ONE kernel launch that
+    runs every finalize (a CUDA graph can capture it alone); outs are each
+    spec's five outputs (sharded_finalize_csr's)."""
+    if not one_card(mesh):
+        raise ValueError("sharded_finalize_tab: the table runs on one card "
+                         "(across cards the sharded finalize is "
+                         "sharded_finalize_csr)")
+    data = mesh.shape["data"]
+    ext = tk._ext()
+    dev = specs[0][0].device
+    if dev != mesh.device(0, 0):
+        raise ValueError(f"sharded_finalize_tab: the inputs are on {dev}, "
+                         f"the mesh's shards on {mesh.device(0, 0)}")
+    lib = ext.lib("finalize_csr")
+    rec_b, ent_b = int(lib.shard_fin_bytes()), int(lib.shard_ent_bytes())
+    n = len(specs)
+    dims, outs, wls = [], [], []
+    for sp in specs:
+        packed, word_off, kid_rows, slot_subj, slot_kid, subj_row, act_ts = \
+            sp[:7]
+        tk._check_cuda(specs[0][0], packed, *sp[2:7])
+        s, w, out_cap = slot_subj.shape[0], kid_rows.shape[1], int(sp[7])
+        if w % data:
+            raise ValueError(f"sharded_finalize_tab: a span of {w} words "
+                             f"does not split over data={data}")
+        dims.append((s, w, out_cap))
+        wls.append(w // data)
+        outs.append(tuple(tk._i32_outs(dev, (s + 1,), (out_cap,),
+                                       (out_cap, 3), (), ())))
+    firsts, tiles, ctiles = tk.fin_tab_layout(dims)
+    scratch = tk.zeroed_scratch(dev, tk.csr_scratch_bytes(n, ctiles))
+    recs = n * data * rec_b
+    host = torch.empty(recs + n * ent_b, dtype=torch.uint8, pin_memory=True)
+    tab = torch.empty(host.shape[0], dtype=torch.uint8, device=dev)
+    h0, d0 = host.data_ptr(), tab.data_ptr()
+    for k, (sp, (s, w, out_cap), wl) in enumerate(zip(specs, dims, wls)):
+        packed, word_off, kid_rows, slot_subj, slot_kid, subj_row, act_ts = \
+            sp[:7]
+        off = tk._span_offset(packed, kid_rows, word_off)
+        for d in range(data):
+            tk.shard_fin_pack(
+                ext, h0 + (k * data + d) * rec_b,
+                packed.data_ptr() + 4 * (off + d * wl), packed.shape[1],
+                packed.shape[0], kid_rows.data_ptr() + 4 * d * wl, w,
+                kid_rows.shape[0], wl, d * wl, slot_subj.data_ptr(),
+                slot_kid.data_ptr(), subj_row.data_ptr())
+        tk.shard_ent_pack(ext, h0 + recs + k * ent_b,
+                          d0 + k * data * rec_b, data, wl, s,
+                          act_ts.data_ptr(), out_cap,
+                          [o.data_ptr() for o in outs[k]], scratch, n, k,
+                          firsts[k])
+    tab.copy_(host, non_blocking=True)
+
+    def launch(tab=tab):
+        tk.launch_fin_shard_tab(ext, d0 + recs, n, tiles, ctiles, scratch,
+                                ext.raw_stream(dev.index))
+        tk.LAUNCHES["finalize_shard_tab"] += 1
+    return launch, tuple(outs)
+
+
+def sharded_finalize_tab(mesh: Mesh, specs):
+    """sharded_finalize_csr over many specs on the mesh, each (packed,
+    word_off, kid_rows, slot_subj, slot_kid, subj_row, act_ts, out_cap): a
+    tuple of each spec's five outputs, bit-identical to
+    sharded_finalize_csr's. With every shard on one card, ONE launch of
+    the sharded finalize table runs them all (the sharded protocol
+    megakernel's finalize stage is one such node); on the CPU the plain
+    version."""
+    specs = tuple(specs)
+    if not specs or not specs[0][0].is_cuda:
+        return sharded_finalize_tab_plain(mesh, specs)
+    with _at(mesh.device(0, 0)):
+        launch, outs = sharded_finalize_tab_launcher(mesh, specs)
+        launch()
+    return outs
+
+
 # -- row 33: the graft dry-run step --------------------------------------------
 def _gather_rows(mesh: Mesh, reps: dict, d: int, rows: slice) -> None:
     """all_gather over 'data' of one row block: shard d wrote it into its
@@ -770,14 +912,15 @@ def sharded_protocol_tick(mesh: Mesh, witness_table, key_in=None,
     the node-lane merge inputs sharded_node_tick would dispatch (the
     resolves run per store block x 'data' shard x 'model' shard, the
     'model' partials OR-folded), every key/rkey finalize runs as the
-    sharded finalize (counts, counts_scan, shard compaction,
-    fragment_merge), and `mailbox` is a MailboxPlane staged with shards ==
-    mesh.shape['data'] (K23 lands the cross-shard payloads). The range
-    finalize, cmd_tick, quorum, cmd_repair and frontier_compact stages run
-    once, on the consumer mesh.device(0, 0), as in the single-device
-    program. Finalize specs sort canonically by static signature
-    (kernels._fin_split), so the program depends on the signature
-    multiset. Outputs are bit-identical to protocol_tick's.
+    sharded finalize (on one card the tick's finalizes are ONE launch of
+    the sharded finalize table, sharded_finalize_tab's; across cards
+    sharded_finalize_csr's chain), and `mailbox` is a MailboxPlane staged
+    with shards == mesh.shape['data'] (K23 lands the cross-shard
+    payloads). The range finalize, cmd_tick, quorum, cmd_repair and
+    frontier_compact stages run once, on the consumer mesh.device(0, 0),
+    as in the single-device program. Finalize specs sort canonically by
+    static signature (kernels._fin_split), so the program depends on the
+    signature multiset. Outputs are bit-identical to protocol_tick's.
 
     When every shard is on one card, the program is one CUDA graph per
     static signature and mesh (ops/tick_graph.py), replayed once per call

@@ -165,14 +165,23 @@ launched.
      virtual mesh, the real mesh, the single-device kernel and its plain
      version, timed beside the single-device kernel; each shard wrapper
      and K22 combining step bit-equal to its plain version on its
-     largest recorded call;
+     largest recorded call, with device_ms (the calls in one CUDA
+     graph); K22's merge (ONE launch) at the key burn's largest call and
+     at the batch's sharded finalize beside the parent's four stream
+     operations, and its counts_scan beside the parent's
+     (tools/sharded_finalize_parent.cu: merge_parent_vs_new,
+     scan_parent_vs_new);
  24. the sharded protocol megakernel (parallel/mesh.sharded_protocol_tick,
      one CUDA graph replay a tick) on make_mesh() (1 x 1 on one H100,
      where the mailbox keeps the single-device layout) and the virtual 4 x
      2 mesh: warmup_sharded (timed; a second call captures nothing); the
      10k merged tick through both meshes bit-equal to the single-device
      replay, with the key stage alone and with its 128 finalizes against
-     their plain versions; the sharded megakernel sweep (seed 6; 64 x 120,
+     their plain versions, the finalizes ONE launch of the sharded
+     finalize table (no counts_scan, no fragment_merge), and on both
+     meshes beside the parent's chain of nodes a finalize
+     (tools/sharded_finalize_parent.cu: tab_parent_vs_new); the sharded
+     megakernel sweep (seed 6; 64 x 120,
      256 x 50) after a warm pass, each history the single-device
      megakernel's (64 nodes: and the per-node loop's), launches_per_tick
      1.0, one replay per fused dispatch, zero sharded-megakernel
@@ -287,7 +296,9 @@ leg's call and at (64, 16,384, 1,024); under "k9" K9's entries at each
 recorded call and the exec megakernel leg's largest replay; under "k20"
 K20 at the graft entry and N 8,192; under "k8" K8 at each recorded call;
 under "k23" K23 at the sharded message plane's largest block, the
-1,024-lane tier and the largest tick's replay), the card line, one JSON
+1,024-lane tier and the largest tick's replay; under "sharded_finalize"
+the sharded finalize table at the 10k tick on both meshes and K22's merge
+and counts_scan at the key burn and the batch), the card line, one JSON
 line of kernels, and the result line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -646,6 +657,11 @@ K20_VS_PARENT: dict = {}
 # 1,024-lane tier and the largest tick's replay
 K8_VS_PARENT: dict = {}
 K23_VS_PARENT: dict = {}
+# the sharded finalize table and K22's merge and counts_scan beside their
+# parents (tools/sharded_finalize_variants): the table at the 10k tick by
+# mesh, the merge and the scan at the key burn's largest call and the
+# batch's
+SFIN_VS_PARENT: dict = {}
 # the kernels one eager call launches, by wrapper (a torch.profiler trace,
 # which must also show no memset or copy; finalize_csr_tab: its launch,
 # the table uploaded before; transitive_closure: a squaring an iteration,
@@ -2367,6 +2383,7 @@ def run(rehearse: bool) -> dict:
             as fwv
         from accord_tpu_torch.tools import exec_scatter_mailbox_variants \
             as esv
+        from accord_tpu_torch.tools import sharded_finalize_variants as sfv
         parent = dbv.start_build()
         rparent = rbv.start_build()
         fparent = rfv.start_build()
@@ -2374,6 +2391,7 @@ def run(rehearse: bool) -> dict:
         qparent = qcv.start_build()
         wparent = fwv.start_build()
         eparent = esv.start_build()
+        sparent = sfv.start_build()
         build_s = build_phase()
         dbv.finish_build(parent)
         rbv.finish_build(rparent)
@@ -2382,14 +2400,18 @@ def run(rehearse: bool) -> dict:
         qcv.finish_build(qparent)
         fwv.finish_build(wparent)
         esv.finish_build(eparent)
+        sfv.finish_build(sparent)
         log(f"build: {build_s:.2f} s (all csrc/*.cu, nvcc in parallel; the "
             "parent's key body, tools/deps_block_parent.cu, range body "
             "and K3, tools/range_block_parent.cu, K6, "
             "tools/range_finalize_parent.cu, K21, "
             "tools/dense_dag_parent.cu, K16 and K7, "
             "tools/quorum_conflict_parent.cu, K9 and K20, "
-            "tools/frontier_wavefront_parent.cu, and K8 and K23, "
-            "tools/exec_scatter_mailbox_parent.cu, beside them)")
+            "tools/frontier_wavefront_parent.cu, K8 and K23, "
+            "tools/exec_scatter_mailbox_parent.cu, and the sharded "
+            "finalize and K22's merge and scan, "
+            "tools/sharded_finalize_parent.cu, "
+            "beside them)")
 
     ops = 800 if not rehearse else 120
     launches = {}
@@ -2848,7 +2870,9 @@ def parent_vs_new_line() -> dict:
     1,024), K9 at the exec megakernel leg's largest replay); under "k8"
     and "k23", K8's (by label) and K23's (the sharded message plane's
     largest block, the 1,024-lane tier, the largest tick's replay)
-    beside their parents' (K8_VS_PARENT, K23_VS_PARENT)."""
+    beside their parents' (K8_VS_PARENT, K23_VS_PARENT); under
+    "sharded_finalize", the sharded finalize table's and K22's merge's and
+    counts_scan's (SFIN_VS_PARENT)."""
     out = {}
     for key, (label, fn) in PARENT_VS_NEW_KEYS.items():
         got = PARENT_VS_NEW.get((label, fn))
@@ -2879,6 +2903,8 @@ def parent_vs_new_line() -> dict:
         out["k8"] = dict(K8_VS_PARENT)
     if K23_VS_PARENT:
         out["k23"] = dict(K23_VS_PARENT)
+    if SFIN_VS_PARENT:
+        out["sharded_finalize"] = dict(SFIN_VS_PARENT)
     return out
 
 
@@ -3696,7 +3722,7 @@ SHARD_WRAPPERS = (
      "accord_tpu_torch/csrc/mesh_combine.cu",
      MESH_PY + ":609 (all_gather + prefix sums)", "sharded_key_burn"),
     ("fragment_merge", ("_sum_merge_fragments",),
-     "accord_tpu_torch/csrc/mesh_combine.cu",
+     "accord_tpu_torch/csrc/mesh_combine.cu (ONE launch)",
      MESH_PY + ":654 (fragment sum, dep_ts, checksum)", "sharded_key_burn"),
     ("deps_matrix_shard", ("deps_matrix_shard",),
      "accord_tpu_torch/csrc/dense_dag.cu", MESH_PY + ":106",
@@ -3710,6 +3736,9 @@ SHARD_WRAPPERS = (
      "sharded_dryrun"),
 )
 SHARD_CALLS = tuple(f for _n, fns, *_ in SHARD_WRAPPERS for f in fns)
+# K22's combining steps: their rows also give device_ms (the calls in one
+# CUDA graph)
+K22_COMBINES = ("or_fold", "lane_concat", "counts_scan", "fragment_merge")
 SHARDED_PATHS = ("sharded_key_burn", "sharded_range_burn",
                  "sharded_mesh_burn", "sharded_dryrun")
 
@@ -3867,6 +3896,8 @@ def shard_wrapper_entries(tk, rec: Recorder, launches, cuda: bool,
             t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
             bound_ms = max(t_bytes, t_ops) * 1e3
             row = {"call": fn_name, "max_abs_err": err, "ms": ms,
+                   "device_ms": (graph_ms(kern) if cuda
+                                 and name in K22_COMBINES else None),
                    "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": "bytes" if t_bytes >= t_ops
                    else "operations",
@@ -3884,6 +3915,7 @@ def shard_wrapper_entries(tk, rec: Recorder, launches, cuda: bool,
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[path][name],
             "path": path, "max_abs_err": 0, "ms": head["ms"],
+            "device_ms": head["device_ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             **({"library_call": "torch.cat of the blocks"}
@@ -4057,7 +4089,10 @@ def sharded_phase(device: str, cuda: bool, rehearse: bool, tk, launches,
         ops = 800 if not rehearse else 120
         res = []
         tk.reset_launches()
-        rep, wall = burn(device, ops, res, mesh=vmesh)
+        krec = Recorder(tk, names=("_sum_merge_fragments",
+                                   "_gather_counts"))
+        with krec:
+            rep, wall = burn(device, ops, res, mesh=vmesh)
         if cuda:
             torch.cuda.synchronize()
         launches["sharded_key_burn"] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
@@ -4182,8 +4217,37 @@ def sharded_phase(device: str, cuda: bool, rehearse: bool, tk, launches,
         check(launches["sharded_key_burn"]["deps_resolve"] == 0,
               "sharded key burn: the single-device K1 launched")
     iters = 20 if cuda else 1
-    return (sharded_fn_entries(tk, vmesh, real, batch, launches, cuda, iters)
-            + shard_wrapper_entries(tk, rec, launches, cuda, iters))
+    entries = (sharded_fn_entries(tk, vmesh, real, batch, launches, cuda,
+                                  iters)
+               + shard_wrapper_entries(tk, rec, launches, cuda, iters))
+    if cuda:
+        # K22's merge (ONE launch) beside the parent's four stream
+        # operations: the key burn's largest call and the largest recorded
+        # (the batch's sharded finalize)
+        from accord_tpu_torch.tools import sharded_finalize_variants as sfv
+        pairs = {}
+        for label, r in (("key_burn", krec), ("preaccept_batch", rec)):
+            pair = sfv.merge_pair(*r.get("_sum_merge_fragments")[0])
+            check(pair["bit_equal"], f"K22 merge ({label}): the parent's "
+                  "four operations answer differently")
+            pairs[label] = pair
+            SFIN_VS_PARENT[f"merge_{label}"] = pair
+        log(f"K22 merge vs parent[{device}]: {json.dumps(pairs)}")
+        next(e for e in entries if e["name"] == "fragment_merge")[
+            "merge_parent_vs_new"] = pairs
+        # K22's counts_scan (one block of 1,024 threads) beside the
+        # parent's (one of 256, a slot each) at the same two calls
+        scans = {}
+        for label, r in (("key_burn", krec), ("preaccept_batch", rec)):
+            pair = sfv.scan_pair(*r.get("_gather_counts")[0])
+            check(pair["bit_equal"], f"K22 counts_scan ({label}): the "
+                  "parent's answers differently")
+            scans[label] = pair
+            SFIN_VS_PARENT[f"scan_{label}"] = pair
+        log(f"K22 counts_scan vs parent[{device}]: {json.dumps(scans)}")
+        next(e for e in entries if e["name"] == "counts_scan")[
+            "scan_parent_vs_new"] = scans
+    return entries
 
 
 def sharded_batches(tk, data: int, pa_rec, pr_rec, range_rec):
@@ -4238,7 +4302,8 @@ SHARDED_MEGA = (
     ("node_range_shard", "accord_tpu_torch/csrc/node_resolve.cu",
      MESH_PY + ":737 (rpart: _fused_range_resolve_blocks in shard_map)",
      "sharded_mega_range"),
-    ("finalize_shard_tab", "accord_tpu_torch/csrc/finalize_csr.cu",
+    ("finalize_shard_tab", "accord_tpu_torch/csrc/finalize_csr.cu "
+     "(fin_shard_tab: a tick's sharded finalizes in ONE launch)",
      MESH_PY + ":779 (_sharded_finalize_body in the tick)",
      "sharded_mega_sweep"),
     ("sharded_mailbox_route", "accord_tpu_torch/csrc/mailbox_shard.cu",
@@ -4518,8 +4583,19 @@ def sharded_mega_phase(device: str, cuda: bool, rehearse: bool, tk,
               "answers differently")
         rows["node_key_shard"].update(device_ms=key_ms, parent_vs_new=pair)
         PARENT_VS_NEW["node_key_shard_10k_key_stage"] = pair
+    l0 = dict(tk.LAUNCHES)
     kf_ms, fout = replay_ms(lambda: pm.sharded_protocol_tick(
         vmesh, wt, key_in=key_in, fins=fins))
+    if cuda:
+        # the finalize stage of the call's graph: ONE table launch
+        d = {k: tk.LAUNCHES[k] - l0[k] for k in (
+            "finalize_shard_tab", "counts_scan", "fragment_merge",
+            "finalize_csr_tab", "sharded_protocol_tick")}
+        check(d == {"finalize_shard_tab": 1, "counts_scan": 0,
+                    "fragment_merge": 0, "finalize_csr_tab": 0,
+                    "sharded_protocol_tick": 1},
+              f"sharded 10k tick: the finalize stage is not one table "
+              f"launch ({d})")
 
     def fin_args(f):
         return (tk._window(kplain, f[1], f[2], f[3], f[4]), f[5], *f[6:11])
@@ -4538,6 +4614,31 @@ def sharded_mega_phase(device: str, cuda: bool, rehearse: bool, tk,
         max(max_abs_err(fout[0], kplain), max_abs_err(fout[2], fplain)),
         call=f"the 10k tick's {len(fins)} key finalizes (the replay with "
         "them less the key stage's alone)", replay_with_key_ms=kf_ms)
+    if cuda:
+        # the table beside the parent's chain of nodes a finalize, on both
+        # meshes (the replays interleaved; the finalize stage is each
+        # replay less the key stage's alone)
+        from accord_tpu_torch.tools import sharded_finalize_variants as sfv
+        tabs = {}
+        specs = key_fin_specs(tk, wt, kw)
+        for label, m in (("virtual", vmesh), ("real", real)):
+            pair = sfv.tab_pair(m, wt, key_in, fins)
+            check(pair["bit_equal"], f"sharded 10k tick ({label}): the "
+                  "parent's finalize chain answers differently")
+            key = sfv.key_stage_ms(m, wt, key_in)
+            # the table's launch alone: beside its uncached build and the
+            # single-device table on the same specs
+            alone = sfv.table_pairs(m, specs)
+            check(all(v["bit_equal"] for v in alone.values()),
+                  f"sharded 10k tick ({label}): the table's launch differs "
+                  "from its uncached build or the single-device table")
+            tabs[label] = dict(pair, key_stage_ms=key,
+                               fin_stage_ms=pair["new_ms"] - key,
+                               parent_fin_stage_ms=pair["parent_ms"] - key,
+                               launch=alone)
+            SFIN_VS_PARENT[f"table_{label}"] = tabs[label]
+        rows["finalize_shard_tab"].update(device_ms=kf_ms - key_ms,
+                                          tab_parent_vs_new=tabs)
     log(f"sharded 10k tick[{device}]: {json.dumps(tick)}")
     check(rows["node_key_shard"]["max_abs_err"] == 0
           and rows["finalize_shard_tab"]["max_abs_err"] == 0,
@@ -4593,10 +4694,13 @@ def sharded_mega_phase(device: str, cuda: bool, rehearse: bool, tk,
         check(ls["sharded_protocol_tick"] == fused > 0,
               f"sharded sweep: {ls['sharded_protocol_tick']} replays for "
               f"{fused} fused dispatches")
-        for name in ("node_key_shard", "or_fold", "finalize_shard_tab",
-                     "counts_scan", "fragment_merge"):
+        for name in ("node_key_shard", "or_fold", "finalize_shard_tab"):
             check(ls[name] > 0, f"sharded sweep: {name} never ran in a "
                   "replay")
+        check(ls["counts_scan"] == 0 and ls["fragment_merge"] == 0
+              and ls["finalize_shard_tab"] <= ls["sharded_protocol_tick"],
+              "sharded sweep: a replay ran K22's counts_scan or merge, or "
+              "more than one finalize table")
         check(ls["protocol_tick"] == 0 and ls["node_deps_resolve"] == 0,
               "sharded sweep: the single-device program ran")
     # the sweep's largest tick: the graph against the plain program

@@ -29,9 +29,10 @@ from torch_kernel_cases import (ARENA_SCATTER_CASES, CLOSURE_CASES,
                                 finalize_many_tiles, key_body_case,
                                 frontier_case, pack_words, quorum_case,
                                 quorum_lanes, range_body_case,
-                                range_fin_case, SHARD_ROUTE_HAZARDS,
-                                shard_route_case, WAVEFRONT_CASES,
-                                wavefront_case)
+                                range_fin_case, SHARD_FIN_CASES,
+                                SHARD_ROUTE_HAZARDS, merge_fragments_case,
+                                shard_fin_case, shard_route_case,
+                                WAVEFRONT_CASES, wavefront_case)
 
 pytestmark = pytest.mark.gpu
 I32_MIN = np.iinfo(np.int32).min
@@ -1629,6 +1630,106 @@ def test_sharded_finalize_kernel(cuda, s, out_cap, spans, off, density):
     _counts_launched(entries, ("sharded_finalize_csr",), tk.ENTRY_LAUNCHES)
 
 
+def _shard_fin_specs(names, data, seed, dev):
+    specs = []
+    for name in names:
+        packed, off, kid, ssub, skid, srow, ts, out_cap = shard_fin_case(
+            name, data, seed)
+        specs.append(tuple(_t(a).to(dev) if isinstance(a, np.ndarray) else a
+                           for a in (packed.view(np.int32), off,
+                                     kid.view(np.int32), ssub, skid, srow,
+                                     ts, out_cap)))
+    return specs
+
+
+@pytest.mark.parametrize("names", [
+    tuple(sorted(SHARD_FIN_CASES)),
+    ("fits",) * 40 + ("many_tiles", "overflow") * 4,
+    ("no_slots",)])
+def test_sharded_finalize_tab_kernel(cuda, names):
+    """The sharded finalize table on the card's virtual 4 x 2 mesh (ONE
+    launch for every finalize) = its plain version on the CPU mesh; its
+    launch captured in a CUDA graph and replayed twice in a row over
+    outputs filled with garbage between the replays: the zeroed scratch
+    survives a replay."""
+    from accord_tpu_torch.parallel import mesh as pm
+    cpu, card = _meshes(cuda)
+    want = pm.sharded_finalize_tab_plain(cpu, _shard_fin_specs(names, 4, 3,
+                                                                "cpu"))
+    specs = _shard_fin_specs(names, 4, 3, cuda)
+    before = tk.LAUNCHES["finalize_shard_tab"]
+    got = pm.sharded_finalize_tab(card, specs)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["finalize_shard_tab"] == before + 1
+    _eq(want, got)
+    launch, outs = pm.sharded_finalize_tab_launcher(card, specs)
+    launch()
+    torch.cuda.synchronize()
+    _eq(want, outs)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch()
+    for _ in range(2):
+        for o in outs:
+            for t in o:
+                t.fill_(-7)
+        graph.replay()
+        torch.cuda.synchronize()
+        _eq(want, outs)
+    # the eager wrapper after the replays: the scratch is still zeroed
+    _eq(want, pm.sharded_finalize_tab(card, specs))
+
+
+@pytest.mark.parametrize("out_cap,total", [(64, 40), (300, 300), (48, 90),
+                                           (1 << 16, 50_000),
+                                           (200_003, 250_000), (16, 0)])
+def test_fragment_merge_kernel(cuda, out_cap, total):
+    """K22's merge in ONE launch = _sum_merge_fragments_plain: one block
+    and many (the last block by ticket writes the checksum and zeroes the
+    scratch), fitting, full, overflowing, empty; called twice and replayed
+    twice in a CUDA graph, every result the same."""
+    from accord_tpu_torch.parallel import mesh as pm
+    rng = np.random.default_rng(out_cap + total)
+    frags, indptr, ts = merge_fragments_case(rng, 4, out_cap, total, 5000)
+    want = pm._sum_merge_fragments_plain(_t(frags), _t(indptr), _t(ts))
+    args = tuple(_t(a).to(cuda) for a in (frags, indptr, ts))
+    before = tk.LAUNCHES["fragment_merge"]
+    for _ in range(2):
+        got = pm._sum_merge_fragments(*args)
+        torch.cuda.synchronize()
+        _eq(want, got)
+    assert tk.LAUNCHES["fragment_merge"] == before + 2
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = pm._sum_merge_fragments(*args)
+    for _ in range(2):
+        for t in got:
+            t.fill_(-7)
+        graph.replay()
+        torch.cuda.synchronize()
+        _eq(want, got)
+
+
+@pytest.mark.parametrize("data,s", [(4, 0), (4, 33), (4, 4096), (2, 4097),
+                                    (8, 12289), (1, 70000)])
+def test_counts_scan_kernel(cuda, data, s):
+    """K22's counts_scan (one block of 1,024 threads, 4 slots a thread a
+    pass) = _gather_counts_plain: no slot, a partial pass, the batch's
+    4,096 slots in one pass, several passes, counts large enough that
+    the int32 prefix wraps."""
+    from accord_tpu_torch.parallel import mesh as pm
+    rng = np.random.default_rng(data * 100_003 + s)
+    counts = rng.integers(0, 1 << 27, (data, s)).astype(np.int32)
+    counts[:, rng.random(s) < 0.3] = 0
+    bounds = rng.integers(0, 1 << 30, data * 2).astype(np.int32)
+    want = pm._gather_counts_plain(_t(counts), _t(bounds))
+    before = tk.LAUNCHES["counts_scan"]
+    got = pm._gather_counts(_t(counts).to(cuda), _t(bounds).to(cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["counts_scan"] == before + 1
+    _eq(want, got)
+
+
 def test_sharded_deps_step_kernels(cuda):
     """sharded_deps_step on the card's virtual mesh = the CPU mesh's = K18
     -> K19 -> K20 with the same rounds, and the graft dry run's twin."""
@@ -1995,8 +2096,8 @@ def test_sharded_protocol_tick_graph_matches_plain(cuda):
         l0["sharded_protocol_tick"] + 1
     assert tk.LAUNCHES["protocol_tick"] == l0["protocol_tick"]
     for name, n in (("node_key_shard", 2), ("node_range_shard", 1),
-                    ("or_fold", 2), ("finalize_shard_tab", 6),
-                    ("counts_scan", 3), ("fragment_merge", 3),
+                    ("or_fold", 2), ("finalize_shard_tab", 1),
+                    ("counts_scan", 0), ("fragment_merge", 0),
                     ("range_finalize", 1), ("cmd_tick", 1),
                     ("quorum_count", 1), ("cmd_repair", 1),
                     ("frontier_compact", 1), ("sharded_mailbox_route", 1),

@@ -23,6 +23,8 @@ from accord_tpu.parallel import mesh as jm
 from accord_tpu_torch.ops import carry
 from accord_tpu_torch.ops import kernels as tk
 from accord_tpu_torch.parallel import mesh as pm
+from torch_kernel_cases import (SHARD_FIN_CASES, merge_fragments_case,
+                                shard_fin_case)
 
 I32_MIN = np.iinfo(np.int32).min
 I32_MAX = np.iinfo(np.int32).max
@@ -416,6 +418,92 @@ def test_sharded_finalize_bound_model_split_matches_jax(s):
     args = _fin_inputs(rng, b=16, s=s, kc=128, cap=32 * DATA * 4, spans=1,
                        density=0.05, kid_density=0.2)
     assert _fin_both(args, 0, 2048) > 0
+
+
+def _jax_fin(name, case):
+    """The JAX package's answer for one SHARD_FIN_CASES finalize: its
+    sharded finalize on the conftest mesh, or (`off_past_end`) its
+    single-device finalize_csr, whose clamp the port keeps; None for
+    S = 0, which neither JAX finalize traces (a gather from an empty
+    operand)."""
+    import jax.numpy as jnp
+    packed, off, kid, ssub, skid, srow, ts, out_cap = case
+    if ssub.shape[0] == 0:
+        return None
+    fn = jk.finalize_csr if name == "off_past_end" else _jax_finalize()
+    return fn(jnp.asarray(packed), jnp.asarray(off, jnp.int32),
+              jnp.asarray(kid), ssub, skid, srow, ts, out_cap=out_cap)
+
+
+def _port_spec(case):
+    packed, off, kid, ssub, skid, srow, ts, out_cap = case
+    return (_t(packed.view(np.int32)), off, _t(kid.view(np.int32)),
+            _t(ssub), _t(skid), _t(srow), _t(ts), out_cap)
+
+
+def _check_tab(names, seed):
+    """The sharded finalize table's plain version over one tick of
+    finalizes (`names` of SHARD_FIN_CASES) against the JAX package's
+    sharded finalize, each output bit-equal, and against the port's
+    sharded_finalize_csr and single-device finalize_csr."""
+    cases = [shard_fin_case(n, DATA, seed) for n in names]
+    specs = [_port_spec(c) for c in cases]
+    got = pm.sharded_finalize_tab(_pmesh(), specs)
+    assert len(got) == len(specs)
+    for name, case, sp, g in zip(names, cases, specs, got):
+        ref = _jax_fin(name, case)
+        eager = pm.sharded_finalize_csr(_pmesh())(*sp[:7], out_cap=sp[7])
+        single = tk.finalize_csr(*sp)
+        for i, out in enumerate(("indptr", "dep_rows", "dep_ts", "bound",
+                                 "csum")):
+            if ref is not None:
+                assert np.array_equal(_words(ref[i]), g[i].numpy()), \
+                    (name, out)
+            assert torch.equal(g[i], eager[i]), (name, out)
+            assert torch.equal(g[i], single[i]), (name, out)
+        total, out_cap = int(g[0][-1]), sp[7]
+        if name == "overflow":
+            assert total > out_cap
+        elif name == "no_slots":
+            assert g[0].tolist() == [0] and int(g[3]) == 0
+            assert not g[1].any()
+            assert torch.equal(g[2], sp[6][:1].expand(out_cap, 3))
+        else:
+            assert 0 < total <= out_cap, name
+
+
+@pytest.mark.parametrize("name", sorted(SHARD_FIN_CASES))
+def test_sharded_finalize_tab_case_matches_jax(name):
+    """Each hazard of the sharded finalize table alone: overflow, S %
+    model != 0, word_off past words - w, negative subject rows, slots with
+    an out-of-range subject or kid, S = 0, many compaction tiles."""
+    _check_tab((name,), seed=1)
+
+
+def test_sharded_finalize_tab_one_tick_matches_jax():
+    """Every case as the finalizes of ONE tick's table (several with the
+    same shape, as a tick's stores give), each bit-equal to the JAX
+    package's."""
+    names = sorted(SHARD_FIN_CASES) + ["fits", "overflow"]
+    _check_tab(names, seed=2)
+
+
+@pytest.mark.parametrize("out_cap,total", [(64, 40), (64, 64), (48, 90),
+                                           (2048, 1500), (16, 0)])
+def test_fragment_merge_plain_matches_jax(out_cap, total):
+    """K22's merge (its plain version, the card kernel's oracle) against
+    the JAX package's lines: the fragments summed, dep_ts gathered (a
+    negative row wraps once, then clamps), the checksum over the merged
+    triple; fitting, full, overflowing and empty."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(out_cap + total)
+    frags, indptr, ts = merge_fragments_case(rng, DATA, out_cap, total, 50)
+    rows = jnp.sum(jnp.asarray(frags), axis=0)
+    dep_ts = jnp.asarray(ts)[rows]
+    ref = (rows, dep_ts, jk.csr_checksum(jnp.asarray(indptr), rows, dep_ts))
+    got = pm._sum_merge_fragments(_t(frags), _t(indptr), _t(ts))
+    for r, g in zip(ref, got):
+        assert np.array_equal(_words(r), g.numpy())
 
 
 # -- row 33: the graft dry-run step ------------------------------------------

@@ -353,7 +353,9 @@ def test_mailbox_per_shard_arenas_match_node_major(mesh):
 # block differently from its single-device finalize_csr (ROADMAP, queue 3),
 # and the port follows finalize_csr.
 
-def _key_tick(rng, data, model):
+def _key_tick(rng, data, model, hazard=None):
+    """A key tick with two finalizes; `hazard` (FIN_HAZARDS) changes their
+    slot lanes."""
     cap = 32 * data * 2
     K = 32 * model
     b, z, ns, kc, oc = 16, 32, 2, 8, 64
@@ -369,9 +371,17 @@ def _key_tick(rng, data, model):
              rng.integers(0, 6, b).astype(np.int32),
              np.arange(ns, dtype=np.int32))
     kid = rng.integers(0, 2 ** 32, (kc, w), dtype=np.uint64).astype(np.uint32)
-    fin = (rng.integers(0, b, 12).astype(np.int32),
-           rng.integers(0, kc, 12).astype(np.int32),
+    ns_fin = 13 if hazard == "slots_not_split" else 12
+    fin = (rng.integers(0, b, ns_fin).astype(np.int32),
+           rng.integers(0, kc, ns_fin).astype(np.int32),
            rng.integers(-1, cap, b).astype(np.int32))
+    if hazard == "negative_subj_row":
+        fin[2][:] = -rng.integers(1, 1 << 20, b)
+    elif hazard == "out_of_range_slots":
+        fin[0][[1, 5]] = (-1, b)
+        fin[1][[2, 7]] = (kc, -3)
+    elif hazard == "overflow":
+        oc = 4
     jar = tuple(tuple(jnp.asarray(x) for x in a) for a in arenas)
     tar = tuple(tuple(carry.arena_lanes((a[0], a[1], a[1], a[2], a[3]))[i]
                       for i in (0, 1, 3, 4)) for a in arenas)
@@ -407,6 +417,35 @@ def test_sharded_tick_key_finalize_matches_single_device(mesh, jmesh):
             _same(a, d)
         totals.append(int(np.asarray(fr[0])[-1]))
     assert all(totals), f"a finalize found no deps: {totals}"
+
+
+FIN_HAZARDS = ("slots_not_split", "negative_subj_row", "out_of_range_slots",
+               "overflow")
+
+
+@pytest.mark.parametrize("hazard", FIN_HAZARDS)
+def test_sharded_tick_key_finalize_hazards_match_jax(mesh, jmesh, hazard):
+    """The sharded program's finalizes (one table launch on a card, the
+    plain chain here) with S % model != 0, negative subject rows, slots
+    naming an out-of-range subject or kid, and an overflowing out_cap:
+    equal to the JAX package's sharded program and to the port's
+    single-device program, bit for bit."""
+    rng = np.random.default_rng(11 + FIN_HAZARDS.index(hazard))
+    jkey, jfins, tkey, tfins = _key_tick(rng, mesh.shape["data"],
+                                         mesh.shape["model"], hazard)
+    table = _t(WITNESS_TABLE)
+    ref = jpm.sharded_protocol_tick(jmesh, jnp.asarray(WITNESS_TABLE),
+                                    key_in=jkey, fins=jfins)
+    got = tpm.sharded_protocol_tick(mesh, table, key_in=tkey, fins=tfins)
+    one = tk.protocol_tick(table, key_in=tkey, fins=tfins)
+    for fr, fg, fo in zip(ref[2], got[2], one[2]):
+        for a, c, d in zip(fr, fg, fo):
+            _same(a, c)
+            _same(a, d)
+    totals = [int(np.asarray(fr[0])[-1]) for fr in ref[2]]
+    assert all(totals), f"a finalize found no deps: {totals}"
+    if hazard == "overflow":
+        assert all(t > 4 for t in totals)
 
 
 def test_sharded_tick_range_resolve_matches_single_device(mesh, jmesh):

@@ -984,3 +984,70 @@ def shard_route_case(rng, S, npsh, depth, W, bcap, hazard):
         writers.append(q)
     return (arena, meta, src, dst, slot, keep, kind, seq, words,
             part), writers
+
+
+# -- the sharded finalize (csrc/finalize_csr.cu fin_shard_tab, K22's merge) --
+# One finalize each, on a mesh with `data` shards (spans of 4 words a
+# shard): the hazards of the one-launch table and of the reference's
+# (data, model) split. Several of them make one tick's table.
+SHARD_FIN_CASES = {
+    # name: (slots, out_cap, spans, word_off, packed density)
+    "fits": (32, 256, 1, 0, 0.02),
+    "overflow": (64, 64, 1, 0, 0.5),          # indptr[S] > out_cap
+    "slots_not_split": (33, 2048, 1, 0, 0.1),  # S % model != 0: bound unsplit
+    "word_off": (32, 1024, 2, 4, 0.05),       # a fused span, word_off != 0
+    "off_past_end": (32, 1024, 2, 40, 0.05),  # clamps to words - w
+    "negative_subj_row": (48, 2048, 1, 0, 0.1),
+    "out_of_range_slots": (40, 2048, 1, 0, 0.1),
+    "no_slots": (0, 64, 1, 0, 0.1),           # S = 0
+    "many_tiles": (256, 1 << 13, 1, 0, 0.003),  # 64 compaction tiles
+}
+
+
+def shard_fin_case(name, data, seed=0):
+    """One finalize of SHARD_FIN_CASES as numpy: (packed u32[b, spans *
+    w], word_off, kid_rows u32[kc, w], slot_subj, slot_kid, subj_row,
+    act_ts, out_cap), w = 4 * data words (data * 4 of the 'many_tiles'
+    case's 64 words a shard). `negative_subj_row`: every subject's row
+    negative (no self bit); `out_of_range_slots`: a third of the slots
+    name a subject or a kid out of range (either end)."""
+    s, out_cap, spans, off, density = SHARD_FIN_CASES[name]
+    rng = np.random.default_rng(seed * 100 + len(name))
+    w = data * (64 if name == "many_tiles" else 4)
+    b, kc = 24, 40
+    packed = np.packbits(rng.random((b, spans * w, 32)) < density, axis=-1,
+                         bitorder="little").view(np.uint32) \
+        .reshape(b, spans * w)
+    kid = np.packbits(rng.random((kc, w, 32)) < 0.4, axis=-1,
+                      bitorder="little").view(np.uint32).reshape(kc, w)
+    slot_subj = rng.integers(0, b, s).astype(np.int32)
+    slot_kid = rng.integers(0, kc, s).astype(np.int32)
+    subj_row = rng.integers(-1, 32 * w, b).astype(np.int32)
+    if name == "negative_subj_row":
+        subj_row = -rng.integers(1, 1 << 20, b).astype(np.int32)
+    if name == "out_of_range_slots":
+        bad = rng.permutation(s)[:s // 3]
+        for i, j in enumerate(bad):
+            if i % 2:
+                slot_subj[j] = (-1, b, b + 7, -b)[i % 4]
+            else:
+                slot_kid[j] = (-1, kc, kc + 3, -kc)[i % 4]
+    act_ts = rng.integers(-1 << 20, 1 << 20, (32 * w, 3)).astype(np.int32)
+    return (packed, off, kid, slot_subj, slot_kid, subj_row, act_ts,
+            out_cap)
+
+
+def merge_fragments_case(rng, data, out_cap, total, ts_rows):
+    """K22 merge inputs: `data` fragments i32[data, out_cap], each position
+    below `total` set in exactly one of them (rows in [-ts_rows - 3,
+    ts_rows + 3): the gather wraps a negative row once, then clamps),
+    zeros elsewhere; indptr i32[9] ending at `total`; act_ts
+    i32[ts_rows, 3]."""
+    frags = np.zeros((data, out_cap), np.int32)
+    n = min(total, out_cap)
+    owner = rng.integers(0, data, n)
+    frags[owner, np.arange(n)] = rng.integers(-ts_rows - 3, ts_rows + 3, n)
+    indptr = np.sort(rng.integers(0, total + 1, 9)).astype(np.int32)
+    indptr[0], indptr[-1] = 0, total
+    act_ts = rng.integers(-1 << 30, 1 << 30, (ts_rows, 3)).astype(np.int32)
+    return frags, indptr, act_ts
