@@ -28,14 +28,16 @@
 //
 // The sharded protocol megakernel (accord_tpu_torch/ops/tick_graph.py,
 // replacing the `_fused_key_resolve_blocks` / `_fused_range_resolve_blocks`
-// shard_map stages of accord_tpu/parallel/mesh.py :683) runs the same
-// bodies over SHARD tables: node_key_shard takes one KeyShard entry per
-// (block, 'data' shard, 'model' shard) -- the shard's row range, its
-// bucket-word column slice read in place through the arena's row stride,
-// its subject words and its 'model' partial -- in one launch; the range
-// side's entries are RngBlk rows per (block, 'data' shard) through
-// node_range_resolve as it is, with the covered words of every 'model'
-// slice in the same launch. The 'model' partials then OR-fold (K22).
+// shard_map stages of accord_tpu/parallel/mesh.py :683), on a mesh whose
+// shards share one card, runs these launches over the single-device
+// tables. A CTA reads a row's bucket words whole -- every 'model' slice
+// [m * nwl, (m + 1) * nwl) -- against the subject's whole words, so the
+// hits of all slices are ORed before the one store: OR_m pack(ov_m & rest)
+// == pack(OR_m ov_m & rest) (csrc/mesh_combine.cu), and the 'data' shards'
+// rows are the block's rows in order. The result is the reference's
+// folded one, written straight into the tick's output: no partial, no
+// fold, no copy. Across cards the 'model' partials live on different
+// cards and still fold by K22 (parallel/mesh.py).
 //
 // What bounds them: bytes -- the output, B x sum(cap)/32 words, is mostly
 // zero words written once (as 16-byte stores); the arena lanes of a block
@@ -50,19 +52,6 @@ struct KeyBlk {              // 48 bytes
   const unsigned char* valid;
   int cap, out_off, pad0, pad1;
 };
-
-struct KeyShard {            // 64 bytes
-  const unsigned* bm;        // the shard's first row, first 'model' word
-  const int* ts;             // the shard's rows
-  const int* kinds;
-  const unsigned char* valid;
-  const unsigned* sw;        // subject words of the 'model' slice [b, nwl]
-  unsigned* out;             // the 'model' partial [b, out_stride]
-  int cap, out_off;          // the shard's rows; its first word column
-  int bm_stride, pad;        // the arena's row stride in words
-};
-
-extern "C" int node_shard_bytes() { return (int)sizeof(KeyShard); }
 
 extern "C" int node_table_sizes(int* out) {
   out[0] = (int)sizeof(TabHdr);
@@ -110,44 +99,6 @@ extern "C" int node_key_resolve(const void* tab, int nblocks, int max_cap,
       (const int*)subj_before, (const int*)subj_kinds, (const int*)subj_node,
       (const int*)slots, (const unsigned char*)gate, b, nw,
       (const int*)witness, nk, out_stride, g.gw);
-  ACCORD_CHECK();
-  return 0;
-}
-
-__global__ void __launch_bounds__(KT_THREADS, KT_MIN_CTAS)
-node_key_shard_kernel(const KeyShard* __restrict__ tab,
-                      const int* __restrict__ subj_before,
-                      const int* __restrict__ subj_kinds,
-                      const int* __restrict__ subj_node,
-                      const int* __restrict__ slots,
-                      const unsigned char* __restrict__ gate, int b, int nwl,
-                      const int* __restrict__ witness, int nk,
-                      int out_stride, int gw) {
-  const KeyShard e = tab[blockIdx.y];
-  if ((int)blockIdx.z * gw >= (e.cap >> 5)) return;  // whole CTA
-  resolve_body(e.sw, subj_before, subj_kinds, subj_node, slots[blockIdx.y],
-               gate, b, e.bm, e.bm_stride, e.ts, e.kinds, e.valid, e.cap,
-               nwl, witness, nk, e.out, out_stride, e.out_off, gw);
-}
-
-// K13 over a shard table of nent KeyShard entries (slots[e]: entry e's
-// block slot; gate as node_key_resolve): each entry writes its rows' words
-// of its 'model' partial at out[s, out_off + w].
-extern "C" int node_key_shard(const void* tab, int nent, int max_cap,
-                              const void* subj_before, const void* subj_kinds,
-                              const void* subj_node, const void* slots,
-                              const void* gate, int b, int nwl,
-                              const void* witness, int nk, int out_stride,
-                              void* stream) {
-  if (nwl > MAX_NW || nk * nk > 64 || (max_cap & 31))
-    return (int)cudaErrorInvalidValue;
-  if (nent <= 0 || b <= 0 || max_cap <= 0) return 0;
-  if (nent > 65535) return (int)cudaErrorInvalidValue;
-  const KeyGeom g = key_geom(max_cap, b, nwl, nent);
-  node_key_shard_kernel<<<g.grid, g.threads, g.smem, (cudaStream_t)stream>>>(
-      (const KeyShard*)tab, (const int*)subj_before, (const int*)subj_kinds,
-      (const int*)subj_node, (const int*)slots, (const unsigned char*)gate,
-      b, nwl, (const int*)witness, nk, out_stride, g.gw);
   ACCORD_CHECK();
   return 0;
 }

@@ -140,19 +140,22 @@ def mailbox_route_plain(arena, meta, e_src, e_dst, e_slot, e_keep, e_kind,
     return arena, meta, arena[back], meta[back], land
 
 
+# mailbox_route (csrc/mailbox_route.cu), a lean launch (_ext.entry)
+_ROUTE_ARGS = (K._VP,) * 11 + (K._I,) * 4 + (K._VP,) * 4
+
+
 def launch_mailbox_route(ext, A, tab, planes, lanes, outs, dims) -> None:
-    """K17's launch on device addresses (`A(x)`, see kernels._addr): the
-    arena, meta and partition mask either through `tab` (int64 words read
-    on the device: the protocol megakernel's graph) or, with tab None, as
-    `planes` (the three tensors: mailbox_route); lanes (e_src, e_dst,
-    e_slot, e_keep, e_kind, e_seq, e_words); outs (landed_words,
-    landed_meta, land); dims (L, W, rows, n1). The scatter and the
-    gather-back are two kernels in stream order, so every gather sees the
-    whole tick's scatter."""
-    ext.call("mailbox_route", "mailbox_route", A(tab),
-             *(A(x) for x in (planes or (None, None, None))),
-             *(A(x) for x in lanes), *dims, *(A(o) for o in outs),
-             ext.stream())
+    """K17's ONE launch on device addresses (`A(x)`, see kernels._addr):
+    the arena, meta and partition mask either through `tab` (int64 words
+    read on the device: the protocol megakernel's graph) or, with tab
+    None, as `planes` (the three tensors: mailbox_route); lanes (e_src,
+    e_dst, e_slot, e_keep, e_kind, e_seq, e_words); outs (landed_words,
+    landed_meta, land); dims (L, W, rows, n1). A gather-back of a row that
+    a lane of the same call lands on takes that lane's words, as the
+    reference's gather after the whole scatter does."""
+    ext.entry("mailbox_route", "mailbox_route", _ROUTE_ARGS)(
+        A(tab), *(A(x) for x in (planes or (None, None, None))),
+        *(A(x) for x in lanes), *dims, *(A(o) for o in outs), ext.stream())
 
 
 def mailbox_route(arena, meta, e_src, e_dst, e_slot, e_keep, e_kind, e_seq,

@@ -43,11 +43,12 @@ so its count is kept per replay here rather than in that function.
 
 The sharded protocol megakernel (parallel/mesh.sharded_protocol_tick, on a
 mesh whose shards share this card) is the same program with its resolve,
-key finalize and mailbox stages in shard form -- launches over shard
-tables whose records the param block carries (the resolves' 'model'
-partials OR-folded by K22 on fixed memory; every key finalize of the tick
-in ONE launch of the sharded finalize table), and K23 for the mailbox --
-keyed by the mesh too and counted under "sharded_protocol_tick".
+key finalize and mailbox stages in shard form -- its resolves the
+single-device stages (a row's bucket words read whole fold the 'model'
+slices in the launch, the tick's output written in place), every key
+finalize of the tick in ONE launch of the sharded finalize table, and K23
+for the mailbox -- keyed by the mesh too and counted under
+"sharded_protocol_tick".
 """
 from __future__ import annotations
 
@@ -63,6 +64,13 @@ from accord_tpu_torch.ops import node_lane as nl
 from accord_tpu_torch.parallel import mesh as pm
 
 _ALIGN = 16
+# a region of the device spaces (fixed, out) starts on a 128-byte L2 line:
+# a kernel whose 16-byte stores begin 16 bytes into a 32-byte sector
+# writes each sector half from each of two CTAs, and the 10k tick's 134 MB
+# of 'model' partials took 0.207 ms at fixed offset 144 where the same
+# launch at an aligned address took 0.068 (NVIDIA H100 80GB HBM3 at
+# 700.00 W; PERF.md §6)
+_DEV_ALIGN = 128
 # captured graphs by signature, least recently replayed first; past
 # MAX_GRAPHS graphs or MAX_GRAPH_BYTES of their memory the oldest go
 # (counted in kernels.CAPTURES["evictions"]), so varied traffic cannot
@@ -73,8 +81,8 @@ _GRAPHS: "OrderedDict[tuple, _TickGraph]" = OrderedDict()
 _CHECKED: List[bool] = []
 
 
-def _pad(n: int) -> int:
-    return (n + _ALIGN - 1) // _ALIGN * _ALIGN
+def _pad(n: int, align: int = _ALIGN) -> int:
+    return (n + align - 1) // align * align
 
 
 def _nbytes(x) -> int:
@@ -118,7 +126,8 @@ class _Prog:
 
     def alloc(self, space: str, nbytes: int) -> tuple:
         off = self.size[space]
-        self.size[space] += _pad(max(int(nbytes), 1))
+        self.size[space] += _pad(max(int(nbytes), 1),
+                                 _ALIGN if space == "p" else _DEV_ALIGN)
         return (space, off)
 
     def count(self, name: str) -> None:
@@ -200,7 +209,7 @@ def _addrs(bases):
 # Each stage lays out its operands and appends one closure that launches
 # its kernels through the same launch function as the kernel's wrapper;
 # the closures hold region refs and ints only, never a tick's tensors.
-def _stage_key(P, ext, wt_ref, nk, key_in):
+def _stage_key(P, ext, wt_ref, nk, key_in, count="node_deps_resolve"):
     subj_of, subj_keys, subj_node, sb, sknd, slots, blocks = key_in
     b = sb.shape[0]
     nw = nl.key_words(blocks, "protocol_tick")
@@ -215,11 +224,12 @@ def _stage_key(P, ext, wt_ref, nk, key_in):
     P.launches.append(lambda B: nl.launch_node_deps(
         ext, _addrs(B), of, keys, nnz, sw, tab, dims, r_sb, r_sk, node, r_sl,
         b, nw, wt_ref, nk))
-    P.count("node_deps_resolve")
+    P.count(count)
     return o_ref, view, dims[2]
 
 
-def _stage_range(P, ext, wt_ref, nk, rng_in):
+def _stage_range(P, ext, wt_ref, nk, rng_in, count="node_range_resolve",
+                 key_count=None):
     (iv_of, iv_s, iv_e, subj_node, sb, sknd, srng, r_slots, rblocks,
      k_slots, kblocks) = rng_in
     b = sb.shape[0]
@@ -244,7 +254,9 @@ def _stage_range(P, ext, wt_ref, nk, rng_in):
         P.launches.append(lambda B: nl.launch_node_range_deps(
             ext, _addrs(B), of, ivs, ive, nv, r_sb, r_sk, node, r_rng, b,
             wt_ref, nk, rside, kside))
-        P.count("node_range_resolve")
+        P.count(count)
+    if kside and key_count:
+        P.count(key_count)
     return (r_ref, r_view, rdims[2]), (k_ref, k_view, kdims[2])
 
 
@@ -450,16 +462,13 @@ def _stage_mail(P, ext, mailbox):
 
 # -- the sharded protocol megakernel's stages ---------------------------------
 # parallel/mesh.sharded_protocol_tick on a mesh whose shards share one card:
-# the JAX package's shard_map regions become launches over SHARD tables
-# (csrc/node_resolve.cu node_key_shard, csrc/finalize_csr.cu
-# fin_shard_tab) whose records, like the single-device tables, are
-# written into the param block every tick; K22's or_fold combines the
-# resolves' 'model' partials on fixed memory; K23 routes the mailbox.
-def _host_np(x) -> np.ndarray:
-    """A slot lane as numpy (to expand it per shard entry on the host)."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
+# the JAX package's shard_map regions become launches over tables
+# (csrc/node_resolve.cu, csrc/finalize_csr.cu fin_shard_tab) whose records,
+# like the single-device tables, are written into the param block every
+# tick. The resolves are the single-device stages: K13 and K14 read a row's
+# bucket words whole, which ORs the 'model' slices' hits in the launch
+# (OR_m pack(ov_m & rest) == pack(OR_m ov_m & rest)), and write the tick's
+# output in place; K23 routes the mailbox.
 def _shift(ref, nbytes: int) -> tuple:
     return (ref[0], ref[1] + int(nbytes))
 
@@ -470,160 +479,30 @@ def _shard_rows(blocks, data: int, who: str) -> None:
                        blk[0].shape[0], data)
 
 
-def _shard_key_table(P, blocks, data: int, model: int, parts, sws, b: int,
-                     wtot: int) -> list:
-    """The int64 words of a KeyShard table: per (block, data shard d,
-    model shard m) the lane pointers at the shard's first row (the bucket
-    words at its 'model' column slice), its subject words sws[m], its
-    'model' partial (parts + m * b * wtot words), (rows | out word column
-    << 32) and the arena's row stride."""
-    nw = blocks[0][0].shape[1]
-    nwl = nw // model
-    words = []
-    off = 0
-    for bm, ts, kinds, valid in blocks:
-        cap = bm.shape[0]
-        cl = cap // data
-        bm_r, ts_r, kd_r, vl_r = (P.ptr(x) for x in (bm, ts, kinds, valid))
-        for d in range(data):
-            r0 = d * cl
-            for m in range(model):
-                words += [_shift(bm_r, 4 * (r0 * nw + m * nwl)),
-                          _shift(ts_r, 12 * r0), _shift(kd_r, 4 * r0),
-                          _shift(vl_r, r0), sws[m],
-                          _shift(parts, 4 * m * b * wtot),
-                          cl | ((off + r0 // 32) << 32), nw]
-        off += cap // 32
-    return words
-
-
-# node_key_shard (csrc/node_resolve.cu), a lean launch (_ext.entry)
-_KEY_SHARD_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   *(ctypes.c_void_p,) * 5, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p)
-
-
-def _key_shard_launch(ext, A, subj, tab, nent: int, max_cl: int, sb, sknd,
-                      node, slots, gate, b: int, nw: int, nwl: int, model: int,
-                      sws, parts, out, wtot: int, wt, nk: int) -> None:
-    """The subject words of each 'model' slice -- K1's subject pass over
-    subj = (subj_of, subj_keys, nnz); subj None: K14's key side, whose
-    covered words the range stage's launch wrote -- one K13 launch over
-    the shard table, and the 'model' partials OR-folded (K22) into
-    `out`."""
-    if subj is not None:
-        for m in range(model):
-            ext.call("deps_resolve", "deps_subjects_slice", A(subj[0]),
-                     A(subj[1]), subj[2], b, nw * 32, m * nwl * 32, nwl * 32,
-                     A(sws[m]), ext.stream())
-    ext.entry("node_resolve", "node_key_shard", _KEY_SHARD_ARGS)(
-        A(tab), nent, max_cl, A(sb), A(sknd), A(node), A(slots), A(gate), b,
-        nwl, A(wt), nk, wtot, ext.stream())
-    ext.entry("mesh_combine", "or_fold", pm._OR_FOLD_ARGS)(
-        A(parts), 1, model, b, wtot, A(out), wtot, 0, ext.stream())
-
-
 def _stage_key_shard(P, ext, wt_ref, nk, key_in, mesh):
-    """The key resolve per (store block x 'data' shard x 'model' shard)."""
-    subj_of, subj_keys, subj_node, sb, sknd, slots, blocks = key_in
-    data, model = mesh.shape["data"], mesh.shape["model"]
-    b = sb.shape[0]
-    nw = nl.key_words(blocks, "sharded_protocol_tick")
-    nwl = pm._bucket_words(mesh, nw, "sharded_protocol_tick")
-    _shard_rows(blocks, data, "key")
-    _nblk, max_cap, wtot = nl.block_dims(blocks)
-    P.sig.append(("skey", len(blocks)))
-    of, keys, node, r_sb, r_sk = (P.inp(x) for x in (
-        subj_of, subj_keys, subj_node, sb, sknd))
-    r_sl = P.inp(np.repeat(_host_np(slots).astype(np.int32), data * model))
-    parts = P.alloc("f", 4 * model * b * wtot)
-    sws = [P.alloc("f", 4 * b * nwl) for _ in range(model)]
-    tab = P.table(_shard_key_table(P, blocks, data, model, parts, sws, b,
-                                   wtot))
-    f_ref, view = P.out((b, wtot), torch.int32)
-    subj = (of, keys, subj_of.shape[0])
-    nent = len(blocks) * data * model
-    P.launches.append(lambda B: _key_shard_launch(
-        ext, _addrs(B), subj, tab, nent, max_cap // data, r_sb, r_sk, node,
-        r_sl, None, b, nw, nwl, model, sws, parts, f_ref, wtot, wt_ref, nk))
-    P.count("node_key_shard")
-    P.count("or_fold")
-    return f_ref, view, wtot
+    """The key resolve, once the blocks split into the mesh's shards: the
+    single-device stage (K1's subject pass, ONE node_key_resolve launch)."""
+    blocks = key_in[-1]
+    pm._bucket_words(mesh, nl.key_words(blocks, "sharded_protocol_tick"),
+                     "sharded_protocol_tick")
+    _shard_rows(blocks, mesh.shape["data"], "key")
+    return _stage_key(P, ext, wt_ref, nk, key_in, count="node_key_shard")
 
 
 def _stage_range_shard(P, ext, wt_ref, nk, rng_in, mesh):
-    """The range side per (range block x 'data' shard) -- the interval
-    compares have no bucket dimension, so 'model' replicas would repeat
-    them -- through K14's range table, in ONE launch with the covered
-    words of every 'model' slice; the key side per (key block x 'data' x
-    'model' shard) gated by subj_is_range."""
-    (iv_of, iv_s, iv_e, subj_node, sb, sknd, srng, r_slots, rblocks,
-     k_slots, kblocks) = rng_in
-    data, model = mesh.shape["data"], mesh.shape["model"]
-    b = sb.shape[0]
-    nv = iv_of.shape[0]
-    P.sig.append(("srng", len(rblocks), len(kblocks)))
-    of, ivs, ive, node, r_sb, r_sk, r_rng = (P.inp(x) for x in (
-        iv_of, iv_s, iv_e, subj_node, sb, sknd, srng))
-    rdims = nl.block_dims(rblocks, range_side=True)
-    kdims = nl.block_dims(kblocks)
-    r_ref, r_view = P.out((b, rdims[2]), torch.int32)
-    k_ref, k_view = P.out((b, kdims[2]), torch.int32)
-    rtab = r_sl = None
-    nent_r = rmax = 0
-    if rdims[2]:
-        _shard_rows(rblocks, data, "range")
-        r_sl = P.inp(np.repeat(_host_np(r_slots).astype(np.int32), data))
-        words = [r_ref, len(rblocks) * data]
-        off = 0
-        for blk in rblocks:
-            rcap = blk[0].shape[0]
-            rl = rcap // data
-            st, en, ts, kd, vl = (P.ptr(x) for x in blk)
-            for d in range(data):
-                r0 = d * rl
-                words += [_shift(st, 4 * r0), _shift(en, 4 * r0),
-                          _shift(ts, 12 * r0), _shift(kd, 4 * r0),
-                          _shift(vl, r0), rl | ((off + r0 // 32) << 32)]
-            off += rcap // 32
-        rtab = P.table(words)
-        nent_r = len(rblocks) * data
-        rmax = rdims[1] // data
-    cov = None
-    nw = nwl = 0
-    if kdims[2]:
-        nw = nl.key_words(kblocks, "sharded_protocol_tick")
-        nwl = pm._bucket_words(mesh, nw, "sharded_protocol_tick")
-        # the covered words of every 'model' slice, slice m at word
-        # m * b * nwl
-        cov = P.alloc("f", 4 * model * b * nwl)
-
-    def rgo(B, rtab=rtab, r_sl=r_sl, cov=cov):
-        A = _addrs(B)
-        ext.entry("node_resolve", "node_range_resolve", nl._NODE_RANGE_ARGS)(
-            A(rtab), nent_r, rmax, A(of), A(ivs), A(ive), nv, A(r_sb),
-            A(r_sk), A(node), A(r_sl), b, A(wt_ref), nk, rdims[2], A(cov),
-            0, nwl * 32, nw * 32, model, ext.stream())
-    if rdims[2] or kdims[2]:
-        P.launches.append(rgo)
-        P.count("node_range_shard")
-    if kdims[2]:
+    """The range resolve, once the blocks split into the mesh's shards: the
+    single-device stage (K14's launches, the key side gated by
+    subj_is_range)."""
+    rblocks, kblocks = rng_in[8], rng_in[10]
+    data = mesh.shape["data"]
+    _shard_rows(rblocks, data, "range")
+    if kblocks:
+        pm._bucket_words(mesh, nl.key_words(kblocks,
+                                            "sharded_protocol_tick"),
+                         "sharded_protocol_tick")
         _shard_rows(kblocks, data, "key")
-        k_sl = P.inp(np.repeat(_host_np(k_slots).astype(np.int32),
-                               data * model))
-        parts = P.alloc("f", 4 * model * b * kdims[2])
-        covs = [_shift(cov, 4 * m * b * nwl) for m in range(model)]
-        ktab = P.table(_shard_key_table(P, kblocks, data, model, parts, covs,
-                                        b, kdims[2]))
-        nent = len(kblocks) * data * model
-        P.launches.append(lambda B: _key_shard_launch(
-            ext, _addrs(B), None, ktab, nent, kdims[1] // data, r_sb, r_sk,
-            node, k_sl, r_rng, b, nw, nwl, model, covs, parts, k_ref,
-            kdims[2], wt_ref, nk))
-        P.count("node_key_shard")
-        P.count("or_fold")
-    return (r_ref, r_view, rdims[2]), (k_ref, k_view, kdims[2])
+    return _stage_range(P, ext, wt_ref, nk, rng_in, count="node_range_shard",
+                        key_count="node_key_shard")
 
 
 def _stage_fin_shard(P, ext, spec, args, src, mesh):
@@ -917,8 +796,7 @@ def _check_layouts(ext) -> None:
     nl.table_sizes_ok()
     for lib, fn, size in (("tick_graph", "copy_ent_bytes", 32),
                           ("mailbox_route", "mailbox_tab_bytes", 24),
-                          ("mailbox_shard", "mailbox_shard_tab_bytes", 24),
-                          ("node_resolve", "node_shard_bytes", 64)):
+                          ("mailbox_shard", "mailbox_shard_tab_bytes", 24)):
         if int(getattr(ext.lib(lib), fn)()) != size:
             raise RuntimeError(f"{lib}.{fn}: the table layout differs from "
                                "ops/tick_graph.py")

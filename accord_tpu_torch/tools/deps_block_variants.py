@@ -1,10 +1,10 @@
 """Time the key body (csrc/deps_block.cuh: K1's `deps_block`, K13's
-`node_key_resolve`, the mesh's `node_key_shard`, K5's `range_key_block`)
-beside the parent's (`tools/deps_block_parent.cu`), on the same card in
-the same process.
+`node_key_resolve` -- also the one-card sharded tick's key stage -- and
+K5's `range_key_block`) beside the parent's
+(`tools/deps_block_parent.cu`), on the same card in the same process.
 
 The parent's file builds alone (nvcc, seconds: a plain C interface) and
-its four entries keep the shipped C signatures, so `parent_kernels()`
+its entries keep the shipped C signatures, so `parent_kernels()`
 binds them in place of the shipped library's in ops/_ext.py's entry cache:
 every launch made inside, eager or captured into a CUDA graph, runs the
 parent's kernel (the tick graphs' cache is set aside inside and restored
@@ -91,10 +91,9 @@ def with_constants(src: pathlib.Path, dst: pathlib.Path,
 
 
 def _entries() -> dict:
-    from accord_tpu_torch.ops import kernels, node_lane, tick_graph
+    from accord_tpu_torch.ops import kernels, node_lane
     return {("deps_resolve", "deps_block"): kernels._DEPS_BLOCK_ARGS,
             ("node_resolve", "node_key_resolve"): node_lane._NODE_KEY_ARGS,
-            ("node_resolve", "node_key_shard"): tick_graph._KEY_SHARD_ARGS,
             ("range_resolve", "range_key_block"): kernels._RANGE_KEY_ARGS}
 
 

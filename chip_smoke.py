@@ -132,7 +132,9 @@ launched.
      CPU's; launches_per_tick 1.0, zero overflow spills and verify
      fallbacks, no graph captured after the warm pass, K17 launched;
      messages per host callback, host ms per tick, the largest tick's
-     replay ms;
+     replay ms, and the largest tick replayed with the parent's K17
+     (tools/mailbox_route_parent.cu: two kernels), bit-equal, one kernel
+     fewer;
  20. the graft entry (accord_tpu_torch/graft_entry.py, the twin of
      __graft_entry__.entry): deps_matrix -> transitive_closure(7) ->
      execution_wavefronts(7) on example_batch(n=128, k=256) on the card,
@@ -170,7 +172,9 @@ launched.
      at the batch's sharded finalize beside the parent's four stream
      operations, and its counts_scan beside the parent's
      (tools/sharded_finalize_parent.cu: merge_parent_vs_new,
-     scan_parent_vs_new);
+     scan_parent_vs_new); the eager or_fold (the across-card form's
+     'model' fold) at the key burn's and the range burn's largest calls
+     with device_ms (burn_calls);
  24. the sharded protocol megakernel (parallel/mesh.sharded_protocol_tick,
      one CUDA graph replay a tick) on make_mesh() (1 x 1 on one H100,
      where the mailbox keeps the single-device layout) and the virtual 4 x
@@ -180,13 +184,17 @@ launched.
      their plain versions, the finalizes ONE launch of the sharded
      finalize table (no counts_scan, no fragment_merge), and on both
      meshes beside the parent's chain of nodes a finalize
-     (tools/sharded_finalize_parent.cu: tab_parent_vs_new); the sharded
+     (tools/sharded_finalize_parent.cu: tab_parent_vs_new); the key stage
+     alone and the whole tick on both meshes beside the parent's key
+     stage (tools/sharded_key_parent.cu: an entry a (block, data, model)
+     shard into partials, or_fold, the result's copy), bit-equal, the
+     graph running no or_fold and no copy of the key result; the sharded
      megakernel sweep (seed 6; 64 x 120,
      256 x 50) after a warm pass, each history the single-device
      megakernel's (64 nodes: and the per-node loop's), launches_per_tick
      1.0, one replay per fused dispatch, zero sharded-megakernel
      fallbacks, no graph captured or evicted (kernels.CAPTURES) and
-     jit_cache_sizes() unchanged; the
+     jit_cache_sizes() unchanged, no or_fold in a replay; the
      key+range leg (K14's shard tables) and the exec-in-megakernel leg
      (the exec-only flush through the mesh), each the single-device
      history; the sharded message plane (bench_message_plane's config;
@@ -282,7 +290,10 @@ launched.
      (their calls captured in a CUDA graph: both route in place, a
      replay rewriting the rows its lanes name), and their library_ms is
      the scatter and the gather-back as index_put_ and index_select
-     calls, summed. K8 is one kernel in a trace and is set beside the
+     calls, summed. K17 is one kernel in a trace and is set beside the
+     parent's (tools/mailbox_route_parent.cu: the scatter, then the
+     gather-back kernel) at every recorded call and at 1,024 lanes x W
+     384 (k17_parent_vs_new). K8 is one kernel in a trace and is set beside the
      parent's (tools/exec_scatter_mailbox_parent.cu: a whole-lane copy,
      then a scatter kernel) at every recorded call (k8_parent_vs_new).
 The last four lines are the parent-vs-new line (K1 at the PreAccept
@@ -298,7 +309,10 @@ K20 at the graft entry and N 8,192; under "k8" K8 at each recorded call;
 under "k23" K23 at the sharded message plane's largest block, the
 1,024-lane tier and the largest tick's replay; under "sharded_finalize"
 the sharded finalize table at the 10k tick on both meshes and K22's merge
-and counts_scan at the key burn and the batch), the card line, one JSON
+and counts_scan at the key burn and the batch; under "sharded_key_stage"
+the sharded 10k tick's key stage and whole replay on both meshes; under
+"k17" K17 at each recorded call, 1,024 lanes x W 384 and the message
+plane's largest tick's replay), the card line, one JSON
 line of kernels, and the result line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -657,6 +671,12 @@ K20_VS_PARENT: dict = {}
 # 1,024-lane tier and the largest tick's replay
 K8_VS_PARENT: dict = {}
 K23_VS_PARENT: dict = {}
+# the sharded tick's key stage and K17 beside their parents
+# (tools/key_stage_mailbox_variants): the 10k tick's key stage and whole
+# replay on both meshes; K17 by kernel_report's label and at the message
+# plane's largest tick's replay
+KEY_STAGE_VS_PARENT: dict = {}
+K17_VS_PARENT: dict = {}
 # the sharded finalize table and K22's merge and counts_scan beside their
 # parents (tools/sharded_finalize_variants): the table at the 10k tick by
 # mesh, the merge and the scan at the key burn's largest call and the
@@ -672,7 +692,7 @@ SFIN_VS_PARENT: dict = {}
 # subject; K9's entries: the frontier, compacted in the same kernel; K8: a
 # CTA a span of rows of all five lanes, no copy before it)
 KERNELS_A_CALL = {"cmd_tick": 1, "finalize_csr": 1, "finalize_csr_tab": 1,
-                  "exec_scatter": 1,
+                  "exec_scatter": 1, "mailbox_route": 1,
                   "segment_compact": 1, "range_finalize_csr": 1,
                   "dag_wavefronts_packed": 1, "quorum_count": 1,
                   "max_conflict": 1, "execution_wavefronts": 1,
@@ -710,12 +730,16 @@ def trace_call(fn, call=None, want=None) -> dict:
     delivered none): it is taken again, after a pause and a warm call, up
     to TRACE_TRIES times. Late in a long process the profiler also drops
     events of the port's kernels (a trace empty, or short of its first
-    kernels, where the same call traces whole in a fresh process). So
-    where the trace is empty, or other than `want` kernels, and `call` =
-    (the name in the kernel module, args, kw, whether it is a launcher)
-    is given, the trace is taken in a fresh process on the same inputs,
-    and the caller's check judges that one."""
+    kernels, where the same call traces whole in a fresh process), and
+    may drop a memset between the kernels it shows. So where the trace is
+    empty or not what `want` asks (n: n kernels and no memset or copy; a
+    predicate: what it accepts), and `call` = (the name in the kernel
+    module, args, kw, whether it is a launcher) is given, the trace is
+    taken in a fresh process on the same inputs, and the caller's check
+    judges that one."""
     import torch
+    meets = want if callable(want) else (
+        lambda g: len(g["kernels"]) == want and not g["moves"])
     for attempt in range(TRACE_TRIES):
         if attempt:
             time.sleep(0.5)
@@ -729,7 +753,7 @@ def trace_call(fn, call=None, want=None) -> dict:
     got = {"kernels": [n.split("(")[0] for n in names if n not in moves],
            "moves": moves}
     if call is not None and (not names or (want is not None
-                                           and len(got["kernels"]) != want)):
+                                           and not meets(got))):
         log(f"trace: {got} in this process; taken again in a fresh one")
         got = _trace_in_child(*call)
         log(f"trace: in a fresh process: {got}")
@@ -753,10 +777,10 @@ def _owned(x):
 
 
 def _trace_in_child(fn_name: str, args, kw, launcher=False) -> dict:
-    """trace_call of kernels.<fn_name>(*args, **kw) (or node_lane's; with
-    `launcher`, of the launch that call returns first) in a fresh
-    process, the inputs
-    passed through a torch.save file in the build directory."""
+    """trace_call of kernels.<fn_name>(*args, **kw) (or node_lane's or
+    mailbox's; with `launcher`, of the launch that call returns first) in
+    a fresh process, the inputs passed through a torch.save file in the
+    build directory."""
     import torch
     from accord_tpu_torch.ops import _ext
     root = os.path.dirname(os.path.abspath(__file__))
@@ -767,8 +791,10 @@ def _trace_in_child(fn_name: str, args, kw, launcher=False) -> dict:
             "import chip_smoke as s; "
             "from accord_tpu_torch.ops import kernels as tk; "
             "from accord_tpu_torch.ops import node_lane as nl; "
+            "from accord_tpu_torch.ops import mailbox as mb; "
             "n, a, k, l = torch.load(sys.argv[2], weights_only=False); "
-            "f = getattr(tk, n, None) or getattr(nl, n); "
+            "f = getattr(tk, n, None) or getattr(nl, n, None) "
+            "or getattr(mb, n); "
             "fn = f(*a, **k)[0] if l else (lambda: f(*a, **k)); "
             "print(json.dumps(s.trace_call(fn)))")
     try:
@@ -876,12 +902,15 @@ def body_report(tk, fn_name, kern, args, kw, out, want_call) -> dict:
     check(len(t["kernels"]) == n_body and not t["moves"],
           f"{fn_name}: one body launch ran {t['kernels']} and moved "
           f"{t['moves']}, not {n_body} kernel(s) and no memset or copy")
+
+    def whole(t):
+        memsets = [m for m in t["moves"] if "memset" in m.lower()]
+        return (len(t["kernels"]) == n_body + 1 and len(memsets) == 1
+                and len(t["moves"]) <= want_call)
     extra["trace"] = trace_call(lambda: kern(*args, **kw),
-                                (fn_name, args, kw), n_body + 1)
+                                (fn_name, args, kw), whole)
     t = extra["trace"]
-    memsets = [m for m in t["moves"] if "memset" in m.lower()]
-    check(len(t["kernels"]) == n_body + 1 and len(memsets) == 1
-          and len(t["moves"]) <= want_call,
+    check(whole(t),
           f"{fn_name}: one call ran {t['kernels']} and moved {t['moves']}, "
           f"not the subject pass, {n_body} body kernel(s), one memset and "
           f"at most {want_call} move(s)")
@@ -1144,6 +1173,13 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int,
                   "differently")
             extra["k8_parent_vs_new"] = K8_VS_PARENT[
                 f"{label}:{fn_name}"] = pair
+        if fn_name == "mailbox_route" and cuda:
+            from accord_tpu_torch.tools import key_stage_mailbox_variants \
+                as ksm
+            pair = ksm.k17_pair(args)
+            check(pair["bit_equal"], "mailbox_route: the parent's K17 "
+                  "answers differently")
+            extra["k17_parent_vs_new"] = K17_VS_PARENT[label] = pair
         if fn_name in EXEC_KERNELS[1:] + ("execution_wavefronts",) and cuda:
             from accord_tpu_torch.tools import frontier_wavefront_variants \
                 as fwv
@@ -1159,6 +1195,7 @@ def kernel_report(tk, name: str, rec: Recorder, cuda: bool, iters: int,
                 extra["trace"] = trace_call(lambda: kern(*args, **kw),
                                             (fn_name, args, kw)
                                             if hasattr(tk, fn_name)
+                                            or hasattr(mb, fn_name)
                                             else None, want)
             t = extra["trace"]
             check(len(t["kernels"]) == want and not t["moves"],
@@ -2384,6 +2421,8 @@ def run(rehearse: bool) -> dict:
         from accord_tpu_torch.tools import exec_scatter_mailbox_variants \
             as esv
         from accord_tpu_torch.tools import sharded_finalize_variants as sfv
+        from accord_tpu_torch.tools import key_stage_mailbox_variants \
+            as ksm
         parent = dbv.start_build()
         rparent = rbv.start_build()
         fparent = rfv.start_build()
@@ -2392,6 +2431,7 @@ def run(rehearse: bool) -> dict:
         wparent = fwv.start_build()
         eparent = esv.start_build()
         sparent = sfv.start_build()
+        kparent = ksm.start_build()
         build_s = build_phase()
         dbv.finish_build(parent)
         rbv.finish_build(rparent)
@@ -2401,6 +2441,7 @@ def run(rehearse: bool) -> dict:
         fwv.finish_build(wparent)
         esv.finish_build(eparent)
         sfv.finish_build(sparent)
+        ksm.finish_build(kparent)
         log(f"build: {build_s:.2f} s (all csrc/*.cu, nvcc in parallel; the "
             "parent's key body, tools/deps_block_parent.cu, range body "
             "and K3, tools/range_block_parent.cu, K6, "
@@ -2410,8 +2451,9 @@ def run(rehearse: bool) -> dict:
             "tools/frontier_wavefront_parent.cu, K8 and K23, "
             "tools/exec_scatter_mailbox_parent.cu, and the sharded "
             "finalize and K22's merge and scan, "
-            "tools/sharded_finalize_parent.cu, "
-            "beside them)")
+            "tools/sharded_finalize_parent.cu, the sharded key stage, "
+            "tools/sharded_key_parent.cu, and K17, "
+            "tools/mailbox_route_parent.cu, beside them)")
 
     ops = 800 if not rehearse else 120
     launches = {}
@@ -2723,6 +2765,11 @@ def run(rehearse: bool) -> dict:
     mail_recs = {"message_plane": Recorder(tk)}
     mail = message_plane(device, cuda, rehearse, tk, launches, mail_recs)
     mail_big = mail["largest_leg"]
+    # K17 at the reference plane's default width: 1,024 lanes, W 384
+    from accord_tpu_torch.tools import key_stage_mailbox_variants as ksm
+    mail_tier = FixedCalls(mailbox_route=(ksm.mail_block(
+        *((63, 64, 384, 1024, 700) if not rehearse else (7, 8, 64, 64, 30)),
+        device), {}))
     graft_rec = graft_leg(device, cuda, tk, launches)
     dense_batch, dag_rec = dense_legs(device, cuda, rehearse, tk, launches)
 
@@ -2755,7 +2802,8 @@ def run(rehearse: bool) -> dict:
                  "repair": [], "mega_sweep": [("merged_tick_10k", tick10k)],
                  "merged_sweep": [], "mega_range": [],
                  "mega_cmd": [("merged_tick_10k", tick10k)],
-                 "message_plane": [("largest_leg", mail_big)],
+                 "message_plane": [("largest_leg", mail_big),
+                                   ("lanes_1024_w384", mail_tier)],
                  "graft_entry": [("real_size",
                                                        dense_batch)],
                  "dag_100k": []}
@@ -2814,7 +2862,7 @@ def run(rehearse: bool) -> dict:
                                     "k16_parent_vs_new",
                                     "k7_parent_vs_new", "k9_parent_vs_new",
                                     "k20_parent_vs_new", "k8_parent_vs_new",
-                                    "geometry")
+                                    "k17_parent_vs_new", "geometry")
                if k in head},
             "launches_by_path": {p: launches[p][name] for p in launches}}
         for label, r in labelled:
@@ -2872,7 +2920,9 @@ def parent_vs_new_line() -> dict:
     largest block, the 1,024-lane tier, the largest tick's replay)
     beside their parents' (K8_VS_PARENT, K23_VS_PARENT); under
     "sharded_finalize", the sharded finalize table's and K22's merge's and
-    counts_scan's (SFIN_VS_PARENT)."""
+    counts_scan's (SFIN_VS_PARENT); under "sharded_key_stage" and "k17",
+    the sharded 10k tick's key stage and replay on both meshes and K17's
+    (KEY_STAGE_VS_PARENT, K17_VS_PARENT)."""
     out = {}
     for key, (label, fn) in PARENT_VS_NEW_KEYS.items():
         got = PARENT_VS_NEW.get((label, fn))
@@ -2903,6 +2953,10 @@ def parent_vs_new_line() -> dict:
         out["k8"] = dict(K8_VS_PARENT)
     if K23_VS_PARENT:
         out["k23"] = dict(K23_VS_PARENT)
+    if KEY_STAGE_VS_PARENT:
+        out["sharded_key_stage"] = dict(KEY_STAGE_VS_PARENT)
+    if K17_VS_PARENT:
+        out["k17"] = dict(K17_VS_PARENT)
     if SFIN_VS_PARENT:
         out["sharded_finalize"] = dict(SFIN_VS_PARENT)
     return out
@@ -3522,6 +3576,23 @@ def message_plane(device: str, cuda: bool, rehearse: bool, tk, launches,
             out = tk.protocol_tick(*args, **kw)   # noqa: F841 (kept alive)
             rows[n]["ms_per_replay_largest_tick"] = time_ms(
                 last_graph_replay(), 20, cuda)
+            if n == sizes[-1][0]:
+                # the largest tick replayed with the parent's K17
+                # (tools/mailbox_route_parent.cu): one kernel fewer
+                from accord_tpu_torch.tools import \
+                    key_stage_mailbox_variants as ksm
+                pair = ksm.k17_tick_pair(args, dict(
+                    kw, mailbox=_fresh(kw["mailbox"])))
+                new_k, par_k = pair["new_kernels"], pair["parent_kernels"]
+                check(pair["bit_equal"]
+                      and sum(new_k.values()) == sum(par_k.values()) - 1
+                      and new_k.get("mailbox_route_kernel") == 1
+                      and "mailbox_gather_kernel" not in new_k,
+                      f"message plane {n} nodes: the largest tick with the "
+                      f"parent's K17 differs or runs {par_k} against "
+                      f"{new_k}")
+                rows[n]["k17_tick_parent_vs_new"] = \
+                    K17_VS_PARENT["largest_tick_replay"] = pair
         log(f"message_plane[{device}]: {json.dumps(rows[n])}")
     log(f"message_plane: launches {launches['message_plane']}")
     big = recs_by_size[sizes[-1][0]].get("mailbox_route")
@@ -4090,7 +4161,7 @@ def sharded_phase(device: str, cuda: bool, rehearse: bool, tk, launches,
         res = []
         tk.reset_launches()
         krec = Recorder(tk, names=("_sum_merge_fragments",
-                                   "_gather_counts"))
+                                   "_gather_counts", "_or_fold_model"))
         with krec:
             rep, wall = burn(device, ops, res, mesh=vmesh)
         if cuda:
@@ -4114,7 +4185,9 @@ def sharded_phase(device: str, cuda: bool, rehearse: bool, tk, launches,
         rops = 400 if not rehearse else 60
         rres = []
         tk.reset_launches()
-        rrep, rwall = range_mix_burn(device, rops, rres, mesh=vmesh)
+        rrec = Recorder(tk, names=("_or_fold_model",))
+        with rrec:
+            rrep, rwall = range_mix_burn(device, rops, rres, mesh=vmesh)
         if cuda:
             torch.cuda.synchronize()
         launches["sharded_range_burn"] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
@@ -4247,6 +4320,27 @@ def sharded_phase(device: str, cuda: bool, rehearse: bool, tk, launches,
         log(f"K22 counts_scan vs parent[{device}]: {json.dumps(scans)}")
         next(e for e in entries if e["name"] == "counts_scan")[
             "scan_parent_vs_new"] = scans
+        # the eager or_fold (the across-card form's 'model' fold) at the
+        # key burn's and the range burn's largest calls, device ms
+        folds = {}
+        for label, r in (("key_burn", krec), ("range_burn", rrec)):
+            got = r.get("_or_fold_model")
+            kern, _plain, pair, a = shard_replay(tk, pm, "_or_fold_model",
+                                                 *got)
+            err = max_abs_err(*pair())
+            check(err == 0, f"or_fold ({label}) disagrees with its plain "
+                  "version")
+            bytes_, ops = shard_cost(tk, "_or_fold_model", a)
+            folds[label] = {
+                "call": "_or_fold_model", "max_abs_err": err,
+                "ms": time_ms(kern, iters, cuda), "device_ms": graph_ms(kern),
+                "bound_ms": max(bytes_ / HBM_BYTES_PER_S,
+                                ops / INT32_OPS_PER_S) * 1e3,
+                "bytes": bytes_, "ops": ops, "input_mb": nbytes(got) / 1e6}
+        log(f"K22 or_fold at the burns' largest calls[{device}]: "
+            f"{json.dumps(folds)}")
+        next(e for e in entries if e["name"] == "or_fold")[
+            "burn_calls"] = folds
     return entries
 
 
@@ -4296,7 +4390,10 @@ SHARDED_MEGA = (
      "graph a tick: csrc/node_resolve.cu, finalize_csr.cu, mesh_combine.cu,"
      " mailbox_shard.cu and the replicated stages' kernels)",
      MESH_PY + ":821 (builder :683)", "sharded_mega_sweep"),
-    ("node_key_shard", "accord_tpu_torch/csrc/node_resolve.cu",
+    ("node_key_shard", "accord_tpu_torch/csrc/node_resolve.cu "
+     "(node_key_resolve over K13's block table: a row's bucket words read "
+     "whole, so the 'model' slices fold in the launch; the result written "
+     "in place)",
      MESH_PY + ":718 (kpart: _fused_key_resolve_blocks in shard_map)",
      "sharded_mega_sweep"),
     ("node_range_shard", "accord_tpu_torch/csrc/node_resolve.cu",
@@ -4571,18 +4668,37 @@ def sharded_mega_phase(device: str, cuda: bool, rehearse: bool, tk,
         key_ms, time_ms(lambda: nl.node_fused_deps_resolve_plain(*dkey, wt),
                         max(1, iters // 10), cuda),
         kb, ko, max_abs_err(kout[0], kplain),
-        call="the 10k tick's key stage alone (one replay: 2 subject "
-        "passes, 1,024 shard entries in one launch, the 'model' fold)")
+        call=f"the 10k tick's key stage alone (one replay: one subject "
+        f"pass, {len(key_in[-1])} block entries in one launch, each reading "
+        "its rows' bucket words whole -- every 'model' slice -- and writing "
+        "the tick's output)")
     if cuda:
-        # a replay is device time; the parent's key body beside it
-        from accord_tpu_torch.tools import deps_block_variants as dbv
-        pair = dbv.replay_pair(
-            lambda: pm.sharded_protocol_tick(vmesh, wt, key_in=key_in),
-            lambda o: o[0])
-        check(pair["bit_equal"], "sharded 10k tick: the parent's key body "
-              "answers differently")
-        rows["node_key_shard"].update(device_ms=key_ms, parent_vs_new=pair)
-        PARENT_VS_NEW["node_key_shard_10k_key_stage"] = pair
+        # a replay is device time; the parent's stage beside it
+        # (tools/sharded_key_parent.cu: an entry a (block, data, model)
+        # shard into fixed-memory partials, or_fold, the result's copy),
+        # the key stage alone and the whole 10k tick, on both meshes
+        from accord_tpu_torch.tools import key_stage_mailbox_variants \
+            as ksm
+        for label, m in (("virtual", vmesh), ("real", real)):
+            pair = ksm.key_stage_pair(m, wt, key_in)
+            new_k, par_k = pair["new_kernels"], pair["parent_kernels"]
+            check(pair["bit_equal"] and "or_fold_kernel" not in new_k
+                  and new_k.get("table_copy_kernel", 0)
+                  == par_k.get("table_copy_kernel", 0) - 1,
+                  f"sharded 10k tick ({label}): the key stage differs from "
+                  f"the parent's, or its graph runs {new_k} (the parent's "
+                  f"{par_k}): an or_fold, or a copy of its result")
+            whole = ksm.tick_pair(m, wt, kw)
+            check(whole["bit_equal"], f"sharded 10k tick ({label}): the "
+                  "replay with the parent's key stage differs")
+            KEY_STAGE_VS_PARENT[f"key_stage_{label}"] = pair
+            KEY_STAGE_VS_PARENT[f"tick_{label}"] = whole
+        rows["node_key_shard"].update(
+            device_ms=key_ms,
+            parent_vs_new=KEY_STAGE_VS_PARENT["key_stage_virtual"],
+            make_mesh_parent_vs_new=KEY_STAGE_VS_PARENT["key_stage_real"])
+        PARENT_VS_NEW["node_key_shard_10k_key_stage"] = \
+            KEY_STAGE_VS_PARENT["key_stage_virtual"]
     l0 = dict(tk.LAUNCHES)
     kf_ms, fout = replay_ms(lambda: pm.sharded_protocol_tick(
         vmesh, wt, key_in=key_in, fins=fins))
@@ -4694,9 +4810,13 @@ def sharded_mega_phase(device: str, cuda: bool, rehearse: bool, tk,
         check(ls["sharded_protocol_tick"] == fused > 0,
               f"sharded sweep: {ls['sharded_protocol_tick']} replays for "
               f"{fused} fused dispatches")
-        for name in ("node_key_shard", "or_fold", "finalize_shard_tab"):
+        for name in ("node_key_shard", "finalize_shard_tab"):
             check(ls[name] > 0, f"sharded sweep: {name} never ran in a "
                   "replay")
+        # the 'model' slices fold inside the key launch: no or_fold runs
+        # in a replay (the eager mesh legs still run it)
+        check(ls["or_fold"] == 0, f"sharded sweep: or_fold ran "
+              f"{ls['or_fold']} times in the replays")
         check(ls["counts_scan"] == 0 and ls["fragment_merge"] == 0
               and ls["finalize_shard_tab"] <= ls["sharded_protocol_tick"],
               "sharded sweep: a replay ran K22's counts_scan or merge, or "
@@ -4722,6 +4842,17 @@ def sharded_mega_phase(device: str, cuda: bool, rehearse: bool, tk,
     check(rows["sharded_protocol_tick"]["max_abs_err"] == 0,
           "sharded sweep: the largest tick's replay differs from the plain "
           "program")
+    if cuda:
+        # the kernels that graph runs, read from its DOT print: the key
+        # stage's node_key_kernel, no or_fold
+        from accord_tpu_torch.ops import tick_graph as tg
+        from accord_tpu_torch.tools import key_stage_mailbox_variants \
+            as ksm
+        sk = ksm.graph_kernels(next(reversed(tg._GRAPHS.values())))
+        rows["sharded_protocol_tick"]["largest_tick_kernels"] = sk
+        check(sk.get("node_key_kernel", 0) > 0 and "or_fold_kernel" not in sk,
+              f"sharded sweep: the largest tick's graph runs {sk}: no key "
+              "launch, or an or_fold")
     # the key+range leg and the exec leg
     kr = dict(nodes=4, range_read_ratio=0.2, range_write_ratio=0.1,
               megakernel=True)

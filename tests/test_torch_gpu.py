@@ -29,7 +29,8 @@ from torch_kernel_cases import (ARENA_SCATTER_CASES, CLOSURE_CASES,
                                 finalize_many_tiles, key_body_case,
                                 frontier_case, pack_words, quorum_case,
                                 quorum_lanes, range_body_case,
-                                range_fin_case, SHARD_FIN_CASES,
+                                range_fin_case, ROUTE_HAZARDS, route_case,
+                                SHARD_FIN_CASES,
                                 SHARD_ROUTE_HAZARDS, merge_fragments_case,
                                 shard_fin_case, shard_route_case,
                                 WAVEFRONT_CASES, wavefront_case)
@@ -1502,6 +1503,67 @@ def test_protocol_tick_mailbox_stage_matches_plain(cuda):
     assert tk.CAPTURES["protocol_tick"] - c0 == 1
 
 
+# K17's clamped-row cases: (n, depth, W, L), each with n >= 3 and L >= 8
+ROUTE_CASE_SHAPES = ((4, 4, 8, 16), (5, 3, 7, 24), (6, 4, 640, 40),
+                     (63, 64, 384, 1024))
+
+
+def _route_inputs(shape, hazard):
+    rng = np.random.default_rng(sum(shape) + ROUTE_HAZARDS.index(hazard))
+    ins, writers = route_case(rng, *shape, hazard)
+    plain = tmb.mailbox_route_plain(_t(ins[0]).clone(), _t(ins[1]).clone(),
+                                    *(_t(x) for x in ins[2:9]), _t(ins[9]))
+    return ins, writers, plain
+
+
+@pytest.mark.parametrize("hazard", ROUTE_HAZARDS)
+@pytest.mark.parametrize("shape", ROUTE_CASE_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_mailbox_route_clamped_rows_kernel(cuda, shape, hazard):
+    """K17's ONE launch = its plain version where a gather-back reads a
+    clamped row another lane lands on in the same launch, a negative dst
+    wraps once, a flat falls below -rows or past the arena, or every link
+    is cut (tests/torch_kernel_cases.route_case); W 7 moves words one by
+    one, W 640 past a lane's first four 16-byte vectors."""
+    ins, writers, plain = _route_inputs(shape, hazard)
+    a, m = _t(ins[0]).to(cuda), _t(ins[1]).to(cuda)
+    n0 = tk.LAUNCHES["mailbox_route"]
+    got = tmb.mailbox_route(a, m, *ins[2:9], _t(ins[9]).to(cuda))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["mailbox_route"] == n0 + 1
+    assert got[0] is a and got[1] is m
+    _eq(plain, got)
+    words = _t(ins[8])
+    for q in writers:        # the write is read back somewhere else
+        assert int((plain[2] == words[q]).all(1).sum()) > 1
+
+
+def test_mailbox_route_one_kernel_a_call(cuda):
+    """One K17 call (lanes already on the card), captured in a CUDA graph,
+    is ONE kernel node: the scatter and the gather-back in one launch, no
+    memset or copy."""
+    ins, _w, _p = _route_inputs(ROUTE_CASE_SHAPES[3], "last_row")
+    a, m, *lanes, part = (_t(x).to(cuda) for x in ins)
+    assert _graph_node_types(lambda: tmb.mailbox_route(
+        a, m, *lanes, part)) == [0]
+
+
+@pytest.mark.parametrize("hazard", ROUTE_HAZARDS)
+def test_protocol_tick_mailbox_stage_clamped_rows(cuda, hazard):
+    """The mailbox stage inside the tick's graph (K17 through the param
+    table) = the plain version on each clamped-row case, the arena and
+    meta updated in place."""
+    ins, _w, plain = _route_inputs(ROUTE_CASE_SHAPES[1], hazard)
+    block = (_t(ins[0]).to(cuda), _t(ins[1]).to(cuda), *ins[2:9],
+             _t(ins[9]).to(cuda))
+    n0 = tk.LAUNCHES["mailbox_route"]
+    got = tk.protocol_tick(_t(WITNESS_TABLE).to(cuda), mailbox=block)[5]
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["mailbox_route"] == n0 + 1
+    assert got[0] is block[0] and got[1] is block[1]
+    _eq(plain, got)
+
+
 # -- the sharded deps data plane on a virtual mesh (cuda:0 x 8) ---------------
 def _meshes(cuda):
     from accord_tpu_torch.parallel.mesh import make_mesh
@@ -2096,7 +2158,7 @@ def test_sharded_protocol_tick_graph_matches_plain(cuda):
         l0["sharded_protocol_tick"] + 1
     assert tk.LAUNCHES["protocol_tick"] == l0["protocol_tick"]
     for name, n in (("node_key_shard", 2), ("node_range_shard", 1),
-                    ("or_fold", 2), ("finalize_shard_tab", 1),
+                    ("or_fold", 0), ("finalize_shard_tab", 1),
                     ("counts_scan", 0), ("fragment_merge", 0),
                     ("range_finalize", 1), ("cmd_tick", 1),
                     ("quorum_count", 1), ("cmd_repair", 1),
@@ -2688,30 +2750,76 @@ def test_key_body_shard_cases_kernel(cuda, case):
     assert (plain[:, col:col + rows // 32] != 0).any()
 
 
+def _pad_blocks(blocks, rows: int, words: int):
+    """Each block's rows padded to a multiple of `rows` with invalid rows,
+    its bucket words to a multiple of `words` with zero words."""
+    out = []
+    for bm, ts, kd, v in blocks:
+        cap, nw = bm.shape
+        pr, pw = -cap % rows, -nw % words
+        out.append((torch.nn.functional.pad(bm, (0, pw, 0, pr)),
+                    torch.nn.functional.pad(ts, (0, 0, 0, pr)),
+                    torch.nn.functional.pad(kd, (0, pr)),
+                    torch.nn.functional.pad(v, (0, pr))))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("shape", ((1, 1), (2, 2), (4, 2), (2, 4)),
+                         ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("name", BODY_CASES)
-def test_key_body_cases_node_key_shard(cuda, name):
-    """node_key_shard (the sharded megakernel's key stage) on each case:
-    a 2 x 2 mesh on the card where the caps split into 2 'data' shards of
-    whole words and the words into 2 'model' slices (the shard reads its
-    slice in place), else 1 x 1; one replay, the stage's one launch, the
-    packed words = K13's plain version."""
+def test_key_body_cases_node_key_shard(cuda, name, shape):
+    """The sharded megakernel's key stage (node_key_resolve over K13's
+    block table, reading a row's bucket words whole -- every 'model'
+    slice) on each case, on a data x model mesh of the card: the
+    case's caps padded with invalid rows to whole words a 'data' shard and
+    its bucket words with zero words to whole 'model' slices; one replay,
+    the stage's one launch, no or_fold, the packed words = K13's plain
+    version on the same blocks."""
     from accord_tpu_torch.ops import node_lane as nl
-    from accord_tpu_torch.parallel.mesh import (make_mesh,
-                                                sharded_protocol_tick)
+    from accord_tpu_torch.parallel.mesh import Mesh, sharded_protocol_tick
     L, P = _body_case(name)
-    nw = P[0][0].shape[1]
-    split = all(b[0].shape[0] % 64 == 0 for b in P) and nw % 2 == 0
-    mesh = make_mesh(devices=[cuda] * (4 if split else 1))
+    data, model = shape
+    P = _pad_blocks(P, 32 * data, model)
+    mesh = Mesh([[cuda] * model] * data)
     key = [L[x].numpy() for x in ("subj_of", "subj_keys", "subj_store",
                                   "sb", "sknd", "slots")]
     wt = _t(WITNESS_TABLE)
-    plain = nl.node_fused_deps_resolve(*(_t(a) for a in key), tuple(P), wt)
+    plain = nl.node_fused_deps_resolve(*(_t(a) for a in key), P, wt)
     l0 = dict(tk.LAUNCHES)
     got = sharded_protocol_tick(mesh, wt.to(cuda), key_in=(
         *key, tuple(tuple(t.to(cuda) for t in b) for b in P)))
     torch.cuda.synchronize()
     assert tk.LAUNCHES["node_key_shard"] == l0["node_key_shard"] + 1
+    assert tk.LAUNCHES["or_fold"] == l0["or_fold"]
     _eq(plain, got[0])
+
+
+def test_sharded_tick_across_cards_form_folds_with_or_fold(cuda):
+    """The across-card form of the sharded tick (parallel/mesh.py
+    _sharded_tick_eager, the stage-by-stage walk a mesh over several cards
+    runs), here on one card's virtual 4 x 2 mesh: its key resolve still
+    ORs the 'model' partials with K22's or_fold, and answers as the graph
+    and K13's plain version do."""
+    from accord_tpu_torch.ops import node_lane as nl
+    from accord_tpu_torch.parallel import mesh as pm
+    L, P = _body_case("foreign_tile_pad_block")
+    P = _pad_blocks(P, 128, 2)
+    mesh = pm.make_mesh(devices=[cuda] * 8)
+    key = [L[x].numpy() for x in ("subj_of", "subj_keys", "subj_store",
+                                  "sb", "sknd", "slots")]
+    wt = _t(WITNESS_TABLE)
+    plain = nl.node_fused_deps_resolve(*(_t(a) for a in key), P, wt)
+    key_in = (*key, tuple(tuple(t.to(cuda) for t in b) for b in P))
+    l0 = dict(tk.LAUNCHES)
+    eager = pm._sharded_tick_eager(mesh, wt.to(cuda), key_in, None, (), (),
+                                   (), None, 1, None, (), ())
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["or_fold"] > l0["or_fold"]
+    assert tk.LAUNCHES["sharded_protocol_tick"] == \
+        l0["sharded_protocol_tick"]
+    _eq(plain, eager[0])
+    graph = pm.sharded_protocol_tick(mesh, wt.to(cuda), key_in=key_in)
+    _eq(plain, graph[0])
 
 
 # -- the range body (csrc/range_block.cuh) and K3 (csrc/arena_scatter.cu) --

@@ -29,6 +29,7 @@ from accord_tpu_torch.sim.network import (DeviceMessageNetwork, LinkConfig,
                                           LinkMatrix, SimNetwork)
 from accord_tpu_torch.sim.queue import PendingQueue
 from accord_tpu_torch.utils.rng import RandomSource
+from torch_kernel_cases import ROUTE_HAZARDS, route_case
 
 pytestmark = pytest.mark.message_plane
 
@@ -295,6 +296,29 @@ def test_mailbox_route_plain_out_of_range_lanes():
         src, dst, slot, keep, kind, seq, w)), p)
     for r, g in zip(ref, got):
         assert np.array_equal(np.asarray(r), g.numpy())
+
+
+@pytest.mark.parametrize("hazard", ROUTE_HAZARDS)
+def test_mailbox_route_plain_clamped_rows_match_jax(hazard):
+    """K17's clamped rows (tests/torch_kernel_cases.route_case): a lane
+    landing on row rows-1 or row 0 while other lanes gather that row
+    back, a negative dst whose flat wraps once, a flat < -rows, a landed
+    flat >= rows and every link cut. Tolerance: bit-equal on all five
+    outputs; a writer's words come back on every lane reading its row."""
+    rng = np.random.default_rng(40 + ROUTE_HAZARDS.index(hazard))
+    ins, writers = route_case(rng, 4, 4, 8, 16, hazard)
+    ref = _ROUTE(*ins)
+    a, m, p = carry.mailbox_state(ins[0], ins[1], ins[9])
+    got = mailbox_route_plain(a, m, *(torch.from_numpy(x)
+                                      for x in ins[2:9]), p)
+    for r, g in zip(ref, got):
+        assert np.array_equal(np.asarray(r), g.numpy())
+    landed, land = np.asarray(ref[2]), np.asarray(ref[4])
+    for q in writers:
+        assert (landed == ins[8][q]).all(1).sum() > 1
+    if hazard == "wrap_once":
+        assert land[-1] and np.array_equal(landed[-1], ins[8][-1])
+    assert land.any() != (hazard == "all_cut")
 
 
 class _Entry:

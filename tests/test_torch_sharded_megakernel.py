@@ -494,6 +494,90 @@ def test_sharded_tick_range_resolve_matches_single_device(mesh, jmesh):
         ref[1][1]).any()), "differential vacuous"
 
 
+# -- the card program's sharded resolve stages (ops/tick_graph.py) -----------
+def _stage_inputs(rng, data, nw, nblk=3, b=40, nk=6):
+    caps = [32 * data * int(rng.integers(1, 4)) for _ in range(nblk)]
+    def words(c):          # sparse bucket words: three draws ANDed
+        w = [rng.integers(-2 ** 31, 2 ** 31, (c, nw)) for _ in range(3)]
+        return _t((w[0] & w[1] & w[2]).astype(np.int32))
+    kblocks = tuple(
+        (words(c), _t(rng.integers(-3, 3, (c, 3)).astype(np.int32)),
+         _t(rng.integers(0, nk, c).astype(np.int32)),
+         _t(rng.random(c) < 0.8)) for c in caps)
+    rblocks = tuple(
+        (_t(rng.integers(0, nw * 32, c).astype(np.int32)),
+         _t(rng.integers(0, nw * 32, c).astype(np.int32)),
+         _t(rng.integers(-3, 3, (c, 3)).astype(np.int32)),
+         _t(rng.integers(0, nk, c).astype(np.int32)),
+         _t(rng.random(c) < 0.8)) for c in caps)
+    nnz = 3 * b
+    sb = _t(rng.integers(-3, 3, (b, 3)).astype(np.int32))
+    node = _t(rng.integers(0, nblk + 1, b).astype(np.int32))
+    sknd = _t(rng.integers(0, nk, b).astype(np.int32))
+    slots = _t(np.arange(nblk, dtype=np.int32))
+    key_in = (_t(rng.integers(0, b, nnz).astype(np.int32)),
+              _t(rng.integers(0, nw * 32, nnz).astype(np.int32)),
+              node, sb, sknd, slots, kblocks)
+    rng_in = (_t(rng.integers(0, b, b).astype(np.int32)),
+              _t(rng.integers(0, nw * 32, b).astype(np.int32)),
+              _t(rng.integers(0, nw * 32, b).astype(np.int32)),
+              node, sb, sknd, _t(rng.random(b) < 0.6), slots, rblocks,
+              slots, kblocks)
+    return key_in, rng_in
+
+
+def _stage_prog(stage, *args):
+    """A stage's program on the CPU (nothing launched): its layout and
+    tables, its launch count and counts, and its return."""
+    from accord_tpu_torch.ops import tick_graph as tg
+    P = tg._Prog("cpu")
+    wt = P.inp(_t(WITNESS_TABLE))
+    ret = stage(P, None, wt, WITNESS_TABLE.shape[0], *args)
+    return P, ret
+
+
+@pytest.mark.parametrize("data,model", [(1, 1), (2, 2), (4, 2), (2, 4)])
+def test_one_card_sharded_resolves_are_the_single_device_stages(data, model):
+    """On a mesh whose shards share one card, the sharded key and range
+    resolves lay out exactly the single-device stages' programs (K13 and
+    K14 read a row's bucket words whole, so every 'model' slice folds in
+    the launch): the same tables and regions, one launch each, the result
+    written in place (no fixed-memory output scattered after), counted
+    under the sharded names; and they refuse blocks that do not split into
+    the mesh's shards."""
+    from accord_tpu_torch.ops import tick_graph as tg
+    rng = np.random.default_rng(10 * data + model)
+    nw = model * int(rng.integers(1, 4))
+    key_in, rng_in = _stage_inputs(rng, data, nw)
+    mesh = tpm.Mesh([["cpu"] * model] * data)
+    for shard, single, args, counts in (
+            (tg._stage_key_shard, tg._stage_key, key_in,
+             {"node_key_shard": 1}),
+            (tg._stage_range_shard, tg._stage_range, rng_in,
+             {"node_range_shard": 1, "node_key_shard": 1})):
+        P, ret = _stage_prog(shard, args, mesh)
+        Q, ret1 = _stage_prog(single, args)
+        assert P.words == Q.words and P.size == Q.size and ret == ret1
+        assert [(o, a.tobytes()) for o, a in P.host] \
+            == [(o, a.tobytes()) for o, a in Q.host]
+        assert len(P.launches) == 1 and not P.scatters and not P.gathers
+        assert P.counts == counts
+        assert P.size["o"] > 0
+    if data > 1:
+        bad = list(key_in)
+        blk = bad[-1][0]
+        bad[-1] = ((blk[0][:16], blk[1][:16], blk[2][:16], blk[3][:16]),
+                   *bad[-1][1:])
+        with pytest.raises(ValueError, match="rows are not a multiple"):
+            _stage_prog(tg._stage_key_shard, tuple(bad), mesh)
+    if model > 1:
+        bad = list(key_in)
+        bad[-1] = tuple((b[0][:, :-1].contiguous(), *b[1:])
+                        for b in bad[-1])
+        with pytest.raises(ValueError, match="'model' slices"):
+            _stage_prog(tg._stage_key_shard, tuple(bad), mesh)
+
+
 # -- burn differentials (sharded engine vs the host loops) ---------------------
 
 def _legs(mesh, seed, sharded_kw, **kw):

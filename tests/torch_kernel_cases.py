@@ -915,6 +915,76 @@ def wavefront_case(name):
     return adj, levels
 
 
+# K17's clamped rows: a lane that does not read back its own ring row
+# gathers row rows - 1 (a lane that does not land, or a landed flat past
+# the arena: flat >= rows) or row 0 (flat < -rows), after the whole tick's
+# scatter -- where another lane of the same tick may land; a flat in
+# [-rows, 0) (a negative dst) wraps once and lands
+ROUTE_HAZARDS = ("last_row", "wrap_once", "below_rows", "past_rows",
+                 "all_cut")
+
+
+def route_case(rng, n, depth, W, L, hazard):
+    """Raw K17 inputs (arena, meta, the seven emit lanes, part) over n
+    nodes' rings ((n + 1) * depth rows): random landed lanes on distinct
+    rows, a kept lane on a cut link, keep=False pads, and at the end the
+    hazard's lanes: `last_row` -- one lands on row rows - 1, which every
+    pad gathers back; `wrap_once` -- a negative dst whose flat wraps once
+    (it lands on node n's slot 1 and reads back its own row) beside one
+    landing on row rows - 1; `below_rows` -- one with flat < -rows (it
+    gathers back row 0) after one that lands on row 0; `past_rows` -- a
+    landed flat >= rows (dropped: it gathers back row rows - 1) after one
+    that lands on row rows - 1; `all_cut` -- every link cut, so no lane
+    lands. -> (inputs, the lanes landing on a clamped row)."""
+    assert n >= 3 and L >= 8 and hazard in ROUTE_HAZARDS
+    n1, rows = n + 1, (n + 1) * depth
+    arena = rng.integers(-9, 9, (rows, W)).astype(np.int32)
+    meta = rng.integers(-9, 9, (rows, 3)).astype(np.int32)
+    part = np.zeros((n1, n1), bool)
+    part[1, 2] = part[2, 1] = True
+    src, dst, slot, kind, seq = (np.zeros(L, np.int32) for _ in range(5))
+    keep = np.zeros(L, bool)
+    words = np.zeros((L, W), np.int32)
+
+    def put(i, s, d, sl):
+        src[i], dst[i], slot[i] = s, d, sl
+        kind[i], seq[i] = int(rng.integers(1, 5)), int(rng.integers(0, 1 << 20))
+        keep[i] = True
+        words[i] = rng.integers(-1 << 30, 1 << 30, W)
+
+    # the hazards' rows stay off the random lanes: rows - 1, row 0 and
+    # node n's slot 1
+    taken = {rows - 1, 0, rows - depth + 1}
+    free = [r for r in range(depth, rows) if r not in taken]
+    rng.shuffle(free)
+    nland = min(int(rng.integers(L // 4, L // 2)), len(free))
+    for i in range(nland):
+        r = free.pop()
+        put(i, int(rng.integers(1, n1)), r // depth, r % depth)
+    put(nland, 1, 2, 0)                      # a cut link: does not land
+    q = L - 1
+    writers = []
+    if hazard == "last_row":
+        put(q, n, n, depth - 1)
+        writers = [q]
+    elif hazard == "wrap_once":
+        put(q - 1, n, n, depth - 1)
+        put(q, n, -1, 1)                     # flat 1 - depth: node n, slot 1
+        writers = [q - 1]
+    elif hazard == "below_rows":
+        put(q - 1, n, 0, 0)                  # row 0
+        put(q, n, -(n1 + 1), 0)              # flat < -rows: reads row 0
+        writers = [q - 1]
+    elif hazard == "past_rows":
+        put(q - 1, n, n, depth - 1)
+        put(q, n, n, depth + 2)              # flat rows + 2: dropped
+        writers = [q - 1]
+    else:
+        part[:] = True
+    return (arena, meta, src, dst, slot, keep, kind, seq, words,
+            part), writers
+
+
 # K23's clamped rows: a position that does not read back its own ring row
 # gathers its destination shard's row rows_l - 1 (a lane that does not
 # land, padding, or a landed flat past the ring) or row 0 (flat <
