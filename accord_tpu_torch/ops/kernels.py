@@ -120,7 +120,15 @@ LAUNCHES: Dict[str, int] = {"deps_resolve": 0, "finalize_csr": 0,
                             # its shard-table stages, K23
                             "sharded_protocol_tick": 0, "node_key_shard": 0,
                             "node_range_shard": 0, "finalize_shard_tab": 0,
-                            "sharded_mailbox_route": 0}
+                            "sharded_mailbox_route": 0,
+                            # the eager sharded entries with every shard on
+                            # one card: their single-device twins' launches
+                            # (K1, K13, K5, K14, K2), counted apart
+                            "deps_resolve_one_card": 0,
+                            "node_deps_one_card": 0,
+                            "range_resolve_one_card": 0,
+                            "node_range_one_card": 0,
+                            "finalize_one_card": 0}
 
 # the launches above made inside each sharded entry point (parallel/mesh.py
 # launches nothing itself: its shards and combining steps do)
@@ -406,12 +414,13 @@ def resolve_launcher(subj_of, subj_keys, subj_store, subj_before,
 
 
 def _resolve_cuda(subj_of, subj_keys, subj_store, subj_before, subj_kinds,
-                  slots, arenas, witness_table) -> torch.Tensor:
+                  slots, arenas, witness_table,
+                  count: str = "deps_resolve") -> torch.Tensor:
     launch, out = resolve_launcher(subj_of, subj_keys, subj_store,
                                    subj_before, subj_kinds, slots, arenas,
                                    witness_table)
     launch()
-    LAUNCHES["deps_resolve"] += 1
+    LAUNCHES[count] += 1
     return out
 
 
@@ -609,7 +618,8 @@ _FIN_ARGS = (_VP, _I, _I, _I, _VP, _I, _I, _VP, _VP, _I, _VP, _VP, _I,
 
 
 def _finalize_cuda(packed, word_off, kid_rows, slot_subj, slot_kid,
-                   subj_row, act_ts, out_cap: int):
+                   subj_row, act_ts, out_cap: int,
+                   count: str = "finalize_csr"):
     ext = _ext()
     _check_cuda(packed, kid_rows, slot_subj, slot_kid, subj_row, act_ts)
     dev = packed.device
@@ -623,7 +633,7 @@ def _finalize_cuda(packed, word_off, kid_rows, slot_subj, slot_kid,
         slot_subj.data_ptr(), slot_kid.data_ptr(), s, subj_row.data_ptr(),
         act_ts.data_ptr(), out_cap, *(o.data_ptr() for o in outs),
         _csr_scratch(dev, s * w), ext.raw_stream(dev.index))
-    LAUNCHES["finalize_csr"] += 1
+    LAUNCHES[count] += 1
     return tuple(outs)
 
 
@@ -1222,7 +1232,8 @@ def launch_range(ext, spec: bytes, nblk: int, iv, b: int, sb, sknd, store,
 
 def _range_resolve_cuda(iv_of, iv_start, iv_end, subj_store, subj_before,
                         subj_kinds, subj_is_range, r_slots, rarenas,
-                        k_slots, karenas, witness_table):
+                        k_slots, karenas, witness_table,
+                        count: str = "range_resolve"):
     ext = _ext()
     _check_cuda(iv_of, iv_start, iv_end, subj_before, subj_kinds,
                 subj_is_range, witness_table,
@@ -1270,7 +1281,7 @@ def _range_resolve_cuda(iv_of, iv_start, iv_end, subj_store, subj_before,
             k_valid.data_ptr(), cap, nw, witness_table.data_ptr(),
             witness_table.shape[0], kp.data_ptr(), ktot, off, st)
         off += cap // 32
-    LAUNCHES["range_resolve"] += 1
+    LAUNCHES[count] += 1
     return rp, kp
 
 

@@ -11,15 +11,15 @@ A single-controller mesh, as the reference's: one Python process drives a
 (data, model) grid of torch devices. `make_mesh()` takes every visible
 card; a device list may repeat one device, as the reference's tests use 8
 virtual CPU devices, so `make_mesh(devices=["cpu"] * 8)` is the tests'
-data 4 x model 2 mesh and `make_mesh(devices=["cuda:0"] * 8)` runs the
-same shards on one card, where every shard offset, the 'model' fold and
-the fragment merge go through the kernels.
+data 4 x model 2 mesh and `make_mesh(devices=["cuda:0"] * 8)` puts every
+shard on one card.
 
   'data'  arena rows: each shard answers its block of the node's active
           rows (and of a finalize span's word columns);
   'model' key buckets: each shard contracts its slice of the bucket words.
 
-Each sharded call is a loop over the shards. A shard's work is a launch of
+Across cards (and on the CPU, the plain chain) each sharded call is a
+loop over the shards, its per-shard form. A shard's work is a launch of
 an existing kernel at shard-local offsets (ops/kernels.py's mesh-shard
 wrappers: K1, K5, K2, K18-K20) on the shard's device, over views of the
 consumer's arrays when the device is shared and copies of them otherwise.
@@ -27,7 +27,10 @@ A collective is "bring each shard's tensor to the consumer's device (a
 no-op on a shared device, a peer copy between cards), then combine it with
 a kernel": the combining steps below (K22, csrc/mesh_combine.cu) replace
 the reference's psum, all_gather and concatenate. The consumer is
-`mesh.device(0, 0)`, where the resolver keeps its arenas.
+`mesh.device(0, 0)`, where the resolver keeps its arenas. With every shard
+on one card and card inputs, the resolves and the finalize take their
+one-card form instead: the single-device kernel (K1, K13, K5, K14, K2),
+bit-identical by contract, with no shard launch and no K22 combine.
 
 Word order equals row order only because every arena's capacity is a
 multiple of 32 * data (so each shard's rows are whole words); the
@@ -335,6 +338,47 @@ def _entry(mesh: Mesh, name: str, fn):
 
 
 # -- row 34: the sharded resolves ------------------------------------------------
+# Each entry has two forms. Across cards (and on the CPU, where its plain
+# chain is the oracle held against the JAX package's sharded kernels) the
+# per-shard form: a launch a (store, data, model) shard, K22's fold and
+# concat. With every shard on one card and card inputs, the one-card form:
+# the single-device twin's launches straight into the result, since a
+# kernel that reads a row's bucket words whole already folds the 'model'
+# slices (as the sharded protocol megakernel's stages do). Both check the
+# same contracts first, so an input one refuses the other refuses too.
+def _check_key_arenas(mesh: Mesh, arenas) -> int:
+    """The key arenas' contracts: (K/32) % model == 0, every cap % (32 *
+    data) == 0 and one bucket count -> the words of a 'model' slice."""
+    data = mesh.shape["data"]
+    nw = arenas[0][0].shape[1]
+    nwl = _bucket_words(mesh, nw, "sharded resolve")
+    for bm, *_ in arenas:
+        _check_rows("key arena", bm.shape[0], data)
+        if bm.shape[1] != nw:
+            raise ValueError("arena blocks differ in bucket count")
+    return nwl
+
+
+def _check_range_arenas(mesh: Mesh, rarenas) -> None:
+    for r_start, *_ in rarenas:
+        _check_rows("range arena", r_start.shape[0], mesh.shape["data"])
+
+
+def _runs_one_card(mesh: Mesh, probe) -> bool:
+    """Whether an entry takes its one-card form: every shard on one card
+    (sharded_protocol_tick's test) and the inputs on it."""
+    return probe.is_cuda and probe.device == mesh.device(0, 0) \
+        and one_card(mesh)
+
+
+def _lanes_on(mesh: Mesh, lanes) -> list:
+    """The one-card form's subject lanes on the consumer (numpy lanes
+    upload; None kept). Its arenas are already there: the twin checks
+    that every operand shares one device."""
+    cons = mesh.device(0, 0)
+    return [_on(x, cons) for x in lanes]
+
+
 def _key_blocks(mesh: Mesh, subj_of, subj_keys, subj_store, subj_before,
                 subj_kinds, slots, arenas, table, gate=None,
                 intervals=None) -> List[torch.Tensor]:
@@ -346,15 +390,11 @@ def _key_blocks(mesh: Mesh, subj_of, subj_keys, subj_store, subj_before,
     data, model = mesh.shape["data"], mesh.shape["model"]
     cons = mesh.device(0, 0)
     b = subj_before.shape[0]
-    nw = arenas[0][0].shape[1]
-    nwl = _bucket_words(mesh, nw, "sharded resolve")
-    k_total = nw * 32
+    nwl = _check_key_arenas(mesh, arenas)
+    k_total = nwl * model * 32
     outs = []
     for s, (bm, ts, kinds, valid) in enumerate(arenas):
         cap = bm.shape[0]
-        _check_rows("key arena", cap, data)
-        if bm.shape[1] != nw:
-            raise ValueError("arena blocks differ in bucket count")
         cl = cap // data
         parts = torch.empty(data, model, b, cl // 32, dtype=torch.int32,
                             device=cons)
@@ -396,10 +436,10 @@ def _range_blocks(mesh: Mesh, iv_of, iv_start, iv_end, subj_store,
     data = mesh.shape["data"]
     cons = mesh.device(0, 0)
     b = subj_before.shape[0]
+    _check_range_arenas(mesh, rarenas)
     outs = []
     for s, (r_start, r_end, r_ts, r_kinds, r_valid) in enumerate(rarenas):
         rcap = r_start.shape[0]
-        _check_rows("range arena", rcap, data)
         rl = rcap // data
         out = torch.empty(b, rcap // 32, dtype=torch.int32, device=cons)
         for d in range(data):
@@ -425,6 +465,34 @@ def _range_blocks(mesh: Mesh, iv_of, iv_start, iv_end, subj_store,
     return outs
 
 
+def per_shard_deps_resolve(mesh: Mesh, subj_of, subj_keys, subj_before,
+                           subj_kinds, act_bm, act_ts, act_kinds, act_valid,
+                           table):
+    """sharded_deps_resolve's per-shard form: K1 a (data, model) shard,
+    then K22's 'model' fold."""
+    return _key_blocks(mesh, subj_of, subj_keys, None, subj_before,
+                       subj_kinds, None,
+                       ((act_bm, act_ts, act_kinds, act_valid),), table)[0]
+
+
+def one_card_deps_resolve(mesh: Mesh, subj_of, subj_keys, subj_before,
+                          subj_kinds, act_bm, act_ts, act_kinds, act_valid,
+                          table):
+    """sharded_deps_resolve with every shard on one card: K1
+    (kernels.deps_resolve), its subject pass and ONE body launch into the
+    result, counted in LAUNCHES["deps_resolve_one_card"]. On CPU tensors
+    K1's plain version."""
+    arena = (act_bm, act_ts, act_kinds, act_valid)
+    _check_key_arenas(mesh, (arena,))
+    if not table.is_cuda:
+        return tk.deps_resolve_plain(subj_of, subj_keys, subj_before,
+                                     subj_kinds, *arena, table)
+    of, keys, sb, sknd = _lanes_on(mesh, (subj_of, subj_keys, subj_before,
+                                         subj_kinds))
+    return tk._resolve_cuda(of, keys, None, sb, sknd, None, (arena,), table,
+                            count="deps_resolve_one_card")
+
+
 @functools.lru_cache(maxsize=8)
 def sharded_deps_resolve(mesh: Mesh):
     """Mesh-sharded twin of kernels.deps_resolve: arena rows over 'data',
@@ -434,12 +502,49 @@ def sharded_deps_resolve(mesh: Mesh):
 
     def call(subj_of, subj_keys, subj_before, subj_kinds, act_bm, act_ts,
              act_kinds, act_valid, table):
-        return _key_blocks(mesh, subj_of, subj_keys, None, subj_before,
-                           subj_kinds, None,
-                           ((act_bm, act_ts, act_kinds, act_valid),),
-                           table)[0]
+        form = one_card_deps_resolve if _runs_one_card(mesh, table) \
+            else per_shard_deps_resolve
+        return form(mesh, subj_of, subj_keys, subj_before, subj_kinds,
+                    act_bm, act_ts, act_kinds, act_valid, table)
 
     return _entry(mesh, "sharded_deps_resolve", call)
+
+
+def per_shard_range_deps_resolve(mesh: Mesh, iv_of, iv_start, iv_end,
+                                 subj_before, subj_kinds, subj_is_range,
+                                 r_start, r_end, r_ts, r_kinds, r_valid,
+                                 k_bm, k_ts, k_kinds, k_valid, table):
+    """sharded_range_deps_resolve's per-shard form: K5's range side a
+    'data' shard, its key side a (data, model) shard, K22's fold."""
+    ivs = (iv_of, iv_start, iv_end)
+    rp = _range_blocks(mesh, *ivs, None, subj_before, subj_kinds, None,
+                       ((r_start, r_end, r_ts, r_kinds, r_valid),),
+                       table)[0]
+    kp = _key_blocks(mesh, None, None, None, subj_before, subj_kinds,
+                     None, ((k_bm, k_ts, k_kinds, k_valid),), table,
+                     gate=subj_is_range, intervals=ivs)[0]
+    return rp, kp
+
+
+def one_card_range_deps_resolve(mesh: Mesh, iv_of, iv_start, iv_end,
+                                subj_before, subj_kinds, subj_is_range,
+                                r_start, r_end, r_ts, r_kinds, r_valid,
+                                k_bm, k_ts, k_kinds, k_valid, table):
+    """sharded_range_deps_resolve with every shard on one card: K5
+    (kernels.range_deps_resolve), the range launch with the covered words
+    and one key-body launch, counted in LAUNCHES["range_resolve_one_card"].
+    On CPU tensors K5's plain version."""
+    rar = (r_start, r_end, r_ts, r_kinds, r_valid)
+    kar = (k_bm, k_ts, k_kinds, k_valid)
+    _check_range_arenas(mesh, (rar,))
+    _check_key_arenas(mesh, (kar,))
+    subj = (iv_of, iv_start, iv_end, subj_before, subj_kinds, subj_is_range)
+    if not table.is_cuda:
+        return tk.range_deps_resolve_plain(*subj, *rar, *kar, table)
+    of, ivs, ive, sb, sknd, srng = _lanes_on(mesh, subj)
+    return tk._range_resolve_cuda(of, ivs, ive, None, sb, sknd, srng, None,
+                                  (rar,), None, (kar,), table,
+                                  count="range_resolve_one_card")
 
 
 @functools.lru_cache(maxsize=8)
@@ -453,16 +558,43 @@ def sharded_range_deps_resolve(mesh: Mesh):
     def call(iv_of, iv_start, iv_end, subj_before, subj_kinds, subj_is_range,
              r_start, r_end, r_ts, r_kinds, r_valid, k_bm, k_ts, k_kinds,
              k_valid, table):
-        ivs = (iv_of, iv_start, iv_end)
-        rp = _range_blocks(mesh, *ivs, None, subj_before, subj_kinds, None,
-                           ((r_start, r_end, r_ts, r_kinds, r_valid),),
-                           table)[0]
-        kp = _key_blocks(mesh, None, None, None, subj_before, subj_kinds,
-                         None, ((k_bm, k_ts, k_kinds, k_valid),), table,
-                         gate=subj_is_range, intervals=ivs)[0]
-        return rp, kp
+        form = one_card_range_deps_resolve if _runs_one_card(mesh, table) \
+            else per_shard_range_deps_resolve
+        return form(mesh, iv_of, iv_start, iv_end, subj_before, subj_kinds,
+                    subj_is_range, r_start, r_end, r_ts, r_kinds, r_valid,
+                    k_bm, k_ts, k_kinds, k_valid, table)
 
     return _entry(mesh, "sharded_range_deps_resolve", call)
+
+
+def per_shard_fused_deps_resolve(mesh: Mesh, subj_of, subj_keys, subj_store,
+                                 subj_before, subj_kinds, slots, arenas,
+                                 table):
+    """sharded_fused_deps_resolve's per-shard form: each store block as
+    per_shard_deps_resolve (its slot's subjects), the blocks then
+    concatenated (K22's lane_concat)."""
+    return _concat_lane_blocks(_key_blocks(
+        mesh, subj_of, subj_keys, subj_store, subj_before, subj_kinds,
+        slots, arenas, table))
+
+
+def one_card_fused_deps_resolve(mesh: Mesh, subj_of, subj_keys, subj_store,
+                                subj_before, subj_kinds, slots, arenas,
+                                table):
+    """sharded_fused_deps_resolve with every shard on one card: K13
+    (node_lane.node_fused_deps_resolve, subj_store and slots as its slot
+    lane), K1's subject pass and ONE launch over a block table of every
+    store, counted in LAUNCHES["node_deps_one_card"]. On CPU tensors
+    K13's plain version (fused_deps_resolve's)."""
+    from accord_tpu_torch.ops import node_lane as nl
+    _check_key_arenas(mesh, arenas)
+    lanes = (subj_of, subj_keys, subj_store, subj_before, subj_kinds, slots)
+    if not table.is_cuda:
+        return nl.node_fused_deps_resolve_plain(*lanes, arenas, table)
+    launch, out = nl.key_launcher(*_lanes_on(mesh, lanes), arenas, table)
+    launch()
+    tk.LAUNCHES["node_deps_one_card"] += 1
+    return out
 
 
 @functools.lru_cache(maxsize=32)
@@ -477,11 +609,65 @@ def sharded_fused_deps_resolve(mesh: Mesh, nstores: int):
         if len(arenas) != nstores:
             raise ValueError(f"sharded_fused_deps_resolve({nstores}) got "
                              f"{len(arenas)} arenas")
-        return _concat_lane_blocks(_key_blocks(
-            mesh, subj_of, subj_keys, subj_store, subj_before, subj_kinds,
-            slots, arenas, table))
+        form = one_card_fused_deps_resolve if _runs_one_card(mesh, table) \
+            else per_shard_fused_deps_resolve
+        return form(mesh, subj_of, subj_keys, subj_store, subj_before,
+                    subj_kinds, slots, arenas, table)
 
     return _entry(mesh, "sharded_fused_deps_resolve", call)
+
+
+def per_shard_fused_range_deps_resolve(mesh: Mesh, iv_of, iv_start, iv_end,
+                                       subj_store, subj_before, subj_kinds,
+                                       subj_is_range, r_slots, rarenas,
+                                       k_slots, karenas, table):
+    """sharded_fused_range_deps_resolve's per-shard form: each side's
+    store blocks as per_shard_range_deps_resolve's, then concatenated; an
+    empty side a (B, 0) buffer."""
+    cons = mesh.device(0, 0)
+    b = subj_before.shape[0]
+    ivs = (iv_of, iv_start, iv_end)
+    empty = torch.zeros(b, 0, dtype=torch.int32, device=cons)
+    rp = _concat_lane_blocks(_range_blocks(
+        mesh, *ivs, subj_store, subj_before, subj_kinds, r_slots, rarenas,
+        table)) if rarenas else empty
+    kp = _concat_lane_blocks(_key_blocks(
+        mesh, None, None, subj_store, subj_before, subj_kinds, k_slots,
+        karenas, table, gate=subj_is_range, intervals=ivs)) \
+        if karenas else empty
+    return rp, kp
+
+
+def one_card_fused_range_deps_resolve(mesh: Mesh, iv_of, iv_start, iv_end,
+                                      subj_store, subj_before, subj_kinds,
+                                      subj_is_range, r_slots, rarenas,
+                                      k_slots, karenas, table):
+    """sharded_fused_range_deps_resolve with every shard on one card: K14
+    (node_lane.node_fused_range_deps_resolve), ONE node_range_resolve
+    launch over every range block with the covered words and one
+    node_key_resolve over every key block, counted in
+    LAUNCHES["node_range_one_card"]; an empty side a (B, 0) buffer. On
+    CPU tensors K14's plain version."""
+    from accord_tpu_torch.ops import node_lane as nl
+    _check_range_arenas(mesh, rarenas)
+    if karenas:
+        _check_key_arenas(mesh, karenas)
+    lanes = (iv_of, iv_start, iv_end, subj_store, subj_before, subj_kinds,
+             subj_is_range)
+    if not table.is_cuda:
+        return nl.node_fused_range_deps_resolve_plain(
+            *lanes, r_slots, rarenas, k_slots, karenas, table)
+    if not (rarenas or karenas):
+        empty = torch.zeros(subj_before.shape[0], 0, dtype=torch.int32,
+                            device=mesh.device(0, 0))
+        return empty, empty
+    *lanes, r_slots, k_slots = _lanes_on(mesh, lanes + (r_slots, k_slots))
+    launch, rp, kp = nl.range_launcher(*lanes, r_slots, rarenas, k_slots,
+                                       karenas, table)
+    launch()
+    if rp.shape[1] or kp.shape[1]:
+        tk.LAUNCHES["node_range_one_card"] += 1
+    return rp, kp
 
 
 @functools.lru_cache(maxsize=32)
@@ -496,18 +682,12 @@ def sharded_fused_range_deps_resolve(mesh: Mesh, nr: int, nk: int):
         if len(rarenas) != nr or len(karenas) != nk:
             raise ValueError(f"sharded_fused_range_deps_resolve({nr}, {nk})"
                              f" got {len(rarenas)}, {len(karenas)} arenas")
-        cons = mesh.device(0, 0)
-        b = subj_before.shape[0]
-        ivs = (iv_of, iv_start, iv_end)
-        empty = torch.zeros(b, 0, dtype=torch.int32, device=cons)
-        rp = _concat_lane_blocks(_range_blocks(
-            mesh, *ivs, subj_store, subj_before, subj_kinds, r_slots,
-            rarenas, table)) if nr else empty
-        kp = _concat_lane_blocks(_key_blocks(
-            mesh, None, None, subj_store, subj_before, subj_kinds, k_slots,
-            karenas, table, gate=subj_is_range, intervals=ivs)) \
-            if nk else empty
-        return rp, kp
+        form = one_card_fused_range_deps_resolve \
+            if _runs_one_card(mesh, table) \
+            else per_shard_fused_range_deps_resolve
+        return form(mesh, iv_of, iv_start, iv_end, subj_store, subj_before,
+                    subj_kinds, subj_is_range, r_slots, rarenas, k_slots,
+                    karenas, table)
 
     return _entry(mesh, "sharded_fused_range_deps_resolve", call)
 
@@ -542,11 +722,22 @@ def sharded_node_tick(mesh: Mesh, key_merge, range_merge, table):
 
 
 # -- row 35a: the sharded finalize ---------------------------------------------
-@functools.lru_cache(maxsize=8)
-def sharded_finalize_csr(mesh: Mesh):
-    """Mesh-sharded twin of kernels.finalize_csr: the compaction split over
-    'data' word columns of the finalize span, bit-identical to K2's
-    (indptr, dep_rows, dep_ts, bound, csum).
+def _span_words(mesh: Mesh, kid_rows, who: str) -> int:
+    """The finalize span's words a 'data' shard (contract: w % data ==
+    0)."""
+    data = mesh.shape["data"]
+    w = kid_rows.shape[1]
+    if w % data:
+        raise ValueError(f"{who}: a span of {w} words does not split over "
+                         f"data={data}")
+    return w // data
+
+
+def per_shard_finalize_csr(mesh: Mesh, packed, word_off, kid_rows,
+                           slot_subj, slot_kid, subj_row, act_ts,
+                           out_cap: int):
+    """sharded_finalize_csr's per-shard form, bit-identical to K2's
+    (indptr, dep_rows, dep_ts, bound, csum):
 
       1. shard (d, 0) popcounts its slots' masked words (K2's count pass,
          shard-global word indices for the self-bit clear); the out-cap
@@ -561,59 +752,78 @@ def sharded_finalize_csr(mesh: Mesh):
       4. the fragments sum-merge, dep_ts gathers and the checksum folds
          over the merged triple (K22 fragment_merge).
     Overflow keeps K2's contract: indptr[-1] > out_cap, the exact total
-    taken from the counts. Contract: the span's words % data == 0."""
+    taken from the counts."""
     data, model = mesh.shape["data"], mesh.shape["model"]
     cons = mesh.device(0, 0)
+    wl = _span_words(mesh, kid_rows, "sharded_finalize_csr")
+    off = tk._span_offset(packed, kid_rows, word_off)
+    s = slot_subj.shape[0]
+    split = s % model == 0
+    counts = torch.empty(data, s, dtype=torch.int32, device=cons)
+    bounds = torch.zeros(data * model, dtype=torch.int32, device=cons)
+    shard_in = {}
+    for d in range(data):
+        for m in range(model):
+            if split:
+                lo, hi = m * (s // model), (m + 1) * (s // model)
+            elif m == 0:
+                lo, hi = 0, s
+            else:
+                continue
+            dev = mesh.device(d, m)
+            with _at(dev):
+                ins = (_on(packed[:, off + d * wl:off + (d + 1) * wl], dev),
+                       _on(kid_rows[:, d * wl:(d + 1) * wl], dev),
+                       _on(slot_subj, dev), _on(slot_kid, dev),
+                       _on(subj_row, dev))
+                if m == 0:
+                    shard_in[d] = ins
+                c_out = _dest(counts[d], dev) if m == 0 else None
+                b_out = _dest(bounds[d * model + m], dev)
+                tk.finalize_shard_count(*ins, d * wl, lo, hi, c_out, b_out)
+            if c_out is not None:
+                _land(counts[d], c_out)
+            _land(bounds[d * model + m], b_out)
+    indptr, seg_base, bound = _gather_counts(counts, bounds)
+    frags = torch.empty(data, out_cap, dtype=torch.int32, device=cons)
+    for d in range(data):
+        dev = mesh.device(d, 0)
+        with _at(dev):
+            frag = _dest(frags[d], dev)
+            tk.finalize_shard_compact(*shard_in[d], d * wl,
+                                      _on(seg_base[d], dev), out_cap, frag)
+        _land(frags[d], frag)
+    dep_rows, dep_ts, csum = _sum_merge_fragments(frags, indptr, act_ts)
+    return indptr, dep_rows, dep_ts, bound, csum
+
+
+def one_card_finalize_csr(mesh: Mesh, packed, word_off, kid_rows, slot_subj,
+                          slot_kid, subj_row, act_ts, out_cap: int):
+    """sharded_finalize_csr with every shard on one card: K2
+    (kernels.finalize_csr), ONE launch with no shard records, counted in
+    LAUNCHES["finalize_one_card"]. On CPU tensors K2's plain version."""
+    _span_words(mesh, kid_rows, "sharded_finalize_csr")
+    lanes = (kid_rows, slot_subj, slot_kid, subj_row, act_ts)
+    if not packed.is_cuda:
+        return tk.finalize_csr_plain(packed, word_off, *lanes, out_cap)
+    return tk._finalize_cuda(packed, word_off, *_lanes_on(mesh, lanes),
+                             out_cap, count="finalize_one_card")
+
+
+@functools.lru_cache(maxsize=8)
+def sharded_finalize_csr(mesh: Mesh):
+    """Mesh-sharded twin of kernels.finalize_csr: the compaction split over
+    'data' word columns of the finalize span (per_shard_finalize_csr),
+    bit-identical to K2's (indptr, dep_rows, dep_ts, bound, csum); with
+    every shard on one card, K2 itself (one_card_finalize_csr). Contract:
+    the span's words % data == 0."""
 
     def call(packed, word_off, kid_rows, slot_subj, slot_kid, subj_row,
              act_ts, out_cap: int):
-        kc, w = kid_rows.shape
-        if w % data:
-            raise ValueError(f"sharded_finalize_csr: a span of {w} words "
-                             f"does not split over data={data}")
-        wl = w // data
-        off = tk._span_offset(packed, kid_rows, word_off)
-        s = slot_subj.shape[0]
-        split = s % model == 0
-        counts = torch.empty(data, s, dtype=torch.int32, device=cons)
-        bounds = torch.zeros(data * model, dtype=torch.int32, device=cons)
-        shard_in = {}
-        for d in range(data):
-            for m in range(model):
-                if split:
-                    lo, hi = m * (s // model), (m + 1) * (s // model)
-                elif m == 0:
-                    lo, hi = 0, s
-                else:
-                    continue
-                dev = mesh.device(d, m)
-                with _at(dev):
-                    ins = (_on(packed[:, off + d * wl:off + (d + 1) * wl],
-                               dev),
-                           _on(kid_rows[:, d * wl:(d + 1) * wl], dev),
-                           _on(slot_subj, dev), _on(slot_kid, dev),
-                           _on(subj_row, dev))
-                    if m == 0:
-                        shard_in[d] = ins
-                    c_out = _dest(counts[d], dev) if m == 0 else None
-                    b_out = _dest(bounds[d * model + m], dev)
-                    tk.finalize_shard_count(*ins, d * wl, lo, hi, c_out,
-                                            b_out)
-                if c_out is not None:
-                    _land(counts[d], c_out)
-                _land(bounds[d * model + m], b_out)
-        indptr, seg_base, bound = _gather_counts(counts, bounds)
-        frags = torch.empty(data, out_cap, dtype=torch.int32, device=cons)
-        for d in range(data):
-            dev = mesh.device(d, 0)
-            with _at(dev):
-                frag = _dest(frags[d], dev)
-                tk.finalize_shard_compact(*shard_in[d], d * wl,
-                                          _on(seg_base[d], dev), out_cap,
-                                          frag)
-            _land(frags[d], frag)
-        dep_rows, dep_ts, csum = _sum_merge_fragments(frags, indptr, act_ts)
-        return indptr, dep_rows, dep_ts, bound, csum
+        form = one_card_finalize_csr if _runs_one_card(mesh, packed) \
+            else per_shard_finalize_csr
+        return form(mesh, packed, word_off, kid_rows, slot_subj, slot_kid,
+                    subj_row, act_ts, out_cap)
 
     return _entry(mesh, "sharded_finalize_csr", call)
 
@@ -689,11 +899,8 @@ def sharded_finalize_tab_launcher(mesh: Mesh, specs):
             sp[:7]
         tk._check_cuda(specs[0][0], packed, *sp[2:7])
         s, w, out_cap = slot_subj.shape[0], kid_rows.shape[1], int(sp[7])
-        if w % data:
-            raise ValueError(f"sharded_finalize_tab: a span of {w} words "
-                             f"does not split over data={data}")
+        wls.append(_span_words(mesh, kid_rows, "sharded_finalize_tab"))
         dims.append((s, w, out_cap))
-        wls.append(w // data)
         outs.append(tuple(tk._i32_outs(dev, (s + 1,), (out_cap,),
                                        (out_cap, 3), (), ())))
     firsts, tiles, ctiles = tk.fin_tab_layout(dims)

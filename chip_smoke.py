@@ -152,29 +152,40 @@ launched.
      first round that settles nothing);
  22. the sharded deps data plane (accord_tpu_torch/parallel/mesh.py):
      make_mesh() on the machine's cards (1 x 1 on one H100) and the
-     virtual 4 x 2 mesh make_mesh(devices=[card] * 8). Paths: the key
-     burn (800 ops) and the range-mix burn (400 ops) with
-     ShardedBatchDepsResolver on the virtual mesh, each committing the
+     virtual 4 x 2 mesh make_mesh(devices=[card] * 8). Paths, on each
+     mesh: the key burn (800 ops) and the range-mix burn (400 ops) with
+     ShardedBatchDepsResolver, each committing the
      single-device card run's history (the key burn: finalized decodes
      > 0, no legacy decode, finalize or host fallback, shard_merge_s > 0,
      no graph captured); run_mesh_burn(sharded=True) at 64 nodes x 120
      ops (seed 6) = the unsharded merged run's history, no mesh-tick
-     fallback; dryrun_multichip(8). Then sharded_deps_step on 8,192 live
-     rows of the PreAccept batch's arena (K 1,024), 4 rounds = K18 ->
-     K19 -> K20; each sharded entry point on
+     fallback; dryrun_multichip(8). On one card every eager sharded
+     resolve and finalize in these burns is its one-card form: the
+     entry's launches equal its calls x its single-device twin's a call
+     (K1, K5, K13, K14, K2, each counted under its own key), and no
+     shard kernel, K22 combine or unsharded wrapper launches. The
+     across-card (per-shard) form, which no one-card path runs, is called
+     at each burn's largest recorded call of each entry and at the
+     batch's, bit-equal to the one-card form (the sharded_across_card
+     path: its shard kernels and K22 combines each launched). Then
+     sharded_deps_step on 8,192 live rows of the PreAccept batch's arena
+     (K 1,024), 4 rounds = K18 -> K19 -> K20; each sharded entry point on
      the batches' real-size calls (the 10k PreAccept batch's K1 and K2,
      the range batch's K5; as one store and as two) bit-equal on the
-     virtual mesh, the real mesh, the single-device kernel and its plain
-     version, timed beside the single-device kernel; each shard wrapper
-     and K22 combining step bit-equal to its plain version on its
-     largest recorded call, with device_ms (the calls in one CUDA
-     graph); K22's merge (ONE launch) at the key burn's largest call and
-     at the batch's sharded finalize beside the parent's four stream
-     operations, and its counts_scan beside the parent's
+     virtual mesh, the real mesh, the per-shard form on each, the
+     single-device kernel and its plain version, timed beside the
+     single-device kernel, and each one-card form beside its parent, the
+     per-shard form (one_card_parent_vs_new: device and wall ms,
+     interleaved, tools/sharded_eager_variants); each shard wrapper and
+     K22 combining step bit-equal to its plain version on its largest
+     recorded call, with device_ms (the calls in one CUDA graph); K22's
+     merge (ONE launch) at the key burn's largest finalize's per-shard
+     call and at the batch's beside the parent's four stream operations,
+     and its counts_scan beside the parent's
      (tools/sharded_finalize_parent.cu: merge_parent_vs_new,
      scan_parent_vs_new); the eager or_fold (the across-card form's
-     'model' fold) at the key burn's and the range burn's largest calls
-     with device_ms (burn_calls);
+     'model' fold) at the key burn's and the range burn's largest calls'
+     per-shard forms with device_ms (burn_calls);
  24. the sharded protocol megakernel (parallel/mesh.sharded_protocol_tick,
      one CUDA graph replay a tick) on make_mesh() (1 x 1 on one H100,
      where the mailbox keeps the single-device layout) and the virtual 4 x
@@ -483,13 +494,15 @@ class Recorder:
     what the path gave each kernel. `cmd_tier` keeps cmd_tick's first call
     at that op tier instead. `promoted` counts cmd_tick's calls with
     promote on; `quorum_mix` sums the quorum lanes of every protocol_tick
-    call (note_quorum). `keep(name, args, kw)`, where given, picks the
-    calls that may be kept. Recording launches nothing itself."""
+    call (note_quorum); `n` counts each function's calls. `keep(name,
+    args, kw)`, where given, picks the calls that may be kept. Recording
+    launches nothing itself."""
 
     def __init__(self, tk, cmd_tier=None, names=None, keep=None):
         self.tk = tk
         self.keep = keep
         self.calls = {}
+        self.n = {}
         self.orig = {}
         self.cmd_tier = cmd_tier
         self.promoted = 0
@@ -510,6 +523,7 @@ class Recorder:
             self.orig[name] = (mod, fn)
 
             def wrapped(*args, _fn=fn, _name=name, **kw):
+                self.n[_name] = self.n.get(_name, 0) + 1
                 size = sum(a.numel() for a in _flat((args, kw))
                            if torch.is_tensor(a))
                 best = self.calls.get(_name)
@@ -682,6 +696,9 @@ K17_VS_PARENT: dict = {}
 # mesh, the merge and the scan at the key burn's largest call and the
 # batch's
 SFIN_VS_PARENT: dict = {}
+# each eager sharded entry's one-card form beside its parent, the
+# per-shard form (tools/sharded_eager_variants), at the batch's call
+SHARDED_EAGER_VS_PARENT: dict = {}
 # the kernels one eager call launches, by wrapper (a torch.profiler trace,
 # which must also show no memset or copy; finalize_csr_tab: its launch,
 # the table uploaded before; transitive_closure: a squaring an iteration,
@@ -2922,7 +2939,9 @@ def parent_vs_new_line() -> dict:
     "sharded_finalize", the sharded finalize table's and K22's merge's and
     counts_scan's (SFIN_VS_PARENT); under "sharded_key_stage" and "k17",
     the sharded 10k tick's key stage and replay on both meshes and K17's
-    (KEY_STAGE_VS_PARENT, K17_VS_PARENT)."""
+    (KEY_STAGE_VS_PARENT, K17_VS_PARENT); under "sharded_eager", each
+    eager sharded entry's one-card form and its per-shard parent at the
+    batch's call (SHARDED_EAGER_VS_PARENT)."""
     out = {}
     for key, (label, fn) in PARENT_VS_NEW_KEYS.items():
         got = PARENT_VS_NEW.get((label, fn))
@@ -2959,6 +2978,8 @@ def parent_vs_new_line() -> dict:
         out["k17"] = dict(K17_VS_PARENT)
     if SFIN_VS_PARENT:
         out["sharded_finalize"] = dict(SFIN_VS_PARENT)
+    if SHARDED_EAGER_VS_PARENT:
+        out["sharded_eager"] = dict(SHARDED_EAGER_VS_PARENT)
     return out
 
 
@@ -3752,49 +3773,78 @@ MESH_PY = "accord_tpu/parallel/mesh.py"
 # launches the entry reports)
 SHARDED_FNS = (
     ("sharded_deps_resolve",
-     "accord_tpu_torch/parallel/mesh.py (K1 csrc/deps_resolve.cu, K22 "
-     "csrc/mesh_combine.cu)", MESH_PY + ":170", "sharded_key_burn"),
+     "accord_tpu_torch/parallel/mesh.py (one card: K1 csrc/deps_resolve.cu; "
+     "across cards: K1 shard entries, K22 csrc/mesh_combine.cu)",
+     MESH_PY + ":170", "sharded_key_burn"),
     ("sharded_range_deps_resolve",
-     "accord_tpu_torch/parallel/mesh.py (K5 csrc/range_resolve.cu, K22)",
-     MESH_PY + ":256", "sharded_range_burn"),
+     "accord_tpu_torch/parallel/mesh.py (one card: K5 csrc/range_resolve.cu;"
+     " across cards: K5 shard entries, K22)", MESH_PY + ":256",
+     "sharded_range_burn"),
     ("sharded_fused_deps_resolve",
-     "accord_tpu_torch/parallel/mesh.py (K1, K22)", MESH_PY + ":400",
+     "accord_tpu_torch/parallel/mesh.py (one card: K13 csrc/node_resolve.cu;"
+     " across cards: K1 shard entries, K22)", MESH_PY + ":400",
      "sharded_key_burn"),
     ("sharded_fused_range_deps_resolve",
-     "accord_tpu_torch/parallel/mesh.py (K5, K22)", MESH_PY + ":441",
+     "accord_tpu_torch/parallel/mesh.py (one card: K14 csrc/node_resolve.cu;"
+     " across cards: K5 shard entries, K22)", MESH_PY + ":441",
      "sharded_range_burn"),
     ("sharded_finalize_csr",
-     "accord_tpu_torch/parallel/mesh.py (K2 csrc/finalize_csr.cu, K22)",
-     MESH_PY + ":663", "sharded_key_burn"),
+     "accord_tpu_torch/parallel/mesh.py (one card: K2 csrc/finalize_csr.cu,"
+     " one launch; across cards: K2 shard entries, K22)", MESH_PY + ":663",
+     "sharded_key_burn"),
     ("sharded_deps_step",
      "accord_tpu_torch/parallel/mesh.py (K18-K20 csrc/dense_dag.cu, K22)",
      MESH_PY + ":89", "sharded_dryrun"),
 )
+# each eager entry's one-card form (with every shard on one card and card
+# inputs): the form, its LAUNCHES key, its single-device twin
+ONE_CARD_FORMS = {
+    "sharded_deps_resolve": ("one_card_deps_resolve",
+                             "deps_resolve_one_card", "deps_resolve"),
+    "sharded_range_deps_resolve": ("one_card_range_deps_resolve",
+                                   "range_resolve_one_card",
+                                   "range_deps_resolve"),
+    "sharded_fused_deps_resolve": ("one_card_fused_deps_resolve",
+                                   "node_deps_one_card",
+                                   "node_fused_deps_resolve"),
+    "sharded_fused_range_deps_resolve": (
+        "one_card_fused_range_deps_resolve", "node_range_one_card",
+        "node_fused_range_deps_resolve"),
+    "sharded_finalize_csr": ("one_card_finalize_csr", "finalize_one_card",
+                             "finalize_csr")}
+# what no one-card path launches: a shard kernel, a K22 combine, or the
+# unsharded resolver's wrappers
+ONE_CARD_ZERO = ("deps_resolve_shard", "range_resolve_shard",
+                 "finalize_shard", "finalize_shard_tab", "or_fold",
+                 "lane_concat", "counts_scan", "fragment_merge")
+UNSHARDED = ("deps_resolve", "range_resolve", "node_deps_resolve",
+             "node_range_resolve", "finalize_csr")
 # each kernel wrapper a shard or a combining step launches: (LAUNCHES
 # key, the recorded functions, source, replaces, path)
 SHARD_WRAPPERS = (
     ("deps_resolve_shard", ("deps_resolve_shard",),
      "accord_tpu_torch/csrc/deps_resolve.cu",
-     MESH_PY + ":184 (shard_map body; :329 fused)", "sharded_key_burn"),
+     MESH_PY + ":184 (shard_map body; :329 fused)", "sharded_across_card"),
     ("range_resolve_shard", ("range_block_shard", "range_key_shard"),
      "accord_tpu_torch/csrc/range_resolve.cu",
-     MESH_PY + ":277 (shard_map body; :360 fused)", "sharded_range_burn"),
+     MESH_PY + ":277 (shard_map body; :360 fused)", "sharded_across_card"),
     ("finalize_shard", ("finalize_shard_count", "finalize_shard_compact"),
      "accord_tpu_torch/csrc/finalize_csr.cu",
      MESH_PY + ":570 (_sharded_finalize_body's shard part)",
-     "sharded_key_burn"),
+     "sharded_across_card"),
     ("or_fold", ("_or_fold_model",), "accord_tpu_torch/csrc/mesh_combine.cu",
      MESH_PY + ":200 (psum over 'model'; :111, :291, :351, :390)",
-     "sharded_key_burn"),
+     "sharded_dryrun"),
     ("lane_concat", ("_concat_lane_blocks",),
      "accord_tpu_torch/csrc/mesh_combine.cu", MESH_PY + ":224",
-     "sharded_key_burn"),
+     "sharded_across_card"),
     ("counts_scan", ("_gather_counts",),
      "accord_tpu_torch/csrc/mesh_combine.cu",
-     MESH_PY + ":609 (all_gather + prefix sums)", "sharded_key_burn"),
+     MESH_PY + ":609 (all_gather + prefix sums)", "sharded_across_card"),
     ("fragment_merge", ("_sum_merge_fragments",),
      "accord_tpu_torch/csrc/mesh_combine.cu (ONE launch)",
-     MESH_PY + ":654 (fragment sum, dep_ts, checksum)", "sharded_key_burn"),
+     MESH_PY + ":654 (fragment sum, dep_ts, checksum)",
+     "sharded_across_card"),
     ("deps_matrix_shard", ("deps_matrix_shard",),
      "accord_tpu_torch/csrc/dense_dag.cu", MESH_PY + ":106",
      "sharded_dryrun"),
@@ -3810,8 +3860,15 @@ SHARD_CALLS = tuple(f for _n, fns, *_ in SHARD_WRAPPERS for f in fns)
 # K22's combining steps: their rows also give device_ms (the calls in one
 # CUDA graph)
 K22_COMBINES = ("or_fold", "lane_concat", "counts_scan", "fragment_merge")
-SHARDED_PATHS = ("sharded_key_burn", "sharded_range_burn",
-                 "sharded_mesh_burn", "sharded_dryrun")
+# the paths: the burns on the virtual 4 x 2 mesh and on make_mesh() and
+# the dry run (on one card the eager entries' one-card forms), and the
+# across-card form, which no one-card path runs, called at each burn's
+# largest recorded calls and at the batch's
+SHARDED_BURNS = ("sharded_key_burn", "sharded_range_burn",
+                 "sharded_mesh_burn")
+SHARDED_PATHS = SHARDED_BURNS + tuple(p + "_make_mesh"
+                                      for p in SHARDED_BURNS) \
+    + ("sharded_dryrun", "sharded_across_card")
 
 
 def _pairs(tk, sknd, kinds, sb, ts, valid, table, mine=None) -> int:
@@ -4065,10 +4122,12 @@ def _sharded_fn(pm, name: str, mesh, args):
 def sharded_fn_entries(tk, vmesh, real, batch, launches, cuda: bool,
                        iters: int) -> list:
     """Each sharded entry point at the batch's real size on the virtual
-    mesh, bit-equal to the real mesh's call, the single-device kernel and
-    the single-device plain version; timed beside the single-device
-    kernel (`single_ms`); the bound is the single-device function's, by
-    the table's rule."""
+    mesh, bit-equal to the real mesh's call, the per-shard form's on each
+    mesh, the single-device kernel and the single-device plain version;
+    timed beside the single-device kernel (`single_ms`) and each one-card
+    form beside its parent, the per-shard form (`one_card_parent_vs_new`:
+    device and wall ms interleaved, tools/sharded_eager_variants); the
+    bound is the single-device function's, by the table's rule."""
     from accord_tpu_torch.parallel import mesh as pm
     entries = []
     for name, source, replaces, path in SHARDED_FNS:
@@ -4102,9 +4161,24 @@ def sharded_fn_entries(tk, vmesh, real, batch, launches, cuda: bool,
         got = shard()
         err = max(max_abs_err(got, shard(real)), max_abs_err(got, single()),
                   max_abs_err(got, plain_fn()))
+        form = name[len("sharded_"):]
+        pair = None
+        if name in ONE_CARD_FORMS:
+            per = getattr(pm, "per_shard_" + form)
+            err = max(err, max_abs_err(got, per(vmesh, *args, **kw)),
+                      max_abs_err(got, per(real, *args, **kw)))
         check(err == 0, f"{name}: the virtual mesh's answer differs from "
-              "the real mesh's, the single-device kernel's or the plain "
-              "version's")
+              "the real mesh's, the per-shard form's on either, the "
+              "single-device kernel's or the plain version's")
+        if name in ONE_CARD_FORMS:
+            from accord_tpu_torch.tools import sharded_eager_variants as sev
+            pair = sev.entry_pair(vmesh, form, args, kw,
+                                  **({} if cuda else {"iters": 1,
+                                                      "rounds": 1}))
+            check(pair["bit_equal"], f"{name}: the one-card form differs "
+                  "from the per-shard form (parent) or its twin")
+            SHARDED_EAGER_VS_PARENT[name] = {
+                k: v for k, v in pair.items() if not k.endswith("samples")}
         ms = time_ms(shard, iters, cuda)
         real_ms = time_ms(lambda: shard(real), iters, cuda)
         single_ms = time_ms(single, iters, cuda)
@@ -4122,6 +4196,9 @@ def sharded_fn_entries(tk, vmesh, real, batch, launches, cuda: bool,
             "single_device": single_name or "deps_matrix -> "
             "transitive_closure -> execution_wavefronts",
             "single_ms": single_ms, "real_mesh_ms": real_ms,
+            **({"device_ms": pair.get("device_ms"),
+                "one_card_parent_vs_new": SHARDED_EAGER_VS_PARENT[name]}
+               if pair is not None else {}),
             "input_mb": nbytes(args, kw) / 1e6,
             "launches_by_path": {p: launches[p][name]
                                  for p in SHARDED_PATHS if p in launches}}
@@ -4135,17 +4212,26 @@ def sharded_phase(device: str, cuda: bool, rehearse: bool, tk, launches,
     """The sharded deps data plane (accord_tpu_torch/parallel/mesh.py):
     make_mesh() on the machine's cards, then the virtual 4 x 2 mesh
     make_mesh(devices=[card] * 8). Paths (counts zeroed before, read
-    after): the key burn and the range-mix burn with ShardedBatchDepsResolver
-    (the histories of the single-device card runs), the sharded merged
-    mesh burn (the unsharded merged run's history, no mesh-tick fallback),
-    the dry run's twin dryrun_multichip(8). Then sharded_deps_step on
-    8,192 of the PreAccept arena's live rows (K 1,024), 4 rounds, and
-    every entry point at the batches' real size against the real mesh,
-    the single-device kernel and the plain version; every shard wrapper
-    and combining step against its plain version. -> the kernels-line
-    entries."""
+    after), on each mesh: the key burn and the range-mix burn with
+    ShardedBatchDepsResolver (the histories of the single-device card
+    runs), the sharded merged mesh burn (the unsharded merged run's
+    history, no mesh-tick fallback); the dry run's twin
+    dryrun_multichip(8). On the card every eager
+    resolve and finalize there is its one-card form (its calls x its
+    twin's launches, no shard kernel, no K22 combine). Then the
+    across-card (per-shard) form at each burn's largest recorded call of
+    each entry and at the batch's, bit-equal to the one-card form, which
+    feeds the shard wrappers' and K22's rows; sharded_deps_step on 8,192
+    of the PreAccept arena's live rows (K 1,024), 4 rounds, and every
+    entry point at the batches' real size against the real mesh, the
+    per-shard form, the single-device kernel and the plain version (each
+    one-card form beside its parent, tools/sharded_eager_variants); every
+    shard wrapper and combining step against its plain version. -> the
+    kernels-line entries."""
+    import contextlib
     import torch
     from accord_tpu_torch.graft_entry import dryrun_multichip
+    from accord_tpu_torch.ops import node_lane
     from accord_tpu_torch.parallel import mesh as pm
     from accord_tpu_torch.sim.mesh_burn import run_mesh_burn
     real = pm.make_mesh() if cuda else pm.make_mesh(devices=["cpu"])
@@ -4155,81 +4241,95 @@ def sharded_phase(device: str, cuda: bool, rehearse: bool, tk, launches,
         f"{vmesh.shape['data']} x model {vmesh.shape['model']} on "
         f"{vmesh.device(0, 0)}")
     rec = Recorder(tk, names=SHARD_CALLS)
+    forms = tuple(f for f, _k, _t in ONE_CARD_FORMS.values())
+    burn_recs = {}
     with rec:
-        # the key burn (the BASELINE rw-register cluster, 800 ops)
-        ops = 800 if not rehearse else 120
-        res = []
-        tk.reset_launches()
-        krec = Recorder(tk, names=("_sum_merge_fragments",
-                                   "_gather_counts", "_or_fold_model"))
-        with krec:
-            rep, wall = burn(device, ops, res, mesh=vmesh)
-        if cuda:
-            torch.cuda.synchronize()
-        launches["sharded_key_burn"] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
-        stats = dict(clean(res), shard_merge_s=sum(
-            float(r.shard_merge_s) for r in res))
-        log(f"sharded_key_burn[{device}]: acked {rep.acked} in {wall:.2f} "
-            f"s -> {rep.acked / wall:.1f} acked txn/s; {json.dumps(stats)}")
-        check(rep.log == logs["key_burn"],
-              "sharded key burn: the history differs from the single-device "
-              "card run's and the CPU's")
-        check(stats["finalized_decodes"] > 0 and stats["legacy_decodes"] == 0
-              and stats["finalize_fallbacks"] == 0
-              and stats["host_fallbacks"] == 0
-              and stats["shard_merge_s"] > 0,
-              f"sharded key burn: counters {stats}")
-        check(tk.CAPTURES["protocol_tick"] == 0,
-              "sharded key burn: a CUDA graph was captured")
-        # the range-mix burn (bench_range_mix's config)
-        rops = 400 if not rehearse else 60
-        rres = []
-        tk.reset_launches()
-        rrec = Recorder(tk, names=("_or_fold_model",))
-        with rrec:
-            rrep, rwall = range_mix_burn(device, rops, rres, mesh=vmesh)
-        if cuda:
-            torch.cuda.synchronize()
-        launches["sharded_range_burn"] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
-        rstats = clean(rres)
-        log(f"sharded_range_burn[{device}]: acked {rrep.acked} in "
-            f"{rwall:.2f} s; {json.dumps(rstats)}")
-        check(rrep.log == logs["range_burn"],
-              "sharded range burn: the history differs from the "
-              "single-device card run's")
-        check(rrep.lost == 0 and rstats["host_fallbacks"] == 0
-              and rstats["range_fallbacks"] == 0
-              and rstats["checksum_mismatches"] == 0,
-              f"sharded range burn: counters {rstats}")
-        # the sharded merged mesh burn (the sweep's 64 nodes x 120 ops)
-        n, o = (64, 120) if not rehearse else (16, 40)
-        tk.reset_launches()
-        t0 = time.perf_counter()
-        srep, eng = run_mesh_burn(6, o, nodes=n, collect_log=True,
-                                  sharded=True, mesh=vmesh)
-        if cuda:
-            torch.cuda.synchronize()
-        swall = time.perf_counter() - t0
-        launches["sharded_mesh_burn"] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
-        snap = eng.snapshot()
-        t0 = time.perf_counter()
-        merged, meng = run_mesh_burn(6, o, nodes=n, collect_log=True,
-                                     device=device)
-        mwall = time.perf_counter() - t0
-        mticks = max(1, meng.snapshot()["cluster_ticks"])
-        log(f"sharded_mesh_burn[{device}]: {n} nodes x {o} ops, acked "
-            f"{srep.acked} in {swall:.2f} s, {snap['cluster_ticks']} ticks, "
-            f"{swall * 1e3 / max(1, snap['cluster_ticks']):.2f} host ms per "
-            f"tick, node_lane_dispatches {snap['node_lane_dispatches']}; "
-            f"the unsharded merged run {mwall:.2f} s, "
-            f"{mwall * 1e3 / mticks:.2f} host ms per tick")
-        SUMMARY["sharded_merged_host_ms_per_tick"] = \
-            swall * 1e3 / max(1, snap["cluster_ticks"])
-        check(srep.log == merged.log,
-              "sharded mesh burn: the history differs from the unsharded "
-              "merged run's")
-        check(snap["mesh_tick_fallbacks"] == 0 and srep.lost == 0,
-              "sharded mesh burn: mesh-tick fallbacks or lost txns")
+        # the burns on the virtual 4 x 2 mesh, then on make_mesh()
+        for sfx, mesh in (("", vmesh), ("_make_mesh", real)):
+            where = "virtual 4 x 2" if not sfx else "make_mesh()"
+            # the key burn (the BASELINE rw-register cluster, 800 ops)
+            ops = 800 if not rehearse else 120
+            res = []
+            tk.reset_launches()
+            path = "sharded_key_burn" + sfx
+            orec = burn_recs[path] = Recorder(tk, names=forms)
+            with orec:
+                rep, wall = burn(device, ops, res, mesh=mesh)
+            if cuda:
+                torch.cuda.synchronize()
+            launches[path] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
+            stats = dict(clean(res), shard_merge_s=sum(
+                float(r.shard_merge_s) for r in res))
+            log(f"{path}[{device}]: acked {rep.acked} in {wall:.2f} s -> "
+                f"{rep.acked / wall:.1f} acked txn/s; {json.dumps(stats)}")
+            SUMMARY[f"{path}_s"] = wall
+            check(rep.log == logs["key_burn"],
+                  f"sharded key burn ({where}): the history differs from "
+                  "the single-device card run's and the CPU's")
+            check(stats["finalized_decodes"] > 0
+                  and stats["legacy_decodes"] == 0
+                  and stats["finalize_fallbacks"] == 0
+                  and stats["host_fallbacks"] == 0
+                  and stats["shard_merge_s"] > 0,
+                  f"sharded key burn ({where}): counters {stats}")
+            check(tk.CAPTURES["protocol_tick"] == 0,
+                  f"sharded key burn ({where}): a CUDA graph was captured")
+            # the range-mix burn (bench_range_mix's config)
+            rops = 400 if not rehearse else 60
+            rres = []
+            tk.reset_launches()
+            path = "sharded_range_burn" + sfx
+            orec = burn_recs[path] = Recorder(tk, names=forms)
+            with orec:
+                rrep, rwall = range_mix_burn(device, rops, rres, mesh=mesh)
+            if cuda:
+                torch.cuda.synchronize()
+            launches[path] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
+            rstats = clean(rres)
+            log(f"{path}[{device}]: acked {rrep.acked} in {rwall:.2f} s; "
+                f"{json.dumps(rstats)}")
+            SUMMARY[f"{path}_s"] = rwall
+            check(rrep.log == logs["range_burn"],
+                  f"sharded range burn ({where}): the history differs from "
+                  "the single-device card run's")
+            check(rrep.lost == 0 and rstats["host_fallbacks"] == 0
+                  and rstats["range_fallbacks"] == 0
+                  and rstats["checksum_mismatches"] == 0,
+                  f"sharded range burn ({where}): counters {rstats}")
+            # the sharded merged mesh burn (the sweep's 64 nodes x 120 ops)
+            n, o = (64, 120) if not rehearse else (16, 40)
+            tk.reset_launches()
+            path = "sharded_mesh_burn" + sfx
+            t0 = time.perf_counter()
+            orec = burn_recs[path] = Recorder(tk, names=forms)
+            with orec:
+                srep, eng = run_mesh_burn(6, o, nodes=n, collect_log=True,
+                                          sharded=True, mesh=mesh)
+            if cuda:
+                torch.cuda.synchronize()
+            swall = time.perf_counter() - t0
+            launches[path] = {**tk.LAUNCHES, **tk.ENTRY_LAUNCHES}
+            snap = eng.snapshot()
+            if not sfx:
+                t0 = time.perf_counter()
+                merged, meng = run_mesh_burn(6, o, nodes=n, collect_log=True,
+                                             device=device)
+                mwall = time.perf_counter() - t0
+                mticks = max(1, meng.snapshot()["cluster_ticks"])
+                SUMMARY["sharded_merged_host_ms_per_tick"] = \
+                    swall * 1e3 / max(1, snap["cluster_ticks"])
+            log(f"{path}[{device}]: {n} nodes x {o} ops, acked "
+                f"{srep.acked} in {swall:.2f} s, {snap['cluster_ticks']} "
+                f"ticks, {swall * 1e3 / max(1, snap['cluster_ticks']):.2f} "
+                f"host ms per tick, node_lane_dispatches "
+                f"{snap['node_lane_dispatches']}; the unsharded merged run "
+                f"{mwall:.2f} s, {mwall * 1e3 / mticks:.2f} host ms per tick")
+            check(srep.log == merged.log,
+                  f"sharded mesh burn ({where}): the history differs from "
+                  "the unsharded merged run's")
+            check(snap["mesh_tick_fallbacks"] == 0 and srep.lost == 0,
+                  f"sharded mesh burn ({where}): mesh-tick fallbacks or "
+                  "lost txns")
         # the dry run's twin
         tk.reset_launches()
         dryrun_multichip(8, device=None if cuda else "cpu")
@@ -4258,45 +4358,110 @@ def sharded_phase(device: str, cuda: bool, rehearse: bool, tk, launches,
             "sharded_finalize_csr": (batch_recs["finalize_csr"],
                                      "finalize_csr"),
             "sharded_deps_step": ((step_args, {}), None)}
-        for name, ((args, kw), _single) in batch.items():
-            if name != "sharded_deps_step":   # its call ran above
-                _sharded_fn(pm, name, vmesh, args)(*args, **kw)
+        # the across-card (per-shard) form, which no one-card path runs:
+        # called at each burn's largest recorded call of each entry and at
+        # the batch's, each bit-equal to the one-card form's answer (taken
+        # before the counts are zeroed); the shard wrappers' and K22
+        # combines' rows replay what these calls gave them (krec, rrec: the
+        # key and range burns' K22 calls)
+        krec = Recorder(tk, names=("_sum_merge_fragments",
+                                   "_gather_counts", "_or_fold_model"))
+        rrec = Recorder(tk, names=("_or_fold_model",))
+        across = []
+        for path, brec in burn_recs.items():
+            for entry, (form, _key, _twin) in ONE_CARD_FORMS.items():
+                got = brec.get(form)
+                if got is not None:
+                    (mesh, *args), kw = got
+                    across.append((path, form, mesh, args, kw))
+        for entry, ((args, kw), _single) in batch.items():
+            if entry in ONE_CARD_FORMS:
+                across.append(("batch", ONE_CARD_FORMS[entry][0], vmesh,
+                               list(args), kw))
+        news = [getattr(pm, form)(mesh, *args, **kw)
+                for _p, form, mesh, args, kw in across]
+        tk.reset_launches()
+        for (path, form, mesh, args, kw), new in zip(across, news):
+            per = getattr(pm, "per_shard_" + form[len("one_card_"):])
+            ctx = {"sharded_key_burn": krec,
+                   "sharded_range_burn": rrec}.get(path,
+                                                   contextlib.nullcontext())
+            with ctx:
+                got = per(mesh, *args, **kw)
+            check(max_abs_err(got, new) == 0,
+                  f"{form} ({path}): the per-shard form answers "
+                  "differently")
+        if cuda:
+            torch.cuda.synchronize()
+        launches["sharded_across_card"] = {**tk.LAUNCHES,
+                                           **tk.ENTRY_LAUNCHES}
+        log(f"sharded across-card form: {len(across)} calls (each burn's "
+            "largest call of each entry, the batch's), each bit-equal to "
+            "the one-card form")
     for path in SHARDED_PATHS:
         log(f"{path}: launches "
             f"{ {k: launches[path][k] for k in launches[path] if launches[path][k]} }")
+    # each entry's single-device twin's launches a call (on the batch's
+    # call, outside every counted path)
+    twin_per_call = {}
+    for entry, (_form, _key, twin) in ONE_CARD_FORMS.items():
+        (args, kw), _single = batch[entry]
+        fn = getattr(tk, twin, None) or getattr(node_lane, twin)
+        before = sum(tk.LAUNCHES.values())
+        fn(*args, **kw)
+        twin_per_call[entry] = sum(tk.LAUNCHES.values()) - before
+    one_card_calls = {p: dict(r.n) for p, r in burn_recs.items()}
+    log(f"one-card form calls by burn: {json.dumps(one_card_calls)}; twin "
+        f"launches a call {json.dumps(twin_per_call)}")
     if cuda:
+        burn_needs = {
+            "sharded_key_burn": ("sharded_deps_resolve",
+                                 "sharded_fused_deps_resolve",
+                                 "sharded_finalize_csr"),
+            "sharded_range_burn": ("sharded_fused_range_deps_resolve",
+                                   "sharded_finalize_csr"),
+            "sharded_mesh_burn": ("sharded_fused_deps_resolve",
+                                  "sharded_finalize_csr")}
         for path, names in (
-                ("sharded_key_burn", ("sharded_deps_resolve",
-                                      "sharded_fused_deps_resolve",
-                                      "sharded_finalize_csr",
-                                      "deps_resolve_shard", "finalize_shard",
-                                      "or_fold", "lane_concat",
-                                      "counts_scan", "fragment_merge")),
-                ("sharded_range_burn", ("sharded_fused_range_deps_resolve",
-                                        "range_resolve_shard", "or_fold")),
-                ("sharded_mesh_burn", ("sharded_fused_deps_resolve",
-                                       "deps_resolve_shard", "or_fold",
-                                       "lane_concat")),
+                *((p + sfx, burn_needs[p]) for p in SHARDED_BURNS
+                  for sfx in ("", "_make_mesh")),
                 ("sharded_dryrun", ("sharded_deps_step",
                                     "sharded_deps_resolve",
                                     "deps_matrix_shard", "pack_rows",
                                     "closure_rows", "wavefront_rows",
-                                    "or_fold"))):
+                                    "or_fold")),
+                ("sharded_across_card", ("deps_resolve_shard",
+                                         "range_resolve_shard",
+                                         "finalize_shard", "or_fold",
+                                         "lane_concat", "counts_scan",
+                                         "fragment_merge"))):
             for name in names:
                 check(launches[path][name] > 0,
                       f"{path}: {name} never launched")
-        check(launches["sharded_mesh_burn"]["node_deps_resolve"] == 0,
-              "sharded mesh burn: the unsharded K13 launched")
-        check(launches["sharded_key_burn"]["deps_resolve"] == 0,
-              "sharded key burn: the single-device K1 launched")
+        # on one card every eager entry is its one-card form: its launches
+        # are its calls x its twin's a call, counted under its own key; no
+        # shard kernel, K22 combine or unsharded wrapper launches
+        for path in burn_recs:
+            got = launches[path]
+            for name in ONE_CARD_ZERO + UNSHARDED:
+                check(got[name] == 0, f"{path}: {name} launched "
+                      f"{got[name]} times on one card")
+            for entry, (form, key, _twin) in ONE_CARD_FORMS.items():
+                calls = one_card_calls[path].get(form, 0)
+                check(got[entry] == got[key]
+                      == calls * twin_per_call[entry],
+                      f"{path}: {entry} made {got[entry]} launches "
+                      f"({key} {got[key]}) in {calls} calls, its twin "
+                      f"{twin_per_call[entry]} a call")
+    SUMMARY["sharded_one_card_calls"] = one_card_calls
     iters = 20 if cuda else 1
     entries = (sharded_fn_entries(tk, vmesh, real, batch, launches, cuda,
                                   iters)
                + shard_wrapper_entries(tk, rec, launches, cuda, iters))
     if cuda:
         # K22's merge (ONE launch) beside the parent's four stream
-        # operations: the key burn's largest call and the largest recorded
-        # (the batch's sharded finalize)
+        # operations: the per-shard form at the key burn's largest
+        # finalize and the largest recorded (the batch's sharded finalize)
         from accord_tpu_torch.tools import sharded_finalize_variants as sfv
         pairs = {}
         for label, r in (("key_burn", krec), ("preaccept_batch", rec)):
@@ -4320,8 +4485,9 @@ def sharded_phase(device: str, cuda: bool, rehearse: bool, tk, launches,
         log(f"K22 counts_scan vs parent[{device}]: {json.dumps(scans)}")
         next(e for e in entries if e["name"] == "counts_scan")[
             "scan_parent_vs_new"] = scans
-        # the eager or_fold (the across-card form's 'model' fold) at the
-        # key burn's and the range burn's largest calls, device ms
+        # the eager or_fold (the across-card form's 'model' fold) in the
+        # per-shard form at the key burn's and the range burn's largest
+        # calls, device ms
         folds = {}
         for label, r in (("key_burn", krec), ("range_burn", rrec)):
             got = r.get("_or_fold_model")

@@ -1600,43 +1600,87 @@ def _counts_launched(before, names, counts=tk.LAUNCHES):
         assert counts[name] > before[name], f"{name} never launched"
 
 
+# the launches an eager sharded entry's one-card form never makes: a shard
+# kernel's or a K22 combine's
+ONE_CARD_ZERO = ("deps_resolve_shard", "range_resolve_shard",
+                 "finalize_shard", "finalize_shard_tab", "or_fold",
+                 "lane_concat", "counts_scan", "fragment_merge")
+
+
+def _one_card_entry(mesh, name, entry, args, kw=None):
+    """entry(*args, **kw) on a one-card mesh with card inputs: bit-equal to
+    the per-shard form run on the same card; the launches made inside it
+    equal its single-device twin's on the same inputs, and none is a shard
+    kernel's or a K22 combine's. -> its outputs."""
+    from accord_tpu_torch.parallel import mesh as pm
+    from accord_tpu_torch.tools.sharded_eager_variants import _twin
+    kw = kw or {}
+    before, entries = dict(tk.LAUNCHES), dict(tk.ENTRY_LAUNCHES)
+    got = entry(*args, **kw)
+    torch.cuda.synchronize()
+    made = tk.ENTRY_LAUNCHES[f"sharded_{name}"] \
+        - entries[f"sharded_{name}"]
+    for k in ONE_CARD_ZERO:
+        assert tk.LAUNCHES[k] == before[k], f"{name}: {k} launched"
+    t0 = sum(tk.LAUNCHES.values())
+    _eq(tuple(x.cpu() for x in got) if isinstance(got, tuple)
+        else got.cpu(), _twin(name)(*args, **kw))
+    torch.cuda.synchronize()
+    assert made == sum(tk.LAUNCHES.values()) - t0 > 0, name
+    per = getattr(pm, f"per_shard_{name}")(mesh, *args, **kw)
+    torch.cuda.synchronize()
+    _eq(tuple(x.cpu() for x in per) if isinstance(per, tuple)
+        else per.cpu(), got)
+    return got
+
+
 def test_sharded_resolves_kernels(cuda):
-    """Every sharded resolve on the card's virtual 4 x 2 mesh = the same
-    call on the CPU mesh (the plain versions) = the single-device kernel,
-    with the shard entries and K22's fold and concat launched."""
+    """Every sharded resolve on the card's virtual 4 x 2 mesh and on
+    make_mesh() = the same call on the CPU mesh (the per-shard plain
+    chain) = the single-device kernel: on one card each entry is its
+    single-device twin's launches, no shard kernel and no K22 combine,
+    bit-equal to the per-shard form run on the same card (which launches
+    the shard entries and K22's fold and concat)."""
     from accord_tpu_torch.parallel import mesh as pm
     cpu, card = _meshes(cuda)
+    meshes = (card, pm.make_mesh(devices=[cuda]))
     rng = np.random.default_rng(7)
     before, entries = dict(tk.LAUNCHES), dict(tk.ENTRY_LAUNCHES)
     args = _resolve_lanes(1, 1024, 1024, 64)
     want = pm.sharded_deps_resolve(cpu)(*args)
-    got = pm.sharded_deps_resolve(card)(*_deep(args, cuda))
-    _eq(want, got)
-    _eq(tk.deps_resolve(*args), got)
-    # fused over two stores of different caps
+    _eq(tk.deps_resolve(*args), want)
+    for mesh in meshes:
+        _eq(want, _one_card_entry(mesh, "deps_resolve",
+                                  pm.sharded_deps_resolve(mesh),
+                                  _deep(args, cuda)))
+    # fused over two stores of different caps, then with a pad block
     b = 64
     subj = _resolve_lanes(2, 128, 1024, b)
     arenas = [tuple(_resolve_lanes(3 + s, cap, 1024, b)[4:8])
               for s, cap in enumerate((512, 256))]
     store = _t(rng.integers(0, 3, b).astype(np.int32))
-    slots = _t(np.array([0, 1], np.int32))
-    fargs = (subj[0], subj[1], store, subj[2], subj[3], slots, arenas,
-             subj[8])
-    want = pm.sharded_fused_deps_resolve(cpu, 2)(*fargs)
-    got = pm.sharded_fused_deps_resolve(card, 2)(*_deep(fargs, cuda))
-    _eq(want, got)
-    # range: one store, then fused 2 x 2 and 1 x 0
+    for sl in ([0, 1], [0, -1]):
+        fargs = (subj[0], subj[1], store, subj[2], subj[3],
+                 _t(np.array(sl, np.int32)), arenas, subj[8])
+        want = pm.sharded_fused_deps_resolve(cpu, 2)(*fargs)
+        for mesh in meshes:
+            _eq(want, _one_card_entry(
+                mesh, "fused_deps_resolve",
+                pm.sharded_fused_deps_resolve(mesh, 2), _deep(fargs, cuda)))
+    # range: one store, then fused 2 x 2, 1 x 0 and 0 x 2
     ivs, rar = _range_lanes(rng, b, 200, 256)
     sb, sknd, tab = subj[2], subj[3], subj[8]
     srng = _t(rng.random(b) < 0.5)
     key = tuple(_resolve_lanes(9, 512, 1024, b)[4:8])
     rargs = (*ivs, sb, sknd, srng, *rar, *key, tab)
     want = pm.sharded_range_deps_resolve(cpu)(*rargs)
-    got = pm.sharded_range_deps_resolve(card)(*_deep(rargs, cuda))
-    _eq(want, got)
-    _eq(tk.range_deps_resolve(*rargs), got)
+    _eq(tk.range_deps_resolve(*rargs), want)
     assert bool((want[0] != 0).any()) and bool((want[1] != 0).any())
-    for nr, nk in ((2, 2), (1, 0)):
+    for mesh in meshes:
+        _eq(want, _one_card_entry(mesh, "range_deps_resolve",
+                                  pm.sharded_range_deps_resolve(mesh),
+                                  _deep(rargs, cuda)))
+    for nr, nk in ((2, 2), (1, 0), (0, 2)):
         rars = tuple(_range_lanes(rng, b, 8, 128 * (s + 1))[1]
                      for s in range(nr))
         kars = tuple(tuple(_resolve_lanes(20 + s, 128 * (2 - s), 1024,
@@ -1644,12 +1688,17 @@ def test_sharded_resolves_kernels(cuda):
         fr = (*ivs, store, sb, sknd, srng, _t(np.arange(nr, dtype=np.int32)),
               rars, _t(np.arange(nk, dtype=np.int32)), kars, tab)
         want = pm.sharded_fused_range_deps_resolve(cpu, nr, nk)(*fr)
-        got = pm.sharded_fused_range_deps_resolve(card, nr, nk)(
-            *_deep(fr, cuda))
-        _eq(want, got)
+        for mesh in meshes:
+            _eq(want, _one_card_entry(
+                mesh, "fused_range_deps_resolve",
+                pm.sharded_fused_range_deps_resolve(mesh, nr, nk),
+                _deep(fr, cuda)))
     torch.cuda.synchronize()
     _counts_launched(before, ("deps_resolve_shard", "range_resolve_shard",
-                              "or_fold", "lane_concat"))
+                              "or_fold", "lane_concat",
+                              "deps_resolve_one_card", "node_deps_one_card",
+                              "range_resolve_one_card",
+                              "node_range_one_card"))
     _counts_launched(entries, ("sharded_deps_resolve",
                                "sharded_fused_deps_resolve",
                                "sharded_range_deps_resolve",
@@ -1659,11 +1708,13 @@ def test_sharded_resolves_kernels(cuda):
 
 @pytest.mark.parametrize("s,out_cap,spans,off,density", [
     (32, 256, 1, 0, 0.004), (64, 256, 2, 16, 0.02), (33, 64, 1, 0, 0.5),
-    (4096, 1 << 15, 1, 0, 0.01)])
+    (32, 256, 2, 40, 0.02), (4096, 1 << 15, 1, 0, 0.01)])
 def test_sharded_finalize_kernel(cuda, s, out_cap, spans, off, density):
-    """The sharded finalize on the card = the CPU mesh's = K2, fitting and
-    overflowing, at word_off != 0 and with S % model != 0 (the bound
-    unsplit)."""
+    """The sharded finalize on the card's virtual 4 x 2 mesh and on
+    make_mesh() = the CPU mesh's = K2, fitting and overflowing, at word_off
+    != 0, past words - w (the clamp) and with S % model != 0 (the bound
+    unsplit): on one card ONE K2 launch, no shard or K22 launch, bit-equal
+    to the per-shard form on the same card."""
     from accord_tpu_torch.parallel import mesh as pm
     cpu, card = _meshes(cuda)
     rng = np.random.default_rng(s + off)
@@ -1683,12 +1734,13 @@ def test_sharded_finalize_kernel(cuda, s, out_cap, spans, off, density):
             _t(rng.integers(0, 1 << 20, (cap, 3)).astype(np.int32)))
     before, entries = dict(tk.LAUNCHES), dict(tk.ENTRY_LAUNCHES)
     want = pm.sharded_finalize_csr(cpu)(*args, out_cap=out_cap)
-    got = pm.sharded_finalize_csr(card)(*_deep(args, cuda), out_cap=out_cap)
-    torch.cuda.synchronize()
-    _eq(want, got)
-    _eq(tk.finalize_csr(*args, out_cap=out_cap), got)
+    _eq(tk.finalize_csr(*args, out_cap=out_cap), want)
+    for mesh in (card, pm.make_mesh(devices=[cuda])):
+        _eq(want, _one_card_entry(mesh, "finalize_csr",
+                                  pm.sharded_finalize_csr(mesh),
+                                  _deep(args, cuda), {"out_cap": out_cap}))
     _counts_launched(before, ("finalize_shard", "counts_scan",
-                              "fragment_merge"))
+                              "fragment_merge", "finalize_one_card"))
     _counts_launched(entries, ("sharded_finalize_csr",), tk.ENTRY_LAUNCHES)
 
 
@@ -1823,37 +1875,59 @@ def test_sharded_deps_step_kernels(cuda):
 
 
 def test_sharded_burns_card_match_cpu(cuda):
-    """A key burn with ShardedBatchDepsResolver on the card's virtual mesh
-    commits the CPU mesh's history; the sharded merged mesh burn at 16
-    nodes commits the unsharded merged run's."""
+    """A key burn and a range-mix burn with ShardedBatchDepsResolver on the
+    card's virtual mesh commit the CPU mesh's histories; the sharded merged
+    mesh burn at 16 nodes commits the unsharded merged run's. On the card
+    every sharded resolve and finalize is its one-card form: no shard
+    kernel and no K22 combine launches."""
     from accord_tpu_torch.ops.resolver import ShardedBatchDepsResolver
     from accord_tpu_torch.sim.burn import run_burn
     from accord_tpu_torch.sim.cluster import ClusterConfig
     from accord_tpu_torch.sim.mesh_burn import run_mesh_burn
     cpu, card = _meshes(cuda)
-    logs = []
-    for mesh in (cpu, card):
-        res = []
 
-        def factory(mesh=mesh, res=res):
-            r = ShardedBatchDepsResolver(mesh=mesh, num_buckets=1024,
-                                         initial_cap=2048)
-            res.append(r)
-            return r
+    def no_shard_launches(what):
+        torch.cuda.synchronize()
+        for k in ONE_CARD_ZERO:
+            assert tk.LAUNCHES[k] == 0, f"{what}: {k} launched"
 
-        rep = run_burn(9, ops=120, key_count=16, zipf_theta=0.99,
-                       max_keys_per_txn=4, write_ratio=0.7,
-                       collect_log=True,
-                       config=ClusterConfig(num_nodes=5, rf=3,
-                                            deps_resolver_factory=factory,
-                                            deps_batch_window_ms=16.0))
-        assert rep.lost == 0
-        assert sum(r.host_fallbacks for r in res) == 0
-        assert sum(r.finalized_decodes for r in res) > 0
-        logs.append(rep.log)
-    assert logs[0] == logs[1]
+    for ranges in (False, True):
+        logs = []
+        for mesh in (cpu, card):
+            res = []
+
+            def factory(mesh=mesh, res=res):
+                r = ShardedBatchDepsResolver(mesh=mesh, num_buckets=1024,
+                                             initial_cap=2048)
+                res.append(r)
+                return r
+
+            extra = dict(durability=True, durability_interval_ms=1000.0) \
+                if ranges else {}
+            mix = dict(range_read_ratio=0.1, range_write_ratio=0.1) \
+                if ranges else {}
+            tk.reset_launches()
+            rep = run_burn(9, ops=120, key_count=16, zipf_theta=0.99,
+                           max_keys_per_txn=4, write_ratio=0.7,
+                           collect_log=True, **mix,
+                           config=ClusterConfig(
+                               num_nodes=5, rf=3,
+                               deps_resolver_factory=factory,
+                               deps_batch_window_ms=16.0, **extra))
+            assert rep.lost == 0
+            assert sum(r.host_fallbacks for r in res) == 0
+            assert sum(r.finalized_decodes for r in res) > 0
+            if mesh is card:
+                no_shard_launches("range-mix burn" if ranges else "key burn")
+                assert tk.ENTRY_LAUNCHES["sharded_finalize_csr"] \
+                    == tk.LAUNCHES["finalize_one_card"] > 0
+            logs.append(rep.log)
+        assert logs[0] == logs[1]
     kw = dict(nodes=16, collect_log=True)
+    tk.reset_launches()
     sharded, eng = run_mesh_burn(6, 40, sharded=True, mesh=card, **kw)
+    no_shard_launches("mesh burn")
+    assert tk.LAUNCHES["node_deps_one_card"] > 0
     merged, _ = run_mesh_burn(6, 40, device=cuda, **kw)
     assert sharded.log == merged.log
     assert eng.snapshot()["mesh_tick_fallbacks"] == 0
@@ -2794,12 +2868,15 @@ def test_key_body_cases_node_key_shard(cuda, name, shape):
     _eq(plain, got[0])
 
 
-def test_sharded_tick_across_cards_form_folds_with_or_fold(cuda):
+def test_sharded_tick_across_cards_form_folds_with_or_fold(cuda,
+                                                           monkeypatch):
     """The across-card form of the sharded tick (parallel/mesh.py
     _sharded_tick_eager, the stage-by-stage walk a mesh over several cards
-    runs), here on one card's virtual 4 x 2 mesh: its key resolve still
+    runs), here on one card's virtual 4 x 2 mesh with the eager entries
+    made to take their across-card (per-shard) form: its key resolve still
     ORs the 'model' partials with K22's or_fold, and answers as the graph
-    and K13's plain version do."""
+    and K13's plain version do. Left to choose, the same walk on one card
+    takes the one-card form: K13 itself, no or_fold."""
     from accord_tpu_torch.ops import node_lane as nl
     from accord_tpu_torch.parallel import mesh as pm
     L, P = _body_case("foreign_tile_pad_block")
@@ -2811,13 +2888,22 @@ def test_sharded_tick_across_cards_form_folds_with_or_fold(cuda):
     plain = nl.node_fused_deps_resolve(*(_t(a) for a in key), P, wt)
     key_in = (*key, tuple(tuple(t.to(cuda) for t in b) for b in P))
     l0 = dict(tk.LAUNCHES)
-    eager = pm._sharded_tick_eager(mesh, wt.to(cuda), key_in, None, (), (),
-                                   (), None, 1, None, (), ())
+    with monkeypatch.context() as m:
+        m.setattr(pm, "_runs_one_card", lambda mesh, probe: False)
+        eager = pm._sharded_tick_eager(mesh, wt.to(cuda), key_in, None, (),
+                                       (), (), None, 1, None, (), ())
     torch.cuda.synchronize()
     assert tk.LAUNCHES["or_fold"] > l0["or_fold"]
     assert tk.LAUNCHES["sharded_protocol_tick"] == \
         l0["sharded_protocol_tick"]
     _eq(plain, eager[0])
+    l1 = dict(tk.LAUNCHES)
+    one = pm._sharded_tick_eager(mesh, wt.to(cuda), key_in, None, (), (), (),
+                                 None, 1, None, (), ())
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["or_fold"] == l1["or_fold"]
+    assert tk.LAUNCHES["node_deps_one_card"] == l1["node_deps_one_card"] + 1
+    _eq(plain, one[0])
     graph = pm.sharded_protocol_tick(mesh, wt.to(cuda), key_in=key_in)
     _eq(plain, graph[0])
 

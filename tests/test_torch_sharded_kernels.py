@@ -556,3 +556,267 @@ def test_gather_counts_and_fragment_merge():
     blocks = [torch.full((2, 1), 3, dtype=torch.int32),
               torch.full((2, 2), 4, dtype=torch.int32)]
     assert pm._concat_lane_blocks(blocks).tolist() == [[3, 4, 4]] * 2
+
+
+# -- the one-card forms (rows 34 and 35a) --------------------------------------
+# Each entry's one-card form (the single-device twin, the form every card
+# run on a one-card mesh takes) called on CPU tensors, where it reaches its
+# twin's plain version: bit-equal to the per-shard plain chain on the same
+# mesh and to the JAX package's sharded entry (on the conftest mesh, at the
+# shapes above, so its programs are the ones already compiled). The meshes:
+# the virtual 4 x 2 and 1 x 1.
+ONE_CARD_MESHES = {"4x2": lambda: _pmesh(),
+                   "1x1": lambda: pm.make_mesh(devices=["cpu"])}
+
+
+def _both_forms(name, mesh, *args):
+    """The one-card form's and the per-shard form's answers, bit-equal."""
+    one = getattr(pm, f"one_card_{name}")(mesh, *args)
+    per = getattr(pm, f"per_shard_{name}")(mesh, *args)
+    one_t = one if isinstance(one, tuple) else (one,)
+    per_t = per if isinstance(per, tuple) else (per,)
+    assert len(one_t) == len(per_t)
+    for o, p in zip(one_t, per_t):
+        assert o.dtype == p.dtype and torch.equal(o, p)
+    return one_t
+
+
+def _resolve_args(host):
+    args = [_t(a) for a in host]
+    args[4] = carry.packed(host[4])
+    return args
+
+
+@pytest.mark.parametrize("mesh", sorted(ONE_CARD_MESHES))
+@pytest.mark.parametrize("trial", [0, 1])
+def test_one_card_deps_resolve_matches_jax(mesh, trial):
+    host = jm.example_resolve_batch(cap=512, k=256, b=16, seed=trial)
+    ref = _words(_jax_resolve()(*host))
+    (got,) = _both_forms("deps_resolve", ONE_CARD_MESHES[mesh](),
+                         *_resolve_args(host))
+    assert np.array_equal(ref, got.numpy()) and ref.any()
+
+
+@pytest.mark.parametrize("mesh", sorted(ONE_CARD_MESHES))
+def test_one_card_deps_resolve_wraps_negative_keys(mesh):
+    """The negative-key wrap the port keeps on every mesh: key -1 is bucket
+    K-1, the JAX package's single-device answer."""
+    host = list(jm.example_resolve_batch(cap=512, k=256, b=16, seed=5))
+    host[1] = host[1].copy()
+    host[1][::3] -= 256
+    (got,) = _both_forms("deps_resolve", ONE_CARD_MESHES[mesh](),
+                         *_resolve_args(host))
+    ref = _words(jk.deps_resolve(*host))
+    assert np.array_equal(got.numpy(), ref) and ref.any()
+
+
+@pytest.mark.parametrize("mesh", sorted(ONE_CARD_MESHES))
+@pytest.mark.parametrize("trial", [0, 1])
+def test_one_card_range_deps_resolve_matches_jax(mesh, trial):
+    from accord_tpu.ops.encoding import WITNESS_TABLE
+    subj, rar, kar = _range_inputs(trial)
+    ref = _jax_range()(*subj, *rar, *kar, WITNESS_TABLE)
+    got = _both_forms("range_deps_resolve", ONE_CARD_MESHES[mesh](),
+                      *(_t(a) for a in subj), *(_t(a) for a in rar),
+                      *_port_key(kar), _t(WITNESS_TABLE))
+    for r, g in zip(ref, got):
+        assert np.array_equal(_words(r), g.numpy()) and _words(r).any()
+
+
+@pytest.mark.parametrize("mesh", sorted(ONE_CARD_MESHES))
+@pytest.mark.parametrize("slots", ["two_stores", "pad_block"])
+def test_one_card_fused_deps_resolve_matches_jax(mesh, slots):
+    """Two stores of different caps, and the second block a pad block under
+    slot -1 (it answers no subject)."""
+    from accord_tpu.ops.encoding import WITNESS_TABLE
+    rng = np.random.default_rng(53)
+    b, k = 16, 256
+    arenas, parenas = [], []
+    for s, cap in enumerate((256, 128)):
+        a = jm.example_resolve_batch(cap=cap, k=k, b=b, seed=20 + s)
+        arenas.append(tuple(a[4:8]))
+        parenas.append(_port_key(a[4:8]))
+    subj = jm.example_resolve_batch(cap=128, k=k, b=b, nnz=96, seed=3)
+    store = rng.integers(0, 3, b).astype(np.int32)
+    sl = np.array([0, 1] if slots == "two_stores" else [0, -1], np.int32)
+    ref = _words(_jax_fused(2)(subj[0], subj[1], store, subj[2], subj[3],
+                               sl, tuple(arenas), WITNESS_TABLE))
+    (got,) = _both_forms("fused_deps_resolve", ONE_CARD_MESHES[mesh](),
+                         _t(subj[0]), _t(subj[1]), _t(store), _t(subj[2]),
+                         _t(subj[3]), _t(sl), tuple(parenas),
+                         _t(WITNESS_TABLE))
+    assert np.array_equal(ref, got.numpy()) and ref.any()
+    if slots == "pad_block":
+        assert not ref[:, 256 // 32:].any()
+
+
+def _fused_range_args(nr, nk):
+    rng = np.random.default_rng(60 + nr)
+    subj, _, _ = _range_inputs(70)
+    b = subj[3].shape[0]
+    rars = [_range_inputs(71 + s, rcap=128 * (s + 1))[1] for s in range(nr)]
+    kars = [_range_inputs(81 + s, cap=128 * (2 - s))[2] for s in range(nk)]
+    store = rng.integers(0, 3, b).astype(np.int32)
+    r_slots = np.arange(nr, dtype=np.int32)
+    k_slots = np.arange(nk, dtype=np.int32)[::-1].copy()
+    iv, rest = subj[:3], subj[3:]
+    host = (*iv, store, *rest, r_slots, tuple(rars), k_slots, tuple(kars))
+    port = (*(_t(a) for a in iv), _t(store), *(_t(a) for a in rest),
+            _t(r_slots), tuple(tuple(_t(a) for a in r) for r in rars),
+            _t(k_slots), tuple(_port_key(k) for k in kars))
+    return host, port
+
+
+@pytest.mark.parametrize("mesh", sorted(ONE_CARD_MESHES))
+@pytest.mark.parametrize("nr,nk", [(2, 2), (1, 0)])
+def test_one_card_fused_range_deps_resolve_matches_jax(mesh, nr, nk):
+    from accord_tpu.ops.encoding import WITNESS_TABLE
+    host, port = _fused_range_args(nr, nk)
+    ref = _jax_fused_range(nr, nk)(*host, WITNESS_TABLE)
+    got = _both_forms("fused_range_deps_resolve", ONE_CARD_MESHES[mesh](),
+                      *port, _t(WITNESS_TABLE))
+    for r, g in zip(ref, got):
+        assert np.array_equal(_words(r), g.numpy())
+    assert _words(ref[0]).any()
+
+
+@pytest.mark.parametrize("mesh", sorted(ONE_CARD_MESHES))
+@pytest.mark.parametrize("nr,nk", [(0, 2), (0, 0)])
+def test_one_card_fused_range_empty_sides(mesh, nr, nk):
+    """An empty range side, and both sides empty: (B, 0) buffers, the
+    other side the per-shard chain's and the single-device plain
+    version's."""
+    from accord_tpu.ops.encoding import WITNESS_TABLE
+    _host, port = _fused_range_args(nr, nk)
+    got = _both_forms("fused_range_deps_resolve", ONE_CARD_MESHES[mesh](),
+                      *port, _t(WITNESS_TABLE))
+    want = tk.fused_range_deps_resolve_plain(*port, _t(WITNESS_TABLE))
+    b = port[4].shape[0]
+    assert got[0].shape == (b, 0)
+    assert got[1].shape == (b, sum(128 * (2 - s) for s in range(nk)) // 32)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+
+
+@pytest.mark.parametrize("mesh", sorted(ONE_CARD_MESHES))
+@pytest.mark.parametrize("name", sorted(SHARD_FIN_CASES))
+def test_one_card_finalize_matches_jax(mesh, name):
+    """Each finalize hazard (overflow past out_cap, word_off past words -
+    w, S % model != 0, out-of-range slots, S = 0, many tiles): the one-card
+    form (K2's plain version) = the per-shard chain = the JAX package's
+    sharded finalize (its single-device one for word_off past the end,
+    whose clamp the port keeps)."""
+    case = shard_fin_case(name, DATA, seed=1)
+    sp = _port_spec(case)
+    got = _both_forms("finalize_csr", ONE_CARD_MESHES[mesh](), *sp)
+    ref = _jax_fin(name, case)
+    if ref is not None:
+        for r, g in zip(ref, got):
+            assert np.array_equal(_words(r), g.numpy())
+    if name == "overflow":
+        assert int(got[0][-1]) > sp[7]
+
+
+def _bad_key_cap():
+    args = _resolve_args(jm.example_resolve_batch(cap=96, k=256, b=4))
+    return "deps_resolve", args, "32 \\* data"
+
+
+def _bad_bucket_words():
+    args = _resolve_args(jm.example_resolve_batch(cap=128, k=256, b=4))
+    args[4] = torch.zeros(128, 1, dtype=torch.int32)      # 32 buckets
+    return "deps_resolve", args, "'model' slices"
+
+
+def _bad_second_store():
+    args = _resolve_args(jm.example_resolve_batch(cap=128, k=256, b=4))
+    arena = tuple(args[4:8])
+    short = tuple(t[:96] for t in arena)
+    store = torch.zeros(4, dtype=torch.int32)
+    return "fused_deps_resolve", (args[0], args[1], store, args[2], args[3],
+                                  torch.tensor([0, 1], dtype=torch.int32),
+                                  (arena, short), args[8]), "32 \\* data"
+
+
+def _bad_range_cap():
+    from accord_tpu.ops.encoding import WITNESS_TABLE
+    subj, rar, kar = _range_inputs(0, rcap=96)
+    return "range_deps_resolve", (*(_t(a) for a in subj),
+                                  *(_t(a) for a in rar), *_port_key(kar),
+                                  _t(WITNESS_TABLE)), "range arena"
+
+
+def _bad_fused_range_key():
+    _host, port = _fused_range_args(1, 1)
+    port = list(port)
+    port[10] = tuple(tuple(t[:96] for t in k) for k in port[10])
+    from accord_tpu.ops.encoding import WITNESS_TABLE
+    return "fused_range_deps_resolve", (*port, _t(WITNESS_TABLE)), \
+        "key arena"
+
+
+def _bad_span():
+    sp = list(_port_spec(shard_fin_case("fits", DATA, seed=1)))
+    sp[2] = sp[2][:, :-1]                        # 15 words over data 4
+    return "finalize_csr", sp, "does not split"
+
+
+@pytest.mark.parametrize("case", [_bad_key_cap, _bad_bucket_words,
+                                  _bad_second_store, _bad_range_cap,
+                                  _bad_fused_range_key, _bad_span])
+def test_one_card_forms_refuse_what_per_shard_refuses(case):
+    """An input the per-shard form refuses, the one-card form refuses with
+    the same ValueError (before any launch)."""
+    name, args, match = case()
+    errs = []
+    for form in ("one_card", "per_shard"):
+        with pytest.raises(ValueError, match=match) as e:
+            getattr(pm, f"{form}_{name}")(_pmesh(), *args)
+        errs.append(str(e.value))
+    assert errs[0] == errs[1]
+
+
+def test_entries_take_the_one_card_form_only_on_card_inputs(monkeypatch):
+    """Each entry runs its one-card form exactly when the inputs are card
+    tensors on a one-card mesh (here claimed, to reach the forms' plain
+    versions on the CPU), and its per-shard form otherwise; its fused
+    arity check comes first either way."""
+    from accord_tpu.ops.encoding import WITNESS_TABLE
+    mesh = _pmesh()
+    wt = _t(WITNESS_TABLE)
+    res = _resolve_args(jm.example_resolve_batch(cap=512, k=256, b=16))
+    subj, rar, kar = _range_inputs(0)
+    rng_args = (*(_t(a) for a in subj), *(_t(a) for a in rar),
+                *_port_key(kar), wt)
+    _host, frng = _fused_range_args(2, 2)
+    store = torch.zeros(16, dtype=torch.int32)
+    fused = (res[0], res[1], store, res[2], res[3],
+             torch.tensor([0], dtype=torch.int32), (tuple(res[4:8]),), wt)
+    fin = _port_spec(shard_fin_case("fits", DATA, seed=1))
+    calls = [("deps_resolve", pm.sharded_deps_resolve(mesh), res, {}),
+             ("range_deps_resolve", pm.sharded_range_deps_resolve(mesh),
+              rng_args, {}),
+             ("fused_deps_resolve", pm.sharded_fused_deps_resolve(mesh, 1),
+              fused, {}),
+             ("fused_range_deps_resolve",
+              pm.sharded_fused_range_deps_resolve(mesh, 2, 2),
+              (*frng, wt), {}),
+             ("finalize_csr", pm.sharded_finalize_csr(mesh), fin[:7],
+              {"out_cap": fin[7]})]
+    for claim in (False, True):
+        taken = []
+        for form in ("one_card", "per_shard"):
+            for name, *_ in calls:
+                fn = getattr(pm, f"{form}_{name}")
+                monkeypatch.setattr(
+                    pm, f"{form}_{name}",
+                    lambda *a, _f=fn, _n=f"{form}_{name}", **k:
+                    taken.append(_n) or _f(*a, **k))
+        monkeypatch.setattr(pm, "_runs_one_card", lambda m, p, c=claim: c)
+        for name, entry, args, kw in calls:
+            entry(*args, **kw)
+        want = "one_card" if claim else "per_shard"
+        assert taken == [f"{want}_{n}" for n, *_ in calls]
+        monkeypatch.undo()
+    with pytest.raises(ValueError, match="got 2 arenas"):
+        pm.sharded_fused_deps_resolve(mesh, 1)(*fused[:6], fused[6] * 2, wt)
